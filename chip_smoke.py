@@ -7,20 +7,34 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. build: compile ``pilosa_tpu_torch/csrc/*.cu`` with nvcc and load it;
-   print the card's name and power limit.
+1. build: compile ``pilosa_tpu_torch/csrc/*.cu`` with nvcc (one process
+   per source, in parallel) and load it; print the card's name and power
+   limit.
 2. kernels: hold each of the three popcount kernels bit-exact against
    its plain PyTorch version at the taxi path's shapes (R in {1, 8, 16},
    S = 96, W = 32768) and at ragged shapes (R = 5, S = 3, W in {33, 128,
    2048, 6144}), on random (p = 0.5) and all-ones banks; time each at
-   its main-path shape beside its bound and its plain version.
+   its main-path shape beside its bound and its plain version. Hold
+   ``mega_interpret`` bit-exact (slab and counts) against its plain
+   version on seeded random plans over all eight opcodes, with
+   read-after-write and THRESH chains, dst == a aliasing and pow2 pad
+   rows, at the burst's shape (T = 64, S = 96, W = 32768) and at ragged
+   shapes (T = 8, S = 3, W in {33, 128, 2048}).
 3. taxi: build the NYC-taxi ride index (100M rides = 96 shards, seed 5;
    cab_type, passenger_count, dist, amount, existence) on
    ``Holder(device="cuda")`` and answer five queries through
-   ``Executor.execute``, each checked exactly against numpy; every kernel
-   must have launched during that run.
+   ``Executor.execute``, each checked exactly against numpy.
+4. burst: on the same holder, one ``Executor.execute_batch`` of eighteen
+   read requests of different shapes (a dashboard refresh), checked
+   exactly against numpy; the flush must take exactly one megakernel
+   launch with no fallback. Then the burst's warm p50 beside the sum of
+   the same requests' warm p50s one at a time, the gather prologue's and
+   the kernel's time on the burst's real plan, the kernel's bound and its
+   plain version's time.
 
-The second-to-last line is the kernels JSON, the last line
+Launch counts are set to 0 just before each path (taxi, burst) and read
+just after; every kernel must have launched on its path. The
+second-to-last line is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or
 of the JAX package.
 """
@@ -35,17 +49,48 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "pilosa_tpu_torch/csrc/bank_counts.cu"
+SOURCES = {
+    "bank_row_counts": "pilosa_tpu_torch/csrc/bank_counts.cu",
+    "bank_row_counts_masked": "pilosa_tpu_torch/csrc/bank_counts.cu",
+    "bsi_plane_counts": "pilosa_tpu_torch/csrc/bank_counts.cu",
+    "mega_interpret": "pilosa_tpu_torch/csrc/mega_interpret.cu",
+}
 REPLACES = {
     "bank_row_counts": "pilosa_tpu/ops/pallas_kernels.py:143",
     "bank_row_counts_masked": "pilosa_tpu/ops/pallas_kernels.py:168",
     "bsi_plane_counts": "pilosa_tpu/ops/pallas_kernels.py:374",
+    "mega_interpret": "pilosa_tpu/ops/pallas_kernels.py:337",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 SHARD_WIDTH = 1 << 20
 WORDS = 32768
 N_RIDES = 100_000_000  # 96 shards
 ITERS = 5  # warm runs per taxi query for the p50
+
+# The burst: one dashboard refresh, eighteen read requests of different
+# shapes over the taxi index (name, PQL).
+BURST = [(f"cab{c}_pax{p}",
+          f"Count(Intersect(Row(cab_type={c}), Row(passenger_count={p})))")
+         for c in range(3) for p in (1, 2)]
+BURST += [(f"dist_lt_{v}", f"Count(Row(dist < {v}))")
+          for v in (10, 50, 100, 250)]
+BURST += [
+    ("cab1_amount_ge_400",
+     "Count(Intersect(Row(cab_type=1), Row(amount >= 400)))"),
+    ("pax1_amount_lt_100",
+     "Count(Intersect(Row(passenger_count=1), Row(amount < 100)))"),
+    ("not_cab0", "Count(Not(Row(cab_type=0)))"),
+    ("pax5_or_pax6",
+     "Count(Union(Row(passenger_count=5), Row(passenger_count=6)))"),
+    ("cab0_xor_pax2", "Count(Xor(Row(cab_type=0), Row(passenger_count=2)))"),
+    ("cab1_minus_dist_gt_20",
+     "Count(Difference(Row(cab_type=1), Row(dist > 20)))"),
+    ("threshold_2_of_3",
+     "Count(Threshold(Row(cab_type=2), Row(passenger_count=1), "
+     "Row(dist >= 200), k=2))"),
+    ("rows_cab2_pax6_dist299",
+     "Intersect(Row(cab_type=2), Row(passenger_count=6), Row(dist == 299))"),
+]
 
 TAXI_QUERIES = [
     ("count_intersect",
@@ -217,6 +262,69 @@ def time_kernels(torch, kernels, device, n_shards):
     return out
 
 
+def random_mega_plan(rng, T, n_real):
+    """A seeded random plan over T registers: n_real rows covering all
+    eight opcodes, read-after-write chains (a row reading the previous
+    row's dst), THRESH chains, dst == a aliasing, then pow2 pad rows
+    (ZERO, spare, spare, spare). Returns (instrs [P, 4], out_count)."""
+    import numpy as np
+    spare = T - 1
+    rows = []
+    prev = 0
+    for i in range(n_real):
+        op = i % 8 if i < 8 else int(rng.integers(0, 8))
+        dst = int(rng.integers(0, T - 1))
+        a = int(rng.integers(0, T - 1))
+        b = int(rng.integers(0, T - 1))
+        shape = i % 4
+        if shape == 1:
+            a = prev                  # read-after-write chain
+        elif shape == 2:
+            a = dst                   # dst == a aliasing
+        elif shape == 3:
+            op, a = 7, prev           # THRESH chain through prev
+        rows.append((op, dst, a, b))
+        prev = dst
+    P = 1 << max(0, n_real - 1).bit_length()
+    if P == n_real:
+        P *= 2                        # always carry pad rows
+    rows += [(4, spare, spare, spare)] * (P - n_real)
+    lanes = sorted({int(r) for r in rng.integers(0, T - 1, 7)}) + [spare]
+    return (np.asarray(rows, np.int32).reshape(P, 4),
+            np.asarray(lanes, np.int32))
+
+
+def check_mega(torch, kernels, device):
+    """mega_interpret against mega_interpret_ref, slab and counts bit for
+    bit; returns the max |kernel - plain| (0 when this returns)."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    cases = [((64, 96, WORDS), 200)] + \
+        [((8, 3, W), n) for W in (33, 128, 2048) for n in (5, 24)]
+    for (T, S, W), n_real in cases:
+        instrs, lanes = random_mega_plan(rng, T, n_real)
+        words = rng.integers(0, 1 << 32, (T, S, W), dtype=np.uint32)
+        slab = torch.from_numpy(words.view(np.int32)).to(device)
+        want_slab, want_counts = kernels.mega_interpret_ref(
+            slab.clone(), torch.from_numpy(instrs), torch.from_numpy(lanes))
+        got_slab, got_counts = kernels.mega_interpret(
+            slab, torch.from_numpy(instrs), torch.from_numpy(lanes))
+        torch.cuda.synchronize()
+        if got_counts.device.type != "cuda" or \
+                got_counts.dtype != torch.int64:
+            raise AssertionError(f"mega_interpret: bad output {got_counts}")
+        if not torch.equal(got_slab, want_slab) or \
+                not torch.equal(got_counts, want_counts):
+            raise AssertionError(
+                f"mega_interpret [{T},{S},{W}] P={len(instrs)}: kernel "
+                f"counts {got_counts.tolist()} != plain "
+                f"{want_counts.tolist()} or slabs differ")
+        del slab, want_slab, got_slab
+    torch.cuda.empty_cache()
+    log(f"kernels: mega_interpret bit-exact over {len(cases)} plans")
+    return 0
+
+
 # ---------------------------------------------------------------- taxi
 
 
@@ -274,20 +382,62 @@ def load_taxi(device, cab, pax, dist, amount):
         time.perf_counter() - t0
 
 
-def run_taxi(device, n_rides, iters=ITERS, profile=False):
-    """Load the taxi index and drive the five queries; returns a report.
+def burst_expected(cab, pax, dist, amount):
+    """Exact answers of BURST, recomputed with numpy: ints for counts,
+    sorted column ids for the row request."""
+    import numpy as np
+    want = {}
+    for c in range(3):
+        for p in (1, 2):
+            want[f"cab{c}_pax{p}"] = int(((cab == c) & (pax == p)).sum())
+    for v in (10, 50, 100, 250):
+        want[f"dist_lt_{v}"] = int((dist < v).sum())
+    want["cab1_amount_ge_400"] = int(((cab == 1) & (amount >= 400)).sum())
+    want["pax1_amount_lt_100"] = int(((pax == 1) & (amount < 100)).sum())
+    want["not_cab0"] = int((cab != 0).sum())
+    want["pax5_or_pax6"] = int(((pax == 5) | (pax == 6)).sum())
+    want["cab0_xor_pax2"] = int(((cab == 0) ^ (pax == 2)).sum())
+    want["cab1_minus_dist_gt_20"] = int(((cab == 1) & (dist <= 20)).sum())
+    votes = (cab == 2).astype(np.int8) + (pax == 1) + (dist >= 200)
+    want["threshold_2_of_3"] = int((votes >= 2).sum())
+    want["rows_cab2_pax6_dist299"] = np.flatnonzero(
+        (cab == 2) & (pax == 6) & (dist == 299)).tolist()
+    return want
+
+
+def run_main(device, n_rides, iters=ITERS, profile=False):
+    """Load the taxi index, then drive both paths on it: the five taxi
+    queries one at a time, then the eighteen-request burst through
+    execute_batch. Returns (report, taxi launches, burst launches).
     Raises on any wrong answer."""
     import torch
-    from pilosa_tpu_torch.ops import kernels
     cab, pax, dist, amount = taxi_data(n_rides)
-    want = taxi_expected(cab, pax, dist, amount)
-    kernels.reset_launches()
+    want_taxi = taxi_expected(cab, pax, dist, amount)
+    want_burst = burst_expected(cab, pax, dist, amount)
     holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
     del cab, pax, dist, amount
     log(f"taxi: loaded {n_rides} rides in {load_s:.2f} s")
     report = {"rides": n_rides,
               "shards": (n_rides + SHARD_WIDTH - 1) // SHARD_WIDTH,
-              "load_s": load_s, "queries": {}}
+              "load_s": load_s}
+    report["taxi"], taxi_launches = run_taxi(ex, want_taxi, device, iters,
+                                             profile)
+    report["burst"], burst_launches = run_burst(ex, want_burst, device,
+                                                iters, profile)
+    if device != "cpu":
+        report["device_bytes"] = torch.cuda.max_memory_allocated()
+    del ex, holder
+    return report, taxi_launches, burst_launches
+
+
+def run_taxi(ex, want, device, iters=ITERS, profile=False):
+    """The five taxi queries through Executor.execute: one pass with the
+    launch counts set to 0 just before it and read just after, then the
+    warm p50s. Returns (report, launches)."""
+    import torch
+    from pilosa_tpu_torch.ops import kernels
+    report = {}
+    kernels.reset_launches()
     for name, pql in TAXI_QUERIES:
         before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
@@ -297,9 +447,8 @@ def run_taxi(device, n_rides, iters=ITERS, profile=False):
         if taxi_answer(name, got) != want[name]:
             raise AssertionError(f"taxi {name}: port {taxi_answer(name, got)}"
                                  f" != numpy {want[name]}")
-        report["queries"][name] = {"pql": pql, "first_s": first_s,
-                                   "launches": delta,
-                                   "answer": taxi_answer(name, got)}
+        report[name] = {"pql": pql, "first_s": first_s, "launches": delta,
+                        "answer": taxi_answer(name, got)}
     launches = dict(kernels.LAUNCHES)
     for name, pql in TAXI_QUERIES:
         times = []
@@ -312,16 +461,234 @@ def run_taxi(device, n_rides, iters=ITERS, profile=False):
             if taxi_answer(name, got) != want[name]:
                 raise AssertionError(f"taxi {name}: warm answer changed")
         times.sort()
-        report["queries"][name]["p50_s"] = times[len(times) // 2]
-        log(f"taxi: {name} first {report['queries'][name]['first_s']:.4f}"
+        report[name]["p50_s"] = times[len(times) // 2]
+        log(f"taxi: {name} first {report[name]['first_s']:.4f}"
             f" s, warm p50 {times[len(times) // 2]:.6f} s, launches "
-            f"{report['queries'][name]['launches']}")
-    if device != "cpu":
-        report["device_bytes"] = torch.cuda.max_memory_allocated()
-        if profile:
-            report["profile"] = profile_taxi(torch, ex, iters)
-    del ex, holder
+            f"{report[name]['launches']}")
+    if device != "cpu" and profile:
+        report["profile"] = profile_taxi(torch, ex, iters)
     return report, launches
+
+
+# --------------------------------------------------------------- burst
+
+
+def burst_answers(out, want):
+    """Check one execute_batch output against numpy; raises on any
+    difference or request error."""
+    if len(out) != len(BURST):
+        raise AssertionError(f"burst: {len(out)} results for {len(BURST)}")
+    for (name, pql), item in zip(BURST, out):
+        if isinstance(item, Exception):
+            raise AssertionError(f"burst {name}: {pql} raised {item!r}")
+        (res,), _ = item
+        got = res if isinstance(res, int) else res.columns().tolist()
+        if got != want[name]:
+            brief = got if isinstance(got, int) else f"{len(got)} columns"
+            raise AssertionError(f"burst {name}: port {brief} != numpy")
+
+
+def run_burst(ex, want, device, iters=ITERS, profile=False):
+    """The burst through Executor.execute_batch: one run with the launch
+    counts set to 0 just before it and read just after, which must answer
+    exactly, in one megakernel launch with no fallback; then its warm p50
+    beside the same requests one at a time, and the prologue's and the
+    kernel's times on the burst's own plan. Returns (report, launches)."""
+    import torch
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.ops import kernels
+    reqs = [("taxi", pql, None) for _, pql in BURST]
+    captured = []
+    build_fn = megamod._build
+
+    def capture(cohort):
+        t0 = time.perf_counter()
+        plan, w_mega, lanes = build_fn(cohort)
+        captured.append((plan, cohort[0].entries[0].n_shards, w_mega,
+                         time.perf_counter() - t0))
+        return plan, w_mega, lanes
+
+    prev = megamod.MEGAKERNEL_ENABLED
+    megamod._build = capture
+    if device == "cpu":
+        # Rehearsal only: the megakernel defaults to off on the CPU.
+        megamod.MEGAKERNEL_ENABLED = True
+    try:
+        before = (ex.mega_launches, ex.mega_fallbacks,
+                  ex.mega_budget_fallbacks)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = ex.execute_batch(reqs)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        burst_answers(out, want)
+        after = (ex.mega_launches, ex.mega_fallbacks,
+                 ex.mega_budget_fallbacks)
+        if after != (before[0] + 1, before[1], before[2]) or \
+                len(captured) != 1:
+            raise AssertionError(
+                f"burst: megakernel launches/fallbacks/budget fallbacks "
+                f"{before} -> {after}, {len(captured)} plans: expected one "
+                "launch and no fallback")
+        if device != "cpu" and launches["mega_interpret"] != 1:
+            raise AssertionError(f"burst: kernel launches {launches}")
+        plan, n_shards, w_mega, _ = captured[0]
+        from pilosa_tpu_torch.ops import megakernel as mk
+        slab_bytes = mk.slab_nbytes(plan.n_regs, n_shards, w_mega)
+        report = {"requests": len(reqs), "first_s": first_s,
+                  "launches": launches, "n_slots": plan.n_slots,
+                  "n_regs": plan.n_regs, "n_instrs": plan.n_instrs,
+                  "instr_capacity": int(plan.instrs.shape[0]),
+                  "count_lanes": len(plan.lane_count_widths),
+                  "row_lanes": len(plan.lane_row_widths),
+                  "slab_bytes": slab_bytes, "plan_bytes": plan.plan_nbytes,
+                  "n_shards": n_shards, "w_mega": w_mega}
+        log(f"burst: {len(reqs)} requests answered exactly in one launch; "
+            f"n_slots {plan.n_slots}, n_regs {plan.n_regs}, n_instrs "
+            f"{plan.n_instrs} (capacity {plan.instrs.shape[0]}), slab "
+            f"{slab_bytes} bytes, first {first_s:.4f} s")
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            out = ex.execute_batch(reqs)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            burst_answers(out, want)
+        times.sort()
+        report["p50_s"] = times[len(times) // 2]
+        # Host time of the lowering and the plan optimizer in the warm
+        # runs (the verify gate runs on a plan signature's first launch
+        # only).
+        lower = sorted(c[3] for c in captured[1:])
+        report["lower_opt_p50_s"] = lower[len(lower) // 2]
+    finally:
+        megamod._build = build_fn
+        megamod.MEGAKERNEL_ENABLED = prev
+    singles = {}
+    for name, pql in BURST:
+        ex.execute("taxi", pql)
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            ex.execute("taxi", pql)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        times.sort()
+        singles[name] = times[len(times) // 2]
+    report["single_p50_s"] = singles
+    report["single_p50_sum_s"] = sum(singles.values())
+    log(f"burst: warm p50 {report['p50_s']:.6f} s for {len(reqs)} "
+        f"requests (lowering and optimizer {report['lower_opt_p50_s']:.6f}"
+        f" s of it); one at a time the p50s sum to "
+        f"{report['single_p50_sum_s']:.6f} s")
+    if device != "cpu":
+        report.update(time_mega(torch, kernels, device, plan, n_shards,
+                                w_mega))
+        if profile:
+            report["profile"] = profile_burst(torch, ex, reqs, iters)
+    return report, launches
+
+
+def time_mega(torch, kernels, device, plan, n_shards, w_mega):
+    """On the burst's own plan: the gather prologue's time, the kernel's
+    (its C entry on the gathered slab, plan buffers already on the card)
+    and its plain version's, median of CUDA-event timings; the kernel is
+    held bit-exact against the plain version on this plan too."""
+    from pilosa_tpu_torch.ops import build
+    from pilosa_tpu_torch.ops import megakernel as mk
+    lib = build.load()
+    gather_ms = time_cuda(torch, lambda: mk.gather_slab(plan, n_shards,
+                                                        w_mega), iters=10)
+    host_instrs = torch.from_numpy(plan.instrs)
+    host_lanes = torch.from_numpy(plan.out_count)
+    slab = mk.gather_slab(plan, n_shards, w_mega)
+    want_slab, want_counts = kernels.mega_interpret_ref(
+        slab.clone(), host_instrs, host_lanes)
+    got_slab, got_counts = kernels.mega_interpret(slab, host_instrs,
+                                                  host_lanes)
+    torch.cuda.synchronize()
+    if not torch.equal(got_slab, want_slab) or \
+            not torch.equal(got_counts, want_counts):
+        raise AssertionError("mega_interpret differs from its plain version "
+                             "on the burst's plan")
+    instrs = host_instrs.to(device)
+    lanes = host_lanes.to(device)
+    counts = torch.zeros(len(plan.out_count), dtype=torch.int32,
+                         device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    n = n_shards * w_mega
+
+    def kernel():
+        # A verified plan defines every scratch register before reading
+        # it, so rerunning it over the same slab is idempotent.
+        return lib.mega_interpret(slab.data_ptr(), instrs.data_ptr(),
+                                  lanes.data_ptr(), counts.data_ptr(),
+                                  plan.n_regs, n, plan.instrs.shape[0],
+                                  len(plan.out_count), stream)
+
+    if kernel() != 0:
+        raise RuntimeError("mega_interpret: kernel launch failed")
+    ms = time_cuda(torch, kernel)
+    plain_slab = want_slab
+    plain_ms = time_cuda(torch, lambda: kernels.mega_interpret_ref(
+        plain_slab, host_instrs, host_lanes), iters=3, warmup=1)
+    row = n * 4
+    nbytes = (plan.n_slots * row + len(plan.lane_row_widths) * row
+              + len(plan.lane_count_widths) * 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing: mega_interpret [{plan.n_regs},{n_shards},{w_mega}] "
+        f"P={plan.instrs.shape[0]} kernel {ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms (bytes), plain {plain_ms:.4f} ms; gather prologue "
+        f"{gather_ms:.4f} ms")
+    log("timing: no single PyTorch call computes a plan interpreter, so "
+        "mega_interpret has no library yardstick (library_ms null)")
+    del slab, want_slab, got_slab, plain_slab
+    torch.cuda.empty_cache()
+    return {"gather_ms": gather_ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_bytes": nbytes}
+
+
+def profile_burst(torch, ex, reqs, iters):
+    """The warm burst under torch.profiler: wall and device time per
+    burst, the device's busy share, and the device items that took it."""
+    from torch.profiler import ProfilerActivity, profile
+    ex.execute_batch(reqs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ex.execute_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = device_times(torch, prof, iters)
+    device_ms = sum(per_kernel.values())
+    wall_ms = wall / iters * 1e3
+    log(f"profile: burst wall {wall_ms:.4f} ms/burst, device "
+        f"{device_ms:.4f} ms/burst, busy {device_ms / wall_ms:.3f}")
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms,
+            "kernels_ms": dict(sorted(per_kernel.items(),
+                                      key=lambda kv: -kv[1])[:12])}
+
+
+def device_times(torch, prof, iters):
+    """Device time per run (ms) of each device-side event of a profile:
+    kernels and memcpys only, since an aten op's device time repeats that
+    of the kernels it launched."""
+    per_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            per_kernel[ev.key] = dev_us / iters / 1e3
+    return per_kernel
 
 
 def profile_taxi(torch, ex, iters):
@@ -340,16 +707,7 @@ def profile_taxi(torch, ex, iters):
                 ex.execute("taxi", pql)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        per_kernel = {}
-        for ev in prof.key_averages():
-            # Device-side events only (kernels, memcpys): an aten op's
-            # device time repeats that of the kernels it launched.
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                per_kernel[ev.key] = dev_us / iters / 1e3
+        per_kernel = device_times(torch, prof, iters)
         device_ms = sum(per_kernel.values())
         wall_ms = wall / iters * 1e3
         out[name] = {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -367,10 +725,11 @@ def profile_taxi(torch, ex, iters):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the warm taxi queries with "
-                         "torch.profiler (device time, busy share)")
+                    help="also trace the warm taxi queries and the burst "
+                         "with torch.profiler (device time, busy share)")
     ap.add_argument("--report", metavar="PATH",
-                    help="write the full taxi and timing report as JSON")
+                    help="write the full taxi, burst and timing report as "
+                         "JSON")
     args = ap.parse_args(argv)
 
     import torch
@@ -396,36 +755,52 @@ def main(argv=None) -> int:
 
     # 2. kernels
     errs = check_kernels(torch, kernels, device)
+    errs["mega_interpret"] = check_mega(torch, kernels, device)
     n_shards = (N_RIDES + SHARD_WIDTH - 1) // SHARD_WIDTH
     timing = time_kernels(torch, kernels, device, n_shards)
     log("timing: torch has no single popcount call, so there is no "
         "library yardstick (library_ms null)")
 
-    # 3. taxi: the main path
-    report, launches = run_taxi("cuda", N_RIDES, ITERS,
-                                profile=args.profile)
+    # 3-4. the main paths: taxi queries one at a time, then the burst
+    report, taxi_launches, burst_launches = run_main(
+        "cuda", N_RIDES, ITERS, profile=args.profile)
+    launches = {name: taxi_launches[name] for name in REPLACES
+                if name != "mega_interpret"}
+    launches["mega_interpret"] = burst_launches["mega_interpret"]
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "taxi path")
+            raise AssertionError(f"kernel {name} never launched on its "
+                                 "path")
+    burst = report["burst"]
+    timing["mega_interpret"] = {"ms": burst["kernel_ms"],
+                                "plain_ms": burst["plain_ms"],
+                                "bound_ms": burst["bound_ms"]}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
         with open(args.report, "w") as f:
-            json.dump({"card": card, "taxi": report, "timing": timing}, f,
+            json.dump({"card": card, "report": report, "timing": timing}, f,
                       indent=1)
+    taxi = report["taxi"]
     print(json.dumps({"taxi": {
         "rides": report["rides"], "shards": report["shards"],
         "load_s": report["load_s"],
-        "p50_s": {k: v["p50_s"] for k, v in report["queries"].items()},
-        "launches": {k: v["launches"]
-                     for k, v in report["queries"].items()}}}), flush=True)
+        "p50_s": {k: v["p50_s"] for k, v in taxi.items()
+                  if k != "profile"},
+        "launches": {k: v["launches"] for k, v in taxi.items()
+                     if k != "profile"}}}), flush=True)
+    print(json.dumps({"burst": {k: burst[k] for k in (
+        "requests", "p50_s", "single_p50_sum_s", "lower_opt_p50_s",
+        "first_s", "gather_ms",
+        "kernel_ms", "plain_ms", "bound_ms", "n_slots", "n_regs",
+        "n_instrs", "instr_capacity", "count_lanes", "row_lanes",
+        "slab_bytes", "launches")}}), flush=True)
 
-    # 4. kernels line, then the result line
+    # 5. kernels line, then the result line
     rows = []
     for name in kernels.LAUNCHES:
         t = timing[name]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -16,16 +16,30 @@ Banks of different views may differ in width (they are trimmed to their
 data); operands are zero-padded to a common width before they combine,
 which never changes a bit of the result.
 
+``execute_batch`` runs N requests as one batch: under its collector
+(``executor/fusion.py``) a read request's ``Count`` and top-level bitmap
+calls do not evaluate at once but stage: a host walk of the tree records
+its shape signature, operand banks, gather slots, BSI predicate values
+and a postfix IR. At the flush, heterogeneous staged evals lower into one
+plan buffer and run in ONE ``mega_interpret`` launch
+(``executor/megakernel.py``); what the megakernel does not take runs
+through the eager path above.
+
 Covered calls: Set, Clear, Row (set fields and BSI conditions),
-Intersect, Union, Difference, Xor, Not, Shift, Count, TopN, Sum, Min,
-Max. The other calls of the JAX package's executor are not part of this
-port yet.
+Intersect, Union, Difference, Xor, Not, Shift, Threshold, Count, TopN,
+Sum, Min, Max. The other calls of the JAX package's executor are not part
+of this port yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+import threading
+from dataclasses import dataclass
+from dataclasses import field as dc_field
+from typing import Any, Callable, Dict, Iterator, List, Optional, \
+    Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,7 +59,7 @@ from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
 
 _BITMAP_CALLS = {"Row", "Intersect", "Union", "Difference", "Xor", "Not",
-                 "Shift"}
+                 "Shift", "Threshold"}
 _FOLDS = {"Intersect": b_and, "Union": b_or, "Xor": b_xor,
           "Difference": b_andnot}
 _CONTAINER_WORDS = CONTAINER_BITS // 32
@@ -84,6 +98,86 @@ def _align_all(rows: List[torch.Tensor]) -> List[torch.Tensor]:
     return [_align_words(r, width) for r in rows]
 
 
+def _thermometer(subs: List[torch.Tensor], k: int) -> torch.Tensor:
+    """Columns set in at least k of the (aligned) operand rows: t[j]
+    holds "at least j+1 of the operands seen so far"."""
+    t = [torch.zeros_like(subs[0]) for _ in range(k)]
+    for x in subs:
+        for j in range(k - 1, 0, -1):
+            t[j] = b_or(t[j], b_and(t[j - 1], x))
+        t[0] = b_or(t[0], x)
+    return t[k - 1]
+
+
+@dataclass
+class _Plan:
+    """One host walk of a call tree for staging: the shape signature,
+    the operand banks by (field, view) key, the gather slots (resolved
+    once the banks exist), the BSI predicate values as two u32 limbs each,
+    the operand widths and a postfix IR for the megakernel lowering.
+    ``ir_ok=False`` (Shift) means the tree is not lowerable."""
+    sig_parts: List[str] = dc_field(default_factory=list)
+    bank_keys: List[Tuple[str, str]] = dc_field(default_factory=list)
+    bank_pos: Dict[Tuple[str, str], int] = dc_field(default_factory=dict)
+    idxs: List[int] = dc_field(default_factory=list)
+    params: List[int] = dc_field(default_factory=list)
+    widths: List[int] = dc_field(default_factory=list)
+    # (position in idxs, bank key, row id), resolved once banks exist.
+    slot_refs: List[Tuple[int, Tuple[str, str], int]] = \
+        dc_field(default_factory=list)
+    shift_bits: int = 0    # total Shift() distance; widens the plan
+    width: int = 0
+    ir: List[tuple] = dc_field(default_factory=list)
+    ir_ok: bool = True
+
+    def bank(self, key: Tuple[str, str]) -> int:
+        pos = self.bank_pos.get(key)
+        if pos is None:
+            pos = len(self.bank_keys)
+            self.bank_pos[key] = pos
+            self.bank_keys.append(key)
+        return pos
+
+    def resolve_width(self) -> int:
+        w = max(self.widths, default=_CONTAINER_WORDS)
+        if self.shift_bits:
+            # Shifted bits may cross the trim boundary; widen to cover.
+            extra = (self.shift_bits + CONTAINER_BITS - 1) // CONTAINER_BITS
+            w += extra * _CONTAINER_WORDS
+        self.width = min(WORDS_PER_SHARD, w)
+        return self.width
+
+
+@dataclass
+class _StagedEval:
+    """One planned-but-not-run terminal eval: everything the megakernel
+    lowering needs (``ir`` is None when the tree does not lower), and
+    ``run_eager`` for the per-group path, which returns the count (int)
+    or the row words (int32 [S, W])."""
+    mode: str              # "count" | "row"
+    sig: str
+    width: int
+    n_shards: int
+    bank_arrays: tuple
+    idxs: List[int]
+    params: List[int]
+    ir: Optional[tuple]
+    run_eager: Callable[[], Any]
+
+
+class _Deferred:
+    """A result staged under execute_batch's collector; ``resolve()``
+    after the flush gives the call's result."""
+
+    __slots__ = ("finish",)
+
+    def __init__(self, finish: Callable[[], Any]) -> None:
+        self.finish = finish
+
+    def resolve(self) -> Any:
+        return self.finish()
+
+
 class Executor:
     """Runs PQL against a Holder on the holder's device. ``device``
     defaults to CUDA (raising where there is none) and must match the
@@ -97,6 +191,18 @@ class Executor:
                              f"match holder device {holder.device}")
         self.holder = holder
         self._empty_banks: Dict[int, ViewBank] = {}
+        self._tls = threading.local()
+        # Megakernel accounting ('+=' is not atomic; batches may run
+        # from several threads).
+        self._stats_lock = threading.Lock()
+        self.mega_launches = 0
+        self.mega_queries = 0
+        self.mega_plan_entries = 0
+        self.mega_fallbacks = 0
+        self.mega_budget_fallbacks = 0
+        # Plan signatures whose first launch passed verify_plan (the
+        # "auto" gate), bounded.
+        self._verified_sigs: Dict[str, None] = {}
 
     # ------------------------------------------------------------------ API
 
@@ -112,6 +218,102 @@ class Executor:
             raise ExecutionError(f"index not found: {index_name}")
         return [self._execute_call(idx, call, shards)
                 for call in query.calls]
+
+    def execute_batch(self, requests: Sequence[Tuple[str, Any, Optional[
+            Sequence[int]]]]) -> List[Any]:
+        """Execute N independent requests as one batch. Each element of
+        ``requests`` is ``(index_name, query, shards)``. Returns one
+        entry per request: a ``(results, opts)`` tuple (``opts`` is
+        always None: ``Options()`` is not ported) or the exception
+        instance for that request; one request's error never fails
+        another.
+
+        Read requests run under a collector: their Count and top-level
+        bitmap calls stage, and the flush answers heterogeneous staged
+        evals with one megakernel launch per shard-count cohort. A
+        request that writes is a fence: the collector flushes before
+        it, and it runs uncollected, so every read sees exactly the
+        state that executing the requests one by one would show it."""
+        from pilosa_tpu_torch.executor.fusion import FusionCollector
+        out: List[Any] = [None] * len(requests)
+        parsed: List[Optional[Query]] = [None] * len(requests)
+        has_writes = [False] * len(requests)
+        for j, (_, q, _) in enumerate(requests):
+            try:
+                if isinstance(q, str):
+                    q = parse_string_cached(q)
+                if isinstance(q, Call):
+                    q = Query([q])
+                parsed[j] = q
+                has_writes[j] = bool(q.write_calls())
+            except Exception as e:
+                out[j] = e  # parse error: reported for this item only
+        fuser = FusionCollector(self)
+        staged: List[Tuple[int, List[Any]]] = []
+        try:
+            for j, (index_name, _, shards) in enumerate(requests):
+                if parsed[j] is None:
+                    continue
+                try:
+                    if has_writes[j]:
+                        fuser.flush()
+                        results = self.execute(index_name, parsed[j], shards)
+                    else:
+                        with self._fusing(fuser):
+                            results = self.execute(index_name, parsed[j],
+                                                   shards)
+                    staged.append((j, results))
+                except Exception as e:
+                    out[j] = e
+        finally:
+            # Staged evals must run before any result resolves.
+            fuser.flush()
+        for j, results in staged:
+            try:
+                out[j] = ([r.resolve() if isinstance(r, _Deferred) else r
+                           for r in results], None)
+            except Exception as e:
+                out[j] = e
+        return out
+
+    @contextlib.contextmanager
+    def _fusing(self, fuser: Any) -> Iterator[None]:
+        prev = getattr(self._tls, "fuser", None)
+        self._tls.fuser = fuser
+        try:
+            yield
+        finally:
+            self._tls.fuser = prev
+
+    def _note_mega(self, queries: int, plan_entries: int) -> None:
+        """Account one megakernel launch covering `queries` staged evals
+        through `plan_entries` interpreted instructions."""
+        with self._stats_lock:
+            self.mega_launches += 1
+            self.mega_queries += queries
+            self.mega_plan_entries += plan_entries
+
+    def _note_mega_fallback(self, groups: int) -> None:
+        """A cohort whose lowering failed ran per group."""
+        with self._stats_lock:
+            self.mega_fallbacks += groups
+
+    def _note_mega_budget_fallback(self, groups: int) -> None:
+        """A cohort over the slab budget ran per group."""
+        with self._stats_lock:
+            self.mega_budget_fallbacks += groups
+
+    _VERIFIED_SIGS_MAX = 1024
+
+    def _plan_verified(self, sig: str) -> bool:
+        with self._stats_lock:
+            return sig in self._verified_sigs
+
+    def _note_plan_verified(self, sig: str) -> None:
+        with self._stats_lock:
+            if len(self._verified_sigs) >= self._VERIFIED_SIGS_MAX:
+                self._verified_sigs.pop(next(iter(self._verified_sigs)))
+            self._verified_sigs[sig] = None
 
     def _execute_call(self, idx: Index, call: Call,
                       shards: Optional[Sequence[int]]) -> Any:
@@ -158,7 +360,8 @@ class Executor:
             out.add(ef)
             return all(self._referenced_fields(idx, c, out)
                        for c in call.children)
-        if name in ("Intersect", "Union", "Difference", "Xor", "Shift"):
+        if name in ("Intersect", "Union", "Difference", "Xor", "Shift",
+                    "Threshold"):
             return bool(call.children) and all(
                 self._referenced_fields(idx, c, out) for c in call.children)
         return False
@@ -177,15 +380,32 @@ class Executor:
 
     # ------------------------------------------------------------ bitmaps
 
-    def _execute_bitmap(self, idx: Index, call: Call, shards) -> RowResult:
+    def _fuser(self) -> Any:
+        return getattr(self._tls, "fuser", None)
+
+    def _execute_bitmap(self, idx: Index, call: Call, shards
+                        ) -> Union[RowResult, _Deferred]:
         shards = self._restrict_shards(idx, call, self._shards(idx, shards))
+        fuser = self._fuser()
+        if fuser is not None:
+            handle = fuser.add(self._stage_tree(idx, call, shards, "row"))
+            return _Deferred(lambda: RowResult(shards, handle.value()))
         return RowResult(shards, self._eval(idx, call, shards))
 
-    def _execute_count(self, idx: Index, call: Call, shards) -> int:
+    def _execute_count(self, idx: Index, call: Call, shards
+                       ) -> Union[int, _Deferred]:
         if len(call.children) != 1:
             raise ExecutionError("Count() takes exactly one row argument")
         child = call.children[0]
         shards = self._restrict_shards(idx, child, self._shards(idx, shards))
+        fuser = self._fuser()
+        if fuser is not None:
+            handle = fuser.add(self._stage_tree(idx, child, shards, "count"))
+            return _Deferred(handle.value)
+        return self._count_eager(idx, child, shards)
+
+    def _count_eager(self, idx: Index, child: Call, shards: List[int]
+                     ) -> int:
         if child.name == "Intersect" and len(child.children) >= 2:
             subs = _align_all([self._eval(idx, c, shards)
                                for c in child.children])
@@ -227,9 +447,33 @@ class Executor:
             subs = _align_all([self._eval(idx, c, shards)
                                for c in call.children])
             return functools.reduce(_FOLDS[name], subs)
-        if name in ("Range", "Threshold"):
+        if name == "Threshold":
+            k, n = self._threshold_k(call)
+            subs = _align_all([self._eval(idx, c, shards)
+                               for c in call.children])
+            if k > n:
+                return torch.zeros_like(subs[0])
+            if k == 1:
+                return functools.reduce(b_or, subs)
+            if k == n:
+                return functools.reduce(b_and, subs)
+            return _thermometer(subs, k)
+        if name == "Range":
             raise ExecutionError(f"{name}() is not supported by the port")
         raise ExecutionError(f"{name} is not a row query")
+
+    @staticmethod
+    def _threshold_k(call: Call) -> Tuple[int, int]:
+        """(k, n) of Threshold(k=K, r1, ..., rN): columns set in at least
+        K of the N operand rows. K must be a strict integer >= 1 (a k of
+        1.5 must not truncate to 1)."""
+        if not call.children:
+            raise ExecutionError("Threshold() requires row arguments")
+        k = call.args.get("k")
+        if isinstance(k, bool) or not isinstance(k, int) or k < 1:
+            raise ExecutionError(
+                "Threshold() requires an integer argument k >= 1")
+        return k, len(call.children)
 
     def _row_leaf(self, idx: Index, call: Call, shards) -> torch.Tensor:
         field_name, row_ref = self._row_call_field(call)
@@ -296,6 +540,193 @@ class Executor:
             return bsi.lt(planes, base, allow_eq=allow_eq)
         allow_eq = op == GTE or value < bsig.min
         return bsi.gt(planes, base, allow_eq=allow_eq)
+
+    # ------------------------------------------------------------ staging
+
+    def _stage_tree(self, idx: Index, call: Call, shards: List[int],
+                    mode: str) -> _StagedEval:
+        """Plan a terminal eval without running it: walk the tree, build
+        its banks, resolve slots, widths and the shape signature."""
+        plan = _Plan()
+        self._plan_call(idx, call, plan)
+        banks = [self._get_bank(idx.field(f), v, shards)
+                 for f, v in plan.bank_keys]
+        for i, key, row in plan.slot_refs:
+            plan.idxs[i] = banks[plan.bank_pos[key]].slot(row)
+        # The plan width resolves after the banks are built, so it covers
+        # every bank's actual width.
+        plan.widths.extend(b.array.shape[-1] for b in banks)
+        plan.resolve_width()
+        bank_arrays = tuple(b.array for b in banks)
+        bshapes = [tuple(a.shape) for a in bank_arrays]
+        sig = (f"{mode}|{''.join(plan.sig_parts)}|W{plan.width}"
+               f"|B{bshapes}|LNone|S{len(shards)}")
+        if mode == "count":
+            def run_eager() -> Any:
+                return self._count_eager(idx, call, shards)
+        else:
+            def run_eager() -> Any:
+                return self._eval(idx, call, shards)
+        return _StagedEval(mode=mode, sig=sig, width=plan.width,
+                           n_shards=len(shards), bank_arrays=bank_arrays,
+                           idxs=list(plan.idxs), params=list(plan.params),
+                           ir=tuple(plan.ir) if plan.ir_ok else None,
+                           run_eager=run_eager)
+
+    def _plan_call(self, idx: Index, call: Call, plan: _Plan) -> None:
+        """Append one call subtree to the plan (signature parts, leaves,
+        postfix IR); raises what the eager path raises."""
+        name = call.name
+        if name == "Row":
+            self._plan_row_leaf(idx, call, plan)
+            return
+        if name in ("Not", "Shift") and len(call.children) != 1:
+            raise ExecutionError(f"{name}() takes exactly one row argument")
+        if name == "Not":
+            ef = idx.existence_field()
+            if ef is None:
+                raise ExecutionError(
+                    f"index {idx.name} does not support existence (Not)")
+            self._plan_slot_leaf(ef, VIEW_STANDARD, 0, plan)
+            self._plan_call(idx, call.children[0], plan)
+            plan.sig_parts.append("!")
+            # Not(x) IS existence \ x: the Difference fold.
+            plan.ir.append(("fold", "diff", 2))
+            return
+        if name == "Shift":
+            n = call.uint_arg("n") or 1
+            self._plan_call(idx, call.children[0], plan)
+            plan.sig_parts.append(f"S{n}")
+            plan.shift_bits += n
+            plan.ir_ok = False  # word-carry shifts have no opcode
+            return
+        if name in _FOLDS:
+            if not call.children:
+                raise ExecutionError(f"{name}() requires row arguments")
+            for c in call.children:
+                self._plan_call(idx, c, plan)
+            plan.sig_parts.append(f"{name[0]}{len(call.children)}")
+            fold = {"Intersect": "and", "Union": "or", "Xor": "xor",
+                    "Difference": "diff"}[name]
+            plan.ir.append(("fold", fold, len(call.children)))
+            return
+        if name == "Threshold":
+            k, n = self._threshold_k(call)
+            for c in call.children:
+                self._plan_call(idx, c, plan)
+            plan.sig_parts.append(f"T{k}n{n}")
+            # k == 1 is Union and k == n Intersect: the fold nodes, so
+            # they CSE with real folds of the same operands; k > n is
+            # the empty row (the thresh node lowers it to a zeroed
+            # register).
+            if k == 1:
+                plan.ir.append(("fold", "or", n))
+            elif k == n:
+                plan.ir.append(("fold", "and", n))
+            else:
+                plan.ir.append(("thresh", k, n))
+            return
+        if name == "Range":
+            raise ExecutionError(f"{name}() is not supported by the port")
+        raise ExecutionError(f"{name} is not a row query")
+
+    def _view_width(self, field: Field, view_name: str) -> int:
+        """Bank word width without building the bank."""
+        view = field.view(view_name)
+        if view is None:
+            return _CONTAINER_WORDS
+        return view.trimmed_words()
+
+    def _plan_slot_leaf(self, field: Field, view_name: str, row_id: int,
+                        plan: _Plan) -> None:
+        key = (field.name, view_name)
+        pos = plan.bank(key)
+        plan.widths.append(self._view_width(field, view_name))
+        i = len(plan.idxs)
+        plan.idxs.append(0)
+        plan.slot_refs.append((i, key, row_id))
+        plan.sig_parts.append(f"r{pos}")
+        plan.ir.append(("slot", pos, i))
+
+    def _plan_row_leaf(self, idx: Index, call: Call, plan: _Plan) -> None:
+        field_name, row_ref = self._row_call_field(call)
+        field = idx.field(field_name)
+        if field is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        if isinstance(row_ref, Condition):
+            self._plan_bsi_leaf(field, row_ref, plan)
+            return
+        if field.options.type == FIELD_TYPE_INT:
+            raise ExecutionError(
+                f"int field {field_name} requires a comparison, not =")
+        if call.arg("from") is not None or call.arg("to") is not None:
+            raise ExecutionError("time ranges are not supported by the port")
+        self._plan_slot_leaf(field, VIEW_STANDARD,
+                             self._row_id(field, row_ref), plan)
+
+    def _plan_bsi_leaf(self, field: Field, cond: Condition, plan: _Plan
+                       ) -> None:
+        """BSI comparison leaf: depth+1 plane slots of the field's bsig
+        bank; the predicate values ride in params as two u32 limbs."""
+        bsig = field.bsi_groups.get(field.name)
+        if bsig is None:
+            raise ExecutionError(f"field {field.name} is not an int field")
+        depth = bsig.bit_depth
+        view_name = view_bsi_name(field.name)
+        key = (field.name, view_name)
+        pos = plan.bank(key)
+        plan.widths.append(self._view_width(field, view_name))
+        i0 = len(plan.idxs)
+        for r in range(depth + 1):
+            plan.idxs.append(0)
+            plan.slot_refs.append((i0 + r, key, r))
+
+        def zeros() -> None:
+            plan.sig_parts.append("z")
+            plan.ir.append(("zero",))
+
+        def push_value(base: int) -> int:
+            j = len(plan.params)
+            plan.params.extend([base & 0xFFFFFFFF, (base >> 32) & 0xFFFFFFFF])
+            return j
+
+        op = cond.op
+        if op == BETWEEN:
+            lo_v, hi_v = cond.int_slice()
+            lo, ok_lo = bsig.base_value_clamped(lo_v, ">=")
+            hi, ok_hi = bsig.base_value_clamped(hi_v, "<=")
+            if not (ok_lo and ok_hi) or lo > hi:
+                zeros()
+                return
+            j = push_value(lo)
+            k = push_value(hi)
+            plan.sig_parts.append(f"c><{pos}d{depth}")
+            plan.ir.append(("bsi", "between", pos, i0, depth, j, k, True))
+            return
+        value = int(cond.value)
+        base, in_range = bsig.base_value_clamped(value, op)
+        if op in (EQ, NEQ) and not in_range:
+            if op == EQ:
+                zeros()
+                return
+            plan.sig_parts.append(f"cn{pos}d{depth}")
+            plan.ir.append(("bsi", "notnull", pos, i0, depth, 0, 0, False))
+            return
+        if op in (LT, LTE, GT, GTE) and not in_range:
+            zeros()
+            return
+        if op in (LT, LTE):
+            allow_eq = (op == LTE) or (value > bsig.max)
+        elif op in (GT, GTE):
+            allow_eq = (op == GTE) or (value < bsig.min)
+        else:
+            allow_eq = False
+        j = push_value(base)
+        ir_kind = {EQ: "eq", NEQ: "neq", LT: "lt", LTE: "lt",
+                   GT: "gt", GTE: "gt"}[op]
+        ir_allow = allow_eq if op in (LT, GT) else op in (LTE, GTE)
+        plan.ir.append(("bsi", ir_kind, pos, i0, depth, j, 0, ir_allow))
+        plan.sig_parts.append(f"c{op}{int(allow_eq)}{pos}d{depth}")
 
     # ---------------------------------------------------------- bank fetch
 

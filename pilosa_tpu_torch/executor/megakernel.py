@@ -1,0 +1,188 @@
+"""Executor leg of the heterogeneous megakernel (``ops/megakernel.py``).
+
+``FusionCollector.flush`` hands its signature groups here first. Groups
+whose staged evals lowered to megakernel IR are packed, across different
+signatures, into one plan buffer and ONE ``mega_interpret`` launch per
+shard-count cohort; everything else (Shift trees, cohorts of one group)
+flows back to the per-group eager path untouched.
+
+Each taken group's ``out`` becomes a ``_MegaView`` selecting its member
+lanes from the launch's shared (counts, rows) outputs.
+
+Routing, as in the JAX package's ``executor/megakernel.py``:
+
+- only cohorts of two or more groups per shard count take the launch;
+- a cohort whose register slab would exceed ``MEGA_MAX_BYTES``
+  (``PILOSA_TPU_MEGA_BYTES``, default 1 GiB) runs per group;
+- a surprise in lowering falls back per group (counted in the
+  executor's ``mega_fallbacks``); a surprise in the plan optimizer
+  launches the unoptimized plan;
+- ``verify_plan`` runs before the first launch of every plan signature
+  (``PILOSA_TPU_PLAN_VERIFY``: ``on`` every launch, ``auto`` the first
+  of each signature, ``off`` none); a rejected plan, a kernel build
+  failure or a launch failure is not a fallback: it lands on the
+  cohort's requests as their error.
+
+``MEGAKERNEL_ENABLED`` (``PILOSA_TPU_MEGAKERNEL``: 1 on, 0 off, default
+``auto``) is read per executor: ``auto`` means on for a CUDA executor
+and off on the CPU. Tests set the module attribute.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+from pilosa_tpu_torch.ops import megakernel as mk
+from pilosa_tpu_torch.ops import plan_opt
+
+
+def _flag(env: str, default: str) -> str:
+    flag = os.environ.get(env, default).strip().lower()
+    if flag in ("1", "true", "yes", "on"):
+        return "on"
+    if flag in ("0", "false", "no", "off"):
+        return "off"
+    return "auto"
+
+
+# None = auto (on exactly for a CUDA executor); True/False force it.
+MEGAKERNEL_ENABLED: Optional[bool] = {
+    "on": True, "off": False}.get(_flag("PILOSA_TPU_MEGAKERNEL", "auto"))
+
+# Register-slab budget per launch: a cohort whose [T, S, W] slab would
+# exceed it runs per group instead.
+MEGA_MAX_BYTES = int(os.environ.get("PILOSA_TPU_MEGA_BYTES", 1 << 30))
+
+# Plan verification gate: "on", "off" or "auto".
+PLAN_VERIFY_MODE = _flag("PILOSA_TPU_PLAN_VERIFY", "auto")
+
+
+def enabled_for(executor: Any) -> bool:
+    if MEGAKERNEL_ENABLED is None:
+        return executor.device.type == "cuda"
+    return bool(MEGAKERNEL_ENABLED)
+
+
+class _MegaLaunch:
+    """One launch's shared outputs: int64 counts [Nc] and row lanes
+    [Nr, S, W] on the device; the counts are fetched to the host once."""
+
+    __slots__ = ("counts", "rows", "_host_counts")
+
+    def __init__(self, counts: Any, rows: Any) -> None:
+        self.counts = counts
+        self.rows = rows
+        self._host_counts: Optional[List[int]] = None
+
+    def host_counts(self) -> List[int]:
+        if self._host_counts is None:
+            self._host_counts = self.counts.tolist()
+        return self._host_counts
+
+
+class _MegaView:
+    """One group's window onto a launch: ``[b]`` is member b's count
+    (int) or row words (int32 [S, width])."""
+
+    __slots__ = ("launch", "mode", "lanes", "width")
+
+    def __init__(self, launch: _MegaLaunch, mode: str, lanes: List[int],
+                 width: int) -> None:
+        self.launch = launch
+        self.mode = mode
+        self.lanes = lanes
+        self.width = width
+
+    def __getitem__(self, b: int) -> Any:
+        lane = self.lanes[b]
+        if self.mode == "count":
+            return int(self.launch.host_counts()[lane])
+        return self.launch.rows[lane, :, :self.width]
+
+
+def _eligible(group: Any) -> bool:
+    rep = group.entries[0]
+    return rep.ir is not None and rep.mode in ("count", "row")
+
+
+def run_megakernel(executor: Any, groups: Dict[tuple, Any]
+                   ) -> Dict[tuple, Any]:
+    """Take what lowers, launch one program per shard-count cohort, and
+    return the groups the caller must still run per group."""
+    if not enabled_for(executor):
+        return groups
+    cohorts: Dict[int, List[Any]] = {}
+    remaining: Dict[tuple, Any] = {}
+    for key, group in groups.items():
+        if group.entries and _eligible(group):
+            cohorts.setdefault(group.entries[0].n_shards, []).append(group)
+        else:
+            remaining[key] = group
+    for n_shards, cohort in cohorts.items():
+        if len(cohort) < 2:
+            for g in cohort:
+                remaining[("solo", id(g))] = g
+            continue
+        try:
+            plan, w_mega, lanes = _build(cohort)
+        except Exception:
+            # Lowering is best-effort by contract: the per-group path
+            # answers instead.
+            executor._note_mega_fallback(len(cohort))
+            for g in cohort:
+                remaining[("fallback", id(g))] = g
+            continue
+        if mk.slab_nbytes(plan.n_regs, n_shards, w_mega) > MEGA_MAX_BYTES:
+            executor._note_mega_budget_fallback(len(cohort))
+            for g in cohort:
+                remaining[("budget", id(g))] = g
+            continue
+        _launch(executor, cohort, plan, n_shards, w_mega, lanes)
+    return remaining
+
+
+def _build(cohort: List[Any]) -> Tuple[mk.Plan, int, List[List[int]]]:
+    """Lower every entry of every group into one plan; returns the plan,
+    the launch word width and per-group member lanes. The optimizer runs
+    here, before the verify gate, so the gate sees the plan that
+    launches."""
+    w_mega = max(e.width for g in cohort for e in g.entries)
+    low = mk.Lowering()
+    lanes: List[List[int]] = []
+    for g in cohort:
+        lanes.append([low.add_entry(e.ir, e.bank_arrays, e.idxs, e.params,
+                                    e.width, e.mode) for e in g.entries])
+    plan = low.finish()
+    try:
+        plan, _ = plan_opt.optimize_plan(
+            plan, cohort[0].entries[0].n_shards, w_mega)
+    except Exception:
+        # Best-effort: a surprised optimizer launches the raw plan.
+        pass
+    return plan, w_mega, lanes
+
+
+def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
+            n_shards: int, w_mega: int, lanes: List[List[int]]) -> None:
+    try:
+        key = plan.sig(n_shards, w_mega)
+        if PLAN_VERIFY_MODE == "on" or (
+                PLAN_VERIFY_MODE == "auto"
+                and not executor._plan_verified(key)):
+            mk.verify_plan(plan, n_shards, w_mega)
+            executor._note_plan_verified(key)
+        counts, rows = mk.run_program(plan, n_shards, w_mega)
+    except Exception as e:
+        for g in cohort:
+            g.error = e
+            g.entries = []
+        return
+    launch = _MegaLaunch(counts, rows)
+    n_entries = 0
+    for g, g_lanes in zip(cohort, lanes):
+        rep = g.entries[0]
+        g.out = _MegaView(launch, rep.mode, g_lanes, rep.width)
+        n_entries += len(g.entries)
+        g.entries = []
+    executor._note_mega(n_entries, plan.n_instrs)

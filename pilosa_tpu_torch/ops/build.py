@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``pilosa_tpu_torch/csrc/`` compile with ``nvcc`` into one
-shared library with a plain C interface, which ``ctypes`` loads. The
-library lands under ``build/kernels/<hash>/`` at the repository root,
-keyed on a hash of the sources and flags, at first use; a later call in
-the same process reuses the loaded handle. Nothing here runs at import.
+The sources in ``pilosa_tpu_torch/csrc/`` compile with ``nvcc``, one
+process per source, all started together, and link into one shared
+library with a plain C interface, which ``ctypes`` loads. The library
+lands under ``build/kernels/<hash>/`` at the repository root, keyed on a
+hash of the sources and flags, at first use; a later call in the same
+process reuses the loaded handle. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("bank_counts.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("bank_counts.cu", "mega_interpret.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -36,6 +37,7 @@ SIGNATURES = {
     "bank_row_counts": (_P, _P, _LL, _LL, _P),
     "bank_row_counts_masked": (_P, _P, _P, _P, _LL, _LL, _P),
     "bsi_plane_counts": (_P, _P, _P, _LL, _LL, _P),
+    "mega_interpret": (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
 }
 
 
@@ -67,26 +69,45 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile the library unless this source hash is already built;
-    returns its path. The output is written under a temporary name and
-    renamed, so a concurrent build never loads a half-written file."""
+    returns its path. Each source compiles to an object in its own nvcc
+    process (all in parallel), then one link writes the library under a
+    temporary name that is renamed, so a concurrent build never loads a
+    half-written file."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        procs = []
+        for name in SOURCES:
+            obj = str(Path(tmpdir) / (Path(name).stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            cmd += ["-c", "-o", obj, str(CSRC_DIR / name)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, _, proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {name} failed ({proc.returncode}):\n"
+                              f"{stdout}\n{stderr}")
+            elif verbose and (stdout or stderr):
+                print(f"nvcc {name}:\n{stdout}{stderr}", flush=True)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = str(Path(tmpdir) / out.name)
+        proc = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+             *(obj for _, obj, _ in procs)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

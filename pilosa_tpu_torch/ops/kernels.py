@@ -1,7 +1,7 @@
-"""Bank-sweep popcount kernels: wrappers, launch counts, plain versions.
+"""The port's CUDA kernels: wrappers, launch counts, plain versions.
 
-The three sweeps of the JAX package's ``ops/pallas_kernels.py`` that the
-query path runs, as hand-written CUDA for Hopper
+The kernels of the JAX package's ``ops/pallas_kernels.py`` that the
+query paths run, as hand-written CUDA for Hopper. Three bank sweeps
 (``csrc/bank_counts.cu``):
 
 - ``bank_row_counts``: per-row popcount of an ``[R, S, W]`` bank, for
@@ -10,6 +10,12 @@ query path runs, as hand-written CUDA for Hopper
   filtered TopN, the tanimoto denominator, and ``Count(Intersect(a, b))``
   at R = 1;
 - ``bsi_plane_counts``: masked popcount of each BSI bit plane, for Sum.
+
+and the plan-buffer interpreter of the batch path
+(``csrc/mega_interpret.cu``):
+
+- ``mega_interpret``: runs an ``[P, 4]`` (opcode, dst, a, b) plan over a
+  ``[T, S, W]`` register slab in place and popcounts the count lanes.
 
 Banks are width-trimmed, so W is any width >= 1 (the Pallas versions
 required W = 32768). Each wrapper takes a CUDA tensor to its kernel and
@@ -26,10 +32,15 @@ import torch
 
 from pilosa_tpu_torch.ops.bitset import popcount
 
+# Interpreter opcodes (ops/megakernel.py): AND, OR, XOR, ANDNOT, ZERO,
+# COPY, EXPAND (the identity here), THRESH (dst | (a & b)).
+N_OPCODES = 8
+
 LAUNCHES: Dict[str, int] = {
     "bank_row_counts": 0,
     "bank_row_counts_masked": 0,
     "bsi_plane_counts": 0,
+    "mega_interpret": 0,
 }
 
 # A row's count must fit the kernel's u32 accumulator: S*W*32 < 2^32.
@@ -60,6 +71,33 @@ def bsi_plane_counts_ref(planes: torch.Tensor, mask: torch.Tensor
                          ) -> torch.Tensor:
     """([D, S, W], [S, W]) -> int64[D] masked popcount per plane."""
     return popcount(torch.bitwise_and(planes, mask), axis=(-2, -1))
+
+
+def mega_interpret_ref(slab: torch.Tensor, instrs: torch.Tensor,
+                       out_count: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``mega_interpret``: the plan rows in order over
+    the [T, S, W] int32 slab (updated in place), then int64[Nc]
+    popcounts of the count lanes."""
+    for op, d, a, b in instrs.tolist():
+        va, vb = slab[a], slab[b]
+        if op == 0:
+            res = torch.bitwise_and(va, vb)
+        elif op == 1:
+            res = torch.bitwise_or(va, vb)
+        elif op == 2:
+            res = torch.bitwise_xor(va, vb)
+        elif op == 3:
+            res = torch.bitwise_and(va, torch.bitwise_not(vb))
+        elif op == 4:
+            res = torch.zeros_like(va)
+        elif op in (5, 6):
+            res = va.clone()
+        else:
+            res = torch.bitwise_or(slab[d], torch.bitwise_and(va, vb))
+        slab[d] = res
+    lanes = out_count.to(device=slab.device, dtype=torch.int64)
+    return slab, popcount(slab.index_select(0, lanes), axis=(-2, -1))
 
 
 # -------------------------------------------------------------- checks
@@ -178,3 +216,71 @@ def bsi_plane_counts(planes: torch.Tensor, mask: torch.Tensor
             planes.shape[0], n, _stream(planes.device)))
         LAUNCHES[name] += 1
     return _as_counts(out)
+
+
+def _check_plan(name: str, slab: torch.Tensor, instrs: torch.Tensor,
+                out_count: torch.Tensor) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Validate the slab and the plan; returns host copies of instrs and
+    out_count. Every opcode must be in the table and every register
+    index below T: on the card an index outside the slab would be an
+    out-of-bounds access."""
+    _check_bank(name, slab)
+    if not slab.is_contiguous():
+        raise ValueError(f"{name}: slab must be contiguous")
+    for what, t in (("instrs", instrs), ("out_count", out_count)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
+        if t.device.type not in ("cpu", slab.device.type):
+            raise ValueError(f"{name}: {what} on {t.device}, slab on "
+                             f"{slab.device}")
+    if instrs.dim() != 2 or instrs.shape[1] != 4:
+        raise ValueError(f"{name}: instrs must be [P, 4], got "
+                         f"{tuple(instrs.shape)}")
+    if out_count.dim() != 1:
+        raise ValueError(f"{name}: out_count must be 1-d, got "
+                         f"{tuple(out_count.shape)}")
+    host_instrs = instrs.cpu().contiguous()
+    host_lanes = out_count.cpu().contiguous()
+    T = int(slab.shape[0])
+    if host_instrs.numel():
+        ops = host_instrs[:, 0]
+        if int(ops.min()) < 0 or int(ops.max()) >= N_OPCODES:
+            raise ValueError(f"{name}: opcode outside 0..{N_OPCODES - 1}")
+        regs = host_instrs[:, 1:]
+        if int(regs.min()) < 0 or int(regs.max()) >= T:
+            raise ValueError(f"{name}: register index outside the "
+                             f"{T}-register slab")
+    if host_lanes.numel() and (int(host_lanes.min()) < 0
+                               or int(host_lanes.max()) >= T):
+        raise ValueError(f"{name}: count lane outside the {T}-register "
+                         "slab")
+    return host_instrs, host_lanes
+
+
+def mega_interpret(slab: torch.Tensor, instrs: torch.Tensor,
+                   out_count: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run an int32 [P, 4] plan of (opcode, dst, a, b) rows over an int32
+    [T, S, W] register slab, rows in order, updating the slab in place;
+    returns ``(slab, counts)`` with ``counts[j] = |slab[out_count[j]]|``
+    as int64[Nc] on the slab's device. ``instrs`` and ``out_count`` may
+    lie on the CPU (they are checked there and uploaded)."""
+    name = "mega_interpret"
+    host_instrs, host_lanes = _check_plan(name, slab, instrs, out_count)
+    if slab.device.type == "cpu":
+        return mega_interpret_ref(slab, host_instrs, host_lanes)
+    n = _cuda_args(name, slab)
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    dev_instrs = host_instrs.to(slab.device)
+    dev_lanes = host_lanes.to(slab.device)
+    counts = torch.zeros(host_lanes.numel(), dtype=torch.int32,
+                         device=slab.device)
+    if slab.numel():
+        _raise_on(name, lib.mega_interpret(
+            slab.data_ptr(), dev_instrs.data_ptr(), dev_lanes.data_ptr(),
+            counts.data_ptr(), slab.shape[0], n, host_instrs.shape[0],
+            host_lanes.numel(), _stream(slab.device)))
+        LAUNCHES[name] += 1
+    return slab, _as_counts(counts)

@@ -1,0 +1,656 @@
+"""Heterogeneous staged-query megakernel: N different staged query trees
+in ONE device launch.
+
+A mixed burst of Count/Row queries pays one launch (and one Python tree
+walk of torch elementwise ops) per query on the eager path. Here the
+query plan is data instead: every staged eval lowers to a few register
+instructions, and one hand-written CUDA interpreter (``mega_interpret``,
+``csrc/mega_interpret.cu``) runs the concatenated instruction streams of
+the whole batch in a single launch.
+
+Execution model
+---------------
+* A *register* is one ``[S, W]`` word slab (S shards, W words, int32
+  words holding the bits).
+* Registers ``0..n_slots-1`` are gathered operand rows: per distinct
+  bank, ``bank[slots]`` fitted to the launch width and masked down to
+  each owning entry's plan width (bit-identical to the eager path's
+  per-leaf alignment; zero-extension commutes with every opcode, so pad
+  words stay zero end to end).
+* Registers above the gathered operands are scratch, allocated by the
+  lowering, zero-filled before the interpreter runs.
+* The plan buffer is an int32 ``[P, 4]`` array of ``(opcode, dst, a,
+  b)`` rows, executed in order.
+* Outputs: one popcount per count lane (fused into the kernel) and
+  ``slab[out_row]`` for row lanes; each entry takes its lane and its
+  plan width.
+
+BSI comparison predicates lower too: the ``executor/bsi.py`` scans are
+AND/OR/ANDNOT folds whose per-bit branches depend only on the host-known
+predicate value, so ``v > 300`` becomes about 2·depth plan rows.
+
+The host half (``Lowering``, ``Plan``, ``verify_plan``) is this
+package's own copy of the JAX package's ``ops/megakernel.py``; the
+sparse-expand import path and the mesh epilogue are not ported yet (an
+``xslot`` IR node raises), and ``OP_EXPAND`` is the identity, as in the
+JAX interpreter.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+# A token-space register name while the Lowering accumulates: slot
+# tokens are ("s", bank, k) until finish() resolves bank-grouped
+# numbering, scratch tokens are plain ints counted from 0.
+Token = Union[Tuple[str, int, int], int]
+
+# Opcodes (plan-buffer rows are (opcode, dst, a, b); ZERO/COPY ignore b).
+OP_AND = 0
+OP_OR = 1
+OP_XOR = 2
+OP_ANDNOT = 3   # dst = a & ~b  (Difference, Not-via-existence)
+OP_ZERO = 4     # dst = 0
+OP_COPY = 5     # dst = a
+# Sparse-expand: dst = expanded(a). The port has no sparse banks yet, so
+# no plan carries expand registers and the interpreter runs it as COPY.
+OP_EXPAND = 6
+# Threshold accumulate: dst = dst | (a & b), the thermometer step of the
+# N-of-M counter. THRESH is the one opcode that READS its dst.
+OP_THRESH = 7
+
+OP_NAMES = ("and", "or", "xor", "andnot", "zero", "copy", "expand",
+            "thresh")
+
+_FOLD_OPS = {"and": OP_AND, "or": OP_OR, "xor": OP_XOR, "diff": OP_ANDNOT}
+
+
+def pow2_at_least(n: int) -> int:
+    """Smallest power of two >= max(n, 1): the capacity buckets every
+    plan axis is padded to."""
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+class Lowering:
+    """Accumulates one launch's plan across N staged evals.
+
+    Slot registers are discovered in IR order but must land bank-grouped
+    in the slab (the gather concatenates per bank), so instructions are
+    emitted in a token space and remapped by ``finish()`` once every
+    bank's slot list is complete. A Lowering lives for one flush.
+    """
+
+    def __init__(self) -> None:
+        self.bank_order: List[Any] = []      # bank tensors, launch order
+        self.bank_slots: List[List[int]] = []
+        self.bank_widths: List[List[int]] = []
+        self._bank_pos: Dict[int, int] = {}
+        # (bank, slot, width) -> token: entries reading the SAME operand
+        # row share one slab register (slot registers are read-only).
+        self._slot_pos: Dict[Tuple[int, int, int], Tuple[str, int, int]] = {}
+        self.instrs: List[Tuple[int, Token, Token, Token]] = []
+        self.n_scratch = 0
+        self.out_count: List[Token] = []  # token per count-mode entry
+        self.out_row: List[Token] = []    # token per row-mode entry
+        # Per-output-lane plan widths (real lanes only, lane order): the
+        # verifier's targets for the masking invariant.
+        self.out_count_widths: List[int] = []
+        self.out_row_widths: List[int] = []
+
+    # ------------------------------------------------------------ building
+
+    def _bank(self, array: Any) -> int:
+        pos = self._bank_pos.get(id(array))
+        if pos is None:
+            pos = len(self.bank_order)
+            self._bank_pos[id(array)] = pos
+            self.bank_order.append(array)
+            self.bank_slots.append([])
+            self.bank_widths.append([])
+        return pos
+
+    def _slot(self, array: Any, slot: int, width: int) -> Tuple[str, int, int]:
+        b = self._bank(array)
+        key = (b, int(slot), int(width))
+        token = self._slot_pos.get(key)
+        if token is None:
+            self.bank_slots[b].append(int(slot))
+            self.bank_widths[b].append(int(width))
+            token = ("s", b, len(self.bank_slots[b]) - 1)
+            self._slot_pos[key] = token
+        return token
+
+    def _scratch(self) -> int:
+        self.n_scratch += 1
+        return self.n_scratch - 1
+
+    def _emit(self, op: int, dst: Any, a: Any, b: Any) -> None:
+        self.instrs.append((op, dst, a, b))
+
+    def add_entry(self, ir: Sequence[tuple], bank_arrays: Sequence[Any],
+                  idxs: Sequence[int], params: Sequence[int],
+                  width: int, mode: str) -> int:
+        """Lower one staged eval's postfix IR; returns the entry's lane
+        in its mode's output array."""
+        stack: List[Any] = []
+        for node in ir:
+            kind = node[0]
+            if kind == "slot":
+                _, pos, i = node
+                stack.append(self._slot(bank_arrays[pos], idxs[i], width))
+            elif kind == "zero":
+                r = self._scratch()
+                self._emit(OP_ZERO, r, r, r)
+                stack.append(r)
+            elif kind == "fold":
+                _, opname, n = node
+                ops = stack[-n:]
+                del stack[-n:]
+                acc = ops[0]
+                if n > 1:
+                    # Left fold into a scratch register: slot registers
+                    # may be shared across entries, so they are read-only.
+                    r = self._scratch()
+                    self._emit(_FOLD_OPS[opname], r, acc, ops[1])
+                    for operand in ops[2:]:
+                        self._emit(_FOLD_OPS[opname], r, r, operand)
+                    acc = r
+                stack.append(acc)
+            elif kind == "thresh":
+                _, kval, n = node
+                ops = stack[-n:]
+                del stack[-n:]
+                stack.append(self._lower_thresh(int(kval), ops))
+            elif kind == "bsi":
+                _, bkind, pos, i0, depth, j, k, allow_eq = node
+                planes = [self._slot(bank_arrays[pos], idxs[i0 + d], width)
+                          for d in range(depth + 1)]
+                stack.append(self._lower_bsi(
+                    bkind, planes, depth, params, j, k, allow_eq))
+            else:
+                # "xslot" (sparse banks) is not ported; anything else is
+                # a planner/lowering mismatch.
+                raise ValueError(f"unsupported megakernel IR node {node!r}")
+        if len(stack) != 1:
+            raise ValueError(f"unbalanced megakernel IR ({len(stack)})")
+        root = stack[0]
+        if mode == "count":
+            self.out_count.append(root)
+            self.out_count_widths.append(int(width))
+            return len(self.out_count) - 1
+        self.out_row.append(root)
+        self.out_row_widths.append(int(width))
+        return len(self.out_row) - 1
+
+    def _lower_thresh(self, k: int, ops: List[Any]) -> Any:
+        """Thermometer N-of-M counter: after folding every operand,
+        ``t_j`` holds the columns where at least ``j`` operands are set;
+        the answer is ``t_k``. k > n (more votes than operands) is the
+        empty row. Descending ``j`` order is load-bearing: each step must
+        read the PREVIOUS operand's t_{j-1}."""
+        n = len(ops)
+        if k < 1:
+            raise ValueError(f"thresh k={k} must be >= 1")
+        if k > n:
+            r = self._scratch()
+            self._emit(OP_ZERO, r, r, r)
+            return r
+        regs = []
+        for _ in range(k):
+            r = self._scratch()
+            self._emit(OP_ZERO, r, r, r)
+            regs.append(r)
+        for x in ops:
+            for j in range(k - 1, 0, -1):
+                self._emit(OP_THRESH, regs[j], regs[j - 1], x)
+            self._emit(OP_OR, regs[0], regs[0], x)
+        return regs[k - 1]
+
+    # ------------------------------------------------------ BSI expansion
+
+    @staticmethod
+    def _value(params: Sequence[int], j: int) -> int:
+        """Reassemble the two u32 limbs the executor's params carry."""
+        return int(params[j]) | (int(params[j + 1]) << 32)
+
+    def _lower_bsi(self, kind: str, planes: List[Any], depth: int,
+                   params: Sequence[int], j: int, k: int,
+                   allow_eq: bool) -> Any:
+        """Expand one comparison into the exact bit-plane scan of
+        ``executor/bsi.py``, each per-bit branch taken on the host
+        value."""
+        nn = planes[depth]  # not-null plane
+        if kind == "notnull":
+            return nn
+        if kind == "eq" or kind == "neq":
+            value = self._value(params, j)
+            m = self._scratch()
+            self._emit(OP_COPY, m, nn, nn)
+            for i in range(depth):
+                op = OP_AND if (value >> i) & 1 else OP_ANDNOT
+                self._emit(op, m, m, planes[i])
+            if kind == "eq":
+                return m
+            r = self._scratch()
+            self._emit(OP_ANDNOT, r, nn, m)
+            return r
+        if kind == "between":
+            lo = self._lower_scan(planes, depth, self._value(params, j),
+                                  "gt", True)
+            hi = self._lower_scan(planes, depth, self._value(params, k),
+                                  "lt", True)
+            self._emit(OP_AND, lo, lo, hi)
+            return lo
+        return self._lower_scan(planes, depth, self._value(params, j),
+                                kind, allow_eq)
+
+    def _lower_scan(self, planes: List[Any], depth: int, value: int,
+                    kind: str, allow_eq: bool) -> Any:
+        """The MSB-first lt/gt scan: `matched` accumulates, `eq_prefix`
+        narrows, strictly in source order."""
+        matched = self._scratch()
+        self._emit(OP_ZERO, matched, matched, matched)
+        eqp = self._scratch()
+        self._emit(OP_COPY, eqp, planes[depth], planes[depth])
+        tmp = self._scratch()
+        for i in reversed(range(depth)):
+            vb = (value >> i) & 1
+            grows = vb if kind == "lt" else (1 - vb)
+            if grows:
+                # lt: values with 0 under a predicate 1-bit are smaller;
+                # gt: values with 1 under a predicate 0-bit are larger.
+                op = OP_ANDNOT if kind == "lt" else OP_AND
+                self._emit(op, tmp, eqp, planes[i])
+                self._emit(OP_OR, matched, matched, tmp)
+            self._emit(OP_AND if vb else OP_ANDNOT, eqp, eqp, planes[i])
+        if allow_eq:
+            self._emit(OP_OR, matched, matched, eqp)
+        return matched
+
+    # ------------------------------------------------------------ finish
+
+    def finish(self) -> "Plan":
+        """Resolve tokens to bank-grouped register numbers and pad every
+        axis to its pow2 capacity bucket. Slab layout: slot registers,
+        then scratch, then the pow2 pad with its spare register on top."""
+        offsets: List[int] = []
+        total = 0
+        for slots in self.bank_slots:
+            offsets.append(total)
+            total += len(slots)
+        n_slots = total
+
+        def reg(token: Any) -> int:
+            if isinstance(token, tuple):
+                _, b, kth = token
+                return offsets[b] + kth
+            return n_slots + int(token)
+
+        n_regs = n_slots + self.n_scratch
+        # +1 spare register: pad instructions and pad output lanes need a
+        # dead destination that no real lane reads.
+        t_pad = pow2_at_least(n_regs + 1)
+        spare = t_pad - 1
+        instrs = [(op, reg(d), reg(a), reg(b))
+                  for op, d, a, b in self.instrs]
+        p_pad = pow2_at_least(len(instrs))
+        n_instrs = len(instrs)
+        instrs += [(OP_ZERO, spare, spare, spare)] * (p_pad - n_instrs)
+        widths = [w for ws in self.bank_widths for w in ws]
+        out_count = [reg(t) for t in self.out_count]
+        out_row = [reg(t) for t in self.out_row]
+        nc, nr = len(out_count), len(out_row)
+        out_count += [spare] * (pow2_at_least(nc) - nc)
+        out_row += [spare] * (pow2_at_least(nr) - nr)
+        return Plan(
+            banks=tuple(self.bank_order),
+            slots=tuple(np.asarray(s, np.int32) for s in self.bank_slots),
+            widths=np.asarray(widths + [0] * (t_pad - n_slots), np.int32),
+            instrs=np.asarray(instrs, np.int32).reshape(p_pad, 4),
+            out_count=np.asarray(out_count, np.int32),
+            out_row=np.asarray(out_row, np.int32),
+            n_slots=n_slots, n_regs=t_pad, n_instrs=n_instrs,
+            lane_count_widths=tuple(self.out_count_widths),
+            lane_row_widths=tuple(self.out_row_widths))
+
+
+class Plan:
+    """One launch's finished plan buffers (host numpy; ``run_program``
+    uploads them)."""
+
+    __slots__ = ("banks", "slots", "widths", "instrs", "out_count",
+                 "out_row", "n_slots", "n_regs", "n_instrs",
+                 "lane_count_widths", "lane_row_widths")
+
+    def __init__(self, banks: Tuple[Any, ...],
+                 slots: Tuple[np.ndarray, ...], widths: np.ndarray,
+                 instrs: np.ndarray, out_count: np.ndarray,
+                 out_row: np.ndarray, n_slots: int, n_regs: int,
+                 n_instrs: int,
+                 lane_count_widths: Tuple[int, ...] = (),
+                 lane_row_widths: Tuple[int, ...] = ()) -> None:
+        self.banks = banks
+        self.slots = slots
+        self.widths = widths
+        self.instrs = instrs
+        self.out_count = out_count
+        self.out_row = out_row
+        self.n_slots = n_slots
+        self.n_regs = n_regs
+        self.n_instrs = n_instrs
+        # Real (unpadded) output-lane plan widths, lane order; their
+        # lengths are the real lane counts.
+        self.lane_count_widths = lane_count_widths
+        self.lane_row_widths = lane_row_widths
+
+    @property
+    def plan_nbytes(self) -> int:
+        """Bytes of plan data uploaded per launch."""
+        return int(self.instrs.nbytes + self.widths.nbytes
+                   + self.out_count.nbytes + self.out_row.nbytes
+                   + sum(int(s.nbytes) for s in self.slots))
+
+    def sig(self, n_shards: int, w_mega: int) -> str:
+        """Shape key of the launch: capacities, operand bank shapes and
+        per-bank slot-list lengths (instruction content is data). The
+        executor verifies the first launch of every key."""
+        bshapes = [(tuple(getattr(a, "shape", ())), len(s))
+                   for a, s in zip(self.banks, self.slots)]
+        return (f"mega|S{n_shards}|W{w_mega}|T{self.n_regs}"
+                f"|P{self.instrs.shape[0]}|C{len(self.out_count)}"
+                f"|R{len(self.out_row)}|B{bshapes}")
+
+
+def slab_nbytes(n_regs: int, n_shards: int, w_mega: int) -> int:
+    """Device footprint of the launch's register slab."""
+    return int(n_regs) * int(n_shards) * int(w_mega) * 4
+
+
+# --------------------------------------------------------- verification
+#
+# The plan buffer is data handed to one interpreter, so a lowering bug
+# would produce wrong bits silently: read a register nothing wrote,
+# clobber a shared operand row another entry still needs, or popcount
+# words past an entry's plan width. verify_plan() is the pre-launch type
+# checker for that machine; on the card it also keeps every register
+# index inside the slab.
+
+
+class PlanVerifyError(ValueError):
+    """A plan buffer failed pre-launch verification; the message names
+    the instruction or lane and the invariant it broke."""
+
+
+_READS_A = (OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_COPY, OP_THRESH)
+_READS_B = (OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_THRESH)
+# THRESH is the accumulate opcode: dst = dst | (a & b), so dst is a READ
+# operand too and must be defined before the instruction runs.
+_READS_DST = (OP_THRESH,)
+
+
+def _is_pow2(n: int) -> bool:
+    return n >= 1 and (n & (n - 1)) == 0
+
+
+def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
+    """Validate one launch's plan buffers against the interpreter's
+    execution model; raise :class:`PlanVerifyError` on the first
+    violation, return ``None`` when every invariant holds.
+
+    * **Structural**: ``instrs`` is int32 ``[P, 4]`` with ``P`` a pow2
+      capacity >= ``n_instrs``; ``n_regs`` pow2 with room for the spare
+      register above ``n_slots``; output-lane arrays pow2-padded; the
+      per-bank slot lists sum to ``n_slots``.
+    * **Gather bounds**: every slot index addresses a real row of its
+      bank, and 3-d banks carry exactly ``n_shards`` shards.
+    * **Width masks**: slot registers carry a plan width in
+      ``[1, w_mega]``; pad registers carry 0.
+    * **Opcodes** in the table; **register bounds**; no instruction
+      writes a slot register (gathered rows are shared across entries).
+    * **Expand typing**: the port gathers no expand registers, so an
+      ``OP_EXPAND`` instruction has nothing to import and is rejected.
+    * **Def-before-use**: a scratch operand an instruction reads (THRESH
+      reads its dst too) was written by an earlier instruction.
+    * **Pad-tail no-ops**: instructions past ``n_instrs`` are ``ZERO``
+      into a non-slot register no real output lane reads.
+    * **Masking invariant**: each register is abstracted to the least
+      upper bound on its nonzero word span (AND takes ``min``, OR/XOR
+      ``max``, ANDNOT/COPY the left span, ZERO 0, THRESH
+      ``max(dst, min(a, b))``); every real output lane must prove a span
+      <= its plan width.
+    """
+    instrs = plan.instrs
+    if instrs.ndim != 2 or instrs.shape[1] != 4:
+        raise PlanVerifyError(
+            f"instrs must be [P, 4], got shape {instrs.shape}")
+    if instrs.dtype != np.int32:
+        raise PlanVerifyError(f"instrs must be int32, got {instrs.dtype}")
+    T = int(plan.n_regs)
+    P = int(instrs.shape[0])
+    n_slots = int(plan.n_slots)
+    n_instrs = int(plan.n_instrs)
+    if not _is_pow2(T) or T <= n_slots:
+        raise PlanVerifyError(
+            f"n_regs={T} must be a pow2 capacity > n_slots={n_slots} "
+            f"(the pad/spare register lives above the gathered operands)")
+    if not _is_pow2(P) or not 0 <= n_instrs <= P:
+        raise PlanVerifyError(
+            f"instr capacity P={P} must be pow2 >= n_instrs={n_instrs}")
+    if len(plan.banks) != len(plan.slots):
+        raise PlanVerifyError(
+            f"{len(plan.banks)} banks but {len(plan.slots)} slot lists")
+    if sum(len(s) for s in plan.slots) != n_slots:
+        raise PlanVerifyError(
+            f"per-bank slot lists sum to "
+            f"{sum(len(s) for s in plan.slots)} != n_slots={n_slots}")
+    if plan.widths.shape != (T,):
+        raise PlanVerifyError(
+            f"widths must be [n_regs]={T}, got {plan.widths.shape}")
+    nc = len(plan.lane_count_widths)
+    nr = len(plan.lane_row_widths)
+    if len(plan.out_count) != pow2_at_least(nc) or nc > len(plan.out_count):
+        raise PlanVerifyError(
+            f"out_count holds {len(plan.out_count)} lanes for {nc} "
+            f"real count entries (pow2 pad expected)")
+    if len(plan.out_row) != pow2_at_least(nr) or nr > len(plan.out_row):
+        raise PlanVerifyError(
+            f"out_row holds {len(plan.out_row)} lanes for {nr} "
+            f"real row entries (pow2 pad expected)")
+
+    # Gather bounds: slot indices inside each bank, shard axis aligned.
+    for b, (bank, slots) in enumerate(zip(plan.banks, plan.slots)):
+        shape = getattr(bank, "shape", None)
+        if not isinstance(shape, tuple) or not shape:
+            continue  # opaque bank (tests stub them); widths still check
+        rows = int(shape[0])
+        for j, s in enumerate(np.asarray(slots).tolist()):
+            if not 0 <= int(s) < rows:
+                raise PlanVerifyError(
+                    f"bank {b} slot[{j}]={int(s)} outside its "
+                    f"{rows}-row bank")
+        if len(shape) == 3 and int(shape[1]) != int(n_shards):
+            raise PlanVerifyError(
+                f"bank {b} carries {int(shape[1])} shards, launch "
+                f"expects {int(n_shards)}")
+
+    widths = plan.widths.tolist()
+    for k in range(n_slots):
+        if not 1 <= int(widths[k]) <= int(w_mega):
+            raise PlanVerifyError(
+                f"slot register {k} width {int(widths[k])} outside "
+                f"[1, w_mega={int(w_mega)}]")
+    for k in range(n_slots, T):
+        if int(widths[k]) != 0:
+            raise PlanVerifyError(
+                f"pad register {k} carries width {int(widths[k])} "
+                f"(must be 0: its mask row is never gathered)")
+
+    # span[r] = least upper bound on r's nonzero word span; None = never
+    # written (reads of it are RAW violations).
+    span: List[Optional[int]] = [int(widths[k]) for k in range(n_slots)]
+    span += [None] * (T - n_slots)
+    rows_list = instrs.tolist()
+    for i in range(n_instrs):
+        op, dst, a, b = (int(x) for x in rows_list[i])
+        if not 0 <= op < len(OP_NAMES):
+            raise PlanVerifyError(
+                f"instr {i}: opcode {op} not in the table "
+                f"(0..{len(OP_NAMES) - 1})")
+        for nm, r in (("dst", dst), ("a", a), ("b", b)):
+            if not 0 <= r < T:
+                raise PlanVerifyError(
+                    f"instr {i} ({OP_NAMES[op]}): {nm}={r} outside "
+                    f"the {T}-register slab")
+        if dst < n_slots:
+            raise PlanVerifyError(
+                f"instr {i} ({OP_NAMES[op]}): writes slot register "
+                f"{dst} — gathered operand rows are shared across "
+                f"entries and read-only")
+        if op == OP_EXPAND:
+            raise PlanVerifyError(
+                f"instr {i} (expand): a={a} is not an expand register "
+                f"(the plan gathers none)")
+        reads = []
+        if op in _READS_A:
+            reads.append(("a", a))
+        if op in _READS_B:
+            reads.append(("b", b))
+        if op in _READS_DST:
+            reads.append(("dst", dst))
+        for nm, r in reads:
+            if r >= n_slots and span[r] is None:
+                raise PlanVerifyError(
+                    f"instr {i} ({OP_NAMES[op]}): reads scratch "
+                    f"register {r} ({nm}) before any instruction "
+                    f"defines it (RAW chain broken — the machine "
+                    f"would silently read zeros)")
+        za = span[a] if op in _READS_A else 0
+        zb = span[b] if op in _READS_B else 0
+        za = 0 if za is None else int(za)
+        zb = 0 if zb is None else int(zb)
+        if op == OP_ZERO:
+            span[dst] = 0
+        elif op in (OP_COPY, OP_ANDNOT):
+            span[dst] = za
+        elif op == OP_AND:
+            span[dst] = min(za, zb)
+        elif op == OP_THRESH:
+            zd = span[dst]
+            zd = 0 if zd is None else int(zd)
+            span[dst] = max(zd, min(za, zb))
+        else:  # OR / XOR
+            span[dst] = max(za, zb)
+
+    # Real output lanes: in-bounds, defined, and width-masked.
+    out_count = plan.out_count.tolist()
+    out_row = plan.out_row.tolist()
+    for mode, lanes, lane_widths in (
+            ("count", out_count, plan.lane_count_widths),
+            ("row", out_row, plan.lane_row_widths)):
+        for j, r in enumerate(lanes):
+            if not 0 <= int(r) < T:
+                raise PlanVerifyError(
+                    f"{mode} lane {j}: register {int(r)} outside the "
+                    f"{T}-register slab")
+        for j, w in enumerate(lane_widths):
+            r = int(lanes[j])
+            sv = span[r]
+            if sv is None:
+                raise PlanVerifyError(
+                    f"{mode} lane {j}: reads register {r} that no "
+                    f"instruction defines")
+            z = int(sv)
+            if not 1 <= int(w) <= int(w_mega):
+                raise PlanVerifyError(
+                    f"{mode} lane {j}: plan width {int(w)} outside "
+                    f"[1, w_mega={int(w_mega)}]")
+            if z > int(w):
+                raise PlanVerifyError(
+                    f"{mode} lane {j}: register {r} may carry nonzero "
+                    f"words up to {z}, past the entry's plan width "
+                    f"{int(w)} — the masking invariant does not hold")
+
+    # Pad tail: provably no-ops (ZERO into a dead non-slot register).
+    real_out = {int(out_count[j]) for j in range(nc)}
+    real_out |= {int(out_row[j]) for j in range(nr)}
+    for i in range(n_instrs, P):
+        op, dst, a, b = (int(x) for x in rows_list[i])
+        if op != OP_ZERO:
+            name = OP_NAMES[op] if 0 <= op < len(OP_NAMES) else op
+            raise PlanVerifyError(
+                f"pad instr {i}: opcode {name} — pad-tail instructions "
+                f"must be ZERO")
+        for nm, r in (("dst", dst), ("a", a), ("b", b)):
+            if not 0 <= r < T:
+                raise PlanVerifyError(
+                    f"pad instr {i}: {nm}={r} outside the "
+                    f"{T}-register slab")
+        if dst < n_slots:
+            raise PlanVerifyError(
+                f"pad instr {i}: zeroes slot register {dst} — pads "
+                f"must write a dead register")
+        if dst in real_out:
+            raise PlanVerifyError(
+                f"pad instr {i}: zeroes register {dst} that a real "
+                f"output lane reads — the pad tail would corrupt a "
+                f"result")
+
+
+# ------------------------------------------------------------- program
+
+
+def _fit(rows: torch.Tensor, w_mega: int) -> torch.Tensor:
+    """Slice or zero-pad the word axis to the launch width."""
+    w = rows.shape[-1]
+    if w > w_mega:
+        return rows[..., :w_mega]
+    if w < w_mega:
+        return torch.nn.functional.pad(rows, (0, w_mega - w))
+    return rows
+
+
+def gather_slab(plan: Plan, n_shards: int, w_mega: int) -> torch.Tensor:
+    """The interpreter's input: a fresh ``[n_regs, S, w_mega]`` int32
+    slab holding each bank's slot rows fitted to ``w_mega`` and masked to
+    their entry's plan width, then zeros (scratch and pad registers)."""
+    if not plan.banks:
+        raise ValueError("a megakernel plan needs at least one bank")
+    device = plan.banks[0].device
+    slab = torch.empty((plan.n_regs, n_shards, w_mega), dtype=torch.int32,
+                       device=device)
+    off = 0
+    widths = plan.widths.tolist()
+    for bank, slots in zip(plan.banks, plan.slots):
+        k = len(slots)
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=device)
+        if bank.shape[-1] == w_mega and bank.is_contiguous():
+            torch.index_select(bank, 0, idx, out=slab[off:off + k])
+        else:
+            slab[off:off + k] = _fit(bank.index_select(0, idx), w_mega)
+        copied = min(int(bank.shape[-1]), w_mega)
+        for r in range(off, off + k):
+            if widths[r] < copied:
+                slab[r, :, widths[r]:copied] = 0
+        off += k
+    slab[off:].zero_()
+    return slab
+
+
+def run_program(plan: Plan, n_shards: int, w_mega: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run one finished plan: the gather prologue, one ``mega_interpret``
+    launch (or its plain version for CPU banks), then the outputs.
+    Returns ``(counts int64[Nc], rows int32[Nr, S, w_mega])`` on the
+    banks' device, pow2 pad lanes included."""
+    from pilosa_tpu_torch.ops import kernels
+    slab = gather_slab(plan, n_shards, w_mega)
+    slab, counts = kernels.mega_interpret(
+        slab, torch.from_numpy(plan.instrs),
+        torch.from_numpy(plan.out_count))
+    out_row = torch.as_tensor(plan.out_row.astype(np.int64),
+                              device=slab.device)
+    rows = slab.index_select(0, out_row)
+    return counts, rows
