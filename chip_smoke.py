@@ -19,7 +19,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    version on seeded random plans over all eight opcodes, with
    read-after-write and THRESH chains, dst == a aliasing and pow2 pad
    rows, at the burst's shape (T = 64, S = 96, W = 32768) and at ragged
-   shapes (T = 8, S = 3, W in {33, 128, 2048}).
+   shapes (T = 8, S = 3, W in {33, 128, 2048}). Hold
+   ``pbank_membership_counts`` bit-exact against its plain version on
+   fixed [65536, 48] rows with 0xFFFF pads (48- and 1500-bit filters),
+   fixed [1024, 128] and flat rows of 0-200 positions, W in {1, 128,
+   2047}.
 3. taxi: build the NYC-taxi ride index (100M rides = 96 shards, seed 5;
    cab_type, passenger_count, dist, amount, existence) on
    ``Holder(device="cuda")`` and answer five queries through
@@ -31,10 +35,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the same requests' warm p50s one at a time, the gather prologue's and
    the kernel's time on the burst's real plan, the kernel's bound and its
    plain version's time.
+5. tanimoto: a fingerprint index of 10M molecules (``--molecules``;
+   4096-bit fingerprints of 48 draws each from seed 11, one shard, 200
+   planted analogues of molecule 12345) loaded through
+   ``Field.import_bits``, then five TopN queries (Tanimoto 60 and 30,
+   filtered, unfiltered, threshold) through ``Executor.execute``, each
+   exact against numpy and answered from the device-resident positions
+   bank with no full dense bank; then one Set into the query molecule,
+   after which the answers stay exact and every other segment keeps its
+   device arrays. Then the membership kernel's time on one segment of
+   that bank beside its bound, its plain version and torch.isin.
 
-Launch counts are set to 0 just before each path (taxi, burst) and read
-just after; every kernel must have launched on its path. The
-second-to-last line is the kernels JSON, the last line
+Launch counts are set to 0 just before each path (taxi, burst,
+fingerprint) and read just after; every kernel must have launched on its
+path. The second-to-last line is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or
 of the JAX package.
 """
@@ -42,6 +56,7 @@ of the JAX package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import subprocess
@@ -54,18 +69,41 @@ SOURCES = {
     "bank_row_counts_masked": "pilosa_tpu_torch/csrc/bank_counts.cu",
     "bsi_plane_counts": "pilosa_tpu_torch/csrc/bank_counts.cu",
     "mega_interpret": "pilosa_tpu_torch/csrc/mega_interpret.cu",
+    "pbank_membership_counts": "pilosa_tpu_torch/csrc/pbank_membership.cu",
 }
 REPLACES = {
     "bank_row_counts": "pilosa_tpu/ops/pallas_kernels.py:143",
     "bank_row_counts_masked": "pilosa_tpu/ops/pallas_kernels.py:168",
     "bsi_plane_counts": "pilosa_tpu/ops/pallas_kernels.py:374",
     "mega_interpret": "pilosa_tpu/ops/pallas_kernels.py:337",
+    "pbank_membership_counts": "pilosa_tpu/ops/pallas_kernels.py:250",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 SHARD_WIDTH = 1 << 20
 WORDS = 32768
 N_RIDES = 100_000_000  # 96 shards
 ITERS = 5  # warm runs per taxi query for the p50
+
+# The fingerprint index: the reference's chemical-similarity example
+# (benches/tanimoto_chunked.py) — one row per molecule, 48 draws of a
+# 4096-bit Morgan fingerprint each, one shard.
+N_MOLECULES = 10_000_000
+FP_BITS = 4096
+BITS_PER_MOL = 48
+FP_SEED = 11
+QUERY_MOL = 12345
+N_ANALOGUES = 200  # planted near neighbours of the query molecule
+LOAD_CHUNK = 1_000_000  # molecules per Field.import_bits call
+FP_QUERIES = [
+    ("tanimoto60", f"TopN(fingerprint, Row(fingerprint={QUERY_MOL}), n=50, "
+                   "tanimotoThreshold=60)"),
+    ("tanimoto30", f"TopN(fingerprint, Row(fingerprint={QUERY_MOL}), n=100, "
+                   "tanimotoThreshold=30)"),
+    ("filtered", f"TopN(fingerprint, Row(fingerprint={QUERY_MOL}), n=50)"),
+    ("unfiltered", "TopN(fingerprint, n=10)"),
+    ("threshold30", f"TopN(fingerprint, Row(fingerprint={QUERY_MOL}), n=20, "
+                    "threshold=30)"),
+]
 
 # The burst: one dashboard refresh, eighteen read requests of different
 # shapes over the taxi index (name, PQL).
@@ -466,7 +504,8 @@ def run_taxi(ex, want, device, iters=ITERS, profile=False):
             f" s, warm p50 {times[len(times) // 2]:.6f} s, launches "
             f"{report[name]['launches']}")
     if device != "cpu" and profile:
-        report["profile"] = profile_taxi(torch, ex, iters)
+        report["profile"] = profile_queries(torch, ex, "taxi", TAXI_QUERIES,
+                                            iters)
     return report, launches
 
 
@@ -691,20 +730,20 @@ def device_times(torch, prof, iters):
     return per_kernel
 
 
-def profile_taxi(torch, ex, iters):
+def profile_queries(torch, ex, index, queries, iters):
     """Per query, under torch.profiler over `iters` warm runs: wall time
     and device time per query, the device's busy share, and the kernels
     that took the device time."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for name, pql in TAXI_QUERIES:
-        ex.execute("taxi", pql)
+    for name, pql in queries:
+        ex.execute(index, pql)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
-                ex.execute("taxi", pql)
+                ex.execute(index, pql)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         per_kernel = device_times(torch, prof, iters)
@@ -719,17 +758,336 @@ def profile_taxi(torch, ex, iters):
     return out
 
 
+# --------------------------------------------------------- fingerprints
+
+
+def fingerprint_positions(n, seed=FP_SEED):
+    """Sorted fingerprint bit positions uint16 [n, BITS_PER_MOL] (draws may
+    repeat), with N_ANALOGUES planted analogues of QUERY_MOL: each shares
+    24-47 of its distinct bits and draws the rest outside them, so the
+    Tanimoto thresholds return real ranked lists with ties."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pos = np.sort(rng.integers(0, FP_BITS, (n, BITS_PER_MOL),
+                               dtype=np.uint16), axis=1)
+    plant = np.random.default_rng(seed + 1)
+    qbits = np.unique(pos[QUERY_MOL])
+    others = np.setdiff1d(np.arange(FP_BITS, dtype=np.uint16), qbits)
+    cand = plant.choice(n - 1, N_ANALOGUES, replace=False)
+    for mol in (cand + (cand >= QUERY_MOL)).tolist():
+        k = int(plant.integers(24, min(48, len(qbits) + 1)))
+        row = np.concatenate([
+            plant.choice(qbits, k, replace=False),
+            plant.choice(others, BITS_PER_MOL - k, replace=False)])
+        pos[mol] = np.sort(row)
+    return pos
+
+
+def top_pairs(counts, n):
+    """The first n (row, count) pairs of counts > 0 in (-count, row)
+    order, in O(rows): every row above the n-th count, then the lowest
+    rows at it."""
+    import numpy as np
+    if len(counts) > n:
+        kth = max(1, int(np.partition(counts, len(counts) - n)
+                         [len(counts) - n]))
+    else:
+        kth = 1
+    above = np.flatnonzero(counts > kth)
+    at = np.flatnonzero(counts == kth)[:max(0, n - len(above))]
+    cand = np.concatenate([above, at])
+    order = np.lexsort((cand, -counts[cand]))[:n]
+    return [(int(cand[o]), int(counts[cand[o]])) for o in order]
+
+
+def fingerprint_expected(pos, extra_col=None):
+    """Exact answers of FP_QUERIES from the positions array with numpy
+    (distinct bits per row, the query row's bits as the filter), in 1M-row
+    chunks. ``extra_col`` adds one column to the query molecule first."""
+    import numpy as np
+    filt = np.zeros(FP_BITS, dtype=bool)
+    filt[pos[QUERY_MOL]] = True
+    if extra_col is not None:
+        filt[extra_col] = True
+    inter = np.empty(len(pos), np.int64)
+    raw = np.empty(len(pos), np.int64)
+    for c0 in range(0, len(pos), 1_000_000):
+        p = pos[c0:c0 + 1_000_000]
+        keep = np.empty(p.shape, dtype=bool)
+        keep[:, 0] = True
+        np.not_equal(p[:, 1:], p[:, :-1], out=keep[:, 1:])
+        raw[c0:c0 + len(p)] = keep.sum(axis=1)
+        inter[c0:c0 + len(p)] = (filt[p] & keep).sum(axis=1)
+    if extra_col is not None:
+        raw[QUERY_MOL] += 1
+        inter[QUERY_MOL] += 1
+    src = int(raw[QUERY_MOL])
+    denom = raw + src - inter
+    want = {}
+    for name, t, n in (("tanimoto60", 60, 50), ("tanimoto30", 30, 100)):
+        ok = (denom > 0) & ((inter * 100) // np.maximum(denom, 1) >= t)
+        want[name] = top_pairs(np.where(ok, inter, 0), n)
+    want["filtered"] = top_pairs(inter, 50)
+    want["unfiltered"] = top_pairs(raw, 10)
+    want["threshold30"] = top_pairs(np.where(inter >= 30, inter, 0), 20)
+    return want
+
+
+def load_fingerprints(device, pos):
+    """The fingerprint index on a port Holder through Field.import_bits,
+    LOAD_CHUNK molecules a call. Returns (holder, executor, field,
+    seconds)."""
+    import numpy as np
+    from pilosa_tpu_torch import Executor, FieldOptions, Holder
+    t0 = time.perf_counter()
+    holder = Holder(device=device)
+    idx = holder.create_index("mole", track_existence=False)
+    field = idx.create_field("fingerprint", FieldOptions(max_columns=FP_BITS))
+    for c0 in range(0, len(pos), LOAD_CHUNK):
+        chunk = pos[c0:c0 + LOAD_CHUNK]
+        field.import_bits(
+            np.repeat(np.arange(c0, c0 + len(chunk), dtype=np.uint64),
+                      BITS_PER_MOL),
+            chunk.reshape(-1).astype(np.uint64))
+    return holder, Executor(holder, device=device), field, \
+        time.perf_counter() - t0
+
+
+def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
+    """The fingerprint phase: load, the five queries through
+    Executor.execute with the launch counts set to 0 just before the
+    first pass and read just after (exact against numpy, through the
+    positions bank), warm p50s, then one Set into the query molecule's
+    segment, after which the answers stay exact and every other
+    segment's device arrays are reused. Returns (report, launches,
+    timing inputs)."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch.core.view import PositionsBank, ViewBank
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.ops.bitset import pack_positions, to_tensor
+    t0 = time.perf_counter()
+    pos = fingerprint_positions(n_molecules)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = fingerprint_expected(pos)
+    numpy_s = time.perf_counter() - t0
+    holder, ex, field, load_s = load_fingerprints(device, pos)
+    log(f"fingerprint: {n_molecules} molecules generated in {gen_s:.2f} s, "
+        f"loaded in {load_s:.2f} s; numpy answers in {numpy_s:.2f} s")
+    report = {"molecules": n_molecules, "load_s": load_s, "gen_s": gen_s,
+              "queries": {}}
+    kernels.reset_launches()
+    for name, pql in FP_QUERIES:
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        (got,) = ex.execute("mole", pql)
+        first_s = time.perf_counter() - t0
+        if got.pairs != want[name]:
+            raise AssertionError(f"fingerprint {name}: port {got.pairs[:5]}"
+                                 f"... != numpy {want[name][:5]}...")
+        report["queries"][name] = {
+            "pql": pql, "first_s": first_s, "answers": len(got.pairs),
+            "launches": {k: kernels.LAUNCHES[k] - before[k]
+                         for k in before if kernels.LAUNCHES[k] != before[k]}}
+    launches = dict(kernels.LAUNCHES)
+    view = field.view()
+    width = view.trimmed_words()
+    pb = view._bank_cache.get(("pbank", 0, width))
+    dense = [k for k, b in view._bank_cache.items()
+             if isinstance(b, ViewBank) and b.array.shape[0] > 2]
+    if not isinstance(pb, PositionsBank) or dense or (
+            device != "cpu" and launches["pbank_membership_counts"] <= 0):
+        raise AssertionError(f"fingerprint: the path did not take the "
+                             f"positions bank (bank {type(pb).__name__}, "
+                             f"dense banks {dense}, launches {launches})")
+    report["segments"] = [
+        {"layout": "fixed" if seg[2].dim() == 2 else "flat",
+         "rows": seg[1], "shape": list(seg[2].shape), "positions": seg[4]}
+        for seg in pb.segments]
+    report["pbank_bytes"] = pb.nbytes
+    report["cold_first_query_s"] = \
+        report["queries"][FP_QUERIES[0][0]]["first_s"]
+    for name, pql in FP_QUERIES:
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            (got,) = ex.execute("mole", pql)
+            times.append(time.perf_counter() - t0)
+            if got.pairs != want[name]:
+                raise AssertionError(f"fingerprint {name}: warm answer "
+                                     "changed")
+        times.sort()
+        report["queries"][name]["p50_s"] = times[len(times) // 2]
+        log(f"fingerprint: {name} first "
+            f"{report['queries'][name]['first_s']:.4f} s, warm p50 "
+            f"{times[len(times) // 2]:.6f} s, launches "
+            f"{report['queries'][name]['launches']}, "
+            f"{len(want[name])} answers")
+    if device != "cpu" and profile:
+        report["profile"] = profile_queries(torch, ex, "mole", FP_QUERIES,
+                                            iters)
+    # The Set: one new bit in the query molecule's row, in segment 0.
+    qbits = set(pos[QUERY_MOL].tolist())
+    col = next(c for c in range(FP_BITS) if c not in qbits)
+    (changed,) = ex.execute("mole", f"Set({col}, fingerprint={QUERY_MOL})")
+    if not changed:
+        raise AssertionError("fingerprint: the Set changed nothing")
+    t0 = time.perf_counter()
+    pb2 = view.positions_bank(0, width)
+    report["patch_s"] = time.perf_counter() - t0
+    q_at = bisect.bisect_left(pb2.row_ids, QUERY_MOL)
+    seg_of = next(i for i, seg in enumerate(pb2.segments)
+                  if seg[0] <= q_at < seg[0] + seg[1])
+    reused = [i for i, (a, b) in enumerate(zip(pb.segments, pb2.segments))
+              if b[2] is a[2]]
+    if len(pb2.segments) != len(pb.segments) or \
+            reused != [i for i in range(len(pb.segments)) if i != seg_of]:
+        raise AssertionError(f"fingerprint: the patch reused segments "
+                             f"{reused} of {len(pb.segments)} (query in "
+                             f"segment {seg_of})")
+    want = fingerprint_expected(pos, extra_col=col)
+    for name, pql in FP_QUERIES:
+        (got,) = ex.execute("mole", pql)
+        if got.pairs != want[name]:
+            raise AssertionError(f"fingerprint {name} after the Set: port "
+                                 f"{got.pairs[:5]}... != numpy "
+                                 f"{want[name][:5]}...")
+    report["patched_segment"] = seg_of
+    log(f"fingerprint: Set({col}) patched segment {seg_of} of "
+        f"{len(pb2.segments)} in {report['patch_s']:.3f} s; all five "
+        "answers exact after it")
+    if device != "cpu":
+        report["device_bytes"] = torch.cuda.max_memory_allocated()
+    # The timing row's inputs, as the main path met them before the Set:
+    # one fixed segment of the bank and the query's filter words at the
+    # bank's width.
+    seg = next(s[2] for s in pb.segments if s[2].dim() == 2)
+    qpos = np.asarray(sorted(qbits), np.int16)
+    timing_in = {
+        "pos": seg,
+        "filt": to_tensor(pack_positions(qpos.astype(np.uint64),
+                                         width * 32), seg.device),
+        "qpos": torch.from_numpy(qpos).to(seg.device)}
+    del holder, ex, field, pos, pb, pb2
+    return report, launches, timing_in
+
+
+def check_pbank(torch, kernels, device):
+    """pbank_membership_counts bit-exact against its plain version:
+    fixed [65536, 48] rows of random lengths padded with 0xFFFF under a
+    48-bit and a 1500-bit filter, fixed [1024, 128], flat with ragged
+    lengths 0-200 over 10k rows; filters of W in {1, 128, 2047} words,
+    with bits at word 2046. Returns the max |kernel - plain| (0)."""
+    import numpy as np
+    from pilosa_tpu_torch.ops.bitset import pack_positions, to_tensor
+    rng = np.random.default_rng(17)
+
+    def fixed(R, L, hi):
+        pos = np.sort(rng.integers(0, hi, (R, L)), axis=1).astype(np.uint16)
+        lens = rng.integers(0, L + 1, R)
+        pos[np.arange(L)[None, :] >= lens[:, None]] = 0xFFFF
+        return torch.from_numpy(pos.view(np.int16)).to(device), None
+
+    def flat(R, max_len, hi):
+        lens = rng.integers(0, max_len + 1, R)
+        starts = np.zeros(R + 1, np.int32)
+        np.cumsum(lens, out=starts[1:])
+        buf = np.full(int(starts[-1]) + 4096, 0xFFFF, np.uint16)
+        buf[:starts[-1]] = rng.integers(0, hi, int(starts[-1]))
+        return (torch.from_numpy(buf.view(np.int16)).to(device),
+                torch.from_numpy(starts).to(device))
+
+    def filt(W, n_bits=None):
+        if n_bits is None:
+            words = rng.integers(0, 1 << 32, W, dtype=np.uint32)
+        else:
+            words = pack_positions(rng.choice(min(W * 32, FP_BITS), n_bits,
+                                              replace=False), W * 32)
+        if W == 2047:
+            words[2046] |= np.uint32(0x80000001)
+        return to_tensor(words, device)
+
+    cases = [("fixed [65536, 48], 48-bit filter", fixed(65536, 48, FP_BITS),
+              filt(128, 48)),
+             ("fixed [65536, 48], 1500-bit filter",
+              fixed(65536, 48, FP_BITS), filt(128, 1500))]
+    for W in (1, 128, 2047):
+        cases.append((f"fixed [1024, 128], W={W}", fixed(1024, 128, 65535),
+                      filt(W)))
+        cases.append((f"flat 10k rows of 0-200, W={W}",
+                      flat(10_000, 200, 65535), filt(W)))
+    for name, (pos, starts), fw in cases:
+        got = kernels.pbank_membership_counts(pos, fw, starts)
+        want = kernels.pbank_membership_counts_ref(pos, fw, starts)
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or got.dtype != torch.int32 or \
+                not torch.equal(got, want):
+            raise AssertionError(f"pbank_membership_counts {name}: kernel "
+                                 "differs from its plain version")
+    log(f"kernels: pbank_membership_counts bit-exact over {len(cases)} "
+        "cases")
+    return 0
+
+
+def time_pbank(torch, kernels, device, tin):
+    """The membership kernel at the main path's shape (one fixed segment
+    of the fingerprint bank, the query's filter): its C entry on a
+    preallocated output, its byte bound, its plain version and
+    torch.isin(pos, qpos).sum(1) — the nearest PyTorch expression, two
+    calls — each held equal to the kernel."""
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    pos, filt, qpos = tin["pos"], tin["filt"], tin["qpos"]
+    R, L = pos.shape
+    out = torch.empty(R, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def kernel():
+        return lib.pbank_membership_counts(pos.data_ptr(), None,
+                                           filt.data_ptr(), out.data_ptr(),
+                                           R, L, filt.numel(), stream)
+
+    if kernel() != 0:
+        raise RuntimeError("pbank_membership_counts: kernel launch failed")
+    want = kernels.pbank_membership_counts_ref(pos, filt)
+    lib_out = torch.isin(pos, qpos).sum(1, dtype=torch.int32)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want) or not torch.equal(out, lib_out):
+        raise AssertionError("pbank_membership_counts differs on the "
+                             "fingerprint segment")
+    ms = time_cuda(torch, kernel)
+    plain_ms = time_cuda(torch, lambda: kernels.pbank_membership_counts_ref(
+        pos, filt), iters=5, warmup=1)
+    library_ms = time_cuda(torch, lambda: torch.isin(pos, qpos).sum(
+        1, dtype=torch.int32))
+    nbytes = R * L * 2 + filt.numel() * 4 + R * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing: pbank_membership_counts [{R},{L}] W={filt.numel()} kernel "
+        f"{ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), plain "
+        f"{plain_ms:.4f} ms, torch.isin + sum (two calls) "
+        f"{library_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms, "shape": [R, L], "bound_bytes": nbytes}
+
+
+
+
 # ---------------------------------------------------------------- main
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the warm taxi queries and the burst "
-                         "with torch.profiler (device time, busy share)")
+                    help="also trace the warm taxi and fingerprint queries "
+                         "and the burst with torch.profiler (device time, "
+                         "busy share)")
     ap.add_argument("--report", metavar="PATH",
-                    help="write the full taxi, burst and timing report as "
-                         "JSON")
+                    help="write the full taxi, burst, fingerprint and "
+                         "timing report as JSON")
+    ap.add_argument("--molecules", type=int, default=N_MOLECULES,
+                    help="molecules in the fingerprint index (default "
+                         "%(default)s)")
     args = ap.parse_args(argv)
 
     import torch
@@ -756,17 +1114,28 @@ def main(argv=None) -> int:
     # 2. kernels
     errs = check_kernels(torch, kernels, device)
     errs["mega_interpret"] = check_mega(torch, kernels, device)
+    errs["pbank_membership_counts"] = check_pbank(torch, kernels, device)
     n_shards = (N_RIDES + SHARD_WIDTH - 1) // SHARD_WIDTH
     timing = time_kernels(torch, kernels, device, n_shards)
     log("timing: torch has no single popcount call, so there is no "
         "library yardstick (library_ms null)")
 
-    # 3-4. the main paths: taxi queries one at a time, then the burst
+    # 3-4. the taxi paths: queries one at a time, then the burst
     report, taxi_launches, burst_launches = run_main(
         "cuda", N_RIDES, ITERS, profile=args.profile)
-    launches = {name: taxi_launches[name] for name in REPLACES
-                if name != "mega_interpret"}
+    torch.cuda.empty_cache()
+    # 5. the fingerprint path
+    torch.cuda.reset_peak_memory_stats()
+    fp, fp_launches, timing_in = run_fingerprint("cuda", args.molecules,
+                                                 profile=args.profile)
+    timing["pbank_membership_counts"] = time_pbank(torch, kernels, device,
+                                                   timing_in)
+    del timing_in
+    launches = {name: taxi_launches[name] for name in (
+        "bank_row_counts", "bank_row_counts_masked", "bsi_plane_counts")}
     launches["mega_interpret"] = burst_launches["mega_interpret"]
+    launches["pbank_membership_counts"] = \
+        fp_launches["pbank_membership_counts"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on its "
@@ -779,8 +1148,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
         with open(args.report, "w") as f:
-            json.dump({"card": card, "report": report, "timing": timing}, f,
-                      indent=1)
+            json.dump({"card": card, "report": report, "fingerprint": fp,
+                       "timing": timing}, f, indent=1)
     taxi = report["taxi"]
     print(json.dumps({"taxi": {
         "rides": report["rides"], "shards": report["shards"],
@@ -795,6 +1164,16 @@ def main(argv=None) -> int:
         "kernel_ms", "plain_ms", "bound_ms", "n_slots", "n_regs",
         "n_instrs", "instr_capacity", "count_lanes", "row_lanes",
         "slab_bytes", "launches")}}), flush=True)
+    queries = fp["queries"]
+    print(json.dumps({"tanimoto": {
+        "molecules": fp["molecules"], "load_s": fp["load_s"],
+        "cold_first_query_s": fp["cold_first_query_s"],
+        "p50_s": {k: v["p50_s"] for k, v in queries.items()},
+        "launches": {k: v["launches"] for k, v in queries.items()},
+        "answers": {k: v["answers"] for k, v in queries.items()},
+        "segments": fp["segments"], "pbank_bytes": fp["pbank_bytes"],
+        "device_bytes": fp["device_bytes"], "patch_s": fp["patch_s"],
+        "patched_segment": fp["patched_segment"]}}), flush=True)
 
     # 5. kernels line, then the result line
     rows = []
@@ -804,7 +1183,8 @@ def main(argv=None) -> int:
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": errs[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": "bytes", "library_ms": None})
+                     "bound_by": "bytes",
+                     "library_ms": t.get("library_ms")})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,16 @@
 """Fragment: one shard of one view, held in host memory.
 
-Each present row is a dense ``uint32[WORDS_PER_SHARD]`` word array (bit p
-of the shard in word p >> 5), the layout the device banks copy from.
-Rows that lose their last bit are dropped, so ``row_ids`` lists exactly
-the rows holding any bit. Every write bumps ``version`` to a value no
-fragment has held before; device banks and caches compare versions to
-decide whether they are stale.
+Bit (row r, column c) lives at position ``r * 2^20 + (c mod 2^20)`` of
+one roaring container store (``storage/roaring.py``): sixteen 2^16-bit
+containers per row, each dense or a sorted u16 array. A fingerprint row
+of 48 bits costs one 96-byte array container. Every write bumps
+``version`` to a value no fragment has held before and stamps the rows
+it touched with it (``rows_changed_since``); device banks and caches
+compare versions to decide whether they are stale.
 
-Roaring storage, persistence and the native codec of the JAX package's
-``core/fragment.py`` are not part of this port yet.
+Persistence (snapshots, the op log, the file format) and the native
+codec of the JAX package's ``core/fragment.py`` are not part of this
+port yet.
 
 BSI layout: rows 0..bit_depth-1 hold value bits LSB-first; row bit_depth
 is the not-null marker.
@@ -18,36 +20,22 @@ from __future__ import annotations
 
 import itertools
 import threading
-from typing import Dict, Iterable, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
-from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD
+from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, SHARD_WIDTH_EXP
+from pilosa_tpu_torch.storage.roaring import CONTAINER_BITS, \
+    CONTAINER_WORDS, Bitmap, _dense_to_array, dense_scatter
 
-CONTAINER_BITS = 1 << 16
-# Distinct rows materialised per packbits pass of a bulk import (each
-# costs SHARD_WIDTH bytes of transient bool mask).
-IMPORT_ROW_GROUP = 64
+# Containers per shard row: 2^20 / 2^16.
+CONTAINERS_PER_ROW = SHARD_WIDTH // CONTAINER_BITS
 
 _VERSIONS = itertools.count(1)
 
 
 def _next_version() -> int:
     return next(_VERSIONS)
-
-
-def _dense_index(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(sorted unique rows, each pair's index into them) — by a lookup
-    table for small row ids (no sort), else np.unique."""
-    rmax = int(rows.max())
-    if rmax < (1 << 20):
-        r64 = rows.astype(np.int64)
-        uniq = np.flatnonzero(np.bincount(r64, minlength=rmax + 1))
-        lut = np.zeros(rmax + 1, dtype=np.int64)
-        lut[uniq] = np.arange(len(uniq))
-        return uniq.astype(np.uint64), lut[r64]
-    uniq, inv = np.unique(rows, return_inverse=True)
-    return uniq, inv.astype(np.int64)
 
 
 def _strictly_increasing(a: np.ndarray) -> bool:
@@ -57,115 +45,97 @@ def _strictly_increasing(a: np.ndarray) -> bool:
 class Fragment:
     def __init__(self, shard: int):
         self.shard = shard
+        self.storage = Bitmap()
         self.version = _next_version()
-        self._rows: Dict[int, np.ndarray] = {}
+        # row id -> version of the last write that touched it.
+        self._row_versions: Dict[int, int] = {}
         self._lock = threading.RLock()
         self._row_ids_cache: Tuple[int, Tuple[int, ...]] = (-1, ())
         self._max_col_cache: Tuple[int, int] = (-1, -1)
 
     # -- helpers -----------------------------------------------------------
 
-    def _offset(self, column_id: int) -> int:
+    def pos(self, row_id: int, column_id: int) -> int:
+        """Bit position of (row, column) in the store."""
         if not (self.shard * SHARD_WIDTH <= column_id
                 < (self.shard + 1) * SHARD_WIDTH):
             raise ValueError(
                 f"column {column_id} out of shard {self.shard} bounds")
-        return column_id % SHARD_WIDTH
+        return row_id * SHARD_WIDTH + (column_id % SHARD_WIDTH)
 
-    def _touch(self) -> None:
-        self.version = _next_version()
+    def _row_present(self, row_id: int) -> bool:
+        k0 = row_id * CONTAINERS_PER_ROW
+        containers = self.storage.containers
+        return any(k in containers for k in range(k0, k0 + CONTAINERS_PER_ROW))
+
+    def _touch_rows(self, row_ids, same_row_set: bool = False) -> None:
+        """One version bump for a whole batch of written rows, stamped
+        on each of them. ``same_row_set`` says the write left the set of
+        present rows as it was, so the cached row_ids carry over."""
+        rows = [int(r) for r in row_ids]
+        if not rows:
+            return
+        prev = self.version
+        self.version = v = _next_version()
+        self._row_versions.update(zip(rows, itertools.repeat(v)))
+        if same_row_set and self._row_ids_cache[0] == prev:
+            self._row_ids_cache = (v, self._row_ids_cache[1])
+
+    def rows_changed_since(self, version: int) -> List[int]:
+        return [r for r, v in self._row_versions.items() if v > version]
 
     # -- single-bit writes -------------------------------------------------
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
-        off = self._offset(column_id)
-        w, b = divmod(off, 32)
-        bit = np.uint32(1 << b)
+        p = self.pos(row_id, column_id)
         with self._lock:
-            row = self._rows.get(row_id)
-            if row is None:
-                row = np.zeros(WORDS_PER_SHARD, dtype=np.uint32)
-                self._rows[row_id] = row
-            if row[w] & bit:
-                return False
-            row[w] |= bit
-            self._touch()
-            return True
+            present = self._row_present(row_id)
+            changed = self.storage.add(p)
+            if changed:
+                self._touch_rows((row_id,), same_row_set=present)
+            return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
-        off = self._offset(column_id)
-        w, b = divmod(off, 32)
-        bit = np.uint32(1 << b)
+        p = self.pos(row_id, column_id)
         with self._lock:
-            row = self._rows.get(row_id)
-            if row is None or not row[w] & bit:
-                return False
-            row[w] &= ~bit
-            if not row.any():
-                del self._rows[row_id]
-            self._touch()
-            return True
+            changed = self.storage.remove(p)
+            if changed:
+                self._touch_rows((row_id,),
+                                 same_row_set=self._row_present(row_id))
+            return changed
 
     def bit(self, row_id: int, column_id: int) -> bool:
-        off = self._offset(column_id)
-        row = self._rows.get(row_id)
-        return row is not None and bool((row[off >> 5] >> (off & 31)) & 1)
+        return self.storage.contains(self.pos(row_id, column_id))
 
     # -- bulk writes -------------------------------------------------------
 
     def import_bits(self, row_ids: np.ndarray, offsets: np.ndarray,
                     clear: bool = False) -> None:
-        """Set (or clear) every (row, in-shard offset) pair. Vectorised:
-        pairs group by row, each group of rows scatters into one bool
-        mask and packs to words in a single pass."""
+        """Set (or clear) every (row, column) pair; columns are taken
+        modulo the shard width. The port keeps no op log, so a batch is
+        not cut into record-sized chunks."""
         rows = np.asarray(row_ids, dtype=np.uint64)
-        offs = np.asarray(offsets, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
+        offs = np.asarray(offsets, dtype=np.uint64)
         if len(rows) == 0:
             return
-        uniq, inv = _dense_index(rows)
-        if len(uniq) > IMPORT_ROW_GROUP:
-            order = np.argsort(inv, kind="stable")
-            inv, offs = inv[order], offs[order]
-            bounds = np.searchsorted(
-                inv, np.arange(0, len(uniq) + IMPORT_ROW_GROUP,
-                               IMPORT_ROW_GROUP))
-        else:
-            bounds = np.array([0, len(inv)])
-        offs64 = offs.astype(np.int64)
         with self._lock:
-            for g, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
-                if lo == hi:
-                    continue
-                g0 = g * IMPORT_ROW_GROUP
-                group = uniq[g0:g0 + IMPORT_ROW_GROUP]
-                bits = np.zeros(len(group) * SHARD_WIDTH, dtype=bool)
-                bits[(inv[lo:hi] - g0) * SHARD_WIDTH + offs64[lo:hi]] = True
-                words = np.packbits(bits, bitorder="little").view(
-                    np.uint32).reshape(len(group), WORDS_PER_SHARD)
-                for j, r in enumerate(group.tolist()):
-                    self._merge_row(int(r), words[j], clear)
-            self._touch()
-
-    def _merge_row(self, row_id: int, words: np.ndarray, clear: bool
-                   ) -> None:
-        row = self._rows.get(row_id)
-        if clear:
-            if row is not None:
-                row &= ~words
-                if not row.any():
-                    del self._rows[row_id]
-        elif row is None:
-            if words.any():
-                self._rows[row_id] = words.copy()
-        else:
-            row |= words
+            if clear:
+                positions = np.unique(
+                    rows * np.uint64(SHARD_WIDTH)
+                    + offs % np.uint64(SHARD_WIDTH))
+                self.storage.direct_remove_n(positions)
+                touched = np.unique(positions >> np.uint64(SHARD_WIDTH_EXP))
+            else:
+                keys = self.storage.import_batch(rows, offs, SHARD_WIDTH_EXP)
+                touched = np.unique(keys // np.uint64(CONTAINERS_PER_ROW))
+            self._touch_rows(touched.tolist())
 
     def import_values(self, column_ids: np.ndarray, values: np.ndarray,
                       bit_depth: int, clear: bool = False) -> None:
-        """BSI import of base values: every plane's bits and the not-null
-        bit scatter into one bool mask per plane, packed in one pass.
-        Duplicate columns in one batch resolve last-wins; columns that
-        already held a value have their old planes cleared first."""
+        """BSI import of base values. Duplicate columns in one batch
+        resolve last-wins; columns that already held a value have their
+        zero planes cleared first; every plane's set bits and the
+        not-null bits then go in as one batch."""
         offs = np.asarray(column_ids, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
         vals = np.asarray(values, dtype=np.uint64)
         if len(offs) == 0:
@@ -176,70 +146,211 @@ class Fragment:
             offs, vals = offs[keep], vals[keep]
         with self._lock:
             if clear:
-                self._import_planes(offs, range(bit_depth + 1), clear=True)
+                for i in range(bit_depth + 1):
+                    self.storage.direct_remove_n(
+                        np.uint64(i * SHARD_WIDTH) + offs)
+                self._touch_rows(range(bit_depth + 1))
                 return
-            nn = self._rows.get(bit_depth)
-            if nn is not None:
+            # Columns that already hold a value need their zero planes
+            # cleared; a fragment with no not-null row has none.
+            existed = np.zeros(0, dtype=bool)
+            if self._row_present(bit_depth):
+                nn = self.row_dense(bit_depth)
                 w = (offs >> np.uint64(5)).astype(np.int64)
-                sh = (offs & np.uint64(31)).astype(np.uint32)
-                existed = ((nn[w] >> sh) & np.uint32(1)).astype(bool)
-                if existed.any():
-                    self._import_planes(offs[existed], range(bit_depth),
-                                        clear=True)
-            # One bool mask per plane plus not-null, packed in one pass.
-            offs64 = offs.astype(np.int64)
-            bits = np.zeros((bit_depth + 1, SHARD_WIDTH), dtype=bool)
-            for i in range(bit_depth):
-                bits[i, offs64] = ((vals >> np.uint64(i))
-                                   & np.uint64(1)).astype(bool)
-            bits[bit_depth, offs64] = True
-            words = np.packbits(bits, axis=1, bitorder="little").view(
-                np.uint32)
-            for i in range(bit_depth + 1):
-                self._merge_row(i, words[i], clear=False)
-            self._touch()
-
-    def _import_planes(self, offs: np.ndarray, planes: Iterable[int],
-                       clear: bool) -> None:
-        planes = list(planes)
-        self.import_bits(np.repeat(np.asarray(planes, np.uint64), len(offs)),
-                         np.tile(offs, len(planes)), clear=clear)
+                existed = ((nn[w] >> (offs & np.uint64(31)).astype(
+                    np.uint32)) & np.uint32(1)).astype(bool)
+            if existed.any():
+                eoff, evals = offs[existed], vals[existed]
+                for i in range(bit_depth):
+                    zero = ((evals >> np.uint64(i)) & np.uint64(1)) == 0
+                    if zero.any():
+                        self.storage.direct_remove_n(
+                            np.uint64(i * SHARD_WIDTH) + eoff[zero])
+            planes = [((vals >> np.uint64(i)) & np.uint64(1)).astype(bool)
+                      for i in range(bit_depth)]
+            # The pair count decides the branch; the not-null bits alone
+            # often settle it without counting the planes.
+            dense = dense_scatter(len(offs), 0, bit_depth, SHARD_WIDTH_EXP) \
+                or dense_scatter(len(offs) + sum(int(m.sum()) for m in planes),
+                                 0, bit_depth, SHARD_WIDTH_EXP)
+            if dense:
+                # One bool row per plane (and not-null), packed in one
+                # pass: the same dense masks import_batch would build,
+                # without the (row, column) pair arrays.
+                offs64 = offs.astype(np.int64)
+                bits = np.zeros((bit_depth + 1, SHARD_WIDTH), dtype=bool)
+                for i, m in enumerate(planes):
+                    bits[i, offs64] = m
+                bits[bit_depth, offs64] = True
+                self.storage.merge_masks(0, np.packbits(
+                    bits, axis=1, bitorder="little").view(np.uint64)
+                    .reshape(-1, CONTAINER_WORDS))
+            else:
+                self.storage.import_batch(
+                    np.concatenate([np.full(int(m.sum()), i, np.uint64)
+                                    for i, m in enumerate(planes)]
+                                   + [np.full(len(offs), bit_depth,
+                                              np.uint64)]),
+                    np.concatenate([offs[m] for m in planes] + [offs]),
+                    SHARD_WIDTH_EXP)
+            self._touch_rows(range(bit_depth + 1))
 
     # -- reads -------------------------------------------------------------
 
     def row_ids(self) -> Tuple[int, ...]:
-        """Sorted ids of rows holding any bit (cached per version)."""
+        """Sorted ids of rows holding any bit, as an immutable tuple
+        (cached per version). The store keeps no empty container, so the
+        container keys alone give the rows."""
         with self._lock:
             version, rows = self._row_ids_cache
             if version != self.version:
-                rows = tuple(sorted(self._rows))
+                containers = self.storage.containers
+                keys = np.fromiter(containers, dtype=np.int64,
+                                   count=len(containers))
+                rows = tuple(np.unique(keys // CONTAINERS_PER_ROW).tolist())
                 self._row_ids_cache = (self.version, rows)
             return rows
 
+    def row_count(self, row_id: int) -> int:
+        return self.storage.count_range(row_id * SHARD_WIDTH,
+                                        (row_id + 1) * SHARD_WIDTH)
+
+    def row_dense(self, row_id: int) -> np.ndarray:
+        """One whole row as uint32 words."""
+        return self.storage.dense_range(
+            row_id * SHARD_WIDTH, (row_id + 1) * SHARD_WIDTH).view(np.uint32)
+
+    @staticmethod
+    def _gather_row_arrays(containers, row_ids, total64: int,
+                           cwords64: int):
+        """Gather of the rows' first containers for single-container
+        widths: (u16 arrays, their row indexes, dense items), where the
+        dense items are the (row index, dense container) pairs. Arrays
+        are cut to the first ``total64 * 64`` positions. The dict probe
+        runs as one map(dict.get) in C."""
+        keys = (np.asarray(row_ids, dtype=np.uint64)
+                * np.uint64(CONTAINERS_PER_ROW)).tolist()
+        cs = list(map(containers.get, keys))
+        arrays, rows_at, dense_items = [], [], []
+        u16dt = np.dtype(np.uint16)
+        trim = total64 != cwords64
+        lim = np.uint16(total64 * 64 - 1) if trim else None
+        ap_a, ap_r = arrays.append, rows_at.append
+        for i, c in enumerate(cs):
+            if c is None:
+                continue
+            if c.dtype is not u16dt:
+                dense_items.append((i, c))
+                continue
+            if trim and c[-1] > lim:
+                c = c[:np.searchsorted(c, lim, "right")]
+            ap_a(c)
+            ap_r(i)
+        return arrays, rows_at, dense_items
+
+    def rows_positions(self, row_ids, u32_words: int):
+        """Each row's set positions below ``u32_words * 32``, for widths
+        within one container: ``(pos u16 concatenated, lens int64,
+        rows_at int64)`` in ascending row order, about 2 bytes per set
+        bit. Dense-encoded containers (a point write densifies its
+        row's container) have their positions extracted; None when more
+        than a quarter of the rows are dense (a dense field belongs on
+        the dense banks) or the width spans more than one container."""
+        bits = u32_words * 32
+        if bits > CONTAINER_BITS or bits % 64:
+            return None
+        total64 = u32_words // 2
+        with self._lock:
+            arrays, rows_at, dense_items = self._gather_row_arrays(
+                self.storage.containers, row_ids, total64,
+                CONTAINER_BITS // 64)
+            if dense_items:
+                if len(dense_items) * 4 > max(1, len(row_ids)):
+                    return None
+                lim = np.uint16(bits - 1) if bits < CONTAINER_BITS else None
+                for i, c in dense_items:
+                    pos = _dense_to_array(c)
+                    if lim is not None and len(pos) and pos[-1] > lim:
+                        pos = pos[:np.searchsorted(pos, lim, "right")]
+                    arrays.append(pos)
+                    rows_at.append(i)
+        if not arrays:
+            return (np.empty(0, np.uint16), np.empty(0, np.int64),
+                    np.empty(0, np.int64))
+        if dense_items:
+            order = np.argsort(np.asarray(rows_at), kind="stable")
+            arrays = [arrays[j] for j in order]
+            rows_at = [rows_at[j] for j in order]
+        lens = np.fromiter(map(len, arrays), dtype=np.int64,
+                           count=len(arrays))
+        return (np.concatenate(arrays), lens,
+                np.asarray(rows_at, dtype=np.int64))
+
     def rows_dense(self, row_ids, u32_words: int) -> np.ndarray:
         """[len(row_ids), u32_words] uint32 prefix block; absent rows are
-        zero."""
-        out = np.zeros((len(row_ids), u32_words), dtype=np.uint32)
+        zero. One dict probe and one copy (dense) or scatter (array) per
+        (row, container)."""
+        bits = u32_words * 32
+        assert bits % 64 == 0
+        n_containers = (bits + CONTAINER_BITS - 1) // CONTAINER_BITS
+        cwords64 = CONTAINER_BITS // 64
+        total64 = u32_words // 2
+        out = np.zeros((len(row_ids), total64), dtype=np.uint64)
+        one = np.uint64(1)
         with self._lock:
-            for i, r in enumerate(row_ids):
-                row = self._rows.get(r)
-                if row is not None:
-                    out[i] = row[:u32_words]
-        return out
+            containers = self.storage.containers
+            if n_containers == 1:
+                # Single-container widths (fingerprints): every row's u16
+                # array in one flat scatter.
+                arrays, rows_at, dense_items = self._gather_row_arrays(
+                    containers, row_ids, total64, cwords64)
+                for i, c in dense_items:
+                    out[i] = c[:total64]
+                if arrays:
+                    lens = np.fromiter(map(len, arrays), dtype=np.int64,
+                                       count=len(arrays))
+                    pos = np.concatenate(arrays).astype(np.uint32)
+                    base = np.repeat(np.asarray(rows_at, np.int64) * total64,
+                                     lens)
+                    np.bitwise_or.at(out.reshape(-1), base + (pos >> 6),
+                                     np.left_shift(one, (pos & 63).astype(
+                                         np.uint64)))
+            else:
+                for i, r in enumerate(row_ids):
+                    k0 = r * CONTAINERS_PER_ROW
+                    row = out[i]
+                    for j in range(n_containers):
+                        c = containers.get(k0 + j)
+                        if c is None:
+                            continue
+                        lo = j * cwords64
+                        n = min(cwords64, total64 - lo)
+                        if c.dtype == np.uint16:
+                            v = c if n == cwords64 else c[c < n * 64]
+                            v = v.astype(np.uint32)
+                            np.bitwise_or.at(
+                                row, lo + (v >> 6),
+                                np.left_shift(one,
+                                              (v & 63).astype(np.uint64)))
+                        else:
+                            row[lo:lo + n] = c[:n]
+        return out.view(np.uint32)
 
     def max_column_offset(self) -> int:
         """Largest in-shard column offset that may hold a bit, rounded up
-        to a whole 2^16-bit container (-1 when empty); drives the
-        width-trimmed banks."""
+        to a whole container (-1 when empty); drives the width-trimmed
+        banks. Container-granular: the keys alone decide it."""
         with self._lock:
             version, best = self._max_col_cache
             if version == self.version:
                 return best
-            best = -1
-            for row in self._rows.values():
-                nz = np.flatnonzero(row)
-                if len(nz):
-                    container = (int(nz[-1]) * 32) // CONTAINER_BITS
-                    best = max(best, (container + 1) * CONTAINER_BITS - 1)
+            containers = self.storage.containers
+            if containers:
+                keys = np.fromiter(containers, dtype=np.int64,
+                                   count=len(containers))
+                best = (int((keys % CONTAINERS_PER_ROW).max()) + 1) \
+                    * CONTAINER_BITS - 1
+            else:
+                best = -1
             self._max_col_cache = (self.version, best)
             return best

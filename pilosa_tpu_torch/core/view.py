@@ -4,11 +4,19 @@ banks.
 View names: ``standard`` and the BSI views ``bsig_<field>``. Fragments
 are created on first write. ``device_bank`` stacks the view's rows
 across shards into one ``[capacity, S, W]`` int32 tensor on the view's
-device — the executor's operand format and the kernels' input.
+device — the executor's operand format and the kernels' input; a row
+subset of a view too large for a full bank gets a bank of its own.
+``positions_bank`` keeps a narrow single-shard view's set positions
+resident on the device instead (``PositionsBank``), for TopN over views
+whose dense bank would not fit.
 
-Patching a bank in place, the sparse upload, the host block budget and
-the memory ledger of the JAX package's ``core/view.py`` are not part of
-this port yet: a bank whose fragments changed is rebuilt whole.
+Every bank is cached in ``_bank_cache`` by key and stamped with the
+fragment versions it was built from. The JAX package's HBM budget
+(``BankBudget``), memory ledger, host block cache and sparse upload are
+not part of this port yet, so nothing evicts a cached bank: a stale one
+is replaced when its key is asked for again. A full dense bank whose
+fragments changed is rebuilt whole; a positions bank is patched segment
+by segment.
 """
 
 from __future__ import annotations
@@ -20,10 +28,28 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS, Fragment
-from pilosa_tpu_torch.ops.bitset import WORDS_PER_SHARD
+from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD
 
 VIEW_STANDARD = "standard"
 VIEW_BSI_PREFIX = "bsig_"
+
+# Positions per device segment. A segment's starts are int32, so its
+# position count must stay well under 2^31; the build enforces the cap
+# exactly by splitting gather chunks on row boundaries (a row holds at
+# most 2^16 positions). Module attributes, so tests can shrink them.
+PBANK_SEGMENT_POSITIONS = 1 << 27
+# Rows per host gather of a segment build (bounds its temporaries).
+PBANK_GATHER_ROWS = 1 << 20
+# Fixed-width segments: every row must fit this many position slots,
+# and real positions must fill at least this share of the padded matrix.
+PBANK_FIXED_ROW_SLOTS = 128
+PBANK_FIXED_MIN_DENSITY = 0.5
+# Segment row counts round up to a multiple of at most this (see
+# _flush_segment).
+PBANK_FIXED_ROW_PAD = 1 << 16
+# The pad position of both layouts: its word index is past any filter
+# the membership kernel is given (W <= 2047), so it matches nothing.
+PBANK_PAD = 0xFFFF
 
 
 class ViewBank:
@@ -42,6 +68,31 @@ class ViewBank:
         return self.slots.get(row_id, self.zero_slot)
 
 
+class PositionsBank:
+    """A single-shard narrow view kept on the device as its rows' sorted
+    u16 set positions (as int16 bits): about 2 bytes per set bit where
+    the dense bank costs 4 bytes per 32 columns of every row slot.
+    ``segments`` is a list of ``(row_lo, n_rows, pos, aux, p_real)``:
+    rows ``row_ids[row_lo:row_lo + n_rows]`` in one of two layouts,
+    told apart by the rank of ``pos``:
+
+    - fixed: ``pos`` int16 [n_pad, L], each row padded with 0xFFFF to L
+      slots; ``aux`` int32 [n_pad] the row lengths;
+    - flat: ``pos`` int16 [P_pad] all rows back to back, 0xFFFF after
+      the last; ``aux`` int32 [n_pad + 1] the row starts.
+
+    ``n_pad >= n_rows``: pad rows have length 0. ``p_real`` counts the
+    real positions."""
+
+    __slots__ = ("segments", "row_ids", "versions", "nbytes")
+
+    def __init__(self, segments, row_ids, versions, nbytes):
+        self.segments = segments
+        self.row_ids = row_ids      # global sorted row ids
+        self.versions = versions
+        self.nbytes = nbytes
+
+
 def view_bsi_name(field: str) -> str:
     return VIEW_BSI_PREFIX + field
 
@@ -53,6 +104,19 @@ def bank_capacity(n_rows: int) -> int:
     while cap < n_rows + 1:
         cap *= 2
     return cap
+
+
+def _row_pad(n: int) -> int:
+    """Pad rows for a segment of n rows: up to the largest power-of-two
+    multiple in 1024..PBANK_FIXED_ROW_PAD whose padding stays within
+    n / 8, so segments at scale share shapes without near-2x padding."""
+    row_pad = min(1024, PBANK_FIXED_ROW_PAD)
+    cand = row_pad * 2
+    while cand <= PBANK_FIXED_ROW_PAD:
+        if -n % cand <= n // 8:
+            row_pad = cand
+        cand *= 2
+    return -n % row_pad
 
 
 class View:
@@ -67,7 +131,7 @@ class View:
         self.max_columns = max_columns
         self.fragments: Dict[int, Fragment] = {}
         self._lock = threading.RLock()
-        self._bank_cache: Dict[tuple, ViewBank] = {}
+        self._bank_cache: Dict[tuple, object] = {}
         self._merged_rows: Dict[tuple, tuple] = {}
 
     def fragment(self, shard: int) -> Optional[Fragment]:
@@ -85,12 +149,10 @@ class View:
         return sorted(self.fragments)
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
-        from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
         return self.create_fragment_if_not_exists(
             column_id // SHARD_WIDTH).set_bit(row_id, column_id)
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
-        from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
         frag = self.fragment(column_id // SHARD_WIDTH)
         return frag.clear_bit(row_id, column_id) if frag else False
 
@@ -134,23 +196,33 @@ class View:
         return min(WORDS_PER_SHARD,
                    ((words + cwords - 1) // cwords) * cwords)
 
+    # -- dense banks ---------------------------------------------------------
+
     def device_bank(self, shards: Sequence[int],
                     rows: Optional[Sequence[int]] = None,
-                    trim: bool = False) -> ViewBank:
+                    trim: bool = False, cache_rows: bool = False
+                    ) -> ViewBank:
         """Bank for ``shards`` covering ``rows`` (default: every row present
         in any of the shards). The full bank is cached per (shards, trim)
-        and rebuilt when any fragment's version moved; a ``rows`` subset
-        builds a transient bank. ``trim=True`` narrows the word axis to
-        trimmed_words(), valid for whole-row consumers since the dropped
-        tail is all-zero."""
+        and rebuilt when any fragment's version moved. A ``rows`` subset
+        builds a transient bank, or with ``cache_rows=True`` one cached
+        under a key that includes the rows: the executor's Row leaf uses
+        it for views whose full bank is over budget. ``trim=True``
+        narrows the word axis to trimmed_words(), valid for whole-row
+        consumers since the dropped tail is all-zero."""
         shards = tuple(shards)
         with self._lock:
             frags = {s: self.fragments.get(s) for s in shards}
             versions = {s: (f.version if f else -1) for s, f in frags.items()}
             width = self.trimmed_words() if trim else WORDS_PER_SHARD
-            cache_key: Optional[Tuple] = None
             if rows is None:
-                cache_key = (shards, trim)
+                cache_key: Optional[Tuple] = (shards, trim)
+                row_set = None
+            else:
+                row_set = sorted(set(rows))
+                cache_key = (shards, trim, tuple(row_set)) if cache_rows \
+                    else None
+            if cache_key is not None:
                 cached = self._bank_cache.get(cache_key)
                 if cached is not None and cached.versions == versions \
                         and cached.array.shape[-1] == width:
@@ -158,10 +230,9 @@ class View:
                 # Drop the stale bank before the build, so the old and
                 # the new bank are never both held by the cache.
                 self._bank_cache.pop(cache_key, None)
+            if row_set is None:
                 row_set = sorted({r for f in frags.values() if f
                                   for r in f.row_ids()})
-            else:
-                row_set = sorted(set(rows))
             bank = self._build_bank(frags, shards, row_set, width, versions)
             if cache_key is not None:
                 self._bank_cache[cache_key] = bank
@@ -179,3 +250,172 @@ class View:
         array = torch.from_numpy(host.view(np.int32)).to(self.device)
         slots = {r: i for i, r in enumerate(row_set)}
         return ViewBank(array, slots, cap - 1, versions)
+
+    # -- positions banks -----------------------------------------------------
+
+    def _flush_segment(self, pos16: np.ndarray, lens: np.ndarray,
+                       row_lo: int):
+        """One device segment of rows with positions ``pos16`` (back to
+        back) and lengths ``lens``: fixed when every row fits
+        PBANK_FIXED_ROW_SLOTS and the padded matrix is at least
+        PBANK_FIXED_MIN_DENSITY full, else flat. Row counts pad by
+        _row_pad so segment shapes repeat. Returns (segment, nbytes)."""
+        p, n = len(pos16), len(lens)
+        n_pad = _row_pad(n)
+        L = int(lens.max()) if n else 0
+        if 0 < L <= PBANK_FIXED_ROW_SLOTS \
+                and p >= PBANK_FIXED_MIN_DENSITY * n * L:
+            mat = np.full((n + n_pad, L), PBANK_PAD, np.uint16)
+            mat[:n][np.arange(L)[None, :] < lens[:, None]] = pos16
+            lens32 = np.zeros(n + n_pad, np.int32)
+            lens32[:n] = lens
+            seg = (row_lo, n, torch.from_numpy(mat.view(np.int16)).to(
+                self.device), torch.from_numpy(lens32).to(self.device), p)
+            return seg, (n + n_pad) * L * 2 + (n + n_pad) * 4
+        starts = np.zeros(n + n_pad + 1, np.int64)
+        np.cumsum(lens, out=starts[1:n + 1])
+        starts[n + 1:] = starts[n]  # pad rows: empty ranges
+        # Positions pad to a 1M multiple, not a power of two (which could
+        # nearly double a large bank).
+        padded = max(1 << 20, -(-p // (1 << 20)) * (1 << 20))
+        buf = np.full(padded, PBANK_PAD, np.uint16)
+        buf[:p] = pos16
+        seg = (row_lo, n, torch.from_numpy(buf.view(np.int16)).to(
+            self.device), torch.from_numpy(starts.astype(np.int32)).to(
+            self.device), p)
+        return seg, padded * 2 + (n + n_pad + 1) * 4
+
+    def _build_pbank_segments(self, frag: Fragment, rows: Sequence[int],
+                              width: int, row_lo0: int):
+        """Gather ``rows`` (sorted) into device segments starting at global
+        row index ``row_lo0``: (segments, nbytes), or None when the rows
+        are too dense for positions (see Fragment.rows_positions)."""
+        segments: list = []
+        nbytes = 0
+        pos_parts: list = []
+        lens_parts: list = []
+        cur_p = 0
+        row_lo = row_lo0
+
+        def flush():
+            nonlocal pos_parts, lens_parts, cur_p, row_lo, nbytes
+            if not lens_parts:
+                return
+            pos16 = (np.concatenate(pos_parts) if pos_parts
+                     else np.empty(0, np.uint16))
+            lens = np.concatenate(lens_parts)
+            seg, nb = self._flush_segment(pos16, lens, row_lo)
+            segments.append(seg)
+            nbytes += nb
+            pos_parts, lens_parts = [], []
+            cur_p = 0
+            row_lo += len(lens)
+
+        for c0 in range(0, len(rows), PBANK_GATHER_ROWS):
+            chunk = rows[c0:c0 + PBANK_GATHER_ROWS]
+            rp = frag.rows_positions(chunk, width)
+            if rp is None:
+                return None
+            pos16, lens, rows_at = rp
+            if len(rows_at) != len(chunk):
+                full = np.zeros(len(chunk), np.int64)
+                full[rows_at] = lens
+                lens = full
+            # Enforce the segment cap exactly, splitting this chunk on
+            # row boundaries where it does not fit.
+            ends = np.cumsum(lens)
+            taken = 0
+            while taken < len(lens):
+                room = PBANK_SEGMENT_POSITIONS - cur_p
+                hi = int(np.searchsorted(ends, ends[taken - 1] + room
+                                         if taken else room, "right"))
+                if hi <= taken:
+                    flush()
+                    continue
+                lo_p = int(ends[taken - 1]) if taken else 0
+                hi_p = int(ends[hi - 1])
+                pos_parts.append(pos16[lo_p:hi_p])
+                lens_parts.append(lens[taken:hi])
+                cur_p += hi_p - lo_p
+                taken = hi
+                if cur_p >= PBANK_SEGMENT_POSITIONS:
+                    flush()
+        flush()
+        return segments, nbytes
+
+    def positions_bank(self, shard: int, width: int
+                       ) -> Optional[PositionsBank]:
+        """Device-resident PositionsBank of one shard at ``width`` words,
+        or None when the layout does not qualify: no fragment, a width
+        reaching the pad position's word, or rows too dense for
+        positions. Cached per (shard, width) and stamped with the
+        fragment's version. A write makes it stale; when the row set is
+        unchanged the rebuild regathers only the segments holding rows
+        written since (``_patch_pbank``), the rest keep their device
+        arrays."""
+        if width * 32 >= CONTAINER_BITS:
+            return None
+        key = ("pbank", shard, width)
+        with self._lock:
+            frag = self.fragments.get(shard)
+            versions = {shard: (frag.version if frag else -1)}
+            cached = self._bank_cache.get(key)
+            if cached is not None and cached.versions == versions:
+                return cached
+            if frag is None:
+                return None
+        row_ids = frag.row_ids()
+        built = None
+        if cached is not None and cached.row_ids == row_ids:
+            built = self._patch_pbank(cached, frag, width)
+        if built is None:
+            # Drop the stale bank before the build, so the two are never
+            # both held.
+            with self._lock:
+                self._bank_cache.pop(key, None)
+            cached = None
+            built = self._build_pbank_segments(frag, row_ids, width, 0)
+        if built is None:
+            return None
+        segments, nbytes = built
+        bank = PositionsBank(segments, row_ids, versions, nbytes)
+        with self._lock:
+            self._bank_cache[key] = bank
+        return bank
+
+    def _patch_pbank(self, cached: PositionsBank, frag: Fragment,
+                     width: int):
+        """Regather only the segments whose rows were written since the
+        cached build; clean segments carry over with their device arrays.
+        Returns (segments, nbytes), or None to force a full rebuild
+        (nothing known, too much changed, or a dirty range no longer
+        rebuilds to the same row count)."""
+        changed = np.asarray(frag.rows_changed_since(
+            next(iter(cached.versions.values()))), dtype=np.int64)
+        if not len(changed) or len(changed) > len(cached.row_ids) // 4:
+            return None
+        row_ids = cached.row_ids
+        segments: list = []
+        nbytes = 0
+        row_lo = 0
+        for seg in cached.segments:
+            s_lo, n_rows, pos_dev, aux_dev, p_real = seg
+            # The row set is unchanged and sorted, so a written row lies
+            # in this segment exactly when it lies in its id range.
+            first, last = row_ids[s_lo], row_ids[s_lo + n_rows - 1]
+            if not np.any((changed >= first) & (changed <= last)):
+                segments.append((row_lo, n_rows, pos_dev, aux_dev, p_real))
+                nbytes += pos_dev.numel() * 2 + aux_dev.numel() * 4
+                row_lo += n_rows
+                continue
+            rebuilt = self._build_pbank_segments(
+                frag, row_ids[s_lo:s_lo + n_rows], width, row_lo)
+            if rebuilt is None:
+                return None
+            new_segs, nb = rebuilt
+            if sum(s[1] for s in new_segs) != n_rows:
+                return None
+            segments.extend(new_segs)
+            nbytes += nb
+            row_lo += n_rows
+        return segments, nbytes

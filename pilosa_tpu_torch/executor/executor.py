@@ -9,8 +9,16 @@ tensor goes through a kernel of ``ops/kernels.py``:
   ``bank_row_counts_masked`` at R = 1, never materialising ``a ∧ b``;
 - any other ``Count`` materialises its row and calls ``bank_row_counts``;
 - TopN sweeps the trimmed full-view bank with ``bank_row_counts`` (no
-  filter) or ``bank_row_counts_masked`` (filter, tanimoto);
+  filter) or ``bank_row_counts_masked`` (filter, tanimoto) while it fits
+  ``TOPN_MAX_BANK_BYTES``; beyond it a narrow single-shard view answers
+  from its device-resident positions bank through
+  ``pbank_membership_counts``, and any other view streams its rows
+  through chunk banks;
 - Sum counts bit planes with ``bsi_plane_counts``.
+
+A Row leaf reads one slot of its view's bank; a view whose full bank
+would pass ``Executor.BANK_MAX_BYTES`` serves it from a cached bank of
+just the rows the leaf needs.
 
 Banks of different views may differ in width (they are trimmed to their
 data); operands are zero-padded to a common width before they combine,
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import threading
 from dataclasses import dataclass
 from dataclasses import field as dc_field
@@ -48,7 +57,8 @@ from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, Field
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
-from pilosa_tpu_torch.core.view import VIEW_STANDARD, ViewBank, view_bsi_name
+from pilosa_tpu_torch.core.view import VIEW_STANDARD, PositionsBank, \
+    ViewBank, bank_capacity, view_bsi_name
 from pilosa_tpu_torch.device import resolve_device
 from pilosa_tpu_torch.executor import bsi
 from pilosa_tpu_torch.executor.results import PairsResult, RowResult, ValCount
@@ -63,6 +73,26 @@ _BITMAP_CALLS = {"Row", "Intersect", "Union", "Difference", "Xor", "Not",
 _FOLDS = {"Intersect": b_and, "Union": b_or, "Xor": b_xor,
           "Difference": b_andnot}
 _CONTAINER_WORDS = CONTAINER_BITS // 32
+
+# TopN sweeps the cached full view bank while it fits this many device
+# bytes (banks are width-trimmed); beyond it the positions bank or the
+# chunk stream below take the view. Module attributes, so tests can
+# move a small index past them.
+TOPN_MAX_BANK_BYTES = 2 << 30
+# Rows per transient chunk bank on the over-budget TopN stream.
+TOPN_CHUNK_ROWS = 1024
+# Device-resident positions bank for over-budget TopN over a narrow
+# single-shard view (core/view.py PositionsBank); off = the chunk stream,
+# which the tests hold the positions bank against.
+PBANK_ENABLED = True
+# The JAX package's PBANK_SPARSE_FILTER_BITS and PBANK_MEMBERSHIP choose
+# between jnp membership forms (a compare against the filter's first
+# positions, a binary search, a gather) by filter density; the port's
+# membership kernel tests each position against the whole filter in
+# shared memory, exact at any density, so it has neither. Nor does it
+# have PBANK_INFLIGHT_SEGMENTS: that bounds coexisting XLA workspaces,
+# and the kernel allocates only its [R] int32 output, so segments run
+# back to back with no wave sync.
 
 
 class ExecutionError(ValueError):
@@ -79,6 +109,32 @@ def _topn_candidates(rows_arr: np.ndarray, counts_arr: np.ndarray,
     kth = np.partition(counts_arr, len(counts_arr) - n)[len(counts_arr) - n]
     sel = counts_arr >= kth
     return rows_arr[sel], counts_arr[sel]
+
+
+def _pbank_topk(c: torch.Tensor, raw: torch.Tensor, k: int,
+                min_threshold: int, tanimoto: int, src
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of one positions-bank segment on the device: membership
+    counts ``c`` and row lengths ``raw`` (int32 [R]), rows kept when
+    ``c >= max(1, min_threshold)`` and, with ``tanimoto``,
+    ``c * 100 >= tanimoto * (raw + src - c)`` with a positive
+    denominator. Returns (scores, row indexes), int64 [k]; dropped rows
+    score -1. Ties break by the lower index, which is the (-count, row)
+    order because a segment's rows are stored ascending: the order is
+    made explicit in one int64 key, ``score << 32 | (2^32 - 1 - index)``,
+    since torch.topk promises no tie order."""
+    c = c.to(torch.int64)
+    # A count is at most 2^16 and c <= denominator, so clamping the
+    # arguments keeps every comparison as it was and int64 from wrapping.
+    keep = c >= max(1, min(min_threshold, 1 << 20))
+    if tanimoto:
+        denom = raw.to(torch.int64) + src - c
+        keep &= (denom > 0) & (c * 100 >= min(tanimoto, 101) * denom)
+    score = torch.where(keep, c, torch.full_like(c, -1))
+    idx = torch.arange(c.numel(), dtype=torch.int64, device=c.device)
+    top = torch.topk((score << 32) | (0xFFFFFFFF - idx), k,
+                     sorted=False).values
+    return top >> 32, 0xFFFFFFFF - (top & 0xFFFFFFFF)
 
 
 def _align_words(words: torch.Tensor, width: int) -> torch.Tensor:
@@ -492,7 +548,8 @@ class Executor:
 
     def _slot_leaf(self, field: Field, view_name: str, row_id: int,
                    shards) -> torch.Tensor:
-        bank = self._get_bank(field, view_name, shards)
+        bank = self._get_bank_for(field, view_name, shards,
+                                  rows_needed={row_id})
         return bank.array[bank.slot(row_id)]
 
     def _bsi_planes(self, bank: ViewBank, depth: int) -> torch.Tensor:
@@ -511,7 +568,7 @@ class Executor:
         if bsig is None:
             raise ExecutionError(f"field {field.name} is not an int field")
         depth = bsig.bit_depth
-        bank = self._get_bank(field, view_bsi_name(field.name), shards)
+        bank = self._get_bank_for(field, view_bsi_name(field.name), shards)
         planes = self._bsi_planes(bank, depth)
         op = cond.op
 
@@ -549,7 +606,7 @@ class Executor:
         its banks, resolve slots, widths and the shape signature."""
         plan = _Plan()
         self._plan_call(idx, call, plan)
-        banks = [self._get_bank(idx.field(f), v, shards)
+        banks = [self._get_bank_for(idx.field(f), v, shards)
                  for f, v in plan.bank_keys]
         for i, key, row in plan.slot_refs:
             plan.idxs[i] = banks[plan.bank_pos[key]].slot(row)
@@ -730,12 +787,30 @@ class Executor:
 
     # ---------------------------------------------------------- bank fetch
 
-    def _get_bank(self, field: Field, view_name: str, shards) -> ViewBank:
+    # A view whose full bank would pass this many device bytes serves
+    # a leaf from a cached bank of just the rows it needs: one Row of a
+    # 10M-row field must not upload the whole field.
+    BANK_MAX_BYTES = 2 << 30
+
+    def _get_bank_for(self, field: Field, view_name: str, shards,
+                      rows_needed: Optional[set] = None) -> ViewBank:
         view = field.view(view_name)
         if view is None:
             # Reads never create views; an absent view is all-zero rows.
             return self._empty_bank(len(shards))
-        return view.device_bank(tuple(shards), trim=True)
+        shards = tuple(shards)
+        if rows_needed is not None:
+            # The sum of the fragments' row counts bounds the full bank's
+            # rows without a union: if even the bound fits, the bank does.
+            bound = sum(len(f.row_ids()) for s in shards
+                        for f in [view.fragment(s)] if f is not None)
+            full_bytes = bank_capacity(bound) * len(shards) \
+                * view.trimmed_words() * 4
+            if full_bytes > self.BANK_MAX_BYTES and \
+                    len(rows_needed) < bound:
+                return view.device_bank(shards, rows=sorted(rows_needed),
+                                        trim=True, cache_rows=True)
+        return view.device_bank(shards, trim=True)
 
     def _empty_bank(self, n_shards: int) -> ViewBank:
         bank = self._empty_banks.get(n_shards)
@@ -767,8 +842,17 @@ class Executor:
     # ---------------------------------------------------------------- TopN
 
     def _execute_topn(self, idx: Index, call: Call, shards) -> PairsResult:
-        """Exact TopN: one popcount sweep over the trimmed full-view bank,
-        then the (-count, row) order on the host."""
+        """Exact TopN: every row's count, then the (-count, row) order on
+        the host. The counts come from one of three places:
+
+        - the trimmed full-view bank while it fits TOPN_MAX_BANK_BYTES:
+          one popcount sweep;
+        - past it, for a narrow single-shard view with ``n`` and no
+          ``ids``, the device-resident positions bank: the membership
+          kernel per segment, the keep mask and a top-k on the device
+          (``_topn_positions``);
+        - otherwise transient chunk banks of TOPN_CHUNK_ROWS rows, one
+          sweep each."""
         field_name = call.arg("_field")
         field = idx.field(field_name)
         if field is None:
@@ -791,28 +875,39 @@ class Executor:
         ids_arg = call.arg("ids")
         min_threshold = call.uint_arg("threshold") or 0
 
-        all_rows = view.merged_row_ids(shards)
+        view_rows = view.merged_row_ids(shards)
+        all_rows = view_rows
         if ids_arg:
             wanted = {int(i) for i in ids_arg}
             all_rows = [r for r in all_rows if r in wanted]
         if not all_rows:
             return PairsResult([])
 
-        bank = view.device_bank(tuple(shards), trim=True)
-        if filter_words is not None:
-            filt = _align_words(filter_words, bank.array.shape[-1])
-            counts, raws = kernels.bank_row_counts_masked(
-                bank.array, filt.contiguous())
+        # The budget is the full bank's size (every view row), whatever
+        # the ids subset.
+        width = view.trimmed_words()
+        bank_bytes = bank_capacity(len(view_rows)) * len(shards) * width * 4
+        if bank_bytes <= TOPN_MAX_BANK_BYTES:
+            parts = [self._topn_sweep(
+                all_rows, view.device_bank(tuple(shards), trim=True),
+                filter_words)]
         else:
-            counts = raws = kernels.bank_row_counts(bank.array)
-        slot_idx = np.fromiter((bank.slot(r) for r in all_rows),
-                               dtype=np.int64, count=len(all_rows))
-        rows_arr = np.asarray(all_rows, dtype=np.uint64)
-        counts_arr = counts.cpu().numpy()[slot_idx]
-        raws_arr = raws.cpu().numpy()[slot_idx]
+            if PBANK_ENABLED and len(shards) == 1 and not ids_arg and n:
+                pb = view.positions_bank(shards[0], width)
+                if pb is not None:
+                    return self._topn_positions(pb, filter_words, width, n,
+                                                tanimoto, min_threshold)
+            parts = [self._topn_sweep(
+                rows, view.device_bank(tuple(shards), rows=rows, trim=True),
+                filter_words)
+                for rows in (all_rows[c0:c0 + TOPN_CHUNK_ROWS]
+                             for c0 in range(0, len(all_rows),
+                                             TOPN_CHUNK_ROWS))]
+        rows_arr = np.concatenate([p[0] for p in parts])
+        counts_arr = np.concatenate([p[1] for p in parts])
+        raws_arr = np.concatenate([p[2] for p in parts])
         if tanimoto and filter_words is not None:
-            src_total = int(kernels.bank_row_counts(
-                filter_words.contiguous().unsqueeze(0))[0])
+            src_total = int(self._row_popcount(filter_words)[0])
             denom = raws_arr + src_total - counts_arr
             keep = (denom > 0) & (
                 (counts_arr * 100) // np.maximum(denom, 1) >= tanimoto)
@@ -825,6 +920,80 @@ class Executor:
             order = order[:n]
         return PairsResult([(int(rows_arr[o]), int(counts_arr[o]))
                             for o in order])
+
+    @staticmethod
+    def _row_popcount(words: torch.Tensor) -> torch.Tensor:
+        """|row| of one [S, W] row as an int64 [1] tensor on its device."""
+        return kernels.bank_row_counts(words.contiguous().unsqueeze(0))
+
+    @staticmethod
+    def _topn_sweep(rows: Sequence[int], bank: ViewBank,
+                    filter_words: Optional[torch.Tensor]
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(rows, |row ∧ filter| or |row|, |row|) of ``rows`` from one
+        popcount sweep over ``bank``, as host arrays."""
+        if filter_words is not None:
+            filt = _align_words(filter_words, bank.array.shape[-1])
+            counts, raws = kernels.bank_row_counts_masked(
+                bank.array, filt.contiguous())
+        else:
+            counts = raws = kernels.bank_row_counts(bank.array)
+        # map(dict.get, ...) keeps the per-row probe loop in C.
+        slot_idx = np.fromiter(
+            map(bank.slots.get, rows, itertools.repeat(bank.zero_slot)),
+            dtype=np.int64, count=len(rows))
+        counts_arr = counts.cpu().numpy()[slot_idx]
+        raws_arr = counts_arr if raws is counts \
+            else raws.cpu().numpy()[slot_idx]
+        return np.asarray(rows, dtype=np.uint64), counts_arr, raws_arr
+
+    def _topn_positions(self, pb: PositionsBank,
+                        filter_words: Optional[torch.Tensor], width: int,
+                        n: int, tanimoto: int, min_threshold: int
+                        ) -> PairsResult:
+        """TopN over a device-resident PositionsBank: per segment the
+        membership counts (or, unfiltered, the row lengths), the keep
+        mask and a top-k on the device; one transfer of every segment's
+        candidates; the merge on the host.
+
+        The filter is cut to the bank's width: a filter row can be wider
+        than the bank (Not() over the existence view, a wider sibling
+        field), and a real position is below ``width * 32``, so no real
+        count changes. The Tanimoto denominator keeps the full filter
+        row's popcount, as the dense path does. Tanimoto applies only
+        with a filter."""
+        fw = None
+        src = 0
+        if filter_words is not None:
+            fw = filter_words[0, :width].contiguous()
+            if tanimoto:
+                src = self._row_popcount(filter_words)
+        else:
+            tanimoto = 0
+        outs = []
+        for row_lo, n_rows, pos, aux, _p in pb.segments:
+            k = min(n, n_rows)
+            if k == 0:
+                continue
+            fixed = pos.dim() == 2
+            raw = aux if fixed else aux[1:] - aux[:-1]
+            c = raw if fw is None else kernels.pbank_membership_counts(
+                pos, fw, None if fixed else aux)
+            outs.append((row_lo, _pbank_topk(c, raw, k, min_threshold,
+                                             tanimoto, src)))
+        if not outs:
+            return PairsResult([])
+        got = torch.cat([t for _, vi in outs for t in vi]).cpu().tolist()
+        pairs = []
+        at = 0
+        for row_lo, (v, _) in outs:
+            k = v.numel()
+            vals, ixs = got[at:at + k], got[at + k:at + 2 * k]
+            at += 2 * k
+            pairs.extend((pb.row_ids[row_lo + i], val)
+                         for val, i in zip(vals, ixs) if val > 0)
+        pairs.sort(key=lambda rc: (-rc[1], rc[0]))
+        return PairsResult(pairs[:n])
 
     # ------------------------------------------------------- Sum, Min, Max
 
@@ -841,7 +1010,7 @@ class Executor:
             raise ExecutionError(f"field {field_name} is not an int field")
         shards = self._shards(idx, shards)
         depth = bsig.bit_depth
-        bank = self._get_bank(field, view_bsi_name(field_name), shards)
+        bank = self._get_bank_for(field, view_bsi_name(field_name), shards)
         planes = self._bsi_planes(bank, depth)
         filt = None
         if call.children:

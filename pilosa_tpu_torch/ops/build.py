@@ -23,7 +23,7 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("bank_counts.cu", "mega_interpret.cu")
+SOURCES = ("bank_counts.cu", "mega_interpret.cu", "pbank_membership.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -38,6 +38,7 @@ SIGNATURES = {
     "bank_row_counts_masked": (_P, _P, _P, _P, _LL, _LL, _P),
     "bsi_plane_counts": (_P, _P, _P, _LL, _LL, _P),
     "mega_interpret": (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "pbank_membership_counts": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
 }
 
 

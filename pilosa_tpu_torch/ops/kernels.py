@@ -17,16 +17,24 @@ and the plan-buffer interpreter of the batch path
 - ``mega_interpret``: runs an ``[P, 4]`` (opcode, dst, a, b) plan over a
   ``[T, S, W]`` register slab in place and popcounts the count lanes.
 
+and the positions-bank membership count of filtered TopN
+(``csrc/pbank_membership.cu``):
+
+- ``pbank_membership_counts``: ``|row ∧ filter|`` per row of a
+  positions-bank segment (``core/view.py`` PositionsBank), fixed or
+  flat layout.
+
 Banks are width-trimmed, so W is any width >= 1 (the Pallas versions
 required W = 32768). Each wrapper takes a CUDA tensor to its kernel and
 a CPU tensor to the plain version beside it (``*_ref``), and nothing
-else: no fallback. Counts come back as ``int64`` on the input's device.
+else: no fallback. Counts come back as ``int64`` on the input's device
+(membership counts, at most 2^16 a row, as ``int32``).
 ``LAUNCHES[name]`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,10 +49,14 @@ LAUNCHES: Dict[str, int] = {
     "bank_row_counts_masked": 0,
     "bsi_plane_counts": 0,
     "mega_interpret": 0,
+    "pbank_membership_counts": 0,
 }
 
 # A row's count must fit the kernel's u32 accumulator: S*W*32 < 2^32.
 MAX_ROW_WORDS = (1 << 32) // 32 - 1
+# Widest filter the membership kernel takes: the pad position 0xFFFF
+# lies in word 2047, which must be past the filter.
+PBANK_MAX_WORDS = 2047
 
 
 def reset_launches() -> None:
@@ -98,6 +110,25 @@ def mega_interpret_ref(slab: torch.Tensor, instrs: torch.Tensor,
         slab[d] = res
     lanes = out_count.to(device=slab.device, dtype=torch.int64)
     return slab, popcount(slab.index_select(0, lanes), axis=(-2, -1))
+
+
+def pbank_membership_counts_ref(pos: torch.Tensor, filt: torch.Tensor,
+                                starts: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Plain version of ``pbank_membership_counts``: the filter padded
+    with zeros to 2048 words, each position's bit looked up, then summed
+    per row (fixed) or a cumsum differenced at ``starts`` (flat)."""
+    fw = torch.zeros(PBANK_MAX_WORDS + 1, dtype=torch.int32,
+                     device=pos.device)
+    fw[:filt.numel()] = filt
+    p = pos.to(torch.int32) & 0xFFFF
+    bits = (fw[p >> 5] >> (p & 31)) & 1
+    if starts is None:
+        return bits.sum(dim=1, dtype=torch.int32)
+    cs = torch.zeros(bits.numel() + 1, dtype=torch.int64, device=pos.device)
+    torch.cumsum(bits, 0, out=cs[1:])
+    s = starts.to(torch.int64)
+    return (cs[s[1:]] - cs[s[:-1]]).to(torch.int32)
 
 
 # -------------------------------------------------------------- checks
@@ -284,3 +315,64 @@ def mega_interpret(slab: torch.Tensor, instrs: torch.Tensor,
             host_lanes.numel(), _stream(slab.device)))
         LAUNCHES[name] += 1
     return slab, _as_counts(counts)
+
+
+def _check_pbank(name: str, pos: torch.Tensor, filt: torch.Tensor,
+                 starts: Optional[torch.Tensor]) -> int:
+    """Validate a membership call; returns the row count."""
+    if pos.dtype != torch.int16 or filt.dtype != torch.int32:
+        raise TypeError(f"{name}: positions must be int16 and the filter "
+                        f"int32, got {pos.dtype} and {filt.dtype}")
+    if filt.dim() != 1 or filt.numel() > PBANK_MAX_WORDS:
+        raise ValueError(f"{name}: filter must be 1-d with at most "
+                         f"{PBANK_MAX_WORDS} words, got {tuple(filt.shape)}")
+    if pos.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {pos.device}")
+    tensors = [pos, filt]
+    if starts is None:
+        if pos.dim() != 2:
+            raise ValueError(f"{name}: fixed positions must be [R, L], got "
+                             f"{tuple(pos.shape)}")
+        rows = int(pos.shape[0])
+    else:
+        if pos.dim() != 1 or starts.dim() != 1 or starts.numel() < 1:
+            raise ValueError(f"{name}: flat positions must be [P] with "
+                             "starts [R + 1]")
+        if starts.dtype != torch.int32:
+            raise TypeError(f"{name}: starts must be int32, got "
+                            f"{starts.dtype}")
+        tensors.append(starts)
+        rows = int(starts.numel()) - 1
+    for t in tensors:
+        if t.device != pos.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{pos.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return rows
+
+
+def pbank_membership_counts(pos: torch.Tensor, filt: torch.Tensor,
+                            starts: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``|row ∧ filt|`` per row of a positions-bank segment, as int32[R]
+    on the positions' device. ``pos`` holds u16 positions as int16:
+    fixed ``[R, L]`` rows padded with 0xFFFF (``starts`` None), or flat
+    ``[P]`` with int32 ``starts`` [R + 1] (the segment build guarantees
+    0 <= starts[r] <= starts[r + 1] <= P; they are not re-read here).
+    ``filt`` is the filter's int32 words, at most 2047 of them."""
+    name = "pbank_membership_counts"
+    rows = _check_pbank(name, pos, filt, starts)
+    if pos.device.type == "cpu":
+        return pbank_membership_counts_ref(pos, filt, starts)
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    out = torch.empty(rows, dtype=torch.int32, device=pos.device)
+    if rows:
+        L = int(pos.shape[1]) if starts is None else 0
+        _raise_on(name, lib.pbank_membership_counts(
+            pos.data_ptr(), starts.data_ptr() if starts is not None else None,
+            filt.data_ptr(), out.data_ptr(), rows, L, filt.numel(),
+            _stream(pos.device)))
+        LAUNCHES[name] += 1
+    return out
