@@ -15,11 +15,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    S = 96, W = 32768) and at ragged shapes (R = 5, S = 3, W in {33, 128,
    2048, 6144}), on random (p = 0.5) and all-ones banks; time each at
    its main-path shape beside its bound and its plain version. Hold
-   ``mega_interpret`` bit-exact (slab and counts) against its plain
-   version on seeded random plans over all eight opcodes, with
-   read-after-write and THRESH chains, dst == a aliasing and pow2 pad
-   rows, at the burst's shape (T = 64, S = 96, W = 32768) and at ragged
-   shapes (T = 8, S = 3, W in {33, 128, 2048}). Hold
+   ``mega_interpret`` bit-exact (count lanes and row lanes) against its
+   plain version on seeded random banks, slot lists, plan widths and
+   plans over all eight opcodes, with read-after-write and THRESH
+   chains, dst == a aliasing, writes into slot registers and pow2 pad
+   rows: the burst's shape (T = 64 over three banks of 96 x 32768), T in
+   {8, 512, 1024} at S = 3, banks narrower than, as wide as and wider
+   than the launch width with plan widths below the bank width, W in
+   {33, 34, 128, 2048}, bank rows that allow only 4-byte copies, more
+   count lanes than the kernel keeps in shared memory, and word counts
+   that no column tile divides. Hold
    ``pbank_membership_counts`` bit-exact against its plain version on
    fixed [65536, 48] rows with 0xFFFF pads (48- and 1500-bit filters),
    fixed [1024, 128] and flat rows of 0-200 positions, W in {1, 128,
@@ -32,9 +37,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    read requests of different shapes (a dashboard refresh), checked
    exactly against numpy; the flush must take exactly one megakernel
    launch with no fallback. Then the burst's warm p50 beside the sum of
-   the same requests' warm p50s one at a time, the gather prologue's and
-   the kernel's time on the burst's real plan, the kernel's bound and its
-   plain version's time.
+   the same requests' warm p50s one at a time, the device memory one
+   warm burst allocates at its peak, and on the burst's real plan the
+   kernel's time (its column tile, shared memory and grid, and its
+   registers from ``-Xptxas -v``), its byte and shared-memory bounds and
+   its plain version's time.
 5. tanimoto: a fingerprint index of 10M molecules (``--molecules``;
    4096-bit fingerprints of 48 draws each from seed 11, one shard, 200
    planted analogues of molecule 12345) loaded through
@@ -51,6 +58,13 @@ fingerprint) and read just after; every kernel must have launched on its
 path. The second-to-last line is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX or
 of the JAX package.
+
+``--burst-probe [--tree DIR]`` runs only the taxi load and the burst,
+with the ``pilosa_tpu_torch`` package of DIR (default: beside this
+script), and prints one ``probe`` JSON line: the burst's warm p50, the
+device memory one warm burst allocates at its peak, and its device time
+by kernel under torch.profiler. Runs of two trees in turns compare them
+on one card.
 """
 
 from __future__ import annotations
@@ -83,6 +97,7 @@ SHARD_WIDTH = 1 << 20
 WORDS = 32768
 N_RIDES = 100_000_000  # 96 shards
 ITERS = 5  # warm runs per taxi query for the p50
+PROBE_ITERS = 21  # warm bursts for the p50 of --burst-probe
 
 # The fingerprint index: the reference's chemical-similarity example
 # (benches/tanimoto_chunked.py) — one row per molecule, 48 draws of a
@@ -332,34 +347,77 @@ def random_mega_plan(rng, T, n_real):
             np.asarray(lanes, np.int32))
 
 
+def random_mega_case(rng, torch, device, T, S, w_mega, bank_ws, n_slots,
+                     n_real, n_lanes=None):
+    """Seeded random launch inputs: banks of widths ``bank_ws`` with S
+    shards on the card, ``n_slots`` slot rows spread over them, a plan
+    width per slot (mostly below its bank's width, a fifth at the launch
+    width), a random_mega_plan of ``n_real`` rows and row lanes (three
+    random registers and the spare). ``n_lanes`` replaces the plan's
+    count lanes with that many random ones. Returns the wrapper's
+    arguments."""
+    import numpy as np
+    per_bank = np.full(len(bank_ws), n_slots // len(bank_ws))
+    per_bank[:n_slots % len(bank_ws)] += 1
+    banks, slots, widths = [], [], np.zeros(T, np.int32)
+    k = 0
+    for W, m in zip(bank_ws, per_bank.tolist()):
+        words = rng.integers(0, 1 << 32, (m + 2, S, W), dtype=np.uint32)
+        banks.append(torch.from_numpy(words.view(np.int32)).to(device))
+        slots.append(rng.integers(0, m + 2, m).astype(np.int32))
+        for _ in range(m):
+            widths[k] = w_mega if rng.random() < 0.2 else \
+                int(rng.integers(1, min(W, w_mega) + 1))
+            k += 1
+    instrs, lanes = random_mega_plan(rng, T, n_real)
+    if n_lanes is not None:
+        lanes = rng.integers(0, T, n_lanes).astype(np.int32)
+    out_row = np.asarray(sorted(rng.integers(0, T - 1, 3).tolist())
+                         + [T - 1], np.int32)
+    return (banks, slots, widths, torch.from_numpy(instrs), lanes, out_row,
+            T, S, w_mega)
+
+
+MEGA_CASES = [
+    # (T, S, w_mega, bank widths, slots, real plan rows, count lanes)
+    (64, 96, WORDS, (WORDS, WORDS, WORDS), 29, 200, None),  # the burst
+    (8, 3, 128, (128,), 6, 24, None),
+    (512, 3, 128, (128, 96), 200, 700, None),
+    (1024, 3, 128, (160, 128), 500, 1500, None),
+    (16, 3, 128, (100, 128, 160), 9, 60, None),   # narrower, equal, wider
+    (8, 3, 33, (33, 28, 40), 5, 24, None),        # 4-byte columns
+    (8, 3, 34, (34, 30), 5, 24, None),            # 8-byte columns
+    (16, 3, 2048, (2048, 2000, 2100), 9, 60, None),
+    (16, 3, 128, (130, 126), 6, 40, None),        # 4-byte copies only
+    (64, 5, 1000, (1000, 1200, 900), 20, 120, None),  # ragged last tile
+    (32, 7, 100, (100,), 10, 50, 300),            # lanes past LANE_CAP
+]
+
+
 def check_mega(torch, kernels, device):
-    """mega_interpret against mega_interpret_ref, slab and counts bit for
-    bit; returns the max |kernel - plain| (0 when this returns)."""
+    """mega_interpret against mega_interpret_ref, count lanes and row
+    lanes bit for bit, on MEGA_CASES; returns the max |kernel - plain| (0
+    when this returns)."""
     import numpy as np
     rng = np.random.default_rng(13)
-    cases = [((64, 96, WORDS), 200)] + \
-        [((8, 3, W), n) for W in (33, 128, 2048) for n in (5, 24)]
-    for (T, S, W), n_real in cases:
-        instrs, lanes = random_mega_plan(rng, T, n_real)
-        words = rng.integers(0, 1 << 32, (T, S, W), dtype=np.uint32)
-        slab = torch.from_numpy(words.view(np.int32)).to(device)
-        want_slab, want_counts = kernels.mega_interpret_ref(
-            slab.clone(), torch.from_numpy(instrs), torch.from_numpy(lanes))
-        got_slab, got_counts = kernels.mega_interpret(
-            slab, torch.from_numpy(instrs), torch.from_numpy(lanes))
+    for T, S, W, bank_ws, n_slots, n_real, n_lanes in MEGA_CASES:
+        args = random_mega_case(rng, torch, device, T, S, W, bank_ws,
+                                n_slots, n_real, n_lanes)
+        want_counts, want_rows = kernels.mega_interpret_ref(*args)
+        got_counts, got_rows = kernels.mega_interpret(*args)
         torch.cuda.synchronize()
         if got_counts.device.type != "cuda" or \
                 got_counts.dtype != torch.int64:
             raise AssertionError(f"mega_interpret: bad output {got_counts}")
-        if not torch.equal(got_slab, want_slab) or \
+        if not torch.equal(got_rows, want_rows) or \
                 not torch.equal(got_counts, want_counts):
             raise AssertionError(
-                f"mega_interpret [{T},{S},{W}] P={len(instrs)}: kernel "
-                f"counts {got_counts.tolist()} != plain "
-                f"{want_counts.tolist()} or slabs differ")
-        del slab, want_slab, got_slab
+                f"mega_interpret T={T} S={S} W={W} banks {bank_ws} "
+                f"P={len(args[3])}: kernel counts {got_counts.tolist()} != "
+                f"plain {want_counts.tolist()} or row lanes differ")
+        del args, want_rows, got_rows
     torch.cuda.empty_cache()
-    log(f"kernels: mega_interpret bit-exact over {len(cases)} plans")
+    log(f"kernels: mega_interpret bit-exact over {len(MEGA_CASES)} plans")
     return 0
 
 
@@ -463,7 +521,8 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     report["burst"], burst_launches = run_burst(ex, want_burst, device,
                                                 iters, profile)
     if device != "cpu":
-        report["device_bytes"] = torch.cuda.max_memory_allocated()
+        report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
+                                     report["burst"]["peak_before_bytes"])
     del ex, holder
     return report, taxi_launches, burst_launches
 
@@ -574,30 +633,21 @@ def run_burst(ex, want, device, iters=ITERS, profile=False):
         if device != "cpu" and launches["mega_interpret"] != 1:
             raise AssertionError(f"burst: kernel launches {launches}")
         plan, n_shards, w_mega, _ = captured[0]
-        from pilosa_tpu_torch.ops import megakernel as mk
-        slab_bytes = mk.slab_nbytes(plan.n_regs, n_shards, w_mega)
         report = {"requests": len(reqs), "first_s": first_s,
                   "launches": launches, "n_slots": plan.n_slots,
                   "n_regs": plan.n_regs, "n_instrs": plan.n_instrs,
                   "instr_capacity": int(plan.instrs.shape[0]),
                   "count_lanes": len(plan.lane_count_widths),
                   "row_lanes": len(plan.lane_row_widths),
-                  "slab_bytes": slab_bytes, "plan_bytes": plan.plan_nbytes,
+                  "plan_bytes": plan.plan_nbytes,
                   "n_shards": n_shards, "w_mega": w_mega}
         log(f"burst: {len(reqs)} requests answered exactly in one launch; "
             f"n_slots {plan.n_slots}, n_regs {plan.n_regs}, n_instrs "
-            f"{plan.n_instrs} (capacity {plan.instrs.shape[0]}), slab "
-            f"{slab_bytes} bytes, first {first_s:.4f} s")
-        times = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            out = ex.execute_batch(reqs)
-            if device != "cpu":
-                torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            burst_answers(out, want)
-        times.sort()
-        report["p50_s"] = times[len(times) // 2]
+            f"{plan.n_instrs} (capacity {plan.instrs.shape[0]}), first "
+            f"{first_s:.4f} s")
+        report["p50_s"] = burst_p50(ex, reqs, want, device, iters)
+        if device != "cpu":
+            report.update(burst_peak(torch, ex, reqs, want))
         # Host time of the lowering and the plan optimizer in the warm
         # runs (the verify gate runs on a plan signature's first launch
         # only).
@@ -632,63 +682,129 @@ def run_burst(ex, want, device, iters=ITERS, profile=False):
     return report, launches
 
 
-def time_mega(torch, kernels, device, plan, n_shards, w_mega):
-    """On the burst's own plan: the gather prologue's time, the kernel's
-    (its C entry on the gathered slab, plan buffers already on the card)
-    and its plain version's, median of CUDA-event timings; the kernel is
-    held bit-exact against the plain version on this plan too."""
-    from pilosa_tpu_torch.ops import build
-    from pilosa_tpu_torch.ops import megakernel as mk
-    lib = build.load()
-    gather_ms = time_cuda(torch, lambda: mk.gather_slab(plan, n_shards,
-                                                        w_mega), iters=10)
-    host_instrs = torch.from_numpy(plan.instrs)
-    host_lanes = torch.from_numpy(plan.out_count)
-    slab = mk.gather_slab(plan, n_shards, w_mega)
-    want_slab, want_counts = kernels.mega_interpret_ref(
-        slab.clone(), host_instrs, host_lanes)
-    got_slab, got_counts = kernels.mega_interpret(slab, host_instrs,
-                                                  host_lanes)
+def burst_p50(ex, reqs, want, device, iters):
+    """Warm p50 (s) of the burst through execute_batch, each run checked."""
+    import torch
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = ex.execute_batch(reqs)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        burst_answers(out, want)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def burst_peak(torch, ex, reqs, want):
+    """Device memory one warm burst allocates at its peak, above what was
+    allocated before it (the holder's banks). The peak counter is reset
+    for it; the peak of the run so far is returned as peak_before_bytes
+    so the caller can still report the whole run's peak."""
     torch.cuda.synchronize()
-    if not torch.equal(got_slab, want_slab) or \
-            not torch.equal(got_counts, want_counts):
+    peak_before = torch.cuda.max_memory_allocated()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ex.execute_batch(reqs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    burst_answers(out, want)
+    log(f"burst: one warm burst peaks {peak} bytes above the "
+        f"{base} bytes allocated before it")
+    return {"burst_peak_bytes": peak, "burst_base_bytes": base,
+            "peak_before_bytes": peak_before}
+
+
+def smem_bound_ms(plan, live_rows, n):
+    """Least time of the kernel's shared-memory traffic on the card: each
+    executed plan row reads a and b and writes dst a column (THRESH also
+    reads dst), plus the gathered and zeroed registers' writes and the
+    lanes' reads, at 128 bytes a clock on each SM at the card's highest SM
+    clock."""
+    import numpy as np
+    import torch
+    access = np.array([3, 3, 3, 3, 3, 3, 3, 4])
+    per_col = int(access[plan.instrs[:live_rows, 0]].sum()) + plan.n_regs \
+        + len(plan.out_row) + len(plan.out_count)
+    nbytes = per_col * n * 4
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return nbytes / (sms * 128 * mhz * 1e6) * 1e3, nbytes
+
+
+def ptxas_lines(source):
+    """The ``-Xptxas -v`` lines of each kernel compiled from ``source`` in
+    this run's build (empty when the library was already built)."""
+    from pilosa_tpu_torch.ops import build
+    out, name = {}, None
+    for line in build.BUILD_LOG.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.strip())
+    return out
+
+
+def time_mega(torch, kernels, device, plan, n_shards, w_mega):
+    """On the burst's own plan: the kernel held bit-exact against its
+    plain version, then the kernel's time (its C entry, the plan buffers
+    and slot descriptors already on the card), its tile, shared memory
+    and grid, and the plain version's time, median of CUDA-event
+    timings."""
+    import ctypes
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    call = (plan.banks, plan.slots, plan.widths, plan.instrs,
+            plan.out_count, plan.out_row, plan.n_regs, n_shards, w_mega)
+    want = kernels.mega_interpret_ref(*call)
+    got = kernels.mega_interpret(*call)
+    torch.cuda.synchronize()
+    if any(not torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("mega_interpret differs from its plain version "
                              "on the burst's plan")
-    instrs = host_instrs.to(device)
-    lanes = host_lanes.to(device)
-    counts = torch.zeros(len(plan.out_count), dtype=torch.int32,
-                         device=device)
+    del got, want
+    args, counts, rows, buf = kernels.mega_launch_args(*call)
+    info = (ctypes.c_longlong * 4)()
     stream = torch.cuda.current_stream(device).cuda_stream
-    n = n_shards * w_mega
 
     def kernel():
-        # A verified plan defines every scratch register before reading
-        # it, so rerunning it over the same slab is idempotent.
-        return lib.mega_interpret(slab.data_ptr(), instrs.data_ptr(),
-                                  lanes.data_ptr(), counts.data_ptr(),
-                                  plan.n_regs, n, plan.instrs.shape[0],
-                                  len(plan.out_count), stream)
+        # Every run gathers anew from the banks; only the count lanes
+        # accumulate, which timing ignores.
+        return lib.mega_interpret(*args, counts.data_ptr(), rows.data_ptr(),
+                                  ctypes.addressof(info), stream)
 
     if kernel() != 0:
         raise RuntimeError("mega_interpret: kernel launch failed")
     ms = time_cuda(torch, kernel)
-    plain_slab = want_slab
-    plain_ms = time_cuda(torch, lambda: kernels.mega_interpret_ref(
-        plain_slab, host_instrs, host_lanes), iters=3, warmup=1)
+    plain_ms = time_cuda(torch, lambda: kernels.mega_interpret_ref(*call),
+                         iters=3, warmup=1)
+    n = n_shards * w_mega
     row = n * 4
     nbytes = (plan.n_slots * row + len(plan.lane_row_widths) * row
               + len(plan.lane_count_widths) * 4)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"timing: mega_interpret [{plan.n_regs},{n_shards},{w_mega}] "
-        f"P={plan.instrs.shape[0]} kernel {ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms (bytes), plain {plain_ms:.4f} ms; gather prologue "
-        f"{gather_ms:.4f} ms")
+    live_rows = args[3]
+    smem_ms, smem_bytes = smem_bound_ms(plan, live_rows, n)
+    tile = {"tile_cols": info[0], "smem_bytes_per_block": info[1],
+            "blocks": info[2], "threads": info[3]}
+    ptxas = ptxas_lines("mega_interpret.cu")
+    log(f"timing: mega_interpret T={plan.n_regs} S={n_shards} W={w_mega} "
+        f"P={plan.instrs.shape[0]} ({live_rows} rows run) kernel {ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms (bytes), shared-memory bound "
+        f"{smem_ms:.4f} ms, plain {plain_ms:.4f} ms; tile {tile}; ptxas "
+        f"{ptxas}")
     log("timing: no single PyTorch call computes a plan interpreter, so "
         "mega_interpret has no library yardstick (library_ms null)")
-    del slab, want_slab, got_slab, plain_slab
+    del buf, counts, rows
     torch.cuda.empty_cache()
-    return {"gather_ms": gather_ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_bytes": nbytes}
+    return {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_bytes": nbytes, "smem_bound_ms": smem_ms,
+            "smem_bytes": smem_bytes, "live_rows": live_rows,
+            "ptxas": ptxas, **tile}
 
 
 def profile_burst(torch, ex, reqs, iters):
@@ -1073,6 +1189,32 @@ def time_pbank(torch, kernels, device, tin):
 
 
 
+def run_probe(device, n_rides, iters=PROBE_ITERS):
+    """The taxi load and the burst alone, with whichever
+    pilosa_tpu_torch is first on the path: the first burst must answer
+    exactly in one launch with no fallback; then its warm p50, the
+    device memory one warm burst allocates at its peak, and its device
+    time by kernel under torch.profiler."""
+    import torch
+    cab, pax, dist, amount = taxi_data(n_rides)
+    want = burst_expected(cab, pax, dist, amount)
+    holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
+    del cab, pax, dist, amount
+    reqs = [("taxi", pql, None) for _, pql in BURST]
+    before = (ex.mega_launches, ex.mega_fallbacks, ex.mega_budget_fallbacks)
+    burst_answers(ex.execute_batch(reqs), want)
+    after = (ex.mega_launches, ex.mega_fallbacks, ex.mega_budget_fallbacks)
+    if after != (before[0] + 1, before[1], before[2]):
+        raise AssertionError(f"probe: megakernel launches/fallbacks/budget "
+                             f"fallbacks {before} -> {after}")
+    report = {"rides": n_rides, "load_s": load_s,
+              "p50_s": burst_p50(ex, reqs, want, device, iters)}
+    report.update(burst_peak(torch, ex, reqs, want))
+    report["profile"] = profile_burst(torch, ex, reqs, iters)
+    del ex, holder
+    return report
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1088,18 +1230,35 @@ def main(argv=None) -> int:
     ap.add_argument("--molecules", type=int, default=N_MOLECULES,
                     help="molecules in the fingerprint index (default "
                          "%(default)s)")
+    ap.add_argument("--burst-probe", action="store_true",
+                    help="run only the taxi load and the burst and print "
+                         "one probe line (p50, peak memory, device time)")
+    ap.add_argument("--tree", metavar="DIR", default=REPO,
+                    help="with --burst-probe: the checkout whose "
+                         "pilosa_tpu_torch runs (default: this script's)")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
         return 1
-    if not os.path.isdir(os.path.join(REPO, "pilosa_tpu_torch")):
-        log("chip_smoke: pilosa_tpu_torch/ not found beside this script")
+    tree = os.path.abspath(args.tree if args.burst_probe else REPO)
+    if not os.path.isdir(os.path.join(tree, "pilosa_tpu_torch")):
+        log(f"chip_smoke: pilosa_tpu_torch/ not found in {tree}")
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, tree)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+
+    if args.burst_probe:
+        from pilosa_tpu_torch.ops import build
+        build.build()
+        card = card_line()
+        print(card, flush=True)
+        probe = run_probe("cuda", N_RIDES)
+        print(json.dumps({"probe": {"tree": tree, "card": card, **probe}}),
+              flush=True)
+        return 0
 
     # 1. build
     from pilosa_tpu_torch.ops import build, kernels
@@ -1160,10 +1319,10 @@ def main(argv=None) -> int:
                      if k != "profile"}}}), flush=True)
     print(json.dumps({"burst": {k: burst[k] for k in (
         "requests", "p50_s", "single_p50_sum_s", "lower_opt_p50_s",
-        "first_s", "gather_ms",
-        "kernel_ms", "plain_ms", "bound_ms", "n_slots", "n_regs",
-        "n_instrs", "instr_capacity", "count_lanes", "row_lanes",
-        "slab_bytes", "launches")}}), flush=True)
+        "first_s", "kernel_ms", "plain_ms", "bound_ms", "smem_bound_ms",
+        "tile_cols", "smem_bytes_per_block", "blocks", "burst_peak_bytes",
+        "n_slots", "n_regs", "n_instrs", "instr_capacity", "count_lanes",
+        "row_lanes", "launches")}}), flush=True)
     queries = fp["queries"]
     print(json.dumps({"tanimoto": {
         "molecules": fp["molecules"], "load_s": fp["load_s"],

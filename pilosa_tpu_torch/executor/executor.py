@@ -355,7 +355,8 @@ class Executor:
             self.mega_fallbacks += groups
 
     def _note_mega_budget_fallback(self, groups: int) -> None:
-        """A cohort over the slab budget ran per group."""
+        """A cohort over the register budget or the tile limit ran per
+        group."""
         with self._stats_lock:
             self.mega_budget_fallbacks += groups
 

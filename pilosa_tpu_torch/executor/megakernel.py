@@ -12,8 +12,16 @@ lanes from the launch's shared (counts, rows) outputs.
 Routing, as in the JAX package's ``executor/megakernel.py``:
 
 - only cohorts of two or more groups per shard count take the launch;
-- a cohort whose register slab would exceed ``MEGA_MAX_BYTES``
-  (``PILOSA_TPU_MEGA_BYTES``, default 1 GiB) runs per group;
+- a cohort whose T x S x W register working set would exceed
+  ``MEGA_MAX_BYTES`` (``PILOSA_TPU_MEGA_BYTES``, default 1 GiB) runs per
+  group, as in the JAX package, though the card never allocates that
+  slab any more: the kernel holds one column tile of the registers at a
+  time in shared memory, and the slab survives only in the plain
+  version the CPU runs;
+- so does a cohort whose T exceeds ``kernels.MEGA_MAX_REGS``, the most
+  registers one block's shared memory holds at the narrowest column
+  tile (the wrapper refuses such a T); both count in the executor's
+  ``mega_budget_fallbacks``;
 - a surprise in lowering falls back per group (counted in the
   executor's ``mega_fallbacks``); a surprise in the plan optimizer
   launches the unoptimized plan;
@@ -33,6 +41,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops import megakernel as mk
 from pilosa_tpu_torch.ops import plan_opt
 
@@ -50,8 +59,8 @@ def _flag(env: str, default: str) -> str:
 MEGAKERNEL_ENABLED: Optional[bool] = {
     "on": True, "off": False}.get(_flag("PILOSA_TPU_MEGAKERNEL", "auto"))
 
-# Register-slab budget per launch: a cohort whose [T, S, W] slab would
-# exceed it runs per group instead.
+# Register budget per launch: a cohort whose [T, S, W] working set would
+# exceed it runs per group instead (the same cohorts as the JAX package).
 MEGA_MAX_BYTES = int(os.environ.get("PILOSA_TPU_MEGA_BYTES", 1 << 30))
 
 # Plan verification gate: "on", "off" or "auto".
@@ -133,7 +142,8 @@ def run_megakernel(executor: Any, groups: Dict[tuple, Any]
             for g in cohort:
                 remaining[("fallback", id(g))] = g
             continue
-        if mk.slab_nbytes(plan.n_regs, n_shards, w_mega) > MEGA_MAX_BYTES:
+        if mk.slab_nbytes(plan.n_regs, n_shards, w_mega) > MEGA_MAX_BYTES \
+                or plan.n_regs > kernels.MEGA_MAX_REGS:
             executor._note_mega_budget_fallback(len(cohort))
             for g in cohort:
                 remaining[("budget", id(g))] = g

@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -29,6 +29,9 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+# source name -> what nvcc printed for it in the last verbose build
+# (``-Xptxas -v``: each kernel's registers, shared memory and spills).
+BUILD_LOG: Dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -37,7 +40,8 @@ SIGNATURES = {
     "bank_row_counts": (_P, _P, _LL, _LL, _P),
     "bank_row_counts_masked": (_P, _P, _P, _P, _LL, _LL, _P),
     "bsi_plane_counts": (_P, _P, _P, _LL, _LL, _P),
-    "mega_interpret": (_P, _P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    "mega_interpret": (_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, _LL,
+                       _P, _P, _P, _P),
     "pbank_membership_counts": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
 }
 
@@ -97,6 +101,7 @@ def build(verbose: bool = False) -> Path:
                 failed.append(f"nvcc {name} failed ({proc.returncode}):\n"
                               f"{stdout}\n{stderr}")
             elif verbose and (stdout or stderr):
+                BUILD_LOG[name] = stdout + stderr
                 print(f"nvcc {name}:\n{stdout}{stderr}", flush=True)
         if failed:
             raise RuntimeError("\n".join(failed))

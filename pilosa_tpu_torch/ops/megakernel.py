@@ -19,6 +19,10 @@ Execution model
   words stay zero end to end).
 * Registers above the gathered operands are scratch, allocated by the
   lowering, zero-filled before the interpreter runs.
+* On the card the kernel holds the registers of one column tile at a
+  time in shared memory and reads the slot rows straight from the banks:
+  no ``[T, S, W]`` slab is allocated. The slab stays only in the plain
+  version (``kernels.mega_interpret_ref``), which the CPU runs.
 * The plan buffer is an int32 ``[P, 4]`` array of ``(opcode, dst, a,
   b)`` rows, executed in order.
 * Outputs: one popcount per count lane (fused into the kernel) and
@@ -365,7 +369,9 @@ class Plan:
 
 
 def slab_nbytes(n_regs: int, n_shards: int, w_mega: int) -> int:
-    """Device footprint of the launch's register slab."""
+    """Bytes of the launch's T x S x W working set: the registers the
+    kernel holds a column tile at a time in shared memory. The card never
+    allocates it (only the plain version builds a slab of this size)."""
     return int(n_regs) * int(n_shards) * int(w_mega) * 4
 
 
@@ -602,55 +608,15 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
 # ------------------------------------------------------------- program
 
 
-def _fit(rows: torch.Tensor, w_mega: int) -> torch.Tensor:
-    """Slice or zero-pad the word axis to the launch width."""
-    w = rows.shape[-1]
-    if w > w_mega:
-        return rows[..., :w_mega]
-    if w < w_mega:
-        return torch.nn.functional.pad(rows, (0, w_mega - w))
-    return rows
-
-
-def gather_slab(plan: Plan, n_shards: int, w_mega: int) -> torch.Tensor:
-    """The interpreter's input: a fresh ``[n_regs, S, w_mega]`` int32
-    slab holding each bank's slot rows fitted to ``w_mega`` and masked to
-    their entry's plan width, then zeros (scratch and pad registers)."""
-    if not plan.banks:
-        raise ValueError("a megakernel plan needs at least one bank")
-    device = plan.banks[0].device
-    slab = torch.empty((plan.n_regs, n_shards, w_mega), dtype=torch.int32,
-                       device=device)
-    off = 0
-    widths = plan.widths.tolist()
-    for bank, slots in zip(plan.banks, plan.slots):
-        k = len(slots)
-        idx = torch.as_tensor(np.asarray(slots, np.int64), device=device)
-        if bank.shape[-1] == w_mega and bank.is_contiguous():
-            torch.index_select(bank, 0, idx, out=slab[off:off + k])
-        else:
-            slab[off:off + k] = _fit(bank.index_select(0, idx), w_mega)
-        copied = min(int(bank.shape[-1]), w_mega)
-        for r in range(off, off + k):
-            if widths[r] < copied:
-                slab[r, :, widths[r]:copied] = 0
-        off += k
-    slab[off:].zero_()
-    return slab
-
-
 def run_program(plan: Plan, n_shards: int, w_mega: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run one finished plan: the gather prologue, one ``mega_interpret``
-    launch (or its plain version for CPU banks), then the outputs.
-    Returns ``(counts int64[Nc], rows int32[Nr, S, w_mega])`` on the
-    banks' device, pow2 pad lanes included."""
+    """Run one finished plan: one ``mega_interpret`` launch (or its plain
+    version for CPU banks) with the plan's buffers. Returns ``(counts
+    int64[Nc], rows int32[Nr, S, w_mega])`` on the banks' device, pow2
+    pad lanes included. On the card the launch reads the slot rows from
+    the banks itself; the ``[T, S, W]`` slab exists only in the plain
+    version."""
     from pilosa_tpu_torch.ops import kernels
-    slab = gather_slab(plan, n_shards, w_mega)
-    slab, counts = kernels.mega_interpret(
-        slab, torch.from_numpy(plan.instrs),
-        torch.from_numpy(plan.out_count))
-    out_row = torch.as_tensor(plan.out_row.astype(np.int64),
-                              device=slab.device)
-    rows = slab.index_select(0, out_row)
-    return counts, rows
+    return kernels.mega_interpret(plan.banks, plan.slots, plan.widths,
+                                  plan.instrs, plan.out_count, plan.out_row,
+                                  plan.n_regs, n_shards, w_mega)

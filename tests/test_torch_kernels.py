@@ -135,6 +135,17 @@ def test_c_entry_points_match_build_signatures():
     assert names == set(build.SIGNATURES) == set(kernels.LAUNCHES)
 
 
+def test_c_entry_arity_matches_build_signatures():
+    """Each C entry takes as many arguments as ctypes is told it does."""
+    for source in build.SOURCES:
+        src = (build.CSRC_DIR / source).read_text()
+        exported = src[src.index('extern "C"'):]
+        for name, params in re.findall(r'^(?:extern "C" )?int (\w+)\(([^)]*)\)',
+                                       exported, re.M):
+            assert len(params.split(",")) == len(build.SIGNATURES[name]), \
+                name
+
+
 def test_library_path_is_keyed_on_source_hash():
     path = build.library_path()
     assert path.parent.name == build.source_hash()

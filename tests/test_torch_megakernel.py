@@ -10,6 +10,12 @@ equality throughout (every output is an integer):
   both packages gives identical buffers, and the port's verifier gives
   the JAX verdict on the synthetic plans of ``tools/planverify`` and on
   every one of their mutations;
+- the wrapper's plain version over 2-3 banks narrower than, as wide as
+  and wider than the launch width, with plan widths below the bank
+  width, against the JAX ``build_program(...).run`` (gather, fit, mask,
+  plan, both output stages);
+- the live plan prefix the kernel runs (``mega_live_rows``), the routing
+  of a cohort whose T exceeds the kernel's shared-memory tile;
 - the wrapper's checks, and the CUDA kernel against its plain version on
   a card (marked gpu, skipped without one)."""
 
@@ -23,7 +29,7 @@ import torch
 
 from pilosa_tpu.ops import megakernel as jmk
 from pilosa_tpu.ops import plan_opt as jplan_opt
-from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.ops import build, kernels
 from pilosa_tpu_torch.ops import megakernel as mk
 from pilosa_tpu_torch.ops import plan_opt
 from test_pallas_kernels import _mega_reference
@@ -39,11 +45,15 @@ def _random_plan(rng, T, P, n_ops=8):
 
 
 def _port_interpret(slab_u32, instrs, out_count):
+    """The port's wrapper over a slab whose every register is a gathered
+    row at full width, with every register a row lane: the final slab."""
+    T, S, W = slab_u32.shape
     slab = torch.from_numpy(slab_u32.view(np.int32).copy())
-    out, counts = kernels.mega_interpret(slab, torch.from_numpy(instrs),
-                                         torch.from_numpy(out_count))
-    assert out is slab  # in place
-    return out.numpy().view(np.uint32), counts.numpy()
+    counts, rows = kernels.mega_interpret(
+        (slab,), (np.arange(T, dtype=np.int32),), np.full(T, W, np.int32),
+        torch.from_numpy(instrs), torch.from_numpy(out_count),
+        np.arange(T, dtype=np.int32), T, S, W)
+    return rows.numpy().view(np.uint32), counts.numpy()
 
 
 _JAX_RUNS = {}
@@ -138,11 +148,18 @@ def test_interpreter_matches_numpy_reference_random(seed):
 
 
 @pytest.mark.parametrize("case", ["opcode", "register", "negative",
-                                  "lane", "shape", "dtype", "meta"])
+                                  "lane", "shape", "dtype", "meta",
+                                  "noncontiguous", "shards", "slot",
+                                  "width_zero", "width_wide", "row_lane",
+                                  "tile"])
 def test_wrapper_refuses_bad_plans(case):
-    slab = torch.zeros((4, 2, 8), dtype=torch.int32)
+    bank = torch.zeros((4, 2, 8), dtype=torch.int32)
+    slots = [np.array([0, 1], np.int32)]
+    widths = np.array([8, 8, 0, 0], np.int32)
     instrs = torch.tensor([[mk.OP_AND, 2, 0, 1]], dtype=torch.int32)
     lanes = torch.tensor([2], dtype=torch.int32)
+    row_lanes = np.array([3], np.int32)
+    T, S = 4, 2
     if case == "opcode":
         instrs[0, 0] = 8
     elif case == "register":
@@ -155,10 +172,42 @@ def test_wrapper_refuses_bad_plans(case):
         instrs = instrs[:, :3]
     elif case == "dtype":
         instrs = instrs.to(torch.int64)
+    elif case == "meta":
+        bank = bank.to("meta")
+    elif case == "noncontiguous":
+        bank = torch.zeros((4, 8, 2), dtype=torch.int32).transpose(1, 2)
+    elif case == "shards":
+        S = 3
+    elif case == "slot":
+        slots[0][1] = 4
+    elif case == "width_zero":
+        widths[0] = 0
+    elif case == "width_wide":
+        widths[1] = 9
+    elif case == "row_lane":
+        row_lanes[0] = -1
     else:
-        slab = slab.to("meta")
+        T = kernels.MEGA_MAX_REGS + 1
     with pytest.raises((ValueError, TypeError)):
-        kernels.mega_interpret(slab, instrs, lanes)
+        kernels.mega_interpret((bank,), slots, widths, instrs, lanes,
+                               row_lanes, T, S, 8)
+
+
+def test_tile_limit_matches_the_kernel():
+    """MEGA_MAX_REGS is the most registers whose narrowest column tile
+    fits one block's 227 KB beside everything the kernel stages; pow2
+    plans stop at 1024."""
+    src = (build.CSRC_DIR / "mega_interpret.cu").read_text()
+    for name, value in (("MIN_TILE_WORDS", kernels.MEGA_MIN_TILE_WORDS),
+                        ("SLOT_CAP", kernels.MEGA_SLOT_CAP),
+                        ("PLAN_CAP", kernels.MEGA_PLAN_CAP),
+                        ("LANE_CAP", kernels.MEGA_LANE_CAP),
+                        ("MAX_BLOCK_SMEM", kernels.MEGA_BLOCK_SMEM)):
+        assert f"constexpr int {name} = {value};" in src
+    T = kernels.MEGA_MAX_REGS
+    staged = (256 + 512) * 16 + 2 * 256 * 4
+    assert T * 32 * 4 + staged <= 232448 < (T + 1) * 32 * 4 + staged
+    assert mk.pow2_at_least(T + 1) // 2 == 1024
 
 
 def test_run_program_on_cpu_launches_no_kernel():
@@ -178,6 +227,187 @@ def test_run_program_on_cpu_launches_no_kernel():
     assert int(counts[0]) == int(np.bitwise_count(b[0] & b[3]).sum())
     np.testing.assert_array_equal(rows[0].numpy().view(np.uint32),
                                   b[1] | b[2])
+
+
+# Banks narrower than, as wide as and wider than the launch width, with
+# plan widths below the bank width (the mask): (bank widths, w_mega).
+_BANK_CASES = [((12, 16, 20), 16), ((8, 33), 33), ((40, 9, 33), 33),
+               ((6, 5), 7)]
+
+
+def _multibank_case(rng, bank_ws, w_mega, S=3, T=16, P=40):
+    banks = [rng.integers(0, 2**32, (int(rng.integers(3, 7)), S, w),
+                          dtype=np.uint32) for w in bank_ws]
+    slots = [rng.integers(0, len(b), int(rng.integers(1, 4)))
+             .astype(np.int32) for b in banks]
+    n_slots = sum(len(sl) for sl in slots)
+    widths = np.zeros(T, np.int32)
+    for k, w in enumerate(np.concatenate(
+            [np.full(len(sl), b.shape[-1]) for b, sl in zip(banks, slots)])):
+        # mostly below the bank width; sometimes the full launch width
+        hi = min(int(w), w_mega)
+        widths[k] = w_mega if rng.random() < 0.2 else \
+            int(rng.integers(1, hi + 1))
+    instrs = _random_plan(rng, T, P)        # writes slot registers too
+    instrs = np.concatenate([instrs, np.tile(
+        np.array([[mk.OP_ZERO, T - 1, T - 1, T - 1]], np.int32), (24, 1))])
+    out_count = np.concatenate([rng.integers(0, T - 1, 5),
+                                [T - 1] * 3]).astype(np.int32)
+    out_row = np.concatenate([rng.integers(0, T - 1, 3),
+                              [T - 1]]).astype(np.int32)
+    assert n_slots < T
+    return banks, slots, widths, instrs, out_count, out_row
+
+
+def _jax_run(banks, slots, widths, instrs, out_count, out_row, T, S,
+             w_mega):
+    key = (T, S, w_mega, tuple(b.shape for b in banks))
+    jrun = _JAX_RUNS.get(key)
+    if jrun is None:
+        jrun = _JAX_RUNS[key] = jax.jit(
+            jmk.build_program(S, w_mega, T, use_pallas=False))
+    counts, rows = jrun(tuple(jnp.asarray(b) for b in banks),
+                        tuple(jnp.asarray(sl) for sl in slots),
+                        jnp.asarray(widths), jnp.asarray(instrs),
+                        jnp.asarray(out_count), jnp.asarray(out_row))
+    return (np.asarray(counts).astype(np.int64).sum(axis=-1),
+            np.asarray(rows))
+
+
+@pytest.mark.parametrize("case", range(len(_BANK_CASES)))
+@pytest.mark.parametrize("seed", range(2))
+def test_plain_version_matches_jax_run_over_banks(case, seed):
+    """kernels.mega_interpret (the plain version on the CPU) against JAX
+    build_program(...).run over 2-3 banks: gather, fit, width mask,
+    zeroed scratch, the plan and both output stages."""
+    bank_ws, w_mega = _BANK_CASES[case]
+    rng = np.random.default_rng([61, case, seed])
+    T, S = 16, 3
+    banks, slots, widths, instrs, out_count, out_row = _multibank_case(
+        rng, bank_ws, w_mega, S, T)
+    want_counts, want_rows = _jax_run(banks, slots, widths, instrs,
+                                      out_count, out_row, T, S, w_mega)
+    tb = [torch.from_numpy(b.view(np.int32)) for b in banks]
+    got_counts, got_rows = kernels.mega_interpret(
+        tb, slots, widths, torch.from_numpy(instrs), out_count, out_row, T,
+        S, w_mega)
+    np.testing.assert_array_equal(got_counts.numpy(), want_counts)
+    np.testing.assert_array_equal(got_rows.numpy().view(np.uint32),
+                                  want_rows)
+    ref_counts, ref_rows = kernels.mega_interpret_ref(
+        tb, slots, widths, torch.from_numpy(instrs), out_count, out_row, T,
+        S, w_mega)
+    assert torch.equal(ref_counts, got_counts)
+    assert torch.equal(ref_rows, got_rows)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_live_rows_drop_only_noop_pad_rows(seed):
+    """The kernel runs the plan's live prefix (``mega_live_rows``): every
+    output, pad lanes included, equals running every row. The body ORs
+    slot rows into scratch registers; the tail ZEROes registers the body
+    left alone (droppable) and, for odd seeds, one it wrote (not)."""
+    rng = np.random.default_rng([67, seed])
+    T, S, W, n_slots = 12, 2, 5, 3
+    slab = torch.from_numpy(rng.integers(1, 2**31, (T, S, W),
+                                         dtype=np.int64).astype(np.int32))
+    written = [int(r) for r in rng.choice(np.arange(n_slots, T - 1), 4,
+                                          replace=False)]
+    body = [(mk.OP_OR, r, int(rng.integers(0, n_slots)),
+             int(rng.integers(0, n_slots))) for r in written]
+    untouched = [r for r in range(n_slots, T) if r not in written]
+    tail = [(mk.OP_ZERO, int(rng.choice(untouched)), 0, 0)
+            for _ in range(6)]
+    at = None
+    if seed % 2:
+        at = int(rng.integers(0, len(tail)))
+        tail[at] = (mk.OP_ZERO, written[0], 0, 0)
+    instrs = np.asarray(body + tail, np.int32)
+    n_run = kernels.mega_live_rows(instrs, n_slots)
+    assert n_run == len(body) + (0 if at is None else at + 1)
+    lanes = np.arange(T, dtype=np.int32)
+    args = ((slab,), (np.arange(n_slots, dtype=np.int32),),
+            np.full(T, W, np.int32))
+    want = kernels.mega_interpret_ref(*args, torch.from_numpy(instrs),
+                                      lanes, lanes, T, S, W)
+    got = kernels.mega_interpret_ref(
+        *args, torch.from_numpy(instrs[:n_run]), lanes, lanes, T, S, W)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_live_rows_keep_the_pad_when_a_real_row_writes_the_spare():
+    low = mk.Lowering()
+    bank = np.zeros((4, 2, 8), np.uint32)
+    low.add_entry((("slot", 0, 0), ("slot", 0, 1), ("fold", "and", 2)),
+                  [bank], [0, 1], [], 8, "count")
+    low.add_entry((("slot", 0, 0), ("slot", 0, 1), ("slot", 0, 2),
+                   ("fold", "or", 3)), [bank], [0, 1, 2], [], 8, "row")
+    plan = low.finish()
+    assert plan.n_instrs < len(plan.instrs)  # carries pad rows
+    assert kernels.mega_live_rows(plan.instrs, plan.n_slots) == \
+        plan.n_instrs
+    instrs = plan.instrs.copy()
+    instrs[0, 1] = plan.n_regs - 1
+    assert kernels.mega_live_rows(instrs, plan.n_slots) == len(instrs)
+
+
+@pytest.fixture
+def taxi_like():
+    """A small CPU holder (two set fields, one int field over 2 shards)
+    with the megakernel forced on."""
+    from pilosa_tpu_torch import Executor, FieldOptions, Holder
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    rng = np.random.default_rng(71)
+    n = 2 * (1 << 20)
+    cols = rng.choice(n, 3000, replace=False).astype(np.uint64)
+    h = Holder(device="cpu")
+    idx = h.create_index("t")
+    idx.create_field("a").import_bits(
+        rng.integers(0, 3, len(cols)).astype(np.uint64), cols)
+    idx.create_field("b").import_bits(
+        rng.integers(1, 5, len(cols)).astype(np.uint64), cols)
+    idx.create_field("v", FieldOptions(type="int", min=0, max=300)) \
+        .import_values(cols, rng.integers(0, 300, len(cols)))
+    prev = megamod.MEGAKERNEL_ENABLED
+    megamod.MEGAKERNEL_ENABLED = True
+    yield Executor(h, device="cpu")
+    megamod.MEGAKERNEL_ENABLED = prev
+
+
+_ROUTED = ["Count(Row(a=1))", "Count(Intersect(Row(a=2), Row(b=3)))",
+           "Count(Row(v > 100))", "Union(Row(a=0), Row(b=4))"]
+
+
+def _routed_answers(out):
+    got = []
+    for item in out:
+        (res,), _ = item
+        got.append(res if isinstance(res, int) else res.columns().tolist())
+    return got
+
+
+@pytest.mark.parametrize("limit", ["default", "under"])
+def test_t_over_the_tile_limit_runs_per_group(taxi_like, monkeypatch,
+                                               limit):
+    """A cohort whose T exceeds MEGA_MAX_REGS runs per group, counted in
+    mega_budget_fallbacks, with the eager answers; under the limit the
+    same cohort takes one launch."""
+    ex = taxi_like
+    want = [ex.execute("t", q)[0] for q in _ROUTED]
+    want = [w if isinstance(w, int) else w.columns().tolist() for w in want]
+    if limit == "under":
+        monkeypatch.setattr(kernels, "MEGA_MAX_REGS", 2)
+    before = (ex.mega_launches, ex.mega_budget_fallbacks)
+    got = _routed_answers(ex.execute_batch([("t", q, None)
+                                            for q in _ROUTED]))
+    assert got == want
+    if limit == "under":
+        assert (ex.mega_launches, ex.mega_budget_fallbacks) == \
+            (before[0], before[1] + len(_ROUTED))
+    else:
+        assert (ex.mega_launches, ex.mega_budget_fallbacks) == \
+            (before[0] + 1, before[1])
 
 
 # -------------------------------------------- lowering / optimizer parity
@@ -362,7 +592,7 @@ def test_verifier_rejects_expand_without_expand_registers():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(64, 96, 32768), (8, 3, 33), (8, 3, 128),
-                                   (8, 3, 2048)])
+                                   (8, 3, 2048), (1024, 3, 128)])
 def test_cuda_mega_interpret_matches_plain(shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -371,13 +601,35 @@ def test_cuda_mega_interpret_matches_plain(shape):
     rng = np.random.default_rng(T + W)
     slab = torch.from_numpy(rng.integers(0, 2**32, shape, dtype=np.uint32)
                             .view(np.int32)).to(dev)
-    instrs = torch.from_numpy(_random_plan(rng, T, 64))
-    lanes = torch.from_numpy(rng.integers(0, T, 16).astype(np.int32))
-    want_slab, want_counts = kernels.mega_interpret_ref(slab.clone(), instrs,
-                                                        lanes)
+    n_slots = T // 2
+    args = ((slab,), (np.arange(n_slots, dtype=np.int32),),
+            np.full(T, W, np.int32), torch.from_numpy(_random_plan(rng, T, 64)),
+            rng.integers(0, T, 16).astype(np.int32),
+            rng.integers(0, T, 4).astype(np.int32), T, S, W)
+    want = kernels.mega_interpret_ref(*args)
     before = kernels.LAUNCHES["mega_interpret"]
-    got_slab, got_counts = kernels.mega_interpret(slab, instrs, lanes)
+    got = kernels.mega_interpret(*args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["mega_interpret"] == before + 1
-    assert torch.equal(got_slab, want_slab)
-    assert torch.equal(got_counts, want_counts)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(_BANK_CASES)))
+def test_cuda_mega_interpret_over_banks_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    bank_ws, w_mega = _BANK_CASES[case]
+    rng = np.random.default_rng([73, case])
+    banks, slots, widths, instrs, out_count, out_row = _multibank_case(
+        rng, bank_ws, w_mega)
+    args = ([torch.from_numpy(b.view(np.int32)).to(dev) for b in banks],
+            slots, widths, torch.from_numpy(instrs), out_count, out_row, 16,
+            3, w_mega)
+    want = kernels.mega_interpret_ref(*args)
+    got = kernels.mega_interpret(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
