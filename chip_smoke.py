@@ -52,12 +52,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    after which the answers stay exact and every other segment keeps its
    device arrays. Then the membership kernel's time on one segment of
    that bank beside its bound, its plain version and torch.isin.
+6. serve: the port's HTTP server over the holders already loaded, each
+   answer exact against numpy. On the taxi holder (``serve_taxi``): an
+   ``API`` with a ``QueryCoalescer`` at its default window behind
+   ``serve()`` on a free loopback port; ``GET /schema`` lists the taxi
+   fields; the five taxi queries as raw-PQL POSTs (each response equal
+   to the in-process answer too) and their warm HTTP p50s; the burst as
+   one ``POST /batch/query`` (warm p50) and as 18 concurrent POSTs
+   released by a barrier, ten rounds, which must take megakernel
+   launches with no fallback; then a ``set`` field made over HTTP, one
+   shard of rides imported as JSON and one as a protobuf
+   ``ImportRequest`` (seconds per request), one ``Set`` through the
+   query route, and TopN, a Count(Intersect) and a ``?shards=0`` Row
+   read back. On the fingerprint holder (``serve_fingerprint``): the
+   five queries over HTTP (the first also as a protobuf
+   ``QueryRequest``), a second Set through the query route, the five
+   again, still through the positions bank. Then ``python -m
+   pilosa_tpu_torch.cli server`` as a subprocess (``serve_cli``): an
+   index with a set and an int field made, imported and asked Count,
+   TopN and Sum; the seconds from its start to the first answer.
 
 Launch counts are set to 0 just before each path (taxi, burst,
-fingerprint) and read just after; every kernel must have launched on its
-path. The second-to-last line is the kernels JSON, the last line
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX or
-of the JAX package.
+fingerprint, the serve path's taxi and fingerprint servers) and read
+just after; every kernel must have launched on its path, and on the
+serve path. The ``serve`` line, the card's name and power limit, the
+kernels JSON and the ``{"ok": true, "device": {...}}`` line end the
+output. The script imports nothing of JAX or of the JAX package.
 
 ``--burst-probe [--tree DIR]`` runs only the taxi load and the burst,
 with the ``pilosa_tpu_torch`` package of DIR (default: beside this
@@ -502,14 +522,20 @@ def burst_expected(cab, pax, dist, amount):
 
 
 def run_main(device, n_rides, iters=ITERS, profile=False):
-    """Load the taxi index, then drive both paths on it: the five taxi
-    queries one at a time, then the eighteen-request burst through
-    execute_batch. Returns (report, taxi launches, burst launches).
-    Raises on any wrong answer."""
+    """Load the taxi index, then drive three paths on it: the five taxi
+    queries one at a time, the eighteen-request burst through
+    execute_batch, and the serve path's phases 1-2 over HTTP
+    (``serve_taxi``). Returns (report, taxi launches, burst launches,
+    serve launches). Raises on any wrong answer."""
+    import numpy as np
     import torch
     cab, pax, dist, amount = taxi_data(n_rides)
     want_taxi = taxi_expected(cab, pax, dist, amount)
     want_burst = burst_expected(cab, pax, dist, amount)
+    # cab_type of the first two shards' columns (255: no ride), for the
+    # serve path's writes.
+    cab_head = np.full(2 * SHARD_WIDTH, 255, np.uint64)
+    cab_head[:min(n_rides, 2 * SHARD_WIDTH)] = cab[:2 * SHARD_WIDTH]
     holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
     del cab, pax, dist, amount
     log(f"taxi: loaded {n_rides} rides in {load_s:.2f} s")
@@ -523,8 +549,13 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
+    report["serve"], serve_launches = serve_taxi(
+        holder, want_taxi, want_burst, cab_head,
+        {"taxi": {k: v["p50_s"] for k, v in report["taxi"].items()
+                  if k != "profile"},
+         "burst": report["burst"]["p50_s"]}, iters)
     del ex, holder
-    return report, taxi_launches, burst_launches
+    return report, taxi_launches, burst_launches, serve_launches
 
 
 def run_taxi(ex, want, device, iters=ITERS, profile=False):
@@ -916,15 +947,15 @@ def top_pairs(counts, n):
     return [(int(cand[o]), int(counts[cand[o]])) for o in order]
 
 
-def fingerprint_expected(pos, extra_col=None):
+def fingerprint_expected(pos, extra_cols=()):
     """Exact answers of FP_QUERIES from the positions array with numpy
     (distinct bits per row, the query row's bits as the filter), in 1M-row
-    chunks. ``extra_col`` adds one column to the query molecule first."""
+    chunks. ``extra_cols`` adds columns (not among its bits) to the query
+    molecule first."""
     import numpy as np
     filt = np.zeros(FP_BITS, dtype=bool)
     filt[pos[QUERY_MOL]] = True
-    if extra_col is not None:
-        filt[extra_col] = True
+    filt[list(extra_cols)] = True
     inter = np.empty(len(pos), np.int64)
     raw = np.empty(len(pos), np.int64)
     for c0 in range(0, len(pos), 1_000_000):
@@ -934,9 +965,8 @@ def fingerprint_expected(pos, extra_col=None):
         np.not_equal(p[:, 1:], p[:, :-1], out=keep[:, 1:])
         raw[c0:c0 + len(p)] = keep.sum(axis=1)
         inter[c0:c0 + len(p)] = (filt[p] & keep).sum(axis=1)
-    if extra_col is not None:
-        raw[QUERY_MOL] += 1
-        inter[QUERY_MOL] += 1
+    raw[QUERY_MOL] += len(extra_cols)
+    inter[QUERY_MOL] += len(extra_cols)
     src = int(raw[QUERY_MOL])
     denom = raw + src - inter
     want = {}
@@ -975,8 +1005,9 @@ def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
     first pass and read just after (exact against numpy, through the
     positions bank), warm p50s, then one Set into the query molecule's
     segment, after which the answers stay exact and every other
-    segment's device arrays are reused. Returns (report, launches,
-    timing inputs)."""
+    segment's device arrays are reused; then the serve path's phase 3
+    on the same holder (``serve_fingerprint``). Returns (report,
+    launches, timing inputs, serve launches)."""
     import numpy as np
     import torch
     from pilosa_tpu_torch.core.view import PositionsBank, ViewBank
@@ -1062,7 +1093,7 @@ def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
         raise AssertionError(f"fingerprint: the patch reused segments "
                              f"{reused} of {len(pb.segments)} (query in "
                              f"segment {seg_of})")
-    want = fingerprint_expected(pos, extra_col=col)
+    want = fingerprint_expected(pos, extra_cols=(col,))
     for name, pql in FP_QUERIES:
         (got,) = ex.execute("mole", pql)
         if got.pairs != want[name]:
@@ -1075,6 +1106,9 @@ def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
         "answers exact after it")
     if device != "cpu":
         report["device_bytes"] = torch.cuda.max_memory_allocated()
+    report["serve"], serve_launches = serve_fingerprint(
+        holder, pos, col, want,
+        {k: v["p50_s"] for k, v in report["queries"].items()}, iters)
     # The timing row's inputs, as the main path met them before the Set:
     # one fixed segment of the bank and the query's filter words at the
     # bank's width.
@@ -1086,7 +1120,7 @@ def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
                                          width * 32), seg.device),
         "qpos": torch.from_numpy(qpos).to(seg.device)}
     del holder, ex, field, pos, pb, pb2
-    return report, launches, timing_in
+    return report, launches, timing_in, serve_launches
 
 
 def check_pbank(torch, kernels, device):
@@ -1193,8 +1227,10 @@ def run_probe(device, n_rides, iters=PROBE_ITERS):
     """The taxi load and the burst alone, with whichever
     pilosa_tpu_torch is first on the path: the first burst must answer
     exactly in one launch with no fallback; then its warm p50, the
-    device memory one warm burst allocates at its peak, and its device
-    time by kernel under torch.profiler."""
+    device memory one warm burst allocates at its peak, its device time
+    by kernel under torch.profiler, and, where the tree has the server,
+    the burst over HTTP (``serve_burst``)."""
+    import importlib.util
     import torch
     cab, pax, dist, amount = taxi_data(n_rides)
     want = burst_expected(cab, pax, dist, amount)
@@ -1211,7 +1247,421 @@ def run_probe(device, n_rides, iters=PROBE_ITERS):
               "p50_s": burst_p50(ex, reqs, want, device, iters)}
     report.update(burst_peak(torch, ex, reqs, want))
     report["profile"] = profile_burst(torch, ex, reqs, iters)
+    report["serve"] = None
+    if importlib.util.find_spec("pilosa_tpu_torch.server") is not None:
+        api, srv, base = start_server(holder)
+        try:
+            report["serve"] = serve_burst(api, base, want, iters)
+        finally:
+            stop_server(api, srv)
     del ex, holder
+    return report
+
+
+# --------------------------------------------------------------- serve
+
+PAY_SEED = 17
+PAY_ROWS = 5  # payment_type rows 0-4
+SERVE_ROUNDS = 10  # concurrent 18-client rounds
+CLI_COLUMNS = 200_000
+
+
+def http(base, method, path, body=None, ctype=None, timeout=600):
+    """(status, body bytes) of one request; an error status is returned,
+    not raised."""
+    import urllib.error
+    import urllib.request
+    if isinstance(body, (dict, list)):
+        body = json.dumps(body).encode()
+    elif isinstance(body, str):
+        body = body.encode()
+    req = urllib.request.Request(
+        base + path, data=body, method=method,
+        headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_json(base, method, path, body=None, ctype=None):
+    """The JSON answer of a request that must succeed."""
+    status, raw = http(base, method, path, body, ctype)
+    if status != 200:
+        raise AssertionError(f"serve: {method} {path} answered {status}: "
+                             f"{raw[:300]!r}")
+    return json.loads(raw)
+
+
+def start_server(holder):
+    """The port's server over ``holder``: API, a coalescer at its
+    default window, and the HTTP routes on a free loopback port.
+    Returns (api, server, base URL)."""
+    from pilosa_tpu_torch.server import API, serve
+    from pilosa_tpu_torch.server.coalescer import QueryCoalescer
+    api = API(holder)
+    api.coalescer = QueryCoalescer(api.executor)
+    api.coalescer.start()
+    srv = serve(api, "127.0.0.1", 0, background=True)
+    return api, srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def stop_server(api, srv):
+    srv.shutdown()
+    srv.server_close()
+    api.coalescer.stop()
+
+
+def p50(times):
+    times = sorted(times)
+    return times[len(times) // 2]
+
+
+def http_p50(base, index, pql, want, iters):
+    """Warm p50 (s) of one raw-PQL POST, each answer checked."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        got = http_json(base, "POST", f"/index/{index}/query", pql)
+        times.append(time.perf_counter() - t0)
+        if got != want:
+            raise AssertionError(f"serve: {pql} warm answer changed")
+    return p50(times)
+
+
+def taxi_json(name, want):
+    """A TAXI_QUERIES answer in the server's JSON form."""
+    if name == "sum_filtered":
+        return {"value": want[0], "count": want[1]}
+    if name in ("topn", "topn_filtered"):
+        return [{"id": r, "count": c} for r, c in want]
+    return want
+
+
+def burst_json(name, want):
+    return {"columns": want} if isinstance(want, list) else want
+
+
+def mega_state(ex):
+    return (ex.mega_launches, ex.mega_fallbacks, ex.mega_budget_fallbacks)
+
+
+def check_mega_taken(ex, before, what):
+    """The executor's megakernel launched since ``before`` and took no
+    fallback; returns the launches."""
+    after = mega_state(ex)
+    if after[0] <= before[0] or after[1:] != before[1:]:
+        raise AssertionError(f"serve: {what}: megakernel launches/fallbacks"
+                             f"/budget fallbacks {before} -> {after}")
+    return after[0] - before[0]
+
+
+def concurrent_round(base, reqs):
+    """``reqs`` (name, PQL) POSTed together by one thread each, released
+    by a barrier. Returns ({name: JSON answer}, seconds from the first
+    send to the last answer)."""
+    import threading
+    barrier = threading.Barrier(len(reqs))
+    out, errors, spans = {}, [], []
+
+    def worker(name, pql):
+        try:
+            barrier.wait(timeout=60)
+            t0 = time.perf_counter()
+            out[name] = http_json(base, "POST", "/index/taxi/query", pql)
+            spans.append((t0, time.perf_counter()))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=r) for r in reqs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: concurrent round failed: {errors}")
+    return out, max(e for _, e in spans) - min(s for s, _ in spans)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def serve_burst(api, base, want_burst, iters):
+    """The burst over HTTP on a taxi server: as one /batch/query (warm
+    p50) and as SERVE_ROUNDS rounds of one concurrent client a request,
+    every answer exact, the megakernel launched with no fallback."""
+    ex = api.executor
+    want_items = [{"results": [burst_json(n, want_burst[n])]}
+                  for n, _ in BURST]
+    body = {"queries": [{"index": "taxi", "query": q} for _, q in BURST]}
+    times = []
+    for _ in range(iters):
+        before = mega_state(ex)
+        t0 = time.perf_counter()
+        got = http_json(base, "POST", "/batch/query", body)
+        times.append(time.perf_counter() - t0)
+        if got["responses"] != want_items:
+            raise AssertionError("serve: /batch/query burst != numpy")
+        check_mega_taken(ex, before, "/batch/query")
+    coal = api.coalescer
+    c0 = dict(coal.counters)
+    before = mega_state(ex)
+    rounds = []
+    for _ in range(SERVE_ROUNDS):
+        out, dt = concurrent_round(base, BURST)
+        rounds.append(dt)
+        for (name, _), want in zip(BURST, want_items):
+            if out[name] != want:
+                raise AssertionError(f"serve: concurrent {name} != numpy")
+    return {"batch_http_p50_s": p50(times), "concurrent": {
+        "rounds": SERVE_ROUNDS, "clients": len(BURST),
+        "round_p50_s": p50(rounds),
+        "batches": coal.counters.get("batches", 0) - c0.get("batches", 0),
+        "batched_requests": coal.counters.get("batched_requests", 0)
+        - c0.get("batched_requests", 0),
+        "pipelined": coal.counters.get("pipelined", 0)
+        - c0.get("pipelined", 0),
+        "mega_launches": check_mega_taken(ex, before, "concurrent rounds")}}
+
+
+def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
+               iters=ITERS):
+    """Phases 1-2 of the serve path on the loaded taxi holder: the five
+    queries, the burst as one /batch/query and as concurrent rounds, then
+    a new field written over HTTP (JSON and protobuf imports, one Set)
+    and read back. Returns (report, launches)."""
+    import numpy as np
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.executor.results import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import proto_compat
+    api, srv, base = start_server(holder)
+    ex = api.executor
+    report = {}
+    prev = megamod.MEGAKERNEL_ENABLED
+    if holder.device.type == "cpu":
+        # Rehearsal only: the megakernel defaults to off on the CPU.
+        megamod.MEGAKERNEL_ENABLED = True
+    try:
+        kernels.reset_launches()
+        # 1. schema, the five queries, the burst
+        schema = http_json(base, "GET", "/schema")
+        got = {f["name"]: f["options"] for i in schema["indexes"]
+               if i["name"] == "taxi" for f in i["fields"]}
+        for name, typ, lo, hi in (("cab_type", "set", 0, 0),
+                                  ("passenger_count", "set", 0, 0),
+                                  ("dist", "int", 0, 300),
+                                  ("amount", "int", 0, 1000)):
+            o = got.get(name, {})
+            if (o.get("type"), o.get("min"), o.get("max")) != (typ, lo, hi):
+                raise AssertionError(f"serve: /schema lists {name} as {o}")
+        report["taxi_http_p50_s"] = {}
+        for name, pql in TAXI_QUERIES:
+            want = taxi_json(name, want_taxi[name])
+            resp = http_json(base, "POST", "/index/taxi/query", pql)
+            direct = [result_to_json(r) for r in ex.execute("taxi", pql)]
+            if resp["results"] != [want] or direct != [want]:
+                raise AssertionError(f"serve: {name}: HTTP {resp}, "
+                                     f"in-process {direct}, numpy {want}")
+            report["taxi_http_p50_s"][name] = http_p50(
+                base, "taxi", pql, resp, iters)
+        report["taxi_in_process_p50_s"] = in_process["taxi"]
+        report.update(serve_burst(api, base, want_burst, iters))
+        report["burst_in_process_p50_s"] = in_process["burst"]
+        # Where a lone request's HTTP time goes: the round trip with no
+        # work, and the same query with the coalescer detached.
+        report["http_floor_p50_s"] = p50(
+            [timed(lambda: http_json(base, "GET", "/version"))
+             for _ in range(iters)])
+        name, pql = TAXI_QUERIES[0]
+        coal, api.coalescer = api.coalescer, None
+        report["direct_http_p50_s"] = {name: http_p50(
+            base, "taxi", pql, {"results": [taxi_json(name, want_taxi[name])]},
+            iters)}
+        api.coalescer = coal
+        log(f"serve: taxi over HTTP exact; /batch/query p50 "
+            f"{report['batch_http_p50_s']:.6f} s; {SERVE_ROUNDS} rounds of "
+            f"{len(BURST)} concurrent clients p50 "
+            f"{report['concurrent']['round_p50_s']:.6f} s in "
+            f"{report['concurrent']['batches']} batches, "
+            f"{report['concurrent']['mega_launches']} mega launches")
+        # 2. writes: a new set field, one shard by JSON, one by protobuf
+        http_json(base, "POST", "/index/taxi/field/payment_type", {})
+        pay = np.random.default_rng(PAY_SEED).integers(
+            0, PAY_ROWS, 2 * SHARD_WIDTH).astype(np.uint64)
+        cols = np.arange(2 * SHARD_WIDTH, dtype=np.uint64)
+        t0 = time.perf_counter()
+        http_json(base, "POST", "/index/taxi/field/payment_type/import",
+                  {"rowIDs": pay[:SHARD_WIDTH].tolist(),
+                   "columnIDs": cols[:SHARD_WIDTH].tolist()})
+        report["import_json_s"] = time.perf_counter() - t0
+        msg = (proto_compat._str_field(1, "taxi")
+               + proto_compat._str_field(2, "payment_type")
+               + proto_compat._packed_uint64(4, pay[SHARD_WIDTH:].tolist())
+               + proto_compat._packed_uint64(5, cols[SHARD_WIDTH:].tolist()))
+        t0 = time.perf_counter()
+        http_json(base, "POST", "/index/taxi/field/payment_type/import",
+                  msg, proto_compat.CONTENT_TYPE)
+        report["import_proto_s"] = time.perf_counter() - t0
+        report["import_bits_per_request"] = SHARD_WIDTH
+        set_col = int(np.flatnonzero(pay[:SHARD_WIDTH] != 2)[0])
+        got = http_json(base, "POST", "/index/taxi/query",
+                        f"Set({set_col}, payment_type=2)")
+        if got != {"results": [True]}:
+            raise AssertionError(f"serve: the Set answered {got}")
+        # A set field keeps the column's old row: the Set adds one bit.
+        counts = np.bincount(pay.astype(np.int64), minlength=PAY_ROWS)
+        counts[2] += 1
+        want_top = sorted(((int(c), r) for r, c in enumerate(counts)),
+                          key=lambda x: (-x[0], x[1]))
+        row2 = np.flatnonzero(pay[:SHARD_WIDTH] == 2)
+        row2 = np.sort(np.append(row2, set_col))
+        checks = [
+            ("TopN(payment_type)", "",
+             [{"id": r, "count": c} for c, r in want_top]),
+            ("Count(Intersect(Row(payment_type=1), Row(cab_type=0)))", "",
+             int(((pay == 1) & (cab_head == 0)).sum())),
+            ("Row(payment_type=2)", "?shards=0",
+             {"columns": row2.tolist()})]
+        for pql, args, want in checks:
+            got = http_json(base, "POST", f"/index/taxi/query{args}", pql)
+            if got != {"results": [want]}:
+                raise AssertionError(f"serve: after the imports {pql} != "
+                                     "numpy")
+        log(f"serve: imports of {SHARD_WIDTH} bits: JSON "
+            f"{report['import_json_s']:.3f} s, protobuf "
+            f"{report['import_proto_s']:.3f} s; the reads after them exact")
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+        stop_server(api, srv)
+    launches = dict(kernels.LAUNCHES)
+    return report, launches
+
+
+def serve_fingerprint(holder, pos, col, want, in_process, iters=ITERS):
+    """Phase 3 of the serve path on the loaded fingerprint holder (its
+    query molecule already holds one Set bit, ``col``): the five queries
+    over HTTP (the first also as a protobuf QueryRequest), a second Set
+    through the query route, and the five again, all exact against
+    numpy through the positions bank. Returns (report, launches)."""
+    from pilosa_tpu_torch.core.view import PositionsBank, ViewBank
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import proto_compat
+    api, srv, base = start_server(holder)
+    report = {"fp_http_p50_s": {}, "fp_in_process_p50_s": in_process}
+    try:
+        kernels.reset_launches()
+
+        def check_all(want, timed):
+            for i, (name, pql) in enumerate(FP_QUERIES):
+                pairs = [{"id": r, "count": c} for r, c in want[name]]
+                got = http_json(base, "POST", "/index/mole/query", pql)
+                if got != {"results": [pairs]}:
+                    raise AssertionError(f"serve: fingerprint {name} != "
+                                         "numpy")
+                if i == 0:
+                    status, raw = http(
+                        base, "POST", "/index/mole/query",
+                        proto_compat._str_field(1, pql),
+                        proto_compat.CONTENT_TYPE)
+                    if status != 200 or raw != \
+                            proto_compat.encode_query_response([pairs]):
+                        raise AssertionError(f"serve: protobuf {name} != "
+                                             "numpy")
+                if timed:
+                    report["fp_http_p50_s"][name] = http_p50(
+                        base, "mole", pql, got, iters)
+
+        check_all(want, True)
+        qbits = set(pos[QUERY_MOL].tolist())
+        col2 = next(c for c in range(FP_BITS)
+                    if c not in qbits and c != col)
+        got = http_json(base, "POST", "/index/mole/query",
+                        f"Set({col2}, fingerprint={QUERY_MOL})")
+        if got != {"results": [True]}:
+            raise AssertionError(f"serve: the fingerprint Set answered {got}")
+        check_all(fingerprint_expected(pos, extra_cols=(col, col2)), False)
+    finally:
+        stop_server(api, srv)
+    launches = dict(kernels.LAUNCHES)
+    view = holder.index("mole").field("fingerprint").view()
+    banks = list(view._bank_cache.values())
+    dense = [b.array.shape for b in banks
+             if isinstance(b, ViewBank) and b.array.shape[0] > 2]
+    if not any(isinstance(b, PositionsBank) for b in banks) or dense:
+        raise AssertionError(f"serve: the fingerprint queries left the "
+                             f"positions bank (dense banks {dense})")
+    log("serve: fingerprint queries over HTTP exact before and after a "
+        "Set through the query route, through the positions bank")
+    return report, launches
+
+
+def serve_cli(device):
+    """Phase 4: ``python -m pilosa_tpu_torch.cli server`` as a
+    subprocess on a free port; an index with a set and an int field made
+    and imported over HTTP, then Count, TopN and Sum checked exactly.
+    Returns the seconds from the start to the first answer."""
+    import queue
+    import signal
+    import threading
+    import numpy as np
+    cmd = [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+           "--bind", "127.0.0.1:0"]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    report = {}
+    try:
+        first = lines.get(timeout=300)
+        if "listening on " not in first:
+            raise AssertionError(f"serve: the CLI server printed {first!r}")
+        base = first.split("listening on ")[1].split()[0]
+        rng = np.random.default_rng(29)
+        cols = np.arange(CLI_COLUMNS, dtype=np.int64) * 20
+        rows = rng.integers(0, 4, CLI_COLUMNS)
+        vals = rng.integers(0, 1001, CLI_COLUMNS)
+        for path, body in (
+                ("/index/cli", {}), ("/index/cli/field/f", {}),
+                ("/index/cli/field/v",
+                 {"options": {"type": "int", "min": 0, "max": 1000}}),
+                ("/index/cli/field/f/import",
+                 {"rowIDs": rows.tolist(), "columnIDs": cols.tolist()}),
+                ("/index/cli/field/v/import",
+                 {"columnIDs": cols.tolist(), "values": vals.tolist()})):
+            http_json(base, "POST", path, body)
+        got = http_json(base, "POST", "/index/cli/query",
+                        "Count(Row(f=1)) TopN(f, n=2) "
+                        "Sum(Row(f=3), field=v)")
+        report["start_to_first_answer_s"] = time.perf_counter() - t0
+        counts = sorted(((int((rows == r).sum()), r) for r in range(4)),
+                        key=lambda x: (-x[0], x[1]))
+        want = [int((rows == 1).sum()),
+                [{"id": r, "count": c} for c, r in counts[:2]],
+                {"value": int(vals[rows == 3].sum()),
+                 "count": int((rows == 3).sum())}]
+        if got != {"results": want}:
+            raise AssertionError(f"serve: the CLI server answered {got}, "
+                                 f"numpy {want}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    if rc != 0:
+        raise AssertionError(f"serve: the CLI server exited {rc}")
+    log(f"serve: the CLI server answered Count, TopN and Sum exactly, "
+        f"{report['start_to_first_answer_s']:.2f} s after its start")
     return report
 
 
@@ -1268,7 +1718,7 @@ def main(argv=None) -> int:
     log(f"build: {build.library_path()} in "
         f"{time.perf_counter() - t0:.1f} s")
     card = card_line()
-    print(card, flush=True)
+    log(f"card: {card}")
 
     # 2. kernels
     errs = check_kernels(torch, kernels, device)
@@ -1279,17 +1729,20 @@ def main(argv=None) -> int:
     log("timing: torch has no single popcount call, so there is no "
         "library yardstick (library_ms null)")
 
-    # 3-4. the taxi paths: queries one at a time, then the burst
-    report, taxi_launches, burst_launches = run_main(
+    # 3-4, 6. the taxi paths: queries one at a time, the burst, and the
+    # serve path's taxi phases
+    report, taxi_launches, burst_launches, serve_launches = run_main(
         "cuda", N_RIDES, ITERS, profile=args.profile)
     torch.cuda.empty_cache()
-    # 5. the fingerprint path
+    # 5-6. the fingerprint path and the serve path's fingerprint phase
     torch.cuda.reset_peak_memory_stats()
-    fp, fp_launches, timing_in = run_fingerprint("cuda", args.molecules,
-                                                 profile=args.profile)
+    fp, fp_launches, timing_in, serve_fp_launches = run_fingerprint(
+        "cuda", args.molecules, profile=args.profile)
     timing["pbank_membership_counts"] = time_pbank(torch, kernels, device,
                                                    timing_in)
     del timing_in
+    # 6. the serve path's CLI phase
+    cli = serve_cli("cuda")
     launches = {name: taxi_launches[name] for name in (
         "bank_row_counts", "bank_row_counts_masked", "bsi_plane_counts")}
     launches["mega_interpret"] = burst_launches["mega_interpret"]
@@ -1299,6 +1752,17 @@ def main(argv=None) -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on its "
                                  "path")
+    # The serve path runs every kernel: the sweeps and the interpreter
+    # on the taxi server, the membership kernel on the fingerprint one.
+    serve_counts = {name: serve_launches[name] for name in (
+        "bank_row_counts", "bank_row_counts_masked", "bsi_plane_counts",
+        "mega_interpret")}
+    serve_counts["pbank_membership_counts"] = \
+        serve_fp_launches["pbank_membership_counts"]
+    for name, n in serve_counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "serve path")
     burst = report["burst"]
     timing["mega_interpret"] = {"ms": burst["kernel_ms"],
                                 "plain_ms": burst["plain_ms"],
@@ -1308,7 +1772,7 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"card": card, "report": report, "fingerprint": fp,
-                       "timing": timing}, f, indent=1)
+                       "cli": cli, "timing": timing}, f, indent=1)
     taxi = report["taxi"]
     print(json.dumps({"taxi": {
         "rides": report["rides"], "shards": report["shards"],
@@ -1333,8 +1797,25 @@ def main(argv=None) -> int:
         "segments": fp["segments"], "pbank_bytes": fp["pbank_bytes"],
         "device_bytes": fp["device_bytes"], "patch_s": fp["patch_s"],
         "patched_segment": fp["patched_segment"]}}), flush=True)
+    serve, serve_fp = report["serve"], fp["serve"]
+    print(json.dumps({"serve": {
+        "taxi_http_p50_s": serve["taxi_http_p50_s"],
+        "taxi_in_process_p50_s": serve["taxi_in_process_p50_s"],
+        "http_floor_p50_s": serve["http_floor_p50_s"],
+        "direct_http_p50_s": serve["direct_http_p50_s"],
+        "batch_http_p50_s": serve["batch_http_p50_s"],
+        "burst_in_process_p50_s": serve["burst_in_process_p50_s"],
+        "concurrent": serve["concurrent"],
+        "import_json_s": serve["import_json_s"],
+        "import_proto_s": serve["import_proto_s"],
+        "import_bits_per_request": serve["import_bits_per_request"],
+        "fp_http_p50_s": serve_fp["fp_http_p50_s"],
+        "fp_in_process_p50_s": serve_fp["fp_in_process_p50_s"],
+        "cli_start_to_first_answer_s": cli["start_to_first_answer_s"],
+        "launches": serve_counts}}), flush=True)
+    print(card, flush=True)
 
-    # 5. kernels line, then the result line
+    # 7. kernels line, then the result line
     rows = []
     for name in kernels.LAUNCHES:
         t = timing[name]

@@ -6,6 +6,8 @@ hand-written CUDA kernels, and imports nothing of JAX or of the
 reference. Entry points run on CUDA unless given ``device="cpu"``.
 """
 
+__version__ = "0.1.0"
+
 from pilosa_tpu_torch.core.field import FieldOptions  # noqa: F401
 from pilosa_tpu_torch.core.holder import Holder  # noqa: F401
 from pilosa_tpu_torch.core.state import load_state  # noqa: F401

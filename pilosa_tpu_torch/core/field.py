@@ -142,9 +142,13 @@ class Field:
 
     def available_shards(self):
         shards = set()
-        for v in self.views.values():
+        for v in list(self.views.values()):
             shards.update(v.available_shards())
         return sorted(shards)
+
+    def drop_banks(self) -> None:
+        for v in list(self.views.values()):
+            v.drop_banks()
 
     def _bsig(self) -> BSIGroup:
         bsig = self.bsi_groups.get(self.name)
@@ -171,7 +175,7 @@ class Field:
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         changed = False
-        for v in self.views.values():
+        for v in list(self.views.values()):
             changed |= v.clear_bit(row_id, column_id)
         return changed
 

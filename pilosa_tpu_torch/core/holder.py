@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -35,3 +35,37 @@ class Holder:
             idx = Index(name, self.device, track_existence=track_existence)
             self.indexes[name] = idx
             return idx
+
+    def delete_index(self, name: str) -> None:
+        """Drop an index and its device banks."""
+        with self._lock:
+            idx = self.indexes.pop(name, None)
+        if idx is None:
+            raise KeyError(f"index not found: {name}")
+        idx.drop_banks()
+
+    def schema(self) -> List[dict]:
+        """Every index with its fields and options, in the JSON form of
+        the JAX package's ``Holder.schema`` (the ``/schema`` route)."""
+        with self._lock:
+            indexes = sorted(self.indexes.items())
+        out = []
+        for iname, idx in indexes:
+            fields = []
+            for fname, f in sorted(idx.fields.items()):
+                if fname.startswith("_"):
+                    continue
+                o = f.options
+                fields.append({"name": fname, "options": {
+                    "type": o.type, "cacheType": o.cache_type,
+                    "cacheSize": o.cache_size, "min": o.min, "max": o.max,
+                    "timeQuantum": o.time_quantum, "keys": o.keys,
+                    "noStandardView": o.no_standard_view,
+                    "maxColumns": o.max_columns}})
+            # The port has no keyed indexes.
+            out.append({"name": iname,
+                        "options": {"keys": False,
+                                    "trackExistence": idx.track_existence},
+                        "fields": fields,
+                        "shards": idx.available_shards()})
+        return out

@@ -47,6 +47,18 @@ class Index:
             self.fields[name] = f
             return f
 
+    def delete_field(self, name: str) -> None:
+        """Drop a field and its device banks."""
+        with self._lock:
+            f = self.fields.pop(name, None)
+        if f is None:
+            raise KeyError(f"field not found: {name}")
+        f.drop_banks()
+
+    def drop_banks(self) -> None:
+        for f in list(self.fields.values()):
+            f.drop_banks()
+
     def add_existence(self, column_ids: np.ndarray) -> None:
         """Mark columns as existing (every write path calls this)."""
         ef = self.existence_field()
@@ -57,6 +69,8 @@ class Index:
 
     def available_shards(self) -> List[int]:
         shards = set()
-        for f in self.fields.values():
+        # list(): a field created on another thread must not break the
+        # walk.
+        for f in list(self.fields.values()):
             shards.update(f.available_shards())
         return sorted(shards)

@@ -11,7 +11,10 @@ resident on the device instead (``PositionsBank``), for TopN over views
 whose dense bank would not fit.
 
 Every bank is cached in ``_bank_cache`` by key and stamped with the
-fragment versions it was built from. The JAX package's HBM budget
+fragment versions it was built from. Builds run under the view's lock,
+so two threads asking for the same bank build it once; a positions bank
+also holds its fragment's lock while it gathers, so a concurrent write
+lands wholly before or after it. The JAX package's HBM budget
 (``BankBudget``), memory ledger, host block cache and sparse upload are
 not part of this port yet, so nothing evicts a cached bank: a stale one
 is replaced when its key is asked for again. A full dense bank whose
@@ -147,6 +150,13 @@ class View:
 
     def available_shards(self) -> List[int]:
         return sorted(self.fragments)
+
+    def drop_banks(self) -> None:
+        """Forget every cached bank (the view's field or index was
+        deleted); the device memory goes when no query holds it."""
+        with self._lock:
+            self._bank_cache.clear()
+            self._merged_rows.clear()
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
         return self.create_fragment_if_not_exists(
@@ -358,30 +368,29 @@ class View:
         key = ("pbank", shard, width)
         with self._lock:
             frag = self.fragments.get(shard)
-            versions = {shard: (frag.version if frag else -1)}
-            cached = self._bank_cache.get(key)
-            if cached is not None and cached.versions == versions:
-                return cached
             if frag is None:
                 return None
-        row_ids = frag.row_ids()
-        built = None
-        if cached is not None and cached.row_ids == row_ids:
-            built = self._patch_pbank(cached, frag, width)
-        if built is None:
-            # Drop the stale bank before the build, so the two are never
-            # both held.
-            with self._lock:
-                self._bank_cache.pop(key, None)
-            cached = None
-            built = self._build_pbank_segments(frag, row_ids, width, 0)
-        if built is None:
-            return None
-        segments, nbytes = built
-        bank = PositionsBank(segments, row_ids, versions, nbytes)
-        with self._lock:
-            self._bank_cache[key] = bank
-        return bank
+            with frag._lock:
+                versions = {shard: frag.version}
+                cached = self._bank_cache.get(key)
+                if cached is not None and cached.versions == versions:
+                    return cached
+                row_ids = frag.row_ids()
+                built = None
+                if cached is not None and cached.row_ids == row_ids:
+                    built = self._patch_pbank(cached, frag, width)
+                if built is None:
+                    # Drop the stale bank before the build, so the two
+                    # are never both held.
+                    self._bank_cache.pop(key, None)
+                    built = self._build_pbank_segments(frag, row_ids,
+                                                       width, 0)
+                if built is None:
+                    return None
+                segments, nbytes = built
+                bank = PositionsBank(segments, row_ids, versions, nbytes)
+                self._bank_cache[key] = bank
+                return bank
 
     def _patch_pbank(self, cached: PositionsBank, frag: Fragment,
                      width: int):

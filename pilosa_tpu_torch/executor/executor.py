@@ -24,7 +24,10 @@ Banks of different views may differ in width (they are trimmed to their
 data); operands are zero-padded to a common width before they combine,
 which never changes a bit of the result.
 
-``execute_batch`` runs N requests as one batch: under its collector
+``execute_batch`` runs N requests as one batch, in two halves that may
+run on different threads: ``execute_batch_begin`` parses, stages,
+flushes and launches; ``execute_batch_finish`` resolves the results,
+which is where the host syncs happen. Under the begin's collector
 (``executor/fusion.py``) a read request's ``Count`` and top-level bitmap
 calls do not evaluate at once but stage: a host walk of the tree records
 its shape signature, operand banks, gather slots, BSI predicate values
@@ -35,8 +38,10 @@ through the eager path above.
 
 Covered calls: Set, Clear, Row (set fields and BSI conditions),
 Intersect, Union, Difference, Xor, Not, Shift, Threshold, Count, TopN,
-Sum, Min, Max. The other calls of the JAX package's executor are not part
-of this port yet.
+Sum, Min, Max, and Options around any of them. The other calls of the
+JAX package's executor are not part of this port yet. ``execute_full``
+and ``execute_batch_shaped[_finish]`` give the JSON-shaped responses the
+server sends.
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD, PositionsBank, \
     ViewBank, bank_capacity, view_bsi_name
 from pilosa_tpu_torch.device import resolve_device
 from pilosa_tpu_torch.executor import bsi
-from pilosa_tpu_torch.executor.results import PairsResult, RowResult, ValCount
+from pilosa_tpu_torch.executor.results import PairsResult, RowResult, \
+    ValCount, result_to_json
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops.bitset import WORDS_PER_SHARD, b_and, b_andnot, \
     b_not, b_or, b_xor, shift_bits
@@ -97,6 +103,34 @@ PBANK_ENABLED = True
 
 class ExecutionError(ValueError):
     pass
+
+
+def _peel_options(call: Call) -> Call:
+    while call.name == "Options" and call.children:
+        call = call.children[0]
+    return call
+
+
+def _parse(query: Union[str, Call, Query]) -> Query:
+    if isinstance(query, str):
+        query = parse_string_cached(query)
+    if isinstance(query, Call):
+        query = Query([query])
+    return query
+
+
+def _query_writes(query: Query) -> bool:
+    return any(_peel_options(c).writes() for c in query.calls)
+
+
+def query_is_write(query: Union[str, Call, Query]) -> bool:
+    """True when ``query`` holds a write call (inside Options too). The
+    serving coalescer flushes its window on a write and dedups nothing
+    around it. A parse error reads as False: the request reports it."""
+    try:
+        return _query_writes(_parse(query))
+    except Exception:
+        return False
 
 
 def _topn_candidates(rows_arr: np.ndarray, counts_arr: np.ndarray,
@@ -221,6 +255,18 @@ class _StagedEval:
     run_eager: Callable[[], Any]
 
 
+class _BatchInFlight:
+    """A batch between its begin and its finish: the per-request results
+    (``_Deferred`` where staged) and the per-request errors so far."""
+
+    __slots__ = ("staged", "out")
+
+    def __init__(self, staged: List[Tuple[int, List[Any]]],
+                 out: List[Any]) -> None:
+        self.staged = staged
+        self.out = out
+
+
 class _Deferred:
     """A result staged under execute_batch's collector; ``resolve()``
     after the flush gives the call's result."""
@@ -265,43 +311,60 @@ class Executor:
     def execute(self, index_name: str, query: Union[str, Call, Query],
                 shards: Optional[Sequence[int]] = None) -> List[Any]:
         """Execute every call in ``query`` in order; one result each."""
-        if isinstance(query, str):
-            query = parse_string_cached(query)
-        if isinstance(query, Call):
-            query = Query([query])
+        query = _parse(query)
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
         return [self._execute_call(idx, call, shards)
                 for call in query.calls]
 
+    def execute_full(self, index_name: str, query: Union[str, Call, Query],
+                     shards: Optional[Sequence[int]] = None
+                     ) -> Dict[str, Any]:
+        """``execute`` shaped as the server's JSON response."""
+        return self.shape_response(self.execute(index_name, query, shards))
+
+    @staticmethod
+    def shape_response(results: Sequence[Any]) -> Dict[str, Any]:
+        """``{"results": [...]}`` of one request's results. A Row result
+        fetches its columns here, the request's last host sync."""
+        return {"results": [result_to_json(r) for r in results]}
+
     def execute_batch(self, requests: Sequence[Tuple[str, Any, Optional[
             Sequence[int]]]]) -> List[Any]:
         """Execute N independent requests as one batch. Each element of
         ``requests`` is ``(index_name, query, shards)``. Returns one
         entry per request: a ``(results, opts)`` tuple (``opts`` is
-        always None: ``Options()`` is not ported) or the exception
-        instance for that request; one request's error never fails
-        another.
+        always None: the port's ``Options()`` sets nothing that shapes a
+        whole response) or the exception instance for that request; one
+        request's error never fails another. The two halves are
+        ``execute_batch_begin`` and ``execute_batch_finish``."""
+        return self.execute_batch_finish(self.execute_batch_begin(requests))
+
+    def execute_batch_begin(self, requests: Sequence[Tuple[str, Any,
+            Optional[Sequence[int]]]]) -> _BatchInFlight:
+        """The dispatch half of ``execute_batch``: parse, stage, flush
+        and launch every request's device work, and return with the
+        results still on the device.
 
         Read requests run under a collector: their Count and top-level
         bitmap calls stage, and the flush answers heterogeneous staged
         evals with one megakernel launch per shard-count cohort. A
         request that writes is a fence: the collector flushes before
         it, and it runs uncollected, so every read sees exactly the
-        state that executing the requests one by one would show it."""
+        state that executing the requests one by one would show it.
+        Every staged eval has run when this returns, on banks captured
+        here; a write never changes a bank in place (it makes a new
+        one), so a write that lands before the finish cannot change
+        what the finish reads."""
         from pilosa_tpu_torch.executor.fusion import FusionCollector
         out: List[Any] = [None] * len(requests)
         parsed: List[Optional[Query]] = [None] * len(requests)
         has_writes = [False] * len(requests)
         for j, (_, q, _) in enumerate(requests):
             try:
-                if isinstance(q, str):
-                    q = parse_string_cached(q)
-                if isinstance(q, Call):
-                    q = Query([q])
-                parsed[j] = q
-                has_writes[j] = bool(q.write_calls())
+                parsed[j] = _parse(q)
+                has_writes[j] = _query_writes(parsed[j])
             except Exception as e:
                 out[j] = e  # parse error: reported for this item only
         fuser = FusionCollector(self)
@@ -324,13 +387,44 @@ class Executor:
         finally:
             # Staged evals must run before any result resolves.
             fuser.flush()
-        for j, results in staged:
+        return _BatchInFlight(staged, out)
+
+    def execute_batch_finish(self, flight: _BatchInFlight) -> List[Any]:
+        """The drain half of ``execute_batch``: resolve every staged
+        result (the host syncs of the megakernel's counts happen here).
+        Safe on another thread than the begin's."""
+        out = flight.out
+        for j, results in flight.staged:
             try:
                 out[j] = ([r.resolve() if isinstance(r, _Deferred) else r
                            for r in results], None)
             except Exception as e:
                 out[j] = e
         return out
+
+    def execute_batch_shaped(self, requests: Sequence[Tuple[
+            str, Any, Optional[Sequence[int]]]]) -> List[Any]:
+        """``execute_batch`` with each request's response shaped: one
+        ``{"results": [...]}`` dict or exception per request (the
+        ``/batch/query`` route and the coalescer)."""
+        return self.execute_batch_shaped_finish(
+            self.execute_batch_begin(requests))
+
+    def execute_batch_shaped_finish(self, flight: _BatchInFlight
+                                    ) -> List[Any]:
+        """``execute_batch_finish`` of ``execute_batch_begin``'s flight,
+        then each request's response shaped. The port has no result
+        cache, so the shaped batch's begin is ``execute_batch_begin``."""
+        shaped: List[Any] = []
+        for r in self.execute_batch_finish(flight):
+            if isinstance(r, Exception):
+                shaped.append(r)
+                continue
+            try:
+                shaped.append(self.shape_response(r[0]))
+            except Exception as e:
+                shaped.append(e)
+        return shaped
 
     @contextlib.contextmanager
     def _fusing(self, fuser: Any) -> Iterator[None]:
@@ -373,12 +467,15 @@ class Executor:
             self._verified_sigs[sig] = None
 
     def _execute_call(self, idx: Index, call: Call,
-                      shards: Optional[Sequence[int]]) -> Any:
+                      shards: Optional[Sequence[int]],
+                      exclude_columns: bool = False) -> Any:
         name = call.name
+        if name == "Options":
+            return self._execute_options(idx, call, shards, exclude_columns)
         if name == "Count":
             return self._execute_count(idx, call, shards)
         if name in _BITMAP_CALLS:
-            return self._execute_bitmap(idx, call, shards)
+            return self._execute_bitmap(idx, call, shards, exclude_columns)
         if name == "TopN":
             return self._execute_topn(idx, call, shards)
         if name in ("Sum", "Min", "Max"):
@@ -388,6 +485,35 @@ class Executor:
         if name == "Clear":
             return self._execute_clear(idx, call)
         raise ExecutionError(f"call {name} is not supported by the port")
+
+    def _execute_options(self, idx: Index, call: Call, shards,
+                         exclude_columns: bool) -> Any:
+        """Options(child, excludeColumns=…, excludeRowAttrs=…,
+        shards=[…]) around one call, as the JAX package's
+        ``_execute_options``. The port keeps no attributes: row attrs
+        are always empty (``excludeRowAttrs`` changes nothing) and
+        ``columnAttrs=true`` is refused."""
+        if len(call.children) != 1:
+            raise ExecutionError("Options() takes exactly one child call")
+        for arg in ("columnAttrs", "excludeRowAttrs", "excludeColumns"):
+            if arg in call.args and not isinstance(call.args[arg], bool):
+                raise ExecutionError(f"Query(): {arg} must be a bool")
+        if call.args.get("columnAttrs"):
+            raise ExecutionError(
+                "Options(columnAttrs=true): column attributes are not "
+                "ported yet")
+        if "excludeColumns" in call.args:
+            exclude_columns = call.args["excludeColumns"]
+        if "shards" in call.args:
+            arg = call.args["shards"]
+            if not isinstance(arg, (list, tuple)) or not all(
+                    isinstance(s, int) and not isinstance(s, bool)
+                    and s >= 0 for s in arg):
+                raise ExecutionError(
+                    "Query(): shards must be a list of unsigned integers")
+            shards = [int(s) for s in arg]
+        return self._execute_call(idx, call.children[0], shards,
+                                  exclude_columns)
 
     # --------------------------------------------------------------- shards
 
@@ -440,14 +566,22 @@ class Executor:
     def _fuser(self) -> Any:
         return getattr(self._tls, "fuser", None)
 
-    def _execute_bitmap(self, idx: Index, call: Call, shards
+    def _execute_bitmap(self, idx: Index, call: Call, shards,
+                        exclude_columns: bool = False
                         ) -> Union[RowResult, _Deferred]:
         shards = self._restrict_shards(idx, call, self._shards(idx, shards))
+
+        def result(words: torch.Tensor) -> RowResult:
+            res = RowResult(shards, words)
+            if exclude_columns:
+                res.clear_columns()
+            return res
+
         fuser = self._fuser()
         if fuser is not None:
             handle = fuser.add(self._stage_tree(idx, call, shards, "row"))
-            return _Deferred(lambda: RowResult(shards, handle.value()))
-        return RowResult(shards, self._eval(idx, call, shards))
+            return _Deferred(lambda: result(handle.value()))
+        return result(self._eval(idx, call, shards))
 
     def _execute_count(self, idx: Index, call: Call, shards
                        ) -> Union[int, _Deferred]:

@@ -1,6 +1,6 @@
-"""Query result types, with the fields and equality of the JAX package's
-``executor/results.py``. A Row result keeps its per-shard words on the
-device until something asks for columns."""
+"""Query result types, with the fields, equality and JSON shapes of the
+JAX package's ``executor/results.py``. A Row result keeps its per-shard
+words on the device until something asks for columns."""
 
 from __future__ import annotations
 
@@ -39,6 +39,12 @@ class RowResult:
                          else np.empty(0, dtype=np.uint64))
         return self._columns
 
+    def clear_columns(self) -> None:
+        """Drop the column data, keeping attrs (``excludeColumns``)."""
+        self.words = torch.zeros((len(self.shards), 0), dtype=torch.int32,
+                                 device=self.words.device)
+        self._columns = np.empty(0, dtype=np.uint64)
+
     def count(self) -> int:
         from pilosa_tpu_torch.ops import kernels
         words = self.words
@@ -47,6 +53,10 @@ class RowResult:
         return int(kernels.bank_row_counts(
             words.contiguous().unsqueeze(0))[0])
 
+    def to_json(self) -> dict:
+        # The port sets no row attrs and no keys, so only columns show.
+        return {"columns": self.columns().tolist()}
+
 
 @dataclass
 class PairsResult:
@@ -54,10 +64,29 @@ class PairsResult:
     pairs: List[Tuple[int, int]]
     keys: Optional[List[str]] = None
 
+    def to_json(self) -> List[dict]:
+        return [{"id": int(r), "count": int(c)} for r, c in self.pairs]
+
 
 @dataclass
 class ValCount:
     """Sum/Min/Max result."""
     value: int
     count: int
+
+    def to_json(self) -> dict:
+        return {"value": int(self.value), "count": int(self.count)}
+
+
+def result_to_json(result: Any) -> Any:
+    """The JSON form of one call's result, as the reference shapes it."""
+    if hasattr(result, "to_json"):
+        return result.to_json()
+    if isinstance(result, list):
+        return [result_to_json(r) for r in result]
+    if isinstance(result, (bool, int, str, type(None))):
+        return result
+    if isinstance(result, np.integer):
+        return int(result)
+    raise TypeError(f"unserializable result {type(result)}")
 

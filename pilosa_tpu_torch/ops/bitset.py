@@ -191,10 +191,19 @@ def pack_positions(positions: Union[Sequence[int], np.ndarray],
 
 
 def unpack_positions(words: np.ndarray) -> np.ndarray:
-    """Inverse of pack_positions: word array -> sorted uint64 positions."""
-    words = np.ascontiguousarray(words, dtype=np.uint32)
-    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
-    return np.nonzero(bits)[0].astype(np.uint64)
+    """Inverse of pack_positions: word array -> sorted uint64 positions.
+    A sparse row (under one word in eight set) unpacks only its set
+    words: a served Row of 96 shards is mostly zero words, and
+    unpacking all of them costs hundreds of ms on the host."""
+    words = np.ascontiguousarray(words, dtype=np.uint32).reshape(-1)
+    nz = np.flatnonzero(words)
+    if len(nz) * 8 >= len(words):
+        bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+        return np.nonzero(bits)[0].astype(np.uint64)
+    bits = np.unpackbits(words[nz].view(np.uint8),
+                         bitorder="little").reshape(-1, 32)
+    word, bit = np.nonzero(bits)
+    return nz[word].astype(np.uint64) * np.uint64(32) + bit.astype(np.uint64)
 
 
 def to_tensor(words: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -37,6 +37,7 @@ else: no fallback. Counts come back as ``int64`` on the input's device
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,9 +77,19 @@ _OP_ZERO = 4
 PBANK_MAX_WORDS = 2047
 
 
+_LAUNCHES_LOCK = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    # Server threads launch concurrently; '+=' alone could lose a count.
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------- plain
@@ -263,7 +274,7 @@ def bank_row_counts(bank: torch.Tensor) -> torch.Tensor:
         _raise_on(name, lib.bank_row_counts(
             bank.data_ptr(), out.data_ptr(), bank.shape[0], n,
             _stream(bank.device)))
-        LAUNCHES[name] += 1
+        _count_launch(name)
     return _as_counts(out)
 
 
@@ -285,7 +296,7 @@ def bank_row_counts_masked(bank: torch.Tensor, filt: torch.Tensor
         _raise_on(name, lib.bank_row_counts_masked(
             bank.data_ptr(), filt.data_ptr(), inter.data_ptr(),
             raw.data_ptr(), bank.shape[0], n, _stream(bank.device)))
-        LAUNCHES[name] += 1
+        _count_launch(name)
     return _as_counts(inter), _as_counts(raw)
 
 
@@ -307,7 +318,7 @@ def bsi_plane_counts(planes: torch.Tensor, mask: torch.Tensor
         _raise_on(name, lib.bsi_plane_counts(
             planes.data_ptr(), mask.data_ptr(), out.data_ptr(),
             planes.shape[0], n, _stream(planes.device)))
-        LAUNCHES[name] += 1
+        _count_launch(name)
     return _as_counts(out)
 
 
@@ -507,7 +518,7 @@ def mega_interpret(banks: Sequence[torch.Tensor], slots: Sequence[Any],
         _raise_on(name, lib.mega_interpret(
             *args, counts.data_ptr(), rows.data_ptr(), None,
             _stream(banks[0].device)))
-        LAUNCHES[name] += 1
+        _count_launch(name)
     del buf  # the stream orders its reuse after the launch
     return _as_counts(counts), rows
 
@@ -569,5 +580,5 @@ def pbank_membership_counts(pos: torch.Tensor, filt: torch.Tensor,
             pos.data_ptr(), starts.data_ptr() if starts is not None else None,
             filt.data_ptr(), out.data_ptr(), rows, L, filt.numel(),
             _stream(pos.device)))
-        LAUNCHES[name] += 1
+        _count_launch(name)
     return out

@@ -152,9 +152,6 @@ class Call:
 class Query:
     calls: List[Call] = field(default_factory=list)
 
-    def write_calls(self) -> List[Call]:
-        return [c for c in self.calls if c.writes()]
-
     def clone(self) -> "Query":
         return Query([c.clone() for c in self.calls])
 

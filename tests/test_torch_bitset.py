@@ -107,6 +107,20 @@ def test_pack_unpack_match():
     np.testing.assert_array_equal(tb.unpack_positions(w), pos)
 
 
+@pytest.mark.parametrize("n_bits", [0, 1, 40, 700, 20000, 1 << 16])
+def test_unpack_matches_at_every_density(n_bits):
+    """Sparse rows take the set-words path, dense ones the full unpack;
+    both give the JAX package's positions."""
+    rng = np.random.default_rng(n_bits)
+    pos = np.unique(rng.integers(0, 1 << 16, n_bits)).astype(np.uint64)
+    if n_bits == 1 << 16:
+        pos = np.arange(1 << 16, dtype=np.uint64)
+    w = tb.pack_positions(pos, width=1 << 16)
+    np.testing.assert_array_equal(tb.unpack_positions(w),
+                                  jb.unpack_positions(w))
+    np.testing.assert_array_equal(tb.unpack_positions(w), pos)
+
+
 def test_tensor_roundtrip_keeps_bits():
     a = _words(9, (3, 33))
     t = _t(a)
