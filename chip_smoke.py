@@ -42,6 +42,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel's time (its column tile, shared memory and grid, and its
    registers from ``-Xptxas -v``), its byte and shared-memory bounds and
    its plain version's time.
+   groupby: on the same holder, through a new ``Executor``: four Rows
+   queries (``previous``, ``limit``, ``column``) and five GroupBy
+   queries (``GroupBy(Rows(passenger_count), Rows(cab_type))``, a
+   ``filter=Row(dist > 100)`` one, its ``limit=5`` page and the page
+   that resumes it with ``previous``, three levels), each exact against
+   numpy, with its launches by kernel, its warm p50 and, for GroupBy,
+   the device memory one warm call allocates at its peak; no plain
+   version may run on that path. Then ``Store`` into a field it makes,
+   ``Count``, ``ClearRow``, ``Count`` and ``Rows`` of it; TopN(cab_type)
+   twice from the warm count caches (the first hit sweeps and
+   compares); and a ``cacheType: "none"`` copy of cab_type imported
+   shard by shard, whose TopN rebuilds, hits (with no sweep) and, after
+   one Set, patches the device rank vector, then the hit's warm p50
+   beside the sweep's.
 5. tanimoto: a fingerprint index of 10M molecules (``--molecules``;
    4096-bit fingerprints of 48 draws each from seed 11, one shard, 200
    planted analogues of molecule 12345) loaded through
@@ -57,7 +71,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``API`` with a ``QueryCoalescer`` at its default window behind
    ``serve()`` on a free loopback port; ``GET /schema`` lists the taxi
    fields; the five taxi queries as raw-PQL POSTs (each response equal
-   to the in-process answer too) and their warm HTTP p50s; the burst as
+   to the in-process answer too) and their warm HTTP p50s; one GroupBy
+   and one Rows POST, equal to the groupby phase's answers; the burst as
    one ``POST /batch/query`` (warm p50) and as 18 concurrent POSTs
    released by a barrier, ten rounds, which must take megakernel
    launches with no fallback; then a ``set`` field made over HTTP, one
@@ -73,18 +88,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    TopN and Sum; the seconds from its start to the first answer.
 
 Launch counts are set to 0 just before each path (taxi, burst,
-fingerprint, the serve path's taxi and fingerprint servers) and read
-just after; every kernel must have launched on its path, and on the
-serve path. The ``serve`` line, the card's name and power limit, the
-kernels JSON and the ``{"ok": true, "device": {...}}`` line end the
-output. The script imports nothing of JAX or of the JAX package.
+groupby, fingerprint, the serve path's taxi and fingerprint servers)
+and read just after; every kernel must have launched on its path, and
+on the serve path. The ``taxi``, ``groupby``, ``burst``, ``tanimoto``
+and ``serve`` lines, the card's name and power limit, the kernels JSON
+and the ``{"ok": true, "device": {...}}`` line end the output. The script imports nothing of JAX or of the JAX package.
 
 ``--burst-probe [--tree DIR]`` runs only the taxi load and the burst,
 with the ``pilosa_tpu_torch`` package of DIR (default: beside this
 script), and prints one ``probe`` JSON line: the burst's warm p50, the
 device memory one warm burst allocates at its peak, and its device time
 by kernel under torch.profiler. Runs of two trees in turns compare them
-on one card.
+on one card. ``--load-probe [--tree DIR]`` runs only the fingerprint
+load (``--molecules``) with DIR's package and prints one ``probe`` line
+with its seconds.
 """
 
 from __future__ import annotations
@@ -522,22 +539,24 @@ def burst_expected(cab, pax, dist, amount):
 
 
 def run_main(device, n_rides, iters=ITERS, profile=False):
-    """Load the taxi index, then drive three paths on it: the five taxi
+    """Load the taxi index, then drive four paths on it: the five taxi
     queries one at a time, the eighteen-request burst through
-    execute_batch, and the serve path's phases 1-2 over HTTP
-    (``serve_taxi``). Returns (report, taxi launches, burst launches,
-    serve launches). Raises on any wrong answer."""
+    execute_batch, the groupby phase (``run_groupby``), and the serve
+    path's phases 1-2 over HTTP (``serve_taxi``). Returns (report, taxi
+    launches, burst launches, groupby launches, serve launches). Raises
+    on any wrong answer."""
     import numpy as np
     import torch
     cab, pax, dist, amount = taxi_data(n_rides)
     want_taxi = taxi_expected(cab, pax, dist, amount)
     want_burst = burst_expected(cab, pax, dist, amount)
+    want_gb = groupby_expected(cab, pax, dist)
     # cab_type of the first two shards' columns (255: no ride), for the
     # serve path's writes.
     cab_head = np.full(2 * SHARD_WIDTH, 255, np.uint64)
     cab_head[:min(n_rides, 2 * SHARD_WIDTH)] = cab[:2 * SHARD_WIDTH]
     holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
-    del cab, pax, dist, amount
+    del pax, dist, amount
     log(f"taxi: loaded {n_rides} rides in {load_s:.2f} s")
     report = {"rides": n_rides,
               "shards": (n_rides + SHARD_WIDTH - 1) // SHARD_WIDTH,
@@ -549,13 +568,18 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
+    report["groupby"], gb_launches = run_groupby(holder, device, cab,
+                                                 want_gb, iters)
+    del cab
     report["serve"], serve_launches = serve_taxi(
         holder, want_taxi, want_burst, cab_head,
         {"taxi": {k: v["p50_s"] for k, v in report["taxi"].items()
                   if k != "profile"},
-         "burst": report["burst"]["p50_s"]}, iters)
+         "burst": report["burst"]["p50_s"],
+         "groupby": report["groupby"]["http"]}, iters)
     del ex, holder
-    return report, taxi_launches, burst_launches, serve_launches
+    return report, taxi_launches, burst_launches, gb_launches, \
+        serve_launches
 
 
 def run_taxi(ex, want, device, iters=ITERS, profile=False):
@@ -596,6 +620,292 @@ def run_taxi(ex, want, device, iters=ITERS, profile=False):
     if device != "cpu" and profile:
         report["profile"] = profile_queries(torch, ex, "taxi", TAXI_QUERIES,
                                             iters)
+    return report, launches
+
+
+# -------------------------------------------------------------- groupby
+
+# The reference's taxi walkthrough (docs/examples.md:28) and the GroupBy
+# of benches/taxi.py, with a filter, a page and its resumption, and three
+# levels; name, PQL. The resumed page's PQL is made from the first
+# page's last group.
+GB_QUERIES = [
+    ("pax_by_cab", "GroupBy(Rows(passenger_count), Rows(cab_type))"),
+    ("cab_by_pax_dist_gt_100",
+     "GroupBy(Rows(cab_type), Rows(passenger_count), filter=Row(dist > 100))"),
+    ("page1", "GroupBy(Rows(cab_type), Rows(passenger_count), "
+              "filter=Row(dist > 100), limit=5)"),
+    ("cab_pax_cab",
+     "GroupBy(Rows(cab_type), Rows(passenger_count), Rows(cab_type))"),
+]
+GB_PAGE2 = ("GroupBy(Rows(cab_type), Rows(passenger_count), "
+            "filter=Row(dist > 100), limit=5, previous=[{}, {}])")
+STORE = "Store(Intersect(Row(cab_type=1), Row(passenger_count=2)), cab_pax=1)"
+
+
+def gb_ride(n_rides):
+    """The ride of Rows(cab_type, column=C)."""
+    return n_rides * 5 // 8 + 3
+
+
+def rows_queries(n_rides):
+    return [("rows_cab", "Rows(cab_type)"),
+            ("rows_pax", "Rows(passenger_count)"),
+            ("rows_pax_page", "Rows(passenger_count, previous=2, limit=3)"),
+            ("rows_cab_ride", f"Rows(cab_type, column={gb_ride(n_rides)})")]
+
+
+def groups_json(fields, counts):
+    """GroupBy's JSON answer from {row-id tuple: count}: nonzero groups
+    in ascending tuple order."""
+    return [{"group": [{"field": f, "rowID": int(r)}
+                       for f, r in zip(fields, tup)], "count": int(n)}
+            for tup, n in sorted(counts.items()) if n]
+
+
+def groupby_expected(cab, pax, dist):
+    """Exact JSON answers of the groupby phase, recomputed with numpy."""
+    import numpy as np
+    n = len(cab)
+    cab64, pax64 = cab.astype(np.int64), pax.astype(np.int64)
+    want = {"rows_cab": {"rows": np.unique(cab64).tolist()},
+            "rows_pax": {"rows": np.unique(pax64).tolist()}}
+    want["rows_pax_page"] = {"rows": [p for p in want["rows_pax"]["rows"]
+                                      if p > 2][:3]}
+    want["rows_cab_ride"] = {"rows": [int(cab[gb_ride(n)])]}
+    cp = cab64 * 7 + pax64
+    both = np.bincount(cp, minlength=21)
+    want["pax_by_cab"] = groups_json(
+        ["passenger_count", "cab_type"],
+        {(p, c): both[c * 7 + p] for c in range(3) for p in range(1, 7)})
+    filt = np.bincount(cp[dist > 100], minlength=21)
+    full = groups_json(
+        ["cab_type", "passenger_count"],
+        {(c, p): filt[c * 7 + p] for c in range(3) for p in range(1, 7)})
+    want["cab_by_pax_dist_gt_100"] = full
+    want["page1"], want["page2"] = full[:5], full[5:10]
+    want["cab_pax_cab"] = groups_json(
+        ["cab_type", "passenger_count", "cab_type"],
+        {(c, p, c): both[c * 7 + p] for c in range(3) for p in range(1, 7)})
+    want["cab1_pax2"] = int(both[1 * 7 + 2])
+    counts = np.bincount(cab64, minlength=3)
+    want["cab_counts"] = counts.tolist()
+    want["topn_cab"] = [{"id": int(r), "count": int(counts[r])}
+                        for r in sorted(range(3),
+                                        key=lambda r: (-counts[r], r))]
+    # The column of the phase's Set into cab_rank row 0: a ride of
+    # another cab type.
+    want["set_col"] = int(np.flatnonzero(cab[:1000] != 0)[0])
+    return want
+
+
+class RefCalls:
+    """Counts calls of the kernels' plain versions while it is active:
+    on a CUDA tensor the wrappers must never reach them."""
+
+    NAMES = ("bank_row_counts_ref", "bank_row_counts_masked_ref",
+             "bsi_plane_counts_ref", "mega_interpret_ref",
+             "pbank_membership_counts_ref")
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.calls = {}
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            real = self.saved[name] = getattr(self.kernels, name)
+
+            def counted(*a, _real=real, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(*a, **k)
+            setattr(self.kernels, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.saved.items():
+            setattr(self.kernels, name, real)
+
+
+def run_groupby(holder, device, cab, want, iters=ITERS):
+    """The groupby phase on the loaded taxi holder, through a new
+    Executor: Rows and GroupBy (each answer exact, its launches by
+    kernel, then its warm p50 and, on the card, the device memory one
+    warm call allocates at its peak); Store into a new field, Count,
+    ClearRow, Count and Rows; TopN(cab_type) twice through the warm
+    count caches (the first hit sweeps and compares); a cacheType none
+    copy of cab_type imported shard by shard, and TopN over it cold
+    (rebuild), warm (hit, no sweep) and after one Set (patch), then the
+    hit's warm p50 beside the sweep's. Launch counts are 0 just before
+    the first pass and read just after it. Returns (report, launches)."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch import Executor, FieldOptions
+    from pilosa_tpu_torch.executor.results import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    cuda = device != "cpu"
+    ex = Executor(holder, device=device)
+    n_rides = len(cab)
+
+    def one(pql):
+        (res,) = ex.execute("taxi", pql)
+        return result_to_json(res)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check(name, pql, got, expect):
+        if got != expect:
+            raise AssertionError(f"groupby {name}: {pql}: port "
+                                 f"{str(got)[:300]} != numpy "
+                                 f"{str(expect)[:300]}")
+
+    def launched(fn):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        sync()
+        return out, {k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] != before[k]}
+
+    report = {"queries": {}}
+    queries = rows_queries(n_rides) + GB_QUERIES
+    kernels.reset_launches()
+    with RefCalls(kernels) as refs:
+        # 1. Rows and GroupBy
+        for name, pql in queries + [("page2", None)]:
+            if pql is None:
+                last = want["page1"][-1]["group"]
+                pql = GB_PAGE2.format(*(g["rowID"] for g in last))
+            t0 = time.perf_counter()
+            got, delta = launched(lambda: one(pql))
+            check(name, pql, got, want[name])
+            report["queries"][name] = {
+                "pql": pql, "first_s": time.perf_counter() - t0,
+                "launches": delta}
+        # 2. writes into a field the phase makes
+        t0 = time.perf_counter()
+        got, delta = launched(lambda: one(STORE))
+        check("store", STORE, got, True)
+        report["store"] = {"s": time.perf_counter() - t0, "launches": delta}
+        check("store", "Count(Row(cab_pax=1))", one("Count(Row(cab_pax=1))"),
+              want["cab1_pax2"])
+        t0 = time.perf_counter()
+        check("clear_row", "ClearRow(cab_pax=1)", one("ClearRow(cab_pax=1)"),
+              True)
+        report["clear_row_s"] = time.perf_counter() - t0
+        check("clear_row", "Count(Row(cab_pax=1))",
+              one("Count(Row(cab_pax=1))"), 0)
+        check("clear_row", "Rows(cab_pax)", one("Rows(cab_pax)"),
+              {"rows": []})
+        # 3. the warm count caches: the first hit sweeps and compares
+        pql = "TopN(cab_type, n=3)"
+        c0 = (ex.topn_cache_hits, ex.topn_selfchecks)
+        first, d1 = launched(lambda: one(pql))
+        second, d2 = launched(lambda: one(pql))
+        check("topn_warm", pql, [first, second], [want["topn_cab"]] * 2)
+        c1 = (ex.topn_cache_hits, ex.topn_selfchecks)
+        if c1 != (c0[0] + 2, c0[1] + 1) or ex.topn_selfcheck_mismatches \
+                or (cuda and not d1.get("bank_row_counts")) or d2:
+            raise AssertionError(f"groupby: warm TopN hits/self-checks {c0}"
+                                 f" -> {c1}, mismatches "
+                                 f"{ex.topn_selfcheck_mismatches}, "
+                                 f"launches {d1} then {d2}")
+        report["topn_warm_launches"] = [d1, d2]
+        # 4. the device rank vector of a field without a count cache
+        idx = holder.index("taxi")
+        rank = idx.create_field("cab_rank", FieldOptions(cache_type="none"))
+        t0 = time.perf_counter()
+        for c0_ in range(0, n_rides, SHARD_WIDTH):
+            rank.import_bits(cab[c0_:c0_ + SHARD_WIDTH],
+                             np.arange(c0_, min(c0_ + SHARD_WIDTH, n_rides),
+                                       dtype=np.uint64))
+        report["cab_rank_import_s"] = time.perf_counter() - t0
+        pql = "TopN(cab_rank, n=3)"
+        want_rank = want["topn_cab"]
+        steps = {}
+
+        def rank_state():
+            return (ex.rank_cache_hits, ex.rank_cache_patches,
+                    ex.rank_cache_rebuilds)
+
+        for step in ("rebuild", "hit", "patch"):
+            if step == "patch":
+                set_pql = f"Set({want['set_col']}, cab_rank=0)"
+                check("rank", set_pql, one(set_pql), True)
+                counts = list(want["cab_counts"])
+                counts[0] += 1
+                want_rank = [{"id": r, "count": counts[r]} for r in sorted(
+                    range(3), key=lambda r: (-counts[r], r))]
+            r0 = rank_state()
+            t0 = time.perf_counter()
+            got, delta = launched(lambda: one(pql))
+            dt = time.perf_counter() - t0
+            check(f"rank {step}", pql, got, want_rank)
+            moved = tuple(b - a for a, b in zip(r0, rank_state()))
+            expect = {"hit": (1, 0, 0), "patch": (0, 1, 0),
+                      "rebuild": (0, 0, 1)}[step]
+            if moved != expect or (step == "hit"
+                                   and "bank_row_counts" in delta):
+                raise AssertionError(f"groupby: rank {step}: counters moved "
+                                     f"{moved}, launches {delta}")
+            steps[step] = {"s": dt, "launches": delta}
+        report["rank_steps"] = steps
+    launches = dict(kernels.LAUNCHES)
+    if cuda:
+        if refs.calls:
+            raise AssertionError(f"groupby: plain versions called on the "
+                                 f"card: {refs.calls}")
+        for name in ("bank_row_counts", "bank_row_counts_masked"):
+            if launches[name] <= 0:
+                raise AssertionError(f"groupby: {name} never launched")
+    report["ref_calls"] = refs.calls
+    # 5. warm p50s, and each GroupBy's peak device memory
+    for name, q in report["queries"].items():
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            got = one(q["pql"])
+            sync()
+            times.append(time.perf_counter() - t0)
+            check(name, q["pql"], got, want[name])
+        q["p50_s"] = p50(times)
+        if cuda and q["pql"].startswith("GroupBy"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            one(q["pql"])
+            torch.cuda.synchronize()
+            q["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    rank_p50 = {}
+    for mode in ("hit", "sweep"):
+        holder.rank_cache.enabled = mode == "hit"
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            got = one("TopN(cab_rank, n=3)")
+            sync()
+            times.append(time.perf_counter() - t0)
+            check(f"rank {mode}", "TopN(cab_rank, n=3)", got, want_rank)
+        rank_p50[mode] = p50(times)
+    holder.rank_cache.enabled = True
+    report["rank_p50_s"] = rank_p50
+    if cuda:
+        # Where GroupBy's time goes: device time by kernel and the busy
+        # share over warm runs, beside a warm rank-vector hit.
+        report["profile"] = profile_queries(
+            torch, ex, "taxi",
+            [(n, q["pql"]) for n, q in report["queries"].items()
+             if q["pql"].startswith("GroupBy")]
+            + [("rank_hit", "TopN(cab_rank, n=3)")], iters)
+    report["http"] = {"groupby": (GB_QUERIES[0][1], want["pax_by_cab"]),
+                      "rows": (rows_queries(n_rides)[3][1],
+                               want["rows_cab_ride"])}
+    log(f"groupby: exact; GroupBy warm p50 "
+        + ", ".join(f"{n} {q['p50_s']:.6f} s" for n, q in
+                    report["queries"].items() if n in dict(GB_QUERIES))
+        + f"; cab_rank import {report['cab_rank_import_s']:.2f} s; rank "
+        f"hit p50 {rank_p50['hit']:.6f} s, sweep {rank_p50['sweep']:.6f} s")
     return report, launches
 
 
@@ -1470,6 +1780,12 @@ def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
             report["taxi_http_p50_s"][name] = http_p50(
                 base, "taxi", pql, resp, iters)
         report["taxi_in_process_p50_s"] = in_process["taxi"]
+        # GroupBy and Rows over HTTP: the in-process JSON answers.
+        for what, (pql, want) in in_process["groupby"].items():
+            got = http_json(base, "POST", "/index/taxi/query", pql)
+            if got != {"results": [want]}:
+                raise AssertionError(f"serve: {what} {pql} over HTTP "
+                                     f"{str(got)[:300]} != in-process")
         report.update(serve_burst(api, base, want_burst, iters))
         report["burst_in_process_p50_s"] = in_process["burst"]
         # Where a lone request's HTTP time goes: the round trip with no
@@ -1683,16 +1999,21 @@ def main(argv=None) -> int:
     ap.add_argument("--burst-probe", action="store_true",
                     help="run only the taxi load and the burst and print "
                          "one probe line (p50, peak memory, device time)")
+    ap.add_argument("--load-probe", action="store_true",
+                    help="run only the fingerprint load and print one "
+                         "probe line (seconds)")
     ap.add_argument("--tree", metavar="DIR", default=REPO,
-                    help="with --burst-probe: the checkout whose "
-                         "pilosa_tpu_torch runs (default: this script's)")
+                    help="with --burst-probe or --load-probe: the checkout "
+                         "whose pilosa_tpu_torch runs (default: this "
+                         "script's)")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
         return 1
-    tree = os.path.abspath(args.tree if args.burst_probe else REPO)
+    probing = args.burst_probe or args.load_probe
+    tree = os.path.abspath(args.tree if probing else REPO)
     if not os.path.isdir(os.path.join(tree, "pilosa_tpu_torch")):
         log(f"chip_smoke: pilosa_tpu_torch/ not found in {tree}")
         return 1
@@ -1708,6 +2029,14 @@ def main(argv=None) -> int:
         probe = run_probe("cuda", N_RIDES)
         print(json.dumps({"probe": {"tree": tree, "card": card, **probe}}),
               flush=True)
+        return 0
+    if args.load_probe:
+        card = card_line()
+        pos = fingerprint_positions(args.molecules)
+        load_s = load_fingerprints("cuda", pos)[3]
+        print(json.dumps({"probe": {"tree": tree, "card": card,
+                                    "molecules": args.molecules,
+                                    "load_s": load_s}}), flush=True)
         return 0
 
     # 1. build
@@ -1731,8 +2060,8 @@ def main(argv=None) -> int:
 
     # 3-4, 6. the taxi paths: queries one at a time, the burst, and the
     # serve path's taxi phases
-    report, taxi_launches, burst_launches, serve_launches = run_main(
-        "cuda", N_RIDES, ITERS, profile=args.profile)
+    report, taxi_launches, burst_launches, gb_launches, serve_launches = \
+        run_main("cuda", N_RIDES, ITERS, profile=args.profile)
     torch.cuda.empty_cache()
     # 5-6. the fingerprint path and the serve path's fingerprint phase
     torch.cuda.reset_peak_memory_stats()
@@ -1781,6 +2110,20 @@ def main(argv=None) -> int:
                   if k != "profile"},
         "launches": {k: v["launches"] for k, v in taxi.items()
                      if k != "profile"}}}), flush=True)
+    gb = report["groupby"]
+    print(json.dumps({"groupby": {
+        "queries": {k: {f: v.get(f) for f in (
+            "pql", "first_s", "p50_s", "launches", "peak_bytes")}
+            for k, v in gb["queries"].items()},
+        "store": gb["store"], "clear_row_s": gb["clear_row_s"],
+        "topn_warm_launches": gb["topn_warm_launches"],
+        "cab_rank_import_s": gb["cab_rank_import_s"],
+        "rank_steps": gb["rank_steps"], "rank_p50_s": gb["rank_p50_s"],
+        "profile": {k: {f: v[f] for f in ("wall_ms", "device_ms",
+                                          "busy_share")}
+                    for k, v in gb.get("profile", {}).items()},
+        "launches": {k: v for k, v in gb_launches.items() if v}}}),
+        flush=True)
     print(json.dumps({"burst": {k: burst[k] for k in (
         "requests", "p50_s", "single_p50_sum_s", "lower_opt_p50_s",
         "first_s", "kernel_ms", "plain_ms", "bound_ms", "smem_bound_ms",

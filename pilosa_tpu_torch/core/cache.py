@@ -1,0 +1,213 @@
+"""TopN row-count caches: the per-fragment count caches and the store of
+per-row count vectors on the device.
+
+A copy of the JAX package's ``core/cache.py`` (the port imports nothing
+of it). Two tiers serve an unfiltered TopN without its popcount sweep:
+
+- each fragment keeps a count cache (``RankedCache``, ``LRUCache`` or
+  ``NopCache``, by the field's ``cacheType``). While every fragment's
+  cache provably holds every present row, TopN answers from the cached
+  counts with no device work (``Executor._topn_cached_counts``);
+- otherwise a ``RankEntry`` keeps the view bank's per-row counts as a
+  device vector, validated against the fragments' write versions:
+  reused while unchanged, patched for the written rows, else rebuilt by
+  the one sweep TopN would have paid anyway (``Executor._rank_counts``).
+
+Not ported yet: the ``.cache`` sidecar (``save_cache``/``load_cache``,
+and the caches' ``get``/``ids``/``top`` that serve it) waits for
+persistence, and the memory-ledger registration of rank entries (with
+their byte counts) waits for the memory budget and ledger. The store's resize
+invalidation and its ``[cache]`` config belong to the cluster and config
+items and are left out with them.
+"""
+
+from __future__ import annotations
+
+import heapq
+import os
+import threading
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Tuple
+
+THRESHOLD_FACTOR = 1.1
+
+CACHE_TYPE_RANKED = "ranked"
+CACHE_TYPE_LRU = "lru"
+CACHE_TYPE_NONE = "none"
+CACHE_TYPES = (CACHE_TYPE_RANKED, CACHE_TYPE_LRU, CACHE_TYPE_NONE)
+DEFAULT_CACHE_SIZE = 50000
+
+
+class RankedCache:
+    """Keeps the top ``size`` rows by count; entries below the current
+    threshold are rejected once the cache is full.
+
+    The cache serves reads only while it provably holds every present
+    row. The moment cardinality passes the bound (an eviction or a
+    threshold rejection), it can never serve a read again until it is
+    invalidated, so ``saturated`` latches, ``add`` becomes O(1), and the
+    fragment skips the row recounts that fed it.
+
+    Mutations take the lock; reads of ``counts`` do not, because
+    ``invalidate`` and ``_recalculate`` rebind the dict instead of
+    mutating it in place, so a reader sees one consistent snapshot."""
+
+    def __init__(self, size: int = DEFAULT_CACHE_SIZE):
+        self.size = size
+        self.counts: Dict[int, int] = {}
+        self._threshold = 0
+        self.saturated = False
+        self._lock = threading.Lock()
+
+    def add(self, row_id: int, count: int) -> None:
+        with self._lock:
+            if self.saturated:
+                return
+            if count == 0:
+                self.counts.pop(row_id, None)
+                return
+            if (len(self.counts) >= self.size * THRESHOLD_FACTOR
+                    and count < self._threshold
+                    and row_id not in self.counts):
+                self.saturated = True
+                return
+            self.counts[row_id] = count
+            if len(self.counts) > self.size * THRESHOLD_FACTOR:
+                self._recalculate()
+                self.saturated = True
+
+    def _recalculate(self) -> None:
+        """Top-``size`` selection (lock held) into a fresh dict, so
+        lock-free readers never see a half-pruned map."""
+        pairs = heapq.nlargest(self.size, self.counts.items(),
+                               key=lambda kv: (kv[1], -kv[0]))
+        self.counts = dict(pairs)
+        self._threshold = pairs[-1][1] if len(pairs) >= self.size else 0
+
+    def invalidate(self) -> None:
+        with self._lock:
+            self.counts = {}
+            self._threshold = 0
+            self.saturated = False
+
+    def __len__(self) -> int:
+        return len(self.counts)
+
+
+class LRUCache:
+    """Least-recently-used variant: a write makes its row the most
+    recent, and past ``size`` rows the least recent goes."""
+
+    def __init__(self, size: int = DEFAULT_CACHE_SIZE):
+        self.size = size
+        self.counts: "OrderedDict[int, int]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def add(self, row_id: int, count: int) -> None:
+        with self._lock:
+            if row_id in self.counts:
+                self.counts.move_to_end(row_id)
+            self.counts[row_id] = count
+            while len(self.counts) > self.size:
+                self.counts.popitem(last=False)
+
+    def invalidate(self) -> None:
+        with self._lock:
+            self.counts = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self.counts)
+
+
+class NopCache:
+    size = 0
+
+    def add(self, row_id: int, count: int) -> None:
+        pass
+
+    def invalidate(self) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return 0
+
+
+def new_cache(cache_type: str, size: int):
+    if cache_type == CACHE_TYPE_RANKED:
+        return RankedCache(size)
+    if cache_type == CACHE_TYPE_LRU:
+        return LRUCache(size)
+    if cache_type == CACHE_TYPE_NONE:
+        return NopCache()
+    raise ValueError(f"invalid cache type: {cache_type}")
+
+
+# ---------------------------------------------------------------------
+# Device rank vectors. Where the host RankedCache dies the moment
+# cardinality passes its bound, the device vector covers every bank slot
+# at 8 bytes a row, so a leaderboard TopN over a warm bank is a device
+# top-k over counts already made instead of an [R, S, W] sweep.
+
+# Kill switch, the JAX package's variable.
+RANK_CACHE_ENV = "PILOSA_TPU_RANK_CACHE"
+
+
+def _rank_env_enabled() -> bool:
+    return os.environ.get(RANK_CACHE_ENV, "1") != "0"
+
+
+class RankEntry:
+    """One cached per-row count vector: ``counts`` is a device int64
+    ``[row_capacity]`` tensor aligned with the slot layout of the bank it
+    was computed from. ``row_ids`` is that bank's slot-ordered row tuple:
+    equality proves the same slot layout, so the vector, and any patch
+    scattered into it, indexes the same rows."""
+
+    __slots__ = ("versions", "row_ids", "counts")
+
+    def __init__(self, versions: Dict[int, int], row_ids: tuple,
+                 counts: Any) -> None:
+        self.versions = versions    # {shard: fragment.version} at build
+        self.row_ids = row_ids      # slot-ordered row-id tuple
+        self.counts = counts
+
+
+class RankCacheStore:
+    """LRU registry of RankEntry vectors keyed (view identity, shard
+    tuple, width), bounded by entry count. An entry holds its view, so a
+    view's id is not reused while the entry lives; ``forget_view`` drops
+    a deleted view's entries."""
+
+    def __init__(self, max_entries: int = 64) -> None:
+        self.enabled = _rank_env_enabled()
+        self.max_entries = max(1, int(max_entries))
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[tuple, Tuple[Any, RankEntry]]" = \
+            OrderedDict()
+
+    def get(self, view: Any, key: tuple) -> Optional[RankEntry]:
+        with self._lock:
+            ent = self._entries.get((id(view), key))
+            if ent is None:
+                return None
+            self._entries.move_to_end((id(view), key))
+            return ent[1]
+
+    def put(self, view: Any, key: tuple, entry: RankEntry) -> None:
+        ek = (id(view), key)
+        with self._lock:
+            self._entries.pop(ek, None)
+            while len(self._entries) >= self.max_entries:
+                self._entries.popitem(last=False)
+            self._entries[ek] = (view, entry)
+
+    def forget_view(self, view: Any) -> None:
+        """Drop every entry of a view whose field or index was
+        deleted."""
+        vid = id(view)
+        with self._lock:
+            for ek in [ek for ek in self._entries if ek[0] == vid]:
+                self._entries.pop(ek, None)
+
+    def __len__(self) -> int:
+        return len(self._entries)

@@ -15,14 +15,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_bsi_name
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
 
 FIELD_TYPE_SET = "set"
 FIELD_TYPE_INT = "int"
-
-CACHE_TYPE_RANKED = "ranked"
-DEFAULT_CACHE_SIZE = 50000
 
 
 @dataclass
@@ -30,8 +28,8 @@ class FieldOptions:
     """Field options, with the names and defaults of the JAX package's
     FieldOptions (so its ``asdict`` form loads here)."""
     type: str = FIELD_TYPE_SET
-    cache_type: str = CACHE_TYPE_RANKED
-    cache_size: int = DEFAULT_CACHE_SIZE
+    cache_type: str = cache_mod.CACHE_TYPE_RANKED
+    cache_size: int = cache_mod.DEFAULT_CACHE_SIZE
     min: int = 0
     max: int = 0
     time_quantum: str = ""
@@ -47,6 +45,11 @@ class FieldOptions:
                              "by the port yet (set and int are)")
         if self.keys:
             raise ValueError("keyed fields are not supported by the port yet")
+        # The JAX package refuses an unknown cache type when the first
+        # fragment is made (cache.new_cache); the port refuses it here,
+        # with the same message, before anything is written.
+        if self.cache_type not in cache_mod.CACHE_TYPES:
+            raise ValueError(f"invalid cache type: {self.cache_type}")
         if self.type == FIELD_TYPE_INT:
             if self.max < self.min:
                 raise ValueError("int field max must be >= min")
@@ -136,7 +139,9 @@ class Field:
             v = self.views.get(name)
             if v is None:
                 v = View(self.name, name, self.device,
-                         max_columns=self.options.max_columns)
+                         max_columns=self.options.max_columns,
+                         cache_type=self.options.cache_type,
+                         cache_size=self.options.cache_size)
                 self.views[name] = v
             return v
 

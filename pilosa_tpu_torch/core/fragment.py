@@ -8,6 +8,10 @@ of 48 bits costs one 96-byte array container. Every write bumps
 it touched with it (``rows_changed_since``); device banks and caches
 compare versions to decide whether they are stale.
 
+Each fragment keeps a TopN count cache (``core/cache.py``) of the type
+its field names; every bit write refreshes the written rows' counts
+(``_cache_update``), unless a ranked cache has saturated.
+
 Persistence (snapshots, the op log, the file format) and the native
 codec of the JAX package's ``core/fragment.py`` are not part of this
 port yet.
@@ -24,9 +28,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, SHARD_WIDTH_EXP
-from pilosa_tpu_torch.storage.roaring import CONTAINER_BITS, \
-    CONTAINER_WORDS, Bitmap, _dense_to_array, dense_scatter
+from pilosa_tpu_torch.storage.roaring import ARRAY_MAX_SIZE, \
+    CONTAINER_BITS, CONTAINER_WORDS, Bitmap, _dense_to_array, \
+    _popcount_words, dense_scatter
 
 # Containers per shard row: 2^20 / 2^16.
 CONTAINERS_PER_ROW = SHARD_WIDTH // CONTAINER_BITS
@@ -43,9 +49,13 @@ def _strictly_increasing(a: np.ndarray) -> bool:
 
 
 class Fragment:
-    def __init__(self, shard: int):
+    def __init__(self, shard: int,
+                 cache_type: str = cache_mod.CACHE_TYPE_RANKED,
+                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE):
         self.shard = shard
         self.storage = Bitmap()
+        self.cache = cache_mod.new_cache(cache_type, cache_size)
+        self.cache_type = cache_type
         self.version = _next_version()
         # row id -> version of the last write that touched it.
         self._row_versions: Dict[int, int] = {}
@@ -84,6 +94,38 @@ class Fragment:
     def rows_changed_since(self, version: int) -> List[int]:
         return [r for r, v in self._row_versions.items() if v > version]
 
+    # -- TopN count cache --------------------------------------------------
+
+    def _cache_update(self, row_ids) -> None:
+        """Refresh the count cache for written rows. Skipped when there
+        is no cache or a ranked cache has saturated: the warm read can
+        never fire again, so neither the recount nor the upkeep buys
+        anything."""
+        if self.cache_type == cache_mod.CACHE_TYPE_NONE \
+                or getattr(self.cache, "saturated", False):
+            return
+        for r in row_ids:
+            self.cache.add(int(r), self.row_count(int(r)))
+
+    def recalculate_cache(self) -> None:
+        """Rebuild the count cache from storage (a saturated ranked
+        cache starts over)."""
+        with self._lock:
+            self.cache.invalidate()
+            for r in self.row_ids():
+                self.cache.add(r, self.row_count(r))
+
+    def _prelatch_cache_saturation(self, touched: np.ndarray) -> None:
+        """Latch a ranked cache's saturation up front when this batch's
+        rows will pass its bound anyway: a 10M-row load must not recount
+        every row for a cache that can never serve a read."""
+        cache = self.cache
+        if not isinstance(cache, cache_mod.RankedCache) or cache.saturated:
+            return
+        total = len(cache.counts.keys() | set(touched.tolist()))
+        if total > cache.size * cache_mod.THRESHOLD_FACTOR:
+            cache.saturated = True
+
     # -- single-bit writes -------------------------------------------------
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
@@ -93,6 +135,7 @@ class Fragment:
             changed = self.storage.add(p)
             if changed:
                 self._touch_rows((row_id,), same_row_set=present)
+                self._cache_update((row_id,))
             return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
@@ -102,6 +145,7 @@ class Fragment:
             if changed:
                 self._touch_rows((row_id,),
                                  same_row_set=self._row_present(row_id))
+                self._cache_update((row_id,))
             return changed
 
     def bit(self, row_id: int, column_id: int) -> bool:
@@ -128,7 +172,54 @@ class Fragment:
             else:
                 keys = self.storage.import_batch(rows, offs, SHARD_WIDTH_EXP)
                 touched = np.unique(keys // np.uint64(CONTAINERS_PER_ROW))
+            self._prelatch_cache_saturation(touched)
             self._touch_rows(touched.tolist())
+            self._cache_update(touched.tolist())
+
+    def clear_row(self, row_id: int) -> bool:
+        """Clear every bit of a row (the ClearRow write): its containers
+        go whole. True when the row held a bit."""
+        k0 = row_id * CONTAINERS_PER_ROW
+        with self._lock:
+            containers = self.storage.containers
+            dropped = False
+            for key in range(k0, k0 + CONTAINERS_PER_ROW):
+                if containers.pop(key, None) is not None:
+                    self.storage._invalidate(key)
+                    dropped = True
+            if dropped:
+                self._touch_rows((row_id,))
+                self._cache_update((row_id,))
+            return dropped
+
+    def set_row(self, row_id: int, words: np.ndarray) -> None:
+        """Replace a row's bits wholesale from uint32 words (the Store
+        write). A width-trimmed ``words`` clears the rest of the row."""
+        words = np.ascontiguousarray(words, dtype=np.uint32).reshape(-1)
+        cw32 = CONTAINER_BITS // 32
+        if words.size % cw32:
+            words = np.concatenate(
+                [words, np.zeros(cw32 - words.size % cw32, np.uint32)])
+        dense = words.view(np.uint64)
+        n_given = dense.size // CONTAINER_WORDS
+        k0 = row_id * CONTAINERS_PER_ROW
+        with self._lock:
+            containers = self.storage.containers
+            present = self._row_present(row_id)
+            for j in range(CONTAINERS_PER_ROW):
+                key = k0 + j
+                chunk = dense[j * CONTAINER_WORDS:(j + 1) * CONTAINER_WORDS] \
+                    if j < n_given else None
+                n = _popcount_words(chunk) if chunk is not None else 0
+                if n:
+                    containers[key] = _dense_to_array(chunk) \
+                        if n <= ARRAY_MAX_SIZE else chunk.copy()
+                    self.storage._invalidate(key)
+                elif containers.pop(key, None) is not None:
+                    self.storage._invalidate(key)
+            self._touch_rows((row_id,), same_row_set=present
+                             and self._row_present(row_id))
+            self._cache_update((row_id,))
 
     def import_values(self, column_ids: np.ndarray, values: np.ndarray,
                       bit_depth: int, clear: bool = False) -> None:

@@ -7,17 +7,21 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from pilosa_tpu_torch.core.cache import RankCacheStore
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.device import resolve_device
 
 
 class Holder:
     """In-memory holder. ``device`` defaults to CUDA and raises where
-    there is none; pass ``device="cpu"`` to run on the CPU."""
+    there is none; pass ``device="cpu"`` to run on the CPU. The holder
+    owns the store of device rank vectors (``rank_cache``) that TopN
+    keeps per view bank, so two holders share no state."""
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.indexes: Dict[str, Index] = {}
+        self.rank_cache = RankCacheStore()
         self._lock = threading.RLock()
 
     def index(self, name: str) -> Optional[Index]:
@@ -32,12 +36,13 @@ class Holder:
                 return self.indexes[name]
             if not name or not name.islower() or not name[0].isalpha():
                 raise ValueError(f"invalid index name: {name!r}")
-            idx = Index(name, self.device, track_existence=track_existence)
+            idx = Index(name, self.device, track_existence=track_existence,
+                        rank_cache=self.rank_cache)
             self.indexes[name] = idx
             return idx
 
     def delete_index(self, name: str) -> None:
-        """Drop an index and its device banks."""
+        """Drop an index, its device banks and its rank vectors."""
         with self._lock:
             idx = self.indexes.pop(name, None)
         if idx is None:

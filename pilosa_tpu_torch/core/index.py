@@ -9,23 +9,30 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core.cache import CACHE_TYPE_NONE, RankCacheStore
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, Field, FieldOptions
 
 EXISTENCE_FIELD_NAME = "_exists"
 
 
 class Index:
+    """``rank_cache`` is the holder's store of device rank vectors; a
+    deleted field's views leave it."""
+
     def __init__(self, name: str, device: torch.device,
-                 track_existence: bool = True):
+                 track_existence: bool = True,
+                 rank_cache: Optional[RankCacheStore] = None):
         self.name = name
         self.device = device
         self.track_existence = track_existence
+        self.rank_cache = rank_cache if rank_cache is not None \
+            else RankCacheStore()
         self.fields: Dict[str, Field] = {}
         self._lock = threading.RLock()
         if track_existence:
             self.fields[EXISTENCE_FIELD_NAME] = Field(
                 name, EXISTENCE_FIELD_NAME, device,
-                FieldOptions(type=FIELD_TYPE_SET, cache_type="none",
+                FieldOptions(type=FIELD_TYPE_SET, cache_type=CACHE_TYPE_NONE,
                              cache_size=0))
 
     def existence_field(self) -> Optional[Field]:
@@ -48,16 +55,23 @@ class Index:
             return f
 
     def delete_field(self, name: str) -> None:
-        """Drop a field and its device banks."""
+        """Drop a field, its device banks and its rank vectors."""
         with self._lock:
             f = self.fields.pop(name, None)
         if f is None:
             raise KeyError(f"field not found: {name}")
+        self._drop_field(f)
+
+    def _drop_field(self, f: Field) -> None:
         f.drop_banks()
+        for v in list(f.views.values()):
+            self.rank_cache.forget_view(v)
 
     def drop_banks(self) -> None:
+        """Drop every field's device banks and rank vectors (the index
+        was deleted)."""
         for f in list(self.fields.values()):
-            f.drop_banks()
+            self._drop_field(f)
 
     def add_existence(self, column_ids: np.ndarray) -> None:
         """Mark columns as existing (every write path calls this)."""

@@ -18,8 +18,10 @@ lands wholly before or after it. The JAX package's HBM budget
 (``BankBudget``), memory ledger, host block cache and sparse upload are
 not part of this port yet, so nothing evicts a cached bank: a stale one
 is replaced when its key is asked for again. A full dense bank whose
-fragments changed is rebuilt whole; a positions bank is patched segment
-by segment.
+fragments changed is patched where the writes were few (``_patch_bank``:
+the written rows' cells, new rows appended at the end, emptied rows
+kept in their slots), else rebuilt whole; a positions bank is patched
+segment by segment.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS, Fragment
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD
 
@@ -127,11 +130,15 @@ class View:
     TRIM_GRANULE = 128
 
     def __init__(self, field: str, name: str, device: torch.device,
-                 max_columns: int = 0):
+                 max_columns: int = 0,
+                 cache_type: str = cache_mod.CACHE_TYPE_RANKED,
+                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE):
         self.field = field
         self.name = name
         self.device = device
         self.max_columns = max_columns
+        self.cache_type = cache_type
+        self.cache_size = cache_size
         self.fragments: Dict[int, Fragment] = {}
         self._lock = threading.RLock()
         self._bank_cache: Dict[tuple, object] = {}
@@ -144,7 +151,8 @@ class View:
         with self._lock:
             frag = self.fragments.get(shard)
             if frag is None:
-                frag = Fragment(shard)
+                frag = Fragment(shard, cache_type=self.cache_type,
+                                cache_size=self.cache_size)
                 self.fragments[shard] = frag
             return frag
 
@@ -219,7 +227,10 @@ class View:
         under a key that includes the rows: the executor's Row leaf uses
         it for views whose full bank is over budget. ``trim=True``
         narrows the word axis to trimmed_words(), valid for whole-row
-        consumers since the dropped tail is all-zero."""
+        consumers since the dropped tail is all-zero. A stale full bank
+        of the same width is patched when it can be (``_patch_bank``),
+        so its slots keep their rows; consumers map rows to slots
+        through ``slots`` and never assume them ascending."""
         shards = tuple(shards)
         with self._lock:
             frags = {s: self.fragments.get(s) for s in shards}
@@ -243,6 +254,12 @@ class View:
             if row_set is None:
                 row_set = sorted({r for f in frags.values() if f
                                   for r in f.row_ids()})
+                if cached is not None and cached.array.shape[-1] == width:
+                    patched = self._patch_bank(cached, frags, versions,
+                                               row_set, shards, width)
+                    if patched is not None:
+                        self._bank_cache[cache_key] = patched
+                        return patched
             bank = self._build_bank(frags, shards, row_set, width, versions)
             if cache_key is not None:
                 self._bank_cache[cache_key] = bank
@@ -260,6 +277,56 @@ class View:
         array = torch.from_numpy(host.view(np.int32)).to(self.device)
         slots = {r: i for i, r in enumerate(row_set)}
         return ViewBank(array, slots, cap - 1, versions)
+
+    @staticmethod
+    def _patch_bank(cached: ViewBank, frags: Dict[int, Optional[Fragment]],
+                    versions: Dict[int, int], row_set: List[int],
+                    shards: Tuple[int, ...], width: int
+                    ) -> Optional[ViewBank]:
+        """A new bank from a stale one: the (row, shard) cells of rows
+        written since it was built are regathered, rows new to the view
+        take the free slots after the last one, and every other slot
+        keeps its row (an emptied row keeps its slot, now zero). None
+        when a rebuild is needed: the new rows do not fit, a fragment
+        appeared or has no record of its writes, or the patch would
+        touch half the bank. The cached tensor is never written: a
+        batch may still read it."""
+        new_rows = [r for r in row_set if r not in cached.slots]
+        if len(cached.slots) + len(new_rows) + 1 > cached.array.shape[0]:
+            return None
+        patches = []  # (slot, shard index, words)
+        for si, s in enumerate(shards):
+            f = frags[s]
+            old = cached.versions.get(s, -1)
+            if f is None or f.version == old:
+                continue
+            if old < 0:
+                return None
+            for r in f.rows_changed_since(old):
+                if r in cached.slots:
+                    patches.append((cached.slots[r], si,
+                                    f.rows_dense([r], width)[0]))
+        slots = dict(cached.slots)
+        for r in new_rows:
+            slot = len(slots)
+            slots[r] = slot
+            for si, s in enumerate(shards):
+                f = frags[s]
+                if f is not None:
+                    patches.append((slot, si, f.rows_dense([r], width)[0]))
+        total_cells = cached.array.shape[0] * cached.array.shape[1]
+        if len(patches) > max(16, total_cells // 2):
+            return None
+        array = cached.array
+        if patches:
+            dev = array.device
+            rows_idx = torch.tensor([p[0] for p in patches], device=dev)
+            shard_idx = torch.tensor([p[1] for p in patches], device=dev)
+            words = torch.from_numpy(
+                np.stack([p[2] for p in patches]).view(np.int32)).to(dev)
+            array = array.clone()
+            array[rows_idx, shard_idx] = words
+        return ViewBank(array, slots, cached.zero_slot, versions)
 
     # -- positions banks -----------------------------------------------------
 

@@ -13,7 +13,14 @@ tensor goes through a kernel of ``ops/kernels.py``:
   ``TOPN_MAX_BANK_BYTES``; beyond it a narrow single-shard view answers
   from its device-resident positions bank through
   ``pbank_membership_counts``, and any other view streams its rows
-  through chunk banks;
+  through chunk banks. An unfiltered TopN first tries two caches: the
+  fragments' count caches (no device work; one hit in
+  ``TOPN_SELFCHECK_EVERY`` also sweeps and compares), then the view
+  bank's device rank vector (``core/cache.py``), reused, patched with
+  ``bank_row_counts`` over the written rows, or rebuilt by one sweep;
+- GroupBy counts with ``bank_row_counts`` (depth 0 and the intermediate
+  expansions, a torch ``&`` of every prefix with every row) and
+  ``bank_row_counts_masked`` (the last depth, one launch a prefix);
 - Sum counts bit planes with ``bsi_plane_counts``.
 
 A Row leaf reads one slot of its view's bank; a view whose full bank
@@ -36,10 +43,11 @@ plan buffer and run in ONE ``mega_interpret`` launch
 (``executor/megakernel.py``); what the megakernel does not take runs
 through the eager path above.
 
-Covered calls: Set, Clear, Row (set fields and BSI conditions),
-Intersect, Union, Difference, Xor, Not, Shift, Threshold, Count, TopN,
-Sum, Min, Max, and Options around any of them. The other calls of the
-JAX package's executor are not part of this port yet. ``execute_full``
+Covered calls: Set, Clear, ClearRow, Store, Row (set fields and BSI
+conditions), Intersect, Union, Difference, Xor, Not, Shift, Threshold,
+Count, TopN, Rows, GroupBy, Sum, Min, Max, and Options around any of
+them. Range, the time forms and the attribute calls of the JAX
+package's executor are not part of this port yet. ``execute_full``
 and ``execute_batch_shaped[_finish]`` give the JSON-shaped responses the
 server sends.
 """
@@ -49,6 +57,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import itertools
+import logging
+import os
 import threading
 from dataclasses import dataclass
 from dataclasses import field as dc_field
@@ -58,7 +68,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, \
 import numpy as np
 import torch
 
-from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, Field
+from pilosa_tpu_torch.core.cache import CACHE_TYPE_NONE, RankEntry
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, FIELD_TYPE_SET, \
+    Field
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
@@ -66,11 +78,11 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD, PositionsBank, \
     ViewBank, bank_capacity, view_bsi_name
 from pilosa_tpu_torch.device import resolve_device
 from pilosa_tpu_torch.executor import bsi
-from pilosa_tpu_torch.executor.results import PairsResult, RowResult, \
-    ValCount, result_to_json
+from pilosa_tpu_torch.executor.results import FieldRow, GroupCount, \
+    PairsResult, RowIdentifiers, RowResult, ValCount, result_to_json
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.ops.bitset import WORDS_PER_SHARD, b_and, b_andnot, \
-    b_not, b_or, b_xor, shift_bits
+from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD, \
+    b_and, b_andnot, b_not, b_or, b_xor, shift_bits, to_numpy
 from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
 
@@ -79,6 +91,7 @@ _BITMAP_CALLS = {"Row", "Intersect", "Union", "Difference", "Xor", "Not",
 _FOLDS = {"Intersect": b_and, "Union": b_or, "Xor": b_xor,
           "Difference": b_andnot}
 _CONTAINER_WORDS = CONTAINER_BITS // 32
+_LOG = logging.getLogger(__name__)
 
 # TopN sweeps the cached full view bank while it fits this many device
 # bytes (banks are width-trimmed); beyond it the positions bank or the
@@ -99,6 +112,13 @@ PBANK_ENABLED = True
 # have PBANK_INFLIGHT_SEGMENTS: that bounds coexisting XLA workspaces,
 # and the kernel allocates only its [R] int32 output, so segments run
 # back to back with no wave sync.
+
+# One warm TopN cache hit in this many also runs the exact sweep and
+# compares (the first hit always does): the shortcut is exact only while
+# every write path refreshes the cached counts, and the sample turns a
+# missed path into a counted mismatch and a cache repair. 0 disables.
+TOPN_SELFCHECK_EVERY = int(os.environ.get("PILOSA_TPU_TOPN_SELFCHECK",
+                                          256))
 
 
 class ExecutionError(ValueError):
@@ -131,6 +151,20 @@ def query_is_write(query: Union[str, Call, Query]) -> bool:
         return _query_writes(_parse(query))
     except Exception:
         return False
+
+
+def _topn_order(rows_arr: np.ndarray, counts_arr: np.ndarray, n: int,
+                min_threshold: int) -> List[Tuple[int, int]]:
+    """The TopN answer from every candidate row's count: counts of at
+    least ``max(1, min_threshold)``, in (-count, row) order, the first
+    ``n`` (all when 0)."""
+    keep = counts_arr > max(0, min_threshold - 1)
+    rows_arr, counts_arr = rows_arr[keep], counts_arr[keep]
+    rows_arr, counts_arr = _topn_candidates(rows_arr, counts_arr, n)
+    order = np.lexsort((rows_arr, -counts_arr))
+    if n:
+        order = order[:n]
+    return [(int(rows_arr[o]), int(counts_arr[o])) for o in order]
 
 
 def _topn_candidates(rows_arr: np.ndarray, counts_arr: np.ndarray,
@@ -302,6 +336,18 @@ class Executor:
         self.mega_plan_entries = 0
         self.mega_fallbacks = 0
         self.mega_budget_fallbacks = 0
+        # TopN cache tiers: warm shortcut hits and their sampled
+        # self-checks, and the device rank vector's hits, patches and
+        # rebuilds.
+        self.topn_cache_hits = 0
+        self.topn_selfchecks = 0
+        self.topn_selfcheck_mismatches = 0
+        self.rank_cache_hits = 0
+        self.rank_cache_patches = 0
+        self.rank_cache_rebuilds = 0
+        # GroupBy frontiers that outgrew GROUPBY_CHUNK_BYTES and went to
+        # host memory.
+        self.groupby_spill_events = 0
         # Plan signatures whose first launch passed verify_plan (the
         # "auto" gate), bounded.
         self._verified_sigs: Dict[str, None] = {}
@@ -315,8 +361,11 @@ class Executor:
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
-        return [self._execute_call(idx, call, shards)
-                for call in query.calls]
+        out = []
+        for call in query.calls:
+            self._check_keys(idx, call)
+            out.append(self._execute_call(idx, call, shards))
+        return out
 
     def execute_full(self, index_name: str, query: Union[str, Call, Query],
                      shards: Optional[Sequence[int]] = None
@@ -478,13 +527,66 @@ class Executor:
             return self._execute_bitmap(idx, call, shards, exclude_columns)
         if name == "TopN":
             return self._execute_topn(idx, call, shards)
+        if name == "Rows":
+            return self._execute_rows(idx, call, shards)
+        if name == "GroupBy":
+            return self._execute_group_by(idx, call, shards)
         if name in ("Sum", "Min", "Max"):
             return self._execute_val_count(idx, call, shards, name)
         if name == "Set":
             return self._execute_set(idx, call)
         if name == "Clear":
             return self._execute_clear(idx, call)
+        if name == "ClearRow":
+            return self._execute_clear_row(idx, call, shards)
+        if name == "Store":
+            return self._execute_store(idx, call, shards)
         raise ExecutionError(f"call {name} is not supported by the port")
+
+    def _check_keys(self, idx: Index, call: Call) -> None:
+        """The key checks of the JAX package's ``_translate_call``: the
+        port has no keyed index or field, so a string where an id belongs
+        is refused with the reference's message, before the call runs."""
+        if isinstance(call.args.get("_col"), str):
+            raise ExecutionError(f"index {idx.name} does not use column keys")
+        fname = call.args.get("_field")
+        if isinstance(call.args.get("_row"), str):
+            raise ExecutionError(
+                f"string row value not allowed on field {fname}")
+        if call.name in ("Row", "Range", "Set", "Clear", "ClearRow",
+                         "Store"):
+            try:
+                k, v = self._row_call_field(call)
+            except ExecutionError:
+                k, v = None, None
+            if isinstance(v, str):
+                raise ExecutionError(
+                    f"string row value not allowed on field {k}")
+        if call.name in ("Rows", "TopN"):
+            if isinstance(call.args.get("previous"), str):
+                raise ExecutionError(
+                    f"string previous not allowed on field {fname}")
+            if isinstance(call.args.get("column"), str):
+                raise ExecutionError(
+                    f"index {idx.name} does not use column keys")
+        if call.name == "GroupBy":
+            prev = call.args.get("previous")
+            if prev is not None:
+                if not isinstance(prev, list):
+                    raise ExecutionError("'previous' argument must be a list")
+                if len(prev) != len(call.children):
+                    raise ExecutionError(
+                        f"mismatched lengths for previous: {len(prev)} "
+                        f"and children: {len(call.children)}")
+                if any(isinstance(p, str) for p in prev):
+                    raise ExecutionError(
+                        "prev value must be a row id (int) when field "
+                        "doesn't have keys")
+        filt = call.args.get("filter")
+        if isinstance(filt, Call):
+            self._check_keys(idx, filt)
+        for child in call.children:
+            self._check_keys(idx, child)
 
     def _execute_options(self, idx: Index, call: Call, shards,
                          exclude_columns: bool) -> Any:
@@ -625,7 +727,7 @@ class Executor:
                                   self._eval(idx, call.children[0], shards)])
             return b_not(sub, ex)
         if name == "Shift":
-            n = call.uint_arg("n") or 1
+            n = self._shift_n(call)
             sub = self._eval(idx, call.children[0], shards)
             # Widen first so shifted bits cannot fall off a trimmed row.
             extra = (n + CONTAINER_BITS - 1) // CONTAINER_BITS
@@ -652,6 +754,26 @@ class Executor:
         if name == "Range":
             raise ExecutionError(f"{name}() is not supported by the port")
         raise ExecutionError(f"{name} is not a row query")
+
+    @staticmethod
+    def _shift_n(call: Call) -> int:
+        """Shift(row, n=N)'s distance, 1 when absent or 0. A negative N
+        is refused with the reference's message."""
+        n = call.uint_arg("n") or 1
+        if n < 0:
+            raise ExecutionError("index can't contain negative values")
+        return n
+
+    @staticmethod
+    def _between(cond: Condition) -> Tuple[int, int]:
+        """(lo, hi) of a ``><`` condition: its first two values, as the
+        reference reads them. One value is refused (the reference fails
+        with an internal IndexError there)."""
+        vals = cond.int_slice()
+        if len(vals) < 2:
+            raise ExecutionError(
+                f"between condition needs two values, got {len(vals)}")
+        return vals[0], vals[1]
 
     @staticmethod
     def _threshold_k(call: Call) -> Tuple[int, int]:
@@ -711,7 +833,7 @@ class Executor:
             return torch.zeros_like(planes[-1])
 
         if op == BETWEEN:
-            lo_v, hi_v = cond.int_slice()
+            lo_v, hi_v = self._between(cond)
             lo, ok_lo = bsig.base_value_clamped(lo_v, ">=")
             hi, ok_hi = bsig.base_value_clamped(hi_v, "<=")
             if not (ok_lo and ok_hi) or lo > hi:
@@ -786,7 +908,7 @@ class Executor:
             plan.ir.append(("fold", "diff", 2))
             return
         if name == "Shift":
-            n = call.uint_arg("n") or 1
+            n = self._shift_n(call)
             self._plan_call(idx, call.children[0], plan)
             plan.sig_parts.append(f"S{n}")
             plan.shift_bits += n
@@ -884,7 +1006,7 @@ class Executor:
 
         op = cond.op
         if op == BETWEEN:
-            lo_v, hi_v = cond.int_slice()
+            lo_v, hi_v = self._between(cond)
             lo, ok_lo = bsig.base_value_clamped(lo_v, ">=")
             hi, ok_hi = bsig.base_value_clamped(hi_v, "<=")
             if not (ok_lo and ok_hi) or lo > hi:
@@ -970,15 +1092,35 @@ class Executor:
         if isinstance(row_ref, int):
             return row_ref
         if isinstance(row_ref, str):
+            # The port has no keyed fields.
             raise ExecutionError(
-                f"field {field.name}: row keys are not supported by the port")
+                f"string row value not allowed on field {field.name}")
         raise ExecutionError(f"invalid row reference {row_ref!r}")
+
+    def _write_row_id(self, field: Field, row_ref) -> int:
+        """The row id a write names, refused outside [0, 2^64) before
+        anything is written: a stored negative row would break every
+        later read of the field."""
+        row_id = self._row_id(field, row_ref)
+        if not 0 <= row_id < 1 << 64:
+            raise ExecutionError(
+                f"row id {row_id} out of range [0, 2^64) on field "
+                f"{field.name}")
+        return row_id
 
     # ---------------------------------------------------------------- TopN
 
     def _execute_topn(self, idx: Index, call: Call, shards) -> PairsResult:
         """Exact TopN: every row's count, then the (-count, row) order on
-        the host. The counts come from one of three places:
+        the host. Without a filter or tanimoto, two caches come first:
+
+        - the fragments' count caches, while every one provably holds
+          every present row (``_topn_cached_counts``): no device work.
+          One hit in TOPN_SELFCHECK_EVERY (the first always) falls
+          through to the sweep below and compares;
+        - the view bank's device rank vector (``_topn_rank_cached``).
+
+        Otherwise the counts come from one of three places:
 
         - the trimmed full-view bank while it fits TOPN_MAX_BANK_BYTES:
           one popcount sweep;
@@ -1018,6 +1160,33 @@ class Executor:
         if not all_rows:
             return PairsResult([])
 
+        selfcheck_pairs = None  # a warm answer this sweep verifies
+        if filter_words is None and not tanimoto:
+            cached = self._topn_cached_counts(view, shards)
+            if cached is not None:
+                with self._stats_lock:
+                    self.topn_cache_hits += 1
+                    hits = self.topn_cache_hits
+                warm = _topn_order(
+                    np.asarray(all_rows, dtype=np.uint64),
+                    np.fromiter((cached.get(r, 0) for r in all_rows),
+                                dtype=np.int64, count=len(all_rows)),
+                    n, min_threshold)
+                # == 1 % EVERY: at EVERY = 1 every hit checks.
+                if not (TOPN_SELFCHECK_EVERY and hits % TOPN_SELFCHECK_EVERY
+                        == 1 % TOPN_SELFCHECK_EVERY):
+                    return PairsResult(warm)
+                with self._stats_lock:
+                    self.topn_selfchecks += 1
+                selfcheck_pairs = warm
+            # The self-check's exact leg must be the real sweep, so it
+            # passes the rank vector by.
+            elif self.holder.rank_cache.enabled:
+                res = self._topn_rank_cached(view, shards, view_rows,
+                                             all_rows, n, min_threshold)
+                if res is not None:
+                    return res
+
         # The budget is the full bank's size (every view row), whatever
         # the ids subset.
         width = view.trimmed_words()
@@ -1027,7 +1196,8 @@ class Executor:
                 all_rows, view.device_bank(tuple(shards), trim=True),
                 filter_words)]
         else:
-            if PBANK_ENABLED and len(shards) == 1 and not ids_arg and n:
+            if PBANK_ENABLED and len(shards) == 1 and not ids_arg and n \
+                    and selfcheck_pairs is None:
                 pb = view.positions_bank(shards[0], width)
                 if pb is not None:
                     return self._topn_positions(pb, filter_words, width, n,
@@ -1047,14 +1217,152 @@ class Executor:
             keep = (denom > 0) & (
                 (counts_arr * 100) // np.maximum(denom, 1) >= tanimoto)
             rows_arr, counts_arr = rows_arr[keep], counts_arr[keep]
-        keep = counts_arr > max(0, min_threshold - 1)
-        rows_arr, counts_arr = rows_arr[keep], counts_arr[keep]
-        rows_arr, counts_arr = _topn_candidates(rows_arr, counts_arr, n)
-        order = np.lexsort((rows_arr, -counts_arr))
-        if n:
-            order = order[:n]
-        return PairsResult([(int(rows_arr[o]), int(counts_arr[o]))
-                            for o in order])
+        pairs = _topn_order(rows_arr, counts_arr, n, min_threshold)
+        if selfcheck_pairs is not None and selfcheck_pairs != pairs:
+            with self._stats_lock:
+                self.topn_selfcheck_mismatches += 1
+            _LOG.error("TopN warm-cache self-check mismatch on %s/%s: "
+                       "cached %r != exact %r; repairing the count caches",
+                       idx.name, field_name, selfcheck_pairs[:5], pairs[:5])
+            self._repair_topn_caches(view, shards)
+        return PairsResult(pairs)
+
+    def _topn_cached_counts(self, view, shards) -> Optional[Dict[int, int]]:
+        """Per-row counts summed over the fragments' count caches, or
+        None when any fragment's cache cannot prove it is complete (no
+        cache, a saturated one, or a present row missing)."""
+        total: Dict[int, int] = {}
+        for s in shards:
+            frag = view.fragment(s)
+            if frag is None:
+                continue
+            if frag.cache_type == CACHE_TYPE_NONE \
+                    or getattr(frag.cache, "saturated", False):
+                return None
+            counts = frag.cache.counts
+            rows = frag.row_ids()
+            if len(counts) < len(rows):
+                return None
+            for r in rows:
+                c = counts.get(r)
+                if c is None:
+                    return None
+                total[r] = total.get(r, 0) + c
+        return total
+
+    @staticmethod
+    def _repair_topn_caches(view, shards) -> None:
+        """Rebuild every fragment's count cache from storage, after a
+        self-check caught stale counts."""
+        for s in shards:
+            frag = view.fragment(s)
+            if frag is not None:
+                frag.recalculate_cache()
+
+    # Changed rows past which a rank vector is rebuilt, not patched.
+    RANK_PATCH_MAX = int(os.environ.get("PILOSA_TPU_RANK_PATCH_MAX", 4096))
+
+    def _note_rank(self, kind: str) -> None:
+        with self._stats_lock:
+            if kind == "hit":
+                self.rank_cache_hits += 1
+            elif kind == "patch":
+                self.rank_cache_patches += 1
+            else:
+                self.rank_cache_rebuilds += 1
+
+    def _rank_counts(self, view, bank: ViewBank, shards) -> torch.Tensor:
+        """The device per-row count vector of ``bank`` (int64
+        ``[row_capacity]``, by slot), from the holder's rank store:
+        reused while the bank's fragment versions are the entry's;
+        patched when the slot layout is the same and at most
+        RANK_PATCH_MAX rows were written (``bank_row_counts`` over those
+        rows' slots, scattered into a copy); else rebuilt by one
+        ``bank_row_counts`` sweep of the bank."""
+        store = self.holder.rank_cache
+        key = (tuple(int(s) for s in shards), int(bank.array.shape[-1]))
+        # Slot-ordered rows: equality proves the same slot layout.
+        bank_rows = tuple(bank.slots)
+        cap = int(bank.array.shape[0])
+        entry = store.get(view, key)
+        same_layout = entry is not None and entry.row_ids == bank_rows \
+            and int(entry.counts.shape[0]) == cap
+        if same_layout and entry.versions == bank.versions:
+            self._note_rank("hit")
+            return entry.counts
+        counts = None
+        if same_layout:
+            changed: set = set()
+            for s, newv in bank.versions.items():
+                old = entry.versions.get(s)
+                if old == newv:
+                    continue
+                frag = view.fragment(s)
+                ch = frag.rows_changed_since(old) if frag is not None \
+                    and old is not None and old >= 0 else None
+                if not ch:
+                    # No record of which rows moved: rebuild.
+                    changed = set()
+                    break
+                changed.update(ch)
+            if changed and len(changed) <= self.RANK_PATCH_MAX \
+                    and all(r in bank.slots for r in changed):
+                sel = torch.tensor(sorted(bank.slots[r] for r in changed),
+                                   dtype=torch.long, device=self.device)
+                counts = entry.counts.clone()
+                counts[sel] = kernels.bank_row_counts(
+                    bank.array.index_select(0, sel))
+                self._note_rank("patch")
+        if counts is None:
+            counts = kernels.bank_row_counts(bank.array)
+            self._note_rank("rebuild")
+        store.put(view, key, RankEntry(dict(bank.versions), bank_rows,
+                                       counts))
+        return counts
+
+    def _topn_rank_cached(self, view, shards, view_rows, all_rows,
+                          n: int, min_threshold: int
+                          ) -> Optional[PairsResult]:
+        """Unfiltered TopN over the device rank vector, or None when the
+        bank is over budget (the positions bank and the chunk stream own
+        that). An unrestricted TopN with ``n`` whose slots ascend with
+        the row ids takes a device top-k; an ids subset, ``n`` = 0 or
+        any other layout fetches the vector and merges on the host."""
+        width = view.trimmed_words()
+        if bank_capacity(len(view_rows)) * len(shards) * width * 4 \
+                > TOPN_MAX_BANK_BYTES:
+            return None
+        bank = view.device_bank(tuple(shards), trim=True)
+        counts = self._rank_counts(view, bank, shards)
+        slot_rows = np.fromiter(bank.slots, np.uint64, len(bank.slots))
+        # The top-k breaks count ties by the lower slot, which is the
+        # (-count, row) order only while slots ascend with the rows; a
+        # patched bank appends new rows at the end.
+        ascending = slot_rows.size < 2 \
+            or bool(np.all(slot_rows[1:] > slot_rows[:-1]))
+        if n and all_rows is view_rows and ascending:
+            k = min(n, len(bank.slots))
+            # Unused slots and rows under the threshold score -1; one
+            # int64 key makes the tie order explicit, since torch.topk
+            # promises none: score * cap + (cap - 1 - slot), exact while
+            # a count (< 2^32) times the capacity fits 63 bits.
+            cap = counts.numel()
+            floor = max(1, min(min_threshold, 1 << 40))
+            score = torch.where(counts >= floor, counts,
+                                torch.full_like(counts, -1))
+            slot = torch.arange(cap, dtype=torch.int64, device=counts.device)
+            top = torch.topk(score * cap + (cap - 1 - slot), k).values
+            got = torch.stack([torch.div(top, cap, rounding_mode="floor"),
+                               cap - 1 - torch.remainder(top, cap)]
+                              ).cpu().tolist()
+            return PairsResult([(int(slot_rows[i]), v)
+                                for v, i in zip(*got) if v > 0])
+        c = counts.cpu().numpy()
+        slot_idx = np.fromiter(
+            map(bank.slots.get, all_rows, itertools.repeat(bank.zero_slot)),
+            dtype=np.int64, count=len(all_rows))
+        return PairsResult(_topn_order(np.asarray(all_rows, dtype=np.uint64),
+                                       c[slot_idx], n, min_threshold))
 
     @staticmethod
     def _row_popcount(words: torch.Tensor) -> torch.Tensor:
@@ -1130,6 +1438,225 @@ class Executor:
         pairs.sort(key=lambda rc: (-rc[1], rc[0]))
         return PairsResult(pairs[:n])
 
+    # ----------------------------------------------------------------- Rows
+
+    def _execute_rows(self, idx: Index, call: Call, shards
+                      ) -> RowIdentifiers:
+        """Row ids of a field's standard view, ascending, with
+        ``previous`` (ids after it), ``limit`` and ``column`` (rows
+        holding that column). Host work only: the fragments know their
+        rows. The port has no time fields, so ``from``/``to`` are
+        refused with the reference's message for a non-time field."""
+        field_name = call.arg("_field")
+        field = idx.field(field_name)
+        if field is None:
+            raise ExecutionError(f"field not found: {field_name}")
+        shards = self._shards(idx, shards)
+        previous = call.arg("previous")
+        limit = call.uint_arg("limit")
+        column = call.arg("column")
+        if call.arg("from") is not None or call.arg("to") is not None:
+            raise ExecutionError(f"from/to on non-time field {field_name}")
+        view = field.view(VIEW_STANDARD)
+        if view is None:
+            out: List[int] = []
+        elif column is None:
+            out = list(view.merged_row_ids(shards))
+        else:
+            rows: set = set()
+            for shard in shards:
+                frag = view.fragment(shard)
+                if frag is not None and column // SHARD_WIDTH == shard:
+                    rows.update(r for r in frag.row_ids()
+                                if frag.bit(r, column))
+            out = sorted(rows)
+        if previous is not None:
+            out = [r for r in out if r > previous]
+        if limit is not None:
+            out = out[:limit]
+        return RowIdentifiers(out)
+
+    # -------------------------------------------------------------- GroupBy
+
+    # Device bytes one GroupBy expansion chunk may materialise, and the
+    # most a depth's surviving frontier may hold on the device before it
+    # moves to host memory (an instance attribute may change it).
+    GROUPBY_CHUNK_BYTES = int(os.environ.get(
+        "PILOSA_TPU_GROUPBY_CHUNK_BYTES", 256 << 20))
+
+    def _execute_group_by(self, idx: Index, call: Call, shards
+                          ) -> List[GroupCount]:
+        """Counts of every combination of the Rows() children's rows,
+        in ascending order of the row-id tuple, level by level as the
+        JAX package runs it: all prefixes of a depth expand against all
+        rows of the next child in one batch, chunked by
+        GROUPBY_CHUNK_BYTES, and empty prefixes are pruned between
+        depths.
+
+        Every popcount goes through a kernel: depth 0 sweeps the first
+        child's ``[R, S, W]`` row stack with ``bank_row_counts``; an
+        intermediate depth forms ``prefix & row`` for every pair with a
+        torch ``&`` and counts it with ``bank_row_counts``; the last
+        depth counts each prefix against the last child's stack with
+        ``bank_row_counts_masked``, one launch a prefix, never
+        materialising the pairs. A frontier that outgrows
+        GROUPBY_CHUNK_BYTES at a depth moves to host memory and comes
+        back chunk by chunk (``groupby_spill_events``). The filter is an
+        eager row evaluation, also under execute_batch's collector."""
+        if not call.children or any(c.name != "Rows" for c in call.children):
+            raise ExecutionError("GroupBy requires Rows() arguments")
+        shards = self._shards(idx, shards)
+        # Groups only intersect, so a shard some child field does not
+        # cover counts zero: keep the children's common shards.
+        child_fields = [idx.field(c.arg("_field")) for c in call.children]
+        if all(f is not None for f in child_fields):
+            covered = set(child_fields[0].available_shards())
+            for f in child_fields[1:]:
+                covered &= set(f.available_shards())
+            shards = [s for s in shards if s in covered]
+            if not shards:
+                return []
+        limit = call.uint_arg("limit") or 0
+        previous = call.arg("previous")
+        if previous is not None:
+            # A list of one id a child: _check_keys has held it to that.
+            previous = tuple(int(p) for p in previous)
+        filter_call = call.arg("filter")
+        filter_words = None
+        if isinstance(filter_call, Call):
+            filter_words = self._eval(idx, filter_call, shards)
+
+        child_rows: List[Tuple[str, List[int]]] = []
+        for child in call.children:
+            ids = self._execute_rows(idx, child, shards).rows
+            child_rows.append((child.arg("_field"), ids))
+            if not ids:
+                return []
+        # One bank per child (not per field): GroupBy(Rows(f), Rows(f))
+        # is legal, and the two children may need different rows.
+        banks = [self._get_bank_for(idx.field(fname), VIEW_STANDARD, shards,
+                                    rows_needed=set(ids_))
+                 for fname, ids_ in child_rows]
+        # Bits past the narrowest operand AND to zero.
+        wmin = min(b.array.shape[-1] for b in banks)
+        if filter_words is not None:
+            wmin = min(wmin, filter_words.shape[-1])
+            filter_words = filter_words[..., :wmin].contiguous()
+
+        def stacks_at(depth: int) -> torch.Tensor:
+            """[R, S, wmin] rows of child ``depth``, contiguous: a view of
+            the bank when they fill consecutive slots at its full width,
+            else a gathered copy."""
+            ids_ = child_rows[depth][1]
+            bank = banks[depth]
+            slots = [bank.slot(r) for r in ids_]
+            lo = slots[0]
+            if slots == list(range(lo, lo + len(slots))) \
+                    and bank.array.shape[-1] == wmin:
+                return bank.array[lo:lo + len(slots)]
+            sel = torch.tensor(slots, dtype=torch.long, device=self.device)
+            return bank.array.index_select(0, sel)[..., :wmin].contiguous()
+
+        def keep(rows: torch.Tensor, keep_idx: np.ndarray) -> torch.Tensor:
+            """The rows at ``keep_idx``: all of them without a copy."""
+            if len(keep_idx) == rows.shape[0]:
+                return rows
+            return rows.index_select(0, torch.as_tensor(keep_idx,
+                                                        device=self.device))
+
+        def frontier_chunk(frontier: torch.Tensor, c0: int, c1: int
+                           ) -> torch.Tensor:
+            return frontier[c0:c1].to(self.device)
+
+        n_shards, depth_n = len(shards), len(child_rows)
+        # The surviving frontier [P, S, wmin]: on the device while it
+        # fits GROUPBY_CHUNK_BYTES, else in host memory. None is the
+        # whole column space. prefix_rows[i] is its row-id tuple.
+        prefixes = filter_words[None] if filter_words is not None else None
+        prefix_rows: List[tuple] = [()]
+        for depth in range(depth_n - 1):
+            stacks = stacks_at(depth)
+            R = stacks.shape[0]
+            ids = child_rows[depth][1]
+            if prefixes is None:
+                nz = kernels.bank_row_counts(stacks).cpu().numpy() > 0
+                keep_idx = np.flatnonzero(nz)
+                prefixes = keep(stacks, keep_idx)
+                prefix_rows = [(int(ids[i]),) for i in keep_idx]
+                continue
+            chunk_p = max(1, self.GROUPBY_CHUNK_BYTES
+                          // (n_shards * wmin * 4 * R))
+            kept_words: List[torch.Tensor] = []
+            kept_rows: List[tuple] = []
+            kept_bytes = 0
+            spilled = False
+            for c0 in range(0, len(prefix_rows), chunk_p):
+                sub = frontier_chunk(prefixes, c0, c0 + chunk_p)
+                new = torch.bitwise_and(sub[:, None], stacks[None]).reshape(
+                    -1, n_shards, wmin)
+                nz = kernels.bank_row_counts(new).cpu().numpy() > 0
+                keep_idx = np.flatnonzero(nz)
+                if not len(keep_idx):
+                    continue
+                kept = keep(new, keep_idx)
+                del new
+                kept_bytes += kept.numel() * 4
+                if not spilled and kept_bytes > self.GROUPBY_CHUNK_BYTES:
+                    # The survivors pass the device budget: the rest of
+                    # this depth's frontier collects in host memory.
+                    spilled = True
+                    with self._stats_lock:
+                        self.groupby_spill_events += 1
+                    kept_words = [w.cpu() for w in kept_words]
+                kept_words.append(kept.cpu() if spilled else kept)
+                kept_rows.extend(prefix_rows[c0 + int(k) // R]
+                                 + (int(ids[k % R]),) for k in keep_idx)
+            if not kept_words:
+                return []
+            prefixes = kept_words[0] if len(kept_words) == 1 \
+                else torch.cat(kept_words)
+            prefix_rows = kept_rows
+
+        # Last depth: every (prefix, row) pair's count.
+        stacks = stacks_at(depth_n - 1)
+        R = stacks.shape[0]
+        ids = child_rows[depth_n - 1][1]
+        fields = [f for f, _ in child_rows]
+        results: List[GroupCount] = []
+        counts = None
+        if prefixes is None:
+            counts = kernels.bank_row_counts(stacks).cpu().numpy()[None, :]
+        chunk_p = max(1, self.GROUPBY_CHUNK_BYTES
+                      // max(1, n_shards * wmin * 4 * R))
+        for c0 in range(0, len(prefix_rows), chunk_p):
+            if limit and len(results) >= limit:
+                break
+            if counts is None:
+                sub = frontier_chunk(prefixes, c0, c0 + chunk_p)
+                chunk_counts = torch.stack([
+                    kernels.bank_row_counts_masked(stacks, sub[i])[0]
+                    for i in range(sub.shape[0])]).cpu().numpy()
+            else:
+                chunk_counts = counts[c0:c0 + chunk_p]
+            for pi in range(chunk_counts.shape[0]):
+                row_pre = prefix_rows[c0 + pi]
+                # Results are in ascending tuple order, so a prefix below
+                # previous's prefix has nothing after ``previous``.
+                if previous is not None and \
+                        row_pre < previous[:len(row_pre)]:
+                    continue
+                crow = chunk_counts[pi]
+                for ri in np.nonzero(crow)[0]:
+                    if limit and len(results) >= limit:
+                        break
+                    tup = row_pre + (int(ids[ri]),)
+                    if previous is not None and tup <= previous:
+                        continue
+                    results.append(GroupCount(
+                        [FieldRow(f, rid) for f, rid in zip(fields, tup)],
+                        int(crow[ri])))
+        return results
+
     # ------------------------------------------------------- Sum, Min, Max
 
     def _execute_val_count(self, idx: Index, call: Call, shards, op: str
@@ -1183,7 +1710,7 @@ class Executor:
         if field.options.type == FIELD_TYPE_INT:
             changed = field.set_value(col, int(row_ref))
         else:
-            changed = field.set_bit(self._row_id(field, row_ref), col)
+            changed = field.set_bit(self._write_row_id(field, row_ref), col)
         idx.add_existence(np.array([col], dtype=np.uint64))
         return changed
 
@@ -1191,5 +1718,49 @@ class Executor:
         field, col, row_ref = self._set_args(idx, call)
         if field.options.type == FIELD_TYPE_INT:
             return field.clear_value(col)
-        return field.clear_bit(self._row_id(field, row_ref), col)
+        return field.clear_bit(self._write_row_id(field, row_ref), col)
+
+    def _execute_clear_row(self, idx: Index, call: Call, shards) -> bool:
+        """ClearRow(f=row): clear every bit of the row in every view and
+        shard; True when a bit was cleared. The port's field types are
+        set and int; ClearRow takes a set field."""
+        fname, row_ref = self._row_call_field(call)
+        field = idx.field(fname)
+        if field is None:
+            raise ExecutionError(f"field not found: {fname}")
+        if field.options.type != FIELD_TYPE_SET:
+            raise ExecutionError(
+                f"ClearRow() is not supported on {field.options.type} fields")
+        row_id = self._write_row_id(field, row_ref)
+        shards = self._shards(idx, shards)
+        changed = False
+        for view in list(field.views.values()):
+            for shard in shards:
+                frag = view.fragment(shard)
+                if frag is not None and frag.clear_row(row_id):
+                    changed = True
+        return changed
+
+    def _execute_store(self, idx: Index, call: Call, shards) -> bool:
+        """Store(row call, f=row): write the child's row into row ``row``
+        of set field ``f`` (made when missing), replacing it wholesale on
+        every shard. The child evaluates on the device and its [S, W]
+        words come to the host in one copy."""
+        if len(call.children) != 1:
+            raise ExecutionError("Store() takes exactly one row argument")
+        fname, row_ref = self._row_call_field(call)
+        field = idx.field(fname)
+        if field is None:
+            field = idx.create_field(fname)
+        elif field.options.type != FIELD_TYPE_SET:
+            raise ExecutionError(
+                f"Store() is not supported on {field.options.type} fields")
+        row_id = self._write_row_id(field, row_ref)
+        shards = self._shards(idx, shards)
+        words = to_numpy(self._eval(idx, call.children[0], shards))
+        view = field.create_view_if_not_exists(VIEW_STANDARD)
+        for i, shard in enumerate(shards):
+            view.create_fragment_if_not_exists(shard).set_row(row_id,
+                                                              words[i])
+        return True
 

@@ -78,6 +78,39 @@ class ValCount:
         return {"value": int(self.value), "count": int(self.count)}
 
 
+@dataclass
+class RowIdentifiers:
+    """Rows() result: row ids, ascending."""
+    rows: List[int]
+    keys: Optional[List[str]] = None
+
+    def to_json(self) -> dict:
+        # The port has no keyed fields, so only ids show.
+        return {"rows": [int(r) for r in self.rows]}
+
+
+@dataclass
+class FieldRow:
+    """One (field, row) member of a GroupBy group."""
+    field: str
+    row_id: int
+    row_key: Optional[str] = None
+
+    def to_json(self) -> dict:
+        return {"field": self.field, "rowID": int(self.row_id)}
+
+
+@dataclass
+class GroupCount:
+    """One GroupBy group and its count."""
+    group: List[FieldRow]
+    count: int
+
+    def to_json(self) -> dict:
+        return {"group": [g.to_json() for g in self.group],
+                "count": int(self.count)}
+
+
 def result_to_json(result: Any) -> Any:
     """The JSON form of one call's result, as the reference shapes it."""
     if hasattr(result, "to_json"):

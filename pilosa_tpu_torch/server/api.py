@@ -187,6 +187,14 @@ class API:
         if not clear:
             idx.add_existence(columns)
 
+    def recalculate_caches(self) -> None:
+        """Rebuild every fragment's TopN count cache from its storage."""
+        for idx in list(self.holder.indexes.values()):
+            for f in list(idx.fields.values()):
+                for v in list(f.views.values()):
+                    for frag in list(v.fragments.values()):
+                        frag.recalculate_cache()
+
     # ---------------------------------------------------------------- status
 
     def status(self) -> Dict[str, Any]:

@@ -15,6 +15,7 @@ Routes:
                                ImportRequest / ImportValueRequest
   POST   /index/{i}            {"options": {"trackExistence": ...}}
   POST   /index/{i}/field/{f}  {"options": {...}}
+  POST   /recalculate-caches   rebuild every fragment's TopN count cache
   DELETE /index/{i}  /index/{i}/field/{f}
 
 JSON query responses ride the coalescer when one is attached; protobuf
@@ -46,7 +47,6 @@ _NOT_PORTED_ROUTES = (
     (re.compile(r"/internal/.*"), "the node-to-node API (cluster)"),
     (re.compile(r"/cluster/.*"), "the cluster plane"),
     (re.compile(r"/debug/.*|/metrics"), "the debug and metrics planes"),
-    (re.compile(r"/recalculate-caches"), "the rank caches"),
 )
 # URL args of the query route that name a part not ported.
 _QUERY_ARGS_NOT_PORTED = {"remote": "remote query legs (cluster)",
@@ -207,6 +207,9 @@ class Handler(BaseHTTPRequestHandler):
                     # result resolves: the batch must stay bounded.
                     raise ApiError("batch too large (max 1024 queries)")
                 self._json({"responses": api.query_batch(items)})
+            elif path == "/recalculate-caches":
+                api.recalculate_caches()
+                self._json({})
             elif m := re.fullmatch(r"/index/([^/]+)/field/([^/]+)/import",
                                    path):
                 self._post_import(m.group(1), m.group(2), q)

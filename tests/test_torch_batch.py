@@ -45,6 +45,8 @@ def answer(res):
         return ("pairs", [tuple(p) for p in res.pairs])
     if hasattr(res, "value"):
         return ("valcount", res.value, res.count)
+    if hasattr(res, "rows"):
+        return ("rows", [int(r) for r in res.rows])
     return res
 
 
@@ -208,6 +210,28 @@ def test_write_in_batch_fences_like_jax(tmp_path, mega_on):
     assert got == answers(jex.execute_batch(reqs))
     assert got[0][0] + 1 == got[3][0]
     assert got[6][0] == got[0][0]
+    jh.close()
+
+
+def test_clearrow_and_store_fence_like_jax(tmp_path, mega_on):
+    """ClearRow and Store are writes: a batch fences on each, so the reads
+    after one see it and the reads before do not, as in the JAX
+    package's batch."""
+    jh = build_jax_index(tmp_path, seed=7)
+    th = load_state(Holder(device="cpu"), state_from_jax(jh))
+    jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
+    jex.result_cache.enabled = False
+    reqs = [("i", q, None) for q in (
+        "Count(Row(f=1))", "Count(Row(g=2))", "Row(f=1)",
+        "Store(Row(g=2), f=1)", "Count(Row(f=1))", "Row(f=1)",
+        "Count(Intersect(Row(f=1), Row(g=2)))", "ClearRow(f=1)",
+        "Count(Row(f=1)) Count(Row(g=2))", "Store(Row(f=9), g=2) Rows(g)",
+        "Count(Row(g=2))", "TopN(f, n=3)")]
+    got = answers(tex.execute_batch(reqs))
+    assert got == answers(jex.execute_batch(reqs))
+    assert got[4][0] == got[1][0] == got[6][0]
+    assert got[8] == [0, got[1][0]]
+    assert got[10] == [0]
     jh.close()
 
 

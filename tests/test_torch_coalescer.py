@@ -177,6 +177,31 @@ def test_writes_flush_at_once_and_never_dedup(stub):
     assert ex.ran.count("Count(Row(f=1))") == 3
 
 
+@pytest.mark.parametrize("write", ["ClearRow(f=1)",
+                                   "Store(Row(f=2), f=1)"])
+def test_clearrow_and_store_flush_like_writes(stub, write):
+    """ClearRow and Store are writes to the coalescer: each ends a long
+    window at once, and its batch dedups nothing."""
+    ex, co = stub
+    co.window_s = 5.0
+    got = []
+    readers = [threading.Thread(target=lambda: got.append(
+        co.submit("c", "Count(Row(f=1))"))) for _ in range(2)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + 5
+    while co.queue_depth() < 2 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    t0 = time.monotonic()
+    assert co.submit("c", write) == answer("c", write)
+    assert time.monotonic() - t0 < 2.5
+    for t in readers:
+        t.join(10)
+    assert got == [answer("c", "Count(Row(f=1))")] * 2
+    assert co.counters.get("flush.write", 0) >= 1
+    assert ex.ran.count("Count(Row(f=1))") == 2
+
+
 def test_overload_429_and_deadline_408():
     """A gated executor pins the dispatcher: the queue fills, the next
     submit answers 429 with Retry-After, and the queued requests pass

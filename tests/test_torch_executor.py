@@ -18,11 +18,13 @@ from pilosa_tpu.core.field import FieldOptions as JaxFieldOptions
 from pilosa_tpu.core.holder import Holder as JaxHolder
 from pilosa_tpu.executor import Executor as JaxExecutor
 from pilosa_tpu.executor.results import PairsResult as JaxPairs
+from pilosa_tpu.executor.results import RowIdentifiers as JaxRowIds
 from pilosa_tpu.executor.results import RowResult as JaxRow
 from pilosa_tpu.executor.results import ValCount as JaxValCount
 from pilosa_tpu.ops.bitset import SHARD_WIDTH
 from pilosa_tpu_torch import Executor, FieldOptions, Holder, load_state
 from pilosa_tpu_torch.core.field import bit_depth_for_range
+from pilosa_tpu_torch.executor.executor import ExecutionError
 from pilosa_tpu_torch.ops import kernels
 
 BIG_MAX = 1 << 40
@@ -95,6 +97,11 @@ def same(jax_res, port_res):
     elif isinstance(jax_res, JaxValCount):
         assert (port_res.value, port_res.count) == \
             (jax_res.value, jax_res.count)
+    elif isinstance(jax_res, JaxRowIds):
+        assert port_res.rows == jax_res.rows
+    elif isinstance(jax_res, list):
+        assert [g.to_json() for g in port_res] == \
+            [g.to_json() for g in jax_res]
     else:
         assert port_res == jax_res
 
@@ -162,6 +169,16 @@ WRITE_SCRIPT = [
     "Row(v == -3)", "Set(9, big=1099511627775)",
     "Count(Row(big > 1099511627774))", "Not(Row(f=1))", "TopN(f, n=3)",
     "Sum(field=v)", "Set(4194304, g=1)", "Not(Row(g=1))",
+    "Store(Intersect(Row(f=1), Row(g=2)), f=50)", "Row(f=50)",
+    "Count(Row(f=50))", "TopN(f, n=4)", "Rows(f)",
+    "GroupBy(Rows(f, previous=40), Rows(g))", "ClearRow(f=50)",
+    "ClearRow(f=50)", "Row(f=50)", "Rows(f)", "TopN(f, n=4)",
+    "Store(Row(g=1), fresh=3)", "Row(fresh=3)", "Rows(fresh)",
+    "Count(Row(fresh=3))", "Store(Not(Row(f=2)), f=2)", "Count(Row(f=2))",
+    "ClearRow(f=1)", "Count(Row(f=1))", "TopN(f)", "ClearRow(f=99)",
+    "Store(Row(f=99), g=3)", "Rows(g)", "GroupBy(Rows(f), Rows(g))",
+    "Set(5, f=1) ClearRow(f=1) Count(Row(f=1))",
+    "Store(Row(g=1), f=3)", "Row(f=3)", "TopN(f, n=5)",
 ]
 
 
@@ -170,8 +187,97 @@ def test_write_script_matches_jax(tmp_path):
     th = load_state(Holder(device="cpu"), state_from_jax(jh))
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     for pql in WRITE_SCRIPT:
-        for w, g in zip(jex.execute("i", pql), tex.execute("i", pql)):
+        want, got = jex.execute("i", pql), tex.execute("i", pql)
+        assert len(got) == len(want), pql
+        for w, g in zip(want, got):
             same(w, g)
+    jh.close()
+
+
+@pytest.mark.parametrize("pql", [
+    "ClearRow(v=1)", "ClearRow(nope=1)", "Store(Row(f=1), v=2)",
+    "Store(Row(f=1), Row(g=1), f=3)", "ClearRow(f='a')",
+    "Store(Row(f=1), f='a')", "Set(3, f='a')",
+])
+def test_write_errors_match_jax(tmp_path, pql):
+    jh = build_jax_index(tmp_path, seed=5)
+    th = load_state(Holder(device="cpu"), state_from_jax(jh))
+    jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
+    with pytest.raises(Exception) as want:
+        jex.execute("i", pql)
+    with pytest.raises(ExecutionError) as got:
+        tex.execute("i", pql)
+    assert str(got.value) == str(want.value)
+    for q in ("Rows(f)", "Rows(g)", "Count(Row(f=1))"):
+        same(jex.execute("i", q)[0], tex.execute("i", q)[0])
+    jh.close()
+
+
+def both_ways(tex, pql):
+    """``pql`` through execute and as a one-request execute_batch: the
+    two results (or the two errors)."""
+    try:
+        direct = tex.execute("i", pql)
+    except ExecutionError as e:
+        direct = e
+    (batched,) = tex.execute_batch([("i", pql, None)])
+    if not isinstance(batched, Exception):
+        batched = batched[0]
+    return direct, batched
+
+
+@pytest.mark.parametrize("pql", [
+    "Shift(Row(f=1), n=-1)", "Count(Shift(Row(f=1), n=-3))",
+    "Row(v >< [5, 6, 7])", "Count(Row(v >< [-3, 250, 900]))",
+    "Row(f='a')", "Count(Intersect(Row(f=1), Row(g='b')))",
+])
+def test_queue_c_faults_answer_like_jax(pair, pql):
+    """Negative Shift, a range of three values and a string row on a
+    field without keys: the JAX package's answer or message, through
+    execute and through execute_batch."""
+    jex, tex = pair
+    try:
+        want = jex.execute("i", pql)
+    except Exception as e:  # noqa: BLE001 — the reference's error
+        want = e
+    for got in both_ways(tex, pql):
+        if isinstance(want, Exception):
+            assert isinstance(got, ExecutionError), (pql, got)
+            assert str(got) == str(want)
+        else:
+            for w, g in zip(want, got):
+                same(w, g)
+
+
+def test_one_value_range_is_a_recorded_divergence(pair):
+    """``Row(v >< [5])``: the reference fails with an internal IndexError
+    (a 500 over HTTP), the port refuses it as a bad query (a 400)."""
+    jex, tex = pair
+    with pytest.raises(IndexError):
+        jex.execute("i", "Row(v >< [5])")
+    for got in both_ways(tex, "Row(v >< [5])"):
+        assert isinstance(got, ExecutionError)
+        assert "two values" in str(got)
+
+
+@pytest.mark.parametrize("pql", [
+    "Set(2, f=-1)", "Clear(2, f=-1)", "ClearRow(f=-1)",
+    "Store(Row(g=1), f=-2)", f"Set(2, f={1 << 64})",
+])
+def test_row_ids_outside_u64_are_refused_before_writing(tmp_path, pql):
+    """A write naming a row outside [0, 2^64) is refused before anything
+    changes (port only: the reference stores the bit and then fails),
+    and TopN keeps answering."""
+    jh = build_jax_index(tmp_path, seed=5)
+    th = load_state(Holder(device="cpu"), state_from_jax(jh))
+    tex = Executor(th, device="cpu")
+    before = tex.execute("i", "TopN(f) Rows(f) Count(Row(g=1))")
+    for got in both_ways(tex, pql):
+        assert isinstance(got, ExecutionError), got
+        assert "out of range" in str(got)
+    after = tex.execute("i", "TopN(f) Rows(f) Count(Row(g=1))")
+    assert after[0].pairs == before[0].pairs
+    assert after[1].rows == before[1].rows and after[2] == before[2]
     jh.close()
 
 

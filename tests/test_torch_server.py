@@ -302,6 +302,100 @@ def test_errors_match_jax(servers):
     ])
 
 
+GROUP_READS = [
+    "Rows(f)", "Rows(g, limit=2)", "Rows(f, previous=2, limit=3)",
+    f"Rows(f, column={SHARD_WIDTH + 11})", "Rows(v)",
+    "GroupBy(Rows(f), Rows(g))", "GroupBy(Rows(g), Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), filter=Row(v > 500))",
+    "GroupBy(Rows(f), Rows(g), limit=4)",
+    "GroupBy(Rows(f), Rows(g), limit=4, previous=[1, 2])",
+    "GroupBy(Rows(f), Rows(g), filter=Row(f=99))",
+    "Count(Row(f=1)) GroupBy(Rows(g)) Rows(g)",
+]
+
+
+def test_rows_groupby_and_writes_match_jax(servers):
+    """Rows and GroupBy as JSON and protobuf answers, ClearRow and Store
+    (into a field the Store makes), fields made with each cacheType and
+    a cacheSize, TopN over them, /recalculate-caches and a /batch/query
+    holding all of it: equal status codes and bodies."""
+    run_script(servers, "load", load_steps("dg"))
+    steps = [("POST", "/index/dg/query", q, None) for q in GROUP_READS]
+    steps += [("POST", "/index/dg/query", pb_query(q), PROTO)
+              for q in GROUP_READS]
+    steps += [
+        ("POST", "/index/dg/field/l",
+         {"options": {"cacheType": "lru", "cacheSize": 2}}, None),
+        ("POST", "/index/dg/field/n", {"options": {"cacheType": "none"}},
+         None),
+        ("POST", "/index/dg/field/r", {"options": {"cacheSize": 1}}, None),
+    ]
+    for fld in ("l", "n", "r"):
+        steps.append(("POST", f"/index/dg/field/{fld}/import",
+                      {"rowIDs": [1, 1, 2, 3, 3, 3],
+                       "columnIDs": [1, 2, 3, 4, 5, SHARD_WIDTH + 6]}, None))
+    q = "/index/dg/query"
+    steps += [
+        ("POST", q, "TopN(l, n=2) TopN(n, n=2) TopN(r, n=2)", None),
+        ("POST", q, "Store(Intersect(Row(f=1), Row(g=2)), s=7)", None),
+        ("POST", q, "Count(Row(s=7)) Rows(s) TopN(s)", None),
+        ("POST", q, pb_query("Store(Row(f=2), n=1)"), PROTO),
+        ("POST", q, "TopN(n, n=3) GroupBy(Rows(n), Rows(l))", None),
+        ("POST", q, "ClearRow(f=1)", None),
+        ("POST", q, pb_query("ClearRow(g=2)"), PROTO),
+        ("POST", q, "Count(Row(f=1)) Rows(g) TopN(f, n=2)", None),
+        ("POST", q, "ClearRow(v=1)", None),
+        ("POST", q, "Store(Row(f=3), v=1)", None),
+        ("POST", "/recalculate-caches", None, None),
+        ("POST", q, "TopN(f, n=3) TopN(l) TopN(r)", None),
+        ("POST", "/batch/query", {"queries": [
+            {"index": "dg", "query": "GroupBy(Rows(f), Rows(g))"},
+            {"index": "dg", "query": "Store(Row(f=3), g=9)"},
+            {"index": "dg", "query": "Rows(g) Count(Row(g=9))"},
+            {"index": "dg", "query": "ClearRow(g=9)"},
+            {"index": "dg", "query": "Rows(g)"},
+            {"index": "dg", "query": "GroupBy(Rows(f), previous=[1])"}]},
+         None),
+        ("GET", "/schema", None, None),
+    ]
+    answers = run_script(servers, "groups", steps)
+    assert answers[5]["results"][0] and answers[1]["results"][0]["rows"]
+
+
+def test_queue_c_faults_match_jax(servers):
+    """The four port faults found against the reference: a negative
+    Shift, a range of three values and a string row on a field without
+    keys answer as the JAX server does; a one-value range is the
+    recorded divergence (the reference's 500 is its own fault); a
+    negative row id is refused before it is stored (port only), and
+    TopN keeps answering."""
+    _, pbase, _ = servers
+    run_script(servers, "load", load_steps("dq"))
+    q = "/index/dq/query"
+    run_script(servers, "queue-c", [
+        ("POST", q, "Shift(Row(f=1), n=-1)", None),
+        ("POST", q, "Count(Shift(Row(f=2), n=-2))", None),
+        ("POST", q, "Row(v >< [5, 6, 7])", None),
+        ("POST", q, "Count(Row(v >< [-5, 300, 900]))", None),
+        ("POST", q, "Row(f='a')", None),
+        ("POST", q, pb_query("Row(f='a')"), PROTO),
+        ("POST", "/batch/query", {"queries": [
+            {"index": "dq", "query": "Shift(Row(f=1), n=-1)"},
+            {"index": "dq", "query": "Row(v >< [5, 6, 7])"},
+            {"index": "dq", "query": "Count(Row(f='a'))"}]}, None),
+    ])
+    jbase = servers[0]
+    js, _, _ = call(jbase, "POST", q, "Row(v >< [5])")
+    ps, _, raw = call(pbase, "POST", q, "Row(v >< [5])")
+    assert (js, ps) == (500, 400), raw
+    for pql in ("Set(2, f=-1)", "ClearRow(f=-1)", "Store(Row(f=1), f=-1)"):
+        st, _, raw = call(pbase, "POST", q, pql)
+        assert st == 400 and b"out of range" in raw, (pql, raw)
+    st, _, raw = call(pbase, "POST", q, "TopN(f) Row(f=-1)")
+    assert st == 200, raw
+    assert json.loads(raw)["results"][1] == {"columns": []}
+
+
 def test_port_refuses_what_is_not_ported(servers):
     """Requests that need an unported part answer 400 (404 for a route)
     naming it: never a silently different answer."""
@@ -319,7 +413,8 @@ def test_port_refuses_what_is_not_ported(servers):
         ("POST", "/index/dn/query", "Row(f=1, from='2020-01-01T00:00')",
          "time ranges"),
         ("POST", "/index/dn/query", "Set('k', f=1)", "column keys"),
-        ("POST", "/index/dn/query", "Rows(f)", "Rows"),
+        ("POST", "/index/dn/query", "SetRowAttrs(f, 1, x=2)",
+         "SetRowAttrs"),
         ("POST", "/index/kx", {"options": {"keys": True}}, "index keys"),
         ("POST", "/index/dn/field/t",
          {"options": {"type": "time", "timeQuantum": "YMD"}}, "time"),
