@@ -56,6 +56,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shard by shard, whose TopN rebuilds, hits (with no sweep) and, after
    one Set, patches the device rank vector, then the hit's warm p50
    beside the sweep's.
+   timefields: on the same holder, through a new ``Executor``: a time
+   field ``pickup`` (quantum YMD, a January 2019 day for every ride),
+   a mutex ``rate_code`` (rows 1-6, then 1M rides re-coded by a
+   correction import with repeated columns) and a bool
+   ``store_and_fwd`` (true for about 1 %) loaded through
+   ``Field.import_bits`` one shard a call (``pickup``'s timestamps a
+   list of datetimes, the form the API passes), each field's seconds
+   printed; twelve reads (ranges of 7, 18 and one month view, Range,
+   an Intersect, a filtered TopN, a Sum, Rows with from/to, mutex and
+   bool rows, TopN(rate_code) from the warm count caches, a GroupBy)
+   each exact against numpy with its launches by kernel and warm p50;
+   a burst of twelve reads over 1-, 7- and 8-view ranges and mutex and
+   bool rows in ONE megakernel launch with no fallback, and the same
+   burst with an 18-view range, which must count one unlowered eval;
+   the peak device memory of one warm ranged query; then a timestamped
+   Set that makes a day view, a mutex Set that moves a ride, a Store
+   into a time field and ClearRow on a time field and on the mutex
+   field. No plain version may run on the card, in the reads or in the
+   writes.
 5. tanimoto: a fingerprint index of 10M molecules (``--molecules``;
    4096-bit fingerprints of 48 draws each from seed 11, one shard, 200
    planted analogues of molecule 12345) loaded through
@@ -79,7 +98,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shard of rides imported as JSON and one as a protobuf
    ``ImportRequest`` (seconds per request), one ``Set`` through the
    query route, and TopN, a Count(Intersect) and a ``?shards=0`` Row
-   read back. On the fingerprint holder (``serve_fingerprint``): the
+   read back; then the timefields phase's ranged Count and mutex TopN,
+   a time field made over HTTP with shard 0 imported as JSON with
+   second timestamps and shard 1 as a protobuf ``ImportRequest`` with
+   nanosecond timestamps, and a ranged Count over each shard exact
+   against numpy. On the fingerprint holder (``serve_fingerprint``): the
    five queries over HTTP (the first also as a protobuf
    ``QueryRequest``), a second Set through the query route, the five
    again, still through the positions bank. Then ``python -m
@@ -88,11 +111,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    TopN and Sum; the seconds from its start to the first answer.
 
 Launch counts are set to 0 just before each path (taxi, burst,
-groupby, fingerprint, the serve path's taxi and fingerprint servers)
+groupby, timefields, fingerprint, the serve path's taxi and fingerprint
+servers)
 and read just after; every kernel must have launched on its path, and
-on the serve path. The ``taxi``, ``groupby``, ``burst``, ``tanimoto``
-and ``serve`` lines, the card's name and power limit, the kernels JSON
-and the ``{"ok": true, "device": {...}}`` line end the output. The script imports nothing of JAX or of the JAX package.
+on the serve path. The ``taxi``, ``groupby``, ``timefields``,
+``burst``, ``tanimoto`` and ``serve`` lines, the card's name and power
+limit, the kernels JSON and the ``{"ok": true, "device": {...}}`` line
+end the output. The script imports nothing of JAX or of the JAX
+package.
 
 ``--burst-probe [--tree DIR]`` runs only the taxi load and the burst,
 with the ``pilosa_tpu_torch`` package of DIR (default: beside this
@@ -539,10 +565,11 @@ def burst_expected(cab, pax, dist, amount):
 
 
 def run_main(device, n_rides, iters=ITERS, profile=False):
-    """Load the taxi index, then drive four paths on it: the five taxi
+    """Load the taxi index, then drive five paths on it: the five taxi
     queries one at a time, the eighteen-request burst through
-    execute_batch, the groupby phase (``run_groupby``), and the serve
-    path's phases 1-2 over HTTP (``serve_taxi``). Returns (report, taxi
+    execute_batch, the groupby phase (``run_groupby``), the timefields
+    phase (``run_timefields``), and the serve path's phases 1-3 over
+    HTTP (``serve_taxi``). Returns (report, taxi
     launches, burst launches, groupby launches, serve launches). Raises
     on any wrong answer."""
     import numpy as np
@@ -556,7 +583,7 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     cab_head = np.full(2 * SHARD_WIDTH, 255, np.uint64)
     cab_head[:min(n_rides, 2 * SHARD_WIDTH)] = cab[:2 * SHARD_WIDTH]
     holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
-    del pax, dist, amount
+    del pax, dist
     log(f"taxi: loaded {n_rides} rides in {load_s:.2f} s")
     report = {"rides": n_rides,
               "shards": (n_rides + SHARD_WIDTH - 1) // SHARD_WIDTH,
@@ -570,13 +597,17 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
                                      report["burst"]["peak_before_bytes"])
     report["groupby"], gb_launches = run_groupby(holder, device, cab,
                                                  want_gb, iters)
-    del cab
+    report["timefields"], tf_launches, tf_http = run_timefields(
+        holder, device, cab, amount, iters)
+    report["timefields"]["launches"] = tf_launches
+    del cab, amount
     report["serve"], serve_launches = serve_taxi(
         holder, want_taxi, want_burst, cab_head,
         {"taxi": {k: v["p50_s"] for k, v in report["taxi"].items()
                   if k != "profile"},
          "burst": report["burst"]["p50_s"],
-         "groupby": report["groupby"]["http"]}, iters)
+         "groupby": report["groupby"]["http"],
+         "timefields": tf_http}, iters)
     del ex, holder
     return report, taxi_launches, burst_launches, gb_launches, \
         serve_launches
@@ -907,6 +938,450 @@ def run_groupby(holder, device, cab, want, iters=ITERS):
         + f"; cab_rank import {report['cab_rank_import_s']:.2f} s; rank "
         f"hit p50 {rank_p50['hit']:.6f} s, sweep {rank_p50['sweep']:.6f} s")
     return report, launches
+
+
+# ----------------------------------------------------------- timefields
+
+# The time, mutex and bool fields on the taxi index: every ride's pickup
+# day (January 2019, uniform over days 1-28, the draw benches/taxi.py:
+# 79-86 makes for the rides it stamps), the TLC trip record's RatecodeID
+# (rows 1-6) and store_and_fwd_flag (true for about 1 % of rides). Drawn
+# from a generator of their own, so the other phases' data stay as
+# they were.
+TIME_SEED = 19
+TIME_DAYS = 28
+RATE_FIX = 1_000_000  # rides re-coded by the correction import
+# Pickup ranges [from, to) and the day views they cover: 1, 7 (the
+# bench's query, benches/taxi.py:168-174), 8 (the most that lowers), 18
+# (an eager union) and the month view.
+R1 = ("2019-01-05", "2019-01-06")
+R7 = ("2019-01-05", "2019-01-12")
+R8 = ("2019-01-03", "2019-01-11")
+R18 = ("2019-01-02", "2019-01-20")
+RMONTH = ("2019-01-01", "2019-02-01")
+RA = ("2019-01-01", "2019-01-03")
+RB = ("2019-01-20", "2019-01-22")
+RC = ("2019-01-14", "2019-01-21")
+
+
+def pickup(r, field="pickup", row=0):
+    """PQL of row ``row`` of time field ``field`` over the range ``r``."""
+    return f"Row({field}={row}, from='{r[0]}', to='{r[1]}')"
+
+
+TF_QUERIES = [
+    ("count_7", f"Count({pickup(R7)})"),
+    ("count_18", f"Count({pickup(R18)})"),
+    ("count_month", f"Count({pickup(RMONTH)})"),
+    ("count_range_7", f"Count(Range(pickup=0, from='{R7[0]}', "
+                      f"to='{R7[1]}'))"),
+    ("count_7_cab1", f"Count(Intersect({pickup(R7)}, Row(cab_type=1)))"),
+    ("topn_cab_7", f"TopN(cab_type, {pickup(R7)}, n=3)"),
+    ("sum_amount_7", f"Sum({pickup(R7)}, field=amount)"),
+    ("rows_pickup_7", f"Rows(pickup, from='{R7[0]}', to='{R7[1]}')"),
+    ("count_rate3", "Count(Row(rate_code=3))"),
+    ("topn_rate", "TopN(rate_code, n=6)"),
+    ("count_sf", "Count(Row(store_and_fwd=true))"),
+    ("rate_by_sf", "GroupBy(Rows(rate_code), Rows(store_and_fwd))"),
+]
+
+# A dashboard refresh over the new fields: 1-, 7- and 8-view ranges,
+# mutex and bool rows; one megakernel launch. TF_BURST_WIDE adds the
+# 18-view range, which does not lower.
+TF_BURST = [
+    ("b_count_1", f"Count({pickup(R1)})"),
+    ("b_count_7", f"Count({pickup(R7)})"),
+    ("b_count_8", f"Count({pickup(R8)})"),
+    ("b_7_cab1", f"Count(Intersect({pickup(R7)}, Row(cab_type=1)))"),
+    ("b_8_rate2", f"Count(Intersect({pickup(R8)}, Row(rate_code=2)))"),
+    ("b_rate1", "Count(Row(rate_code=1))"),
+    ("b_rate5", "Count(Row(rate_code=5))"),
+    ("b_sf", "Count(Row(store_and_fwd=true))"),
+    ("b_sf_rate1",
+     "Count(Intersect(Row(store_and_fwd=true), Row(rate_code=1)))"),
+    ("b_a_or_b", f"Count(Union({pickup(RA)}, {pickup(RB)}))"),
+    ("b_month_minus_7", f"Count(Difference({pickup(RMONTH)}, {pickup(R7)}))"),
+    ("b_c_nosf_cab2", f"Count(Intersect({pickup(RC)}, "
+                      "Row(store_and_fwd=false), Row(cab_type=2)))"),
+]
+TF_BURST_WIDE = TF_BURST + [("b_count_18", f"Count({pickup(R18)})")]
+
+
+def time_data(n_rides):
+    """(day index 0-27, rate code 1-6 after the correction import, the
+    correction's columns and rows, store_and_fwd) from TIME_SEED. The
+    correction draws columns with repeats; the last pair of a column
+    wins, as the mutex import resolves it."""
+    import numpy as np
+    rng = np.random.default_rng(TIME_SEED)
+    day = rng.integers(0, TIME_DAYS, n_rides, dtype=np.int8)
+    rate0 = rng.integers(1, 7, n_rides, dtype=np.uint8)
+    sf = rng.integers(0, 100, n_rides, dtype=np.int8) == 0
+    n_fix = min(RATE_FIX, n_rides)
+    fix_cols = rng.integers(0, n_rides, n_fix).astype(np.uint64)
+    fix_rows = rng.integers(1, 7, n_fix).astype(np.uint64)
+    rate = rate0.copy()
+    _, last = np.unique(fix_cols[::-1], return_index=True)
+    keep = n_fix - 1 - last
+    rate[fix_cols[keep].astype(np.int64)] = fix_rows[keep]
+    return day, rate0, rate, fix_cols, fix_rows, sf
+
+
+def day_index(date):
+    """Day index of a range bound in January 2019 (Feb 1 is 31)."""
+    y, m, d = (int(x) for x in date.split("-"))
+    return 31 if (y, m) == (2019, 2) else d - 1
+
+
+def timefields_expected(cab, amount, day, rate, sf):
+    """Exact JSON answers of TF_QUERIES and TF_BURST_WIDE, from numpy."""
+    import numpy as np
+    per_day = np.bincount(day, minlength=TIME_DAYS)
+    day_cab = np.bincount(day.astype(np.int64) * 3 + cab.astype(np.int64),
+                          minlength=3 * TIME_DAYS).reshape(TIME_DAYS, 3)
+    day_rate = np.bincount(day.astype(np.int64) * 7 + rate,
+                           minlength=7 * TIME_DAYS).reshape(TIME_DAYS, 7)
+    key = (day.astype(np.int64) * 3 + cab.astype(np.int64)) * 2 + sf
+    day_cab_sf = np.bincount(key, minlength=6 * TIME_DAYS).reshape(
+        TIME_DAYS, 3, 2)
+
+    def span(r):
+        return slice(day_index(r[0]), min(day_index(r[1]), TIME_DAYS))
+
+    def count(r):
+        return int(per_day[span(r)].sum())
+
+    rate_counts = np.bincount(rate, minlength=7)
+    want = {"count_7": count(R7), "count_18": count(R18),
+            "count_month": count(RMONTH), "count_range_7": count(R7),
+            "count_7_cab1": int(day_cab[span(R7), 1].sum()),
+            "rows_pickup_7": {"rows": [0]},
+            "count_rate3": int(rate_counts[3]),
+            "count_sf": int(sf.sum())}
+    cabs = day_cab[span(R7)].sum(axis=0)
+    want["topn_cab_7"] = [{"id": int(c), "count": int(cabs[c])} for c in
+                          sorted(range(3), key=lambda c: (-cabs[c], c))
+                          if cabs[c]]
+    m7 = (day >= day_index(R7[0])) & (day < day_index(R7[1]))
+    want["sum_amount_7"] = {"value": int(amount[m7].sum()),
+                            "count": int(m7.sum())}
+    del m7
+    want["topn_rate"] = [{"id": r, "count": int(rate_counts[r])} for r in
+                         sorted(range(1, 7),
+                                key=lambda r: (-rate_counts[r], r))]
+    both = np.bincount(rate.astype(np.int64) * 2 + sf, minlength=14)
+    want["rate_by_sf"] = groups_json(
+        ["rate_code", "store_and_fwd"],
+        {(r, s): both[r * 2 + s] for r in range(1, 7) for s in (0, 1)})
+    want["b_count_1"] = count(R1)
+    want["b_count_7"] = count(R7)
+    want["b_count_8"] = count(R8)
+    want["b_7_cab1"] = want["count_7_cab1"]
+    want["b_8_rate2"] = int(day_rate[span(R8), 2].sum())
+    want["b_rate1"] = int(rate_counts[1])
+    want["b_rate5"] = int(rate_counts[5])
+    want["b_sf"] = want["count_sf"]
+    want["b_sf_rate1"] = int(np.bincount(rate[sf], minlength=7)[1])
+    want["b_a_or_b"] = count(RA) + count(RB)
+    want["b_month_minus_7"] = count(RMONTH) - count(R7)
+    want["b_c_nosf_cab2"] = int(day_cab_sf[span(RC), 2, 0].sum())
+    want["b_count_18"] = count(R18)
+    want["rate_counts"] = rate_counts
+    return want
+
+
+def day_times(day):
+    """The pickup timestamps of ``day`` (indexes from 2019-01-01) as the
+    list of datetimes ``Field.import_bits`` takes."""
+    import numpy as np
+    return (np.datetime64("2019-01-01", "D") + day.astype("timedelta64[D]")
+            ).astype("datetime64[us]").tolist()
+
+
+def load_timefields(holder, day, rate0, fix_cols, fix_rows, sf):
+    """The three fields through ``Field.import_bits``, one shard a call
+    (pickup with a list of datetimes, one a ride, made inside the timed
+    loop), then the correction import of rate_code in one call across
+    every shard. Returns the seconds of each."""
+    import numpy as np
+    from pilosa_tpu_torch import FieldOptions
+    idx = holder.index("taxi")
+    n = len(day)
+    secs = {}
+    fields = {"pickup": FieldOptions(type="time", time_quantum="YMD"),
+              "rate_code": FieldOptions(type="mutex"),
+              "store_and_fwd": FieldOptions(type="bool")}
+    for name, opts in fields.items():
+        f = idx.create_field(name, opts)
+        t0 = time.perf_counter()
+        for c0 in range(0, n, SHARD_WIDTH):
+            c1 = min(c0 + SHARD_WIDTH, n)
+            cols = np.arange(c0, c1, dtype=np.uint64)
+            if name == "pickup":
+                f.import_bits(np.zeros(c1 - c0, np.uint64), cols,
+                              timestamps=day_times(day[c0:c1]))
+            elif name == "rate_code":
+                f.import_bits(rate0[c0:c1].astype(np.uint64), cols)
+            else:
+                f.import_bits(sf[c0:c1].astype(np.uint64), cols)
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.field("rate_code").import_bits(fix_rows, fix_cols)
+    secs["rate_code_correction"] = time.perf_counter() - t0
+    return secs
+
+
+def run_timefields(holder, device, cab, amount, iters=ITERS):
+    """The timefields phase on the loaded taxi holder, through a new
+    Executor: load pickup, rate_code and store_and_fwd at every ride and
+    re-code RATE_FIX rides; then TF_QUERIES one at a time (each exact,
+    its launches by kernel; TopN(rate_code) once more from the warm
+    count caches with no launch), the burst in ONE mega_interpret launch
+    with no fallback, and the burst with an 18-view range, which must
+    count one unlowered eval; warm p50s and the peak device memory of
+    one warm ranged query; then the writes: a timestamped Set that makes
+    a day view, a mutex Set that moves a ride, a Store into a time field
+    and ClearRow on a time field and on the mutex field. Launch counts
+    are 0 just before the reads and read just after the second burst;
+    no plain version may run on the card. Returns (report, launches,
+    what the serve path reads back over HTTP)."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch import Executor, FieldOptions
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.executor.results import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    cuda = device != "cpu"
+    n_rides = len(cab)
+    day, rate0, rate, fix_cols, fix_rows, sf = time_data(n_rides)
+    want = timefields_expected(cab, amount, day, rate, sf)
+    load_s = load_timefields(holder, day, rate0, fix_cols, fix_rows, sf)
+    del rate0, fix_cols, fix_rows
+    log("timefields: loaded pickup, rate_code and store_and_fwd at "
+        f"{n_rides} rides: " + ", ".join(f"{k} {v:.2f} s"
+                                          for k, v in load_s.items()))
+    ex = Executor(holder, device=device)
+
+    def one(pql):
+        (res,) = ex.execute("taxi", pql)
+        return result_to_json(res)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check(name, pql, got, expect):
+        if got != expect:
+            raise AssertionError(f"timefields {name}: {pql}: port "
+                                 f"{str(got)[:300]} != numpy "
+                                 f"{str(expect)[:300]}")
+
+    def launched(fn):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        sync()
+        return out, {k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] != before[k]}
+
+    def mega():
+        return (ex.mega_launches, ex.mega_fallbacks,
+                ex.mega_budget_fallbacks, ex.mega_unlowered)
+
+    def batch(burst):
+        out = ex.execute_batch([("taxi", q, None) for _, q in burst])
+        sync()
+        for (name, pql), item in zip(burst, out):
+            if isinstance(item, Exception):
+                raise AssertionError(f"timefields {name}: {pql} raised "
+                                     f"{item!r}")
+            check(name, pql, result_to_json(item[0][0]), want[name])
+
+    report = {"rides": n_rides, "load_s": load_s, "queries": {}}
+    prev = megamod.MEGAKERNEL_ENABLED
+    if not cuda:
+        # Rehearsal only: the megakernel defaults to off on the CPU.
+        megamod.MEGAKERNEL_ENABLED = True
+    kernels.reset_launches()
+    try:
+        with RefCalls(kernels) as refs:
+            # 1. the reads one at a time
+            for name, pql in TF_QUERIES:
+                c0 = (ex.topn_cache_hits, ex.topn_selfchecks)
+                t0 = time.perf_counter()
+                got, delta = launched(lambda: one(pql))
+                check(name, pql, got, want[name])
+                report["queries"][name] = {
+                    "pql": pql, "first_s": time.perf_counter() - t0,
+                    "launches": delta}
+                if name == "topn_rate" and (
+                        ex.topn_cache_hits, ex.topn_selfchecks) != (
+                        c0[0] + 1, c0[1] + 1):
+                    raise AssertionError("timefields: TopN(rate_code) "
+                                         "was not a self-checked cache hit")
+            # The warm count caches again: a hit with no launch.
+            c0 = ex.topn_cache_hits
+            got, delta = launched(lambda: one("TopN(rate_code, n=6)"))
+            check("topn_rate", "TopN(rate_code, n=6)", got,
+                  want["topn_rate"])
+            if ex.topn_cache_hits != c0 + 1 or delta:
+                raise AssertionError(f"timefields: warm TopN(rate_code) "
+                                     f"launched {delta}")
+            # 2. the bursts
+            for what, burst, expect in (
+                    ("burst", TF_BURST, (1, 0, 0, 0)),
+                    ("burst_wide", TF_BURST_WIDE, (1, 0, 0, 1))):
+                m0 = mega()
+                t0 = time.perf_counter()
+                _, delta = launched(lambda: batch(burst))
+                moved = tuple(b - a for a, b in zip(m0, mega()))
+                if moved != expect or (cuda and delta.get(
+                        "mega_interpret") != 1):
+                    raise AssertionError(
+                        f"timefields {what}: megakernel launches/fallbacks/"
+                        f"budget fallbacks/unlowered moved {moved}, "
+                        f"expected {expect}; kernel launches {delta}")
+                report[what] = {"requests": len(burst),
+                                "first_s": time.perf_counter() - t0,
+                                "launches": delta,
+                                "mega_launches": moved[0],
+                                "fallbacks": moved[1] + moved[2],
+                                "unlowered": moved[3]}
+        launches = dict(kernels.LAUNCHES)
+        if cuda:
+            if refs.calls:
+                raise AssertionError(f"timefields: plain versions called "
+                                     f"on the card: {refs.calls}")
+            for name in ("bank_row_counts", "bank_row_counts_masked",
+                         "bsi_plane_counts", "mega_interpret"):
+                if launches[name] <= 0:
+                    raise AssertionError(f"timefields: {name} never "
+                                         "launched")
+        report["ref_calls"] = refs.calls
+        # 3. warm p50s; peak device memory of one warm ranged query
+        for name, q in report["queries"].items():
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                got = one(q["pql"])
+                sync()
+                times.append(time.perf_counter() - t0)
+                check(name, q["pql"], got, want[name])
+            q["p50_s"] = p50(times)
+        for what, burst in (("burst", TF_BURST),
+                            ("burst_wide", TF_BURST_WIDE)):
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                batch(burst)
+                times.append(time.perf_counter() - t0)
+            report[what]["p50_s"] = p50(times)
+        if cuda:
+            # Where a ranged query's time goes: device time and busy
+            # share at 1, 7 and 18 views.
+            report["profile"] = profile_queries(
+                torch, ex, "taxi", [(n, report["queries"][n]["pql"]) for n
+                                    in ("count_month", "count_7",
+                                        "count_18")], iters)
+            for name in ("count_7", "count_18"):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                one(report["queries"][name]["pql"])
+                torch.cuda.synchronize()
+                report["queries"][name]["peak_bytes"] = \
+                    torch.cuda.max_memory_allocated() - base
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+    # 4. writes
+    # The writes and the reads that check them run under a RefCalls
+    # of their own: no plain version may run on the card here either.
+    with RefCalls(kernels) as wrefs:
+        idx = holder.index("taxi")
+        writes = {}
+        col = 7
+        late = ("2019-01-29", "2019-02-01")  # no ride is drawn past Jan 28
+        check("set_time", pickup(late), one(f"Count({pickup(late)})"), 0)
+        t0 = time.perf_counter()
+        check("set_time", "Set", one(f"Set({col}, pickup=0, "
+                                     "2019-01-30T08:00)"), True)
+        writes["set_time_s"] = time.perf_counter() - t0
+        check("set_time", pickup(late), one(f"Count({pickup(late)})"), 1)
+        check("set_time", "month", one(f"Count({pickup(RMONTH)})"),
+              want["count_month"])
+        # A mutex Set moves a ride between rows.
+        old = int(rate[col])
+        new = old % 6 + 1
+        counts = want["rate_counts"].copy()
+        counts[old] -= 1
+        counts[new] += 1
+        t0 = time.perf_counter()
+        check("set_mutex", "Set", one(f"Set({col}, rate_code={new})"), True)
+        writes["set_mutex_s"] = time.perf_counter() - t0
+        vec = idx.field("rate_code").view().fragment(col // SHARD_WIDTH) \
+            .mutex_vector(col)
+        got = [one(f"Count(Row(rate_code={r}))") for r in (old, new)]
+        if got != [int(counts[old]), int(counts[new])] or vec != new:
+            raise AssertionError(f"timefields: mutex Set: counts {got}, "
+                                 f"mutex_vector {vec}, numpy "
+                                 f"{[counts[old], counts[new]]} and {new}")
+        top = [{"id": r, "count": int(counts[r])}
+               for r in sorted(range(1, 7), key=lambda r: (-counts[r], r))]
+        check("set_mutex", "TopN(rate_code, n=6)",
+              one("TopN(rate_code, n=6)"), top)
+        # Store a range into a time field: the standard view only.
+        idx.create_field("pickup_kept", FieldOptions(type="time",
+                                                     time_quantum="YMD"))
+        store = f"Store({pickup(R7)}, pickup_kept=0)"
+        t0 = time.perf_counter()
+        check("store", store, one(store), True)
+        writes["store_s"] = time.perf_counter() - t0
+        check("store", "kept", one("Count(Row(pickup_kept=0))"),
+              want["count_7"])
+        check("store", "kept range",
+              one(f"Count({pickup(R7, 'pickup_kept')})"), 0)
+        # ClearRow on a time field the phase makes: every view empties.
+        drop = idx.create_field("dropoff", FieldOptions(type="time",
+                                                        time_quantum="YMD"))
+        n0 = min(SHARD_WIDTH, n_rides)
+        drop.import_bits(np.zeros(n0, np.uint64),
+                         np.arange(n0, dtype=np.uint64),
+                         timestamps=day_times(day[:n0]))
+        check("clear_row", "dropoff",
+              one(f"Count({pickup(RMONTH, 'dropoff')})"), n0)
+        t0 = time.perf_counter()
+        check("clear_row", "ClearRow(dropoff=0)", one("ClearRow(dropoff=0)"),
+              True)
+        writes["clear_row_time_s"] = time.perf_counter() - t0
+        left = sum(len(fr.row_ids()) for v in drop.views.values()
+                   for fr in v.fragments.values())
+        check("clear_row", "dropoff views", (left, len(drop.views)),
+              (0, 3 + len(np.unique(day[:n0]))))
+        check("clear_row", "dropoff",
+              one(f"Count({pickup(R7, 'dropoff')})"), 0)
+        # ClearRow on the mutex field.
+        t0 = time.perf_counter()
+        check("clear_row", "ClearRow(rate_code=6)",
+              one("ClearRow(rate_code=6)"), True)
+        writes["clear_row_mutex_s"] = time.perf_counter() - t0
+        counts[6] = 0
+        check("clear_row", "Rows(rate_code)", one("Rows(rate_code)"),
+              {"rows": [1, 2, 3, 4, 5]})
+        check("clear_row", "Count(Row(rate_code=6))",
+              one("Count(Row(rate_code=6))"), 0)
+    if cuda and wrefs.calls:
+        raise AssertionError(f"timefields writes: plain versions called "
+                             f"on the card: {wrefs.calls}")
+    report["ref_calls_writes"] = wrefs.calls
+    report["writes"] = writes
+    top = [{"id": r, "count": int(counts[r])}
+           for r in sorted(range(1, 6), key=lambda r: (-counts[r], r))]
+    http = {"count_7": (TF_QUERIES[0][1], want["count_7"]),
+            "topn_rate": ("TopN(rate_code)", top)}
+    log("timefields: exact; warm p50 " + ", ".join(
+        f"{n} {q['p50_s']:.6f} s" for n, q in report["queries"].items())
+        + f"; burst {report['burst']['p50_s']:.6f} s in one launch, "
+        f"with the 18-view range {report['burst_wide']['p50_s']:.6f} s")
+    return report, launches, http
 
 
 # --------------------------------------------------------------- burst
@@ -1762,12 +2237,16 @@ def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
         schema = http_json(base, "GET", "/schema")
         got = {f["name"]: f["options"] for i in schema["indexes"]
                if i["name"] == "taxi" for f in i["fields"]}
-        for name, typ, lo, hi in (("cab_type", "set", 0, 0),
-                                  ("passenger_count", "set", 0, 0),
-                                  ("dist", "int", 0, 300),
-                                  ("amount", "int", 0, 1000)):
+        for name, typ, lo, hi, tq in (
+                ("cab_type", "set", 0, 0, ""),
+                ("passenger_count", "set", 0, 0, ""),
+                ("dist", "int", 0, 300, ""), ("amount", "int", 0, 1000, ""),
+                ("pickup", "time", 0, 0, "YMD"),
+                ("rate_code", "mutex", 0, 0, ""),
+                ("store_and_fwd", "bool", 0, 0, "")):
             o = got.get(name, {})
-            if (o.get("type"), o.get("min"), o.get("max")) != (typ, lo, hi):
+            if (o.get("type"), o.get("min"), o.get("max"),
+                    o.get("timeQuantum")) != (typ, lo, hi, tq):
                 raise AssertionError(f"serve: /schema lists {name} as {o}")
         report["taxi_http_p50_s"] = {}
         for name, pql in TAXI_QUERIES:
@@ -1851,11 +2330,73 @@ def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
         log(f"serve: imports of {SHARD_WIDTH} bits: JSON "
             f"{report['import_json_s']:.3f} s, protobuf "
             f"{report['import_proto_s']:.3f} s; the reads after them exact")
+        report.update(serve_timefields(base, cab_head,
+                                       in_process["timefields"]))
     finally:
         megamod.MEGAKERNEL_ENABLED = prev
         stop_server(api, srv)
     launches = dict(kernels.LAUNCHES)
     return report, launches
+
+
+def serve_timefields(base, cab_head, reads):
+    """Phase 3 of the serve path: the timefields phase's ranged Count
+    and mutex TopN over HTTP, then a time field made over HTTP, shard 0
+    imported as JSON with second timestamps and shard 1 as a protobuf
+    ImportRequest with nanosecond timestamps (January 2019, local time:
+    the expected days come from the same local reading the API makes),
+    and a ranged Count over each shard checked against numpy. Returns
+    the import seconds."""
+    from datetime import datetime
+    import numpy as np
+    from pilosa_tpu_torch.server import proto_compat
+    for name, (pql, want) in reads.items():
+        got = http_json(base, "POST", "/index/taxi/query", pql)
+        if got != {"results": [want]}:
+            raise AssertionError(f"serve: {name} {pql} over HTTP "
+                                 f"{str(got)[:300]} != numpy")
+    http_json(base, "POST", "/index/taxi/field/pickup_http",
+              {"options": {"type": "time", "timeQuantum": "YMD"}})
+    rng = np.random.default_rng(TIME_SEED + 1)
+    lo = int(datetime(2019, 1, 1).timestamp())
+    secs = lo + rng.integers(0, 31 * 86400, 2 * SHARD_WIDTH)
+    rows = cab_head
+    cols = np.arange(2 * SHARD_WIDTH, dtype=np.uint64)
+    report = {}
+    t0 = time.perf_counter()
+    http_json(base, "POST", "/index/taxi/field/pickup_http/import",
+              {"rowIDs": rows[:SHARD_WIDTH].tolist(),
+               "columnIDs": cols[:SHARD_WIDTH].tolist(),
+               "timestamps": secs[:SHARD_WIDTH].tolist()})
+    report["import_time_json_s"] = time.perf_counter() - t0
+    msg = (proto_compat._str_field(1, "taxi")
+           + proto_compat._str_field(2, "pickup_http")
+           + proto_compat._packed_uint64(4, rows[SHARD_WIDTH:].tolist())
+           + proto_compat._packed_uint64(5, cols[SHARD_WIDTH:].tolist())
+           + proto_compat._packed_uint64(
+               6, (secs[SHARD_WIDTH:] * 10 ** 9).tolist()))
+    t0 = time.perf_counter()
+    http_json(base, "POST", "/index/taxi/field/pickup_http/import", msg,
+              proto_compat.CONTENT_TYPE)
+    report["import_time_proto_s"] = time.perf_counter() - t0
+    # A second's day is the day datetime.fromtimestamp gives it.
+    starts = [datetime(2019, 1, d).timestamp() for d in range(1, 32)]
+    day = np.searchsorted(np.asarray(starts), secs, "right") - 1
+    for shard in (0, 1):
+        sl = slice(shard * SHARD_WIDTH, (shard + 1) * SHARD_WIDTH)
+        for row in (0, 1):
+            m = (rows[sl] == row) & (day[sl] >= day_index(R7[0])) \
+                & (day[sl] < day_index(R7[1]))
+            pql = f"Count({pickup(R7, 'pickup_http', row)})"
+            got = http_json(base, "POST",
+                            f"/index/taxi/query?shards={shard}", pql)
+            if got != {"results": [int(m.sum())]}:
+                raise AssertionError(f"serve: {pql} on shard {shard} "
+                                     f"answered {got}, numpy {int(m.sum())}")
+    log(f"serve: time field over HTTP exact; imports with timestamps: "
+        f"JSON {report['import_time_json_s']:.3f} s, protobuf "
+        f"{report['import_time_proto_s']:.3f} s")
+    return report
 
 
 def serve_fingerprint(holder, pos, col, want, in_process, iters=ITERS):
@@ -2124,6 +2665,19 @@ def main(argv=None) -> int:
                     for k, v in gb.get("profile", {}).items()},
         "launches": {k: v for k, v in gb_launches.items() if v}}}),
         flush=True)
+    tf = report["timefields"]
+    print(json.dumps({"timefields": {
+        "rides": tf["rides"], "load_s": tf["load_s"],
+        "queries": {k: {f: v.get(f) for f in (
+            "pql", "first_s", "p50_s", "launches", "peak_bytes")}
+            for k, v in tf["queries"].items()},
+        "burst": tf["burst"], "burst_wide": tf["burst_wide"],
+        "writes": tf["writes"],
+        "profile": {k: {f: v[f] for f in ("wall_ms", "device_ms",
+                                          "busy_share", "kernels_ms")}
+                    for k, v in tf.get("profile", {}).items()},
+        "launches": {k: v for k, v in tf["launches"].items() if v}}}),
+        flush=True)
     print(json.dumps({"burst": {k: burst[k] for k in (
         "requests", "p50_s", "single_p50_sum_s", "lower_opt_p50_s",
         "first_s", "kernel_ms", "plain_ms", "bound_ms", "smem_bound_ms",
@@ -2152,6 +2706,8 @@ def main(argv=None) -> int:
         "import_json_s": serve["import_json_s"],
         "import_proto_s": serve["import_proto_s"],
         "import_bits_per_request": serve["import_bits_per_request"],
+        "import_time_json_s": serve["import_time_json_s"],
+        "import_time_proto_s": serve["import_time_proto_s"],
         "fp_http_p50_s": serve_fp["fp_http_p50_s"],
         "fp_in_process_p50_s": serve_fp["fp_in_process_p50_s"],
         "cli_start_to_first_answer_s": cli["start_to_first_answer_s"],

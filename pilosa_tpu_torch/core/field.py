@@ -1,26 +1,46 @@
 """Field: a typed bitmap matrix within an index.
 
-Types in this port: ``set`` (multi-valued rows) and ``int`` (BSI
-bit-sliced integers with [min, max] and offset encoding). The ``time``,
-``mutex`` and ``bool`` types of the JAX package's ``core/field.py`` are
-not part of it yet.
+Types, as the JAX package's ``core/field.py`` has them:
+
+- ``set``: multi-valued rows;
+- ``int``: BSI bit-sliced integers with [min, max] and offset encoding;
+- ``time``: set rows, and a timestamped write also lands in one view
+  per unit of the field's quantum (``standard_2019``,
+  ``standard_201901``, ``standard_20190105``; ``core/timeq.py``), which
+  range reads union;
+- ``mutex``: one row per column: a write clears the column's other row;
+- ``bool``: a mutex of rows ``FALSE_ROW_ID`` and ``TRUE_ROW_ID``.
+
+A bulk import with timestamps groups its pairs by the timestamp cut to
+the quantum's finest unit and names each group's views once, so a load
+of 100M rides spends its time in the fragments, not in ``strftime``.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from datetime import datetime
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.core import cache as cache_mod
+from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_bsi_name
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
 
 FIELD_TYPE_SET = "set"
 FIELD_TYPE_INT = "int"
+FIELD_TYPE_TIME = "time"
+FIELD_TYPE_MUTEX = "mutex"
+FIELD_TYPE_BOOL = "bool"
+FIELD_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_INT, FIELD_TYPE_TIME,
+               FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
+
+FALSE_ROW_ID = 0
+TRUE_ROW_ID = 1
 
 
 @dataclass
@@ -40,9 +60,8 @@ class FieldOptions:
     max_columns: int = 0
 
     def validate(self) -> None:
-        if self.type not in (FIELD_TYPE_SET, FIELD_TYPE_INT):
-            raise ValueError(f"field type {self.type!r} is not supported "
-                             "by the port yet (set and int are)")
+        if self.type not in FIELD_TYPES:
+            raise ValueError(f"invalid field type: {self.type}")
         if self.keys:
             raise ValueError("keyed fields are not supported by the port yet")
         # The JAX package refuses an unknown cache type when the first
@@ -56,6 +75,10 @@ class FieldOptions:
             if (self.max - self.min).bit_length() > 63:
                 raise ValueError(
                     "int field range too large: max-min must fit in 63 bits")
+        if self.type == FIELD_TYPE_TIME:
+            timeq.validate_quantum(self.time_quantum)
+            if not self.time_quantum:
+                raise ValueError("time field requires a time quantum")
         if not 0 <= self.max_columns <= SHARD_WIDTH:
             raise ValueError(f"max_columns must be in [0, {SHARD_WIDTH}]")
 
@@ -173,10 +196,44 @@ class Field:
 
     # -- writes --------------------------------------------------------------
 
-    def set_bit(self, row_id: int, column_id: int) -> bool:
+    def _is_mutex(self) -> bool:
+        return self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
+
+    def set_bit(self, row_id: int, column_id: int,
+                timestamp: Optional[datetime] = None) -> bool:
+        """Set a bit; with ``timestamp`` (time fields) also in one view
+        per unit of the quantum. As in the JAX package, the standard
+        view is written before a timestamp on another type is refused."""
         self._check_column_bound([column_id])
-        return self.create_view_if_not_exists(VIEW_STANDARD).set_bit(
-            row_id, column_id)
+        changed = False
+        if not self.options.no_standard_view:
+            view = self.create_view_if_not_exists(VIEW_STANDARD)
+            if self._is_mutex():
+                changed |= self._set_mutex(view, row_id, column_id)
+            else:
+                changed |= view.set_bit(row_id, column_id)
+        if timestamp is not None:
+            if self.options.type != FIELD_TYPE_TIME:
+                raise ValueError(
+                    f"cannot set timestamp on {self.options.type} field")
+            for vname in timeq.views_by_time(VIEW_STANDARD, timestamp,
+                                             self.options.time_quantum):
+                changed |= self.create_view_if_not_exists(vname).set_bit(
+                    row_id, column_id)
+        elif self.options.type == FIELD_TYPE_TIME \
+                and self.options.no_standard_view:
+            raise ValueError(
+                "time field with no standard view requires timestamp")
+        return changed
+
+    @staticmethod
+    def _set_mutex(view: View, row_id: int, column_id: int) -> bool:
+        """Clear the column's other row, then set this one."""
+        frag = view.create_fragment_if_not_exists(column_id // SHARD_WIDTH)
+        existing = frag.mutex_vector(column_id)
+        if existing is not None and existing != row_id:
+            frag.clear_bit(existing, column_id)
+        return frag.set_bit(row_id, column_id)
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
         changed = False
@@ -210,15 +267,68 @@ class Field:
         return True
 
     def import_bits(self, row_ids: np.ndarray, column_ids: np.ndarray,
+                    timestamps: Optional[Sequence[Any]] = None,
                     clear: bool = False) -> None:
-        """Bulk import of (row, column) pairs into the standard view."""
+        """Bulk import of (row, column) pairs: into the standard view
+        (unless ``no_standard_view`` with timestamps) and, for each pair
+        with a timestamp, into that time's views. ``timestamps`` holds a
+        datetime or None a pair. A mutex or bool field imports with mutex
+        semantics: the last pair of a column wins and the column's other
+        row is cleared."""
         row_ids = np.asarray(row_ids, dtype=np.uint64)
         column_ids = np.asarray(column_ids, dtype=np.uint64)
         self._check_column_bound(column_ids)
-        view = self.create_view_if_not_exists(VIEW_STANDARD)
-        for shard, sel in _by_shard(column_ids):
-            view.create_fragment_if_not_exists(shard).import_bits(
-                row_ids[sel], column_ids[sel], clear=clear)
+        # Pair indexes per target view; None selects every pair.
+        by_view: Dict[str, Optional[np.ndarray]] = {}
+        if timestamps is None or not self.options.no_standard_view:
+            by_view[VIEW_STANDARD] = None
+        if timestamps is not None:
+            if self.options.type != FIELD_TYPE_TIME:
+                raise ValueError("timestamps on non-time field")
+            by_view.update(self._time_view_pairs(timestamps, len(row_ids)))
+        mutex = self._is_mutex() and not clear
+        for vname, sel in by_view.items():
+            if vname == VIEW_STANDARD and self.options.no_standard_view:
+                continue
+            view = self.create_view_if_not_exists(vname)
+            rows = row_ids if sel is None else row_ids[sel]
+            cols = column_ids if sel is None else column_ids[sel]
+            for shard, s in _by_shard(cols):
+                frag = view.create_fragment_if_not_exists(shard)
+                if mutex:
+                    frag.bulk_import_mutex(rows[s], cols[s])
+                else:
+                    frag.import_bits(rows[s], cols[s], clear=clear)
+
+    def _time_view_pairs(self, timestamps: Sequence[Any], n_pairs: int
+                         ) -> Dict[str, Optional[np.ndarray]]:
+        """{time view: ascending pair indexes} of timestamped pairs. The
+        pairs group by their time cut to the quantum's finest unit, and
+        ``views_by_time`` runs once a group."""
+        codes, keys = _time_groups(timestamps, self.options.time_quantum[-1])
+        per_view: Dict[str, List[int]] = {}
+        for code, t in enumerate(keys):
+            if t is None:
+                continue
+            for vname in timeq.views_by_time(VIEW_STANDARD, t,
+                                             self.options.time_quantum):
+                per_view.setdefault(vname, []).append(code)
+        if not per_view:
+            return {}
+        small = np.int16 if len(keys) < 1 << 15 else np.int64
+        order = np.argsort(codes.astype(small), kind="stable")
+        bounds = np.searchsorted(codes[order], np.arange(len(keys) + 1))
+        out: Dict[str, Optional[np.ndarray]] = {}
+        for vname, cs in per_view.items():
+            if len(cs) == len(keys) and len(codes) == n_pairs:
+                out[vname] = None
+            elif len(cs) == 1:
+                out[vname] = order[bounds[cs[0]]:bounds[cs[0] + 1]]
+            else:
+                member = np.zeros(len(keys), dtype=bool)
+                member[cs] = True
+                out[vname] = np.flatnonzero(member[codes])
+        return out
 
     def import_values(self, column_ids: np.ndarray, values: np.ndarray,
                       clear: bool = False) -> None:
@@ -235,3 +345,41 @@ class Field:
         for shard, sel in _by_shard(column_ids):
             view.create_fragment_if_not_exists(shard).import_values(
                 column_ids[sel], base[sel], bsig.bit_depth, clear=clear)
+
+    # -- time range reads ----------------------------------------------------
+
+    def views_for_range(self, start: datetime, end: datetime) -> List[str]:
+        """The minimal cover of [start, end) by the quantum's views."""
+        return timeq.views_by_time_range(VIEW_STANDARD, start, end,
+                                         self.options.time_quantum)
+
+
+def _truncate(t: datetime, unit: str) -> datetime:
+    """``t`` cut to the start of its ``unit`` (Y, M, D or H)."""
+    if unit == "Y":
+        return t.replace(month=1, day=1, hour=0, minute=0, second=0,
+                         microsecond=0)
+    if unit == "M":
+        return t.replace(day=1, hour=0, minute=0, second=0, microsecond=0)
+    if unit == "D":
+        return t.replace(hour=0, minute=0, second=0, microsecond=0)
+    return t.replace(minute=0, second=0, microsecond=0)
+
+
+def _time_groups(timestamps: Sequence[Any], unit: str
+                 ) -> Tuple[np.ndarray, List[Optional[datetime]]]:
+    """(group code a pair, each group's time cut to ``unit`` or None).
+    Pairs whose times share a ``unit`` share every view of a quantum
+    whose finest unit is ``unit``."""
+    # Distinct objects first (C-level hashing), then each distinct time
+    # cut once.
+    distinct = list(dict.fromkeys(timestamps))
+    code_of = {t: i for i, t in enumerate(distinct)}
+    codes = np.fromiter(map(code_of.__getitem__, timestamps),
+                        dtype=np.int64, count=len(timestamps))
+    cut_code: Dict[Optional[datetime], int] = {}
+    remap = np.empty(len(distinct), np.int64)
+    for i, t in enumerate(distinct):
+        key = None if t is None else _truncate(t, unit)
+        remap[i] = cut_code.setdefault(key, len(cut_code))
+    return remap[codes], list(cut_code)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import itertools
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -176,6 +176,53 @@ class Fragment:
             self._touch_rows(touched.tolist())
             self._cache_update(touched.tolist())
 
+    def bulk_import_mutex(self, row_ids: np.ndarray,
+                          column_ids: np.ndarray) -> None:
+        """Mutex import: setting (row, column) clears any other row's bit
+        in that column. Within the batch the last pair of a column wins
+        (the last index of each column, from ``np.unique`` over the
+        reversed ids). Conflicts are found with one dense AND of each
+        present row against the batch's column mask; the conflicting
+        bits go out as one clearing import and the pairs come in as
+        another, so the count caches and the bank versions see both
+        rows of a moved column."""
+        rows = np.asarray(row_ids, dtype=np.uint64)
+        offs = np.asarray(column_ids, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
+        if len(offs) == 0:
+            return
+        if not _strictly_increasing(offs):
+            _, last = np.unique(offs[::-1], return_index=True)
+            keep = len(offs) - 1 - last
+            rows, offs = rows[keep], offs[keep]
+        # offs now ascend, one pair a column.
+        with self._lock:
+            present = self.row_ids()
+            clear_rows, clear_offs = [], []
+            if present:
+                mask = np.zeros(SHARD_WIDTH // 32, dtype=np.uint32)
+                np.bitwise_or.at(mask, (offs >> np.uint64(5)).astype(np.int64),
+                                 np.left_shift(np.uint32(1), (offs & np.uint64(
+                                     31)).astype(np.uint32)))
+                for r in present:
+                    hit = self.row_dense(r) & mask
+                    nz = np.flatnonzero(hit)
+                    if not len(nz):
+                        continue
+                    bits = np.unpackbits(hit[nz].view(np.uint8),
+                                         bitorder="little").reshape(-1, 32)
+                    w, b = np.nonzero(bits)
+                    conflict = (nz[w] * 32 + b).astype(np.uint64)
+                    moved = rows[np.searchsorted(offs, conflict)] \
+                        != np.uint64(r)
+                    if moved.any():
+                        clear_offs.append(conflict[moved])
+                        clear_rows.append(np.full(int(moved.sum()), r,
+                                                  np.uint64))
+            if clear_rows:
+                self.import_bits(np.concatenate(clear_rows),
+                                 np.concatenate(clear_offs), clear=True)
+            self.import_bits(rows, offs)
+
     def clear_row(self, row_id: int) -> bool:
         """Clear every bit of a row (the ClearRow write): its containers
         go whole. True when the row held a bit."""
@@ -305,6 +352,15 @@ class Fragment:
     def row_count(self, row_id: int) -> int:
         return self.storage.count_range(row_id * SHARD_WIDTH,
                                         (row_id + 1) * SHARD_WIDTH)
+
+    def mutex_vector(self, column_id: int) -> Optional[int]:
+        """The row holding ``column_id`` in a mutex or bool fragment, or
+        None: a scan of the present rows, whose number the field's
+        cardinality bounds."""
+        for row_id in self.row_ids():
+            if self.bit(row_id, column_id):
+                return row_id
+        return None
 
     def row_dense(self, row_id: int) -> np.ndarray:
         """One whole row as uint32 words."""

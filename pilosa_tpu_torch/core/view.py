@@ -1,8 +1,11 @@
 """View: a named collection of fragments, one per shard, and its device
 banks.
 
-View names: ``standard`` and the BSI views ``bsig_<field>``. Fragments
-are created on first write. ``device_bank`` stacks the view's rows
+View names: ``standard``, the BSI views ``bsig_<field>`` and a time
+field's views, one per unit of time (``standard_2019``,
+``standard_201901``, ``standard_20190105``). Fragments are created on
+first write; a time view has fragments, banks and patches like any
+other. ``device_bank`` stacks the view's rows
 across shards into one ``[capacity, S, W]`` int32 tensor on the view's
 device — the executor's operand format and the kernels' input; a row
 subset of a view too large for a full bank gets a bank of its own.

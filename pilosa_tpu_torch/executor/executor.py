@@ -43,10 +43,19 @@ plan buffer and run in ONE ``mega_interpret`` launch
 (``executor/megakernel.py``); what the megakernel does not take runs
 through the eager path above.
 
-Covered calls: Set, Clear, ClearRow, Store, Row (set fields and BSI
-conditions), Intersect, Union, Difference, Xor, Not, Shift, Threshold,
-Count, TopN, Rows, GroupBy, Sum, Min, Max, and Options around any of
-them. Range, the time forms and the attribute calls of the JAX
+A time range (``Row(f=r, from=…, to=…)``, and ``Range`` of the same
+form) reads the views of its cover that exist (``Field.views_for_range``):
+none is the zero row; up to ``MAX_STATIC_RANGE_VIEWS`` are one slot each
+and an OR fold, which the batch lowers into ``mega_interpret``; more are
+a torch ``|`` fold of the one row in each view, read from a cached bank
+of that row alone, which does not lower (``mega_unlowered``), as the
+JAX package's literal operand does not.
+
+Covered calls: Set (with a timestamp on a time field), Clear, ClearRow,
+Store, Row (set, time, mutex and bool fields, BSI conditions, time
+ranges), Range, Intersect, Union, Difference, Xor, Not, Shift,
+Threshold, Count, TopN, Rows (with from/to), GroupBy, Sum, Min, Max,
+and Options around any of them. The attribute calls of the JAX
 package's executor are not part of this port yet. ``execute_full``
 and ``execute_batch_shaped[_finish]`` give the JSON-shaped responses the
 server sends.
@@ -62,15 +71,17 @@ import os
 import threading
 from dataclasses import dataclass
 from dataclasses import field as dc_field
+from datetime import datetime
 from typing import Any, Callable, Dict, Iterator, List, Optional, \
     Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.cache import CACHE_TYPE_NONE, RankEntry
 from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, FIELD_TYPE_SET, \
-    Field
+    FIELD_TYPE_TIME, Field
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
@@ -86,12 +97,17 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD, \
 from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
 
-_BITMAP_CALLS = {"Row", "Intersect", "Union", "Difference", "Xor", "Not",
-                 "Shift", "Threshold"}
+_BITMAP_CALLS = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
+                 "Not", "Shift", "Threshold"}
 _FOLDS = {"Intersect": b_and, "Union": b_or, "Xor": b_xor,
           "Difference": b_andnot}
 _CONTAINER_WORDS = CONTAINER_BITS // 32
 _LOG = logging.getLogger(__name__)
+
+# A time range over at most this many existing views lowers to one slot
+# a view and an OR fold; a wider one is an eager union that does not
+# lower (the JAX package's MAX_STATIC_RANGE_VIEWS).
+MAX_STATIC_RANGE_VIEWS = 8
 
 # TopN sweeps the cached full view bank while it fits this many device
 # bytes (banks are width-trimmed); beyond it the positions bank or the
@@ -239,7 +255,8 @@ class _Plan:
     the operand banks by (field, view) key, the gather slots (resolved
     once the banks exist), the BSI predicate values as two u32 limbs each,
     the operand widths and a postfix IR for the megakernel lowering.
-    ``ir_ok=False`` (Shift) means the tree is not lowerable."""
+    ``ir_ok=False`` (Shift, a time range over more than
+    MAX_STATIC_RANGE_VIEWS views) means the tree is not lowerable."""
     sig_parts: List[str] = dc_field(default_factory=list)
     bank_keys: List[Tuple[str, str]] = dc_field(default_factory=list)
     bank_pos: Dict[Tuple[str, str], int] = dc_field(default_factory=dict)
@@ -336,6 +353,9 @@ class Executor:
         self.mega_plan_entries = 0
         self.mega_fallbacks = 0
         self.mega_budget_fallbacks = 0
+        # Staged evals whose tree does not lower (Shift, a time range
+        # over more than MAX_STATIC_RANGE_VIEWS views), run eagerly.
+        self.mega_unlowered = 0
         # TopN cache tiers: warm shortcut hits and their sampled
         # self-checks, and the device rank vector's hits, patches and
         # rebuilds.
@@ -497,6 +517,11 @@ class Executor:
         with self._stats_lock:
             self.mega_fallbacks += groups
 
+    def _note_mega_unlowered(self, evals: int) -> None:
+        """Staged evals whose tree has no megakernel IR ran eagerly."""
+        with self._stats_lock:
+            self.mega_unlowered += evals
+
     def _note_mega_budget_fallback(self, groups: int) -> None:
         """A cohort over the register budget or the tile limit ran per
         group."""
@@ -628,7 +653,7 @@ class Executor:
         """Collect every field a row-call tree reads; False when the walk
         cannot tell (the caller then keeps every shard)."""
         name = call.name
-        if name == "Row":
+        if name in ("Row", "Range"):
             try:
                 fname, _ = self._row_call_field(call)
             except ExecutionError:
@@ -713,7 +738,7 @@ class Executor:
               ) -> torch.Tensor:
         """Evaluate a row-call tree to int32 words [S, W]."""
         name = call.name
-        if name == "Row":
+        if name in ("Row", "Range"):
             return self._row_leaf(idx, call, shards)
         if name in ("Not", "Shift") and len(call.children) != 1:
             raise ExecutionError(f"{name}() takes exactly one row argument")
@@ -751,8 +776,6 @@ class Executor:
             if k == n:
                 return functools.reduce(b_and, subs)
             return _thermometer(subs, k)
-        if name == "Range":
-            raise ExecutionError(f"{name}() is not supported by the port")
         raise ExecutionError(f"{name} is not a row query")
 
     @staticmethod
@@ -798,10 +821,42 @@ class Executor:
         if field.options.type == FIELD_TYPE_INT:
             raise ExecutionError(
                 f"int field {field_name} requires a comparison, not =")
-        if call.arg("from") is not None or call.arg("to") is not None:
-            raise ExecutionError("time ranges are not supported by the port")
-        return self._slot_leaf(field, VIEW_STANDARD,
-                               self._row_id(field, row_ref), shards)
+        row_id = self._row_id(field, row_ref)
+        views = self._range_views(field, call)
+        if views is None:
+            return self._slot_leaf(field, VIEW_STANDARD, row_id, shards)
+        if not views:
+            return torch.zeros((len(shards), _CONTAINER_WORDS),
+                               dtype=torch.int32, device=self.device)
+        if len(views) <= MAX_STATIC_RANGE_VIEWS:
+            return functools.reduce(b_or, _align_all(
+                [self._slot_leaf(field, v, row_id, shards) for v in views]))
+        # A wide cover reads a bank of the one row in each view: a
+        # multi-year hourly range must not build every row of every view.
+        shards = tuple(shards)
+        rows = []
+        for v in views:
+            bank = field.view(v).device_bank(shards, rows=[row_id],
+                                             trim=True, cache_rows=True)
+            rows.append(bank.array[bank.slot(row_id)])
+        return functools.reduce(b_or, _align_all(rows))
+
+    @staticmethod
+    def _range_views(field: Field, call: Call) -> Optional[List[str]]:
+        """The existing views of a Row/Range call's time range, in cover
+        order; None when the call names no range. A range on a field of
+        another type is refused with the reference's message; an open
+        end is the earliest or the latest datetime, as in the JAX
+        package."""
+        frm, to = call.arg("from"), call.arg("to")
+        if frm is None and to is None:
+            return None
+        if field.options.type != FIELD_TYPE_TIME:
+            raise ExecutionError(f"from/to on non-time field {field.name}")
+        start = timeq.parse_timestamp(frm) if frm else datetime.min
+        end = timeq.parse_timestamp(to) if to else datetime.max
+        return [v for v in field.views_for_range(start, end)
+                if field.view(v) is not None]
 
     def _slot_leaf(self, field: Field, view_name: str, row_id: int,
                    shards) -> torch.Tensor:
@@ -891,7 +946,7 @@ class Executor:
         """Append one call subtree to the plan (signature parts, leaves,
         postfix IR); raises what the eager path raises."""
         name = call.name
-        if name == "Row":
+        if name in ("Row", "Range"):
             self._plan_row_leaf(idx, call, plan)
             return
         if name in ("Not", "Shift") and len(call.children) != 1:
@@ -940,8 +995,6 @@ class Executor:
             else:
                 plan.ir.append(("thresh", k, n))
             return
-        if name == "Range":
-            raise ExecutionError(f"{name}() is not supported by the port")
         raise ExecutionError(f"{name} is not a row query")
 
     def _view_width(self, field: Field, view_name: str) -> int:
@@ -973,10 +1026,22 @@ class Executor:
         if field.options.type == FIELD_TYPE_INT:
             raise ExecutionError(
                 f"int field {field_name} requires a comparison, not =")
-        if call.arg("from") is not None or call.arg("to") is not None:
-            raise ExecutionError("time ranges are not supported by the port")
-        self._plan_slot_leaf(field, VIEW_STANDARD,
-                             self._row_id(field, row_ref), plan)
+        row_id = self._row_id(field, row_ref)
+        views = self._range_views(field, call)
+        if views is None:
+            self._plan_slot_leaf(field, VIEW_STANDARD, row_id, plan)
+        elif not views:
+            plan.sig_parts.append("z")
+            plan.ir.append(("zero",))
+        elif len(views) <= MAX_STATIC_RANGE_VIEWS:
+            for v in views:
+                self._plan_slot_leaf(field, v, row_id, plan)
+            plan.sig_parts.append(f"U{len(views)}")
+            plan.ir.append(("fold", "or", len(views)))
+        else:
+            # The eager union answers; nothing is staged for it.
+            plan.sig_parts.append(f"L{len(views)}")
+            plan.ir_ok = False
 
     def _plan_bsi_leaf(self, field: Field, cond: Condition, plan: _Plan
                        ) -> None:
@@ -1442,11 +1507,13 @@ class Executor:
 
     def _execute_rows(self, idx: Index, call: Call, shards
                       ) -> RowIdentifiers:
-        """Row ids of a field's standard view, ascending, with
-        ``previous`` (ids after it), ``limit`` and ``column`` (rows
-        holding that column). Host work only: the fragments know their
-        rows. The port has no time fields, so ``from``/``to`` are
-        refused with the reference's message for a non-time field."""
+        """Row ids of a field, ascending, with ``previous`` (ids after
+        it), ``limit`` and ``column`` (rows holding that column). Host
+        work only: the fragments know their rows. A time field with
+        ``from``/``to`` (or with no standard view) reads the views
+        covering the range clamped to its earliest and latest views at
+        the quantum's coarsest unit, as the reference does
+        (executor.go:1160-1218)."""
         field_name = call.arg("_field")
         field = idx.field(field_name)
         if field is None:
@@ -1455,21 +1522,36 @@ class Executor:
         previous = call.arg("previous")
         limit = call.uint_arg("limit")
         column = call.arg("column")
-        if call.arg("from") is not None or call.arg("to") is not None:
+        frm, to = call.arg("from"), call.arg("to")
+        ranged = frm is not None or to is not None
+        if ranged and field.options.type != FIELD_TYPE_TIME:
             raise ExecutionError(f"from/to on non-time field {field_name}")
-        view = field.view(VIEW_STANDARD)
-        if view is None:
-            out: List[int] = []
-        elif column is None:
-            out = list(view.merged_row_ids(shards))
-        else:
-            rows: set = set()
-            for shard in shards:
-                frag = view.fragment(shard)
-                if frag is not None and column // SHARD_WIDTH == shard:
-                    rows.update(r for r in frag.row_ids()
-                                if frag.bit(r, column))
-            out = sorted(rows)
+        view_names = [VIEW_STANDARD]
+        if field.options.type == FIELD_TYPE_TIME and (
+                ranged or field.options.no_standard_view):
+            q = field.options.time_quantum
+            vmin, vmax = timeq.min_max_views(list(field.views), q)
+            if not vmin or not vmax:
+                return RowIdentifiers([])
+            min_t = timeq.time_of_view(vmin, False)
+            max_t = timeq.time_of_view(vmax, True)
+            start = timeq.parse_timestamp(frm) if frm else min_t
+            end = timeq.parse_timestamp(to) if to else max_t
+            view_names = field.views_for_range(max(start, min_t),
+                                               min(end, max_t))
+        rows: set = set()
+        for vname in view_names:
+            view = field.view(vname)
+            if view is None:
+                continue
+            if column is None:
+                rows.update(view.merged_row_ids(shards))
+                continue
+            frag = view.fragment(column // SHARD_WIDTH) \
+                if column // SHARD_WIDTH in shards else None
+            if frag is not None:
+                rows.update(r for r in frag.row_ids() if frag.bit(r, column))
+        out = sorted(rows)
         if previous is not None:
             out = [r for r in out if r > previous]
         if limit is not None:
@@ -1697,8 +1779,6 @@ class Executor:
         col = call.arg("_col")
         if not isinstance(col, int):
             raise ExecutionError("column keys are not supported by the port")
-        if call.arg("_timestamp"):
-            raise ExecutionError("timestamps are not supported by the port")
         fname, row_ref = self._row_call_field(call)
         field = idx.field(fname)
         if field is None:
@@ -1710,7 +1790,10 @@ class Executor:
         if field.options.type == FIELD_TYPE_INT:
             changed = field.set_value(col, int(row_ref))
         else:
-            changed = field.set_bit(self._write_row_id(field, row_ref), col)
+            ts = call.arg("_timestamp")
+            changed = field.set_bit(
+                self._write_row_id(field, row_ref), col,
+                timestamp=timeq.parse_timestamp(ts) if ts else None)
         idx.add_existence(np.array([col], dtype=np.uint64))
         return changed
 
@@ -1721,14 +1804,14 @@ class Executor:
         return field.clear_bit(self._write_row_id(field, row_ref), col)
 
     def _execute_clear_row(self, idx: Index, call: Call, shards) -> bool:
-        """ClearRow(f=row): clear every bit of the row in every view and
-        shard; True when a bit was cleared. The port's field types are
-        set and int; ClearRow takes a set field."""
+        """ClearRow(f=row): clear every bit of the row in every view (a
+        time field's time views too) and shard; True when a bit was
+        cleared. Set, time, mutex and bool fields take it."""
         fname, row_ref = self._row_call_field(call)
         field = idx.field(fname)
         if field is None:
             raise ExecutionError(f"field not found: {fname}")
-        if field.options.type != FIELD_TYPE_SET:
+        if field.options.type == FIELD_TYPE_INT:
             raise ExecutionError(
                 f"ClearRow() is not supported on {field.options.type} fields")
         row_id = self._write_row_id(field, row_ref)
@@ -1743,16 +1826,17 @@ class Executor:
 
     def _execute_store(self, idx: Index, call: Call, shards) -> bool:
         """Store(row call, f=row): write the child's row into row ``row``
-        of set field ``f`` (made when missing), replacing it wholesale on
-        every shard. The child evaluates on the device and its [S, W]
-        words come to the host in one copy."""
+        of the standard view of set or time field ``f`` (a set field is
+        made when missing), replacing it wholesale on every shard. The
+        child evaluates on the device and its [S, W] words come to the
+        host in one copy."""
         if len(call.children) != 1:
             raise ExecutionError("Store() takes exactly one row argument")
         fname, row_ref = self._row_call_field(call)
         field = idx.field(fname)
         if field is None:
             field = idx.create_field(fname)
-        elif field.options.type != FIELD_TYPE_SET:
+        elif field.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME):
             raise ExecutionError(
                 f"Store() is not supported on {field.options.type} fields")
         row_id = self._write_row_id(field, row_ref)

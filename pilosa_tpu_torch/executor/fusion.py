@@ -9,7 +9,9 @@ banks. ``flush()`` then runs them all: with more than one group, the
 groups go to ``run_megakernel`` (``executor/megakernel.py``) first, which
 packs heterogeneous groups into one plan-buffer launch per shard-count
 cohort; every group it does not take runs each member through the eager
-tree path. Handles resolve after the flush.
+tree path. The flush counts every eval whose tree has no IR (a Shift, a
+time range over more than eight views) in the executor's
+``mega_unlowered``, a lone one too. Handles resolve after the flush.
 
 Write fencing is the caller's job: ``execute_batch`` flushes the
 collector before dispatching any write-containing request and dispatches
@@ -95,6 +97,10 @@ class FusionCollector:
         groups, self.groups = self.groups, {}
         if not groups:
             return
+        unlowered = sum(len(g.entries) for g in groups.values()
+                        if g.entries and g.entries[0].ir is None)
+        if unlowered:
+            self.executor._note_mega_unlowered(unlowered)
         if len(groups) > 1:
             from pilosa_tpu_torch.executor.megakernel import run_megakernel
             groups = run_megakernel(self.executor, groups)

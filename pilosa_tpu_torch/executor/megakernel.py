@@ -22,6 +22,9 @@ Routing, as in the JAX package's ``executor/megakernel.py``:
   registers one block's shared memory holds at the narrowest column
   tile (the wrapper refuses such a T); both count in the executor's
   ``mega_budget_fallbacks``;
+- an eval whose tree has no IR (a Shift, a time range over more than
+  eight views) runs per group; the collector's flush counts it in the
+  executor's ``mega_unlowered``;
 - a surprise in lowering falls back per group (counted in the
   executor's ``mega_fallbacks``); a surprise in the plan optimizer
   launches the unoptimized plan;

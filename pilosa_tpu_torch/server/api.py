@@ -1,8 +1,8 @@
 """API facade of the port's server: the programmatic surface between the
 HTTP routes and the executor, after the JAX package's ``server/api.py``.
 
-Single node only. The cluster, key translation, attributes, time fields,
-the debug and metrics planes, health, failpoints and the sentinel are not
+Single node only. The cluster, key translation, attributes, the debug
+and metrics planes, health, failpoints and the sentinel are not
 ported: a request that needs one of them answers a 400 that names it,
 never a silently different result.
 """
@@ -11,11 +11,13 @@ from __future__ import annotations
 
 import os
 import uuid
+from datetime import datetime
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.executor import Executor
@@ -152,19 +154,26 @@ class API:
     def import_bits(self, index: str, field: str, rows=None, columns=None,
                     row_keys=None, column_keys=None, timestamps=None,
                     clear: bool = False) -> None:
-        """Bulk bit import: the bits go into the field's standard view,
-        and the columns into existence unless ``clear``."""
+        """Bulk bit import: the bits go into the field's standard view
+        and, with ``timestamps`` (time fields), into each time's views;
+        the columns go into existence unless ``clear``. A timestamp is
+        seconds since the epoch (int or float, read in local time, as
+        ``datetime.fromtimestamp`` reads it) or a PQL timestamp
+        string."""
         idx = self._index(index)
         f = self._field(idx, field)
         if row_keys is not None or column_keys is not None:
             raise not_ported("import keys (key translation)")
-        if timestamps is not None:
-            raise not_ported("import timestamps (time fields)")
         rows = np.asarray(rows, dtype=np.uint64)
         columns = np.asarray(columns, dtype=np.uint64)
         if len(rows) != len(columns):
             raise ApiError("rows and columns length mismatch")
-        f.import_bits(rows, columns, clear=clear)
+        ts = None
+        if timestamps is not None:
+            ts = [datetime.fromtimestamp(t) if isinstance(t, (int, float))
+                  else (timeq.parse_timestamp(t) if isinstance(t, str) else t)
+                  for t in timestamps]
+        f.import_bits(rows, columns, timestamps=ts, clear=clear)
         if not clear:
             idx.add_existence(columns)
 

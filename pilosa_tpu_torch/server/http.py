@@ -320,9 +320,12 @@ class Handler(BaseHTTPRequestHandler):
             raise ApiError(f"invalid protobuf body: {e}")
         out = {k: v for k, v in b.items()
                if k in ("rowIDs", "columnIDs", "values") and len(v)}
-        for k in ("rowKeys", "columnKeys", "timestamps"):
+        for k in ("rowKeys", "columnKeys"):
             if b.get(k):
                 out[k] = b[k]
+        # The reference client sends nanoseconds; the API takes seconds.
+        if b.get("timestamps"):
+            out["timestamps"] = [t / 1e9 for t in b["timestamps"]]
         if "values" in b and "values" not in out:
             out["values"] = []  # an int field's import keeps its path
         return out

@@ -633,3 +633,44 @@ def test_cuda_mega_interpret_over_banks_matches_plain(case):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_views", [7, 8])
+def test_cuda_time_range_or_fold_matches_plain(n_views):
+    """A time range's lowering: one slot of each of ``n_views`` day-view
+    banks and an OR fold, as a count lane and a row lane, beside an
+    unrelated entry; the kernel's answer equals the plain version's and
+    the numpy union."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    S, W = 4, 2048
+    rng = np.random.default_rng([97, n_views])
+    host = [rng.integers(0, 2**32, (2, S, W), dtype=np.uint32)
+            & np.uint32(rng.integers(0, 2**32)) for _ in range(n_views)]
+    for b in host:
+        b[-1] = 0  # the zero slot
+    banks = [torch.from_numpy(b.view(np.int32)).to(dev) for b in host]
+    ir = tuple(("slot", k, k) for k in range(n_views)) \
+        + (("fold", "or", n_views),)
+    low = mk.Lowering()
+    for mode in ("count", "row"):
+        low.add_entry(ir, banks, [0] * n_views, [], W, mode)
+    low.add_entry((("slot", 0, 0), ("slot", 1, 1), ("fold", "and", 2)),
+                  banks[:2], [0, 0], [], W, "count")
+    plan = low.finish()
+    mk.verify_plan(plan, S, W)
+    args = (plan.banks, plan.slots, plan.widths, plan.instrs,
+            plan.out_count, plan.out_row, plan.n_regs, S, W)
+    want = kernels.mega_interpret_ref(*args)
+    before = kernels.LAUNCHES["mega_interpret"]
+    got = kernels.mega_interpret(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mega_interpret"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    union = np.bitwise_or.reduce(np.stack([b[0] for b in host]), axis=0)
+    assert int(got[0][0]) == int(np.unpackbits(union.view(np.uint8)).sum())
+    np.testing.assert_array_equal(got[1][0].cpu().numpy().view(np.uint32),
+                                  union)

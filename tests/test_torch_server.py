@@ -19,6 +19,7 @@ import sys
 import threading
 import urllib.error
 import urllib.request
+from datetime import datetime
 
 import numpy as np
 import pytest
@@ -410,20 +411,30 @@ def test_port_refuses_what_is_not_ported(servers):
         ("POST", "/index/dn/query?profile=true", "Row(f=1)",
          "query profiler"),
         ("POST", "/index/dn/query?remote=true", "Row(f=1)", "cluster"),
-        ("POST", "/index/dn/query", "Row(f=1, from='2020-01-01T00:00')",
-         "time ranges"),
         ("POST", "/index/dn/query", "Set('k', f=1)", "column keys"),
         ("POST", "/index/dn/query", "SetRowAttrs(f, 1, x=2)",
          "SetRowAttrs"),
         ("POST", "/index/kx", {"options": {"keys": True}}, "index keys"),
-        ("POST", "/index/dn/field/t",
-         {"options": {"type": "time", "timeQuantum": "YMD"}}, "time"),
         ("POST", "/index/dn/field/k", {"options": {"keys": True}}, "keyed"),
         ("POST", "/index/dn/field/f/import",
          {"rowKeys": ["a"], "columnIDs": [1]}, "key translation"),
-        ("POST", "/index/dn/field/f/import",
-         {"rowIDs": [1], "columnIDs": [1], "timestamps": [1]}, "timestamps"),
     ]
+    # A time range, a time field and import timestamps are ported: the
+    # port answers them as the JAX server does.
+    run_script(servers, "time-ported", [
+        ("POST", "/index/dtp", {}, None),
+        ("POST", "/index/dtp/field/f", {}, None),
+        ("POST", "/index/dtp/query", "Row(f=1, from='2020-01-01T00:00')",
+         None),
+        ("POST", "/index/dtp/field/t",
+         {"options": {"type": "time", "timeQuantum": "YMD"}}, None),
+        ("POST", "/index/dtp/field/f/import",
+         {"rowIDs": [1], "columnIDs": [1], "timestamps": [1]}, None),
+        ("POST", "/index/dtp/field/t/import",
+         {"rowIDs": [1], "columnIDs": [1], "timestamps": [1]}, None),
+        ("POST", "/index/dtp/query",
+         "Rows(t, from='1969-12-01', to='1970-02-01') Row(t=1)", None),
+    ])
     for method, path, body, what in cases:
         st, _, raw = call(pbase, method, path, body)
         assert st == 400, (path, body, st, raw)
@@ -436,6 +447,106 @@ def test_port_refuses_what_is_not_ported(servers):
                       pb_query("Row(f=1)") + jax_proto._varint_field(5, 1),
                       PROTO)
     assert st == 400 and b"cluster" in raw
+
+
+def pb_import_times(index, field, rows, cols, nanos):
+    """ImportRequest with Timestamps=6 (int64 nanoseconds, packed)."""
+    return pb_import(index, field, rows, cols) \
+        + jax_proto._packed_uint64(6, nanos)
+
+
+def test_time_mutex_bool_fields_match_jax(servers):
+    """Time, mutex and bool fields over HTTP: creation (and the refused
+    options), JSON imports with second, float and string timestamps, a
+    protobuf import with nanosecond timestamps, mutex and bool imports,
+    ranged reads, timestamped and mutex Sets, ClearRow and the index's
+    schema: equal status codes and bodies."""
+    rng = np.random.default_rng(29)
+    n = 500
+    cols = (rng.integers(0, 2, n) * SHARD_WIDTH
+            + rng.integers(0, 5000, n)).tolist()
+    rows = rng.integers(0, 3, n).tolist()
+    # Seconds over January 2019 (read in local time, as both APIs read
+    # them), as ints, floats and PQL strings; the same instants in
+    # nanoseconds for the protobuf import.
+    secs = (1546300800 + rng.integers(0, 31 * 86400, n)).tolist()
+    as_json = [s if i % 3 == 0 else (s + 0.5 if i % 3 == 1 else
+               datetime.fromtimestamp(s).strftime("%Y-%m-%dT%H:%M"))
+               for i, s in enumerate(secs)]
+    mutex_cols = cols + cols[:100]
+    mutex_rows = rng.integers(1, 7, len(mutex_cols)).tolist()
+    q = "/index/dtm/query"
+    steps = [
+        ("POST", "/index/dtm", {}, None),
+        ("POST", "/index/dtm/field/t",
+         {"options": {"type": "time", "timeQuantum": "YMD"}}, None),
+        ("POST", "/index/dtm/field/tn",
+         {"options": {"type": "time", "timeQuantum": "YMDH",
+                      "noStandardView": True}}, None),
+        ("POST", "/index/dtm/field/m", {"options": {"type": "mutex"}}, None),
+        ("POST", "/index/dtm/field/b", {"options": {"type": "bool"}}, None),
+        ("POST", "/index/dtm/field/c", {}, None),
+        ("POST", "/index/dtm/field/x", {"options": {"type": "time"}}, None),
+        ("POST", "/index/dtm/field/y",
+         {"options": {"type": "time", "timeQuantum": "DY"}}, None),
+        ("POST", "/index/dtm/field/z", {"options": {"type": "nope"}}, None),
+        ("POST", "/index/dtm/field/t/import",
+         {"rowIDs": rows, "columnIDs": cols, "timestamps": as_json}, None),
+        ("POST", "/index/dtm/field/tn/import",
+         pb_import_times("dtm", "tn", rows, cols,
+                         [s * 10 ** 9 + 123 for s in secs]), PROTO),
+        ("POST", "/index/dtm/field/m/import",
+         {"rowIDs": mutex_rows, "columnIDs": mutex_cols}, None),
+        ("POST", "/index/dtm/field/b/import",
+         pb_import("dtm", "b", [int(c % 7 == 0) for c in cols], cols),
+         PROTO),
+        ("POST", "/index/dtm/field/c/import",
+         {"rowIDs": rows, "columnIDs": cols}, None),
+        ("POST", "/index/dtm/field/m/import",
+         {"rowIDs": [1], "columnIDs": [1], "timestamps": [1]}, None),
+        ("GET", "/index/dtm", None, None),
+        ("POST", q, "Count(Row(t=1, from='2019-01-05', to='2019-01-12')) "
+                    "Count(Row(t=1, from='2019-01-02', to='2019-01-20')) "
+                    "Count(Range(t=2, from='2019-01-01', to='2019-02-01'))",
+         None),
+        ("POST", q, "Row(tn=0, from='2019-01-05T03:00', "
+                    "to='2019-01-07T00:00')", None),
+        ("POST", q, pb_query("Rows(tn) Rows(t, from='2019-01-10')"), PROTO),
+        ("POST", q, "TopN(m) TopN(b) Row(b=true) Count(Row(m=3))", None),
+        ("POST", q, "TopN(c, Row(t=0, from='2019-01-05', to='2019-01-12'))",
+         None),
+        ("POST", q, "GroupBy(Rows(m), Rows(b)) "
+                    "GroupBy(Rows(t, from='2019-01-05', to='2019-01-12'), "
+                    "Rows(c))", None),
+        ("POST", q, f"Set({cols[0]}, t=2, 2019-01-30T08:00) "
+                    f"Set({cols[0]}, m=6) Set({cols[0]}, b=true) "
+                    f"Set({cols[0]}, c=1, 2019-01-30T08:00)", None),
+        ("POST", q, "Count(Row(t=2, from='2019-01-30', to='2019-01-31')) "
+                    f"Rows(m, column={cols[0]}) TopN(m)", None),
+        ("POST", "/batch/query", {"queries": [
+            {"index": "dtm",
+             "query": "Count(Row(t=1, from='2019-01-03', to='2019-01-11'))"},
+            {"index": "dtm", "query": "Count(Row(m=2))"},
+            {"index": "dtm", "query": "Row(b=false)"},
+            {"index": "dtm", "query": "Count(Row(t=0, from='2019-01-02', "
+                                      "to='2019-01-20'))"}]}, None),
+        ("POST", q, "ClearRow(m=2) ClearRow(t=1) Rows(m) "
+                    "Rows(t, from='2019-01-01', to='2019-02-01')", None),
+        ("POST", q, "Store(Row(c=1), t=5) Count(Row(t=5)) "
+                    "Store(Row(c=1), m=5)", None),
+    ]
+    answers = run_script(servers, "time-mutex-bool", steps)
+    # /schema: the other tests leave port-only indexes behind, so the
+    # two servers' entries for this index are compared.
+    schemas = [[i for i in json.loads(call(base, "GET", "/schema")[2])[
+        "indexes"] if i["name"] == "dtm"] for base in servers[:2]]
+    assert schemas[0] == schemas[1] and len(schemas[0]) == 1
+    fields = {f["name"]: f["options"] for f in answers[15]["fields"]}
+    assert (fields["t"]["type"], fields["tn"]["noStandardView"],
+            fields["m"]["type"], fields["b"]["type"]) == \
+        ("time", True, "mutex", "bool")
+    counts = answers[16]["results"]
+    assert counts[1] > counts[0] > 0 and counts[2] > 0
 
 
 def test_concurrent_mixed_reads_and_writes(servers):
