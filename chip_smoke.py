@@ -74,7 +74,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    Set that makes a day view, a mutex Set that moves a ride, a Store
    into a time field and ClearRow on a time field and on the mutex
    field. No plain version may run on the card, in the reads or in the
-   writes.
+   writes. Then row attributes on that holder: the TLC names of
+   rate_code rows 1-6 and ``airport=true`` on 2 (JFK) and 3 (Newark)
+   through SetRowAttrs, ``TopN(rate_code, n=6, attrName="airport",
+   attrValues=[true])`` exact at every ride, and a Row that carries the
+   attributes.
 5. tanimoto: a fingerprint index of 10M molecules (``--molecules``;
    4096-bit fingerprints of 48 draws each from seed 11, one shard, 200
    planted analogues of molecule 12345) loaded through
@@ -109,15 +113,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
    pilosa_tpu_torch.cli server`` as a subprocess (``serve_cli``): an
    index with a set and an int field made, imported and asked Count,
    TopN and Sum; the seconds from its start to the first answer.
+7. keys: the star-trace getting-started index (``benches/startrace.py``,
+   seed 3) with keys and attributes on a new holder: index
+   ``repository`` (keys, existence) of 1,000,000 repositories with
+   ``owner/name`` column keys; ``stargazer`` (keys) of 2,000 logins x
+   2,000 stars drawn uniformly, 4,000,000 pairs imported through
+   ``API.import_bits(row_keys=..., column_keys=...)`` in the bench's
+   draw order; ``language`` (keys) of 40 languages with weights 1/rank;
+   ``stars`` (int, log-normal, at most 500,000) through
+   ``import_values(column_keys=...)``; row attributes on every user and
+   language and column attributes on 100,000 repositories through PQL
+   in requests of 1,000 calls (each field's seconds, the translation's
+   share, the seconds per attribute call). Thirteen reads through
+   ``execute_full`` (a keyed Row with its attributes, Count(Intersect),
+   TopN, filtered and attribute-filtered TopN, columnAttrs,
+   excludeColumns, excludeRowAttrs, Sum, a BSI Count, Rows, GroupBy, an
+   unknown key, which allocates its id), each exact against numpy with
+   its launches, warm p50 and device time; an 18-read keyed burst in ONE
+   megakernel launch with no fallback; the serve path (the schema, the
+   reads as JSON, ``?columnAttrs=true``, four as protobuf with keys and
+   ColumnAttrSets, the burst as one ``/batch/query``, one 100,000-star
+   slice imported with keys as JSON and as protobuf); then the writes: a
+   keyed Set, SetRowAttrs after which the attribute-filtered TopN drops
+   the user, SetColumnAttrs with a key, ClearRow and Store with key
+   rows. No plain version may run on the card.
 
 Launch counts are set to 0 just before each path (taxi, burst,
-groupby, timefields, fingerprint, the serve path's taxi and fingerprint
-servers)
+groupby, timefields, fingerprint, keys, the serve path's taxi and
+fingerprint servers)
 and read just after; every kernel must have launched on its path, and
 on the serve path. The ``taxi``, ``groupby``, ``timefields``,
-``burst``, ``tanimoto`` and ``serve`` lines, the card's name and power
-limit, the kernels JSON and the ``{"ok": true, "device": {...}}`` line
-end the output. The script imports nothing of JAX or of the JAX
+``burst``, ``tanimoto``, ``keys`` and ``serve`` lines, the card's name
+and power limit, the kernels JSON and the ``{"ok": true, "device":
+{...}}`` line end the output. The script imports nothing of JAX or of the JAX
 package.
 
 ``--burst-probe [--tree DIR]`` runs only the taxi load and the burst,
@@ -568,8 +596,9 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     """Load the taxi index, then drive five paths on it: the five taxi
     queries one at a time, the eighteen-request burst through
     execute_batch, the groupby phase (``run_groupby``), the timefields
-    phase (``run_timefields``), and the serve path's phases 1-3 over
-    HTTP (``serve_taxi``). Returns (report, taxi
+    phase (``run_timefields``) and the row attributes on rate_code
+    (``run_taxi_attrs``), and the serve path's phases 1-3 over HTTP
+    (``serve_taxi``). Returns (report, taxi
     launches, burst launches, groupby launches, serve launches). Raises
     on any wrong answer."""
     import numpy as np
@@ -600,6 +629,8 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     report["timefields"], tf_launches, tf_http = run_timefields(
         holder, device, cab, amount, iters)
     report["timefields"]["launches"] = tf_launches
+    report["taxi_attrs"] = run_taxi_attrs(holder, device,
+                                          tf_http["topn_rate"][1], iters)
     del cab, amount
     report["serve"], serve_launches = serve_taxi(
         holder, want_taxi, want_burst, cab_head,
@@ -2525,6 +2556,741 @@ def serve_cli(device):
 # ---------------------------------------------------------------- main
 
 
+# ----------------------------------------------------------------- keys
+
+# The star-trace getting-started index (benches/startrace.py, BASELINE
+# config 1: users star repositories) with keys and attributes: every
+# repository has an "owner/name" column key, every user login and
+# language is a row key.
+KEY_SEED = 3  # benches/startrace.py's seed
+KEY_REPOS = 1_000_000
+KEY_USERS = 2000
+KEY_STARS = 2000  # stars a user, drawn uniformly over the repositories
+KEY_ATTR_COLS = 100_000  # repositories with column attributes
+KEY_CALLS = 1000  # attribute writes a request
+KEY_HTTP_PAIRS = 100_000  # stars in each keyed import over HTTP
+KEY_SUFFIX = "-abcdefghijk"  # repository names vary in length
+KEY_NEW_REPO = "neworg/brand-new-repo"
+# Languages by rank; a repository draws one with weight 1/rank.
+LANGUAGES = (
+    "JavaScript", "Python", "Java", "Go", "TypeScript", "C++", "Ruby", "PHP",
+    "C#", "C", "Shell", "Rust", "Swift", "Kotlin", "Scala", "Objective-C",
+    "HTML", "CSS", "Dart", "R", "Perl", "Lua", "Haskell", "Elixir",
+    "Clojure", "Erlang", "Julia", "OCaml", "F#", "Groovy", "PowerShell",
+    "Vim script", "Emacs Lisp", "MATLAB", "Fortran", "Zig", "Nim", "Crystal",
+    "Solidity", "Assembly")
+_FUNCTIONAL = {"Haskell", "Elixir", "Clojure", "Erlang", "OCaml", "F#",
+               "Emacs Lisp"}
+_SYSTEMS = {"Go", "C++", "C", "Rust", "Zig", "Nim", "Assembly", "Fortran"}
+_MARKUP = {"HTML", "CSS"}
+PARADIGM = {x: ("functional" if x in _FUNCTIONAL else "systems"
+                if x in _SYSTEMS else "markup" if x in _MARKUP
+                else "multi-paradigm") for x in LANGUAGES}
+# The TLC data dictionary's rate codes.
+RATE_NAMES = {1: "Standard rate", 2: "JFK", 3: "Newark",
+              4: "Nassau or Westchester", 5: "Negotiated fare",
+              6: "Group ride"}
+
+
+def keys_data(n_repos, n_users, n_stars, n_attr_cols):
+    """The star-trace data from KEY_SEED: the stars in the bench's draw
+    order, each repository's name-length variation, language and star
+    count, each user's attributes, and the repositories that carry
+    column attributes."""
+    import numpy as np
+    rng = np.random.default_rng(KEY_SEED)
+    users = np.repeat(np.arange(n_users, dtype=np.int64), n_stars)
+    repos = rng.integers(0, n_repos, n_users * n_stars,
+                         dtype=np.uint64).astype(np.int64)
+    name_len = rng.integers(0, len(KEY_SUFFIX) + 1, n_repos)
+    w = 1.0 / np.arange(1, len(LANGUAGES) + 1)
+    lang = rng.choice(len(LANGUAGES), n_repos, p=w / w.sum())
+    stars = np.minimum(np.floor(rng.lognormal(2.0, 2.0, n_repos)),
+                       500_000).astype(np.int64)
+    active = rng.random(n_users) < 0.5
+    followers = rng.integers(0, 100_000, n_users)
+    attr_cols = np.sort(rng.choice(n_repos, n_attr_cols, replace=False))
+    col_active = rng.random(n_attr_cols) < 0.3
+    repo_keys = [f"org{i % 50_000}/repo{i}{KEY_SUFFIX[:k]}"
+                 for i, k in enumerate(name_len.tolist())]
+    logins = [f"user{u}" for u in range(n_users)]
+    return {"users": users, "repos": repos, "lang": lang, "stars": stars,
+            "active": active, "followers": followers,
+            "attr_cols": attr_cols, "col_active": col_active,
+            "repo_keys": repo_keys, "logins": logins, "n_stars": n_stars}
+
+
+def repo_url(key):
+    return f"https://github.com/{key}"
+
+
+class KeyOracle:
+    """Numpy answers of the star-trace index. Column ids are allocated as
+    the keys first appear in the imports (the stars in draw order, then
+    every repository in order), row ids likewise; a keyed answer lists
+    its columns by id."""
+
+    def __init__(self, d):
+        import numpy as np
+        self.d = d
+        n = len(d["repo_keys"])
+        seq = np.concatenate([d["repos"], np.arange(n)])
+        uniq, first = np.unique(seq, return_index=True)
+        self.col_id = np.empty(n, np.int64)
+        self.col_id[uniq[np.argsort(first)]] = np.arange(1, len(uniq) + 1)
+        self.repo_of = np.empty(n + 1, np.int64)
+        self.repo_of[self.col_id] = np.arange(n)
+        lu, lf = np.unique(d["lang"], return_index=True)
+        self.lang_id = np.zeros(len(LANGUAGES), np.int64)
+        self.lang_id[lu[np.argsort(lf)]] = np.arange(1, len(lu) + 1)
+        s = d["n_stars"]
+        per_user = np.sort(d["repos"].reshape(-1, s), axis=1)
+        self.distinct = 1 + (np.diff(per_user, axis=1) != 0).sum(1)
+        self.starred = {}
+        self.col_attrs = {int(r): {"url": repo_url(d["repo_keys"][r]),
+                                   "active": bool(a)}
+                          for r, a in zip(d["attr_cols"].tolist(),
+                                          d["col_active"].tolist())}
+
+    def stars_of(self, u):
+        import numpy as np
+        if u not in self.starred:
+            s = self.d["n_stars"]
+            self.starred[u] = np.unique(self.d["repos"][u * s:(u + 1) * s])
+        return self.starred[u]
+
+    def user_attrs(self, u):
+        return {"active": bool(self.d["active"][u]),
+                "followers": int(self.d["followers"][u])}
+
+    def row(self, repos, attrs=None, extra=()):
+        """A keyed Row answer of repositories ``repos`` and the columns
+        ``extra`` ((id, key) pairs past every repository's id)."""
+        import numpy as np
+        cols = np.sort(self.col_id[repos])
+        keys = [self.d["repo_keys"][r] for r in self.repo_of[cols].tolist()]
+        out = {"columns": cols.tolist() + [c for c, _ in extra]}
+        if attrs:
+            out["attrs"] = attrs
+        out["keys"] = keys + [k for _, k in extra]
+        return out
+
+    def column_attrs(self, repos):
+        import numpy as np
+        cols = np.sort(self.col_id[repos])
+        return [{"key": self.d["repo_keys"][r], "attrs": self.col_attrs[r]}
+                for r in self.repo_of[cols].tolist() if r in self.col_attrs]
+
+    @staticmethod
+    def top(ids, counts, keys, n):
+        import numpy as np
+        ids, counts = np.asarray(ids), np.asarray(counts)
+        order = [o for o in np.lexsort((ids, -counts)) if counts[o] > 0]
+        return [{"key": keys[o], "count": int(counts[o])}
+                for o in order[:n or None]]
+
+    def topn_users(self, n, distinct=None, active=None, extra=()):
+        import numpy as np
+        distinct = self.distinct if distinct is None else distinct
+        ids = np.arange(1, len(distinct) + 1)
+        keep = np.ones(len(ids), bool) if active is None else active
+        keys = [k for k, m in zip(self.d["logins"], keep) if m]
+        ids, counts = ids[keep], distinct[keep]
+        if extra:
+            ids = np.concatenate([ids, [i for i, _, _ in extra]])
+            counts = np.concatenate([counts, [c for _, _, c in extra]])
+            keys = keys + [k for _, k, _ in extra]
+        return self.top(ids, counts, keys, n)
+
+    def lang_counts(self, repos):
+        import numpy as np
+        return np.bincount(self.d["lang"][repos], minlength=len(LANGUAGES))
+
+    def lang_repos(self, name):
+        import numpy as np
+        return np.flatnonzero(self.d["lang"] == LANGUAGES.index(name))
+
+
+def key_users(o):
+    """(a, b, c): a is the first active user of the active TopN, whom the
+    writes make inactive; b is the bench's user 19 (14 when a is 19); c
+    is another user."""
+    import numpy as np
+    active = o.d["active"]
+    ids = np.flatnonzero(active)
+    a = int(ids[np.lexsort((ids, -o.distinct[ids]))[0]])
+    b = 19 if a != 19 else 14
+    c = next(u for u in (7, 8, 9) if u not in (a, b))
+    return a, b, c
+
+
+def key_reads(o, a, b):
+    """(name, PQL, expected execute_full response) of the reads."""
+    import numpy as np
+    d, L = o.d, o.d["logins"]
+    sa, sb = o.stars_of(a), o.stars_of(b)
+    go, rust = o.lang_repos("Go"), o.lang_repos("Rust")
+    lc = o.lang_counts(sa)
+    by_id = np.argsort(o.lang_id)
+    row_a = o.row(sa, o.user_attrs(a))
+    reads = [
+        ("row_a", f"Row(stargazer='{L[a]}')", row_a),
+        ("count_ab", f"Count(Intersect(Row(stargazer='{L[a]}'), "
+                     f"Row(stargazer='{L[b]}')))",
+         int(len(np.intersect1d(sa, sb)))),
+        ("topn", "TopN(stargazer, n=5)", o.topn_users(5)),
+        ("topn_lang_a", f"TopN(language, Row(stargazer='{L[a]}'), n=5)",
+         o.top(o.lang_id, lc, LANGUAGES, 5)),
+        ("topn_active",
+         "TopN(stargazer, n=10, attrName='active', attrValues=[true])",
+         o.topn_users(10, active=d["active"])),
+        ("column_attrs_a",
+         f"Options(Row(stargazer='{L[a]}'), columnAttrs=true)",
+         {"results": [row_a], "columnAttrs": o.column_attrs(sa)}),
+        ("go_no_columns", "Options(Row(language='Go'), excludeColumns=true)",
+         {"columns": [], "attrs": {"paradigm": PARADIGM["Go"]},
+          "keys": []}),
+        ("go_no_attrs",
+         "Options(Row(language='Go'), excludeRowAttrs=true)", o.row(go)),
+        ("sum_rust", "Sum(Row(language='Rust'), field=stars)",
+         {"value": int(d["stars"][rust].sum()), "count": int(len(rust))}),
+        ("count_popular", "Count(Row(stars > 10000))",
+         int((d["stars"] > 10000).sum())),
+        ("rows_language", "Rows(language)",
+         {"keys": [LANGUAGES[x] for x in by_id if o.lang_id[x]]}),
+        ("groupby_a", f"GroupBy(Rows(language), filter=Row(stargazer="
+                      f"'{L[a]}'))",
+         [{"group": [{"field": "language", "rowKey": LANGUAGES[x]}],
+           "count": int(lc[x])} for x in by_id if o.lang_id[x] and lc[x]]),
+        ("unknown_key", "Row(stargazer='nobody-at-all')",
+         {"columns": [], "keys": []}),
+    ]
+    return [(n, q, w if n == "column_attrs_a" else {"results": [w]})
+            for n, q, w in reads]
+
+
+def key_burst(o, a, b, c):
+    """(name, PQL, expected answer) of the 18-read keyed burst."""
+    import numpy as np
+    d, L = o.d, o.d["logins"]
+    sa, sb, sc = o.stars_of(a), o.stars_of(b), o.stars_of(c)
+    lang, stars = d["lang"], d["stars"]
+    ra, rb, rc = (f"Row(stargazer='{L[u]}')" for u in (a, b, c))
+    asm = o.lang_repos("Assembly")
+    rust_pop = np.flatnonzero((lang == LANGUAGES.index("Rust"))
+                              & (stars > 10000))
+    langs = np.isin(lang, [LANGUAGES.index(x) for x in ("Rust", "Go",
+                                                         "Zig")])
+    return [
+        ("b_row_a", ra, o.row(sa, o.user_attrs(a))),
+        ("b_row_b", rb, o.row(sb, o.user_attrs(b))),
+        ("b_count_a", f"Count({ra})", int(len(sa))),
+        ("b_count_ab", f"Count(Intersect({ra}, {rb}))",
+         int(len(np.intersect1d(sa, sb)))),
+        ("b_count_abc", f"Count(Intersect({ra}, {rb}, {rc}))",
+         int(len(np.intersect1d(np.intersect1d(sa, sb), sc)))),
+        ("b_union_ab", f"Count(Union({ra}, {rb}))",
+         int(len(np.union1d(sa, sb)))),
+        ("b_difference_ab", f"Count(Difference({ra}, {rb}))",
+         int(len(np.setdiff1d(sa, sb)))),
+        ("b_xor_ab", f"Count(Xor({ra}, {rb}))",
+         int(len(np.setxor1d(sa, sb)))),
+        ("b_count_go", "Count(Row(language='Go'))",
+         int(len(o.lang_repos("Go")))),
+        ("b_row_assembly", "Row(language='Assembly')",
+         o.row(asm, {"paradigm": PARADIGM["Assembly"]})),
+        ("b_count_popular", "Count(Row(stars > 10000))",
+         int((stars > 10000).sum())),
+        ("b_a_starred", f"Count(Intersect({ra}, Row(stars > 100)))",
+         int((stars[sa] > 100).sum())),
+        ("b_a_go", f"Count(Intersect({ra}, Row(language='Go')))",
+         int((lang[sa] == LANGUAGES.index("Go")).sum())),
+        ("b_not_python", "Count(Not(Row(language='Python')))",
+         int((lang != LANGUAGES.index("Python")).sum())),
+        ("b_row_c", rc, o.row(sc, o.user_attrs(c))),
+        ("b_three_languages", "Count(Union(Row(language='Rust'), "
+         "Row(language='Go'), Row(language='Zig')))", int(langs.sum())),
+        ("b_rust_popular", "Intersect(Row(language='Rust'), "
+         "Row(stars > 10000))", o.row(rust_pop)),
+        ("b_unknown_key", "Count(Row(stargazer='nobody-in-a-burst'))", 0),
+    ]
+
+
+def timed_translation():
+    """A context that adds the seconds spent in
+    ``TranslateStore.translate_keys`` to ``spent[0]``."""
+    import contextlib
+    from pilosa_tpu_torch.core.translate import TranslateStore
+    spent = [0.0]
+
+    @contextlib.contextmanager
+    def ctx():
+        real = TranslateStore.translate_keys
+
+        def counted(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(self, *a, **k)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        TranslateStore.translate_keys = counted
+        try:
+            yield spent
+        finally:
+            TranslateStore.translate_keys = real
+    return ctx()
+
+
+def load_keys(device, d):
+    """The star-trace holder through the API: the index and fields, the
+    keyed imports (stars in the bench's draw order, then each
+    repository's language and star count), then the row and column
+    attributes through PQL, KEY_CALLS calls a request. Returns (holder,
+    API, load seconds)."""
+    from pilosa_tpu_torch import Holder
+    from pilosa_tpu_torch.server import API
+    api = API(Holder(device=device))
+    api.create_index("repository", keys=True, track_existence=True)
+    api.create_field("repository", "stargazer", {"keys": True})
+    api.create_field("repository", "language", {"keys": True})
+    api.create_field("repository", "stars",
+                     {"type": "int", "min": 0, "max": 500_000})
+    keys, L = d["repo_keys"], d["logins"]
+    load = {}
+    for field, kw in (
+            ("stargazer", lambda: {
+                "row_keys": [L[u] for u in d["users"].tolist()],
+                "column_keys": [keys[r] for r in d["repos"].tolist()]}),
+            ("language", lambda: {
+                "row_keys": [LANGUAGES[x] for x in d["lang"].tolist()],
+                "column_keys": keys}),
+            ("stars", lambda: {"column_keys": keys, "values": d["stars"]})):
+        args = kw()
+        with timed_translation() as spent:
+            t0 = time.perf_counter()
+            if field == "stars":
+                api.import_values("repository", field, **args)
+            else:
+                api.import_bits("repository", field, **args)
+            load[f"{field}_s"] = time.perf_counter() - t0
+        load[f"{field}_translate_s"] = spent[0]
+        del args
+    ex = api.executor
+    calls = [f"SetRowAttrs(stargazer, '{L[u]}', "
+             f"active={str(bool(d['active'][u])).lower()}, "
+             f"followers={int(d['followers'][u])})" for u in range(len(L))]
+    calls += [f"SetRowAttrs(language, '{x}', paradigm='{PARADIGM[x]}')"
+              for x in LANGUAGES]
+    t0 = time.perf_counter()
+    for i in range(0, len(calls), KEY_CALLS):
+        ex.execute("repository", " ".join(calls[i:i + KEY_CALLS]))
+    load["row_attrs_s"] = time.perf_counter() - t0
+    load["row_attrs_per_call_s"] = load["row_attrs_s"] / len(calls)
+    calls = [f"SetColumnAttrs('{keys[r]}', url='{repo_url(keys[r])}', "
+             f"active={str(bool(a)).lower()})"
+             for r, a in zip(d["attr_cols"].tolist(),
+                             d["col_active"].tolist())]
+    t0 = time.perf_counter()
+    for i in range(0, len(calls), KEY_CALLS):
+        ex.execute("repository", " ".join(calls[i:i + KEY_CALLS]))
+    load["column_attrs_s"] = time.perf_counter() - t0
+    load["column_attrs_per_call_s"] = load["column_attrs_s"] / max(
+        1, len(calls))
+    return api.holder, api, load
+
+
+def run_keys(device, n_repos=KEY_REPOS, n_users=KEY_USERS,
+             n_stars=KEY_STARS, n_attr_cols=KEY_ATTR_COLS,
+             http_pairs=KEY_HTTP_PAIRS, iters=ITERS):
+    """The keys phase: load the keyed star-trace index, then with the
+    launch counts set to 0 just before and read just after: the reads
+    one at a time through ``execute_full`` (each exact against numpy,
+    its launches by kernel, its warm p50 and device time), the 18-read
+    keyed burst in ONE mega_interpret launch with no fallback, the serve
+    path (``serve_keys``), and the writes (a keyed Set, SetRowAttrs that
+    changes the attribute-filtered TopN, SetColumnAttrs with a key,
+    ClearRow and Store with key rows). No plain version may run on the
+    card. Returns (report, launches)."""
+    import torch
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.executor.results import result_to_json
+    from pilosa_tpu_torch.ops import kernels
+    cuda = device != "cpu"
+    t0 = time.perf_counter()
+    d = keys_data(n_repos, n_users, n_stars, n_attr_cols)
+    o = KeyOracle(d)
+    a, b, c = key_users(o)
+    reads = key_reads(o, a, b)
+    burst = key_burst(o, a, b, c)
+    gen_s = time.perf_counter() - t0
+    holder, api, load = load_keys(device, d)
+    ex = api.executor
+    idx = holder.index("repository")
+    log(f"keys: {n_repos} repositories, {n_users * n_stars} stars "
+        f"generated in {gen_s:.2f} s, loaded: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in load.items()))
+    if idx.column_translator.size() != n_repos:
+        raise AssertionError(f"keys: {idx.column_translator.size()} column "
+                             f"keys for {n_repos} repositories")
+    report = {"repositories": n_repos, "stars": n_users * n_stars,
+              "gen_s": gen_s, "load_s": load, "queries": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check(name, pql, got, want):
+        if got != want:
+            raise AssertionError(f"keys {name}: {pql}: port "
+                                 f"{str(got)[:300]} != numpy "
+                                 f"{str(want)[:300]}")
+
+    def full(pql):
+        resp = ex.execute_full("repository", pql)
+        sync()
+        return resp
+
+    def launched(fn):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        sync()
+        return out, {k: kernels.LAUNCHES[k] - before[k] for k in before
+                     if kernels.LAUNCHES[k] != before[k]}
+
+    def mega():
+        return (ex.mega_launches, ex.mega_fallbacks,
+                ex.mega_budget_fallbacks, ex.mega_unlowered)
+
+    def batch(items):
+        out = ex.execute_batch([("repository", q, None)
+                                for _, q, _ in items])
+        sync()
+        for (name, pql, want), item in zip(items, out):
+            if isinstance(item, Exception):
+                raise AssertionError(f"keys {name}: {pql} raised {item!r}")
+            check(name, pql, result_to_json(item[0][0]), want)
+
+    prev = megamod.MEGAKERNEL_ENABLED
+    if not cuda:
+        # Rehearsal only: the megakernel defaults to off on the CPU.
+        megamod.MEGAKERNEL_ENABLED = True
+    kernels.reset_launches()
+    L = d["logins"]
+    try:
+        with RefCalls(kernels) as refs:
+            # 1. the reads one at a time
+            rows0 = idx.field("stargazer").row_translator.size()
+            for name, pql, want in reads:
+                t0 = time.perf_counter()
+                got, delta = launched(lambda: full(pql))
+                check(name, pql, got, want)
+                report["queries"][name] = {
+                    "pql": pql, "first_s": time.perf_counter() - t0,
+                    "launches": delta}
+            # A read of an unknown key allocated its id.
+            check("unknown_key", "row keys",
+                  idx.field("stargazer").row_translator.size(), rows0 + 1)
+            # 2. the keyed burst
+            m0 = mega()
+            t0 = time.perf_counter()
+            _, delta = launched(lambda: batch(burst))
+            moved = tuple(y - x for x, y in zip(m0, mega()))
+            if moved != (1, 0, 0, 0) or (cuda and delta.get(
+                    "mega_interpret") != 1):
+                raise AssertionError(
+                    f"keys burst: megakernel launches/fallbacks/budget "
+                    f"fallbacks/unlowered moved {moved}; kernel launches "
+                    f"{delta}")
+            report["burst"] = {"requests": len(burst),
+                               "first_s": time.perf_counter() - t0,
+                               "launches": delta, "mega_launches": moved[0],
+                               "fallbacks": moved[1] + moved[2]}
+            # 3. warm p50s and device times
+            for name, pql, want in reads:
+                times = []
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    got = full(pql)
+                    times.append(time.perf_counter() - t0)
+                    check(name, pql, got, want)
+                report["queries"][name]["p50_s"] = p50(times)
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                batch(burst)
+                times.append(time.perf_counter() - t0)
+            report["burst"]["p50_s"] = p50(times)
+            if cuda:
+                report["profile"] = profile_queries(
+                    torch, ex, "repository",
+                    [(n, q) for n, q, _ in reads], iters)
+            # 4. the serve path
+            report["serve"] = serve_keys(api, o, reads, burst, a,
+                                         http_pairs, iters)
+            # 5. the writes
+            writes = {}
+            sa = o.stars_of(a)
+            new_id = n_repos + 1
+            t0 = time.perf_counter()
+            check("set_key", "Set", full(f"Set('{KEY_NEW_REPO}', "
+                                         f"stargazer='{L[a]}')"),
+                  {"results": [True]})
+            writes["set_key_s"] = time.perf_counter() - t0
+            check("set_key", "column keys", idx.column_translator.size(),
+                  new_id)
+            check("set_key", "count", full(f"Count(Row(stargazer='{L[a]}'))"),
+                  {"results": [int(len(sa)) + 1]})
+            distinct = o.distinct.copy()
+            distinct[a] += 1
+            active = d["active"].copy()
+            topn_active = "TopN(stargazer, n=10, attrName='active', " \
+                          "attrValues=[true])"
+            check("set_row_attrs", "before", full(topn_active), {
+                "results": [o.topn_users(10, distinct, active)]})
+            t0 = time.perf_counter()
+            check("set_row_attrs", "SetRowAttrs", full(
+                f"SetRowAttrs(stargazer, '{L[a]}', active=false)"),
+                {"results": [None]})
+            writes["set_row_attrs_s"] = time.perf_counter() - t0
+            active[a] = False
+            want = o.topn_users(10, distinct, active)
+            if any(p["key"] == L[a] for p in want):
+                raise AssertionError("keys: the oracle still ranks a")
+            check("set_row_attrs", "after", full(topn_active),
+                  {"results": [want]})
+            new_attrs = {"url": repo_url(KEY_NEW_REPO), "active": True}
+            t0 = time.perf_counter()
+            check("set_column_attrs", "SetColumnAttrs", full(
+                f"SetColumnAttrs('{KEY_NEW_REPO}', "
+                f"url='{repo_url(KEY_NEW_REPO)}', active=true)"),
+                {"results": [None]})
+            writes["set_column_attrs_s"] = time.perf_counter() - t0
+            attrs_a = dict(o.user_attrs(a), active=False)
+            check("set_column_attrs", "columnAttrs", full(
+                f"Options(Row(stargazer='{L[a]}'), columnAttrs=true)"),
+                {"results": [o.row(sa, attrs_a,
+                                   extra=[(new_id, KEY_NEW_REPO)])],
+                 "columnAttrs": o.column_attrs(sa)
+                 + [{"key": KEY_NEW_REPO, "attrs": new_attrs}]})
+            t0 = time.perf_counter()
+            check("clear_row", "ClearRow", full(
+                f"ClearRow(stargazer='{L[b]}')"), {"results": [True]})
+            writes["clear_row_s"] = time.perf_counter() - t0
+            distinct[b] = 0
+            check("clear_row", "count", full(
+                f"Count(Row(stargazer='{L[b]}'))"), {"results": [0]})
+            check("clear_row", "TopN", full("TopN(stargazer, n=5)"),
+                  {"results": [o.topn_users(5, distinct)]})
+            go = o.lang_repos("Go")
+            t0 = time.perf_counter()
+            check("store", "Store", full(
+                "Store(Row(language='Go'), stargazer='go-fans')"),
+                {"results": [True]})
+            writes["store_s"] = time.perf_counter() - t0
+            fans = idx.field("stargazer").row_translator.translate_key(
+                "go-fans", create=False)
+            check("store", "Row", full("Row(stargazer='go-fans')"),
+                  {"results": [o.row(go)]})
+            check("store", "TopN", full("TopN(stargazer, n=5)"), {
+                "results": [o.topn_users(5, distinct, extra=[
+                    (fans, "go-fans", len(go))])]})
+            report["writes"] = writes
+            log("keys: reads exact; warm p50 " + ", ".join(
+                f"{n} {q['p50_s']:.6f} s"
+                for n, q in report["queries"].items())
+                + f"; burst {report['burst']['p50_s']:.6f} s in one "
+                "launch; writes " + ", ".join(
+                    f"{k} {v:.6f}" for k, v in writes.items()))
+        launches = dict(kernels.LAUNCHES)
+        report["ref_calls"] = refs.calls
+        if cuda:
+            if refs.calls:
+                raise AssertionError(f"keys: plain versions called on the "
+                                     f"card: {refs.calls}")
+            for name in ("bank_row_counts", "bank_row_counts_masked",
+                         "bsi_plane_counts", "mega_interpret"):
+                if launches[name] <= 0:
+                    raise AssertionError(f"keys: {name} never launched")
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+    report["launches"] = {k: v for k, v in launches.items() if v}
+    return report, launches
+
+
+def serve_keys(api, o, reads, burst, a, http_pairs, iters):
+    """The serve path of the keys phase on the star-trace holder: the
+    schema; the reads as JSON (and ``?columnAttrs=true``) and some as
+    protobuf, with keys in the results and ColumnAttrSets; the keyed
+    burst as one /batch/query; then one slice of ``http_pairs`` stars
+    imported with keys as JSON into one new field and as protobuf into
+    another, and read back. Every answer exact. Returns the report."""
+    import numpy as np
+    from pilosa_tpu_torch.server import proto_compat
+    from pilosa_tpu_torch.server.coalescer import QueryCoalescer
+    from pilosa_tpu_torch.server.http import serve
+    api.coalescer = QueryCoalescer(api.executor)
+    api.coalescer.start()
+    srv = serve(api, "127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    d, L = o.d, o.d["logins"]
+    q = "/index/repository/query"
+    report = {}
+    try:
+        schema = http_json(base, "GET", "/schema")
+        got = {i["name"]: (i["options"]["keys"],
+                           {f["name"]: f["options"]["keys"]
+                            for f in i["fields"]})
+               for i in schema["indexes"]}
+        if got.get("repository") != (True, {"stargazer": True,
+                                            "language": True,
+                                            "stars": False}):
+            raise AssertionError(f"serve keys: /schema lists {got}")
+        report["http_p50_s"] = {}
+        for name, pql, want in reads:
+            got = http_json(base, "POST", q, pql)
+            if got != want:
+                raise AssertionError(f"serve keys: {name} over HTTP "
+                                     f"{str(got)[:300]} != numpy")
+            report["http_p50_s"][name] = http_p50(
+                base, "repository", pql, want, iters)
+        by_name = {n: w for n, _, w in reads}
+        pql_of = {n: p for n, p, _ in reads}
+        want_a = by_name["column_attrs_a"]
+        got = http_json(base, "POST", q + "?columnAttrs=true",
+                        f"Row(stargazer='{L[a]}')")
+        if got != want_a:
+            raise AssertionError("serve keys: ?columnAttrs=true != numpy")
+        # Protobuf: the bytes of the oracle's response.
+        pb = [(pql_of["row_a"], True, want_a),
+              ("TopN(stargazer, n=5) Rows(language)", False,
+               {"results": by_name["topn"]["results"]
+                + by_name["rows_language"]["results"]}),
+              (pql_of["groupby_a"], False, by_name["groupby_a"]),
+              (pql_of["go_no_columns"], False, by_name["go_no_columns"])]
+        for pql, col_attrs, want in pb:
+            msg = proto_compat._str_field(1, pql)
+            if col_attrs:
+                msg += proto_compat._varint_field(3, 1)
+            status, raw = http(base, "POST", q, msg,
+                               proto_compat.CONTENT_TYPE)
+            expect = proto_compat.encode_query_response(
+                want["results"], column_attr_sets=want.get("columnAttrs"))
+            if status != 200 or raw != expect:
+                raise AssertionError(f"serve keys: protobuf {pql} answered "
+                                     f"{status}, {len(raw)} bytes, not the "
+                                     f"{len(expect)} expected")
+        # The keyed burst as one /batch/query.
+        ex = api.executor
+        before = mega_state(ex)
+        body = {"queries": [{"index": "repository", "query": p}
+                            for _, p, _ in burst]}
+        want_items = [{"results": [w]} for _, _, w in burst]
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            got = http_json(base, "POST", "/batch/query", body)
+            times.append(time.perf_counter() - t0)
+            if got["responses"] != want_items:
+                bad = [n for (n, _, _), g, w in zip(
+                    burst, got["responses"], want_items) if g != w]
+                raise AssertionError(f"serve keys: /batch/query {bad}")
+        report["batch_http_p50_s"] = p50(times)
+        report["burst_mega_launches"] = check_mega_taken(
+            ex, before, "keyed /batch/query")
+        # Keyed imports: one slice of stars as JSON and as protobuf.
+        n = min(http_pairs, len(d["users"]))
+        users, repos = d["users"][:n].tolist(), d["repos"][:n].tolist()
+        rk = [L[u] for u in users]
+        ck = [d["repo_keys"][r] for r in repos]
+        for field in ("star_json", "star_pb"):
+            http_json(base, "POST", f"/index/repository/field/{field}",
+                      {"options": {"keys": True}})
+        t0 = time.perf_counter()
+        http_json(base, "POST", "/index/repository/field/star_json/import",
+                  {"rowKeys": rk, "columnKeys": ck})
+        report["import_json_s"] = time.perf_counter() - t0
+        msg = (proto_compat._str_field(1, "repository")
+               + proto_compat._str_field(2, "star_pb")
+               + b"".join(proto_compat._str_field(7, k) for k in rk)
+               + b"".join(proto_compat._str_field(8, k) for k in ck))
+        t0 = time.perf_counter()
+        http_json(base, "POST", "/index/repository/field/star_pb/import",
+                  msg, proto_compat.CONTENT_TYPE)
+        report["import_proto_s"] = time.perf_counter() - t0
+        report["import_pairs"] = n
+        s = d["n_stars"]
+        whole = n // s  # users whose stars the slice holds whole
+        counts = o.distinct[:whole]
+        ids = np.arange(1, whole + 1)
+        want_top = o.top(ids, counts, L[:whole], 5)
+        for field in ("star_json", "star_pb"):
+            for pql, want in ((f"TopN({field}, n=5)", want_top),
+                              (f"Row({field}='{L[0]}')",
+                               o.row(o.stars_of(0)))):
+                got = http_json(base, "POST", q, pql)
+                if got != {"results": [want]}:
+                    raise AssertionError(f"serve keys: {pql} after the "
+                                         "keyed import != numpy")
+        log(f"serve keys: reads exact over JSON and protobuf; "
+            f"/batch/query p50 {report['batch_http_p50_s']:.6f} s; keyed "
+            f"imports of {n} stars: JSON {report['import_json_s']:.3f} s, "
+            f"protobuf {report['import_proto_s']:.3f} s")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        api.coalescer.stop()
+    return report
+
+
+def run_taxi_attrs(holder, device, rate_top, iters=ITERS):
+    """Row attributes on the loaded taxi index (after the timefields
+    phase): the TLC names of rate_code rows 1-6 and airport=true on 2
+    and 3 through SetRowAttrs, then the attribute-filtered TopN (exact:
+    the rows of ``rate_top`` that are airports) and a Row that carries
+    the attributes. No plain version may run on the card. Returns the
+    report."""
+    import torch
+    from pilosa_tpu_torch import Executor
+    from pilosa_tpu_torch.ops import kernels
+    ex = Executor(holder, device=device)
+    report = {}
+    calls = " ".join(
+        f"SetRowAttrs(rate_code, {r}, name='{n}'"
+        + (", airport=true)" if r in (2, 3) else ")")
+        for r, n in RATE_NAMES.items())
+    with RefCalls(kernels) as refs:
+        t0 = time.perf_counter()
+        got = ex.execute_full("taxi", calls)
+        report["set_row_attrs_s"] = time.perf_counter() - t0
+        if got != {"results": [None] * len(RATE_NAMES)}:
+            raise AssertionError(f"taxi attrs: SetRowAttrs answered {got}")
+        checks = [
+            ("topn_airport",
+             "TopN(rate_code, n=6, attrName='airport', attrValues=[true])",
+             [p for p in rate_top if p["id"] in (2, 3)]),
+            ("jfk_attrs", "Options(Row(rate_code=2), excludeColumns=true)",
+             {"columns": [], "attrs": {"name": "JFK", "airport": True}})]
+        for name, pql, want in checks:
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                got = ex.execute_full("taxi", pql)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if got != {"results": [want]}:
+                    raise AssertionError(f"taxi attrs: {pql}: port {got} "
+                                         f"!= numpy {want}")
+            report[f"{name}_p50_s"] = p50(times)
+    if device != "cpu" and refs.calls:
+        raise AssertionError(f"taxi attrs: plain versions called on the "
+                             f"card: {refs.calls}")
+    log("taxi attrs: the airport TopN and the JFK row exact; p50 "
+        f"{report['topn_airport_p50_s']:.6f} s and "
+        f"{report['jfk_attrs_p50_s']:.6f} s")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2611,6 +3377,10 @@ def main(argv=None) -> int:
     timing["pbank_membership_counts"] = time_pbank(torch, kernels, device,
                                                    timing_in)
     del timing_in
+    # 7. the keys phase: the keyed star-trace index and its serve path
+    torch.cuda.empty_cache()
+    keys, keys_launches = run_keys("cuda")
+    torch.cuda.empty_cache()
     # 6. the serve path's CLI phase
     cli = serve_cli("cuda")
     launches = {name: taxi_launches[name] for name in (
@@ -2642,7 +3412,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"card": card, "report": report, "fingerprint": fp,
-                       "cli": cli, "timing": timing}, f, indent=1)
+                       "keys": keys, "cli": cli, "timing": timing}, f,
+                      indent=1)
     taxi = report["taxi"]
     print(json.dumps({"taxi": {
         "rides": report["rides"], "shards": report["shards"],
@@ -2694,6 +3465,18 @@ def main(argv=None) -> int:
         "segments": fp["segments"], "pbank_bytes": fp["pbank_bytes"],
         "device_bytes": fp["device_bytes"], "patch_s": fp["patch_s"],
         "patched_segment": fp["patched_segment"]}}), flush=True)
+    print(json.dumps({"keys": {
+        "repositories": keys["repositories"], "stars": keys["stars"],
+        "load_s": keys["load_s"],
+        "queries": {k: {"pql": v["pql"], "first_s": v["first_s"],
+                        "p50_s": v["p50_s"], "launches": v["launches"],
+                        "device_ms": keys.get("profile", {}).get(
+                            k, {}).get("device_ms")}
+                    for k, v in keys["queries"].items()},
+        "burst": keys["burst"], "writes": keys["writes"],
+        "serve": keys["serve"], "taxi_attrs": report["taxi_attrs"],
+        "launches": {k: v for k, v in keys_launches.items() if v}}}),
+        flush=True)
     serve, serve_fp = report["serve"], fp["serve"]
     print(json.dumps({"serve": {
         "taxi_http_p50_s": serve["taxi_http_p50_s"],
@@ -2714,7 +3497,7 @@ def main(argv=None) -> int:
         "launches": serve_counts}}), flush=True)
     print(card, flush=True)
 
-    # 7. kernels line, then the result line
+    # 8. kernels line, then the result line
     rows = []
     for name in kernels.LAUNCHES:
         t = timing[name]

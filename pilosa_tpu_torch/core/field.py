@@ -28,6 +28,8 @@ import torch
 
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core import timeq
+from pilosa_tpu_torch.core.attrs import AttrStore
+from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_bsi_name
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
 
@@ -62,8 +64,6 @@ class FieldOptions:
     def validate(self) -> None:
         if self.type not in FIELD_TYPES:
             raise ValueError(f"invalid field type: {self.type}")
-        if self.keys:
-            raise ValueError("keyed fields are not supported by the port yet")
         # The JAX package refuses an unknown cache type when the first
         # fragment is made (cache.new_cache); the port refuses it here,
         # with the same message, before anything is written.
@@ -150,9 +150,19 @@ class Field:
         self.views: Dict[str, View] = {}
         self.bsi_groups: Dict[str, BSIGroup] = {}
         self._lock = threading.RLock()
+        self.row_attr_store = AttrStore()
+        self._row_translator: Optional[TranslateStore] = None
         if self.options.type == FIELD_TYPE_INT:
             self.bsi_groups[name] = BSIGroup(name, self.options.min,
                                              self.options.max)
+
+    @property
+    def row_translator(self) -> TranslateStore:
+        """The translator of the field's row keys, made on first use."""
+        with self._lock:
+            if self._row_translator is None:
+                self._row_translator = TranslateStore()
+            return self._row_translator
 
     def view(self, name: str = VIEW_STANDARD) -> Optional[View]:
         return self.views.get(name)

@@ -27,7 +27,8 @@ class Holder:
     def index(self, name: str) -> Optional[Index]:
         return self.indexes.get(name)
 
-    def create_index(self, name: str, track_existence: bool = True,
+    def create_index(self, name: str, keys: bool = False,
+                     track_existence: bool = True,
                      error_if_exists: bool = True) -> Index:
         with self._lock:
             if name in self.indexes:
@@ -37,7 +38,7 @@ class Holder:
             if not name or not name.islower() or not name[0].isalpha():
                 raise ValueError(f"invalid index name: {name!r}")
             idx = Index(name, self.device, track_existence=track_existence,
-                        rank_cache=self.rank_cache)
+                        rank_cache=self.rank_cache, keys=keys)
             self.indexes[name] = idx
             return idx
 
@@ -67,9 +68,8 @@ class Holder:
                     "timeQuantum": o.time_quantum, "keys": o.keys,
                     "noStandardView": o.no_standard_view,
                     "maxColumns": o.max_columns}})
-            # The port has no keyed indexes.
             out.append({"name": iname,
-                        "options": {"keys": False,
+                        "options": {"keys": idx.keys,
                                     "trackExistence": idx.track_existence},
                         "fields": fields,
                         "shards": idx.available_shards()})

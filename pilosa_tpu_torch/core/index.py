@@ -1,5 +1,7 @@
 """Index: a namespace sharing one column space, with the optional
-existence field ``_exists`` that Not() reads."""
+existence field ``_exists`` that Not() reads, the column attribute
+store, and with ``keys`` a translator of column keys (made on first
+use)."""
 
 from __future__ import annotations
 
@@ -9,8 +11,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.cache import CACHE_TYPE_NONE, RankCacheStore
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, Field, FieldOptions
+from pilosa_tpu_torch.core.translate import TranslateStore
 
 EXISTENCE_FIELD_NAME = "_exists"
 
@@ -21,19 +25,30 @@ class Index:
 
     def __init__(self, name: str, device: torch.device,
                  track_existence: bool = True,
-                 rank_cache: Optional[RankCacheStore] = None):
+                 rank_cache: Optional[RankCacheStore] = None,
+                 keys: bool = False):
         self.name = name
         self.device = device
+        self.keys = keys
         self.track_existence = track_existence
         self.rank_cache = rank_cache if rank_cache is not None \
             else RankCacheStore()
         self.fields: Dict[str, Field] = {}
         self._lock = threading.RLock()
+        self.column_attr_store = AttrStore()
+        self._column_translator: Optional[TranslateStore] = None
         if track_existence:
             self.fields[EXISTENCE_FIELD_NAME] = Field(
                 name, EXISTENCE_FIELD_NAME, device,
                 FieldOptions(type=FIELD_TYPE_SET, cache_type=CACHE_TYPE_NONE,
                              cache_size=0))
+
+    @property
+    def column_translator(self) -> TranslateStore:
+        with self._lock:
+            if self._column_translator is None:
+                self._column_translator = TranslateStore()
+            return self._column_translator
 
     def existence_field(self) -> Optional[Field]:
         return self.fields.get(EXISTENCE_FIELD_NAME)

@@ -54,11 +54,20 @@ JAX package's literal operand does not.
 Covered calls: Set (with a timestamp on a time field), Clear, ClearRow,
 Store, Row (set, time, mutex and bool fields, BSI conditions, time
 ranges), Range, Intersect, Union, Difference, Xor, Not, Shift,
-Threshold, Count, TopN, Rows (with from/to), GroupBy, Sum, Min, Max,
-and Options around any of them. The attribute calls of the JAX
-package's executor are not part of this port yet. ``execute_full``
-and ``execute_batch_shaped[_finish]`` give the JSON-shaped responses the
-server sends.
+Threshold, Count, TopN (with attrName/attrValues), Rows (with
+from/to), GroupBy, Sum, Min, Max, SetRowAttrs, SetColumnAttrs, and
+Options around any of them. ``execute_full`` and
+``execute_batch_shaped[_finish]`` give the JSON-shaped responses the
+server sends, with ``columnAttrs`` when an Options asked for them.
+
+Keys: a keyed index translates column keys and a keyed field row keys
+to ids before a call runs (``_translate_call``, get-or-create: a read
+of an unknown key allocates its id, as in the JAX package), request by
+request in order, also in a batch; plans and banks see only ids. The
+results carry keys again (``_translate_result``): a Row result's
+columns, TopN's and Rows' rows and GroupBy's group rows. A Row or Range
+result of one row carries that row's attributes, read when the call
+runs.
 """
 
 from __future__ import annotations
@@ -139,6 +148,29 @@ TOPN_SELFCHECK_EVERY = int(os.environ.get("PILOSA_TPU_TOPN_SELFCHECK",
 
 class ExecutionError(ValueError):
     pass
+
+
+@dataclass
+class ExecOptions:
+    """Per-query options that Options() sets: the exclude flags apply
+    to the call inside it; ``column_attrs`` shapes the whole response."""
+    exclude_row_attrs: bool = False
+    exclude_columns: bool = False
+    column_attrs: bool = False
+
+
+def column_attr_sets(idx: Index, ids: Sequence[int]
+                     ) -> List[Dict[str, Any]]:
+    """The non-empty column attribute sets of ``ids``, named by key on a
+    keyed index (by id where a column has no key), as the JAX package's
+    ``column_attr_sets`` gives them."""
+    withattrs = list(idx.column_attr_store.get_many(ids).items())
+    if not idx.keys:
+        return [{"id": c, "attrs": a} for c, a in withattrs]
+    keys = idx.column_translator.translate_ids([c for c, _ in withattrs])
+    return [({"key": k, "attrs": a} if k is not None
+             else {"id": c, "attrs": a})
+            for (c, a), k in zip(withattrs, keys)]
 
 
 def _peel_options(call: Call) -> Call:
@@ -307,12 +339,14 @@ class _StagedEval:
 
 
 class _BatchInFlight:
-    """A batch between its begin and its finish: the per-request results
-    (``_Deferred`` where staged) and the per-request errors so far."""
+    """A batch between its begin and its finish: per request its
+    position, index name, results (``_Deferred`` where staged) and
+    options, and the per-request errors so far."""
 
     __slots__ = ("staged", "out")
 
-    def __init__(self, staged: List[Tuple[int, List[Any]]],
+    def __init__(self, staged: List[Tuple[int, str, List[Any],
+                                          ExecOptions]],
                  out: List[Any]) -> None:
         self.staged = staged
         self.out = out
@@ -377,37 +411,75 @@ class Executor:
     def execute(self, index_name: str, query: Union[str, Call, Query],
                 shards: Optional[Sequence[int]] = None) -> List[Any]:
         """Execute every call in ``query`` in order; one result each."""
+        return self._execute_query(index_name, query, shards)[0]
+
+    def _execute_query(self, index_name: str,
+                       query: Union[str, Call, Query],
+                       shards: Optional[Sequence[int]]
+                       ) -> Tuple[List[Any], ExecOptions]:
+        """(results, options) of one request: each call's keys are
+        translated just before it runs, and its result's ids turned
+        back into keys once it resolves (a staged result when it is
+        resolved)."""
         query = _parse(query)
         idx = self.holder.index(index_name)
         if idx is None:
             raise ExecutionError(f"index not found: {index_name}")
+        opts = ExecOptions()
         out = []
         for call in query.calls:
-            self._check_keys(idx, call)
-            out.append(self._execute_call(idx, call, shards))
-        return out
+            self._translate_call(idx, call)
+            res = self._execute_call(idx, call, shards, opts)
+            if isinstance(res, _Deferred):
+                res = _Deferred(functools.partial(
+                    self._resolve_translated, idx, call, res))
+            else:
+                self._translate_result(idx, call, res)
+            out.append(res)
+        return out, opts
+
+    def _resolve_translated(self, idx: Index, call: Call,
+                            res: _Deferred) -> Any:
+        got = res.resolve()
+        self._translate_result(idx, call, got)
+        return got
 
     def execute_full(self, index_name: str, query: Union[str, Call, Query],
                      shards: Optional[Sequence[int]] = None
                      ) -> Dict[str, Any]:
         """``execute`` shaped as the server's JSON response."""
-        return self.shape_response(self.execute(index_name, query, shards))
+        results, opts = self._execute_query(index_name, query, shards)
+        return self.shape_response(index_name, results, opts)
 
-    @staticmethod
-    def shape_response(results: Sequence[Any]) -> Dict[str, Any]:
-        """``{"results": [...]}`` of one request's results. A Row result
-        fetches its columns here, the request's last host sync."""
-        return {"results": [result_to_json(r) for r in results]}
+    def shape_response(self, index_name: str, results: Sequence[Any],
+                       opts: Optional[ExecOptions] = None
+                       ) -> Dict[str, Any]:
+        """``{"results": [...]}`` of one request's results, with
+        ``columnAttrs`` (the attributes of every Row result's columns)
+        when an Options asked for them. A Row result fetches its columns
+        here, the request's last host sync."""
+        resp: Dict[str, Any] = {"results": [result_to_json(r)
+                                            for r in results]}
+        if opts is not None and opts.column_attrs:
+            idx = self.holder.index(index_name)
+            ids = sorted({int(c) for r in results
+                          if isinstance(r, RowResult)
+                          for c in r.columns().tolist()})
+            resp["columnAttrs"] = column_attr_sets(idx, ids) \
+                if idx is not None else []
+        return resp
 
     def execute_batch(self, requests: Sequence[Tuple[str, Any, Optional[
             Sequence[int]]]]) -> List[Any]:
         """Execute N independent requests as one batch. Each element of
         ``requests`` is ``(index_name, query, shards)``. Returns one
-        entry per request: a ``(results, opts)`` tuple (``opts`` is
-        always None: the port's ``Options()`` sets nothing that shapes a
-        whole response) or the exception instance for that request; one
-        request's error never fails another. The two halves are
-        ``execute_batch_begin`` and ``execute_batch_finish``."""
+        entry per request: a ``(results, opts)`` tuple (``opts`` is the
+        request's ``ExecOptions``: ``column_attrs`` shapes its response)
+        or the exception instance for that request; one request's error
+        never fails another. Keys translate request by request in
+        order, so ids are allocated as one-by-one execution would. The
+        two halves are ``execute_batch_begin`` and
+        ``execute_batch_finish``."""
         return self.execute_batch_finish(self.execute_batch_begin(requests))
 
     def execute_batch_begin(self, requests: Sequence[Tuple[str, Any,
@@ -437,7 +509,7 @@ class Executor:
             except Exception as e:
                 out[j] = e  # parse error: reported for this item only
         fuser = FusionCollector(self)
-        staged: List[Tuple[int, List[Any]]] = []
+        staged: List[Tuple[int, str, List[Any], ExecOptions]] = []
         try:
             for j, (index_name, _, shards) in enumerate(requests):
                 if parsed[j] is None:
@@ -445,12 +517,13 @@ class Executor:
                 try:
                     if has_writes[j]:
                         fuser.flush()
-                        results = self.execute(index_name, parsed[j], shards)
+                        results, opts = self._execute_query(
+                            index_name, parsed[j], shards)
                     else:
                         with self._fusing(fuser):
-                            results = self.execute(index_name, parsed[j],
-                                                   shards)
-                    staged.append((j, results))
+                            results, opts = self._execute_query(
+                                index_name, parsed[j], shards)
+                    staged.append((j, index_name, results, opts))
                 except Exception as e:
                     out[j] = e
         finally:
@@ -463,10 +536,10 @@ class Executor:
         result (the host syncs of the megakernel's counts happen here).
         Safe on another thread than the begin's."""
         out = flight.out
-        for j, results in flight.staged:
+        for j, _, results, opts in flight.staged:
             try:
                 out[j] = ([r.resolve() if isinstance(r, _Deferred) else r
-                           for r in results], None)
+                           for r in results], opts)
             except Exception as e:
                 out[j] = e
         return out
@@ -484,13 +557,14 @@ class Executor:
         """``execute_batch_finish`` of ``execute_batch_begin``'s flight,
         then each request's response shaped. The port has no result
         cache, so the shaped batch's begin is ``execute_batch_begin``."""
+        names = {j: name for j, name, _, _ in flight.staged}
         shaped: List[Any] = []
-        for r in self.execute_batch_finish(flight):
+        for j, r in enumerate(self.execute_batch_finish(flight)):
             if isinstance(r, Exception):
                 shaped.append(r)
                 continue
             try:
-                shaped.append(self.shape_response(r[0]))
+                shaped.append(self.shape_response(names[j], *r))
             except Exception as e:
                 shaped.append(e)
         return shaped
@@ -542,14 +616,14 @@ class Executor:
 
     def _execute_call(self, idx: Index, call: Call,
                       shards: Optional[Sequence[int]],
-                      exclude_columns: bool = False) -> Any:
+                      opts: Optional[ExecOptions] = None) -> Any:
         name = call.name
         if name == "Options":
-            return self._execute_options(idx, call, shards, exclude_columns)
+            return self._execute_options(idx, call, shards, opts)
         if name == "Count":
             return self._execute_count(idx, call, shards)
         if name in _BITMAP_CALLS:
-            return self._execute_bitmap(idx, call, shards, exclude_columns)
+            return self._execute_bitmap(idx, call, shards, opts)
         if name == "TopN":
             return self._execute_topn(idx, call, shards)
         if name == "Rows":
@@ -566,18 +640,48 @@ class Executor:
             return self._execute_clear_row(idx, call, shards)
         if name == "Store":
             return self._execute_store(idx, call, shards)
-        raise ExecutionError(f"call {name} is not supported by the port")
+        if name == "SetRowAttrs":
+            return self._execute_set_row_attrs(idx, call)
+        if name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(idx, call)
+        raise ExecutionError(f"unknown call: {name}")
 
-    def _check_keys(self, idx: Index, call: Call) -> None:
-        """The key checks of the JAX package's ``_translate_call``: the
-        port has no keyed index or field, so a string where an id belongs
-        is refused with the reference's message, before the call runs."""
-        if isinstance(call.args.get("_col"), str):
-            raise ExecutionError(f"index {idx.name} does not use column keys")
-        fname = call.args.get("_field")
-        if isinstance(call.args.get("_row"), str):
+    # ------------------------------------------------------ key translation
+
+    @staticmethod
+    def _row_key(field: Optional[Field], fname: Any, key: str,
+                  msg: Optional[str] = None) -> int:
+        """The id of row key ``key`` of ``field`` (allocated when new);
+        refused with ``msg`` (by default the JAX package's message) when
+        the field is missing or not keyed."""
+        if field is None or not field.options.keys:
             raise ExecutionError(
-                f"string row value not allowed on field {fname}")
+                msg or f"string row value not allowed on field {fname}")
+        return int(field.row_translator.translate_key(key))
+
+    @staticmethod
+    def _col_key(idx: Index, key: str) -> int:
+        """The id of column key ``key`` (allocated when new)."""
+        if not idx.keys:
+            raise ExecutionError(f"index {idx.name} does not use column keys")
+        return int(idx.column_translator.translate_key(key))
+
+    def _translate_call(self, idx: Index, call: Call) -> None:
+        """String keys to ids in place, as the JAX package's
+        ``_translate_call``: only the row and column arguments of each
+        call form are read, so a string attribute value passes through.
+        A new key is allocated its id, by a read too. A string where
+        the index or field takes no keys is refused with the JAX
+        package's message."""
+        col = call.args.get("_col")
+        if isinstance(col, str):
+            call.args["_col"] = self._col_key(idx, col)
+        row = call.args.get("_row")
+        fname = call.args.get("_field")
+        if isinstance(row, str):
+            field = idx.field(fname) if fname else None
+            call.args["_row"] = self._row_key(field, fname, row)
+        # The one field=row argument of these calls.
         if call.name in ("Row", "Range", "Set", "Clear", "ClearRow",
                          "Store"):
             try:
@@ -585,16 +689,19 @@ class Executor:
             except ExecutionError:
                 k, v = None, None
             if isinstance(v, str):
-                raise ExecutionError(
-                    f"string row value not allowed on field {k}")
+                call.args[k] = self._row_key(idx.field(k), k, v)
         if call.name in ("Rows", "TopN"):
-            if isinstance(call.args.get("previous"), str):
-                raise ExecutionError(
+            field = idx.field(fname) if fname else None
+            prev = call.args.get("previous")
+            if isinstance(prev, str):
+                call.args["previous"] = self._row_key(
+                    field, fname, prev,
                     f"string previous not allowed on field {fname}")
-            if isinstance(call.args.get("column"), str):
-                raise ExecutionError(
-                    f"index {idx.name} does not use column keys")
+            column = call.args.get("column")
+            if isinstance(column, str):
+                call.args["column"] = self._col_key(idx, column)
         if call.name == "GroupBy":
+            # previous=[...]: one entry a Rows child, in its field.
             prev = call.args.get("previous")
             if prev is not None:
                 if not isinstance(prev, list):
@@ -603,34 +710,74 @@ class Executor:
                     raise ExecutionError(
                         f"mismatched lengths for previous: {len(prev)} "
                         f"and children: {len(call.children)}")
-                if any(isinstance(p, str) for p in prev):
-                    raise ExecutionError(
-                        "prev value must be a row id (int) when field "
-                        "doesn't have keys")
+                for i, (p, child) in enumerate(zip(prev, call.children)):
+                    if isinstance(p, str):
+                        prev[i] = self._row_key(
+                            idx.field(child.args.get("_field")), None, p,
+                            "prev value must be a row id (int) when field "
+                            "doesn't have keys")
         filt = call.args.get("filter")
         if isinstance(filt, Call):
-            self._check_keys(idx, filt)
+            self._translate_call(idx, filt)
         for child in call.children:
-            self._check_keys(idx, child)
+            self._translate_call(idx, child)
+
+    @staticmethod
+    def _translate_result(idx: Index, call: Call, result: Any) -> None:
+        """Ids back to keys on a result, as the JAX package's
+        ``_translate_result``: a keyed index's Row result gets one key a
+        column (its decimal id where the column has no key), a keyed
+        field's TopN pairs and Rows ids their keys, and a GroupBy group
+        row of a keyed field its ``rowKey``."""
+        call = _peel_options(call)
+        if isinstance(result, RowResult):
+            if idx.keys:
+                cols = result.columns()
+                keys = idx.column_translator.translate_ids(cols)
+                if None in keys:
+                    keys = [k if k is not None else str(c)
+                            for c, k in zip(cols.tolist(), keys)]
+                result.keys = keys
+            return
+        fname = call.args.get("_field")
+        field = idx.field(fname) if isinstance(fname, str) else None
+        keyed = field is not None and field.options.keys
+        if isinstance(result, PairsResult) and keyed:
+            ids = [r for r, _ in result.pairs]
+            result.keys = [k or str(r) for r, k in zip(
+                ids, field.row_translator.translate_ids(ids))]
+        elif isinstance(result, RowIdentifiers) and keyed:
+            result.keys = [k or str(r) for r, k in zip(
+                result.rows, field.row_translator.translate_ids(result.rows))]
+        elif isinstance(result, list):
+            for gc in result:
+                if isinstance(gc, GroupCount):
+                    for fr in gc.group:
+                        gf = idx.field(fr.field)
+                        if gf is not None and gf.options.keys:
+                            fr.row_key = gf.row_translator.translate_id(
+                                fr.row_id)
 
     def _execute_options(self, idx: Index, call: Call, shards,
-                         exclude_columns: bool) -> Any:
-        """Options(child, excludeColumns=…, excludeRowAttrs=…,
-        shards=[…]) around one call, as the JAX package's
-        ``_execute_options``. The port keeps no attributes: row attrs
-        are always empty (``excludeRowAttrs`` changes nothing) and
-        ``columnAttrs=true`` is refused."""
+                         opts: Optional[ExecOptions]) -> Any:
+        """Options(child, columnAttrs=…, excludeColumns=…,
+        excludeRowAttrs=…, shards=[…]) around one call, as the JAX
+        package's ``_execute_options``: ``columnAttrs`` sets the outer
+        options (it shapes the whole response), the exclude flags a copy
+        for the child only."""
         if len(call.children) != 1:
             raise ExecutionError("Options() takes exactly one child call")
+        child_opts = ExecOptions(**vars(opts)) if opts is not None \
+            else ExecOptions()
         for arg in ("columnAttrs", "excludeRowAttrs", "excludeColumns"):
             if arg in call.args and not isinstance(call.args[arg], bool):
                 raise ExecutionError(f"Query(): {arg} must be a bool")
-        if call.args.get("columnAttrs"):
-            raise ExecutionError(
-                "Options(columnAttrs=true): column attributes are not "
-                "ported yet")
+        if call.args.get("columnAttrs") and opts is not None:
+            opts.column_attrs = True
+        if "excludeRowAttrs" in call.args:
+            child_opts.exclude_row_attrs = call.args["excludeRowAttrs"]
         if "excludeColumns" in call.args:
-            exclude_columns = call.args["excludeColumns"]
+            child_opts.exclude_columns = call.args["excludeColumns"]
         if "shards" in call.args:
             arg = call.args["shards"]
             if not isinstance(arg, (list, tuple)) or not all(
@@ -639,8 +786,7 @@ class Executor:
                 raise ExecutionError(
                     "Query(): shards must be a list of unsigned integers")
             shards = [int(s) for s in arg]
-        return self._execute_call(idx, call.children[0], shards,
-                                  exclude_columns)
+        return self._execute_call(idx, call.children[0], shards, child_opts)
 
     # --------------------------------------------------------------- shards
 
@@ -694,13 +840,19 @@ class Executor:
         return getattr(self._tls, "fuser", None)
 
     def _execute_bitmap(self, idx: Index, call: Call, shards,
-                        exclude_columns: bool = False
+                        opts: Optional[ExecOptions] = None
                         ) -> Union[RowResult, _Deferred]:
         shards = self._restrict_shards(idx, call, self._shards(idx, shards))
+        opts = opts or ExecOptions()
+        # Read now, not when a staged result resolves: a later write of
+        # the same batch must not show in this answer.
+        attrs = {} if opts.exclude_row_attrs \
+            else self._row_attrs(idx, call)
 
         def result(words: torch.Tensor) -> RowResult:
             res = RowResult(shards, words)
-            if exclude_columns:
+            res.attrs = attrs
+            if opts.exclude_columns:
                 res.clear_columns()
             return res
 
@@ -1157,10 +1309,26 @@ class Executor:
         if isinstance(row_ref, int):
             return row_ref
         if isinstance(row_ref, str):
-            # The port has no keyed fields.
+            # Translation runs first, so only a field that is not keyed
+            # gets here.
             raise ExecutionError(
                 f"string row value not allowed on field {field.name}")
         raise ExecutionError(f"invalid row reference {row_ref!r}")
+
+    def _row_attrs(self, idx: Index, call: Call) -> Dict[str, Any]:
+        """The attributes of the one row a Row or Range call names (none
+        for a condition, a tree or a missing field)."""
+        if call.name not in ("Row", "Range"):
+            return {}
+        try:
+            fname, row_ref = self._row_call_field(call)
+        except ExecutionError:
+            return {}
+        field = idx.field(fname)
+        if field is None or isinstance(row_ref, bool) \
+                or not isinstance(row_ref, int):
+            return {}
+        return field.row_attr_store.get(row_ref)
 
     def _write_row_id(self, field: Field, row_ref) -> int:
         """The row id a write names, refused outside [0, 2^64) before
@@ -1199,8 +1367,6 @@ class Executor:
         field = idx.field(field_name)
         if field is None:
             raise ExecutionError(f"field not found: {field_name}")
-        if call.arg("attrName") is not None:
-            raise ExecutionError("TopN attrName is not supported by the port")
         n = call.uint_arg("n") or 0
         shards = self._shards(idx, shards)
         view = field.view(VIEW_STANDARD)
@@ -1213,12 +1379,24 @@ class Executor:
         filter_words = None
         if call.children:
             filter_words = self._eval(idx, call.children[0], shards)
+        # attrName/attrValues restrict the candidates to the rows whose
+        # attribute matches, read afresh each call: an attribute write
+        # changes no fragment version, so no cached answer may hold
+        # them. The count caches and the rank vector still give the
+        # counts (attributes do not change a count).
+        attr_name = call.arg("attrName")
+        allowed_rows = None
+        if attr_name is not None:
+            allowed_rows = set(field.row_attr_store.ids_matching(
+                attr_name, call.arg("attrValues", [])))
         tanimoto = call.uint_arg("tanimotoThreshold") or 0
         ids_arg = call.arg("ids")
         min_threshold = call.uint_arg("threshold") or 0
 
         view_rows = view.merged_row_ids(shards)
         all_rows = view_rows
+        if allowed_rows is not None:
+            all_rows = [r for r in all_rows if r in allowed_rows]
         if ids_arg:
             wanted = {int(i) for i in ids_arg}
             all_rows = [r for r in all_rows if r in wanted]
@@ -1262,7 +1440,7 @@ class Executor:
                 filter_words)]
         else:
             if PBANK_ENABLED and len(shards) == 1 and not ids_arg and n \
-                    and selfcheck_pairs is None:
+                    and allowed_rows is None and selfcheck_pairs is None:
                 pb = view.positions_bank(shards[0], width)
                 if pb is not None:
                     return self._topn_positions(pb, filter_words, width, n,
@@ -1601,7 +1779,8 @@ class Executor:
         limit = call.uint_arg("limit") or 0
         previous = call.arg("previous")
         if previous is not None:
-            # A list of one id a child: _check_keys has held it to that.
+            # A list of one id a child: _translate_call has held it to
+            # that.
             previous = tuple(int(p) for p in previous)
         filter_call = call.arg("filter")
         filter_words = None
@@ -1778,7 +1957,7 @@ class Executor:
     def _set_args(self, idx: Index, call: Call) -> Tuple[Field, int, Any]:
         col = call.arg("_col")
         if not isinstance(col, int):
-            raise ExecutionError("column keys are not supported by the port")
+            raise ExecutionError("column keys require keys=True (API layer)")
         fname, row_ref = self._row_call_field(call)
         field = idx.field(fname)
         if field is None:
@@ -1848,3 +2027,18 @@ class Executor:
                                                               words[i])
         return True
 
+    def _execute_set_row_attrs(self, idx: Index, call: Call) -> None:
+        """SetRowAttrs(f, row, name=value, ...): merge into the row's
+        attributes (a null value deletes the name)."""
+        fname = call.arg("_field")
+        field = idx.field(fname)
+        if field is None:
+            raise ExecutionError(f"field not found: {fname}")
+        attrs = {k: v for k, v in call.args.items() if not k.startswith("_")}
+        field.row_attr_store.set(int(call.arg("_row")), attrs)
+
+    def _execute_set_column_attrs(self, idx: Index, call: Call) -> None:
+        """SetColumnAttrs(column, name=value, ...): the same for a
+        column."""
+        attrs = {k: v for k, v in call.args.items() if not k.startswith("_")}
+        idx.column_attr_store.set(int(call.arg("_col")), attrs)

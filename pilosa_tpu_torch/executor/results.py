@@ -54,8 +54,12 @@ class RowResult:
             words.contiguous().unsqueeze(0))[0])
 
     def to_json(self) -> dict:
-        # The port sets no row attrs and no keys, so only columns show.
-        return {"columns": self.columns().tolist()}
+        d = {"columns": self.columns().tolist()}
+        if self.attrs:
+            d["attrs"] = self.attrs
+        if self.keys is not None:
+            d["keys"] = self.keys
+        return d
 
 
 @dataclass
@@ -65,6 +69,9 @@ class PairsResult:
     keys: Optional[List[str]] = None
 
     def to_json(self) -> List[dict]:
+        if self.keys is not None:
+            return [{"key": k, "count": int(c)}
+                    for (_, c), k in zip(self.pairs, self.keys)]
         return [{"id": int(r), "count": int(c)} for r, c in self.pairs]
 
 
@@ -85,7 +92,8 @@ class RowIdentifiers:
     keys: Optional[List[str]] = None
 
     def to_json(self) -> dict:
-        # The port has no keyed fields, so only ids show.
+        if self.keys is not None:
+            return {"keys": self.keys}
         return {"rows": [int(r) for r in self.rows]}
 
 
@@ -97,6 +105,8 @@ class FieldRow:
     row_key: Optional[str] = None
 
     def to_json(self) -> dict:
+        if self.row_key is not None:
+            return {"field": self.field, "rowKey": self.row_key}
         return {"field": self.field, "rowID": int(self.row_id)}
 
 

@@ -1,10 +1,12 @@
 """API facade of the port's server: the programmatic surface between the
 HTTP routes and the executor, after the JAX package's ``server/api.py``.
 
-Single node only. The cluster, key translation, attributes, the debug
-and metrics planes, health, failpoints and the sentinel are not
-ported: a request that needs one of them answers a 400 that names it,
-never a silently different result.
+Single node only. Key translation runs here for imports (a whole
+import's keys at once, ``TranslateStore.translate_keys``) and in the
+executor for queries. The cluster, the debug and metrics planes,
+health, failpoints and the sentinel are not ported: a request that
+needs one of them answers a 400 that names it, never a silently
+different result.
 """
 
 from __future__ import annotations
@@ -113,10 +115,8 @@ class API:
 
     def create_index(self, name: str, keys: bool = False,
                      track_existence: bool = True) -> Dict[str, Any]:
-        if keys:
-            raise not_ported("index keys (key translation)")
         try:
-            idx = self.holder.create_index(name,
+            idx = self.holder.create_index(name, keys=keys,
                                            track_existence=track_existence)
         except ValueError as e:
             raise ApiError(str(e), 409 if "exists" in str(e) else 400)
@@ -159,11 +159,23 @@ class API:
         the columns go into existence unless ``clear``. A timestamp is
         seconds since the epoch (int or float, read in local time, as
         ``datetime.fromtimestamp`` reads it) or a PQL timestamp
-        string."""
+        string. A keyed index takes ``column_keys`` and a keyed field
+        ``row_keys`` in place of ids; new keys are allocated ids in the
+        order they first appear."""
         idx = self._index(index)
         f = self._field(idx, field)
-        if row_keys is not None or column_keys is not None:
-            raise not_ported("import keys (key translation)")
+        if f.options.keys and row_keys is None and rows is not None:
+            raise ApiError("row ids cannot be used because field uses "
+                           "string keys")
+        if idx.keys and column_keys is None and columns is not None:
+            raise ApiError("column ids cannot be used because index uses "
+                           "string keys")
+        if column_keys is not None:
+            columns = self._column_ids(idx, column_keys)
+        if row_keys is not None:
+            if not f.options.keys:
+                raise ApiError(f"field {field} does not use row keys")
+            rows = f.row_translator.translate_keys(list(row_keys))
         rows = np.asarray(rows, dtype=np.uint64)
         columns = np.asarray(columns, dtype=np.uint64)
         if len(rows) != len(columns):
@@ -180,11 +192,15 @@ class API:
     def import_values(self, index: str, field: str, columns=None,
                       values=None, column_keys=None,
                       clear: bool = False) -> None:
-        """Bulk integer import into an int field's BSI view."""
+        """Bulk integer import into an int field's BSI view; a keyed
+        index takes ``column_keys`` in place of ids."""
         idx = self._index(index)
         f = self._field(idx, field)
+        if idx.keys and column_keys is None and columns is not None:
+            raise ApiError("column ids cannot be used because index uses "
+                           "string keys")
         if column_keys is not None:
-            raise not_ported("import keys (key translation)")
+            columns = self._column_ids(idx, column_keys)
         columns = np.asarray(columns, dtype=np.uint64)
         values = np.asarray(values, dtype=np.int64)
         if len(columns) != len(values):
@@ -227,6 +243,12 @@ class API:
         if idx is None:
             raise ApiError(f"index not found: {name}", 404)
         return idx
+
+    @staticmethod
+    def _column_ids(idx, column_keys) -> np.ndarray:
+        if not idx.keys:
+            raise ApiError(f"index {idx.name} does not use column keys")
+        return idx.column_translator.translate_keys(list(column_keys))
 
     def _field(self, idx, name: str):
         f = idx.field(name)

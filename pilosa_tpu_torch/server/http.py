@@ -10,10 +10,12 @@ Routes:
                                columnAttrs
   POST   /batch/query          {"queries": [{"index", "query",
                                "shards"?}, ...]}, at most 1024
-  POST   /index/{i}/field/{f}/import   JSON {"rowIDs", "columnIDs"} or
-                               {"columnIDs", "values"}, or a protobuf
-                               ImportRequest / ImportValueRequest
-  POST   /index/{i}            {"options": {"trackExistence": ...}}
+  POST   /index/{i}/field/{f}/import   JSON {"rowIDs"|"rowKeys",
+                               "columnIDs"|"columnKeys"} or
+                               {"columnIDs"|"columnKeys", "values"}, or
+                               a protobuf ImportRequest /
+                               ImportValueRequest
+  POST   /index/{i}            {"options": {"keys", "trackExistence"}}
   POST   /index/{i}/field/{f}  {"options": {...}}
   POST   /recalculate-caches   rebuild every fragment's TopN count cache
   DELETE /index/{i}  /index/{i}/field/{f}
@@ -281,7 +283,8 @@ class Handler(BaseHTTPRequestHandler):
                                      self._exec_optargs(q, req))
             res = self.api.query(index, pql,
                                  shards=shards or req["shards"] or None)
-            body = proto_compat.encode_query_response(res["results"])
+            body = proto_compat.encode_query_response(
+                res["results"], column_attr_sets=res.get("columnAttrs"))
         except ValueError as e:
             self._bytes(proto_compat.encode_query_response([], err=str(e)),
                         status=400, ctype=proto_compat.RESPONSE_CONTENT_TYPE)

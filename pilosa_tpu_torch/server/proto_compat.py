@@ -2,9 +2,11 @@
 surface: ``QueryRequest`` and ``QueryResponse`` on the query route,
 ``ImportRequest`` and ``ImportValueRequest`` on the import route (field
 numbers of the reference's ``internal/public.proto``). A copy of the
-JAX package's ``server/proto_compat.py`` for those four messages; its
-roaring-import and key-translation messages belong to routes the port
-does not serve yet.
+JAX package's ``server/proto_compat.py`` for those four messages, with
+their keys (``RowKeys``/``ColumnKeys`` in, keys in ``Row``, ``Pair``,
+``RowIdentifiers`` and ``FieldRow`` out) and ``ColumnAttrSets``; its
+roaring-import and node-to-node translation messages belong to routes
+the port does not serve yet.
 
 The QueryResult.Type enum: 0=nil, 1=Row, 2=Pairs, 3=ValCount, 4=uint64,
 5=bool, 6=RowIDs, 7=GroupCounts, 8=RowIdentifiers. Decoders accept

@@ -442,3 +442,98 @@ def test_burst_through_the_port_executor_takes_the_megakernel(monkeypatch):
     assert {queries[i]: r for i, r in results.items()} == want
     assert ex.mega_launches > before[0] and ex.mega_fallbacks == before[1]
     assert co.counters["batches"] >= 1
+
+
+@pytest.mark.parametrize("write", ["SetRowAttrs(f, 1, x=2)",
+                                   "SetColumnAttrs(1, x=2)"])
+def test_attribute_writes_end_the_window(stub, write):
+    """SetRowAttrs and SetColumnAttrs are writes to the coalescer: each
+    ends a long window at once, and its batch dedups nothing."""
+    ex, co = stub
+    co.window_s = 5.0
+    got = []
+    readers = [threading.Thread(target=lambda: got.append(
+        co.submit("c", "Count(Row(f=1))"))) for _ in range(2)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + 5
+    while co.queue_depth() < 2 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    t0 = time.monotonic()
+    assert co.submit("c", write) == answer("c", write)
+    assert time.monotonic() - t0 < 2.5
+    for t in readers:
+        t.join(10)
+    assert got == [answer("c", "Count(Row(f=1))")] * 2
+    assert co.counters.get("flush.write", 0) >= 1
+    assert ex.ran.count("Count(Row(f=1))") == 2
+
+
+def test_coalesced_keyed_reads_allocate_ids_as_jax_does(tmp_path,
+                                                        monkeypatch):
+    """Reads of unknown keys queued in a known order (one window, cut
+    by size) allocate ids in that order, a duplicate read once: the
+    answers and the stores equal the JAX package's batch of the same
+    requests."""
+    from pilosa_tpu.core.holder import Holder as JaxHolder
+    from pilosa_tpu.executor import Executor as JaxExecutor
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    monkeypatch.setattr(megamod, "MEGAKERNEL_ENABLED", True)
+    jh = JaxHolder(str(tmp_path))
+    jh.open()
+    th = Holder(device="cpu")
+    for h in (jh, th):
+        idx = h.create_index("c", keys=True)
+        idx.create_field("s", _keyed_options(h))
+        cols = idx.column_translator.translate_keys(
+            [f"r{i}" for i in range(40)])
+        rows = idx.field("s").row_translator.translate_keys(
+            [f"u{i % 5}" for i in range(40)])
+        idx.field("s").import_bits(rows, cols)
+    queries = ["Row(s='a')", "Count(Row(s='b')) Row(s='u1')",
+               "Row(s='a')", "TopN(s, Row(s='c'), n=2)",
+               "Count(Intersect(Row(s='u2'), Row(s='d')))",
+               "Rows(s, column='r9')", "Rows(s, column='newcol')",
+               "Row(s='e')"]
+    co = QueryCoalescer(API(th).executor, window_s=30.0,
+                        max_batch=len(queries))
+    co.start()
+    results, threads = {}, []
+
+    def submit(i, q):
+        results[i] = co.submit("c", q)
+    try:
+        for i, q in enumerate(queries):
+            t = threading.Thread(target=submit, args=(i, q))
+            t.start()
+            threads.append(t)
+            if i + 1 == len(queries):
+                break  # the last one fills the batch, which flushes
+            deadline = time.monotonic() + 5
+            while co.queue_depth() < i + 1 and time.monotonic() < deadline:
+                time.sleep(0.002)
+            assert co.queue_depth() == i + 1
+        for t in threads:
+            t.join(30)
+    finally:
+        co.stop()
+    want = JaxExecutor(jh).execute_batch_shaped(
+        [("c", q, None) for q in queries])
+    assert [results[i] for i in range(len(queries))] == want
+    assert co.counters.get("deduped", 0) == 1
+    for name in ("@cols", "s"):
+        tst = th.index("c").column_translator if name == "@cols" \
+            else th.index("c").field("s").row_translator
+        jst = jh.index("c").column_translator if name == "@cols" \
+            else jh.index("c").field("s").row_translator
+        assert tst.entries() == jst.entries(), name
+    jh.close()
+
+
+def _keyed_options(holder):
+    """Keyed set-field options of the holder's package."""
+    if isinstance(holder, Holder):
+        from pilosa_tpu_torch import FieldOptions
+    else:
+        from pilosa_tpu.core.field import FieldOptions
+    return FieldOptions(keys=True)

@@ -31,10 +31,16 @@ BIG_MAX = 1 << 40
 
 
 def state_from_jax(holder):
-    """Port interchange dict from a JAX Holder, through its public API."""
+    """Port interchange dict from a JAX Holder, through its public API:
+    every view's bits, the keyed stores' (key, id) entries and the row
+    and column attributes."""
     state = {}
     for iname, idx in holder.indexes.items():
         fields = state[iname] = {}
+        fields["@index"] = {
+            "options": {"keys": idx.keys},
+            "keys": idx.column_translator.entries() if idx.keys else [],
+            "column_attrs": dict(idx.column_attr_store.attrs)}
         for fname, field in idx.fields.items():
             views = {}
             for vname, view in field.views.items():
@@ -43,8 +49,12 @@ def state_from_jax(holder):
                     base = np.uint64(shard * SHARD_WIDTH)
                     shards[shard] = {r: frag.row_columns(r) - base
                                      for r in frag.row_ids()}
-            fields[fname] = {"options": dataclasses.asdict(field.options),
-                             "views": views}
+            fields[fname] = {
+                "options": dataclasses.asdict(field.options),
+                "views": views,
+                "keys": field.row_translator.entries()
+                if field.options.keys else [],
+                "row_attrs": dict(field.row_attr_store.attrs)}
     return state
 
 

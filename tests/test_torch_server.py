@@ -399,26 +399,38 @@ def test_queue_c_faults_match_jax(servers):
 
 def test_port_refuses_what_is_not_ported(servers):
     """Requests that need an unported part answer 400 (404 for a route)
-    naming it: never a silently different answer."""
-    _, pbase, papi = servers
-    papi.create_index("dn")
-    papi.create_field("dn", "f")
+    naming it: never a silently different answer. What was refused
+    before and is ported now is answered as the JAX server does."""
+    _, pbase, _ = servers
     cases = [
-        ("POST", "/index/dn/query?columnAttrs=true", "Row(f=1)",
-         "column attributes"),
-        ("POST", "/index/dn/query", "Options(Row(f=1), columnAttrs=true)",
-         "column attributes"),
         ("POST", "/index/dn/query?profile=true", "Row(f=1)",
          "query profiler"),
         ("POST", "/index/dn/query?remote=true", "Row(f=1)", "cluster"),
-        ("POST", "/index/dn/query", "Set('k', f=1)", "column keys"),
-        ("POST", "/index/dn/query", "SetRowAttrs(f, 1, x=2)",
-         "SetRowAttrs"),
-        ("POST", "/index/kx", {"options": {"keys": True}}, "index keys"),
-        ("POST", "/index/dn/field/k", {"options": {"keys": True}}, "keyed"),
-        ("POST", "/index/dn/field/f/import",
-         {"rowKeys": ["a"], "columnIDs": [1]}, "key translation"),
     ]
+    # Column attributes, a column key, SetRowAttrs, index and field keys
+    # and a keyed import are ported: the port answers them as the JAX
+    # server does (an unkeyed index refuses a column key with the JAX
+    # package's message).
+    run_script(servers, "keys-ported", [
+        ("POST", "/index/dn", {}, None),
+        ("POST", "/index/dn/field/f", {}, None),
+        ("POST", "/index/dn/query", "Set(3, f=1) SetColumnAttrs(3, x=1)",
+         None),
+        ("POST", "/index/dn/query?columnAttrs=true", "Row(f=1)", None),
+        ("POST", "/index/dn/query", "Options(Row(f=1), columnAttrs=true)",
+         None),
+        ("POST", "/index/dn/query", "Set('k', f=1)", None),
+        ("POST", "/index/dn/query", "SetRowAttrs(f, 1, x=2) Row(f=1)",
+         None),
+        ("POST", "/index/kx", {"options": {"keys": True}}, None),
+        ("POST", "/index/dn/field/k", {"options": {"keys": True}}, None),
+        ("POST", "/index/dn/field/f/import",
+         {"rowKeys": ["a"], "columnIDs": [1]}, None),
+        ("POST", "/index/dn/field/k/import",
+         {"rowKeys": ["a"], "columnIDs": [1]}, None),
+        ("POST", "/index/dn/query", "Row(k='a') TopN(k)", None),
+        ("GET", "/index/kx", None, None),
+    ])
     # A time range, a time field and import timestamps are ported: the
     # port answers them as the JAX server does.
     run_script(servers, "time-ported", [
@@ -447,6 +459,107 @@ def test_port_refuses_what_is_not_ported(servers):
                       pb_query("Row(f=1)") + jax_proto._varint_field(5, 1),
                       PROTO)
     assert st == 400 and b"cluster" in raw
+
+
+def pb_import_keys(index, field, row_keys, col_keys):
+    """ImportRequest with RowKeys=7 and ColumnKeys=8 (repeated strings)."""
+    return (jax_proto._str_field(1, index) + jax_proto._str_field(2, field)
+            + b"".join(jax_proto._str_field(7, k) for k in row_keys)
+            + b"".join(jax_proto._str_field(8, k) for k in col_keys))
+
+
+def pb_import_value_keys(index, field, col_keys, values):
+    """ImportValueRequest with ColumnKeys=7 and Values=6."""
+    return (jax_proto._str_field(1, index) + jax_proto._str_field(2, field)
+            + b"".join(jax_proto._str_field(7, k) for k in col_keys)
+            + jax_proto._packed_uint64(6, values))
+
+
+def test_keys_and_attributes_match_jax(servers):
+    """A keyed index over HTTP: schema, keyed imports as JSON and as
+    protobuf (and the key errors of both), reads with keys in their
+    results as JSON, as protobuf and in a batch, attribute writes,
+    ?columnAttrs=true, Options(columnAttrs=true) and protobuf
+    ColumnAttrSets: equal status codes and bodies."""
+    rng = np.random.default_rng(31)
+    users = [f"u{i}" for i in rng.integers(0, 8, 300)]
+    repos = [f"o{i % 5}/r{i}" for i in rng.integers(0, 120, 300)]
+    langs = ["go", "py", "rs"]
+    mine = {u: r for u, r in zip(users, repos)}  # a repo each user starred
+    q = "/index/dk/query"
+    steps = [
+        ("POST", "/index/dk", {"options": {"keys": True}}, None),
+        ("POST", "/index/dk/field/star", {"options": {"keys": True}}, None),
+        ("POST", "/index/dk/field/lang", {"options": {"keys": True}}, None),
+        ("POST", "/index/dk/field/n",
+         {"options": {"type": "int", "min": 0, "max": 1000}}, None),
+        ("POST", "/index/dk/field/plain", {}, None),
+        ("GET", "/schema", None, None),
+        ("POST", "/index/dk/field/star/import",
+         {"rowKeys": users[:150], "columnKeys": repos[:150]}, None),
+        ("POST", "/index/dk/field/star/import",
+         pb_import_keys("dk", "star", users[150:], repos[150:]), PROTO),
+        ("POST", "/index/dk/field/lang/import",
+         {"rowKeys": [langs[i % 3] for i in range(60)],
+          "columnKeys": repos[:60]}, None),
+        ("POST", "/index/dk/field/n/import",
+         {"columnKeys": repos[:40], "values": list(range(40))}, None),
+        ("POST", "/index/dk/field/n/import",
+         pb_import_value_keys("dk", "n", repos[40:80],
+                              list(range(100, 140))), PROTO),
+        ("POST", "/index/dk/field/plain/import",
+         {"rowIDs": [1, 1], "columnKeys": repos[:2]}, None),
+        # The key errors of an import.
+        ("POST", "/index/dk/field/star/import",
+         {"rowIDs": [1], "columnKeys": ["x"]}, None),
+        ("POST", "/index/dk/field/star/import",
+         {"rowKeys": ["a"], "columnIDs": [1]}, None),
+        ("POST", "/index/dk/field/plain/import",
+         {"rowKeys": ["a"], "columnKeys": ["x"]}, None),
+        ("POST", "/index/dk/field/n/import",
+         {"columnIDs": [1], "values": [1]}, None),
+        ("POST", "/index/dk/field/star/import",
+         {"rowKeys": ["a", "b"], "columnKeys": ["x"]}, None),
+        ("POST", q, "SetRowAttrs(star, 'u1', active=true, n=3) "
+                    "SetRowAttrs(star, 'u2', active=false) "
+                    "SetRowAttrs(lang, 'go', kind='systems')", None),
+        ("POST", q, f"SetColumnAttrs('{mine['u1']}', url='x', stars=5) "
+                    f"SetColumnAttrs('{mine['u2']}', hot=true)", None),
+        ("POST", q, "Set('new/repo', star='u1') Row(star='u1')", None),
+        ("POST", q, "TopN(star, n=3) Rows(lang) Row(lang='go')", None),
+        ("POST", q, "TopN(star, attrName='active', attrValues=[true])",
+         None),
+        ("POST", q, "GroupBy(Rows(lang), filter=Row(star='u2'))", None),
+        ("POST", q + "?columnAttrs=true", "Row(star='u1')", None),
+        ("POST", q, "Options(Row(star='u2'), columnAttrs=true) "
+                    "Count(Row(n > 20))", None),
+        ("POST", q + "?excludeRowAttrs=true", "Row(star='u1')", None),
+        ("POST", q, pb_query("Row(star='u1') TopN(star, n=2) Rows(lang)"),
+         PROTO),
+        ("POST", q, pb_query("GroupBy(Rows(lang))"), PROTO),
+        ("POST", q, pb_query("Row(star='u1')") + jax_proto._varint_field(
+            3, 1), PROTO),
+        ("POST", q + "?columnAttrs=true", pb_query("Row(lang='py')"),
+         PROTO),
+        ("POST", q, pb_query("Row(plain='a')"), PROTO),
+        ("POST", q, "Row(star='nobody') Count(Row(star='nobody2'))", None),
+        ("POST", "/batch/query", {"queries": [
+            {"index": "dk", "query": "Row(star='fresh1')"},
+            {"index": "dk", "query": "Options(Row(star='u1'), "
+                                     "columnAttrs=true)"},
+            {"index": "dk", "query": "SetRowAttrs(star, 'u3', active=true)"},
+            {"index": "dk", "query": "TopN(star, attrName='active', "
+                                     "attrValues=[true])"},
+            {"index": "dk", "query": "Count(Row(star='fresh2'))"}]}, None),
+        ("POST", q, "Rows(star) Row(star='fresh2')", None),
+        ("GET", "/index/dk", None, None),
+    ]
+    answers = run_script(servers, "keys", steps)
+    assert answers[-2]["results"][1] == {"columns": [], "keys": []}
+    with_attrs = [a for a in answers
+                  if isinstance(a, dict) and a.get("columnAttrs")]
+    assert len(with_attrs) == 2 and all(
+        "key" in c for a in with_attrs for c in a["columnAttrs"])
 
 
 def pb_import_times(index, field, rows, cols, nanos):
