@@ -137,13 +137,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
    keyed Set, SetRowAttrs after which the attribute-filtered TopN drops
    the user, SetColumnAttrs with a key, ClearRow and Store with key
    rows. No plain version may run on the card.
+8. persist (``run_persist``, after the timefields phase and the row
+   attributes, on a ``tempfile.mkdtemp()`` directory removed at the
+   end): every view and shard of the taxi index's ``cab_type``,
+   ``passenger_count``, ``dist``, ``amount``, ``_exists``, ``pickup``,
+   ``rate_code`` and ``store_and_fwd`` goes into ``Holder(dir)``, each
+   fragment's ``write_bytes()`` through ``API.import_roaring(view=)``
+   (seconds, MB/s, bytes on disk); ``close()``, then a new
+   ``Holder(dir)`` (open seconds, first-query seconds): the five taxi
+   queries exact against numpy, TopN(passenger_count) a self-checked
+   hit of the reloaded count caches and then a hit with no launch, the
+   burst in ONE ``mega_interpret`` launch, the 7-view ranged Count and
+   TopN(rate_code) equal to the in-memory holder's answers; then a Set,
+   a Clear, a timestamped Set, a 1M-bit import of one shard and a Store
+   (a snapshot a shard), the
+   holder dropped without ``close()`` and the directory opened again:
+   every write reads back and TopN(passenger_count) rebuilds its rank
+   vector, no stale hit. Then ``python -m pilosa_tpu_torch.cli server
+   --data-dir dir``: its start to the first answer (Count, TopN, Sum
+   exact); a Set acknowledged, SIGKILL, a restart whose seconds to the
+   Set read back are the time to recover; ``GET /export`` of one shard
+   of cab_type exact; ``import-roaring`` of a shard as raw bytes and of
+   another as a protobuf ``ImportRoaringRequest``, exact; SIGTERM, exit
+   0. After the keys phase (``persist_keys``): the keyed star-trace
+   index at full size on a directory through ``load_keys``' API calls
+   (load seconds beside the keys phase's), closed, reopened (open
+   seconds), its thirteen reads equal to the keys phase's answers. Then
+   (``persist_fingerprint``) a fingerprint index of 1M molecules
+   (``PERSIST_MOLECULES``, cut from 10M; its TopN budgets cut to an
+   eighth of its dense bank) written, closed, reopened, and its five
+   queries exact through the positions bank. No plain version may run
+   on the card; every kernel must launch on the persist path.
 
 Launch counts are set to 0 just before each path (taxi, burst,
-groupby, timefields, fingerprint, keys, the serve path's taxi and
-fingerprint servers)
+groupby, timefields, persist, fingerprint, keys, the serve path's taxi
+and fingerprint servers)
 and read just after; every kernel must have launched on its path, and
-on the serve path. The ``taxi``, ``groupby``, ``timefields``,
-``burst``, ``tanimoto``, ``keys`` and ``serve`` lines, the card's name
+on the serve and persist paths. The ``taxi``, ``groupby``,
+``timefields``, ``burst``, ``tanimoto``, ``keys``, ``serve`` and
+``persist`` lines, the card's name
 and power limit, the kernels JSON and the ``{"ok": true, "device":
 {...}}`` line end the output. The script imports nothing of JAX or of the JAX
 package.
@@ -612,6 +644,7 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     cab_head = np.full(2 * SHARD_WIDTH, 255, np.uint64)
     cab_head[:min(n_rides, 2 * SHARD_WIDTH)] = cab[:2 * SHARD_WIDTH]
     holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
+    pax_counts = np.bincount(pax.astype(np.int64), minlength=7)
     del pax, dist
     log(f"taxi: loaded {n_rides} rides in {load_s:.2f} s")
     report = {"rides": n_rides,
@@ -631,6 +664,11 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     report["timefields"]["launches"] = tf_launches
     report["taxi_attrs"] = run_taxi_attrs(holder, device,
                                           tf_http["topn_rate"][1], iters)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    report["persist"], report["persist"]["launches"] = run_persist(
+        holder, device, cab, amount, pax_counts, want_taxi, want_burst,
+        tf_http)
     del cab, amount
     report["serve"], serve_launches = serve_taxi(
         holder, want_taxi, want_burst, cab_head,
@@ -1795,14 +1833,16 @@ def fingerprint_expected(pos, extra_cols=()):
     return want
 
 
-def load_fingerprints(device, pos):
+def load_fingerprints(device, pos, path=None):
     """The fingerprint index on a port Holder through Field.import_bits,
-    LOAD_CHUNK molecules a call. Returns (holder, executor, field,
-    seconds)."""
+    LOAD_CHUNK molecules a call; in memory, or on the data directory
+    ``path``. Returns (holder, executor, field, seconds)."""
     import numpy as np
     from pilosa_tpu_torch import Executor, FieldOptions, Holder
     t0 = time.perf_counter()
-    holder = Holder(device=device)
+    holder = Holder(path, device=device)
+    if path is not None:
+        holder.open()
     idx = holder.create_index("mole", track_existence=False)
     field = idx.create_field("fingerprint", FieldOptions(max_columns=FP_BITS))
     for c0 in range(0, len(pos), LOAD_CHUNK):
@@ -2841,15 +2881,18 @@ def timed_translation():
     return ctx()
 
 
-def load_keys(device, d):
+def load_keys(device, d, path=None):
     """The star-trace holder through the API: the index and fields, the
     keyed imports (stars in the bench's draw order, then each
     repository's language and star count), then the row and column
-    attributes through PQL, KEY_CALLS calls a request. Returns (holder,
-    API, load seconds)."""
+    attributes through PQL, KEY_CALLS calls a request; in memory, or on
+    the data directory ``path``. Returns (holder, API, load seconds)."""
     from pilosa_tpu_torch import Holder
     from pilosa_tpu_torch.server import API
-    api = API(Holder(device=device))
+    holder = Holder(path, device=device)
+    if path is not None:
+        holder.open()
+    api = API(holder)
     api.create_index("repository", keys=True, track_existence=True)
     api.create_field("repository", "stargazer", {"keys": True})
     api.create_field("repository", "language", {"keys": True})
@@ -3291,6 +3334,537 @@ def run_taxi_attrs(holder, device, rate_top, iters=ITERS):
     return report
 
 
+# -------------------------------------------------------------- persist
+
+# The fields of the taxi index that go to disk (every view and shard).
+PERSIST_FIELDS = ("cab_type", "passenger_count", "dist", "amount", "_exists",
+                  "pickup", "rate_code", "store_and_fwd")
+PERSIST_SEED = 23
+PERSIST_SHARD = 1  # the shard exported and imported over HTTP
+PERSIST_DAY = ("2019-01-31", "2019-02-01")  # no ride is drawn there
+# The fingerprint index on disk: cut from the fingerprint phase's 10M
+# molecules to 1M (one shard) so the phase stays within its time; its
+# TopN budget is cut with it so the positions bank serves it.
+PERSIST_MOLECULES = 1_000_000
+
+_OPTION_NAMES = {"type": "type", "cache_type": "cacheType",
+                 "cache_size": "cacheSize", "min": "min", "max": "max",
+                 "time_quantum": "timeQuantum", "keys": "keys",
+                 "no_standard_view": "noStandardView",
+                 "max_columns": "maxColumns"}
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def open_holder(path, device):
+    """``Holder(path).open()`` and its seconds."""
+    from pilosa_tpu_torch import Holder
+    t0 = time.perf_counter()
+    holder = Holder(path, device=device)
+    holder.open()
+    return holder, time.perf_counter() - t0
+
+
+def copy_taxi(mem, path, device):
+    """Holder(path) gets every view and shard of PERSIST_FIELDS of the
+    in-memory taxi index, each fragment's ``write_bytes()`` through
+    ``API.import_roaring(view=)`` (one snapshot a fragment). Returns
+    (holder, seconds, bytes imported, fragments)."""
+    import dataclasses
+    from pilosa_tpu_torch.server import API
+    holder, _ = open_holder(path, device)
+    api = API(holder)
+    api.create_index("taxi")
+    src = mem.index("taxi")
+    t0 = time.perf_counter()
+    nbytes = nfrags = 0
+    for fname in PERSIST_FIELDS:
+        f = src.field(fname)
+        if fname != "_exists":
+            api.create_field("taxi", fname, {
+                _OPTION_NAMES[k]: v
+                for k, v in dataclasses.asdict(f.options).items()})
+        for vname, view in sorted(f.views.items()):
+            for shard, frag in sorted(view.fragments.items()):
+                data = frag.write_bytes()
+                api.import_roaring("taxi", fname, shard, data, view=vname)
+                nbytes += len(data)
+                nfrags += 1
+    return holder, time.perf_counter() - t0, nbytes, nfrags
+
+
+def persist_expect(cab, amount, pax_counts, n_rides, want_taxi, want_burst,
+                   mem_answers):
+    """The answers the reopened directory must give after the phase's
+    writes: a Set of a new ride into passenger_count 2 and a pickup day,
+    a Clear of ride 3's cab_type, then (over HTTP) a Set of another new
+    ride into cab_type 2."""
+    import numpy as np
+    new1, new2 = n_rides + 11, n_rides + 12
+    c3 = int(cab[3])
+    pax = pax_counts.copy()
+    pax[2] += 1
+    cab_counts = np.bincount(cab.astype(np.int64), minlength=3)
+    s, n = want_taxi["sum_filtered"]
+    if c3 == 1:
+        s, n = s - int(amount[3]), n - 1
+    return {
+        "new1": new1, "new2": new2, "c3": c3,
+        "pax2": int(pax[2]), "cab3": int(cab_counts[c3]) - 1,
+        "cab1": int(cab_counts[1]) - (c3 == 1),
+        "cab2_after": int(cab_counts[2]) + 1 - (c3 == 2),
+        "not_cab0": want_burst["not_cab0"] + 1 + (c3 == 0),
+        "topn_pax": [{"id": r, "count": int(pax[r])} for r in sorted(
+            range(1, 7), key=lambda r: (-pax[r], r))[:3]],
+        "bsi_range_count": want_taxi["bsi_range_count"],
+        "sum_cab1": {"value": s, "count": n},
+        "mem": mem_answers}
+
+
+def persist_reads(ex, want_taxi, want_burst, mem_answers, cuda):
+    """The reopened taxi directory's reads: the five queries, TopN
+    (passenger_count) from the reloaded count caches, the burst in ONE
+    mega_interpret launch, the 7-view ranged Count and TopN(rate_code)
+    as the in-memory holder answers them. Returns the report."""
+    from pilosa_tpu_torch.ops import kernels
+    report = {}
+    for name, pql in TAXI_QUERIES:
+        c0 = (ex.topn_cache_hits, ex.topn_selfchecks)
+        t0 = time.perf_counter()
+        (got,) = ex.execute("taxi", pql)
+        report.setdefault("first_query_s", time.perf_counter() - t0)
+        if taxi_answer(name, got) != want_taxi[name]:
+            raise AssertionError(f"persist {name}: port {taxi_answer(name, got)}"
+                                 f" != numpy {want_taxi[name]}")
+        if name == "topn":
+            hit = (ex.topn_cache_hits - c0[0], ex.topn_selfchecks - c0[1])
+            if hit != (1, 1):
+                raise AssertionError(f"persist: TopN(passenger_count) was "
+                                     f"not a reloaded cache hit: {hit}")
+    before = dict(kernels.LAUNCHES)
+    c0 = ex.topn_cache_hits
+    (got,) = ex.execute("taxi", "TopN(passenger_count, n=3)")
+    moved = {k: kernels.LAUNCHES[k] - before[k] for k in before
+             if kernels.LAUNCHES[k] != before[k]}
+    if taxi_answer("topn", got) != want_taxi["topn"] or \
+            ex.topn_cache_hits != c0 + 1 or moved:
+        raise AssertionError(f"persist: the warm TopN(passenger_count) "
+                             f"launched {moved}")
+    report["topn_cache"] = {"hits": ex.topn_cache_hits,
+                            "selfchecks": ex.topn_selfchecks,
+                            "mismatches": ex.topn_selfcheck_mismatches}
+    m0 = mega_state(ex)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    burst_answers(ex.execute_batch([("taxi", q, None) for _, q in BURST]),
+                  want_burst)
+    report["burst_s"] = time.perf_counter() - t0
+    moved = tuple(b - a for a, b in zip(m0, mega_state(ex)))
+    launched = kernels.LAUNCHES["mega_interpret"] - before["mega_interpret"]
+    if moved != (1, 0, 0) or (cuda and launched != 1):
+        raise AssertionError(f"persist burst: megakernel launches/fallbacks"
+                             f" moved {moved}, mega_interpret {launched}")
+    report["burst_mega_launches"] = launched
+    for name, pql in mem_answers["queries"]:
+        got = ex.execute_full("taxi", pql)
+        if got != mem_answers[pql]:
+            raise AssertionError(f"persist {name}: {pql}: {str(got)[:200]} "
+                                 f"!= in memory {str(mem_answers[pql])[:200]}")
+    return report
+
+
+def persist_writes(ex, api, expect, n_rides):
+    """The writes on the reopened holder: a Set, a Clear, a timestamped
+    Set, a 1M-bit import of one shard and a Store of a cab_type row into
+    a new field. Returns (seconds by write, the import's rows)."""
+    import numpy as np
+    out = {}
+    new1 = expect["new1"]
+    for name, pql in (
+            ("set_s", f"Set({new1}, passenger_count=2)"),
+            ("clear_s", f"Clear(3, cab_type={expect['c3']})"),
+            ("set_time_s", f"Set({new1}, pickup=0, {PERSIST_DAY[0]}T09:00)")):
+        t0 = time.perf_counter()
+        (got,) = ex.execute("taxi", pql)
+        out[name] = time.perf_counter() - t0
+        if got is not True:
+            raise AssertionError(f"persist: {pql} answered {got}")
+    rows = np.random.default_rng(PERSIST_SEED).integers(
+        0, 4, SHARD_WIDTH).astype(np.uint64)
+    api.create_field("taxi", "persist_fill")
+    t0 = time.perf_counter()
+    api.import_bits("taxi", "persist_fill", rows=rows,
+                    columns=np.arange(SHARD_WIDTH, dtype=np.uint64)
+                    + np.uint64(PERSIST_SHARD * SHARD_WIDTH))
+    out["import_1m_s"] = time.perf_counter() - t0
+    # Store rewrites a snapshot a shard.
+    t0 = time.perf_counter()
+    (got,) = ex.execute("taxi", "Store(Row(cab_type=1), persist_store=1)")
+    out["store_s"] = time.perf_counter() - t0
+    if got is not True:
+        raise AssertionError(f"persist: Store answered {got}")
+    return out, rows
+
+
+def persist_check_writes(ex, expect, fill_rows):
+    """Every write of ``persist_writes`` reads back, and TopN
+    (passenger_count) is exact without a stale cache hit. Returns the
+    cache counters."""
+    import numpy as np
+    day = f"Row(pickup=0, from='{PERSIST_DAY[0]}T00:00', " \
+          f"to='{PERSIST_DAY[1]}T00:00')"
+    checks = [("Count(Row(passenger_count=2))", expect["pax2"]),
+              (f"Count(Row(cab_type={expect['c3']}))", expect["cab3"]),
+              (f"Count({day})", 1),
+              ("Count(Row(persist_store=1))", expect["cab1"]),
+              ("Count(Not(Row(cab_type=0)))", expect["not_cab0"])]
+    counts = np.bincount(fill_rows.astype(np.int64), minlength=4)
+    checks += [(f"Count(Row(persist_fill={r}))", int(counts[r]))
+               for r in range(4)]
+    for pql, want in checks:
+        (got,) = ex.execute("taxi", pql)
+        if got != want:
+            raise AssertionError(f"persist after the crash: {pql}: {got} "
+                                 f"!= {want}")
+    c0 = (ex.topn_cache_hits, ex.rank_cache_rebuilds)
+    got = ex.execute_full("taxi", "TopN(passenger_count, n=3)")
+    if got != {"results": [expect["topn_pax"]]}:
+        raise AssertionError(f"persist after the crash: TopN {got} != "
+                             f"{expect['topn_pax']}")
+    moved = (ex.topn_cache_hits - c0[0], ex.rank_cache_rebuilds - c0[1])
+    if moved != (0, 1):
+        raise AssertionError(f"persist after the crash: a stale sidecar "
+                             f"served TopN (hits, rebuilds moved {moved})")
+    return {"topn_cache_hits": moved[0], "rank_rebuilds": moved[1]}
+
+
+def cli_start(args):
+    """``python -m pilosa_tpu_torch.cli server ARGS`` on a free loopback
+    port: (process, base URL, seconds to its listening line)."""
+    import queue
+    import threading
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+         "--bind", "127.0.0.1:0", *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    first = lines.get(timeout=600)
+    if "listening on " not in first:
+        proc.kill()
+        raise AssertionError(f"the CLI server printed {first!r}")
+    return proc, first.split("listening on ")[1].split()[0], \
+        time.perf_counter() - t0
+
+
+def cli_stop(proc):
+    """SIGTERM; the server must exit 0."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the CLI server exited {rc}")
+
+
+def persist_cli(path, device, cab, expect):
+    """``cli server --data-dir`` over the taxi directory: its start to
+    the first answer (Count, TopN, Sum exact); a Set acknowledged, then
+    SIGKILL and a restart, whose seconds to the first answer are the
+    time to recover, and the Set reads back; GET /export of one shard of
+    cab_type exact; import-roaring of a shard as raw bytes and of
+    another as a protobuf ImportRoaringRequest, exact; SIGTERM, exit
+    0. Returns the report."""
+    import numpy as np
+    from pilosa_tpu_torch.server import proto_compat
+    from pilosa_tpu_torch.storage.roaring import Bitmap
+    args = ["--data-dir", path] + (["--device", "cpu"] if device == "cpu"
+                                   else [])
+    report = {}
+    reads = ("Count(Row(dist < 50)) TopN(passenger_count, n=3) "
+             "Sum(Row(cab_type=1), field=amount)")
+    want = {"results": [expect["bsi_range_count"], expect["topn_pax"],
+                        expect["sum_cab1"]]}
+    t0 = time.perf_counter()
+    proc, base, _ = cli_start(args)
+    try:
+        got = http_json(base, "POST", "/index/taxi/query", reads)
+        report["start_to_first_answer_s"] = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"persist cli: {got} != {want}")
+        got = http_json(base, "POST", "/index/taxi/query",
+                        f"Set({expect['new2']}, cab_type=2)")
+        if got != {"results": [True]}:
+            raise AssertionError(f"persist cli: the Set answered {got}")
+    finally:
+        proc.kill()
+        proc.wait()
+    t0 = time.perf_counter()
+    proc, base, report["restart_listen_s"] = cli_start(args)
+    try:
+        got = http_json(base, "POST", "/index/taxi/query",
+                        "Count(Row(cab_type=2))")
+        report["recover_s"] = time.perf_counter() - t0
+        if got != {"results": [expect["cab2_after"]]}:
+            raise AssertionError(f"persist cli: after SIGKILL the Set is "
+                                 f"lost: {got} != {expect['cab2_after']}")
+        # The export of one shard of cab_type.
+        lo = PERSIST_SHARD * SHARD_WIDTH
+        seg = cab[lo:lo + SHARD_WIDTH]
+        want_csv = "".join(
+            "".join(f"{r},{c}\n" for c in (np.flatnonzero(seg == r)
+                                           + lo).tolist())
+            for r in range(3) if (seg == r).any())
+        t0 = time.perf_counter()
+        status, raw = http(base, "GET", "/export?index=taxi&field=cab_type"
+                           f"&shard={PERSIST_SHARD}")
+        report["export_s"] = time.perf_counter() - t0
+        if status != 200 or raw.decode() != want_csv:
+            raise AssertionError(f"persist cli: the export differs "
+                                 f"({status}, {len(raw)} bytes, "
+                                 f"{len(want_csv)} expected)")
+        report["export_lines"] = want_csv.count("\n")
+        # import-roaring: shard 0 as raw bytes, shard PERSIST_SHARD as
+        # a protobuf ImportRoaringRequest.
+        http_json(base, "POST", "/index/taxi/field/roar", {})
+        rng = np.random.default_rng(PERSIST_SEED + 1)
+        for shard, proto in ((0, False), (PERSIST_SHARD, True)):
+            rows = rng.integers(0, 3, 300_000).astype(np.uint64)
+            cols = rng.integers(0, SHARD_WIDTH, 300_000).astype(np.uint64)
+            bm = Bitmap()
+            bm.direct_add_n(np.unique(rows * np.uint64(SHARD_WIDTH) + cols))
+            data = bm.write_bytes()
+            body, ctype = data, None
+            if proto:
+                body = proto_compat._len_field(
+                    2, proto_compat._str_field(1, "")
+                    + proto_compat._len_field(2, data))
+                ctype = proto_compat.CONTENT_TYPE
+            t0 = time.perf_counter()
+            http_json(base, "POST", f"/index/taxi/field/roar/import-roaring/"
+                      f"{shard}", body, ctype)
+            report["import_roaring_" + ("proto" if proto else "raw") +
+                   "_s"] = time.perf_counter() - t0
+            uniq = np.unique(rows * np.uint64(SHARD_WIDTH) + cols)
+            counts = np.bincount((uniq // np.uint64(SHARD_WIDTH)).astype(
+                np.int64), minlength=3)
+            got = http_json(base, "POST", f"/index/taxi/query?shards={shard}",
+                            "Count(Row(roar=0)) Count(Row(roar=1)) "
+                            "Count(Row(roar=2))")
+            if got != {"results": counts.tolist()}:
+                raise AssertionError(f"persist cli: import-roaring shard "
+                                     f"{shard}: {got} != {counts.tolist()}")
+    finally:
+        cli_stop(proc)
+    return report
+
+
+def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
+                tf_http):
+    """The persist phase on the taxi index (after the timefields phase):
+    copy it to a data directory, close, reopen and read; write, drop the
+    holder without close and reopen; then the CLI server over the
+    directory. Launch counts are 0 just before the reopened holder's
+    reads and read just after the crash's; no plain version may run on
+    the card. Returns (report, launches)."""
+    import gc
+    import resource
+    import shutil
+    import tempfile
+    import torch
+    from pilosa_tpu_torch import Executor
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.server import API
+    cuda = device != "cpu"
+    n_rides = len(cab)
+    mex = Executor(mem, device=device)
+    queries = [("count_7", tf_http["count_7"][0]),
+               ("topn_rate", "TopN(rate_code)")]
+    mem_answers = {"queries": queries}
+    for _, pql in queries:
+        mem_answers[pql] = mex.execute_full("taxi", pql)
+    del mex
+    expect = persist_expect(cab, amount, pax_counts, n_rides, want_taxi,
+                            want_burst, mem_answers)
+    path = tempfile.mkdtemp(prefix="pilosa-persist-")
+    report = {}
+    prev = megamod.MEGAKERNEL_ENABLED
+    if not cuda:
+        megamod.MEGAKERNEL_ENABLED = True
+    try:
+        # 1. the copy
+        holder, report["copy_s"], nbytes, report["fragments"] = copy_taxi(
+            mem, path, device)
+        holder.close()
+        del holder
+        report["imported_bytes"] = nbytes
+        report["copy_mb_s"] = nbytes / 1e6 / report["copy_s"]
+        report["disk_bytes"] = dir_bytes(path)
+        report["nofile_limit"] = list(resource.getrlimit(
+            resource.RLIMIT_NOFILE))
+        log(f"persist: copied {report['fragments']} fragments, "
+            f"{nbytes / 1e6:.1f} MB, in {report['copy_s']:.2f} s "
+            f"({report['copy_mb_s']:.1f} MB/s); "
+            f"{report['disk_bytes'] / 1e6:.1f} MB on disk")
+        # 2. reopen and read
+        kernels.reset_launches()
+        with RefCalls(kernels) as refs:
+            holder, report["open_s"] = open_holder(path, device)
+            ex = Executor(holder, device=device)
+            report.update(persist_reads(ex, want_taxi, want_burst,
+                                        mem_answers, cuda))
+            log(f"persist: reopened in {report['open_s']:.2f} s, first "
+                f"query {report['first_query_s']:.2f} s; five queries, "
+                f"the burst in one launch and the ranged reads exact; "
+                f"TopN(passenger_count) from the reloaded caches "
+                f"{report['topn_cache']}")
+            # 3. writes, then a drop without close
+            api = API(holder)
+            report["writes"], fill_rows = persist_writes(
+                api.executor, api, expect, n_rides)
+            del ex, api, holder
+            gc.collect()
+            holder, report["crash_open_s"] = open_holder(path, device)
+            ex = Executor(holder, device=device)
+            report["after_crash"] = persist_check_writes(ex, expect,
+                                                         fill_rows)
+            holder.close()
+            del ex, holder
+            gc.collect()
+        launches = dict(kernels.LAUNCHES)
+        report["ref_calls"] = refs.calls
+        if cuda and refs.calls:
+            raise AssertionError(f"persist: plain versions called on the "
+                                 f"card: {refs.calls}")
+        if cuda:
+            torch.cuda.empty_cache()
+        log(f"persist: writes {report['writes']}; dropped without close, "
+            f"reopened in {report['crash_open_s']:.2f} s, every write read "
+            f"back, stale sidecars cold {report['after_crash']}")
+        # 4. the CLI server over the directory
+        report["cli"] = persist_cli(path, device, cab, expect)
+        log(f"persist: cli {report['cli']}")
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+        shutil.rmtree(path, ignore_errors=True)
+    return report, launches
+
+
+def persist_keys(device, mem_load, n_repos=KEY_REPOS, n_users=KEY_USERS,
+                 n_stars=KEY_STARS, n_attr_cols=KEY_ATTR_COLS):
+    """The keyed star-trace index on a data directory, through the same
+    API calls as the keys phase (``load_keys``); close, reopen, and the
+    thirteen reads must give the keys phase's (numpy-checked) answers.
+    Returns the report."""
+    import shutil
+    import tempfile
+    d = keys_data(n_repos, n_users, n_stars, n_attr_cols)
+    o = KeyOracle(d)
+    a, b, _ = key_users(o)
+    reads = key_reads(o, a, b)
+    path = tempfile.mkdtemp(prefix="pilosa-persist-keys-")
+    report = {"repositories": n_repos, "in_memory_load_s": mem_load}
+    try:
+        holder, _, report["load_s"] = load_keys(device, d, path=path)
+        holder.close()
+        del holder
+        report["disk_bytes"] = dir_bytes(path)
+        holder, report["open_s"] = open_holder(path, device)
+        from pilosa_tpu_torch import Executor
+        ex = Executor(holder, device=device)
+        t0 = time.perf_counter()
+        for name, pql, want in reads:
+            got = ex.execute_full("repository", pql)
+            # The first read loads the translators' logs.
+            report.setdefault("first_read_s", time.perf_counter() - t0)
+            if got != want:
+                raise AssertionError(f"persist keys {name}: {pql}: "
+                                     f"{str(got)[:300]} != "
+                                     f"{str(want)[:300]}")
+        report["reads_s"] = time.perf_counter() - t0
+        holder.close()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"persist keys: {n_repos} repositories loaded on disk "
+        f"{report['load_s']} (in memory {mem_load}); reopened in "
+        f"{report['open_s']:.2f} s, first read {report['first_read_s']:.2f}"
+        " s; thirteen reads exact")
+    return report
+
+
+def persist_fingerprint(device, n_molecules=PERSIST_MOLECULES):
+    """A fingerprint index of ``n_molecules`` on a data directory
+    (``load_fingerprints`` with a path), closed, reopened, and the five
+    queries exact through the positions bank (no dense bank; the TopN
+    budgets cut to an eighth of its dense bank). Launch counts are 0
+    just before the queries and read just after. Returns (report,
+    launches)."""
+    import shutil
+    import tempfile
+    from pilosa_tpu_torch import Executor
+    from pilosa_tpu_torch.core.view import PositionsBank, ViewBank
+    from pilosa_tpu_torch.executor import executor as executor_mod
+    from pilosa_tpu_torch.ops import kernels
+    pos = fingerprint_positions(n_molecules)
+    want = fingerprint_expected(pos)
+    path = tempfile.mkdtemp(prefix="pilosa-persist-fp-")
+    report = {"molecules": n_molecules}
+    budget = (executor_mod.TOPN_MAX_BANK_BYTES,
+              executor_mod.Executor.BANK_MAX_BYTES)
+    cut = n_molecules * FP_BITS // 8 // 8
+    executor_mod.TOPN_MAX_BANK_BYTES = executor_mod.Executor.BANK_MAX_BYTES \
+        = cut
+    try:
+        holder, _, _, report["load_s"] = load_fingerprints(device, pos,
+                                                           path=path)
+        holder.close()
+        del holder
+        report["disk_bytes"] = dir_bytes(path)
+        holder, report["open_s"] = open_holder(path, device)
+        ex = Executor(holder, device=device)
+        kernels.reset_launches()
+        with RefCalls(kernels) as refs:
+            for name, pql in FP_QUERIES:
+                t0 = time.perf_counter()
+                (got,) = ex.execute("mole", pql)
+                report.setdefault("first_query_s", time.perf_counter() - t0)
+                if got.pairs != want[name]:
+                    raise AssertionError(f"persist fingerprint {name}: "
+                                         f"{got.pairs[:5]} != "
+                                         f"{want[name][:5]}")
+        launches = dict(kernels.LAUNCHES)
+        view = holder.index("mole").field("fingerprint").view()
+        pb = [b for b in view._bank_cache.values()
+              if isinstance(b, PositionsBank)]
+        dense = [k for k, b in view._bank_cache.items()
+                 if isinstance(b, ViewBank) and b.array.shape[0] > 2]
+        if not pb or dense or (device != "cpu" and (
+                launches["pbank_membership_counts"] <= 0 or refs.calls)):
+            raise AssertionError(f"persist fingerprint: not through the "
+                                 f"positions bank ({len(pb)} banks, dense "
+                                 f"{dense}, launches {launches}, plain "
+                                 f"{refs.calls})")
+        holder.close()
+    finally:
+        executor_mod.TOPN_MAX_BANK_BYTES, \
+            executor_mod.Executor.BANK_MAX_BYTES = budget
+        shutil.rmtree(path, ignore_errors=True)
+    log(f"persist fingerprint: {n_molecules} molecules on disk in "
+        f"{report['load_s']:.2f} s, reopened in {report['open_s']:.2f} s, "
+        "five queries exact through the positions bank")
+    return report, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3381,6 +3955,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     keys, keys_launches = run_keys("cuda")
     torch.cuda.empty_cache()
+    # 8. the persist phase's keyed and fingerprint directories
+    persist = report["persist"]
+    persist["keys"] = persist_keys("cuda", keys["load_s"])
+    persist["fingerprint"], pfp_launches = persist_fingerprint("cuda")
+    torch.cuda.empty_cache()
     # 6. the serve path's CLI phase
     cli = serve_cli("cuda")
     launches = {name: taxi_launches[name] for name in (
@@ -3403,6 +3982,18 @@ def main(argv=None) -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "serve path")
+    # The persist path runs every kernel: the sweeps and the interpreter
+    # on the reopened taxi directory, the membership kernel on the
+    # reopened fingerprint directory.
+    persist_counts = {name: persist["launches"][name] for name in (
+        "bank_row_counts", "bank_row_counts_masked", "bsi_plane_counts",
+        "mega_interpret")}
+    persist_counts["pbank_membership_counts"] = \
+        pfp_launches["pbank_membership_counts"]
+    for name, n in persist_counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "persist path")
     burst = report["burst"]
     timing["mega_interpret"] = {"ms": burst["kernel_ms"],
                                 "plain_ms": burst["plain_ms"],
@@ -3495,9 +4086,17 @@ def main(argv=None) -> int:
         "fp_in_process_p50_s": serve_fp["fp_in_process_p50_s"],
         "cli_start_to_first_answer_s": cli["start_to_first_answer_s"],
         "launches": serve_counts}}), flush=True)
+    print(json.dumps({"persist": {
+        "codec": "native", "card": card,
+        **{k: persist[k] for k in (
+            "fragments", "imported_bytes", "copy_s", "copy_mb_s",
+            "disk_bytes", "nofile_limit", "open_s", "first_query_s",
+            "topn_cache", "burst_s", "writes", "crash_open_s",
+            "after_crash", "cli", "keys", "fingerprint")},
+        "launches": persist_counts}}), flush=True)
     print(card, flush=True)
 
-    # 8. kernels line, then the result line
+    # 9. kernels line, then the result line
     rows = []
     for name in kernels.LAUNCHES:
         t = timing[name]

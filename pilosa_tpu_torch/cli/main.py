@@ -1,19 +1,27 @@
-"""``python -m pilosa_tpu_torch.cli server``: serve the port over HTTP.
+"""``python -m pilosa_tpu_torch.cli``: the port's server and export.
 
     python -m pilosa_tpu_torch.cli server --bind HOST:PORT \\
-        [--device cuda|cpu] [--no-coalescer] [--coalescer-window-ms MS]
+        [--data-dir DIR] [--device cuda|cpu] [--no-coalescer] \\
+        [--coalescer-window-ms MS]
+    python -m pilosa_tpu_torch.cli export --data-dir DIR --index I \\
+        --field F [--shard S] [--output PATH]
 
-The flags are the JAX package's (``pilosa_tpu/cli/main.py``). The holder
-lives in memory (the port has no persistence yet), so there is no
-``--data-dir`` and no TOML config. The server runs on CUDA unless
-``--device cpu`` is given, and raises where there is no card. Port 0
-binds a free port; the first line on stdout names the address served.
-SIGTERM stops it like Ctrl-C: the coalescer drains what it admitted.
+The flags are the JAX package's (``pilosa_tpu/cli/main.py``). With
+``--data-dir`` the server opens ``Holder(DIR)`` (the JAX package's
+directory layout; either package opens the other's), and every
+acknowledged write is in its files; without it the holder lives in
+memory. SIGTERM stops the server like Ctrl-C: the coalescer drains what
+it admitted and the holder closes, which saves the count caches. The
+server runs on CUDA unless ``--device cpu`` is given, and raises where
+there is no card. Port 0 binds a free port; the first line on stdout
+names the address served. ``export`` writes one field's standard view
+as ``row,col`` CSV, every shard or one. No TOML config.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 
@@ -32,7 +40,12 @@ def cmd_server(args) -> int:
     from pilosa_tpu_torch.server.http import make_server
 
     host, port = _bind(args.bind)
-    api = API(Holder(device=args.device))
+    holder = Holder(None if args.data_dir is None
+                    else os.path.expanduser(args.data_dir),
+                    device=args.device)
+    if holder.path is not None:
+        holder.open()
+    api = API(holder)
     if not args.no_coalescer:
         api.coalescer = QueryCoalescer(
             api.executor, window_s=args.coalescer_window_ms / 1e3)
@@ -47,7 +60,8 @@ def cmd_server(args) -> int:
     coal = "off" if api.coalescer is None \
         else f"{args.coalescer_window_ms:g} ms"
     print(f"pilosa-tpu-torch server listening on http://{addr[0]}:{addr[1]}"
-          f" device={api.holder.device} coalescer={coal}", flush=True)
+          f" device={holder.device} coalescer={coal}"
+          f" data_dir={holder.path or '(memory)'}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -56,6 +70,36 @@ def cmd_server(args) -> int:
         if api.coalescer is not None:
             api.coalescer.stop()
         server.server_close()
+        if holder.path is not None:
+            holder.close()
+    return 0
+
+
+def cmd_export(args) -> int:
+    from pilosa_tpu_torch.core.holder import Holder
+    from pilosa_tpu_torch.server.api import export_fragment_lines
+
+    holder = Holder(os.path.expanduser(args.data_dir), device=args.device)
+    holder.open()
+    try:
+        idx = holder.index(args.index)
+        f = idx.field(args.field) if idx is not None else None
+        if f is None:
+            print(f"not found: {args.index}/{args.field}", file=sys.stderr)
+            return 1
+        view = f.view()
+        shards = [args.shard] if args.shard is not None \
+            else (view.available_shards() if view else [])
+        out = sys.stdout if args.output == "-" else open(args.output, "w")
+        try:
+            for shard in shards:
+                for line in export_fragment_lines(idx, args.field, shard):
+                    out.write(line)
+        finally:
+            if out is not sys.stdout:
+                out.close()
+    finally:
+        holder.close()
     return 0
 
 
@@ -65,6 +109,8 @@ def main(argv=None) -> int:
         description="The PyTorch/CUDA port of the bitmap index.")
     sub = p.add_subparsers(dest="cmd", required=True)
     sp = sub.add_parser("server", help="run the server")
+    sp.add_argument("-d", "--data-dir", default=None,
+                    help="data directory (default: in memory)")
     sp.add_argument("-b", "--bind", default="localhost:10101",
                     help="HOST:PORT to listen on (port 0: any free port)")
     sp.add_argument("--device", default=None,
@@ -76,6 +122,17 @@ def main(argv=None) -> int:
     sp.add_argument("--coalescer-window-ms", type=float, default=1.5,
                     help="coalescer batching window in milliseconds")
     sp.set_defaults(fn=cmd_server)
+    ep = sub.add_parser("export", help="export a field as CSV")
+    ep.add_argument("-d", "--data-dir", required=True)
+    ep.add_argument("-i", "--index", required=True)
+    ep.add_argument("-f", "--field", required=True)
+    ep.add_argument("--shard", type=int, default=None,
+                    help="one shard (default: every shard)")
+    ep.add_argument("-o", "--output", default="-")
+    ep.add_argument("--device", default=None,
+                    help="torch device of the holder (default cuda; cpu "
+                         "to run without a card)")
+    ep.set_defaults(fn=cmd_export)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -1,1 +1,2 @@
-"""Host state (holder, index, field, view, fragment) and device banks."""
+"""Host state (holder, index, field, view, fragment), its data directory,
+and device banks."""

@@ -1,4 +1,4 @@
-"""Attribute store: key-value attributes on rows and columns, in memory.
+"""Attribute store: key-value attributes on rows and columns.
 
 A copy of the JAX package's ``AttrStore`` merge semantics: a write
 merges into the id's attributes, a ``None`` value deletes its key, and
@@ -8,19 +8,103 @@ host; no device array holds them.
 ``gen`` counts mutations: an attribute write changes no fragment
 version, so anything cached that embeds attributes (or depends on them,
 as an attribute-filtered TopN does) must stamp it.
+
+With a ``path`` the store persists as the JAX package's does: a JSON
+snapshot at ``path`` and a ``path.log`` of delta lines, one JSON line a
+write, flushed before the write returns. ``open`` loads the snapshot,
+replays the whole lines of the log and truncates a torn last line; the
+log folds into the snapshot (fsynced, renamed) after
+LOG_COMPACT_ENTRIES lines or LOG_COMPACT_BYTES bytes.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
-from typing import Any, Dict, Iterable, List
+from typing import Any, Dict, Iterable, List, Optional
+
+# Log lines or bytes after which the log folds into the snapshot (the
+# JAX package's defaults).
+LOG_COMPACT_ENTRIES = 4096
+LOG_COMPACT_BYTES = 8 << 20
 
 
 class AttrStore:
-    def __init__(self):
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
         self.attrs: Dict[int, Dict[str, Any]] = {}
         self._lock = threading.RLock()
         self.gen = 0
+        self._log_fh = None
+        self._log_entries = 0
+        self._log_bytes = 0
+
+    @property
+    def _log_path(self) -> str:
+        return self.path + ".log"
+
+    def open(self) -> None:
+        if not self.path:
+            return
+        with self._lock:
+            if os.path.exists(self.path):
+                with open(self.path) as f:
+                    self.attrs = {int(k): v for k, v in json.load(f).items()}
+            if os.path.exists(self._log_path):
+                keep = 0
+                with open(self._log_path, "rb") as f:
+                    for line in f:
+                        try:
+                            delta = json.loads(line)
+                        except ValueError:
+                            break  # a torn last line
+                        self._apply({int(k): v for k, v in delta.items()})
+                        keep += len(line)
+                        self._log_entries += 1
+                if keep < os.path.getsize(self._log_path):
+                    with open(self._log_path, "ab") as f:
+                        f.truncate(keep)
+                self._log_bytes = keep
+
+    def close(self) -> None:
+        with self._lock:
+            if self._log_fh is not None:
+                self._log_fh.close()
+                self._log_fh = None
+
+    def _append(self, items: Dict[int, Dict[str, Any]]) -> None:
+        """One flushed log line a write."""
+        if not self.path:
+            return
+        line = json.dumps({str(k): v for k, v in items.items()},
+                          separators=(",", ":")) + "\n"
+        if self._log_fh is None:
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            self._log_fh = open(self._log_path, "a")
+        self._log_fh.write(line)
+        self._log_fh.flush()
+        self._log_entries += 1
+        self._log_bytes += len(line)
+        if self._log_entries >= LOG_COMPACT_ENTRIES or \
+                self._log_bytes >= LOG_COMPACT_BYTES:
+            self._compact()
+
+    def _compact(self) -> None:
+        """Fold the log into the snapshot: the snapshot is written,
+        fsynced and renamed before the log is emptied (a crash between
+        the two replays deltas already folded, which merge the same)."""
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({str(k): v for k, v in self.attrs.items()}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.path)
+        if self._log_fh is not None:
+            self._log_fh.close()
+        self._log_fh = open(self._log_path, "w")
+        self._log_entries = 0
+        self._log_bytes = 0
 
     def _apply(self, items: Dict[int, Dict[str, Any]]) -> None:
         self.gen += 1
@@ -50,10 +134,12 @@ class AttrStore:
         """Merge ``attrs`` into the id's attributes."""
         with self._lock:
             self._apply({id_: attrs})
+            self._append({id_: attrs})
 
     def set_bulk(self, items: Dict[int, Dict[str, Any]]) -> None:
         with self._lock:
             self._apply(items)
+            self._append(items)
 
     def ids_matching(self, key: str, values: List[Any]) -> List[int]:
         """Ids whose attribute ``key`` equals one of ``values``,

@@ -13,10 +13,13 @@ of it). Two tiers serve an unfiltered TopN without its popcount sweep:
   reused while unchanged, patched for the written rows, else rebuilt by
   the one sweep TopN would have paid anyway (``Executor._rank_counts``).
 
-Not ported yet: the ``.cache`` sidecar (``save_cache``/``load_cache``,
-and the caches' ``get``/``ids``/``top`` that serve it) waits for
-persistence, and the memory-ledger registration of rank entries (with
-their byte counts) waits for the memory budget and ledger. The store's resize
+A fragment with a path keeps its count cache in a ``.cache`` sidecar
+(``save_cache`` / ``load_cache``): ``CACHE_MAGIC``, a stamp binding the
+sidecar to the storage bytes it was computed from, then little-endian
+(u64 row, u64 count) pairs, by count descending. A saturated ranked
+cache is saved empty. Not ported yet: the memory-ledger registration of
+rank entries (with their byte counts) waits for the memory budget and
+ledger. The store's resize
 invalidation and its ``[cache]`` config belong to the cluster and config
 items and are left out with them.
 """
@@ -25,9 +28,10 @@ from __future__ import annotations
 
 import heapq
 import os
+import struct
 import threading
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 THRESHOLD_FACTOR = 1.1
 
@@ -76,6 +80,11 @@ class RankedCache:
                 self._recalculate()
                 self.saturated = True
 
+    def top(self) -> List[Tuple[int, int]]:
+        """(row, count) by count descending, then row, at most ``size``."""
+        pairs = sorted(self.counts.items(), key=lambda kv: (-kv[1], kv[0]))
+        return pairs[:self.size]
+
     def _recalculate(self) -> None:
         """Top-``size`` selection (lock held) into a fresh dict, so
         lock-free readers never see a half-pruned map."""
@@ -111,6 +120,9 @@ class LRUCache:
             while len(self.counts) > self.size:
                 self.counts.popitem(last=False)
 
+    def top(self) -> List[Tuple[int, int]]:
+        return sorted(self.counts.items(), key=lambda kv: (-kv[1], kv[0]))
+
     def invalidate(self) -> None:
         with self._lock:
             self.counts = OrderedDict()
@@ -124,6 +136,9 @@ class NopCache:
 
     def add(self, row_id: int, count: int) -> None:
         pass
+
+    def top(self) -> List[Tuple[int, int]]:
+        return []
 
     def invalidate(self) -> None:
         pass
@@ -140,6 +155,49 @@ def new_cache(cache_type: str, size: int):
     if cache_type == CACHE_TYPE_NONE:
         return NopCache()
     raise ValueError(f"invalid cache type: {cache_type}")
+
+
+# Sidecar magic ("pcV2"): the format with the storage stamp.
+CACHE_MAGIC = 0x70635632
+
+
+def save_cache(cache, path: str, stamp: bytes = b"") -> None:
+    """Write the cache's top pairs to ``path`` through a rename; a
+    saturated ranked cache (its counts may be stale) is saved empty."""
+    pairs = [] if getattr(cache, "saturated", False) else cache.top()
+    buf = bytearray(struct.pack("<IH", CACHE_MAGIC, len(stamp)))
+    buf += stamp
+    buf += struct.pack("<Q", len(pairs))
+    for row_id, count in pairs:
+        buf += struct.pack("<QQ", row_id, count)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf)
+    os.replace(tmp, path)
+
+
+def load_cache(cache, path: str, stamp: bytes = b"") -> bool:
+    """Add the sidecar's pairs to ``cache``; False, loading nothing, when
+    the file is missing, of another format, or stamped for other
+    storage bytes than ``stamp``."""
+    if not os.path.exists(path):
+        return False
+    with open(path, "rb") as f:
+        data = f.read()
+    if len(data) < 6:
+        return False
+    magic, stamp_len = struct.unpack_from("<IH", data, 0)
+    if magic != CACHE_MAGIC:
+        return False
+    off = 6 + stamp_len
+    if data[6:off] != stamp:
+        return False
+    (n,) = struct.unpack_from("<Q", data, off)
+    off += 8
+    for i in range(n):
+        row_id, count = struct.unpack_from("<QQ", data, off + 16 * i)
+        cache.add(row_id, count)
+    return True
 
 
 # ---------------------------------------------------------------------

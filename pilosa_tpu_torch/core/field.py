@@ -14,12 +14,19 @@ Types, as the JAX package's ``core/field.py`` has them:
 A bulk import with timestamps groups its pairs by the timestamp cut to
 the quantum's finest unit and names each group's views once, so a load
 of 100M rides spends its time in the fragments, not in ``strftime``.
+
+A field with a ``path`` persists as the JAX package's does: ``.meta``
+holds ``asdict(FieldOptions)`` as JSON, each view lives under
+``views/<name>``, the row keys in ``.row_keys`` and the row attributes
+in ``.row_attrs``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from datetime import datetime
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -141,7 +148,9 @@ def _by_shard(column_ids: np.ndarray):
 
 class Field:
     def __init__(self, index: str, name: str, device: torch.device,
-                 options: Optional[FieldOptions] = None):
+                 options: Optional[FieldOptions] = None,
+                 path: Optional[str] = None):
+        self.path = path
         self.index = index
         self.name = name
         self.device = device
@@ -150,31 +159,77 @@ class Field:
         self.views: Dict[str, View] = {}
         self.bsi_groups: Dict[str, BSIGroup] = {}
         self._lock = threading.RLock()
-        self.row_attr_store = AttrStore()
+        self.row_attr_store = AttrStore(self._file(".row_attrs"))
+        self.row_attr_store.open()
         self._row_translator: Optional[TranslateStore] = None
+        self._set_bsi_group()
+
+    def _file(self, name: str) -> Optional[str]:
+        return None if self.path is None else os.path.join(self.path, name)
+
+    def _set_bsi_group(self) -> None:
         if self.options.type == FIELD_TYPE_INT:
-            self.bsi_groups[name] = BSIGroup(name, self.options.min,
-                                             self.options.max)
+            self.bsi_groups[self.name] = BSIGroup(
+                self.name, self.options.min, self.options.max)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def save_meta(self) -> None:
+        """Write ``.meta`` (the options as JSON) through a rename."""
+        os.makedirs(self.path, exist_ok=True)
+        tmp = self._file(".meta") + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(asdict(self.options), f)
+        os.replace(tmp, self._file(".meta"))
+
+    def open(self) -> None:
+        """Load ``.meta`` and every view under ``views/``."""
+        meta = self._file(".meta")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                self.options = FieldOptions(**json.load(f))
+            self._set_bsi_group()
+        views_dir = self._file("views")
+        if os.path.isdir(views_dir):
+            for name in os.listdir(views_dir):
+                v = self._new_view(name)
+                v.open()
+                self.views[name] = v
+
+    def close(self) -> None:
+        with self._lock:
+            for v in self.views.values():
+                v.close()
+            if self._row_translator is not None:
+                self._row_translator.close()
+            self.row_attr_store.close()
 
     @property
     def row_translator(self) -> TranslateStore:
-        """The translator of the field's row keys, made on first use."""
+        """The translator of the field's row keys, made (and with a path
+        opened on ``.row_keys``) on first use."""
         with self._lock:
             if self._row_translator is None:
-                self._row_translator = TranslateStore()
+                t = TranslateStore(self._file(".row_keys"))
+                t.open()
+                self._row_translator = t
             return self._row_translator
 
     def view(self, name: str = VIEW_STANDARD) -> Optional[View]:
         return self.views.get(name)
 
+    def _new_view(self, name: str) -> View:
+        return View(self.name, name, self.device,
+                    max_columns=self.options.max_columns,
+                    cache_type=self.options.cache_type,
+                    cache_size=self.options.cache_size,
+                    path=self._file(os.path.join("views", name)))
+
     def create_view_if_not_exists(self, name: str) -> View:
         with self._lock:
             v = self.views.get(name)
             if v is None:
-                v = View(self.name, name, self.device,
-                         max_columns=self.options.max_columns,
-                         cache_type=self.options.cache_type,
-                         cache_size=self.options.cache_size)
+                v = self._new_view(name)
                 self.views[name] = v
             return v
 
@@ -261,9 +316,7 @@ class Field:
         if frag.bit(depth, column_id) and base == sum(
                 1 << i for i in range(depth) if frag.bit(i, column_id)):
             return False
-        frag.import_values(np.array([column_id], np.uint64),
-                           np.array([base], np.uint64), depth)
-        return True
+        return frag.set_value(column_id, depth, base)
 
     def clear_value(self, column_id: int) -> bool:
         bsig = self._bsig()
@@ -271,10 +324,7 @@ class Field:
         frag = view.fragment(column_id // SHARD_WIDTH) if view else None
         if frag is None or not frag.bit(bsig.bit_depth, column_id):
             return False
-        frag.import_values(np.array([column_id], np.uint64),
-                           np.array([0], np.uint64), bsig.bit_depth,
-                           clear=True)
-        return True
+        return frag.clear_value(column_id, bsig.bit_depth)
 
     def import_bits(self, row_ids: np.ndarray, column_ids: np.ndarray,
                     timestamps: Optional[Sequence[Any]] = None,

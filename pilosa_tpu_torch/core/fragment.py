@@ -12,9 +12,24 @@ Each fragment keeps a TopN count cache (``core/cache.py``) of the type
 its field names; every bit write refreshes the written rows' counts
 (``_cache_update``), unless a ranked cache has saturated.
 
-Persistence (snapshots, the op log, the file format) and the native
-codec of the JAX package's ``core/fragment.py`` are not part of this
-port yet.
+A fragment with a ``path`` keeps its bits in the roaring file format
+there (``storage/roaring.py``), as the JAX package's fragment does: a
+snapshot, then an op log that every write appends to through an
+unbuffered handle before it returns, so a killed process loses no
+acknowledged write. Single-bit writes log OP_ADD / OP_REMOVE records,
+bulk imports one OP_ADD_ROARING record a chunk of IMPORT_CHUNK_PAIRS
+pairs, clears (ClearRow, clearing imports, BSI zero planes) one
+OP_REMOVE_BATCH a chunk. The log folds into a new snapshot (written to
+``<path>.snapshotting``, fsynced, renamed) after DEFAULT_MAX_OP_N
+single-bit records, or once its batch records outgrow
+max(OPLOG_FOLD_MIN_BYTES, half the last snapshot); Store and a roaring
+import rewrite the snapshot at once. ``open`` moves a record torn by a
+crash into a ``.torn`` sidecar and truncates it away, and refuses a
+dangling tail larger than any record could be (MAX_TORN_TAIL_BYTES).
+The count cache persists in a ``.cache`` sidecar stamped with the
+storage file's size and the checksum of its last 64 bytes; a sidecar
+whose stamp no longer matches loads cold. Without a path a fragment
+lives in memory and writes no records.
 
 BSI layout: rows 0..bit_depth-1 hold value bits LSB-first; row bit_depth
 is the not-null marker.
@@ -23,6 +38,8 @@ is the not-null marker.
 from __future__ import annotations
 
 import itertools
+import os
+import struct
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -31,11 +48,24 @@ import numpy as np
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, SHARD_WIDTH_EXP
 from pilosa_tpu_torch.storage.roaring import ARRAY_MAX_SIZE, \
-    CONTAINER_BITS, CONTAINER_WORDS, Bitmap, _dense_to_array, \
-    _popcount_words, dense_scatter
+    CONTAINER_BITS, CONTAINER_WORDS, OP_REMOVE_BATCH, Bitmap, \
+    _dense_to_array, _popcount_rows, _popcount_words, dense_scatter, \
+    fnv1a32, serialize_masks, serialize_positions
 
 # Containers per shard row: 2^20 / 2^16.
 CONTAINERS_PER_ROW = SHARD_WIDTH // CONTAINER_BITS
+
+# Snapshot after this many logged single-bit records.
+DEFAULT_MAX_OP_N = 10000
+# Batch records fold by size: once the log since the snapshot reaches
+# max(this, half the last snapshot).
+OPLOG_FOLD_MIN_BYTES = 32 << 20
+# (row, column) pairs per import record.
+IMPORT_CHUNK_PAIRS = 4 << 20
+# The largest dangling tail open() treats as a torn append: twice the
+# worst legitimate record (a chunk with every pair in its own container,
+# 18 bytes a container).
+MAX_TORN_TAIL_BYTES = 2 * (18 * IMPORT_CHUNK_PAIRS + (1 << 16))
 
 _VERSIONS = itertools.count(1)
 
@@ -51,9 +81,15 @@ def _strictly_increasing(a: np.ndarray) -> bool:
 class Fragment:
     def __init__(self, shard: int,
                  cache_type: str = cache_mod.CACHE_TYPE_RANKED,
-                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE):
+                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
+                 path: Optional[str] = None):
         self.shard = shard
+        self.path = path
         self.storage = Bitmap()
+        self._file = None
+        self._last_snapshot_bytes = 0
+        # Torn-tail bytes moved to the .torn sidecar by open().
+        self.tail_dropped_bytes = 0
         self.cache = cache_mod.new_cache(cache_type, cache_size)
         self.cache_type = cache_type
         self.version = _next_version()
@@ -62,6 +98,130 @@ class Fragment:
         self._lock = threading.RLock()
         self._row_ids_cache: Tuple[int, Tuple[int, ...]] = (-1, ())
         self._max_col_cache: Tuple[int, int] = (-1, -1)
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def open(self) -> None:
+        """Load the file at ``path`` (replaying its op log), or create it
+        holding an empty snapshot; then open the append handle, load the
+        count cache if its stamp matches, and fold an over-limit log.
+        The C++ reader leaves every container in the encoding
+        ``optimize`` would choose, so no optimize pass follows."""
+        if self.path is None:
+            return
+        with self._lock:
+            data = b""
+            if os.path.exists(self.path):
+                with open(self.path, "rb") as f:
+                    data = f.read()
+            if data:
+                self.storage.read_bytes(data, tolerate_torn_tail=True)
+                nd = self.storage.tail_dropped
+                if nd > MAX_TORN_TAIL_BYTES:
+                    raise ValueError(
+                        f"{self.path}: {nd}-byte dangling op tail exceeds "
+                        "the torn-append bound; refusing to truncate")
+                if nd:
+                    # Keep the torn bytes, then cut them so the next
+                    # append starts on a record boundary.
+                    self.tail_dropped_bytes += nd
+                    with open(self.path + ".torn", "ab") as f:
+                        f.write(data[len(data) - nd:])
+                    with open(self.path, "r+b") as f:
+                        f.truncate(len(data) - nd)
+            else:
+                # Missing, or empty after a crash before its header: no
+                # record can be in it.
+                os.makedirs(os.path.dirname(self.path), exist_ok=True)
+                data = self.storage.write_bytes()
+                with open(self.path, "wb") as f:
+                    f.write(data)
+                self.storage.snapshot_bytes = len(data)
+            self._last_snapshot_bytes = self.storage.snapshot_bytes
+            self._file = open(self.path, "ab", buffering=0)
+            self.storage.op_writer = self._file
+            cache_mod.load_cache(self.cache, self.cache_path(),
+                                 stamp=self._storage_stamp())
+            self._maybe_snapshot()
+
+    def close(self) -> None:
+        """Save the count cache and close the append handle."""
+        with self._lock:
+            self.flush_cache()
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+            self.storage.op_writer = None
+
+    def cache_path(self) -> str:
+        return self.path + ".cache"
+
+    def _storage_stamp(self) -> bytes:
+        """The storage file's size and the fnv1a32 of its last 64 bytes:
+        any write that reached the file after a sidecar was saved
+        changes it."""
+        try:
+            size = os.path.getsize(self.path)
+            with open(self.path, "rb") as f:
+                f.seek(max(0, size - 64))
+                tail = f.read(64)
+        except OSError:
+            return b""
+        return struct.pack("<QI", size, fnv1a32(tail))
+
+    def flush_cache(self) -> None:
+        """Write the count cache's sidecar, stamped with the storage
+        file as it stands."""
+        if self.path is None or self.cache_type == cache_mod.CACHE_TYPE_NONE:
+            return
+        try:
+            cache_mod.save_cache(self.cache, self.cache_path(),
+                                 stamp=self._storage_stamp())
+        except OSError:
+            pass
+
+    def _snapshot(self) -> None:
+        """Rewrite the file as one snapshot with no op log: written to
+        ``.snapshotting``, fsynced and renamed over the file."""
+        if self.path is None:
+            return
+        tmp = self.path + ".snapshotting"
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+            self.storage.op_writer = None
+        try:
+            data = self.storage.write_bytes()
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.path)
+            self.storage.op_n = 0
+            self.storage.op_n_small = 0
+            self.storage.oplog_bytes = 0
+            self._last_snapshot_bytes = self.storage.snapshot_bytes = \
+                len(data)
+        finally:
+            # The old file stands if the snapshot failed; appends go on.
+            self._file = open(self.path, "ab", buffering=0)
+            self.storage.op_writer = self._file
+
+    def _oplog_over_limit(self) -> bool:
+        s = self.storage
+        if s.op_n_small >= DEFAULT_MAX_OP_N:
+            return True
+        return s.oplog_bytes >= max(OPLOG_FOLD_MIN_BYTES,
+                                    self._last_snapshot_bytes // 2)
+
+    def _maybe_snapshot(self) -> None:
+        if self.path is not None and self._oplog_over_limit():
+            self._snapshot()
+
+    def write_bytes(self) -> bytes:
+        """The fragment's bits as one snapshot (no op log)."""
+        with self._lock:
+            return self.storage.write_bytes()
 
     # -- helpers -----------------------------------------------------------
 
@@ -136,6 +296,7 @@ class Fragment:
             if changed:
                 self._touch_rows((row_id,), same_row_set=present)
                 self._cache_update((row_id,))
+                self._maybe_snapshot()
             return changed
 
     def clear_bit(self, row_id: int, column_id: int) -> bool:
@@ -146,6 +307,7 @@ class Fragment:
                 self._touch_rows((row_id,),
                                  same_row_set=self._row_present(row_id))
                 self._cache_update((row_id,))
+                self._maybe_snapshot()
             return changed
 
     def bit(self, row_id: int, column_id: int) -> bool:
@@ -156,8 +318,9 @@ class Fragment:
     def import_bits(self, row_ids: np.ndarray, offsets: np.ndarray,
                     clear: bool = False) -> None:
         """Set (or clear) every (row, column) pair; columns are taken
-        modulo the shard width. The port keeps no op log, so a batch is
-        not cut into record-sized chunks."""
+        modulo the shard width. Sets go in chunks of IMPORT_CHUNK_PAIRS
+        pairs, one OP_ADD_ROARING record each; clears as one
+        OP_REMOVE_BATCH record a chunk of sorted positions."""
         rows = np.asarray(row_ids, dtype=np.uint64)
         offs = np.asarray(offsets, dtype=np.uint64)
         if len(rows) == 0:
@@ -167,14 +330,21 @@ class Fragment:
                 positions = np.unique(
                     rows * np.uint64(SHARD_WIDTH)
                     + offs % np.uint64(SHARD_WIDTH))
-                self.storage.direct_remove_n(positions)
+                for i in range(0, len(positions), IMPORT_CHUNK_PAIRS):
+                    self.storage.remove_batch(
+                        positions[i:i + IMPORT_CHUNK_PAIRS])
                 touched = np.unique(positions >> np.uint64(SHARD_WIDTH_EXP))
             else:
-                keys = self.storage.import_batch(rows, offs, SHARD_WIDTH_EXP)
+                keys = np.concatenate([
+                    self.storage.import_batch(
+                        rows[i:i + IMPORT_CHUNK_PAIRS],
+                        offs[i:i + IMPORT_CHUNK_PAIRS], SHARD_WIDTH_EXP)
+                    for i in range(0, len(rows), IMPORT_CHUNK_PAIRS)])
                 touched = np.unique(keys // np.uint64(CONTAINERS_PER_ROW))
             self._prelatch_cache_saturation(touched)
             self._touch_rows(touched.tolist())
             self._cache_update(touched.tolist())
+            self._maybe_snapshot()
 
     def bulk_import_mutex(self, row_ids: np.ndarray,
                           column_ids: np.ndarray) -> None:
@@ -190,7 +360,13 @@ class Fragment:
         offs = np.asarray(column_ids, dtype=np.uint64) % np.uint64(SHARD_WIDTH)
         if len(offs) == 0:
             return
+        order = None
         if not _strictly_increasing(offs):
+            if len(offs) > IMPORT_CHUNK_PAIRS:
+                # Past one record, the chunks follow the columns' first
+                # appearance, as the JAX package's import orders them.
+                _, first = np.unique(offs, return_index=True)
+                order = np.argsort(first, kind="stable")
             _, last = np.unique(offs[::-1], return_index=True)
             keep = len(offs) - 1 - last
             rows, offs = rows[keep], offs[keep]
@@ -221,23 +397,36 @@ class Fragment:
             if clear_rows:
                 self.import_bits(np.concatenate(clear_rows),
                                  np.concatenate(clear_offs), clear=True)
+            if order is not None:
+                rows, offs = rows[order], offs[order]
             self.import_bits(rows, offs)
 
     def clear_row(self, row_id: int) -> bool:
         """Clear every bit of a row (the ClearRow write): its containers
-        go whole. True when the row held a bit."""
+        go whole, after one OP_REMOVE_BATCH record a chunk of its sorted
+        positions. True when the row held a bit."""
         k0 = row_id * CONTAINERS_PER_ROW
         with self._lock:
             containers = self.storage.containers
-            dropped = False
-            for key in range(k0, k0 + CONTAINERS_PER_ROW):
-                if containers.pop(key, None) is not None:
-                    self.storage._invalidate(key)
-                    dropped = True
-            if dropped:
-                self._touch_rows((row_id,))
-                self._cache_update((row_id,))
-            return dropped
+            keys = [k for k in range(k0, k0 + CONTAINERS_PER_ROW)
+                    if k in containers]
+            if not keys:
+                return False
+            if self.storage.op_writer is not None:
+                positions = np.concatenate(
+                    [np.uint64(k << 16) + self.storage._positions(
+                        containers[k]).astype(np.uint64) for k in keys])
+                for i in range(0, len(positions), IMPORT_CHUNK_PAIRS):
+                    self.storage._write_op(
+                        OP_REMOVE_BATCH,
+                        values=positions[i:i + IMPORT_CHUNK_PAIRS])
+            for key in keys:
+                del containers[key]
+                self.storage._invalidate(key)
+            self._touch_rows((row_id,))
+            self._cache_update((row_id,))
+            self._maybe_snapshot()
+            return True
 
     def set_row(self, row_id: int, words: np.ndarray) -> None:
         """Replace a row's bits wholesale from uint32 words (the Store
@@ -267,6 +456,49 @@ class Fragment:
             self._touch_rows((row_id,), same_row_set=present
                              and self._row_present(row_id))
             self._cache_update((row_id,))
+            # A whole-row overwrite has no op record: a snapshot keeps it.
+            self._snapshot()
+
+    def import_roaring(self, data: bytes, clear: bool = False) -> None:
+        """Union the bits of a serialized roaring bitmap into the
+        fragment, or with ``clear`` clear them; then rewrite the
+        snapshot. Malformed bytes raise ValueError and change nothing."""
+        other = Bitmap.from_bytes(data)
+        with self._lock:
+            if clear:
+                self.storage.difference_in_place(other)
+            else:
+                self.storage.union_in_place(other)
+            rows = sorted({k // CONTAINERS_PER_ROW
+                           for k in other.containers})
+            self._touch_rows(rows)
+            self._cache_update(rows)
+            self._snapshot()
+
+    def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
+        """Write one BSI value bit by bit (an OP_ADD or OP_REMOVE record
+        a changed bit), then the not-null bit."""
+        with self._lock:
+            changed = False
+            for i in range(bit_depth):
+                if value >> i & 1:
+                    changed |= self.storage.add(self.pos(i, column_id))
+                else:
+                    changed |= self.storage.remove(self.pos(i, column_id))
+            changed |= self.storage.add(self.pos(bit_depth, column_id))
+            self._touch_rows(range(bit_depth + 1))
+            self._maybe_snapshot()
+            return changed
+
+    def clear_value(self, column_id: int, bit_depth: int) -> bool:
+        """Clear one column's value planes and not-null bit."""
+        with self._lock:
+            changed = False
+            for i in range(bit_depth + 1):
+                changed |= self.storage.remove(self.pos(i, column_id))
+            self._touch_rows(range(bit_depth + 1))
+            self._maybe_snapshot()
+            return changed
 
     def import_values(self, column_ids: np.ndarray, values: np.ndarray,
                       bit_depth: int, clear: bool = False) -> None:
@@ -285,9 +517,10 @@ class Fragment:
         with self._lock:
             if clear:
                 for i in range(bit_depth + 1):
-                    self.storage.direct_remove_n(
+                    self.storage.remove_batch(
                         np.uint64(i * SHARD_WIDTH) + offs)
                 self._touch_rows(range(bit_depth + 1))
+                self._maybe_snapshot()
                 return
             # Columns that already hold a value need their zero planes
             # cleared; a fragment with no not-null row has none.
@@ -302,7 +535,7 @@ class Fragment:
                 for i in range(bit_depth):
                     zero = ((evals >> np.uint64(i)) & np.uint64(1)) == 0
                     if zero.any():
-                        self.storage.direct_remove_n(
+                        self.storage.remove_batch(
                             np.uint64(i * SHARD_WIDTH) + eoff[zero])
             planes = [((vals >> np.uint64(i)) & np.uint64(1)).astype(bool)
                       for i in range(bit_depth)]
@@ -311,6 +544,7 @@ class Fragment:
             dense = dense_scatter(len(offs), 0, bit_depth, SHARD_WIDTH_EXP) \
                 or dense_scatter(len(offs) + sum(int(m.sum()) for m in planes),
                                  0, bit_depth, SHARD_WIDTH_EXP)
+            n_pairs = len(offs) + sum(int(m.sum()) for m in planes)
             if dense:
                 # One bool row per plane (and not-null), packed in one
                 # pass: the same dense masks import_batch would build,
@@ -320,10 +554,17 @@ class Fragment:
                 for i, m in enumerate(planes):
                     bits[i, offs64] = m
                 bits[bit_depth, offs64] = True
-                self.storage.merge_masks(0, np.packbits(
-                    bits, axis=1, bitorder="little").view(np.uint64)
-                    .reshape(-1, CONTAINER_WORDS))
-            else:
+                words = np.packbits(bits, axis=1, bitorder="little").view(
+                    np.uint64).reshape(-1, CONTAINER_WORDS)
+                counts = _popcount_rows(words)
+                if n_pairs <= IMPORT_CHUNK_PAIRS:
+                    nz = np.flatnonzero(counts)
+                    self.storage._log_roaring(n_pairs, lambda: serialize_masks(
+                        nz.astype(np.uint64), words[nz]))
+                else:
+                    self._log_value_chunks(offs, planes, bit_depth, n_pairs)
+                self.storage.merge_masks(0, words, counts)
+            elif n_pairs <= IMPORT_CHUNK_PAIRS:
                 self.storage.import_batch(
                     np.concatenate([np.full(int(m.sum()), i, np.uint64)
                                     for i, m in enumerate(planes)]
@@ -331,7 +572,39 @@ class Fragment:
                                               np.uint64)]),
                     np.concatenate([offs[m] for m in planes] + [offs]),
                     SHARD_WIDTH_EXP)
+            else:
+                positions = self._value_positions(offs, planes, bit_depth)
+                for c0 in range(0, n_pairs, IMPORT_CHUNK_PAIRS):
+                    chunk = positions[c0:c0 + IMPORT_CHUNK_PAIRS]
+                    self.storage.import_batch(
+                        chunk >> np.uint64(SHARD_WIDTH_EXP),
+                        chunk & np.uint64(SHARD_WIDTH - 1), SHARD_WIDTH_EXP)
             self._touch_rows(range(bit_depth + 1))
+            self._maybe_snapshot()
+
+    @staticmethod
+    def _value_positions(offs: np.ndarray, planes, bit_depth: int
+                         ) -> np.ndarray:
+        """The sorted positions of a value import's pairs: each plane's
+        set offsets, plane by plane, then the not-null row."""
+        return np.concatenate(
+            [np.uint64(i * SHARD_WIDTH) + offs[m]
+             for i, m in enumerate(planes)]
+            + [np.uint64(bit_depth * SHARD_WIDTH) + offs])
+
+    def _log_value_chunks(self, offs, planes, bit_depth: int,
+                          n_pairs: int) -> None:
+        """The records of a value import larger than one chunk: one
+        OP_ADD_ROARING a chunk of IMPORT_CHUNK_PAIRS sorted positions,
+        the chunks the pair list of the JAX package's import makes."""
+        if self.storage.op_writer is None:
+            self.storage._log_roaring(n_pairs, None)
+            return
+        positions = self._value_positions(offs, planes, bit_depth)
+        for c0 in range(0, n_pairs, IMPORT_CHUNK_PAIRS):
+            chunk = positions[c0:c0 + IMPORT_CHUNK_PAIRS]
+            self.storage._log_roaring(
+                len(chunk), lambda chunk=chunk: serialize_positions(chunk))
 
     # -- reads -------------------------------------------------------------
 
@@ -352,6 +625,53 @@ class Fragment:
     def row_count(self, row_id: int) -> int:
         return self.storage.count_range(row_id * SHARD_WIDTH,
                                         (row_id + 1) * SHARD_WIDTH)
+
+    def row_offsets(self, row_id: int) -> np.ndarray:
+        """The row's set in-shard column offsets, sorted, as uint64."""
+        k0 = row_id * CONTAINERS_PER_ROW
+        with self._lock:
+            containers = self.storage.containers
+            parts = [np.uint64((k - k0) << 16)
+                     + self.storage._positions(containers[k]).astype(
+                         np.uint64)
+                     for k in range(k0, k0 + CONTAINERS_PER_ROW)
+                     if k in containers]
+        return np.concatenate(parts) if parts \
+            else np.empty(0, dtype=np.uint64)
+
+    def column_words(self) -> np.ndarray:
+        """uint64 [CONTAINERS_PER_ROW, 1024]: the columns that hold a bit
+        in any row, as one dense row."""
+        out = np.zeros((CONTAINERS_PER_ROW, CONTAINER_WORDS), dtype=np.uint64)
+        with self._lock:
+            for key, c in self.storage.containers.items():
+                j = key % CONTAINERS_PER_ROW
+                if c.dtype == np.uint16:
+                    v = c.astype(np.uint32)
+                    np.bitwise_or.at(out[j], v >> 6, np.left_shift(
+                        np.uint64(1), (v & 63).astype(np.uint64)))
+                else:
+                    out[j] |= c
+        return out
+
+    def import_row_words(self, row_id: int, words: np.ndarray) -> None:
+        """Set the bits of uint64 [CONTAINERS_PER_ROW, 1024] ``words`` in
+        row ``row_id``: one OP_ADD_ROARING record, the bytes a bulk
+        import of the same columns logs."""
+        counts = _popcount_rows(words)
+        nz = np.flatnonzero(counts)
+        if not len(nz):
+            return
+        k0 = row_id * CONTAINERS_PER_ROW
+        with self._lock:
+            self.storage._log_roaring(int(counts.sum()), lambda: serialize_masks(
+                nz.astype(np.uint64) + np.uint64(k0), words[nz]))
+            self.storage.merge_masks(k0, words, counts)
+            touched = np.array([row_id], dtype=np.uint64)
+            self._prelatch_cache_saturation(touched)
+            self._touch_rows((row_id,))
+            self._cache_update((row_id,))
+            self._maybe_snapshot()
 
     def mutex_vector(self, column_id: int) -> Optional[int]:
         """The row holding ``column_id`` in a mutex or bool fragment, or

@@ -44,7 +44,7 @@ def load_state(holder: Holder, state: Dict[str, Dict[str, Any]]) -> Holder:
             track_existence=EXISTENCE_FIELD_NAME in fields,
             error_if_exists=False)
         if own.get("keys"):
-            idx.column_translator.load_entries(own["keys"])
+            idx.column_translator.apply_entries(own["keys"])
         if own.get("column_attrs"):
             idx.column_attr_store.set_bulk(
                 {int(c): dict(a) for c, a in own["column_attrs"].items()})
@@ -58,7 +58,7 @@ def load_state(holder: Holder, state: Dict[str, Dict[str, Any]]) -> Holder:
                     field_name, FieldOptions(**spec.get("options", {})),
                     error_if_exists=False)
             if spec.get("keys"):
-                field.row_translator.load_entries(spec["keys"])
+                field.row_translator.apply_entries(spec["keys"])
             if spec.get("row_attrs"):
                 field.row_attr_store.set_bulk(
                     {int(r): dict(a) for r, a in spec["row_attrs"].items()})

@@ -25,10 +25,16 @@ fragments changed is patched where the writes were few (``_patch_bank``:
 the written rows' cells, new rows appended at the end, emptied rows
 kept in their slots), else rebuilt whole; a positions bank is patched
 segment by segment.
+
+A view with a ``path`` keeps its fragments at
+``<path>/fragments/<shard>`` (the JAX package's layout): ``open`` loads
+each, skipping the ``.cache``, ``.snapshotting`` and ``.torn``
+sidecars, and ``close`` drops the banks and closes the fragments.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -135,7 +141,9 @@ class View:
     def __init__(self, field: str, name: str, device: torch.device,
                  max_columns: int = 0,
                  cache_type: str = cache_mod.CACHE_TYPE_RANKED,
-                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE):
+                 cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
+                 path: Optional[str] = None):
+        self.path = path
         self.field = field
         self.name = name
         self.device = device
@@ -150,14 +158,40 @@ class View:
     def fragment(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
 
+    def _new_fragment(self, shard: int) -> Fragment:
+        return Fragment(shard, cache_type=self.cache_type,
+                        cache_size=self.cache_size,
+                        path=None if self.path is None else os.path.join(
+                            self.path, "fragments", str(shard)))
+
     def create_fragment_if_not_exists(self, shard: int) -> Fragment:
         with self._lock:
             frag = self.fragments.get(shard)
             if frag is None:
-                frag = Fragment(shard, cache_type=self.cache_type,
-                                cache_size=self.cache_size)
+                frag = self._new_fragment(shard)
+                frag.open()
                 self.fragments[shard] = frag
             return frag
+
+    def open(self) -> None:
+        """Load every fragment file under ``<path>/fragments``."""
+        frag_dir = os.path.join(self.path, "fragments")
+        if not os.path.isdir(frag_dir):
+            return
+        for name in os.listdir(frag_dir):
+            if not name.isdigit():
+                continue  # the .cache, .snapshotting and .torn sidecars
+            frag = self._new_fragment(int(name))
+            frag.open()
+            self.fragments[int(name)] = frag
+
+    def close(self) -> None:
+        """Drop the banks, then close every fragment (which saves its
+        count cache)."""
+        with self._lock:
+            self.drop_banks()
+            for frag in self.fragments.values():
+                frag.close()
 
     def available_shards(self) -> List[int]:
         return sorted(self.fragments)

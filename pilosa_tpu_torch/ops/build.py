@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-The sources in ``pilosa_tpu_torch/csrc/`` compile with ``nvcc``, one
-process per source, all started together, and link into one shared
+The CUDA sources in ``pilosa_tpu_torch/csrc/`` compile with ``nvcc``,
+one process per source, all started together, and link into one shared
 library with a plain C interface, which ``ctypes`` loads. The library
 lands under ``build/kernels/<hash>/`` at the repository root, keyed on a
 hash of the sources and flags, at first use; a later call in the same
-process reuses the loaded handle. Nothing here runs at import.
+process reuses the loaded handle.
+
+The host file codec (``csrc/roaring_codec.cpp``) compiles the same way
+with ``g++`` into ``build/native/<hash>/`` (``build_host``,
+``load_host``); it needs no card, so the CPU builds and uses it too. A
+failed build raises. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -27,8 +33,17 @@ SOURCES = ("bank_counts.cu", "mega_interpret.cu", "pbank_membership.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
+HOST_SOURCES = ("roaring_codec.cpp",)
+HOST_BUILD_DIR = PKG_DIR.parent / "build" / "native"
+# The codec popcounts every container it reads or writes: on x86-64 the
+# popcnt instruction, not libgcc's bit loop.
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Wextra",
+              "-Werror") + (("-mpopcnt",) if platform.machine().lower() in (
+                  "x86_64", "amd64") else ())
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_HOST_LIB: Optional[ctypes.CDLL] = None
 # source name -> what nvcc printed for it in the last verbose build
 # (``-Xptxas -v``: each kernel's registers, shared memory and spills).
 BUILD_LOG: Dict[str, str] = {}
@@ -43,6 +58,29 @@ SIGNATURES = {
     "mega_interpret": (_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, _LL,
                        _P, _P, _P, _P),
     "pbank_membership_counts": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
+}
+
+
+_U64 = ctypes.c_uint64
+# name -> (argtypes, restype) of the host codec's C entry points.
+HOST_SIGNATURES = {
+    "rc_load": ((_P, _U64), _P),
+    "rc_error": ((_P,), ctypes.c_char_p),
+    "rc_container_count": ((_P,), _U64),
+    "rc_op_n": ((_P,), _U64),
+    "rc_op_n_small": ((_P,), _U64),
+    "rc_ops_bytes": ((_P,), _U64),
+    "rc_snapshot_bytes": ((_P,), _U64),
+    "rc_tail_dropped": ((_P,), _U64),
+    "rc_free": ((_P,), None),
+    "rc_keys": ((_P, _P), None),
+    "rc_counts": ((_P, _P), None),
+    "rc_export_split": ((_P, _U64, _P, _P), None),
+    "rc_serialize_size": ((_P, _P, _P, _P, _U64), _U64),
+    "rc_serialize": ((_P, _P, _P, _P, _P, _U64, _P), _U64),
+    "rc_fnv1a32": ((_P, _U64, ctypes.c_uint32), ctypes.c_uint32),
+    "rc_popcount_ptrs": ((_P, _U64), _U64),
+    "rc_dense_positions_ptrs": ((_P, _U64, _P, _P), _U64),
 }
 
 
@@ -129,3 +167,61 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def find_cxx() -> str:
+    """Path of the host C++ compiler: $CXX, then g++, then c++."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        if cand:
+            found = shutil.which(cand)
+            if found is not None:
+                return found
+    raise RuntimeError("no C++ compiler (g++) found: the host codec needs "
+                       "one to build")
+
+
+def host_source_hash() -> str:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for name in HOST_SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def host_library_path() -> Path:
+    return HOST_BUILD_DIR / host_source_hash() / "libpilosa_codec.so"
+
+
+def build_host() -> Path:
+    """Compile the host codec unless this source hash is already built;
+    returns its path. The library is written under a temporary name and
+    renamed, so a concurrent build never loads a half-written file."""
+    out = host_library_path()
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        tmp = str(Path(tmpdir) / out.name)
+        proc = subprocess.run(
+            [find_cxx(), *HOST_FLAGS, "-o", tmp,
+             *(str(CSRC_DIR / name) for name in HOST_SOURCES)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host codec build failed ({proc.returncode})"
+                               f":\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_host() -> ctypes.CDLL:
+    """The loaded host codec library (built on first call)."""
+    global _HOST_LIB
+    with _LOCK:
+        if _HOST_LIB is None:
+            lib = ctypes.CDLL(str(build_host()))
+            for name, (argtypes, restype) in HOST_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = restype
+            _HOST_LIB = lib
+        return _HOST_LIB

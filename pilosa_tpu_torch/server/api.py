@@ -3,7 +3,10 @@ HTTP routes and the executor, after the JAX package's ``server/api.py``.
 
 Single node only. Key translation runs here for imports (a whole
 import's keys at once, ``TranslateStore.translate_keys``) and in the
-executor for queries. The cluster, the debug and metrics planes,
+executor for queries. Over a holder with a data directory, every write
+reaches the fragments' files before the call returns; ``import_roaring``
+(the fastest import: a serialized roaring bitmap a shard) rewrites the
+fragment's snapshot, and ``export_csv`` reads one shard back as CSV. The cluster, the debug and metrics planes,
 health, failpoints and the sentinel are not ported: a request that
 needs one of them answers a 400 that names it, never a silently
 different result.
@@ -11,6 +14,8 @@ different result.
 
 from __future__ import annotations
 
+import csv
+import io
 import os
 import uuid
 from datetime import datetime
@@ -47,11 +52,43 @@ def not_ported(what: str) -> ApiError:
     return ApiError(f"{what} is not ported yet", 400)
 
 
+def export_fragment_lines(idx, field_name: str, shard: int):
+    """CSV lines ``row,col`` (each with its newline) of one shard of the
+    field's standard view, row by row: keys in place of ids on a keyed
+    field or index (the id where an id has no key), quoted as the csv
+    module quotes. A generator, so a CLI export streams shard after
+    shard."""
+    f = idx.field(field_name) if idx is not None else None
+    if f is None:
+        raise ApiError(f"field not found: {field_name}", 404)
+    view = f.view()
+    frag = view.fragment(shard) if view is not None else None
+    if frag is None:
+        return
+    row_tx = f.row_translator.translate_id if f.options.keys else None
+    col_tx = idx.column_translator.translate_ids if idx.keys else None
+    buf = io.StringIO()
+    w = csv.writer(buf, lineterminator="\n")
+    base = np.uint64(shard * SHARD_WIDTH)
+    for row in frag.row_ids():
+        r = row_tx(row) if row_tx else row
+        if r is None:
+            r = row
+        cols = frag.row_offsets(row) + base
+        keys = col_tx(cols) if col_tx else None
+        for i, col in enumerate(cols.tolist()):
+            c = keys[i] if keys is not None and keys[i] is not None else col
+            buf.seek(0)
+            buf.truncate()
+            w.writerow([r, c])
+            yield buf.getvalue()
+
+
 class API:
-    """Queries, schema and imports over one in-memory Holder. The
-    executor runs on the holder's device. ``coalescer`` is attached by
-    the server wiring (``cli/main.py``) or a test; None means every
-    query takes the direct path."""
+    """Queries, schema and imports over one Holder (in memory or over a
+    data directory). The executor runs on the holder's device.
+    ``coalescer`` is attached by the server wiring (``cli/main.py``) or
+    a test; None means every query takes the direct path."""
 
     def __init__(self, holder: Holder):
         self.holder = holder
@@ -211,6 +248,28 @@ class API:
             raise ApiError(str(e))
         if not clear:
             idx.add_existence(columns)
+
+    def import_roaring(self, index: str, field: str, shard: int,
+                       data: bytes, clear: bool = False,
+                       view: str = "standard") -> None:
+        """Union a serialized roaring bitmap into one shard of a view of
+        the field (with ``clear``, clear its bits), then mark every
+        column the fragment holds in existence. Malformed bytes answer
+        400."""
+        idx = self._index(index)
+        f = self._field(idx, field)
+        frag = f.create_view_if_not_exists(view) \
+            .create_fragment_if_not_exists(shard)
+        try:
+            frag.import_roaring(data, clear=clear)
+        except ValueError as e:
+            raise ApiError(f"invalid roaring payload: {e}")
+        idx.add_existence_words(shard, frag.column_words())
+
+    def export_csv(self, index: str, field: str, shard: int) -> str:
+        """``row,col`` CSV of one shard (``export_fragment_lines``)."""
+        return "".join(export_fragment_lines(self._index(index), field,
+                                             shard))
 
     def recalculate_caches(self) -> None:
         """Rebuild every fragment's TopN count cache from its storage."""

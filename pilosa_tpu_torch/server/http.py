@@ -4,6 +4,7 @@ package's ``server/http.py`` on the stdlib threading HTTP server.
 Routes:
   GET    /  /schema  /status  /info  /version
   GET    /index  /index/{i}  /index/{i}/field
+  GET    /export?index&field&shard  one shard as ``row,col`` CSV
   POST   /index/{i}/query      raw PQL, {"query": ...}, or a protobuf
                                QueryRequest; URL args shards,
                                excludeColumns, excludeRowAttrs,
@@ -15,14 +16,20 @@ Routes:
                                {"columnIDs"|"columnKeys", "values"}, or
                                a protobuf ImportRequest /
                                ImportValueRequest
+  POST   /index/{i}/field/{f}/import-roaring/{shard}  a serialized
+                               roaring bitmap (raw bytes), or a protobuf
+                               ImportRoaringRequest (per-view bitmaps);
+                               URL args clear, view
   POST   /index/{i}            {"options": {"keys", "trackExistence"}}
   POST   /index/{i}/field/{f}  {"options": {...}}
   POST   /recalculate-caches   rebuild every fragment's TopN count cache
   DELETE /index/{i}  /index/{i}/field/{f}
 
 JSON query responses ride the coalescer when one is attached; protobuf
-queries take the direct path, as in the JAX package. Other routes of the
-JAX package's server answer 404 with the part that is not ported.
+queries take the direct path, as in the JAX package. Over a holder with
+a data directory every write is in the fragments' files before its 200
+goes out. The JAX package's cluster, node-to-node, debug and metrics
+routes answer 404 naming the part that is not ported.
 """
 
 from __future__ import annotations
@@ -43,9 +50,6 @@ from pilosa_tpu_torch.server.api import API, ApiError, not_ported
 # Route prefixes the JAX package's server answers and this one does not
 # yet, with the part each needs.
 _NOT_PORTED_ROUTES = (
-    (re.compile(r"/index/[^/]+/field/[^/]+/import-roaring/\d+"),
-     "roaring import"),
-    (re.compile(r"/export"), "CSV export"),
     (re.compile(r"/internal/.*"), "the node-to-node API (cluster)"),
     (re.compile(r"/cluster/.*"), "the cluster plane"),
     (re.compile(r"/debug/.*|/metrics"), "the debug and metrics planes"),
@@ -186,6 +190,11 @@ class Handler(BaseHTTPRequestHandler):
                 self._json(api.info())
             elif path == "/version":
                 self._json(api.version())
+            elif path == "/export":
+                self._check_args(q, "index", "field", "shard")
+                csv = api.export_csv(q["index"], q["field"],
+                                     int(q.get("shard", 0)))
+                self._bytes(csv.encode(), ctype="text/csv")
             elif path == "/index":
                 self._json(api.schema()["indexes"])
             elif m := re.fullmatch(r"/index/([^/]+)/field", path):
@@ -215,6 +224,11 @@ class Handler(BaseHTTPRequestHandler):
             elif m := re.fullmatch(r"/index/([^/]+)/field/([^/]+)/import",
                                    path):
                 self._post_import(m.group(1), m.group(2), q)
+            elif m := re.fullmatch(
+                    r"/index/([^/]+)/field/([^/]+)/import-roaring/(\d+)",
+                    path):
+                self._post_import_roaring(m.group(1), m.group(2),
+                                          int(m.group(3)), q)
             elif m := re.fullmatch(r"/index/([^/]+)/field/([^/]+)", path):
                 b = self._body_json()
                 self._json(api.create_field(m.group(1), m.group(2),
@@ -306,6 +320,31 @@ class Handler(BaseHTTPRequestHandler):
                 columns=b.get("columnIDs"), row_keys=b.get("rowKeys"),
                 column_keys=b.get("columnKeys"),
                 timestamps=b.get("timestamps"), clear=clear)
+        self._json({})
+
+    def _post_import_roaring(self, index: str, field: str, shard: int,
+                             q: dict) -> None:
+        """A raw roaring body goes into ``?view`` (default standard); a
+        protobuf ImportRoaringRequest carries a bitmap a view and its
+        own clear flag, OR'd with ``?clear``."""
+        raw = self._body()
+        self._check_args(q, "remote", "clear", "view")
+        if self._qbool(q, "remote"):
+            raise not_ported("remote imports (cluster)")
+        clear = self._qbool(q, "clear")
+        view = q.get("view", "standard")
+        if self._is_proto():
+            try:
+                b = proto_compat.decode_import_roaring_request(raw)
+            except proto_compat.ProtoError as e:
+                raise ApiError(f"invalid protobuf body: {e}")
+            for name, blob in b["views"]:
+                self.api.import_roaring(index, field, shard, blob,
+                                        clear=b["clear"] or clear,
+                                        view=name or view)
+        else:
+            self.api.import_roaring(index, field, shard, raw, clear=clear,
+                                    view=view)
         self._json({})
 
     def _proto_import_body(self, index: str, field: str) -> dict:

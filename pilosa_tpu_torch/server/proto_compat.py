@@ -4,9 +4,10 @@ surface: ``QueryRequest`` and ``QueryResponse`` on the query route,
 numbers of the reference's ``internal/public.proto``). A copy of the
 JAX package's ``server/proto_compat.py`` for those four messages, with
 their keys (``RowKeys``/``ColumnKeys`` in, keys in ``Row``, ``Pair``,
-``RowIdentifiers`` and ``FieldRow`` out) and ``ColumnAttrSets``; its
-roaring-import and node-to-node translation messages belong to routes
-the port does not serve yet.
+``RowIdentifiers`` and ``FieldRow`` out) and ``ColumnAttrSets``, and for
+the ``ImportRoaringRequest`` of the roaring-import route; its
+node-to-node translation messages belong to the cluster, not ported
+yet.
 
 The QueryResult.Type enum: 0=nil, 1=Row, 2=Pairs, 3=ValCount, 4=uint64,
 5=bool, 6=RowIDs, 7=GroupCounts, 8=RowIdentifiers. Decoders accept
@@ -215,6 +216,24 @@ def decode_import_value_request(data: bytes) -> Dict[str, Any]:
 
 
 # ------------------------------------------------------ response encode
+
+def decode_import_roaring_request(data: bytes) -> Dict[str, Any]:
+    """internal.ImportRoaringRequest: Clear=1, views=2
+    (ImportRoaringRequestView: Name=1, Data=2)."""
+    out: Dict[str, Any] = {"clear": False, "views": []}
+    for f, wt, v in _fields(data):
+        if f == 1 and wt == _WIRE_VARINT:
+            out["clear"] = bool(v)
+        elif f == 2 and wt == _WIRE_LEN:
+            name, blob = "", b""
+            for f2, wt2, v2 in _fields(v):
+                if f2 == 1 and wt2 == _WIRE_LEN:
+                    name = _utf8(v2)
+                elif f2 == 2 and wt2 == _WIRE_LEN:
+                    blob = bytes(v2)
+            out["views"].append((name, blob))
+    return out
+
 
 def _encode_attr(key: str, value) -> bytes:
     """internal.Attr: Key=1, Type=2 (1 str/2 int/3 bool/4 float —

@@ -1,1 +1,1 @@
-"""Host bitmap storage: the in-memory roaring container store."""
+"""Host bitmap storage: the roaring container store and its file codec."""

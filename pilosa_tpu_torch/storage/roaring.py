@@ -1,5 +1,5 @@
-"""In-memory roaring container store, the port's copy of the JAX
-package's ``storage/roaring.py`` container layer.
+"""Roaring container store and its file format, the port's copy of the
+JAX package's ``storage/roaring.py``.
 
 A bitmap of 64-bit positions is a dict of containers keyed by
 ``position >> 16``. Each container holds the 2^16 low positions of its
@@ -15,15 +15,68 @@ both encodings; ``optimize`` re-encodes sparse dense containers as
 arrays. No public operation leaves an empty container in the dict, so
 the keys alone say which containers hold bits.
 
-The file format, the op log, its checksums and the native codec are not
-part of the port yet: the store lives in memory only.
+File format (the JAX package's bytes, little-endian):
+
+    u16 magic 12348, u16 storage version 0, u32 container count N
+    N x 12   u64 key, u16 type (1 array, 2 bitmap, 3 run), u16 card - 1
+    N x 4    u32 absolute offset of each payload
+    payloads array: card x u16; bitmap: 1024 x u64;
+             run: u16 count, then (u16 start, u16 last) a run
+    op log   to EOF: u8 type, u64 value, u32 checksum, then the payload
+             of a batch: OP_ADD / OP_REMOVE carry one position and an
+             fnv1a32 over the 9 header bytes; OP_ADD_BATCH /
+             OP_REMOVE_BATCH carry ``value`` u64 positions and an
+             fnv1a32 over header and positions; OP_ADD_ROARING carries
+             a ``value``-byte roaring file of the batch and a zlib crc32
+             over header and payload.
+
+Each container is written in the smallest of the three encodings (run
+before array before bitmap). ``write_bytes`` and ``read_bytes`` run the
+C++ codec of ``csrc/roaring_codec.cpp`` (built with g++ on first use by
+``ops/build.py``; a failed build raises). ``write_bytes_plain`` and
+``from_bytes_plain`` are the numpy codec: the plain version the C++ one
+is held against, used by the tests and nowhere on the main path.
+
+With ``op_writer`` set (an unbuffered file, ``core/fragment.py``),
+every logged write appends its record before it returns: ``add`` and
+``remove`` one OP_ADD / OP_REMOVE a changed bit, ``remove_batch`` one
+OP_REMOVE_BATCH, ``import_batch`` one OP_ADD_ROARING holding the batch's
+own bits. ``op_n``, ``op_n_small`` and ``oplog_bytes`` count the log
+since the last snapshot, for the fragment's snapshot policy; without a
+writer nothing is written, and an import's record is not built (nor
+its bytes counted).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import struct
+import zlib
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+MAGIC_NUMBER = 12348
+STORAGE_VERSION = 0
+COOKIE = MAGIC_NUMBER | (STORAGE_VERSION << 16)
+HEADER_BASE_SIZE = 8
+
+CONTAINER_ARRAY = 1
+CONTAINER_BITMAP = 2
+CONTAINER_RUN = 3
+RUN_COUNT_HEADER_SIZE = 2
+
+OP_ADD = 0
+OP_REMOVE = 1
+OP_ADD_BATCH = 2
+OP_REMOVE_BATCH = 3
+OP_ADD_ROARING = 4
+
+# Nesting bound of OP_ADD_ROARING records inside their own payloads: a
+# crafted file must not recurse without bound. Both codecs refuse at it.
+MAX_OP_NESTING = 4
+
+_FNV_OFFSET = 0x811C9DC5
+_FNV_PRIME = 0x01000193
 
 CONTAINER_BITS = 1 << 16
 CONTAINER_WORDS = CONTAINER_BITS // 64  # 1024 uint64 words
@@ -100,15 +153,310 @@ def _low_mask(low: np.ndarray) -> np.ndarray:
     return dense
 
 
+def _as_dense(c: np.ndarray) -> np.ndarray:
+    return _low_mask(c) if c.dtype == np.uint16 else c
+
+
+def _runs_to_dense(runs: np.ndarray) -> np.ndarray:
+    """Dense container of (n, 2) uint16 inclusive [start, last] runs."""
+    bits = np.zeros(CONTAINER_BITS, dtype=np.uint8)
+    for start, last in runs.tolist():
+        bits[start:last + 1] = 1
+    return np.packbits(bits, bitorder="little").view(np.uint64).copy()
+
+
+def _dense_to_runs(dense: np.ndarray) -> np.ndarray:
+    bits = np.unpackbits(dense.view(np.uint8), bitorder="little")
+    diff = np.diff(np.concatenate(([0], bits, [0])).astype(np.int8))
+    starts = np.nonzero(diff == 1)[0]
+    ends = np.nonzero(diff == -1)[0] - 1
+    return np.stack([starts, ends], axis=1).astype(np.uint16)
+
+
+_U16 = np.dtype(np.uint16)
+
+
+# -- the C++ codec ------------------------------------------------------------
+
+def _lib():
+    from pilosa_tpu_torch.ops import build
+    return build.load_host()
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.__array_interface__["data"][0]
+
+
+def fnv1a32(*chunks) -> int:
+    """FNV-1a 32 over the chunks in turn (Go's hash/fnv New32a): the
+    checksum of the single-bit and batch op records. C++ codec."""
+    lib = _lib()
+    h = _FNV_OFFSET
+    for c in chunks:
+        buf = np.frombuffer(c, dtype=np.uint8)
+        if len(buf):
+            h = lib.rc_fnv1a32(_ptr(buf), len(buf), h)
+    return h
+
+
+def fnv1a32_plain(*chunks) -> int:
+    """The plain version of ``fnv1a32``: one byte at a time in Python."""
+    h = _FNV_OFFSET
+    for chunk in chunks:
+        for byte in bytes(chunk):
+            h = ((h ^ byte) * _FNV_PRIME) & 0xFFFFFFFF
+    return h
+
+
+def _native_serialize(keys: np.ndarray, lows: np.ndarray,
+                      arr_off: np.ndarray, arr_len: np.ndarray,
+                      ptrs: np.ndarray) -> bytes:
+    """The C++ writer over n containers with ascending ``keys``:
+    container i is ``lows[arr_off[i]:arr_off[i] + arr_len[i]]`` where
+    ``arr_len[i]``, else the dense block at address ``ptrs[i]``."""
+    lib = _lib()
+    n = len(keys)
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    lows = np.ascontiguousarray(lows, dtype=np.uint16)
+    if not len(lows):
+        lows = np.zeros(1, dtype=np.uint16)
+    arr_off = np.ascontiguousarray(arr_off, dtype=np.uint64)
+    arr_len = np.ascontiguousarray(arr_len, dtype=np.uint64)
+    ptrs = np.ascontiguousarray(ptrs, dtype=np.uint64)
+    size = lib.rc_serialize_size(_ptr(lows), _ptr(arr_off), _ptr(arr_len),
+                                 _ptr(ptrs), n)
+    out = np.empty(size, dtype=np.uint8)
+    got = lib.rc_serialize(_ptr(keys), _ptr(lows), _ptr(arr_off),
+                           _ptr(arr_len), _ptr(ptrs), n, _ptr(out))
+    if got != size:
+        raise ValueError("roaring serialize: an empty container was given")
+    return out.tobytes()
+
+
+def serialize_containers(keys: Sequence[int],
+                         containers: Sequence[np.ndarray]) -> bytes:
+    """File bytes of non-empty containers (dense or array) under
+    ascending ``keys``, through the C++ writer."""
+    n = len(keys)
+    arr_len = np.zeros(n, dtype=np.uint64)
+    arr_off = np.zeros(n, dtype=np.uint64)
+    ptrs = np.zeros(n, dtype=np.uint64)
+    is_arr = np.fromiter((c.dtype is _U16 for c in containers), dtype=bool,
+                         count=n)
+    ai = np.flatnonzero(is_arr).tolist()
+    lows = np.empty(0, dtype=np.uint16)
+    if ai:
+        arrays = [containers[i] for i in ai]
+        lens = np.fromiter(map(len, arrays), dtype=np.uint64,
+                           count=len(arrays))
+        lows = np.concatenate(arrays)
+        arr_len[ai] = lens
+        arr_off[ai] = np.cumsum(lens) - lens
+    di = np.flatnonzero(~is_arr).tolist()
+    if di:
+        ptrs[di] = np.fromiter((_ptr(containers[i]) for i in di),
+                               dtype=np.uint64, count=len(di))
+    return _native_serialize(np.asarray(keys, dtype=np.uint64), lows,
+                             arr_off, arr_len, ptrs)
+
+
+def serialize_positions(positions: np.ndarray) -> bytes:
+    """File bytes of sorted unique uint64 positions (an import record's
+    payload), through the C++ writer."""
+    positions = np.ascontiguousarray(positions, dtype=np.uint64)
+    gkeys = positions >> np.uint64(16)
+    starts = np.flatnonzero(np.concatenate(
+        ([True], gkeys[1:] != gkeys[:-1]))) if len(positions) \
+        else np.empty(0, dtype=np.int64)
+    bounds = np.append(starts, len(positions)).astype(np.uint64)
+    return _native_serialize(
+        gkeys[starts], (positions & np.uint64(0xFFFF)).astype(np.uint16),
+        bounds[:-1], np.diff(bounds), np.zeros(len(starts), np.uint64))
+
+
+def serialize_masks(keys: np.ndarray, words: np.ndarray) -> bytes:
+    """File bytes of the non-empty dense containers ``words[i]`` (a
+    C-contiguous uint64 [m, 1024] block) under ascending ``keys``,
+    through the C++ writer."""
+    words = np.ascontiguousarray(words, dtype=np.uint64)
+    m = len(keys)
+    ptrs = np.uint64(_ptr(words)) + np.arange(m, dtype=np.uint64) \
+        * np.uint64(8 * CONTAINER_WORDS) if m else np.empty(0, np.uint64)
+    return _native_serialize(keys, np.empty(0, np.uint16),
+                             np.zeros(m, np.uint64), np.zeros(m, np.uint64),
+                             ptrs)
+
+
+def _native_load(data: bytes, tolerate_torn_tail: bool) -> dict:
+    """Parse a whole file (snapshot and op log) with the C++ reader:
+    the keys, each container's count, the positions of containers of
+    at most ARRAY_MAX_SIZE bits (concatenated, key order), the other
+    containers' words, and the op-log accounting."""
+    lib = _lib()
+    buf = np.frombuffer(data, dtype=np.uint8)
+    h = lib.rc_load(_ptr(buf), len(buf))
+    if not h:
+        raise MemoryError("roaring load: out of memory")
+    try:
+        err = lib.rc_error(h)
+        if err:
+            raise ValueError(err.decode())
+        dropped = int(lib.rc_tail_dropped(h))
+        if dropped and not tolerate_torn_tail:
+            raise OpTruncatedError(f"op data truncated ({dropped} tail "
+                                   "bytes)")
+        n = int(lib.rc_container_count(h))
+        keys = np.empty(n, dtype=np.uint64)
+        counts = np.empty(n, dtype=np.uint64)
+        if n:
+            lib.rc_keys(h, _ptr(keys))
+            lib.rc_counts(h, _ptr(counts))
+        arr = counts <= ARRAY_MAX_SIZE
+        lows = np.empty(max(1, int(counts[arr].sum())), dtype=np.uint16)
+        dense = np.empty((int((~arr).sum()), CONTAINER_WORDS),
+                         dtype=np.uint64)
+        if n:
+            lib.rc_export_split(h, ARRAY_MAX_SIZE, _ptr(lows),
+                                _ptr(dense) if len(dense) else _ptr(lows))
+        return {"keys": keys, "counts": counts, "lows": lows,
+                "dense": dense, "op_n": int(lib.rc_op_n(h)),
+                "op_n_small": int(lib.rc_op_n_small(h)),
+                "ops_bytes": int(lib.rc_ops_bytes(h)),
+                "snapshot_bytes": int(lib.rc_snapshot_bytes(h)),
+                "tail_dropped": dropped}
+    finally:
+        lib.rc_free(h)
+
+
+def _dense_positions(containers: List[np.ndarray]) -> List[np.ndarray]:
+    """The sorted uint16 positions of each dense container, in one C++
+    sweep."""
+    lib = _lib()
+    ptrs = np.fromiter(map(_ptr, containers), dtype=np.uint64,
+                       count=len(containers))
+    n = int(lib.rc_popcount_ptrs(_ptr(ptrs), len(ptrs)))
+    out = np.empty(max(n, 1), dtype=np.uint64)
+    bases = np.zeros(len(ptrs), dtype=np.uint64)
+    lib.rc_dense_positions_ptrs(_ptr(ptrs), len(ptrs), _ptr(bases),
+                                _ptr(out))
+    pos = out[:n].astype(np.uint16)
+    counts = [_popcount_words(c) for c in containers]
+    return np.split(pos, np.cumsum(counts)[:-1])
+
+
+# -- op records ---------------------------------------------------------------
+
+class OpTruncatedError(ValueError):
+    """An op record runs past the end of the data: a torn append."""
+
+
+def encode_op(typ: int, value: int = 0,
+              values: Optional[np.ndarray] = None) -> bytes:
+    """One OP_ADD / OP_REMOVE record (``value``) or one batch record
+    (``values``)."""
+    if typ in (OP_ADD, OP_REMOVE):
+        head = struct.pack("<BQ", typ, int(value))
+        return head + struct.pack("<I", fnv1a32(head))
+    vals = np.asarray(values, dtype="<u8").tobytes()
+    head = struct.pack("<BQ", typ, len(values))
+    return head + struct.pack("<I", fnv1a32(head, vals)) + vals
+
+
+def encode_op_roaring(payload: bytes) -> bytes:
+    """One OP_ADD_ROARING record: crc32 over header and payload."""
+    head = struct.pack("<BQ", OP_ADD_ROARING, len(payload))
+    return head + struct.pack("<I", zlib.crc32(payload, zlib.crc32(head))) \
+        + payload
+
+
+def decode_op(buf) -> Tuple[int, int, Optional[object], int]:
+    """(type, value, values, encoded size) of the record at the start of
+    ``buf``; ``values`` is the batch's positions, or an OP_ADD_ROARING
+    record's payload bytes. Part of the plain reader."""
+    if len(buf) < 13:
+        raise OpTruncatedError(f"op data out of bounds: len={len(buf)}")
+    typ, value = struct.unpack_from("<BQ", buf, 0)
+    (chk,) = struct.unpack_from("<I", buf, 9)
+    if typ in (OP_ADD, OP_REMOVE):
+        if chk != fnv1a32_plain(bytes(buf[0:9])):
+            raise ValueError("op checksum mismatch")
+        return typ, value, None, 13
+    if typ in (OP_ADD_BATCH, OP_REMOVE_BATCH):
+        size = 13 + 8 * value
+        if len(buf) < size:
+            raise OpTruncatedError("op data truncated")
+        if chk != fnv1a32_plain(bytes(buf[0:9]), bytes(buf[13:size])):
+            raise ValueError("op checksum mismatch")
+        return typ, 0, np.frombuffer(buf, dtype="<u8", count=value,
+                                     offset=13).copy(), size
+    if typ == OP_ADD_ROARING:
+        size = 13 + value
+        if len(buf) < size:
+            raise OpTruncatedError("op data truncated")
+        payload = bytes(buf[13:size])
+        if chk != zlib.crc32(payload, zlib.crc32(bytes(buf[0:9]))):
+            raise ValueError("op checksum mismatch")
+        return typ, 0, payload, size
+    raise ValueError(f"invalid op type {typ}")
+
+
+def _write_all(w, data: bytes) -> None:
+    """Write the whole record or raise: a raw write may be short, and an
+    acknowledged op must never be a truncated record."""
+    view = memoryview(data)
+    while view:
+        n = w.write(view)
+        if not n:
+            raise OSError("op-log write made no progress "
+                          f"({len(view)} bytes unwritten)")
+        view = view[n:]
+
+
+def _serialize_container_seq(items: Iterable[Tuple[int, np.ndarray, int]],
+                             n: int) -> bytes:
+    """The plain writer: (key, container, count) triples, sorted and
+    non-empty, one dense temporary at a time."""
+    header = bytearray(struct.pack("<II", COOKIE, n))
+    payloads: List[bytes] = []
+    for key, c, card in items:
+        dense = _as_dense(c)
+        runs = _dense_to_runs(dense)
+        run_size = RUN_COUNT_HEADER_SIZE + 4 * len(runs)
+        array_size = 2 * card
+        if run_size < min(array_size, 8192):
+            typ = CONTAINER_RUN
+            payloads.append(struct.pack("<H", len(runs))
+                            + runs.astype("<u2").tobytes())
+        elif array_size < 8192:
+            typ = CONTAINER_ARRAY
+            payloads.append(_dense_to_array(dense).astype("<u2").tobytes())
+        else:
+            typ = CONTAINER_BITMAP
+            payloads.append(dense.astype("<u8").tobytes())
+        header += struct.pack("<QHH", int(key), typ, card - 1)
+    offset = HEADER_BASE_SIZE + n * 16
+    for p in payloads:
+        header += struct.pack("<I", offset)
+        offset += len(p)
+    return bytes(header) + b"".join(payloads)
+
+
 class Bitmap:
     """A 64-bit-keyed roaring bitmap over dense and array containers."""
 
-    __slots__ = ("containers", "_counts")
+    __slots__ = ("containers", "_counts", "op_writer", "op_n", "op_n_small",
+                 "oplog_bytes", "snapshot_bytes", "tail_dropped")
 
     def __init__(self) -> None:
         self.containers: Dict[int, np.ndarray] = {}
         # key -> popcount of a dense container.
         self._counts: Dict[int, int] = {}
+        self.op_writer = None
+        self.op_n = 0          # bits logged since the last snapshot
+        self.op_n_small = 0    # single-bit records among them
+        self.oplog_bytes = 0   # bytes of op records since the snapshot
+        self.snapshot_bytes = 0  # size of the snapshot section read
+        self.tail_dropped = 0  # torn-tail bytes the last read dropped
 
     # -- container plumbing -------------------------------------------------
 
@@ -146,7 +494,7 @@ class Bitmap:
     def optimize(self) -> int:
         """Re-encode dense containers of at most ARRAY_MAX_SIZE bits as
         arrays and drop empty ones; returns the number converted."""
-        converted = 0
+        cand: List[int] = []
         for key, c in list(self.containers.items()):
             if c.dtype == np.uint16:
                 continue
@@ -155,9 +503,13 @@ class Bitmap:
                 del self.containers[key]
                 self._invalidate(key)
             elif n <= ARRAY_MAX_SIZE:
-                self.containers[key] = _dense_to_array(c)
-                converted += 1
-        return converted
+                cand.append(key)
+        if cand:
+            arrays = _dense_positions([self.containers[k] for k in cand])
+            for key, arr in zip(cand, arrays):
+                self.containers[key] = arr
+                self._invalidate(key)
+        return len(cand)
 
     def _drop_empty(self, key: int) -> None:
         if key in self.containers and self.container_count(key) == 0:
@@ -167,34 +519,47 @@ class Bitmap:
     # -- point ops ----------------------------------------------------------
 
     def add(self, *positions: int) -> bool:
-        """Set each position; True when any bit changed."""
+        """Set each position, logging one OP_ADD a changed bit; True
+        when any bit changed."""
         changed = False
         for p in positions:
             p = int(p)
-            key, low = p >> 16, p & 0xFFFF
-            c = self._container(key, create=True)
-            w, b = low >> 6, np.uint64(1 << (low & 63))
-            if not c[w] & b:
-                c[w] |= b
-                self._invalidate(key)
+            if self._direct_add(p):
                 changed = True
+                self._write_op(OP_ADD, value=p)
         return changed
 
+    def _direct_add(self, p: int) -> bool:
+        key, low = p >> 16, p & 0xFFFF
+        c = self._container(key, create=True)
+        w, b = low >> 6, np.uint64(1 << (low & 63))
+        if c[w] & b:
+            return False
+        c[w] |= b
+        self._invalidate(key)
+        return True
+
     def remove(self, *positions: int) -> bool:
-        """Clear each position; True when any bit changed. A no-op
-        remove never materialises an array container."""
+        """Clear each position, logging one OP_REMOVE a changed bit; True
+        when any bit changed. A no-op remove never materialises an array
+        container."""
         changed = False
         for p in positions:
             p = int(p)
-            if not self.contains(p):
-                continue
-            key, low = p >> 16, p & 0xFFFF
-            c = self._container(key)
-            c[low >> 6] &= ~np.uint64(1 << (low & 63))
-            self._invalidate(key)
-            self._drop_empty(key)
-            changed = True
+            if self._direct_remove(p):
+                changed = True
+                self._write_op(OP_REMOVE, value=p)
         return changed
+
+    def _direct_remove(self, p: int) -> bool:
+        if not self.contains(p):
+            return False
+        key, low = p >> 16, p & 0xFFFF
+        c = self._container(key)
+        c[low >> 6] &= ~np.uint64(1 << (low & 63))
+        self._invalidate(key)
+        self._drop_empty(key)
+        return True
 
     def contains(self, p: int) -> bool:
         p = int(p)
@@ -306,6 +671,8 @@ class Bitmap:
         key_list = keys.tolist()
         lows = (positions & np.uint64(0xFFFF)).astype(np.uint16)
         counts = np.diff(bounds)
+        self._log_roaring(len(positions), lambda: _native_serialize(
+            keys, lows, bounds[:-1], counts, np.zeros(len(keys), np.uint64)))
         groups = [lows[a:b] for a, b in zip(bounds[:-1].tolist(),
                                             bounds[1:].tolist())]
         if self.containers.keys().isdisjoint(key_list) and \
@@ -326,11 +693,14 @@ class Bitmap:
             self._invalidate(k)
         return keys
 
-    def merge_masks(self, first_key: int, words: np.ndarray) -> np.ndarray:
+    def merge_masks(self, first_key: int, words: np.ndarray,
+                    counts: Optional[np.ndarray] = None) -> np.ndarray:
         """OR a block of dense container masks, uint64 [n, 1024] for keys
         first_key .. first_key + n - 1, into the store; every container
-        that gets a bit is kept dense. Returns the keys that got bits."""
-        counts = _popcount_rows(words)
+        that gets a bit is kept dense. Returns the keys that got bits.
+        Logs nothing (the callers log the batch's record)."""
+        if counts is None:
+            counts = _popcount_rows(words)
         nz = np.flatnonzero(counts)
         for i, n in zip(nz.tolist(), counts[nz].tolist()):
             key = first_key + i
@@ -365,7 +735,10 @@ class Bitmap:
                                DENSE_GROUP_ROWS))
         else:
             bounds = np.array([0, len(rel)])
-        touched: List[np.ndarray] = []
+        # Every group's masks first: the batch's record goes out before
+        # any bit lands.
+        groups = []
+        n_bits = 0
         for g, (lo, hi) in enumerate(zip(bounds[:-1].tolist(),
                                           bounds[1:].tolist())):
             if lo == hi:
@@ -376,8 +749,226 @@ class Bitmap:
             bits[(rel[lo:hi] - g0) * width + cols[lo:hi]] = True
             words = np.packbits(bits, bitorder="little").view(
                 np.uint64).reshape(g_rows * kpr, CONTAINER_WORDS)
-            touched.append(self.merge_masks((rmin + g0) * kpr, words))
-        return np.concatenate(touched)
+            counts = _popcount_rows(words)
+            n_bits += int(counts.sum())
+            groups.append(((rmin + g0) * kpr, words, counts))
+
+        def payload() -> bytes:
+            nz = [np.flatnonzero(c) for _, _, c in groups]
+            return serialize_masks(
+                np.concatenate([np.uint64(k0) + i.astype(np.uint64)
+                                for (k0, _, _), i in zip(groups, nz)]),
+                np.concatenate([w[i] for (_, w, _), i in zip(groups, nz)]))
+
+        self._log_roaring(n_bits, payload)
+        return np.concatenate([self.merge_masks(k0, w, c)
+                               for k0, w, c in groups])
+
+    def union_in_place(self, *others: "Bitmap") -> None:
+        """OR every container of ``others`` into this store (unlogged)."""
+        for other in others:
+            for key, b in other.containers.items():
+                if key not in self.containers:
+                    self.containers[key] = b.copy()
+                else:
+                    a = self._container(key)
+                    a |= _as_dense(b)
+                self._invalidate(key)
+
+    def difference_in_place(self, other: "Bitmap") -> None:
+        """Clear every bit of ``other`` here (unlogged)."""
+        for key, b in other.containers.items():
+            if key in self.containers:
+                c = self._container(key)
+                c &= ~_as_dense(b)
+                self._invalidate(key)
+                self._drop_empty(key)
+
+    # -- op log -------------------------------------------------------------
+
+    def _write_op(self, typ: int, value: int = 0,
+                  values: Optional[np.ndarray] = None) -> None:
+        """Count one single-bit or batch record and append it when a
+        writer is set (the record length is closed-form, so nothing is
+        encoded without one)."""
+        self.op_n += 1 if values is None else len(values)
+        if values is None:
+            self.op_n_small += 1
+        self.oplog_bytes += 13 if values is None else 13 + 8 * len(values)
+        if self.op_writer is not None:
+            _write_all(self.op_writer, encode_op(typ, value, values))
+
+    def _log_roaring(self, n_bits: int, payload) -> None:
+        """Count one OP_ADD_ROARING record of ``n_bits`` bits and, when a
+        writer is set, build its payload (``payload()``) and append it."""
+        self.op_n += n_bits
+        if self.op_writer is None:
+            return
+        rec = encode_op_roaring(payload())
+        self.oplog_bytes += len(rec)
+        _write_all(self.op_writer, rec)
+
+    def remove_batch(self, positions: np.ndarray) -> int:
+        """Clear ``positions``, logging one OP_REMOVE_BATCH record of
+        them all; returns the number of bits that changed."""
+        positions = np.asarray(positions, dtype=np.uint64)
+        n = self.direct_remove_n(positions)
+        if len(positions):
+            self._write_op(OP_REMOVE_BATCH, values=positions)
+        return n
+
+    # -- serialization ------------------------------------------------------
+
+    def _sorted_items(self) -> Tuple[List[int], List[np.ndarray]]:
+        keys = sorted(k for k in self.containers if self.container_count(k))
+        return keys, [self.containers[k] for k in keys]
+
+    def write_bytes(self) -> bytes:
+        """The file bytes of the store (a snapshot, no op log), through
+        the C++ writer."""
+        return serialize_containers(*self._sorted_items())
+
+    def write_bytes_plain(self) -> bytes:
+        """The plain version of ``write_bytes`` (numpy): the same bytes."""
+        keys, cs = self._sorted_items()
+        return _serialize_container_seq(
+            ((k, c, self.container_count(k)) for k, c in zip(keys, cs)),
+            len(keys))
+
+    @classmethod
+    def from_bytes(cls, data: bytes,
+                   tolerate_torn_tail: bool = False) -> "Bitmap":
+        b = cls()
+        b.read_bytes(data, tolerate_torn_tail=tolerate_torn_tail)
+        return b
+
+    def read_bytes(self, data: bytes, tolerate_torn_tail: bool = False
+                   ) -> None:
+        """Load a whole file, replaying its op log, through the C++
+        reader. A record torn at the end raises ``OpTruncatedError``
+        unless ``tolerate_torn_tail`` (a fragment recovering its own
+        file), which drops it and reports its bytes in
+        ``tail_dropped``. Containers of at most ARRAY_MAX_SIZE bits
+        arrive as arrays, the others dense: views into two blocks sized
+        to the data."""
+        loaded = _native_load(bytes(data), tolerate_torn_tail)
+        lows, dense = loaded["lows"], loaded["dense"]
+        containers: Dict[int, np.ndarray] = {}
+        counts: Dict[int, int] = {}
+        lo = dn = 0
+        for k, c in zip(loaded["keys"].tolist(), loaded["counts"].tolist()):
+            if c <= ARRAY_MAX_SIZE:
+                containers[k] = lows[lo:lo + c]
+                lo += c
+            else:
+                containers[k] = dense[dn]
+                counts[k] = c
+                dn += 1
+        self.containers = containers
+        self._counts = counts
+        self.op_n = loaded["op_n"]
+        self.op_n_small = loaded["op_n_small"]
+        self.oplog_bytes = loaded["ops_bytes"]
+        self.snapshot_bytes = loaded["snapshot_bytes"]
+        self.tail_dropped = loaded["tail_dropped"]
+
+    @classmethod
+    def from_bytes_plain(cls, data: bytes, tolerate_torn_tail: bool = False,
+                         _depth: int = 0) -> "Bitmap":
+        b = cls()
+        b.read_bytes_plain(data, tolerate_torn_tail, _depth)
+        return b
+
+    def read_bytes_plain(self, data: bytes, tolerate_torn_tail: bool = False,
+                         _depth: int = 0) -> None:
+        """The plain version of ``read_bytes`` (numpy and struct): the
+        same verdicts, bits and accounting."""
+        self.tail_dropped = 0
+        if len(data) < HEADER_BASE_SIZE:
+            raise ValueError("data too small")
+        magic, version = struct.unpack_from("<HH", data, 0)
+        if magic != MAGIC_NUMBER:
+            raise ValueError(f"invalid roaring file, magic number {magic}")
+        if version != STORAGE_VERSION:
+            raise ValueError(f"wrong roaring version v{version}")
+        (n,) = struct.unpack_from("<I", data, 4)
+        self.containers = {}
+        self._counts = {}
+        metas: List[Tuple[int, int]] = []
+        pos = HEADER_BASE_SIZE
+        prev_key = -1
+        for _ in range(n):
+            key, typ, _card = struct.unpack_from("<QHH", data, pos)
+            if key <= prev_key:
+                raise ValueError("container keys not sorted")
+            prev_key = key
+            metas.append((key, typ, _card + 1))
+            pos += 12
+        ops_offset = pos + 4 * n
+        for i, (key, typ, card) in enumerate(metas):
+            (offset,) = struct.unpack_from("<I", data, pos + 4 * i)
+            if offset >= len(data):
+                raise ValueError(f"offset out of bounds: {offset}")
+            if typ == CONTAINER_ARRAY:
+                vals = np.frombuffer(data, dtype="<u2", count=card,
+                                     offset=offset)
+                c = np.unique(vals).astype(np.uint16)
+                if len(c) > ARRAY_MAX_SIZE:
+                    c = _low_mask(c)
+                end = offset + 2 * card
+            elif typ == CONTAINER_BITMAP:
+                c = np.frombuffer(data, dtype="<u8", count=CONTAINER_WORDS,
+                                  offset=offset).astype(np.uint64)
+                end = offset + 8 * CONTAINER_WORDS
+            elif typ == CONTAINER_RUN:
+                (run_n,) = struct.unpack_from("<H", data, offset)
+                runs = np.frombuffer(
+                    data, dtype="<u2", count=run_n * 2,
+                    offset=offset + RUN_COUNT_HEADER_SIZE).reshape(-1, 2)
+                c = _runs_to_dense(runs)
+                end = offset + RUN_COUNT_HEADER_SIZE + 4 * run_n
+            else:
+                raise ValueError(f"unknown container type {typ}")
+            # The header's cardinality is not trusted; the payload
+            # decides, and an empty container is not kept.
+            if len(c) if c.dtype == np.uint16 else c.any():
+                self.containers[key] = c
+            ops_offset = max(ops_offset, end)
+        self.op_n = 0
+        self.op_n_small = 0
+        self.oplog_bytes = 0
+        self.snapshot_bytes = ops_offset
+        buf = memoryview(data)[ops_offset:]
+        while len(buf):
+            try:
+                op_typ, value, values, size = decode_op(buf)
+            except OpTruncatedError:
+                if not tolerate_torn_tail:
+                    raise
+                self.tail_dropped = len(buf)
+                break
+            if op_typ == OP_ADD:
+                self._direct_add(value)
+                self.op_n_small += 1
+                self.op_n += 1
+            elif op_typ == OP_REMOVE:
+                self._direct_remove(value)
+                self.op_n_small += 1
+                self.op_n += 1
+            elif op_typ == OP_ADD_BATCH:
+                self.direct_add_n(values)
+                self.op_n += len(values)
+            elif op_typ == OP_REMOVE_BATCH:
+                self.direct_remove_n(values)
+                self.op_n += len(values)
+            else:
+                if _depth + 1 >= MAX_OP_NESTING:
+                    raise ValueError("op nesting too deep")
+                batch = Bitmap.from_bytes_plain(values, _depth=_depth + 1)
+                self.op_n += batch.count()
+                self.union_in_place(batch)
+            self.oplog_bytes += size
+            buf = buf[size:]
 
     # -- queries ------------------------------------------------------------
 

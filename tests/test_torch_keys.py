@@ -209,13 +209,13 @@ def test_translate_store_load_entries():
     """Adopted entries keep their ids; later keys continue past the
     largest; a conflicting id is refused."""
     st = TranslateStore()
-    st.load_entries([("a", 4), ("b", 2)])
+    st.apply_entries([("a", 4), ("b", 2)])
     assert st.translate_keys(["b", "c", "a", "d"]).tolist() == [2, 5, 4, 6]
-    st.load_entries([("a", 4)])
+    st.apply_entries([("a", 4)])
     with pytest.raises(ValueError, match="translate conflict"):
-        st.load_entries([("a", 3)])
+        st.apply_entries([("a", 3)])
     # An id far past the others, and the ids allocated after it.
-    st.load_entries([("far", 1 << 40)])
+    st.apply_entries([("far", 1 << 40)])
     assert st.translate_keys(["e", "far"]).tolist() == [(1 << 40) + 1,
                                                         1 << 40]
     assert st.translate_ids([2, 4, 6, 7, 1 << 40, (1 << 40) + 1,

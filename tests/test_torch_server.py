@@ -447,11 +447,18 @@ def test_port_refuses_what_is_not_ported(servers):
         ("POST", "/index/dtp/query",
          "Rows(t, from='1969-12-01', to='1970-02-01') Row(t=1)", None),
     ])
+    # Roaring imports and the CSV export are ported: the port answers
+    # them as the JAX server does.
+    run_script(servers, "persist-ported", [
+        ("POST", "/index/dn/field/f/import-roaring/0",
+         roaring([1 * SHARD_WIDTH + 4, 2 * SHARD_WIDTH + 4]), None),
+        ("GET", "/export?index=dn&field=f&shard=0", None, None),
+    ])
     for method, path, body, what in cases:
         st, _, raw = call(pbase, method, path, body)
         assert st == 400, (path, body, st, raw)
         assert what in json.loads(raw)["error"], (path, body, raw)
-    for path, what in (("/export", "export"), ("/metrics", "metrics"),
+    for path, what in (("/metrics", "metrics"),
                        ("/internal/nodes", "cluster")):
         st, _, raw = call(pbase, "GET", path)
         assert st == 404 and what in json.loads(raw)["error"], (path, raw)
@@ -459,6 +466,80 @@ def test_port_refuses_what_is_not_ported(servers):
                       pb_query("Row(f=1)") + jax_proto._varint_field(5, 1),
                       PROTO)
     assert st == 400 and b"cluster" in raw
+
+
+def roaring(positions):
+    """Serialized roaring bytes of ``positions`` (the JAX codec)."""
+    from pilosa_tpu.storage.roaring import Bitmap as JaxBitmap
+    return JaxBitmap(np.asarray(positions, np.uint64)).write_bytes()
+
+
+def pb_import_roaring(views, clear=False):
+    """ImportRoaringRequest: Clear=1, views=2 (Name=1, Data=2)."""
+    out = jax_proto._varint_field(1, 1) if clear else b""
+    for name, blob in views:
+        out += jax_proto._len_field(2, jax_proto._str_field(1, name)
+                                    + jax_proto._len_field(2, blob))
+    return out
+
+
+def test_import_roaring_and_export_match_jax(servers):
+    """Roaring imports (raw bytes into a shard and a ``?view``, a
+    ``?clear``, protobuf ImportRoaringRequests with several views and
+    their clear flag, a malformed payload, unknown fields and args) and
+    the CSV export (unkeyed, keyed, an empty shard, unknown names):
+    equal status codes and bodies, and the reads after them."""
+    rng = np.random.default_rng(31)
+    rows = rng.integers(0, 4, 3000).astype(np.uint64)
+    cols = rng.integers(0, 60000, 3000).astype(np.uint64)
+    pos = np.unique(rows * np.uint64(SHARD_WIDTH) + cols)
+    day = np.unique(rng.integers(0, 3, 400).astype(np.uint64)
+                    * np.uint64(SHARD_WIDTH) + cols[:400])
+    base = "/index/rr/field"
+    q = "/index/rr/query"
+    steps = [
+        ("POST", "/index/rr", {}, None),
+        ("POST", "/index/rr/field/f", {}, None),
+        ("POST", "/index/rr/field/t",
+         {"options": {"type": "time", "timeQuantum": "YMD"}}, None),
+        ("POST", f"{base}/f/import-roaring/0", roaring(pos), None),
+        ("POST", f"{base}/f/import-roaring/1?view=standard",
+         roaring(pos[::3]), None),
+        ("POST", f"{base}/f/import-roaring/0?clear=true",
+         roaring(pos[::7]), None),
+        ("POST", f"{base}/t/import-roaring/2",
+         pb_import_roaring([("", roaring(day)),
+                            ("standard_20190105", roaring(day)),
+                            ("standard_201901", roaring(day))]), PROTO),
+        ("POST", f"{base}/t/import-roaring/2",
+         pb_import_roaring([("standard_20190105", roaring(day[::2]))],
+                           clear=True), PROTO),
+        ("POST", f"{base}/f/import-roaring/0", b"not a roaring file", None),
+        ("POST", f"{base}/f/import-roaring/0",
+         roaring(pos)[:-5], None),
+        ("POST", f"{base}/nope/import-roaring/0", roaring(pos), None),
+        ("POST", "/index/nope/field/f/import-roaring/0", roaring(pos), None),
+        ("POST", f"{base}/f/import-roaring/0?bogus=1", roaring(pos), None),
+        ("POST", q, "Count(Row(f=1)) Row(f=2) TopN(f) Count(Not(Row(f=0)))",
+         None),
+        ("POST", q, "Row(t=1, from='2019-01-05T00:00', "
+                    "to='2019-01-06T00:00') Count(Row(t=2)) Rows(t)", None),
+        ("GET", "/export?index=rr&field=f&shard=0", None, None),
+        ("GET", "/export?index=rr&field=f&shard=1", None, None),
+        ("GET", "/export?index=rr&field=f&shard=9", None, None),
+        ("GET", "/export?index=rr&field=t&shard=2", None, None),
+        ("GET", "/export?index=rr&field=nope&shard=0", None, None),
+        ("GET", "/export?index=nope&field=f&shard=0", None, None),
+        ("GET", "/export?index=rr&field=f&shard=0&x=1", None, None),
+        ("POST", "/index/rk", {"options": {"keys": True}}, None),
+        ("POST", "/index/rk/field/kf", {"options": {"keys": True}}, None),
+        ("POST", "/index/rk/field/kf/import",
+         {"rowKeys": ["a", "b,c", "a", "d\"q"],
+          "columnKeys": ["x", "y", "z", "x"]}, None),
+        ("POST", "/index/rk/query", "Set('w', kf='a')", None),
+        ("GET", "/export?index=rk&field=kf&shard=0", None, None),
+    ]
+    run_script(servers, "roaring", steps)
 
 
 def pb_import_keys(index, field, row_keys, col_keys):
@@ -812,6 +893,78 @@ def test_cli_server_answers_on_cpu():
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
     assert rc == 0, proc.stderr.read()
+
+
+def cli_base(lines):
+    first = lines.get(timeout=120)
+    assert "listening on http://127.0.0.1:" in first, first
+    return first.split("listening on ")[1].split()[0]
+
+
+def test_cli_server_restarts_on_its_data_dir(tmp_path):
+    """``server --data-dir`` on the CPU: imports and a Set, SIGTERM (exit
+    0), a restart on the same directory with the same answers; a Set
+    acknowledged just before SIGKILL reads back after the next restart;
+    ``export`` writes the field as the server exports it."""
+    data = str(tmp_path / "data")
+    args = ("--device", "cpu", "--bind", "127.0.0.1:0", "--data-dir", data,
+            "--no-coalescer")
+    rng = np.random.default_rng(6)
+    cols = rng.choice(3 * SHARD_WIDTH, 20000, replace=False).astype(np.uint64)
+    cab = rng.integers(0, 3, len(cols))
+    q = "/index/taxi/query"
+    reads = ("Count(Row(cab_type=1)) TopN(cab_type, n=3) "
+             "Sum(Row(cab_type=2), field=dist) Count(Row(cab_type=7))")
+    proc, lines = start_cli(*args)
+    try:
+        base = cli_base(lines)
+        for step in [
+                ("POST", "/index/taxi", {}),
+                ("POST", "/index/taxi/field/cab_type", {}),
+                ("POST", "/index/taxi/field/dist",
+                 {"options": {"type": "int", "min": 0, "max": 300}}),
+                ("POST", "/index/taxi/field/cab_type/import",
+                 {"rowIDs": cab.tolist(), "columnIDs": cols.tolist()}),
+                ("POST", "/index/taxi/field/dist/import",
+                 {"columnIDs": cols.tolist(),
+                  "values": (cab * 100).tolist()}),
+                ("POST", q, f"Set({int(cols[0])}, cab_type=7)")]:
+            st, _, raw = call(base, *step)
+            assert st == 200, (step[1], raw)
+        st, _, want = call(base, "POST", q, reads)
+        assert st == 200, want
+        st, _, csv_want = call(base, "GET",
+                               "/export?index=taxi&field=cab_type&shard=1")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    assert rc == 0, proc.stderr.read()
+    assert json.loads(want)["results"][0] == int((cab == 1).sum())
+    proc, lines = start_cli(*args)
+    try:
+        base = cli_base(lines)
+        assert call(base, "POST", q, reads)[2] == want
+        st, _, raw = call(base, "POST", q, "Set(5, cab_type=8)")
+        assert st == 200 and json.loads(raw)["results"] == [True]
+    finally:
+        proc.kill()
+        proc.wait(timeout=60)
+    proc, lines = start_cli(*args)
+    try:
+        base = cli_base(lines)
+        assert call(base, "POST", q, reads)[2] == want
+        st, _, raw = call(base, "POST", q, "Row(cab_type=8)")
+        assert json.loads(raw)["results"] == [{"columns": [5]}]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    out = subprocess.run(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "export", "--data-dir",
+         data, "--index", "taxi", "--field", "cab_type", "--shard", "1",
+         "--device", "cpu"], cwd=REPO, capture_output=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == csv_want and csv_want.count(b"\n") == \
+        int(((cols >= SHARD_WIDTH) & (cols < 2 * SHARD_WIDTH)).sum())
 
 
 def test_cli_server_refuses_to_start_without_a_card():
