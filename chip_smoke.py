@@ -28,7 +28,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``pbank_membership_counts`` bit-exact against its plain version on
    fixed [65536, 48] rows with 0xFFFF pads (48- and 1500-bit filters),
    fixed [1024, 128] and flat rows of 0-200 positions, W in {1, 128,
-   2047}.
+   2047}. Hold ``expand_positions`` bit-exact against its plain version
+   at the 10M SparseBank's shape (S = 1, width 128, 65 slots with the
+   zero slot and empty rows), on a 96-shard bank of width 2048, with
+   positions past the width, a garbage pad tail and the sparse upload's
+   [cap, 1, W] form; and ``mega_interpret`` with expand registers (a
+   sparse bank's rows moved into scratch by OP_EXPAND, then every
+   opcode) against its plain version extended with the sparse banks.
 3. taxi: build the NYC-taxi ride index (100M rides = 96 shards, seed 5;
    cab_type, passenger_count, dist, amount, existence) on
    ``Holder(device="cuda")`` and answer five queries through
@@ -89,6 +95,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    after which the answers stay exact and every other segment keeps its
    device arrays. Then the membership kernel's time on one segment of
    that bank beside its bound, its plain version and torch.isin.
+   layout (``run_layout``, on that holder after its serve path): a burst
+   of 68 reads (Count(Intersect) of the query molecule with 64
+   candidates, the first 40 planted analogues among them, and Union,
+   Difference, Xor and a row Union of those rows) through execute_batch
+   in ONE launch over row-subset banks only (none over 2 x 65 rows);
+   ``LayoutManager.demote`` of the view (the SparseBank's bytes,
+   positions, build seconds and host peak beside the dense bank's bytes,
+   the ledger's device bytes before and after); the burst again over
+   the sparse layout, in ONE ``mega_interpret`` launch fed by
+   ``expand_positions``; the reads and the five queries one at a time,
+   with no dense bank; a Set into a candidate row, after which the
+   SparseBank rebuilds; ``relayout_once`` over a watermark just under
+   the ledger's device bytes, then ``promote`` and a dense read; one
+   admission over a budget set just under the resident total, which
+   must evict the ranking's pick, keep the total within the budget and
+   rebuild the evicted bank exactly on its next read. Every answer
+   exact against numpy, no plain version on the card; then the
+   expansion's time at the burst's shape beside its bound, its plain
+   version and ``index_add_``.
 6. serve: the port's HTTP server over the holders already loaded, each
    answer exact against numpy. On the taxi holder (``serve_taxi``): an
    ``API`` with a ``QueryCoalescer`` at its default window behind
@@ -169,13 +194,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    queries exact through the positions bank. No plain version may run
    on the card; every kernel must launch on the persist path.
 
+After every phase the memory ledger's bytes by category, the bank
+budget's total, budget and evictions and the allocator's bytes are
+logged; the ledger's device bytes may not exceed the allocator's.
+
 Launch counts are set to 0 just before each path (taxi, burst,
-groupby, timefields, persist, fingerprint, keys, the serve path's taxi
-and fingerprint servers)
+groupby, timefields, persist, fingerprint, the layout's sparse steps,
+keys, the serve path's taxi and fingerprint servers)
 and read just after; every kernel must have launched on its path, and
 on the serve and persist paths. The ``taxi``, ``groupby``,
-``timefields``, ``burst``, ``tanimoto``, ``keys``, ``serve`` and
-``persist`` lines, the card's name
+``timefields``, ``burst``, ``tanimoto``, ``keys``, ``serve``,
+``persist``, ``layout`` and ``memory`` lines, the card's name
 and power limit, the kernels JSON and the ``{"ok": true, "device":
 {...}}`` line end the output. The script imports nothing of JAX or of the JAX
 package.
@@ -207,6 +236,7 @@ SOURCES = {
     "bsi_plane_counts": "pilosa_tpu_torch/csrc/bank_counts.cu",
     "mega_interpret": "pilosa_tpu_torch/csrc/mega_interpret.cu",
     "pbank_membership_counts": "pilosa_tpu_torch/csrc/pbank_membership.cu",
+    "expand_positions": "pilosa_tpu_torch/csrc/sparse_expand.cu",
 }
 REPLACES = {
     "bank_row_counts": "pilosa_tpu/ops/pallas_kernels.py:143",
@@ -214,6 +244,8 @@ REPLACES = {
     "bsi_plane_counts": "pilosa_tpu/ops/pallas_kernels.py:374",
     "mega_interpret": "pilosa_tpu/ops/pallas_kernels.py:337",
     "pbank_membership_counts": "pilosa_tpu/ops/pallas_kernels.py:250",
+    # An XLA scatter in the JAX package, not a Pallas kernel.
+    "expand_positions": "pilosa_tpu/ops/megakernel.py:106",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 SHARD_WIDTH = 1 << 20
@@ -652,23 +684,29 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
               "load_s": load_s}
     report["taxi"], taxi_launches = run_taxi(ex, want_taxi, device, iters,
                                              profile)
+    memory_line("taxi", device)
     report["burst"], burst_launches = run_burst(ex, want_burst, device,
                                                 iters, profile)
+    memory_line("burst", device)
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
     report["groupby"], gb_launches = run_groupby(holder, device, cab,
                                                  want_gb, iters)
+    memory_line("groupby", device)
     report["timefields"], tf_launches, tf_http = run_timefields(
         holder, device, cab, amount, iters)
     report["timefields"]["launches"] = tf_launches
+    memory_line("timefields", device)
     report["taxi_attrs"] = run_taxi_attrs(holder, device,
                                           tf_http["topn_rate"][1], iters)
+    memory_line("taxi_attrs", device)
     if device != "cpu":
         torch.cuda.empty_cache()
     report["persist"], report["persist"]["launches"] = run_persist(
         holder, device, cab, amount, pax_counts, want_taxi, want_burst,
         tf_http)
+    memory_line("persist_taxi", device)
     del cab, amount
     report["serve"], serve_launches = serve_taxi(
         holder, want_taxi, want_burst, cab_head,
@@ -677,6 +715,9 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
          "burst": report["burst"]["p50_s"],
          "groupby": report["groupby"]["http"],
          "timefields": tf_http}, iters)
+    memory_line("serve_taxi", device)
+    # Close, so the bank budget lets go of the holder's banks.
+    holder.close()
     del ex, holder
     return report, taxi_launches, burst_launches, gb_launches, \
         serve_launches
@@ -805,7 +846,7 @@ class RefCalls:
 
     NAMES = ("bank_row_counts_ref", "bank_row_counts_masked_ref",
              "bsi_plane_counts_ref", "mega_interpret_ref",
-             "pbank_membership_counts_ref")
+             "pbank_membership_counts_ref", "expand_positions_ref")
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -1801,11 +1842,12 @@ def top_pairs(counts, n):
     return [(int(cand[o]), int(counts[cand[o]])) for o in order]
 
 
-def fingerprint_expected(pos, extra_cols=()):
+def fingerprint_expected(pos, extra_cols=(), more=None):
     """Exact answers of FP_QUERIES from the positions array with numpy
     (distinct bits per row, the query row's bits as the filter), in 1M-row
     chunks. ``extra_cols`` adds columns (not among its bits) to the query
-    molecule first."""
+    molecule first; ``more`` maps other rows to columns (not among their
+    bits) added to them."""
     import numpy as np
     filt = np.zeros(FP_BITS, dtype=bool)
     filt[pos[QUERY_MOL]] = True
@@ -1821,6 +1863,9 @@ def fingerprint_expected(pos, extra_cols=()):
         inter[c0:c0 + len(p)] = (filt[p] & keep).sum(axis=1)
     raw[QUERY_MOL] += len(extra_cols)
     inter[QUERY_MOL] += len(extra_cols)
+    for r, cols in (more or {}).items():
+        raw[r] += len(cols)
+        inter[r] += int(filt[list(cols)].sum())
     src = int(raw[QUERY_MOL])
     denom = raw + src - inter
     want = {}
@@ -1965,6 +2010,13 @@ def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
     report["serve"], serve_launches = serve_fingerprint(
         holder, pos, col, want,
         {k: v["p50_s"] for k, v in report["queries"].items()}, iters)
+    memory_line("fingerprint", device)
+    # The layout phase on the same holder; the query molecule holds the
+    # two Sets (this phase's and the serve path's).
+    col2 = next(c for c in range(FP_BITS) if c not in qbits and c != col)
+    report["layout"], layout_launches, expand_in = run_layout(
+        holder, ex, field, pos, {QUERY_MOL: [col, col2]}, device, iters)
+    memory_line("layout", device)
     # The timing row's inputs, as the main path met them before the Set:
     # one fixed segment of the bank and the query's filter words at the
     # bank's width.
@@ -1974,7 +2026,9 @@ def run_fingerprint(device, n_molecules, iters=ITERS, profile=False):
         "pos": seg,
         "filt": to_tensor(pack_positions(qpos.astype(np.uint64),
                                          width * 32), seg.device),
-        "qpos": torch.from_numpy(qpos).to(seg.device)}
+        "qpos": torch.from_numpy(qpos).to(seg.device),
+        "expand": expand_in, "layout_launches": layout_launches}
+    holder.close()
     del holder, ex, field, pos, pb, pb2
     return report, launches, timing_in, serve_launches
 
@@ -2077,6 +2131,621 @@ def time_pbank(torch, kernels, device, tin):
             "library_ms": library_ms, "shape": [R, L], "bound_bytes": nbytes}
 
 
+
+
+# ------------------------------------------------------------ expansion
+
+
+def expand_case(rng, n_rows, n_shards, width, widen=0, pad=1024,
+                per_row=80, pad_fill=0):
+    """Seeded sparse rows: each (row, shard) holds sorted unique bit
+    positions (0 to per_row draws; every fifth row empty), encoded
+    (shard << 16) | bitpos, row after row, with int32 offsets per row slot
+    (slots past n_rows empty), ``widen`` words of positions past width *
+    32 (a view widened after the build) and a pad tail of ``pad``
+    positions filled with ``pad_fill``. Returns (pos int32, starts int32,
+    cap) as numpy."""
+    import numpy as np
+    parts, lens = [], []
+    for r in range(n_rows):
+        row = [np.empty(0, np.uint32)]
+        if r % 5 != 3:
+            for sh in range(n_shards):
+                bits = np.unique(rng.integers(
+                    0, (width + widen) * 32, int(rng.integers(0, per_row))))
+                row.append(bits.astype(np.uint32) | np.uint32(sh << 16))
+        parts.append(np.concatenate(row))
+        lens.append(len(parts[-1]))
+    cap = 1 << n_rows.bit_length()
+    starts = np.zeros(cap + 1, np.int64)
+    np.cumsum(lens, out=starts[1:n_rows + 1])
+    starts[n_rows + 1:] = starts[n_rows]
+    pos = np.full(int(starts[-1]) + pad, pad_fill, np.uint32)
+    pos[:starts[-1]] = np.concatenate(parts)
+    return pos.view(np.int32), starts.astype(np.int32), cap
+
+
+def check_expand(torch, kernels, device):
+    """expand_positions bit-exact against its plain version: the 10M
+    SparseBank's shape (S = 1, width 128, 65 slots with the zero slot and
+    empty rows, about 48 bits a row), a multi-shard bank (S = 96, width
+    2048), positions past width * 32, a pad tail of garbage no row
+    reaches, and the sparse upload's [cap, 1, width] form over slots
+    0..cap-1. Returns the max |kernel - plain| (0)."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    cases = []
+    pos, starts, cap = expand_case(rng, 500, 1, 128, per_row=97)
+    slots = np.concatenate([rng.choice(500, 64, replace=False),
+                            [cap - 1]]).astype(np.int32)
+    cases.append(("fp-10M shape", pos, starts, slots, 1, 128))
+    pos, starts, cap = expand_case(rng, 40, 96, 2048, per_row=30)
+    cases.append(("S=96 W=2048", pos, starts,
+                  np.arange(cap, dtype=np.int32), 96, 2048))
+    pos, starts, cap = expand_case(rng, 30, 3, 128, widen=64)
+    cases.append(("widened", pos, starts,
+                  np.arange(cap, dtype=np.int32)[::-1].copy(), 3, 128))
+    pos, starts, cap = expand_case(rng, 30, 2, 128, pad=1 << 16,
+                                   pad_fill=0xFFFF)
+    cases.append(("pad tail", pos, starts,
+                  np.arange(cap, dtype=np.int32), 2, 128))
+    pos, starts, cap = expand_case(rng, 1000, 1, 128, per_row=60)
+    cases.append(("sparse upload [cap, 1, W]", pos, starts,
+                  np.arange(cap, dtype=np.int32), 1, 128))
+    for name, pos, starts, slots, n_shards, width in cases:
+        p = torch.from_numpy(pos).to(device)
+        st = torch.from_numpy(starts).to(device)
+        got = kernels.expand_positions(p, st, slots, n_shards, width)
+        want = kernels.expand_positions_ref(p, st, slots, n_shards, width)
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or got.dtype != torch.int32 or \
+                tuple(got.shape) != (len(slots), n_shards, width) or \
+                not torch.equal(got, want):
+            raise AssertionError(f"expand_positions {name}: kernel != "
+                                 "plain")
+    log(f"kernels: expand_positions bit-exact over {len(cases)} cases")
+    return 0
+
+
+def check_mega_expand(torch, kernels, device):
+    """mega_interpret with expand registers against mega_interpret_ref
+    extended with the sparse banks as build_program(...).run extends its
+    slab: a random dense bank, a random sparse bank and random xslots
+    (the zero slot among them), a plan that first moves every expand
+    register into scratch with OP_EXPAND and then runs random rows of
+    every opcode over all registers. Returns the max |kernel - plain|
+    (0)."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    # T leaves room for the dense slots, the expand registers and one
+    # scratch register per expand register below the spare.
+    cases = [(256, 1, 128, 20, 65), (32, 96, 2048, 6, 10),
+             (32, 3, 128, 4, 9)]
+    for T, S, W, n_dense, n_x in cases:
+        (banks, slots, widths, _instrs, lanes, out_row, T, S, W) = \
+            random_mega_case(rng, torch, device, T, S, W, (W,), n_dense, 8)
+        pos, starts, cap = expand_case(rng, 60, S, W)
+        xslots = np.concatenate([rng.integers(0, cap - 1, n_x - 1),
+                                 [cap - 1]]).astype(np.int32)
+        widths[n_dense:n_dense + n_x] = rng.integers(1, W + 1, n_x)
+        rows = [(6, n_dense + n_x + k, n_dense + k, n_dense + k)
+                for k in range(n_x)]
+        body, _ = random_mega_plan(rng, T, 60)
+        rows += [tuple(r) for r in body.tolist() if r != [4, T - 1, T - 1,
+                                                         T - 1]]
+        P = 1 << (len(rows) - 1).bit_length()
+        rows += [(4, T - 1, T - 1, T - 1)] * (P - len(rows))
+        instrs = torch.from_numpy(np.asarray(rows, np.int32))
+        xbanks = ((torch.from_numpy(pos).to(device),
+                   torch.from_numpy(starts).to(device)),)
+        args = (banks, slots, widths, instrs, lanes, out_row, T, S, W,
+                xbanks, (xslots,))
+        want = kernels.mega_interpret_ref(*args)
+        got = kernels.mega_interpret(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"mega_interpret with {n_x} expand "
+                                 f"registers T={T} S={S} W={W}: kernel != "
+                                 "plain")
+    log(f"kernels: mega_interpret with expand registers bit-exact over "
+        f"{len(cases)} plans")
+    return 0
+
+
+def time_expand(torch, kernels, device, tin):
+    """expand_positions at the layout burst's shape (its sparse bank and
+    the slots one burst expands): the zeroing and the kernel's C entry
+    (the zeroing is the output's one write), its byte bound (the rows'
+    positions, the slots and their two offsets read once, the output
+    written once), its plain version, and ``index_add_`` over word
+    indexes and bit values computed beforehand, one call, the nearest
+    PyTorch expression; each held equal to the kernel."""
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    pos, starts, S, W = tin["pos"], tin["starts"], tin["n_shards"], \
+        tin["width"]
+    slots = tin["slots"].to(device)
+    n = int(slots.numel())
+    out = torch.empty((n, S, W), dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def kernel():
+        out.zero_()
+        return lib.expand_positions(pos.data_ptr(), starts.data_ptr(),
+                                    slots.data_ptr(), out.data_ptr(), n, S,
+                                    W, stream)
+
+    if kernel() != 0:
+        raise RuntimeError("expand_positions: kernel launch failed")
+    want = kernels.expand_positions_ref(pos, starts, slots, S, W)
+    # The library form's inputs: every selected position's word and bit.
+    st = starts.to(torch.int64)
+    sl = slots.to(torch.int64)
+    lo, hi = st[sl], st[sl + 1]
+    lens = hi - lo
+    k = torch.repeat_interleave(torch.arange(n, device=device), lens)
+    j = torch.repeat_interleave(lo - (torch.cumsum(lens, 0) - lens), lens) \
+        + torch.arange(int(lens.sum()), device=device)
+    p = pos.to(torch.int64)[j] & 0xFFFFFFFF
+    word = (k * S + (p >> 16)) * W + ((p & 0xFFFF) >> 5)
+    val = torch.ones_like(p) << (p & 31)
+    acc = torch.zeros(n * S * W, dtype=torch.int64, device=device)
+    acc.index_add_(0, word, val)
+    lib_out = (acc - ((acc >> 31) << 32)).to(torch.int32).reshape(n, S, W)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want) or not torch.equal(out, lib_out):
+        raise AssertionError("expand_positions differs at the burst shape")
+    ms = time_cuda(torch, kernel)
+    plain_ms = time_cuda(torch, lambda: kernels.expand_positions_ref(
+        pos, starts, slots, S, W), iters=5, warmup=1)
+    library_ms = time_cuda(torch, lambda: acc.index_add_(0, word, val))
+    n_pos = int(lens.sum())
+    nbytes = n_pos * 4 + n * 4 + 2 * n * 4 + n * S * W * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing: expand_positions n={n} S={S} W={W} ({n_pos} positions) "
+        f"zero + kernel {ms:.4f} ms, bound {bound_ms:.6f} ms (bytes), "
+        f"plain {plain_ms:.4f} ms, index_add_ (indexes precomputed) "
+        f"{library_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms, "shape": [n, S, W],
+            "positions": n_pos, "bound_bytes": nbytes}
+
+
+# --------------------------------------------------------------- memory
+
+# One record a phase: the ledger by category, the bank budget, and the
+# allocator.
+MEMORY = []
+
+
+def memory_line(phase, device):
+    """Log and keep the memory ledger's bytes by category, the bank
+    budget's total, budget and evictions, and the allocator's bytes after
+    a phase; the ledger's device bytes may not exceed the allocator's."""
+    import torch
+    from pilosa_tpu_torch.core.view import BANK_BUDGET
+    from pilosa_tpu_torch.utils.memledger import HOST_CATEGORIES, LEDGER
+    totals = LEDGER.totals()
+    ledger_device = sum(t["bytes"] for c, t in totals.items()
+                        if c not in HOST_CATEGORIES)
+    cuda = str(device) != "cpu"
+    allocated = torch.cuda.memory_allocated() if cuda else None
+    rec = {"phase": phase,
+           "ledger": {c: t["bytes"] for c, t in totals.items()
+                      if t["count"]},
+           "ledger_device_bytes": ledger_device,
+           "budget_total": BANK_BUDGET.total, "budget": BANK_BUDGET.budget,
+           "evictions": BANK_BUDGET.evictions, "allocated": allocated}
+    MEMORY.append(rec)
+    log(f"memory after {phase}: ledger {rec['ledger']} (device "
+        f"{ledger_device}), budget total {BANK_BUDGET.total} of "
+        f"{BANK_BUDGET.budget}, evictions {BANK_BUDGET.evictions}, "
+        f"allocated {allocated}")
+    if cuda and ledger_device > allocated:
+        raise AssertionError(f"memory after {phase}: the ledger's "
+                             f"{ledger_device} device bytes exceed the "
+                             f"allocator's {allocated}")
+    return rec
+
+
+class RssPeak:
+    """The peak resident set size of this process while active, sampled
+    every 20 ms from /proc (host memory of a build)."""
+
+    def __enter__(self):
+        import threading
+        self.peak = self.start = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except OSError:
+            return 0
+
+    def _run(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+# --------------------------------------------------------------- layout
+
+
+def analogue_ids(n, seed=FP_SEED):
+    """The planted analogues of QUERY_MOL, in fingerprint_positions'
+    draw order."""
+    import numpy as np
+    plant = np.random.default_rng(seed + 1)
+    cand = plant.choice(n - 1, N_ANALOGUES, replace=False)
+    return (cand + (cand >= QUERY_MOL)).tolist()
+
+
+def layout_burst(n):
+    """The layout phase's burst: Count(Intersect(query, c)) over 64
+    candidates (the first 40 planted analogues and 24 seeded others),
+    then Union, Difference and Xor counts and one row Union of those
+    rows. Returns ([(name, pql)], candidates)."""
+    import numpy as np
+    an = analogue_ids(n)[:40]
+    rng = np.random.default_rng(FP_SEED + 2)
+    others = [int(x) for x in rng.choice(n, 64, replace=False)
+              if int(x) != QUERY_MOL and int(x) not in an][:24]
+    cands = an + others
+    burst = [(f"q_and_{c}", f"Count(Intersect(Row(fingerprint={QUERY_MOL}), "
+                            f"Row(fingerprint={c})))") for c in cands]
+    a, b, c, d = cands[:4]
+    burst += [
+        ("union", f"Count(Union(Row(fingerprint={QUERY_MOL}), "
+                  f"Row(fingerprint={a})))"),
+        ("difference", f"Count(Difference(Row(fingerprint={b}), "
+                       f"Row(fingerprint={QUERY_MOL})))"),
+        ("xor", f"Count(Xor(Row(fingerprint={c}), Row(fingerprint={d})))"),
+        ("row_union", f"Union(Row(fingerprint={a}), Row(fingerprint={b}))")]
+    return burst, cands
+
+
+def layout_expected(burst, cands, pos, extra):
+    """numpy answers of the layout burst: each row's distinct bits and the
+    columns ``extra[row]`` added by Sets (one shard, so a bit is its
+    column)."""
+    import numpy as np
+
+    def bits(r):
+        return set(np.unique(pos[r]).tolist()) | set(extra.get(r, ()))
+
+    q = bits(QUERY_MOL)
+    a, b, c, d = (bits(x) for x in cands[:4])
+    want = {f"q_and_{x}": len(q & bits(x)) for x in cands}
+    want.update(union=len(q | a), difference=len(b - q), xor=len(c ^ d),
+                row_union=sorted(a | b))
+    return [want[name] for name, _ in burst]
+
+
+def run_layout(holder, ex, field, pos, extra, device, iters=ITERS):
+    """The layout phase on the loaded fingerprint holder (``extra`` maps a
+    row to the columns Sets added to it), every answer exact against
+    numpy and no plain version on the card:
+
+    a. the staged burst (layout_burst) through execute_batch: one
+       mega_interpret launch, only row-subset banks (none over 2 x 65
+       rows, no full view bank), its first-call seconds, warm p50 and the
+       device memory it allocates at its peak;
+    b. LayoutManager.demote(view): the SparseBank's bytes, positions,
+       build seconds and host peak beside the dense bank it stands for,
+       the ledger's device bytes before and after;
+    c. the same burst over the sparse layout: one mega_interpret launch
+       fed by expand_positions, its warm p50 and peak;
+    d. the burst's reads and the five FP_QUERIES through execute, one at
+       a time, with no dense bank;
+    e. a Set into a candidate row: the SparseBank rebuilds with moved
+       versions and the burst stays exact;
+    f. the re-layout pass over a watermark just under the ledger's device
+       bytes, its summary, then promote(view) and a dense read;
+    g. one admission over a budget set just under the resident total:
+       the evicted entry (highest demotion score, LRU among ties), the
+       total within the budget, the evicted bank rebuilt exactly on its
+       next read, the budget restored.
+
+    Returns (report, launches of steps c-d, expand timing inputs)."""
+    import numpy as np
+    import torch
+    from pilosa_tpu_torch.core.layout import LayoutManager
+    from pilosa_tpu_torch.core.view import BANK_BUDGET, SparseBank, \
+        ViewBank, bank_capacity
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.utils.memledger import LEDGER
+    cuda = device != "cpu"
+    t_phase = time.perf_counter()
+    view = field.view()
+    burst, cands = layout_burst(len(pos))
+    reqs = [("mole", pql, None) for _, pql in burst]
+    extra = {r: list(c) for r, c in extra.items()}
+    want = layout_expected(burst, cands, pos, extra)
+    report = {"requests": len(reqs)}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def answer(res):
+        return res if isinstance(res, int) else res.columns().tolist()
+
+    def check(out, want, what):
+        for (name, pql), item, w in zip(burst, out, want):
+            if isinstance(item, Exception):
+                raise AssertionError(f"layout {what} {name}: {item!r}")
+            (res,), _ = item
+            if answer(res) != w:
+                raise AssertionError(f"layout {what} {name}: port != numpy")
+
+    def one_burst(what):
+        before = dict(kernels.LAUNCHES)
+        m0 = mega_state(ex)
+        if cuda:
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = ex.execute_batch(reqs)
+        sync()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        check(out, want, what)
+        m1 = mega_state(ex)
+        if m1[0] != m0[0] + 1 or m1[1:] != m0[1:]:
+            raise AssertionError(f"layout {what}: megakernel launches/"
+                                 f"fallbacks {m0} -> {m1}, not one launch")
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                    if kernels.LAUNCHES[k] != before[k]}
+        if cuda and launched.get("mega_interpret") != 1:
+            raise AssertionError(f"layout {what}: launches {launched}")
+        return {"s": secs, "peak_bytes": peak, "launches": launched}
+
+    def p50():
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            out = ex.execute_batch(reqs)
+            sync()
+            times.append(time.perf_counter() - t0)
+            check(out, want, "warm")
+        times.sort()
+        return times[len(times) // 2]
+
+    def dense_banks():
+        """(largest ViewBank's capacity, whether a full view bank is
+        cached) of the fingerprint view."""
+        caps = [b.array.shape[0] for b in view._bank_cache.values()
+                if isinstance(b, ViewBank)]
+        full = any(isinstance(b, ViewBank) and len(k) == 2
+                   for k, b in view._bank_cache.items())
+        return max(caps, default=0), full
+
+    prev = megamod.MEGAKERNEL_ENABLED
+    if not cuda:
+        megamod.MEGAKERNEL_ENABLED = True  # rehearsal: off by default
+    refs = RefCalls(kernels)
+    try:
+        with refs:
+            # a. staged row-subset banks
+            a = one_burst("staged")
+            a["p50_s"] = p50()
+            cap, full = dense_banks()
+            if cap > 2 * 65 or full:
+                raise AssertionError(f"layout staged: a bank of {cap} rows "
+                                     f"(full view bank: {full})")
+            a["largest_bank_rows"] = cap
+            report["staged"] = a
+            log(f"layout: staged burst of {len(reqs)} in one launch, first "
+                f"{a['s']:.4f} s, warm p50 {a['p50_s']:.6f} s, peak "
+                f"{a['peak_bytes']} bytes, largest bank {cap} rows")
+            memory_line("layout_staged", device)
+            # b. demote
+            mgr = LayoutManager(holder)
+            dev0 = LEDGER.total_bytes(device_only=True)
+            t0 = time.perf_counter()
+            with RssPeak() as rss:
+                if not mgr.demote(view):
+                    raise AssertionError("layout: the demotion failed")
+            demote_s = time.perf_counter() - t0
+            width = view.trimmed_words()
+            sb = view._bank_cache.get(("sbank", (0,), width))
+            if not isinstance(sb, SparseBank):
+                raise AssertionError("layout: no SparseBank after demote")
+            dev1 = LEDGER.total_bytes(device_only=True)
+            report["demote"] = {
+                "s": demote_s, "sparse_bytes": sb.nbytes,
+                "positions": int(LEDGER.entry_info(
+                    ("sparse_bank",), (id(view), ("sbank", (0,), width)))
+                    ["positions"]),
+                "rows": sb.n_rows,
+                "dense_bytes": bank_capacity(sb.n_rows) * sb.n_shards
+                * sb.width * 4,
+                "ledger_device_before": dev0, "ledger_device_after": dev1,
+                "host_rss_start": rss.start, "host_rss_peak": rss.peak}
+            log(f"layout: demoted in {demote_s:.2f} s (host RSS peak "
+                f"{rss.peak} from {rss.start}): SparseBank {sb.nbytes} bytes"
+                f", {report['demote']['positions']} positions, for a dense "
+                f"bank of {report['demote']['dense_bytes']} bytes; ledger "
+                f"device bytes {dev0} -> {dev1}")
+            memory_line("layout_demote", device)
+            # c. the same burst over the sparse layout
+            kernels.reset_launches()
+            c = one_burst("sparse")
+            if cuda and c["launches"].get("expand_positions", 0) < 1:
+                raise AssertionError(f"layout sparse: launches "
+                                     f"{c['launches']}")
+            c["p50_s"] = p50()
+            report["sparse"] = c
+            log(f"layout: sparse burst in one launch with "
+                f"{c['launches'].get('expand_positions', 0)} expand "
+                f"launch(es), first {c['s']:.4f} s, warm p50 "
+                f"{c['p50_s']:.6f} s (staged {a['p50_s']:.6f} s), peak "
+                f"{c['peak_bytes']} bytes")
+            rows_read = []
+            for _, pql in burst:
+                for tok in pql.split("fingerprint=")[1:]:
+                    r = int(tok.split(")")[0])
+                    if r not in rows_read:
+                        rows_read.append(r)
+            timing_in = {"pos": sb.arrays[0], "starts": sb.arrays[1],
+                         "slots": torch.tensor(
+                             [sb.slot(r) for r in rows_read],
+                             dtype=torch.int32),
+                         "n_shards": 1, "width": width}
+            # d. execute, one query at a time
+            t0 = time.perf_counter()
+            for (name, pql), w in zip(burst, want):
+                (res,) = ex.execute("mole", pql)
+                if answer(res) != w:
+                    raise AssertionError(f"layout execute {name}: port != "
+                                         "numpy")
+            def fp_expected():
+                return fingerprint_expected(
+                    pos, extra_cols=tuple(extra.get(QUERY_MOL, ())),
+                    more={r: c for r, c in extra.items() if r != QUERY_MOL})
+
+            fp_want = fp_expected()
+            for name, pql in FP_QUERIES:
+                (got,) = ex.execute("mole", pql)
+                if got.pairs != fp_want[name]:
+                    raise AssertionError(f"layout execute {name}: port != "
+                                         "numpy")
+            cap, full = dense_banks()
+            if cap or full:
+                raise AssertionError("layout execute: a dense bank was "
+                                     "built over the sparse layout")
+            report["execute_s"] = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            if cuda and launches["expand_positions"] <= 0:
+                raise AssertionError("layout: expand_positions never "
+                                     "launched")
+            # e. a write
+            target = cands[5]
+            col = next(x for x in range(FP_BITS)
+                       if x not in set(pos[target].tolist())
+                       and x not in extra.get(target, ()))
+            (changed,) = ex.execute("mole",
+                                    f"Set({col}, fingerprint={target})")
+            if not changed:
+                raise AssertionError("layout: the Set changed nothing")
+            extra.setdefault(target, []).append(col)
+            want = layout_expected(burst, cands, pos, extra)
+            fp_want = fp_expected()
+            e = one_burst("after the Set")
+            sb2 = view._bank_cache.get(("sbank", (0,), width))
+            if not isinstance(sb2, SparseBank) or sb2 is sb or \
+                    sb2.versions == sb.versions:
+                raise AssertionError("layout: the SparseBank did not "
+                                     "rebuild after the Set")
+            report["write"] = {"rebuild_and_burst_s": e["s"],
+                               "launches": e["launches"]}
+            log(f"layout: Set({col}, fingerprint={target}); the SparseBank "
+                f"rebuilt and the burst stayed exact ({e['s']:.2f} s)")
+            del sb, sb2
+            memory_line("layout_write", device)
+            # f. pressure
+            watermark = LEDGER.total_bytes(device_only=True) - 1
+            mgr.configure(watermark_bytes=watermark)
+            summary = mgr.relayout_once()
+            promoted = mgr.promote(view)
+            q = f"Count(Intersect(Row(fingerprint={QUERY_MOL}), " \
+                f"Row(fingerprint={target})))"
+            (got,) = ex.execute("mole", q)
+            if got != want[cands.index(target)] or \
+                    view.layout_mode != "dense":
+                raise AssertionError("layout: the dense read after the "
+                                     "promotion is wrong")
+            report["pressure"] = {"watermark": watermark,
+                                  "summary": summary,
+                                  "promote_after": promoted}
+            log(f"layout: relayout_once over a watermark of {watermark}: "
+                f"{summary}; promote() after it: {promoted}; dense read "
+                "exact")
+            memory_line("layout_pressure", device)
+            # g. the budget
+            foreign = [(getattr(v, "index", "?"), getattr(v, "field", "?"))
+                       for v, _ in BANK_BUDGET._entries.values()
+                       if v is not view]
+            if foreign:
+                raise AssertionError(f"layout budget: banks of other views "
+                                     f"are resident: {foreign[:8]}")
+            saved, before = BANK_BUDGET.budget, dict(BANK_BUDGET._entries)
+            expect = BANK_BUDGET._pick_victim(
+                BANK_BUDGET._eviction_scores())
+            BANK_BUDGET.budget = BANK_BUDGET.total - 1
+            try:
+                (got,) = ex.execute("mole", f"Count(Row(fingerprint="
+                                            f"{cands[6]}))")
+                evicted = [ek for ek in before
+                           if ek not in BANK_BUDGET._entries]
+                if expect not in evicted or \
+                        BANK_BUDGET.total > BANK_BUDGET.budget:
+                    raise AssertionError(f"layout budget: evicted "
+                                         f"{evicted}, expected {expect}, "
+                                         f"total {BANK_BUDGET.total} of "
+                                         f"{BANK_BUDGET.budget}")
+                if got != len(set(np.unique(pos[cands[6]]).tolist())
+                              | set(extra.get(cands[6], ()))):
+                    raise AssertionError("layout budget: the read is "
+                                         "wrong")
+                victims = [(getattr(before[ek][0], "field", "?"),
+                            repr(ek[1])[:80], before[ek][1])
+                           for ek in evicted]
+                total_in_budget = BANK_BUDGET.total
+            finally:
+                BANK_BUDGET.budget = saved
+            # The evicted bank rebuilds on its next read.
+            vview, vkey = before[expect][0], expect[1]
+            if vview is view and isinstance(vkey, tuple) and \
+                    vkey and vkey[0] == "pbank":
+                for name, pql in FP_QUERIES:
+                    (res,) = ex.execute("mole", pql)
+                    if res.pairs != fp_want[name]:
+                        raise AssertionError(f"layout budget: {name} after "
+                                             "the eviction")
+            elif vview is view and len(vkey) == 3 and \
+                    isinstance(vkey[2], tuple):
+                for r in vkey[2]:
+                    (res,) = ex.execute("mole", f"Count(Row(fingerprint="
+                                                f"{r}))")
+                    if res != len(set(np.unique(pos[r]).tolist())
+                                  | set(extra.get(r, ()))):
+                        raise AssertionError("layout budget: a row after "
+                                             "the eviction")
+            else:
+                raise AssertionError(f"layout budget: the victim "
+                                     f"{victims} is not this view's")
+            if (id(vview), vkey) not in BANK_BUDGET._entries:
+                raise AssertionError("layout budget: the evicted bank did "
+                                     "not rebuild")
+            report["budget"] = {"evicted": victims,
+                                "total_within": total_in_budget,
+                                "evictions": BANK_BUDGET.evictions}
+            log(f"layout: budget set under the resident total evicted "
+                f"{victims} (the ranking's pick); it rebuilt exactly on its "
+                "next read; budget restored")
+        report["ref_calls"] = refs.calls
+        if cuda and refs.calls:
+            raise AssertionError(f"layout: plain versions called on the "
+                                 f"card: {refs.calls}")
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+    report["seconds"] = time.perf_counter() - t_phase
+    report["launches"] = {k: v for k, v in launches.items() if v}
+    log(f"layout: phase done in {report['seconds']:.1f} s")
+    return report, launches, timing_in
 
 
 def run_probe(device, n_rides, iters=PROBE_ITERS):
@@ -3732,6 +4401,12 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
             api = API(holder)
             report["writes"], fill_rows = persist_writes(
                 api.executor, api, expect, n_rides)
+            # The drop: nothing is closed or saved. The process-wide bank
+            # budget holds the holder's views, so let go of their device
+            # banks, as a crash would.
+            for idx in holder.indexes.values():
+                for f in idx.fields.values():
+                    f.drop_banks()
             del ex, api, holder
             gc.collect()
             holder, report["crash_open_s"] = open_holder(path, device)
@@ -3932,12 +4607,15 @@ def main(argv=None) -> int:
 
     # 2. kernels
     errs = check_kernels(torch, kernels, device)
-    errs["mega_interpret"] = check_mega(torch, kernels, device)
+    errs["mega_interpret"] = max(check_mega(torch, kernels, device),
+                                 check_mega_expand(torch, kernels, device))
     errs["pbank_membership_counts"] = check_pbank(torch, kernels, device)
+    errs["expand_positions"] = check_expand(torch, kernels, device)
     n_shards = (N_RIDES + SHARD_WIDTH - 1) // SHARD_WIDTH
     timing = time_kernels(torch, kernels, device, n_shards)
     log("timing: torch has no single popcount call, so there is no "
         "library yardstick (library_ms null)")
+    memory_line("kernels", device)
 
     # 3-4, 6. the taxi paths: queries one at a time, the burst, and the
     # serve path's taxi phases
@@ -3950,23 +4628,33 @@ def main(argv=None) -> int:
         "cuda", args.molecules, profile=args.profile)
     timing["pbank_membership_counts"] = time_pbank(torch, kernels, device,
                                                    timing_in)
+    timing["expand_positions"] = time_expand(torch, kernels, device,
+                                             timing_in["expand"])
+    layout_launches = timing_in["layout_launches"]
     del timing_in
     # 7. the keys phase: the keyed star-trace index and its serve path
     torch.cuda.empty_cache()
     keys, keys_launches = run_keys("cuda")
     torch.cuda.empty_cache()
+    memory_line("keys", device)
     # 8. the persist phase's keyed and fingerprint directories
     persist = report["persist"]
     persist["keys"] = persist_keys("cuda", keys["load_s"])
+    memory_line("persist_keys", device)
     persist["fingerprint"], pfp_launches = persist_fingerprint("cuda")
     torch.cuda.empty_cache()
+    memory_line("persist_fingerprint", device)
     # 6. the serve path's CLI phase
     cli = serve_cli("cuda")
+    memory_line("cli", device)
     launches = {name: taxi_launches[name] for name in (
         "bank_row_counts", "bank_row_counts_masked", "bsi_plane_counts")}
     launches["mega_interpret"] = burst_launches["mega_interpret"]
     launches["pbank_membership_counts"] = \
         fp_launches["pbank_membership_counts"]
+    # The sparse layout's path: the layout phase's sparse burst and its
+    # reads one at a time (steps c and d).
+    launches["expand_positions"] = layout_launches["expand_positions"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on its "
@@ -4003,8 +4691,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump({"card": card, "report": report, "fingerprint": fp,
-                       "keys": keys, "cli": cli, "timing": timing}, f,
-                      indent=1)
+                       "keys": keys, "cli": cli, "timing": timing,
+                       "memory": MEMORY}, f, indent=1, default=str)
     taxi = report["taxi"]
     print(json.dumps({"taxi": {
         "rides": report["rides"], "shards": report["shards"],
@@ -4094,6 +4782,15 @@ def main(argv=None) -> int:
             "topn_cache", "burst_s", "writes", "crash_open_s",
             "after_crash", "cli", "keys", "fingerprint")},
         "launches": persist_counts}}), flush=True)
+    lay = fp["layout"]
+    print(json.dumps({"layout": {
+        "card": card, "molecules": fp["molecules"],
+        **{k: lay[k] for k in ("requests", "staged", "demote", "sparse",
+                               "execute_s", "write", "pressure", "budget",
+                               "seconds", "launches")},
+        "expand_timing": timing["expand_positions"]}}, default=str),
+        flush=True)
+    print(json.dumps({"memory": MEMORY}), flush=True)
     print(card, flush=True)
 
     # 9. kernels line, then the result line

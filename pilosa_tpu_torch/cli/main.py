@@ -14,8 +14,11 @@ memory. SIGTERM stops the server like Ctrl-C: the coalescer drains what
 it admitted and the holder closes, which saves the count caches. The
 server runs on CUDA unless ``--device cpu`` is given, and raises where
 there is no card. Port 0 binds a free port; the first line on stdout
-names the address served. ``export`` writes one field's standard view
-as ``row,col`` CSV, every shard or one. No TOML config.
+names the address served. The server also runs the memory watchdog and
+the hybrid layout's re-layout pass with the JAX package's config
+defaults (a 10 s sample, a ring of 360, every 30 s, the watermark at 0.9
+of the device budget). ``export`` writes one field's standard view as
+``row,col`` CSV, every shard or one. No TOML config.
 """
 
 from __future__ import annotations
@@ -31,6 +34,41 @@ def _bind(bind: str):
     if not port.isdigit():
         raise SystemExit(f"--bind wants HOST:PORT, got {bind!r}")
     return host or "localhost", int(port)
+
+
+# The JAX package's server defaults (utils/config.py): the watchdog's
+# sample period, ring and watermark share of the device budget, and the
+# layout pass's period, demotion density, least bank and promotion rate.
+TELEMETRY_SAMPLE_EVERY_S = 10.0
+TELEMETRY_RING = 360
+WATERMARK_SHARE = 0.9
+LAYOUT_INTERVAL_S = 30.0
+LAYOUT_DEMOTE_DENSITY = 0.25
+LAYOUT_MIN_BYTES = 1 << 20
+LAYOUT_PROMOTE_RATE = 0.5
+
+
+def _start_memory_planes(api) -> None:
+    """Start the memory watchdog and the layout pass with the watermark
+    at WATERMARK_SHARE of the device budget (none while it is
+    unbounded, as on the CPU)."""
+    from pilosa_tpu_torch.core.view import BANK_BUDGET
+    from pilosa_tpu_torch.utils.memledger import LEDGER, MemoryWatchdog
+
+    budget = BANK_BUDGET.resolve(api.holder.device)
+    watermark = int(budget * WATERMARK_SHARE) if budget else 0
+    coal = api.coalescer
+    api.watchdog = MemoryWatchdog(
+        LEDGER, sample_every_s=TELEMETRY_SAMPLE_EVERY_S,
+        ring=TELEMETRY_RING, watermark_bytes=watermark,
+        extra_gauges=lambda: {
+            "queueDepth": coal.queue_depth() if coal is not None else 0})
+    api.watchdog.start()
+    api.layout.configure(
+        enabled=True, interval_s=LAYOUT_INTERVAL_S,
+        demote_density=LAYOUT_DEMOTE_DENSITY, min_bytes=LAYOUT_MIN_BYTES,
+        promote_rate=LAYOUT_PROMOTE_RATE, watermark_bytes=watermark)
+    api.layout.start()
 
 
 def cmd_server(args) -> int:
@@ -50,6 +88,7 @@ def cmd_server(args) -> int:
         api.coalescer = QueryCoalescer(
             api.executor, window_s=args.coalescer_window_ms / 1e3)
         api.coalescer.start()
+    _start_memory_planes(api)
     server = make_server(api, host, port)
 
     def _graceful(signum, frame):
@@ -69,6 +108,8 @@ def cmd_server(args) -> int:
     finally:
         if api.coalescer is not None:
             api.coalescer.stop()
+        api.layout.stop()
+        api.watchdog.stop()
         server.server_close()
         if holder.path is not None:
             holder.close()

@@ -17,11 +17,11 @@ A fragment with a path keeps its count cache in a ``.cache`` sidecar
 (``save_cache`` / ``load_cache``): ``CACHE_MAGIC``, a stamp binding the
 sidecar to the storage bytes it was computed from, then little-endian
 (u64 row, u64 count) pairs, by count descending. A saturated ranked
-cache is saved empty. Not ported yet: the memory-ledger registration of
-rank entries (with their byte counts) waits for the memory budget and
-ledger. The store's resize
-invalidation and its ``[cache]`` config belong to the cluster and config
-items and are left out with them.
+cache is saved empty. Every stored rank vector is registered with the
+memory ledger as a ``rank_cache`` row of its device bytes, unregistered
+when the store evicts or forgets it. The store's resize invalidation and
+its ``[cache]`` config belong to the cluster and config items and are
+left out with them.
 """
 
 from __future__ import annotations
@@ -229,6 +229,10 @@ class RankEntry:
         self.row_ids = row_ids      # slot-ordered row-id tuple
         self.counts = counts
 
+    @property
+    def nbytes(self) -> int:
+        return int(self.counts.numel()) * self.counts.element_size()
+
 
 class RankCacheStore:
     """LRU registry of RankEntry vectors keyed (view identity, shard
@@ -252,20 +256,31 @@ class RankCacheStore:
             return ent[1]
 
     def put(self, view: Any, key: tuple, entry: RankEntry) -> None:
+        from pilosa_tpu_torch.utils.memledger import LEDGER
         ek = (id(view), key)
         with self._lock:
             self._entries.pop(ek, None)
             while len(self._entries) >= self.max_entries:
-                self._entries.popitem(last=False)
+                (_vid, vkey), (v, _e) = self._entries.popitem(last=False)
+                # Under the store lock (the ledger's is a leaf), so an
+                # evict and a re-put cannot interleave.
+                LEDGER.unregister("rank_cache", vkey, owner=v)
             self._entries[ek] = (view, entry)
+            LEDGER.register("rank_cache", key, entry.nbytes, owner=view,
+                            index=getattr(view, "index", ""),
+                            field=getattr(view, "field", ""),
+                            view=getattr(view, "name", ""),
+                            rows=len(entry.row_ids))
 
     def forget_view(self, view: Any) -> None:
-        """Drop every entry of a view whose field or index was
-        deleted."""
+        """Drop every entry of a view whose field or index was deleted,
+        with its ledger row."""
+        from pilosa_tpu_torch.utils.memledger import LEDGER
         vid = id(view)
         with self._lock:
             for ek in [ek for ek in self._entries if ek[0] == vid]:
                 self._entries.pop(ek, None)
+                LEDGER.unregister("rank_cache", ek[1], owner=view)
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -223,7 +223,8 @@ class Field:
                     max_columns=self.options.max_columns,
                     cache_type=self.options.cache_type,
                     cache_size=self.options.cache_size,
-                    path=self._file(os.path.join("views", name)))
+                    path=self._file(os.path.join("views", name)),
+                    index=self.index)
 
     def create_view_if_not_exists(self, name: str) -> View:
         with self._lock:

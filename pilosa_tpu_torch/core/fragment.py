@@ -51,6 +51,7 @@ from pilosa_tpu_torch.storage.roaring import ARRAY_MAX_SIZE, \
     CONTAINER_BITS, CONTAINER_WORDS, OP_REMOVE_BATCH, Bitmap, \
     _dense_to_array, _popcount_rows, _popcount_words, dense_scatter, \
     fnv1a32, serialize_masks, serialize_positions
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 
 # Containers per shard row: 2^20 / 2^16.
 CONTAINERS_PER_ROW = SHARD_WIDTH // CONTAINER_BITS
@@ -82,9 +83,13 @@ class Fragment:
     def __init__(self, shard: int,
                  cache_type: str = cache_mod.CACHE_TYPE_RANKED,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
-                 path: Optional[str] = None):
+                 path: Optional[str] = None,
+                 owner: Optional[Tuple[str, str, str]] = None):
         self.shard = shard
         self.path = path
+        # (index, field, view) the writes are recorded under in the
+        # workload recorder; None records nothing.
+        self.owner = owner
         self.storage = Bitmap()
         self._file = None
         self._last_snapshot_bytes = 0
@@ -143,6 +148,13 @@ class Fragment:
             cache_mod.load_cache(self.cache, self.cache_path(),
                                  stamp=self._storage_stamp())
             self._maybe_snapshot()
+
+    def optimize_storage(self) -> int:
+        """Re-encode sparse dense containers as arrays (the host
+        compaction the layout's demotion runs first: a point write leaves
+        its row's container dense); returns the number converted."""
+        with self._lock:
+            return self.storage.optimize()
 
     def close(self) -> None:
         """Save the count cache and close the append handle."""
@@ -250,6 +262,11 @@ class Fragment:
         self._row_versions.update(zip(rows, itertools.repeat(v)))
         if same_row_set and self._row_ids_cache[0] == prev:
             self._row_ids_cache = (v, self._row_ids_cache[1])
+        if self.owner is not None:
+            # Every mutation funnels through here: one record of the
+            # batch's writes at the new version.
+            WORKLOAD.record_write(*self.owner, self.shard, generation=v,
+                                  n=len(rows))
 
     def rows_changed_since(self, version: int) -> List[int]:
         return [r for r, v in self._row_versions.items() if v > version]

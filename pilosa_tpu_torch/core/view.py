@@ -11,20 +11,37 @@ device — the executor's operand format and the kernels' input; a row
 subset of a view too large for a full bank gets a bank of its own.
 ``positions_bank`` keeps a narrow single-shard view's set positions
 resident on the device instead (``PositionsBank``), for TopN over views
-whose dense bank would not fit.
+whose dense bank would not fit, and ``sparse_bank`` keeps a sparse
+view's set positions as the hybrid layout's query operand
+(``SparseBank``, read through the ``expand_positions`` kernel).
 
 Every bank is cached in ``_bank_cache`` by key and stamped with the
 fragment versions it was built from. Builds run under the view's lock,
 so two threads asking for the same bank build it once; a positions bank
 also holds its fragment's lock while it gathers, so a concurrent write
-lands wholly before or after it. The JAX package's HBM budget
-(``BankBudget``), memory ledger, host block cache and sparse upload are
-not part of this port yet, so nothing evicts a cached bank: a stale one
-is replaced when its key is asked for again. A full dense bank whose
-fragments changed is patched where the writes were few (``_patch_bank``:
-the written rows' cells, new rows appended at the end, emptied rows
-kept in their slots), else rebuilt whole; a positions bank is patched
-segment by segment.
+lands wholly before or after it. A stale bank is dropped before its
+rebuild, so the old and the new one are never both cached. A full dense
+bank whose fragments changed is patched where the writes were few
+(``_patch_bank``: the written rows' cells, new rows appended at the end,
+emptied rows kept in their slots), else rebuilt whole; a positions bank
+is patched segment by segment.
+
+Memory. Every cached bank is admitted to the process-wide
+``BANK_BUDGET`` and registered with the memory ledger
+(``utils/memledger.py``): dense banks as ``bank`` rows with their
+padding and sampled live density (which also feeds the plan optimizer's
+operand order), positions banks as ``pbank`` and sparse banks as
+``sparse_bank`` rows. An admission past the budget evicts the entry with
+the highest demotion score (``core/layout.py``), the least recently used
+among ties. The host blocks of row-subset banks are cached under
+``HOST_BLOCK_BUDGET``, so a bank evicted from the card re-uploads
+without a regather. A single-shard narrow build ships the rows' set
+positions and expands them on the card (the sparse upload) instead of
+uploading the dense block. ``set_layout`` moves the view between the
+dense and the sparse layout (``layout_mode``), dropping the other
+representation's banks. The bank width (``trimmed_words``) and the
+full bank's row-count bound (``row_count_bound``) are memoized by the
+fragments' versions: staging asks for them for every view an eval reads.
 
 A view with a ``path`` keeps its fragments at
 ``<path>/fragments/<shard>`` (the JAX package's layout): ``open`` loads
@@ -34,9 +51,12 @@ sidecars, and ``close`` drops the banks and closes the fragments.
 
 from __future__ import annotations
 
+import math
 import os
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from collections import OrderedDict
+from collections.abc import Mapping
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,9 +64,141 @@ import torch
 from pilosa_tpu_torch.core import cache as cache_mod
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS, Fragment
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+from pilosa_tpu_torch.utils.memledger import LEDGER
 
 VIEW_STANDARD = "standard"
 VIEW_BSI_PREFIX = "bsig_"
+
+# Sparse upload: a single-shard narrow build ships its rows' u16
+# positions (about 2 B a set bit) and expands them on the card instead of
+# uploading the dense block (the JAX package's PILOSA_TPU_SPARSE_UPLOAD).
+SPARSE_UPLOAD = True
+# Demotion-ranked eviction: under pressure the sparsest, coldest bank
+# goes first; False evicts by LRU alone (PILOSA_TPU_LAYOUT_EVICT).
+SMART_EVICT = True
+# The device budget's share of the card's memory: the rest is left to
+# transient banks, expansions, filter rows and the kernels' outputs.
+BANK_BUDGET_SHARE = 0.75
+
+
+class BankBudget:
+    """Process-wide accounting of cached banks against a byte budget.
+    Evicted banks drop out of their view's cache (the tensor frees once
+    the last query holding it is done).
+
+    Eviction is demotion-ranked: the victim is the entry with the
+    highest demotion score ((1 - live density) * bytes / (1 + read
+    rate), ``core/layout.demotion_scores``), so the sparsest, coldest
+    bank goes first; entries the ledger cannot price score 0, and ties
+    go to the least recently used. ``SMART_EVICT = False`` is plain LRU.
+
+    ``budget`` None means: the card's own, resolved at the first
+    admission from a CUDA view (``BANK_BUDGET_SHARE`` of its memory);
+    on the CPU, unbounded until set."""
+
+    # Ledger categories a view registers its cached entries under; an
+    # eviction clears whichever one the key belongs to.
+    LEDGER_CATEGORIES = ("bank", "pbank", "sparse_bank", "host_block")
+
+    def __init__(self, budget_bytes: Optional[int] = None,
+                 cache_attr: str = "_bank_cache"):
+        self.budget = budget_bytes
+        self.cache_attr = cache_attr
+        self._lock = threading.Lock()
+        # (id(view), key) -> (view, nbytes), oldest first.
+        self._entries: "OrderedDict" = OrderedDict()
+        self.total = 0
+        self.evictions = 0
+
+    def resolve(self, device: torch.device) -> Optional[int]:
+        """Set an unset budget to the card's own for a CUDA ``device``;
+        returns the budget (None: unbounded)."""
+        if self.budget is None and device.type == "cuda":
+            props = torch.cuda.get_device_properties(device)
+            self.budget = int(BANK_BUDGET_SHARE * props.total_memory)
+        return self.budget
+
+    def limit(self, view: Optional["View"] = None) -> float:
+        """The budget in bytes (the card's own resolved on the first CUDA
+        view); unbounded while unset."""
+        if view is not None:
+            self.resolve(view.device)
+        return math.inf if self.budget is None else self.budget
+
+    def _eviction_scores(self) -> Dict[Any, float]:
+        """Demotion scores of the current entries, once per admission's
+        eviction run (under the lock; the ledger and workload locks are
+        taken strictly after it)."""
+        if not SMART_EVICT or len(self._entries) < 2:
+            return {}
+        try:
+            from pilosa_tpu_torch.core.layout import demotion_scores
+            return demotion_scores(self._entries)
+        except Exception:
+            return {}
+
+    def _pick_victim(self, scores: Dict[Any, float]) -> Any:
+        """Highest demotion score wins; ties and unscored entries go to
+        the least recently used."""
+        if scores:
+            best_ek, best = None, -1.0
+            for ek in self._entries:  # oldest first: LRU breaks ties
+                sc = scores.get(ek, 0.0)
+                if sc > best:
+                    best_ek, best = ek, sc
+            if best_ek is not None and best > 0.0:
+                return best_ek
+        return next(iter(self._entries))
+
+    def admit(self, view: "View", key, nbytes: Optional[int] = None
+              ) -> None:
+        cache = getattr(view, self.cache_attr)
+        if nbytes is None:
+            bank = cache.get(key)
+            if bank is None:
+                return
+            nbytes = int(bank.array.numel()) * 4
+        limit = self.limit(view)
+        ek = (id(view), key)
+        with self._lock:
+            old = self._entries.pop(ek, None)
+            if old is not None:
+                self.total -= old[1]
+            scores = None
+            while self._entries and self.total + nbytes > limit:
+                if scores is None:
+                    scores = self._eviction_scores()
+                vid, vkey = self._pick_victim(scores)
+                scores.pop((vid, vkey), None)
+                v, nb = self._entries.pop((vid, vkey))
+                self.total -= nb
+                self.evictions += 1
+                getattr(v, self.cache_attr).pop(vkey, None)
+                for cat in self.LEDGER_CATEGORIES:
+                    LEDGER.unregister(cat, (vid, vkey))
+            self._entries[ek] = (view, nbytes)
+            self.total += nbytes
+
+    def touch(self, view: "View", key) -> None:
+        ek = (id(view), key)
+        with self._lock:
+            if ek in self._entries:
+                self._entries.move_to_end(ek)
+
+    def forget(self, view: "View", key) -> None:
+        with self._lock:
+            old = self._entries.pop((id(view), key), None)
+            if old is not None:
+                self.total -= old[1]
+        for cat in self.LEDGER_CATEGORIES:
+            LEDGER.unregister(cat, (id(view), key))
+
+
+# The device budget of every cached bank (the card's own by default, see
+# BankBudget), and the host-memory budget of cached row-subset blocks.
+BANK_BUDGET = BankBudget()
+HOST_BLOCK_BUDGET = BankBudget(1 << 30, cache_attr="_host_blocks")
 
 # Positions per device segment. A segment's starts are int32, so its
 # position count must stay well under 2^31; the build enforces the cap
@@ -81,6 +233,88 @@ class ViewBank:
 
     def slot(self, row_id: int) -> int:
         return self.slots.get(row_id, self.zero_slot)
+
+
+class _RowSlots(Mapping):
+    """Row id -> slot over a sorted row-id array (slot = index): the
+    mapping a ViewBank keeps as a dict, without a dict of millions of
+    entries."""
+
+    __slots__ = ("rows",)
+
+    def __init__(self, rows: np.ndarray):
+        self.rows = rows
+
+    def __getitem__(self, row_id: int) -> int:
+        if not 0 <= row_id < (1 << 64):
+            raise KeyError(row_id)
+        i = int(np.searchsorted(self.rows, np.uint64(row_id)))
+        if i < len(self.rows) and int(self.rows[i]) == row_id:
+            return i
+        raise KeyError(row_id)
+
+    def __iter__(self):
+        return iter(self.rows.tolist())
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+class SparseBank:
+    """A view's rows as their set positions on the device, the hybrid
+    layout's query operand: about 4 bytes a set bit where a dense row
+    costs ``4 * width`` bytes per shard. ``arrays`` is the stable pair
+    ``(pos, starts)``: ``pos`` int32 [P_pad] holds ``(shard_idx << 16) |
+    bitpos`` (the JAX package's uint32 bits), each row's positions back
+    to back by shard; ``starts`` int32 [capacity + 1] the row slots'
+    offsets, rows past the real ones empty, so an absent row resolves to
+    the empty ``zero_slot`` as in a dense bank. ``expand_positions``
+    turns slots of it into the dense rows they stand for."""
+
+    __slots__ = ("arrays", "slots", "zero_slot", "versions", "nbytes",
+                 "width", "n_shards", "n_rows")
+
+    def __init__(self, arrays, slots, zero_slot, versions, nbytes,
+                 width, n_shards, n_rows):
+        self.arrays = arrays        # (pos int32 [P_pad], starts [cap + 1])
+        self.slots = slots          # row id -> slot
+        self.zero_slot = zero_slot
+        self.versions = versions    # {shard: fragment.version} at build
+        self.nbytes = nbytes
+        self.width = width          # the dense width its rows expand to
+        self.n_shards = n_shards
+        self.n_rows = n_rows
+
+    def slot(self, row_id: int) -> int:
+        return self.slots.get(row_id, self.zero_slot)
+
+
+def _expand_sparse_chunk(pos16: np.ndarray, lens: np.ndarray,
+                         rows_at: np.ndarray, cap: int, width: int,
+                         device: torch.device) -> torch.Tensor:
+    """The int32 [cap, 1, width] bank of rows ``rows_at`` (slots) with
+    positions ``pos16`` back to back (``lens`` each), expanded on the
+    device by ``expand_positions`` over slots 0..cap-1."""
+    from pilosa_tpu_torch.ops import kernels
+    starts = np.zeros(cap + 1, np.int64)
+    starts[np.asarray(rows_at, np.int64) + 1] = lens
+    np.cumsum(starts, out=starts)
+    pos = torch.from_numpy(pos16.astype(np.int32)).to(device)
+    st = torch.from_numpy(starts.astype(np.int32)).to(device)
+    return kernels.expand_positions(pos, st, np.arange(cap, dtype=np.int32),
+                                    1, width)
+
+
+def _row_union(frags) -> List[int]:
+    """Sorted union of the fragments' row ids."""
+    per = [f.row_ids() for f in frags if f is not None]
+    per = [p for p in per if p]
+    if not per:
+        return []
+    if len(per) == 1:
+        return list(per[0])
+    return np.unique(np.concatenate(
+        [np.asarray(p, dtype=np.uint64) for p in per])).tolist()
 
 
 class PositionsBank:
@@ -142,8 +376,9 @@ class View:
                  max_columns: int = 0,
                  cache_type: str = cache_mod.CACHE_TYPE_RANKED,
                  cache_size: int = cache_mod.DEFAULT_CACHE_SIZE,
-                 path: Optional[str] = None):
+                 path: Optional[str] = None, index: str = ""):
         self.path = path
+        self.index = index
         self.field = field
         self.name = name
         self.device = device
@@ -152,8 +387,19 @@ class View:
         self.cache_size = cache_size
         self.fragments: Dict[int, Fragment] = {}
         self._lock = threading.RLock()
+        # "dense" serves Row leaves from ViewBanks, "sparse" from the
+        # SparseBank (core/layout.py). Staging reads it once per bank key,
+        # and both layouts hold the same bits, so a flip mid-query only
+        # changes which representation the next staging picks.
+        self.layout_mode = "dense"
         self._bank_cache: Dict[tuple, object] = {}
+        # Host blocks of row-subset banks: key -> (block, versions,
+        # slots), bounded process-wide by HOST_BLOCK_BUDGET.
+        self._host_blocks: Dict[tuple, tuple] = {}
         self._merged_rows: Dict[tuple, tuple] = {}
+        # (fragment versions, value) of trimmed_words / row_count_bound.
+        self._trim_memo: Optional[Tuple[tuple, int]] = None
+        self._bound_memo: Optional[Tuple[tuple, int]] = None
 
     def fragment(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
@@ -162,7 +408,8 @@ class View:
         return Fragment(shard, cache_type=self.cache_type,
                         cache_size=self.cache_size,
                         path=None if self.path is None else os.path.join(
-                            self.path, "fragments", str(shard)))
+                            self.path, "fragments", str(shard)),
+                        owner=(self.index, self.field, self.name))
 
     def create_fragment_if_not_exists(self, shard: int) -> Fragment:
         with self._lock:
@@ -197,10 +444,16 @@ class View:
         return sorted(self.fragments)
 
     def drop_banks(self) -> None:
-        """Forget every cached bank (the view's field or index was
-        deleted); the device memory goes when no query holds it."""
+        """Forget every cached bank and host block, with their budget
+        entries and ledger rows (the view closes, or its field or index
+        was deleted); the device memory goes when no query holds it."""
         with self._lock:
+            for key in list(self._bank_cache):
+                BANK_BUDGET.forget(self, key)
             self._bank_cache.clear()
+            for key in list(self._host_blocks):
+                HOST_BLOCK_BUDGET.forget(self, key)
+            self._host_blocks.clear()
             self._merged_rows.clear()
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
@@ -244,14 +497,78 @@ class View:
         cwords = CONTAINER_BITS // 32
         with self._lock:
             frags = list(self.fragments.values())
+        # Every write takes a new process-unique version, so an equal
+        # version tuple means an unchanged view: staging asks for the
+        # width of each view several times an eval.
+        versions = tuple(f.version for f in frags)
+        memo = self._trim_memo
+        if memo is not None and memo[0] == versions:
+            return memo[1]
         max_off = max((f.max_column_offset() for f in frags), default=-1)
-        if max_off < 0:
-            return cwords
         words = (max_off // 32) + 1
-        return min(WORDS_PER_SHARD,
-                   ((words + cwords - 1) // cwords) * cwords)
+        width = cwords if max_off < 0 else min(
+            WORDS_PER_SHARD, ((words + cwords - 1) // cwords) * cwords)
+        self._trim_memo = (versions, width)
+        return width
+
+    def row_count_bound(self, shards: Sequence[int]) -> int:
+        """The sum of the shards' fragments' row counts: an upper bound
+        on the full bank's rows with no union, memoized by the fragments'
+        versions."""
+        frags = [f for f in map(self.fragments.get, shards) if f is not None]
+        key = (tuple(shards), tuple(f.version for f in frags))
+        memo = self._bound_memo
+        if memo is not None and memo[0] == key:
+            return memo[1]
+        bound = sum(len(f.row_ids()) for f in frags)
+        self._bound_memo = (key, bound)
+        return bound
 
     # -- dense banks ---------------------------------------------------------
+
+    def _ledger_bank(self, cache_key, bank: ViewBank, n_rows: int,
+                     live_density: Optional[float] = None) -> None:
+        """Register a cached dense bank with the ledger: its bytes, the
+        pow2 padding (capacity rows past the real ones and the zero
+        slot), and the sampled live density of its real rows, which also
+        feeds the plan optimizer's operand order. Keyed as the budget
+        entry, which unregisters it on eviction."""
+        cap, n_sh, w = (int(x) for x in bank.array.shape)
+        row_bytes = n_sh * w * 4
+        meta = dict(index=self.index, field=self.field, view=self.name,
+                    nShards=n_sh, rows=n_rows)
+        if live_density is not None:
+            meta["liveDensity"] = round(float(live_density), 6)
+            from pilosa_tpu_torch.ops import plan_opt
+            plan_opt.note_bank_density(bank.array, live_density)
+        LEDGER.register("bank", cache_key, cap * row_bytes,
+                        padded_bytes=max(0, cap - n_rows - 1) * row_bytes,
+                        owner=self, **meta)
+
+    # Rows popcounted per bank build for the live density.
+    DENSITY_SAMPLE_ROWS = 256
+
+    def _sampled_live_density(self, frags, row_set, width: int,
+                              shards) -> Optional[float]:
+        """Share of the real row slots' bits that are set, from an even
+        sample of rows (host popcounts only); None with nothing to
+        sample."""
+        if not row_set or not shards or width <= 0:
+            return None
+        step = max(1, len(row_set) // self.DENSITY_SAMPLE_ROWS)
+        sample = row_set[::step][:self.DENSITY_SAMPLE_ROWS]
+        try:
+            bits = 0
+            for sh in shards:
+                f = frags.get(sh)
+                if f is None:
+                    continue
+                for r in sample:
+                    bits += f.row_count(r)
+            denom = len(sample) * len(shards) * width * 32
+            return min(1.0, bits / denom) if denom else None
+        except Exception:
+            return None  # density is a hint; it never fails a build
 
     def device_bank(self, shards: Sequence[int],
                     rows: Optional[Sequence[int]] = None,
@@ -262,17 +579,22 @@ class View:
         and rebuilt when any fragment's version moved. A ``rows`` subset
         builds a transient bank, or with ``cache_rows=True`` one cached
         under a key that includes the rows: the executor's Row leaf uses
-        it for views whose full bank is over budget. ``trim=True``
-        narrows the word axis to trimmed_words(), valid for whole-row
-        consumers since the dropped tail is all-zero. A stale full bank
-        of the same width is patched when it can be (``_patch_bank``),
-        so its slots keep their rows; consumers map rows to slots
-        through ``slots`` and never assume them ascending."""
+        it for views whose full bank is over budget. Either way the
+        subset's host block is cached (``HOST_BLOCK_BUDGET``), so a
+        rebuild after an eviction re-uploads without a regather.
+        ``trim=True`` narrows the word axis to trimmed_words(), valid for
+        whole-row consumers since the dropped tail is all-zero. A stale
+        full bank of the same width is patched when it can be
+        (``_patch_bank``), so its slots keep their rows; consumers map
+        rows to slots through ``slots`` and never assume them ascending.
+        Cached banks are admitted to ``BANK_BUDGET`` and ledgered."""
         shards = tuple(shards)
         with self._lock:
-            frags = {s: self.fragments.get(s) for s in shards}
-            versions = {s: (f.version if f else -1) for s, f in frags.items()}
+            frags = {sh: self.fragments.get(sh) for sh in shards}
+            versions = {sh: (f.version if f else -1)
+                        for sh, f in frags.items()}
             width = self.trimmed_words() if trim else WORDS_PER_SHARD
+            cached = None
             if rows is None:
                 cache_key: Optional[Tuple] = (shards, trim)
                 row_set = None
@@ -284,35 +606,106 @@ class View:
                 cached = self._bank_cache.get(cache_key)
                 if cached is not None and cached.versions == versions \
                         and cached.array.shape[-1] == width:
+                    BANK_BUDGET.touch(self, cache_key)
+                    if row_set is not None:
+                        HOST_BLOCK_BUDGET.touch(
+                            self, (shards, width, tuple(row_set)))
                     return cached
+            prior = None
+            if cached is not None:
+                if row_set is None:
+                    # Writes just cost a patch or a rebuild: record which
+                    # fragments moved, for the workload recorder.
+                    moved = [sh for sh, v in versions.items()
+                             if cached.versions.get(sh) != v]
+                    WORKLOAD.record_invalidation(
+                        self.index, self.field, self.name,
+                        moved or list(shards))
+                    prior = LEDGER.entry_info(("bank",),
+                                              (id(self), cache_key))
                 # Drop the stale bank before the build, so the old and
                 # the new bank are never both held by the cache.
                 self._bank_cache.pop(cache_key, None)
+                BANK_BUDGET.forget(self, cache_key)
             if row_set is None:
-                row_set = sorted({r for f in frags.values() if f
-                                  for r in f.row_ids()})
+                row_set = _row_union(frags.values())
                 if cached is not None and cached.array.shape[-1] == width:
                     patched = self._patch_bank(cached, frags, versions,
                                                row_set, shards, width)
                     if patched is not None:
+                        # A patch moves the density little: keep the
+                        # prior estimate instead of resampling.
                         self._bank_cache[cache_key] = patched
+                        BANK_BUDGET.admit(self, cache_key)
+                        self._ledger_bank(cache_key, patched, len(row_set),
+                                          live_density=(prior or {}).get(
+                                              "liveDensity"))
                         return patched
-            bank = self._build_bank(frags, shards, row_set, width, versions)
+            subset = rows is not None
+            bank = self._build_bank(frags, shards, row_set, width, versions,
+                                    subset)
             if cache_key is not None:
                 self._bank_cache[cache_key] = bank
+                BANK_BUDGET.admit(self, cache_key)
+                self._ledger_bank(
+                    cache_key, bank, len(row_set),
+                    live_density=self._sampled_live_density(
+                        frags, row_set, width, shards))
             return bank
 
     def _build_bank(self, frags: Dict[int, Optional[Fragment]],
                     shards: Tuple[int, ...], row_set: List[int], width: int,
-                    versions: Dict[int, int]) -> ViewBank:
+                    versions: Dict[int, int], subset: bool) -> ViewBank:
+        """A new bank of ``row_set``: from a cached host block of the
+        subset, else by the sparse upload (one shard, a width within one
+        container), else from a gathered dense host block, which a subset
+        caches under HOST_BLOCK_BUDGET."""
         cap = bank_capacity(len(row_set))
-        host = np.zeros((cap, len(shards), width), dtype=np.uint32)
-        for si, s in enumerate(shards):
-            f = frags[s]
-            if f is not None:
-                host[:len(row_set), si] = f.rows_dense(row_set, width)
-        array = torch.from_numpy(host.view(np.int32)).to(self.device)
-        slots = {r: i for i, r in enumerate(row_set)}
+        hb_key = (shards, width, tuple(row_set)) if subset else None
+        host = slots = None
+        if hb_key is not None:
+            entry = self._host_blocks.get(hb_key)
+            if entry is not None:
+                if entry[1] == versions:
+                    host, _v, slots = entry
+                    HOST_BLOCK_BUDGET.touch(self, hb_key)
+                else:
+                    self._host_blocks.pop(hb_key, None)
+                    HOST_BLOCK_BUDGET.forget(self, hb_key)
+        array = None
+        if host is None and SPARSE_UPLOAD and len(shards) == 1 \
+                and width * 32 <= CONTAINER_BITS and cap * width < (1 << 31):
+            f = frags[shards[0]]
+            sp = (f.rows_positions(row_set, width) if f is not None else
+                  (np.empty(0, np.uint16), np.empty(0, np.int64),
+                   np.empty(0, np.int64)))
+            if sp is not None:
+                array = _expand_sparse_chunk(*sp, cap, width, self.device)
+                slots = {r: i for i, r in enumerate(row_set)}
+        if array is None:
+            if host is None:
+                host = np.zeros((cap, len(shards), width), dtype=np.uint32)
+                for si, sh in enumerate(shards):
+                    f = frags[sh]
+                    if f is not None:
+                        host[:len(row_set), si] = f.rows_dense(row_set,
+                                                               width)
+                slots = {r: i for i, r in enumerate(row_set)}
+                # The slots dict is host memory too (about 100 B an
+                # entry): counted with the block.
+                entry_bytes = host.nbytes + 100 * len(row_set)
+                if hb_key is not None and \
+                        0 < entry_bytes <= HOST_BLOCK_BUDGET.limit():
+                    self._host_blocks[hb_key] = (host, versions, slots)
+                    HOST_BLOCK_BUDGET.admit(self, hb_key, nbytes=entry_bytes)
+                    LEDGER.register(
+                        "host_block", hb_key, entry_bytes,
+                        padded_bytes=max(0, cap - len(row_set) - 1)
+                        * len(shards) * width * 4,
+                        owner=self, index=self.index, field=self.field,
+                        view=self.name, nShards=len(shards),
+                        rows=len(row_set))
+            array = torch.from_numpy(host.view(np.int32)).to(self.device)
         return ViewBank(array, slots, cap - 1, versions)
 
     @staticmethod
@@ -478,6 +871,7 @@ class View:
                 versions = {shard: frag.version}
                 cached = self._bank_cache.get(key)
                 if cached is not None and cached.versions == versions:
+                    BANK_BUDGET.touch(self, key)
                     return cached
                 row_ids = frag.row_ids()
                 built = None
@@ -486,7 +880,8 @@ class View:
                 if built is None:
                     # Drop the stale bank before the build, so the two
                     # are never both held.
-                    self._bank_cache.pop(key, None)
+                    if self._bank_cache.pop(key, None) is not None:
+                        BANK_BUDGET.forget(self, key)
                     built = self._build_pbank_segments(frag, row_ids,
                                                        width, 0)
                 if built is None:
@@ -494,6 +889,15 @@ class View:
                 segments, nbytes = built
                 bank = PositionsBank(segments, row_ids, versions, nbytes)
                 self._bank_cache[key] = bank
+                BANK_BUDGET.admit(self, key, nbytes=nbytes)
+                # Ideal footprint: 2 B a real position and one int32 a
+                # row (+1); the rest is padding.
+                ideal = sum(p * 2 + (n + 1) * 4
+                            for _, n, _, _, p in segments)
+                LEDGER.register(
+                    "pbank", key, nbytes, padded_bytes=max(0, nbytes - ideal),
+                    owner=self, index=self.index, field=self.field,
+                    view=self.name, shard=shard, rows=len(row_ids))
                 return bank
 
     def _patch_pbank(self, cached: PositionsBank, frag: Fragment,
@@ -532,3 +936,151 @@ class View:
             nbytes += nb
             row_lo += n_rows
         return segments, nbytes
+
+    # -- hybrid layout (driven by core/layout.py) ----------------------------
+
+    def set_layout(self, mode: str) -> bool:
+        """Flip the view's serving layout ("dense" | "sparse"); True when
+        it changed. The flip drops the other representation's cached
+        device banks (the positions bank stays with the sparse layout),
+        so their memory frees at once; host blocks stay. Data is never
+        touched: a query staged before the flip serves from the
+        representation it planned against, and both hold the same
+        bits."""
+        if mode not in ("dense", "sparse"):
+            raise ValueError(f"unknown layout mode {mode!r}")
+        with self._lock:
+            if self.layout_mode == mode:
+                return False
+            self.layout_mode = mode
+            drop = []
+            for key in list(self._bank_cache):
+                tagged = isinstance(key, tuple) and key \
+                    and isinstance(key[0], str)
+                sparse_key = tagged and key[0] == "sbank"
+                pbank_key = tagged and key[0] == "pbank"
+                if mode == "sparse" and not (sparse_key or pbank_key):
+                    drop.append(key)
+                elif mode == "dense" and sparse_key:
+                    drop.append(key)
+            for key in drop:
+                self._bank_cache.pop(key, None)
+                BANK_BUDGET.forget(self, key)
+        return True
+
+    def _sparse_rows(self, frag: Fragment, row_set: List[int], width: int):
+        """``frag.rows_positions(row_set, width)`` gathered in chunks of
+        PBANK_GATHER_ROWS rows (bounding the host temporaries), with
+        ``lens`` aligned to every row of ``row_set``: (pos16, lens), or
+        None when the rows are too dense. A chunk that bails falls back
+        to the one whole call, whose density rule is the JAX package's."""
+        pos_parts, lens_parts = [], []
+        for c0 in range(0, len(row_set), PBANK_GATHER_ROWS):
+            chunk = row_set[c0:c0 + PBANK_GATHER_ROWS]
+            rp = frag.rows_positions(chunk, width)
+            if rp is None:
+                if len(chunk) == len(row_set):
+                    return None
+                rp = frag.rows_positions(row_set, width)
+                if rp is None:
+                    return None
+                pos_parts, lens_parts, chunk = [], [], row_set
+            pos16, lens, rows_at = rp
+            full = np.zeros(len(chunk), np.int64)
+            full[rows_at] = lens
+            pos_parts.append(pos16)
+            lens_parts.append(full)
+            if len(chunk) == len(row_set):
+                break
+        pos16 = (np.concatenate(pos_parts) if len(pos_parts) > 1 else
+                 pos_parts[0] if pos_parts else np.empty(0, np.uint16))
+        lens = (np.concatenate(lens_parts) if lens_parts
+                else np.zeros(0, np.int64))
+        return pos16, lens
+
+    def sparse_bank(self, shards: Sequence[int]) -> Optional[SparseBank]:
+        """The device-resident SparseBank of ``shards`` covering every
+        present row, or None when the layout does not qualify: a width
+        past one container (bit positions are u16), rows too dense for
+        positions, or 2^31 positions or more (the offsets are int32). A
+        None makes the caller heal the view to dense. Cached per (shards,
+        width) and stamped with the fragment versions read before the
+        gather, so a racing write makes it stale, never wrong. The arrays
+        are the JAX package's ``sparse_bank`` arrays, element for
+        element: one shard's positions are stored in row order as they
+        come; several shards' are interleaved row by row."""
+        shards = tuple(shards)
+        with self._lock:
+            frags = {sh: self.fragments.get(sh) for sh in shards}
+            versions = {sh: (f.version if f else -1)
+                        for sh, f in frags.items()}
+            width = self.trimmed_words()
+            if width * 32 > CONTAINER_BITS:
+                return None
+            key = ("sbank", shards, width)
+            cached = self._bank_cache.get(key)
+            if isinstance(cached, SparseBank) and cached.versions == versions:
+                BANK_BUDGET.touch(self, key)
+                return cached
+            if cached is not None:
+                self._bank_cache.pop(key, None)
+                BANK_BUDGET.forget(self, key)
+            row_set = _row_union(frags.values())
+            n_rows = len(row_set)
+            per_shard = []
+            for si, sh in enumerate(shards):
+                f = frags[sh]
+                if f is None:
+                    per_shard.append((np.empty(0, np.uint16),
+                                      np.zeros(n_rows, np.int64)))
+                    continue
+                sp = self._sparse_rows(f, row_set, width)
+                if sp is None:
+                    return None
+                per_shard.append(sp)
+            cap = bank_capacity(n_rows)
+            if per_shard and n_rows:
+                lens_mat = np.stack([ls for _, ls in per_shard])
+            else:
+                lens_mat = np.zeros((len(shards), n_rows), np.int64)
+            row_tot = lens_mat.sum(axis=0)
+            total = int(row_tot.sum())
+            if total >= (1 << 31):
+                return None
+            starts = np.zeros(cap + 1, np.int64)
+            np.cumsum(row_tot, out=starts[1:n_rows + 1])
+            starts[n_rows + 1:] = starts[n_rows]
+            p_pad = 1 << max(10, (total - 1).bit_length() if total else 0)
+            pos = np.zeros(p_pad, np.uint32)
+            if len(shards) == 1:
+                # One shard: its positions, in row order, are the array.
+                pos[:total] = per_shard[0][0]
+            else:
+                # Row r's positions go to starts[r] on, shard-ascending.
+                prior = np.cumsum(lens_mat, axis=0) - lens_mat
+                for si, (pos16, ls) in enumerate(per_shard):
+                    if not len(pos16):
+                        continue
+                    first = np.cumsum(ls) - ls
+                    dst = np.repeat(starts[:n_rows] + prior[si] - first,
+                                    ls) + np.arange(len(pos16))
+                    pos[dst] = pos16.astype(np.uint32) | np.uint32(si << 16)
+            starts32 = starts.astype(np.int32)
+            arrays = (torch.from_numpy(pos.view(np.int32)).to(self.device),
+                      torch.from_numpy(starts32).to(self.device))
+            nbytes = int(pos.nbytes + starts32.nbytes)
+            slots = _RowSlots(np.asarray(row_set, dtype=np.uint64))
+            bank = SparseBank(arrays, slots, cap - 1, versions, nbytes,
+                              width, len(shards), n_rows)
+            self._bank_cache[key] = bank
+            BANK_BUDGET.admit(self, key, nbytes=nbytes)
+            # Ideal footprint: 4 B a real position and one int32 offset a
+            # real row (+1); the rest is the pow2 pad.
+            ideal = total * 4 + (n_rows + 1) * 4
+            LEDGER.register(
+                "sparse_bank", key, nbytes,
+                padded_bytes=max(0, nbytes - ideal), owner=self,
+                index=self.index, field=self.field, view=self.name,
+                nShards=len(shards), rows=n_rows, positions=total,
+                liveDensity=1.0, width=width)
+            return bank

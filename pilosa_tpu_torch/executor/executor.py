@@ -25,7 +25,17 @@ tensor goes through a kernel of ``ops/kernels.py``:
 
 A Row leaf reads one slot of its view's bank; a view whose full bank
 would pass ``Executor.BANK_MAX_BYTES`` serves it from a cached bank of
-just the rows the leaf needs.
+just the rows the leaf needs (staging asks for every row the tree reads
+from the view, ``_Plan.rows_for``, as the JAX package does). A view in
+the sparse layout (``core/layout.py``) serves its Row leaves from its
+``SparseBank``: the eager leaf expands its one row with the
+``expand_positions`` kernel, and a staged leaf lowers to an ``xslot``
+whose row the megakernel launch expands before the plan runs; BSI views
+stay dense. A sparse build that bails (the view grew too dense) heals the
+view to dense and the tree restages with that key dense. Staged and
+eager reads, TopN, Rows and GroupBy are recorded in the workload
+recorder (``utils/hotspots.py``), whose read rates the layout pass and
+the bank budget's eviction rank by.
 
 Banks of different views may differ in width (they are trimmed to their
 data); operands are zero-padded to a common width before they combine,
@@ -94,8 +104,9 @@ from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, FIELD_TYPE_SET, \
 from pilosa_tpu_torch.core.fragment import CONTAINER_BITS
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.core import layout as layout_mod
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, PositionsBank, \
-    ViewBank, bank_capacity, view_bsi_name
+    SparseBank, ViewBank, bank_capacity, view_bsi_name
 from pilosa_tpu_torch.device import resolve_device
 from pilosa_tpu_torch.executor import bsi
 from pilosa_tpu_torch.executor.results import FieldRow, GroupCount, \
@@ -105,6 +116,7 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD, \
     b_and, b_andnot, b_not, b_or, b_xor, shift_bits, to_numpy
 from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 
 _BITMAP_CALLS = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
                  "Not", "Shift", "Threshold"}
@@ -288,7 +300,12 @@ class _Plan:
     once the banks exist), the BSI predicate values as two u32 limbs each,
     the operand widths and a postfix IR for the megakernel lowering.
     ``ir_ok=False`` (Shift, a time range over more than
-    MAX_STATIC_RANGE_VIEWS views) means the tree is not lowerable."""
+    MAX_STATIC_RANGE_VIEWS views) means the tree is not lowerable.
+    ``rows_for[key]`` is every row the tree reads from a bank, so an
+    over-budget view stages a bank of just those rows. ``bank_sparse``
+    snapshots each key's layout once per plan; ``force_dense`` holds keys
+    whose sparse build bailed; ``sparse_widths`` the built SparseBanks'
+    expansion widths by bank position."""
     sig_parts: List[str] = dc_field(default_factory=list)
     bank_keys: List[Tuple[str, str]] = dc_field(default_factory=list)
     bank_pos: Dict[Tuple[str, str], int] = dc_field(default_factory=dict)
@@ -298,10 +315,15 @@ class _Plan:
     # (position in idxs, bank key, row id), resolved once banks exist.
     slot_refs: List[Tuple[int, Tuple[str, str], int]] = \
         dc_field(default_factory=list)
+    rows_for: Dict[Tuple[str, str], set] = dc_field(default_factory=dict)
     shift_bits: int = 0    # total Shift() distance; widens the plan
     width: int = 0
     ir: List[tuple] = dc_field(default_factory=list)
     ir_ok: bool = True
+    bank_sparse: Dict[Tuple[str, str], bool] = \
+        dc_field(default_factory=dict)
+    force_dense: set = dc_field(default_factory=set)
+    sparse_widths: Dict[int, int] = dc_field(default_factory=dict)
 
     def bank(self, key: Tuple[str, str]) -> int:
         pos = self.bank_pos.get(key)
@@ -860,7 +882,9 @@ class Executor:
         if fuser is not None:
             handle = fuser.add(self._stage_tree(idx, call, shards, "row"))
             return _Deferred(lambda: result(handle.value()))
-        return result(self._eval(idx, call, shards))
+        words = self._eval(idx, call, shards)
+        self._record_tree_reads(idx, call, shards)
+        return result(words)
 
     def _execute_count(self, idx: Index, call: Call, shards
                        ) -> Union[int, _Deferred]:
@@ -872,7 +896,24 @@ class Executor:
         if fuser is not None:
             handle = fuser.add(self._stage_tree(idx, child, shards, "count"))
             return _Deferred(handle.value)
-        return self._count_eager(idx, child, shards)
+        count = self._count_eager(idx, child, shards)
+        self._record_tree_reads(idx, child, shards)
+        return count
+
+    def _record_tree_reads(self, idx: Index, call: Call, shards) -> None:
+        """Record an eagerly run tree's reads as staging records a staged
+        one's: one read per operand bank key, with the rows it names."""
+        if not WORKLOAD.enabled:
+            return
+        plan = _Plan()
+        self._plan_call(idx, call, plan)
+        self._record_plan_reads(idx, plan, shards)
+
+    @staticmethod
+    def _record_plan_reads(idx: Index, plan: _Plan, shards) -> None:
+        for key in plan.bank_keys:
+            WORKLOAD.record_read(idx.name, key[0], key[1], shards,
+                                 rows=plan.rows_for.get(key))
 
     def _count_eager(self, idx: Index, child: Call, shards: List[int]
                      ) -> int:
@@ -1012,6 +1053,15 @@ class Executor:
 
     def _slot_leaf(self, field: Field, view_name: str, row_id: int,
                    shards) -> torch.Tensor:
+        if self._leaf_sparse(field, view_name):
+            sb = self._get_sparse_bank(field, view_name, shards)
+            if sb is not None:
+                # One row expanded from the positions: a dense bank would
+                # undo the layout's memory.
+                pos, starts = sb.arrays
+                return kernels.expand_positions(
+                    pos, starts, np.asarray([sb.slot(row_id)], np.int32),
+                    len(shards), sb.width)[0]
         bank = self._get_bank_for(field, view_name, shards,
                                   rows_needed={row_id})
         return bank.array[bank.slot(row_id)]
@@ -1067,21 +1117,37 @@ class Executor:
     def _stage_tree(self, idx: Index, call: Call, shards: List[int],
                     mode: str) -> _StagedEval:
         """Plan a terminal eval without running it: walk the tree, build
-        its banks, resolve slots, widths and the shape signature."""
-        plan = _Plan()
-        self._plan_call(idx, call, plan)
-        banks = [self._get_bank_for(idx.field(f), v, shards)
-                 for f, v in plan.bank_keys]
+        its banks (SparseBanks for sparse-planned keys, dense banks of
+        the rows the tree reads for the rest), resolve slots, widths and
+        the shape signature. A sparse build that bails forces its key
+        dense and replans: each retry adds a key that was planned sparse,
+        so the loop ends."""
+        force_dense: set = set()
+        while True:
+            plan = _Plan(force_dense=force_dense)
+            self._plan_call(idx, call, plan)
+            banks, retry = self._stage_banks(idx, plan, shards, force_dense)
+            if not retry:
+                break
         for i, key, row in plan.slot_refs:
             plan.idxs[i] = banks[plan.bank_pos[key]].slot(row)
         # The plan width resolves after the banks are built, so it covers
-        # every bank's actual width.
-        plan.widths.extend(b.array.shape[-1] for b in banks)
+        # every bank's actual width (a SparseBank's is the width its rows
+        # expand to).
+        plan.widths.extend(b.width if isinstance(b, SparseBank)
+                           else b.array.shape[-1] for b in banks)
         plan.resolve_width()
-        bank_arrays = tuple(b.array for b in banks)
-        bshapes = [tuple(a.shape) for a in bank_arrays]
+        bank_arrays = tuple(b.arrays if isinstance(b, SparseBank)
+                            else b.array for b in banks)
+        # A sparse operand shows as its (pos, starts) shapes and its
+        # expansion width, so the two layouts never share a signature.
+        bshapes = [tuple(tuple(x.shape) for x in a) if isinstance(a, tuple)
+                   else tuple(a.shape) for a in bank_arrays]
+        xw = sorted(plan.sparse_widths.items())
         sig = (f"{mode}|{''.join(plan.sig_parts)}|W{plan.width}"
-               f"|B{bshapes}|LNone|S{len(shards)}")
+               f"|B{bshapes}{f'|XW{xw}' if xw else ''}|LNone"
+               f"|S{len(shards)}")
+        self._record_plan_reads(idx, plan, shards)
         if mode == "count":
             def run_eager() -> Any:
                 return self._count_eager(idx, call, shards)
@@ -1149,6 +1215,55 @@ class Executor:
             return
         raise ExecutionError(f"{name} is not a row query")
 
+    def _stage_banks(self, idx: Index, plan: _Plan, shards,
+                     force_dense: set) -> Tuple[List[Any], bool]:
+        """Every operand bank the plan names. Returns (banks, retry):
+        retry means a sparse build bailed and its key is now in
+        ``force_dense``."""
+        banks: List[Any] = []
+        for key in plan.bank_keys:
+            field = idx.field(key[0])
+            if plan.bank_sparse.get(key):
+                bank = self._get_sparse_bank(field, key[1], shards)
+                if bank is None:
+                    force_dense.add(key)
+                    return banks, True
+                plan.sparse_widths[plan.bank_pos[key]] = bank.width
+                banks.append(bank)
+            else:
+                banks.append(self._get_bank_for(
+                    field, key[1], shards,
+                    rows_needed=plan.rows_for.get(key)))
+        return banks, False
+
+    @staticmethod
+    def _get_sparse_bank(field: Field, view_name: str, shards
+                         ) -> Optional[SparseBank]:
+        """The SparseBank of a sparse-planned leaf, or None when the build
+        bails (too dense, or the view is gone); then the view heals to
+        dense so staging stops asking."""
+        view = field.view(view_name) if field is not None else None
+        if view is None:
+            return None
+        bank = view.sparse_bank(tuple(shards))
+        if bank is None:
+            view.set_layout("dense")
+        return bank
+
+    @staticmethod
+    def _leaf_sparse(field: Field, view_name: str,
+                     force_dense: set = frozenset()) -> bool:
+        """Whether a Row leaf of this view serves from its SparseBank: the
+        view is in the sparse layout, its width fits the bit-position
+        encoding, and its key is not forced dense."""
+        if not layout_mod.HYBRID_LAYOUT_ENABLED \
+                or (field.name, view_name) in force_dense:
+            return False
+        view = field.view(view_name)
+        if view is None or view.layout_mode != "sparse":
+            return False
+        return view.trimmed_words() * 32 <= CONTAINER_BITS
+
     def _view_width(self, field: Field, view_name: str) -> int:
         """Bank word width without building the bank."""
         view = field.view(view_name)
@@ -1160,10 +1275,19 @@ class Executor:
                         plan: _Plan) -> None:
         key = (field.name, view_name)
         pos = plan.bank(key)
+        sparse = plan.bank_sparse.get(key)
+        if sparse is None:
+            sparse = self._leaf_sparse(field, view_name, plan.force_dense)
+            plan.bank_sparse[key] = sparse
         plan.widths.append(self._view_width(field, view_name))
         i = len(plan.idxs)
         plan.idxs.append(0)
         plan.slot_refs.append((i, key, row_id))
+        plan.rows_for.setdefault(key, set()).add(row_id)
+        if sparse:
+            plan.sig_parts.append(f"x{pos}")
+            plan.ir.append(("xslot", pos, i))
+            return
         plan.sig_parts.append(f"r{pos}")
         plan.ir.append(("slot", pos, i))
 
@@ -1206,11 +1330,15 @@ class Executor:
         view_name = view_bsi_name(field.name)
         key = (field.name, view_name)
         pos = plan.bank(key)
+        # BSI plane banks stay dense: a leaf gathers depth + 1 rows.
+        plan.bank_sparse.setdefault(key, False)
         plan.widths.append(self._view_width(field, view_name))
         i0 = len(plan.idxs)
+        rows_set = plan.rows_for.setdefault(key, set())
         for r in range(depth + 1):
             plan.idxs.append(0)
             plan.slot_refs.append((i0 + r, key, r))
+            rows_set.add(r)
 
         def zeros() -> None:
             plan.sig_parts.append("z")
@@ -1276,8 +1404,7 @@ class Executor:
         if rows_needed is not None:
             # The sum of the fragments' row counts bounds the full bank's
             # rows without a union: if even the bound fits, the bank does.
-            bound = sum(len(f.row_ids()) for s in shards
-                        for f in [view.fragment(s)] if f is not None)
+            bound = view.row_count_bound(shards)
             full_bytes = bank_capacity(bound) * len(shards) \
                 * view.trimmed_words() * 4
             if full_bytes > self.BANK_MAX_BYTES and \
@@ -1402,6 +1529,9 @@ class Executor:
             all_rows = [r for r in all_rows if r in wanted]
         if not all_rows:
             return PairsResult([])
+        # Before the warm caches: a cached answer is still a read.
+        WORKLOAD.record_read(idx.name, field_name, VIEW_STANDARD, shards,
+                             rows=all_rows)
 
         selfcheck_pairs = None  # a warm answer this sweep verifies
         if filter_words is None and not tanimoto:
@@ -1734,6 +1864,10 @@ class Executor:
             out = [r for r in out if r > previous]
         if limit is not None:
             out = out[:limit]
+        for vname in view_names:
+            if field.view(vname) is not None:
+                WORKLOAD.record_read(idx.name, field_name, vname, shards,
+                                     rows_scanned=len(out))
         return RowIdentifiers(out)
 
     # -------------------------------------------------------------- GroupBy
@@ -1793,6 +1927,9 @@ class Executor:
             child_rows.append((child.arg("_field"), ids))
             if not ids:
                 return []
+        for fname, ids_ in child_rows:
+            WORKLOAD.record_read(idx.name, fname, VIEW_STANDARD, shards,
+                                 rows=ids_)
         # One bank per child (not per field): GroupBy(Rows(f), Rows(f))
         # is legal, and the two children may need different rows.
         banks = [self._get_bank_for(idx.field(fname), VIEW_STANDARD, shards,

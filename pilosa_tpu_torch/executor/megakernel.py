@@ -7,7 +7,12 @@ shard-count cohort; everything else (Shift trees, cohorts of one group)
 flows back to the per-group eager path untouched.
 
 Each taken group's ``out`` becomes a ``_MegaView`` selecting its member
-lanes from the launch's shared (counts, rows) outputs.
+lanes from the launch's shared (counts, rows) outputs. A plan whose
+entries read sparse views carries ``xbanks``: ``run_program`` expands
+each sparse bank's referenced rows with one ``expand_positions`` launch
+into a transient ``[n_x, S, w_mega]`` tensor, which enters the
+``mega_interpret`` launch as one more bank at the expand registers'
+numbers and plan widths.
 
 Routing, as in the JAX package's ``executor/megakernel.py``:
 

@@ -29,7 +29,8 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
-SOURCES = ("bank_counts.cu", "mega_interpret.cu", "pbank_membership.cu")
+SOURCES = ("bank_counts.cu", "mega_interpret.cu", "pbank_membership.cu",
+           "sparse_expand.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -58,6 +59,7 @@ SIGNATURES = {
     "mega_interpret": (_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, _LL,
                        _P, _P, _P, _P),
     "pbank_membership_counts": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
+    "expand_positions": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
 }
 
 

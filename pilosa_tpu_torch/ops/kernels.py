@@ -25,7 +25,16 @@ and the positions-bank membership count of filtered TopN
 
 - ``pbank_membership_counts``: ``|row ∧ filter|`` per row of a
   positions-bank segment (``core/view.py`` PositionsBank), fixed or
-  flat layout.
+  flat layout;
+
+and the expansion of sparse rows into dense ones
+(``csrc/sparse_expand.cu``), which the JAX package leaves to an XLA
+scatter:
+
+- ``expand_positions``: the dense ``[n, S, W]`` rows of a list of slots
+  of encoded set positions (``core/view.py`` SparseBank), for the
+  megakernel's expand registers, a sparse view's eager Row leaf and the
+  sparse upload of a dense bank.
 
 Banks are width-trimmed, so W is any width >= 1 (the Pallas versions
 required W = 32768). Each wrapper takes a CUDA tensor to its kernel and
@@ -55,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
     "bsi_plane_counts": 0,
     "mega_interpret": 0,
     "pbank_membership_counts": 0,
+    "expand_positions": 0,
 }
 
 # A row's count must fit the kernel's u32 accumulator: S*W*32 < 2^32.
@@ -150,15 +160,36 @@ def _gather_slab(banks: Sequence[torch.Tensor], slots: Sequence[Any],
     return slab
 
 
+def _expanded_banks(banks: Sequence[torch.Tensor], slots: Sequence[Any],
+                    xbanks: Sequence[Any], xslots: Sequence[Any],
+                    n_shards: int, w_mega: int, expand: Any
+                    ) -> Tuple[List[torch.Tensor], List[Any]]:
+    """The launch's banks and slot lists with each sparse bank's
+    referenced rows appended as one more bank: ``expand`` writes them,
+    ``[n_x, S, w_mega]``, and its slots are 0..n_x-1. The expand
+    registers follow the dense slot registers, as in the plan."""
+    banks, slots = list(banks), list(slots)
+    for (pos, starts), sl in zip(xbanks, xslots):
+        rows = expand(pos, starts, sl, int(n_shards), int(w_mega))
+        banks.append(rows)
+        slots.append(np.arange(rows.shape[0], dtype=np.int32))
+    return banks, slots
+
+
 def mega_interpret_ref(banks: Sequence[torch.Tensor], slots: Sequence[Any],
                        widths: Any, instrs: torch.Tensor,
                        out_count: torch.Tensor, out_row: torch.Tensor,
-                       n_regs: int, n_shards: int, w_mega: int
+                       n_regs: int, n_shards: int, w_mega: int,
+                       xbanks: Sequence[Any] = (),
+                       xslots: Sequence[Any] = ()
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``mega_interpret``: the ``[n_regs, S, w_mega]``
-    slab gathered from the banks, every plan row in order over it, then
-    int64[Nc] popcounts of the count lanes and the int32 [Nr, S,
-    w_mega] row lanes."""
+    slab gathered from the banks (and the sparse banks' rows expanded by
+    ``expand_positions_ref`` after them), every plan row in order over
+    it, then int64[Nc] popcounts of the count lanes and the int32 [Nr,
+    S, w_mega] row lanes."""
+    banks, slots = _expanded_banks(banks, slots, xbanks, xslots, n_shards,
+                                   w_mega, expand_positions_ref)
     slab = _gather_slab(banks, slots, widths, n_regs, n_shards, w_mega)
     for op, d, a, b in torch.as_tensor(instrs).tolist():
         va, vb = slab[a], slab[b]
@@ -183,6 +214,38 @@ def mega_interpret_ref(banks: Sequence[torch.Tensor], slots: Sequence[Any],
                                             dtype=torch.int64)
     return (popcount(slab.index_select(0, lanes), axis=(-2, -1)),
             slab.index_select(0, row_lanes))
+
+
+def expand_positions_ref(pos: torch.Tensor, starts: torch.Tensor,
+                         slots: torch.Tensor, n_shards: int, width: int
+                         ) -> torch.Tensor:
+    """Plain version of ``expand_positions``: every selected position's
+    bit added into an int64 word buffer with ``index_add_`` (positions of
+    a (row, shard) are unique, so the adds never carry), then cast to the
+    int32 words."""
+    device = pos.device
+    sl = torch.as_tensor(slots).to(device=device, dtype=torch.int64)
+    n = int(sl.numel())
+    st = starts.to(torch.int64)
+    lo, hi = st[sl], st[sl + 1]
+    lens = (hi - lo).clamp(min=0)
+    total = int(lens.sum()) if n else 0
+    flat = torch.zeros(n * n_shards * width, dtype=torch.int64,
+                       device=device)
+    if total:
+        k = torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int64, device=device), lens)
+        first = torch.repeat_interleave(lo - (torch.cumsum(lens, 0) - lens),
+                                        lens)
+        j = first + torch.arange(total, dtype=torch.int64, device=device)
+        p = pos.to(torch.int64).index_select(0, j) & 0xFFFFFFFF
+        shard, bit = p >> 16, p & 0xFFFF
+        keep = (shard < n_shards) & (bit < width * 32)
+        word = (k * n_shards + shard) * width + (bit >> 5)
+        flat.index_add_(0, word[keep], torch.ones_like(bit[keep])
+                        << (bit[keep] & 31))
+    flat = flat - ((flat >> 31) << 32)  # u32 bits as int32 values
+    return flat.to(torch.int32).reshape(n, n_shards, width)
 
 
 def pbank_membership_counts_ref(pos: torch.Tensor, filt: torch.Tensor,
@@ -493,18 +556,25 @@ def mega_launch_args(banks: Sequence[torch.Tensor], slots: Sequence[Any],
 
 def mega_interpret(banks: Sequence[torch.Tensor], slots: Sequence[Any],
                    widths: Any, instrs: Any, out_count: Any, out_row: Any,
-                   n_regs: int, n_shards: int, w_mega: int
+                   n_regs: int, n_shards: int, w_mega: int,
+                   xbanks: Sequence[Any] = (), xslots: Sequence[Any] = ()
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One plan launch, in the argument order of the JAX package's
     ``build_program(...).run``. Register k < n_slots is row
     ``slots[b][i]`` of ``banks[b]`` (bank-grouped, in order), its word
-    axis fitted to ``w_mega`` and masked to ``widths[k]``; the other
+    axis fitted to ``w_mega`` and masked to ``widths[k]``; the expand
+    registers follow: per sparse bank ``(pos, starts)`` of ``xbanks``,
+    one ``expand_positions`` launch writes the rows of its ``xslots`` at
+    ``w_mega`` words into a transient tensor, which enters as one more
+    bank, masked to its registers' widths like any slot row. The other
     registers start at zero; the int32 [P, 4] plan of (opcode, dst, a, b)
     rows runs in order. Returns ``(counts, rows)``: int64[Nc] with
     ``counts[j] = |reg[out_count[j]]|`` and int32 [Nr, S, w_mega] with
     ``rows[j] = reg[out_row[j]]``, on the banks' device. The index arrays
     are int32, numpy or tensors on either device (checked on the host)."""
     name = "mega_interpret"
+    banks, slots = _expanded_banks(banks, slots, xbanks, xslots, n_shards,
+                                   w_mega, expand_positions)
     if banks and banks[0].device.type == "cpu":
         return mega_interpret_ref(banks, *_check_plan(
             name, banks, slots, widths, instrs, out_count, out_row, n_regs,
@@ -579,6 +649,60 @@ def pbank_membership_counts(pos: torch.Tensor, filt: torch.Tensor,
         _raise_on(name, lib.pbank_membership_counts(
             pos.data_ptr(), starts.data_ptr() if starts is not None else None,
             filt.data_ptr(), out.data_ptr(), rows, L, filt.numel(),
+            _stream(pos.device)))
+        _count_launch(name)
+    return out
+
+
+def expand_positions(pos: torch.Tensor, starts: torch.Tensor, slots: Any,
+                     n_shards: int, width: int) -> torch.Tensor:
+    """Dense int32 ``[n, n_shards, width]`` rows from encoded positions,
+    the JAX package's ``expand_positions`` over a list of slots: row k
+    has bit ``bitpos`` of word ``(shard, bitpos >> 5)`` set for every
+    ``pos[j] = (shard << 16) | bitpos`` (int32 holding the u32 bits) with
+    ``starts[slots[k]] <= j < starts[slots[k] + 1]``, ``shard <
+    n_shards`` and ``bitpos < width * 32``. ``starts`` is int32 [cap + 1]
+    on ``pos``'s device, nondecreasing and at most ``len(pos)`` (the
+    build guarantees it; it is not re-read here); ``slots`` is an int32
+    array, numpy or a tensor, checked on the host against ``cap``."""
+    name = "expand_positions"
+    for what, t in (("positions", pos), ("starts", starts)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
+        if t.dim() != 1:
+            raise ValueError(f"{name}: {what} must be 1-d, got "
+                             f"{tuple(t.shape)}")
+        if t.device != pos.device:
+            raise ValueError(f"{name}: {what} on {t.device}, positions on "
+                             f"{pos.device}")
+    if pos.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {pos.device}")
+    if starts.numel() < 1:
+        raise ValueError(f"{name}: starts needs at least one offset")
+    if int(n_shards) < 0 or int(width) < 0 or int(width) * 32 > (1 << 31):
+        raise ValueError(f"{name}: n_shards = {n_shards}, width = {width}")
+    host = _host_i32(name, "slots", slots)
+    if host.dim() != 1:
+        raise ValueError(f"{name}: slots must be 1-d")
+    cap = int(starts.numel()) - 1
+    if host.numel() and (int(host.min()) < 0 or int(host.max()) >= cap):
+        raise ValueError(f"{name}: slots outside the {cap}-row starts "
+                         "table")
+    if pos.device.type == "cpu":
+        return expand_positions_ref(pos, starts, host, int(n_shards),
+                                    int(width))
+    if not (pos.is_contiguous() and starts.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    n = int(host.numel())
+    out = torch.zeros((n, int(n_shards), int(width)), dtype=torch.int32,
+                      device=pos.device)
+    if out.numel():
+        dev_slots = host.to(pos.device, non_blocking=False)
+        _raise_on(name, lib.expand_positions(
+            pos.data_ptr(), starts.data_ptr(), dev_slots.data_ptr(),
+            out.data_ptr(), n, int(n_shards), int(width),
             _stream(pos.device)))
         _count_launch(name)
     return out

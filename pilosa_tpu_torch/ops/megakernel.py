@@ -17,8 +17,14 @@ Execution model
   each owning entry's plan width (bit-identical to the eager path's
   per-leaf alignment; zero-extension commutes with every opcode, so pad
   words stay zero end to end).
-* Registers above the gathered operands are scratch, allocated by the
-  lowering, zero-filled before the interpreter runs.
+* Registers ``n_slots..n_slots+n_xslots-1`` are *expand* registers
+  (hybrid layout): rows of device-resident sparse banks
+  (``core/view.SparseBank``, encoded set positions instead of dense
+  words), expanded to dense ``[S, W]`` rows by ``expand_positions``
+  before the plan runs and readable ONLY through the ``OP_EXPAND``
+  opcode (``verify_plan``'s expand typing).
+* Registers above the gathered and expanded operands are scratch,
+  allocated by the lowering, zero-filled before the interpreter runs.
 * On the card the kernel holds the registers of one column tile at a
   time in shared memory and reads the slot rows straight from the banks:
   no ``[T, S, W]`` slab is allocated. The slab stays only in the plain
@@ -34,10 +40,10 @@ AND/OR/ANDNOT folds whose per-bit branches depend only on the host-known
 predicate value, so ``v > 300`` becomes about 2·depth plan rows.
 
 The host half (``Lowering``, ``Plan``, ``verify_plan``) is this
-package's own copy of the JAX package's ``ops/megakernel.py``; the
-sparse-expand import path and the mesh epilogue are not ported yet (an
-``xslot`` IR node raises), and ``OP_EXPAND`` is the identity, as in the
-JAX interpreter.
+package's own copy of the JAX package's ``ops/megakernel.py``; the mesh
+epilogue is not ported yet. On the card ``OP_EXPAND`` is the identity
+after the width mask, as in the JAX interpreter: the expansion happened
+before the plan, and the opcode is the typed boundary.
 """
 
 from __future__ import annotations
@@ -59,8 +65,10 @@ OP_XOR = 2
 OP_ANDNOT = 3   # dst = a & ~b  (Difference, Not-via-existence)
 OP_ZERO = 4     # dst = 0
 OP_COPY = 5     # dst = a
-# Sparse-expand: dst = expanded(a). The port has no sparse banks yet, so
-# no plan carries expand registers and the interpreter runs it as COPY.
+# Sparse-expand: dst = the dense [S, W] expansion of expand register `a`
+# (slab index in [n_slots, n_slots + n_xslots)). Only OP_EXPAND may read
+# an expand register: the expansion and its width mask are what make it
+# bit-identical to the dense bank row it replaces.
 OP_EXPAND = 6
 # Threshold accumulate: dst = dst | (a & b), the thermometer step of the
 # N-of-M counter. THRESH is the one opcode that READS its dst.
@@ -95,6 +103,16 @@ class Lowering:
         # (bank, slot, width) -> token: entries reading the SAME operand
         # row share one slab register (slot registers are read-only).
         self._slot_pos: Dict[Tuple[int, int, int], Tuple[str, int, int]] = {}
+        # Sparse operands: per sparse bank a (pos, starts) device pair and
+        # its ordered slot list; expand registers are numbered after the
+        # dense slots in finish().
+        self.xbank_order: List[Any] = []     # (pos, starts) pairs
+        self.xbank_slots: List[List[int]] = []
+        self.xbank_widths: List[List[int]] = []
+        self._xbank_pos: Dict[int, int] = {}
+        # (xbank, slot, width) -> the scratch token holding its OP_EXPAND
+        # result: entries sharing a sparse row share one expansion.
+        self._xslot_expanded: Dict[Tuple[int, int, int], int] = {}
         self.instrs: List[Tuple[int, Token, Token, Token]] = []
         self.n_scratch = 0
         self.out_count: List[Token] = []  # token per count-mode entry
@@ -127,6 +145,32 @@ class Lowering:
             self._slot_pos[key] = token
         return token
 
+    def _xbank(self, pair: Any) -> int:
+        pos = self._xbank_pos.get(id(pair))
+        if pos is None:
+            pos = len(self.xbank_order)
+            self._xbank_pos[id(pair)] = pos
+            self.xbank_order.append(pair)
+            self.xbank_slots.append([])
+            self.xbank_widths.append([])
+        return pos
+
+    def _xslot(self, pair: Any, slot: int, width: int) -> int:
+        """Sparse operand row: the scratch token holding its OP_EXPAND
+        result (one expand register and one expansion per distinct
+        (bank, slot, width), however many entries share it)."""
+        b = self._xbank(pair)
+        key = (b, int(slot), int(width))
+        token = self._xslot_expanded.get(key)
+        if token is None:
+            self.xbank_slots[b].append(int(slot))
+            self.xbank_widths[b].append(int(width))
+            xtok = ("x", b, len(self.xbank_slots[b]) - 1)
+            token = self._scratch()
+            self._emit(OP_EXPAND, token, xtok, xtok)
+            self._xslot_expanded[key] = token
+        return token
+
     def _scratch(self) -> int:
         self.n_scratch += 1
         return self.n_scratch - 1
@@ -145,6 +189,11 @@ class Lowering:
             if kind == "slot":
                 _, pos, i = node
                 stack.append(self._slot(bank_arrays[pos], idxs[i], width))
+            elif kind == "xslot":
+                # Sparse leaf: bank_arrays[pos] is the SparseBank's (pos,
+                # starts) pair; the operand is its OP_EXPAND scratch.
+                _, pos, i = node
+                stack.append(self._xslot(bank_arrays[pos], idxs[i], width))
             elif kind == "zero":
                 r = self._scratch()
                 self._emit(OP_ZERO, r, r, r)
@@ -174,10 +223,8 @@ class Lowering:
                           for d in range(depth + 1)]
                 stack.append(self._lower_bsi(
                     bkind, planes, depth, params, j, k, allow_eq))
-            else:
-                # "xslot" (sparse banks) is not ported; anything else is
-                # a planner/lowering mismatch.
-                raise ValueError(f"unsupported megakernel IR node {node!r}")
+            else:  # the planner and the lowering move together
+                raise ValueError(f"unknown megakernel IR node {node!r}")
         if len(stack) != 1:
             raise ValueError(f"unbalanced megakernel IR ({len(stack)})")
         root = stack[0]
@@ -278,22 +325,31 @@ class Lowering:
 
     def finish(self) -> "Plan":
         """Resolve tokens to bank-grouped register numbers and pad every
-        axis to its pow2 capacity bucket. Slab layout: slot registers,
-        then scratch, then the pow2 pad with its spare register on top."""
+        axis to its pow2 capacity bucket. Slab layout: dense slot
+        registers, then expand registers (sparse operands), then scratch,
+        then the pow2 pad with its spare register on top."""
         offsets: List[int] = []
         total = 0
         for slots in self.bank_slots:
             offsets.append(total)
             total += len(slots)
         n_slots = total
+        xoffsets: List[int] = []
+        xtotal = 0
+        for slots in self.xbank_slots:
+            xoffsets.append(xtotal)
+            xtotal += len(slots)
+        n_xslots = xtotal
 
         def reg(token: Any) -> int:
             if isinstance(token, tuple):
-                _, b, kth = token
+                kind, b, kth = token
+                if kind == "x":
+                    return n_slots + xoffsets[b] + kth
                 return offsets[b] + kth
-            return n_slots + int(token)
+            return n_slots + n_xslots + int(token)
 
-        n_regs = n_slots + self.n_scratch
+        n_regs = n_slots + n_xslots + self.n_scratch
         # +1 spare register: pad instructions and pad output lanes need a
         # dead destination that no real lane reads.
         t_pad = pow2_at_least(n_regs + 1)
@@ -304,6 +360,7 @@ class Lowering:
         n_instrs = len(instrs)
         instrs += [(OP_ZERO, spare, spare, spare)] * (p_pad - n_instrs)
         widths = [w for ws in self.bank_widths for w in ws]
+        widths += [w for ws in self.xbank_widths for w in ws]
         out_count = [reg(t) for t in self.out_count]
         out_row = [reg(t) for t in self.out_row]
         nc, nr = len(out_count), len(out_row)
@@ -312,13 +369,17 @@ class Lowering:
         return Plan(
             banks=tuple(self.bank_order),
             slots=tuple(np.asarray(s, np.int32) for s in self.bank_slots),
-            widths=np.asarray(widths + [0] * (t_pad - n_slots), np.int32),
+            widths=np.asarray(
+                widths + [0] * (t_pad - n_slots - n_xslots), np.int32),
             instrs=np.asarray(instrs, np.int32).reshape(p_pad, 4),
             out_count=np.asarray(out_count, np.int32),
             out_row=np.asarray(out_row, np.int32),
             n_slots=n_slots, n_regs=t_pad, n_instrs=n_instrs,
             lane_count_widths=tuple(self.out_count_widths),
-            lane_row_widths=tuple(self.out_row_widths))
+            lane_row_widths=tuple(self.out_row_widths),
+            xbanks=tuple(self.xbank_order),
+            xslots=tuple(np.asarray(s, np.int32) for s in self.xbank_slots),
+            n_xslots=n_xslots)
 
 
 class Plan:
@@ -327,7 +388,8 @@ class Plan:
 
     __slots__ = ("banks", "slots", "widths", "instrs", "out_count",
                  "out_row", "n_slots", "n_regs", "n_instrs",
-                 "lane_count_widths", "lane_row_widths")
+                 "lane_count_widths", "lane_row_widths",
+                 "xbanks", "xslots", "n_xslots")
 
     def __init__(self, banks: Tuple[Any, ...],
                  slots: Tuple[np.ndarray, ...], widths: np.ndarray,
@@ -335,7 +397,10 @@ class Plan:
                  out_row: np.ndarray, n_slots: int, n_regs: int,
                  n_instrs: int,
                  lane_count_widths: Tuple[int, ...] = (),
-                 lane_row_widths: Tuple[int, ...] = ()) -> None:
+                 lane_row_widths: Tuple[int, ...] = (),
+                 xbanks: Tuple[Any, ...] = (),
+                 xslots: Tuple[np.ndarray, ...] = (),
+                 n_xslots: int = 0) -> None:
         self.banks = banks
         self.slots = slots
         self.widths = widths
@@ -349,13 +414,20 @@ class Plan:
         # lengths are the real lane counts.
         self.lane_count_widths = lane_count_widths
         self.lane_row_widths = lane_row_widths
+        # Sparse operands: per sparse bank a (pos, starts) device pair and
+        # its slot list; the expand registers are [n_slots, n_slots +
+        # n_xslots), readable only through OP_EXPAND.
+        self.xbanks = xbanks
+        self.xslots = xslots
+        self.n_xslots = n_xslots
 
     @property
     def plan_nbytes(self) -> int:
         """Bytes of plan data uploaded per launch."""
         return int(self.instrs.nbytes + self.widths.nbytes
                    + self.out_count.nbytes + self.out_row.nbytes
-                   + sum(int(s.nbytes) for s in self.slots))
+                   + sum(int(s.nbytes) for s in self.slots)
+                   + sum(int(s.nbytes) for s in self.xslots))
 
     def sig(self, n_shards: int, w_mega: int) -> str:
         """Shape key of the launch: capacities, operand bank shapes and
@@ -363,9 +435,12 @@ class Plan:
         executor verifies the first launch of every key."""
         bshapes = [(tuple(getattr(a, "shape", ())), len(s))
                    for a, s in zip(self.banks, self.slots)]
+        xshapes = [(tuple(tuple(getattr(p, "shape", ())) for p in pair),
+                    len(s))
+                   for pair, s in zip(self.xbanks, self.xslots)]
         return (f"mega|S{n_shards}|W{w_mega}|T{self.n_regs}"
                 f"|P{self.instrs.shape[0]}|C{len(self.out_count)}"
-                f"|R{len(self.out_row)}|B{bshapes}")
+                f"|R{len(self.out_row)}|B{bshapes}|X{xshapes}")
 
 
 def slab_nbytes(n_regs: int, n_shards: int, w_mega: int) -> int:
@@ -408,25 +483,30 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
 
     * **Structural**: ``instrs`` is int32 ``[P, 4]`` with ``P`` a pow2
       capacity >= ``n_instrs``; ``n_regs`` pow2 with room for the spare
-      register above ``n_slots``; output-lane arrays pow2-padded; the
-      per-bank slot lists sum to ``n_slots``.
+      register above ``n_slots + n_xslots``; output-lane arrays
+      pow2-padded; the per-bank slot lists sum to ``n_slots`` and the
+      per-sparse-bank lists to ``n_xslots``.
     * **Gather bounds**: every slot index addresses a real row of its
-      bank, and 3-d banks carry exactly ``n_shards`` shards.
-    * **Width masks**: slot registers carry a plan width in
+      bank, 3-d banks carry exactly ``n_shards`` shards, and every sparse
+      slot a real row of its ``(pos, starts)`` pair (``starts`` has rows
+      + 1 offsets).
+    * **Width masks**: slot and expand registers carry a plan width in
       ``[1, w_mega]``; pad registers carry 0.
     * **Opcodes** in the table; **register bounds**; no instruction
-      writes a slot register (gathered rows are shared across entries).
-    * **Expand typing**: the port gathers no expand registers, so an
-      ``OP_EXPAND`` instruction has nothing to import and is rejected.
+      writes a slot or expand register (gathered rows are shared across
+      entries).
+    * **Expand typing**: only ``OP_EXPAND`` reads an expand register, its
+      ``a`` must be one, and its result enters the width lattice at that
+      register's width; no output lane reads an expand register.
     * **Def-before-use**: a scratch operand an instruction reads (THRESH
       reads its dst too) was written by an earlier instruction.
     * **Pad-tail no-ops**: instructions past ``n_instrs`` are ``ZERO``
-      into a non-slot register no real output lane reads.
+      into a non-gathered register no real output lane reads.
     * **Masking invariant**: each register is abstracted to the least
       upper bound on its nonzero word span (AND takes ``min``, OR/XOR
-      ``max``, ANDNOT/COPY the left span, ZERO 0, THRESH
-      ``max(dst, min(a, b))``); every real output lane must prove a span
-      <= its plan width.
+      ``max``, ANDNOT/COPY the left span, ZERO 0, EXPAND the expand
+      register's width, THRESH ``max(dst, min(a, b))``); every real
+      output lane must prove a span <= its plan width.
     """
     instrs = plan.instrs
     if instrs.ndim != 2 or instrs.shape[1] != 4:
@@ -437,11 +517,14 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
     T = int(plan.n_regs)
     P = int(instrs.shape[0])
     n_slots = int(plan.n_slots)
+    n_xslots = int(getattr(plan, "n_xslots", 0))
+    n_gathered = n_slots + n_xslots
     n_instrs = int(plan.n_instrs)
-    if not _is_pow2(T) or T <= n_slots:
+    if not _is_pow2(T) or T <= n_gathered:
         raise PlanVerifyError(
             f"n_regs={T} must be a pow2 capacity > n_slots={n_slots} "
-            f"(the pad/spare register lives above the gathered operands)")
+            f"+ n_xslots={n_xslots} (the pad/spare register lives "
+            f"above the gathered/expanded operands)")
     if not _is_pow2(P) or not 0 <= n_instrs <= P:
         raise PlanVerifyError(
             f"instr capacity P={P} must be pow2 >= n_instrs={n_instrs}")
@@ -452,6 +535,15 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
         raise PlanVerifyError(
             f"per-bank slot lists sum to "
             f"{sum(len(s) for s in plan.slots)} != n_slots={n_slots}")
+    if len(plan.xbanks) != len(plan.xslots):
+        raise PlanVerifyError(
+            f"{len(plan.xbanks)} sparse banks but {len(plan.xslots)} "
+            f"sparse slot lists")
+    if sum(len(s) for s in plan.xslots) != n_xslots:
+        raise PlanVerifyError(
+            f"per-sparse-bank slot lists sum to "
+            f"{sum(len(s) for s in plan.xslots)} != "
+            f"n_xslots={n_xslots}")
     if plan.widths.shape != (T,):
         raise PlanVerifyError(
             f"widths must be [n_regs]={T}, got {plan.widths.shape}")
@@ -482,13 +574,29 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
                 f"bank {b} carries {int(shape[1])} shards, launch "
                 f"expects {int(n_shards)}")
 
+    # Sparse gather bounds: each sparse slot addresses a real row of its
+    # (pos, starts) pair.
+    for b, (pair, slots) in enumerate(zip(plan.xbanks, plan.xslots)):
+        starts = pair[1] if isinstance(pair, (tuple, list)) \
+            and len(pair) == 2 else None
+        sshape = getattr(starts, "shape", None)
+        if not isinstance(sshape, tuple) or not sshape:
+            continue  # opaque pair (tests stub them)
+        rows = int(sshape[0]) - 1
+        for j, s in enumerate(np.asarray(slots).tolist()):
+            if not 0 <= int(s) < rows:
+                raise PlanVerifyError(
+                    f"sparse bank {b} slot[{j}]={int(s)} outside its "
+                    f"{rows}-row starts table")
+
     widths = plan.widths.tolist()
-    for k in range(n_slots):
+    for k in range(n_gathered):
         if not 1 <= int(widths[k]) <= int(w_mega):
+            kind = "slot" if k < n_slots else "expand"
             raise PlanVerifyError(
-                f"slot register {k} width {int(widths[k])} outside "
+                f"{kind} register {k} width {int(widths[k])} outside "
                 f"[1, w_mega={int(w_mega)}]")
-    for k in range(n_slots, T):
+    for k in range(n_gathered, T):
         if int(widths[k]) != 0:
             raise PlanVerifyError(
                 f"pad register {k} carries width {int(widths[k])} "
@@ -496,8 +604,8 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
 
     # span[r] = least upper bound on r's nonzero word span; None = never
     # written (reads of it are RAW violations).
-    span: List[Optional[int]] = [int(widths[k]) for k in range(n_slots)]
-    span += [None] * (T - n_slots)
+    span: List[Optional[int]] = [int(widths[k]) for k in range(n_gathered)]
+    span += [None] * (T - n_gathered)
     rows_list = instrs.tolist()
     for i in range(n_instrs):
         op, dst, a, b = (int(x) for x in rows_list[i])
@@ -510,15 +618,19 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
                 raise PlanVerifyError(
                     f"instr {i} ({OP_NAMES[op]}): {nm}={r} outside "
                     f"the {T}-register slab")
-        if dst < n_slots:
+        if dst < n_gathered:
+            kind = ("slot" if dst < n_slots else "expand")
             raise PlanVerifyError(
-                f"instr {i} ({OP_NAMES[op]}): writes slot register "
-                f"{dst} — gathered operand rows are shared across "
-                f"entries and read-only")
+                f"instr {i} ({OP_NAMES[op]}): writes {kind} register "
+                f"{dst} — gathered/expanded operand rows are shared "
+                f"across entries and read-only")
         if op == OP_EXPAND:
-            raise PlanVerifyError(
-                f"instr {i} (expand): a={a} is not an expand register "
-                f"(the plan gathers none)")
+            if not n_slots <= a < n_gathered:
+                raise PlanVerifyError(
+                    f"instr {i} (expand): a={a} is not an expand "
+                    f"register (expected [{n_slots}, {n_gathered}))")
+            span[dst] = int(widths[a])
+            continue
         reads = []
         if op in _READS_A:
             reads.append(("a", a))
@@ -527,7 +639,12 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
         if op in _READS_DST:
             reads.append(("dst", dst))
         for nm, r in reads:
-            if r >= n_slots and span[r] is None:
+            if n_slots <= r < n_gathered:
+                raise PlanVerifyError(
+                    f"instr {i} ({OP_NAMES[op]}): reads expand "
+                    f"register {r} ({nm}) directly — sparse operands "
+                    f"are readable only through OP_EXPAND")
+            if r >= n_gathered and span[r] is None:
                 raise PlanVerifyError(
                     f"instr {i} ({OP_NAMES[op]}): reads scratch "
                     f"register {r} ({nm}) before any instruction "
@@ -563,6 +680,11 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
                     f"{T}-register slab")
         for j, w in enumerate(lane_widths):
             r = int(lanes[j])
+            if n_slots <= r < n_gathered:
+                raise PlanVerifyError(
+                    f"{mode} lane {j}: reads expand register {r} "
+                    f"directly — sparse operands are readable only "
+                    f"through OP_EXPAND")
             sv = span[r]
             if sv is None:
                 raise PlanVerifyError(
@@ -575,11 +697,13 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
                     f"[1, w_mega={int(w_mega)}]")
             if z > int(w):
                 raise PlanVerifyError(
-                    f"{mode} lane {j}: register {r} may carry nonzero "
-                    f"words up to {z}, past the entry's plan width "
-                    f"{int(w)} — the masking invariant does not hold")
+                    f"{mode} lane {j}: register {r} may carry "
+                    f"nonzero words up to {z}, past the entry's plan "
+                    f"width {int(w)} — the masking invariant "
+                    f"(zero-extension commutes with every opcode) "
+                    f"does not hold")
 
-    # Pad tail: provably no-ops (ZERO into a dead non-slot register).
+    # Pad tail: provably no-ops (ZERO into a dead non-gathered register).
     real_out = {int(out_count[j]) for j in range(nc)}
     real_out |= {int(out_row[j]) for j in range(nr)}
     for i in range(n_instrs, P):
@@ -587,17 +711,17 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
         if op != OP_ZERO:
             name = OP_NAMES[op] if 0 <= op < len(OP_NAMES) else op
             raise PlanVerifyError(
-                f"pad instr {i}: opcode {name} — pad-tail instructions "
-                f"must be ZERO")
+                f"pad instr {i}: opcode {name} — pad-tail "
+                f"instructions must be ZERO")
         for nm, r in (("dst", dst), ("a", a), ("b", b)):
             if not 0 <= r < T:
                 raise PlanVerifyError(
                     f"pad instr {i}: {nm}={r} outside the "
                     f"{T}-register slab")
-        if dst < n_slots:
+        if dst < n_gathered:
             raise PlanVerifyError(
-                f"pad instr {i}: zeroes slot register {dst} — pads "
-                f"must write a dead register")
+                f"pad instr {i}: zeroes slot/expand register {dst} — "
+                f"pads must write a dead register")
         if dst in real_out:
             raise PlanVerifyError(
                 f"pad instr {i}: zeroes register {dst} that a real "
@@ -610,13 +734,14 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
 
 def run_program(plan: Plan, n_shards: int, w_mega: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run one finished plan: one ``mega_interpret`` launch (or its plain
-    version for CPU banks) with the plan's buffers. Returns ``(counts
-    int64[Nc], rows int32[Nr, S, w_mega])`` on the banks' device, pow2
-    pad lanes included. On the card the launch reads the slot rows from
-    the banks itself; the ``[T, S, W]`` slab exists only in the plain
-    version."""
+    """Run one finished plan: one ``expand_positions`` launch per sparse
+    bank, then one ``mega_interpret`` launch (or their plain versions for
+    CPU banks) with the plan's buffers. Returns ``(counts int64[Nc], rows
+    int32[Nr, S, w_mega])`` on the banks' device, pow2 pad lanes
+    included. On the card the launch reads the slot rows from the banks
+    itself; the ``[T, S, W]`` slab exists only in the plain version."""
     from pilosa_tpu_torch.ops import kernels
     return kernels.mega_interpret(plan.banks, plan.slots, plan.widths,
                                   plan.instrs, plan.out_count, plan.out_row,
-                                  plan.n_regs, n_shards, w_mega)
+                                  plan.n_regs, n_shards, w_mega,
+                                  plan.xbanks, plan.xslots)

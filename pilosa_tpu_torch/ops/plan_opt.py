@@ -23,9 +23,11 @@ executor's pre-launch ``verify_plan`` gate:
 
 Everything here is host Python on the finished Plan. The executor treats
 the whole pipeline as best-effort: any surprise keeps the unoptimized
-plan. Nothing in the port feeds ``note_bank_density`` yet, so every
-dense bank sorts at ``DEFAULT_DENSITY``; that changes only the order of
-operations, never a bit.
+plan. ``core/view.py`` feeds ``note_bank_density`` with each cached dense
+bank's sampled live density when it ledgers the bank, and expand
+registers (sparse operands) sort at ``SPARSE_DENSITY``; both change only
+the order of operations, never a bit. The roofline's calibration feed
+(``predict_cost_bytes``) waits for the measurement plane.
 """
 
 from __future__ import annotations
@@ -48,8 +50,11 @@ _DENSITY_CAP = 4096
 _density_lock = threading.Lock()
 _density: "OrderedDict[int, float]" = OrderedDict()
 
-# Unknown dense operands sort before computed intermediates (scratch),
-# which are assumed dense.
+# Sparse (hybrid-layout) banks exist only for rows far below the dense
+# break-even, so their expanded operands sort as very cheap.
+SPARSE_DENSITY = 0.02
+# Unknown dense operands sort between sparse rows and computed
+# intermediates (scratch), which are assumed dense.
 DEFAULT_DENSITY = 0.5
 SCRATCH_DENSITY = 1.0
 
@@ -107,9 +112,11 @@ class _Bail(Exception):
 _COMMUTATIVE = (mk.OP_AND, mk.OP_OR, mk.OP_XOR)
 
 
-def _register_densities(plan: mk.Plan) -> Dict[int, float]:
-    """Per-register sort weight: slot registers carry their bank's
-    density, everything else the dense-intermediate default."""
+def _register_densities(plan: mk.Plan,
+                        rows: List[List[int]]) -> Dict[int, float]:
+    """Per-register sort weight: dense slots carry their bank's sampled
+    live density, OP_EXPAND results the sparse discount, everything else
+    the dense-intermediate default."""
     dens: Dict[int, float] = {}
     r = 0
     for bank, slots in zip(plan.banks, plan.slots):
@@ -117,6 +124,9 @@ def _register_densities(plan: mk.Plan) -> Dict[int, float]:
         for _ in range(len(slots)):
             dens[r] = d
             r += 1
+    for op, dst, _a, _b in rows:
+        if op == mk.OP_EXPAND:
+            dens[dst] = SPARSE_DENSITY
     return dens
 
 
@@ -165,16 +175,16 @@ def _reorder_folds(rows: List[List[int]], dens: Dict[int, float],
 
 # ------------------------------------------------- value numbering / CSE
 #
-# Node forms: ("zero",) | ("in", reg) | ("bin", op, va, vb)
-#           | ("thresh", vd, va, vb)
+# Node forms: ("zero",) | ("in", reg) | ("expand", xreg)
+#           | ("bin", op, va, vb) | ("thresh", vd, va, vb)
 # Operand vns are always created before their consumers, so node index
 # order IS a valid emission order.
 
 _ZERO_VN = 0
 
 
-def _value_number(rows: List[List[int]], n_slots: int, widths: List[int],
-                  stats: OptStats
+def _value_number(rows: List[List[int]], n_slots: int, n_gathered: int,
+                  widths: List[int], stats: OptStats
                   ) -> Tuple[List[tuple], List[int], Dict[int, int]]:
     nodes: List[tuple] = [("zero",)]
     spans: List[int] = [0]
@@ -190,7 +200,11 @@ def _value_number(rows: List[List[int]], n_slots: int, widths: List[int],
         return vn
 
     def read(r: int) -> int:
-        if r < n_slots:
+        if r < n_gathered:
+            if r >= n_slots:
+                # A direct expand-register read is ill-typed (the
+                # verifier's contract); the Lowering never emits one.
+                raise _Bail(f"direct expand read r={r}")
             key = ("in", r)
             vn = key2vn.get(key)
             if vn is None:
@@ -207,9 +221,17 @@ def _value_number(rows: List[List[int]], n_slots: int, widths: List[int],
         elif op == mk.OP_COPY:
             reg_vn[dst] = read(a)
         elif op == mk.OP_EXPAND:
-            raise _Bail("expand registers are not modeled")
+            key = ("expand", a)
+            vn = key2vn.get(key)
+            if vn is None:
+                vn = new_node(key, widths[a], key)
+            else:
+                stats.cse_hits += 1
+            reg_vn[dst] = vn
         elif op == mk.OP_THRESH:
             vd = reg_vn.get(dst)
+            if vd is None and dst < n_gathered:
+                raise _Bail("thresh into gathered register")
             if vd is None:
                 raise _Bail("thresh over undefined accumulator")
             va, vb = read(a), read(b)
@@ -299,7 +321,7 @@ def _operands(node: tuple) -> Tuple[int, ...]:
     return ()
 
 
-def _emit(nodes: List[tuple], out_vns: List[int], n_slots: int
+def _emit(nodes: List[tuple], out_vns: List[int], n_gathered: int
           ) -> Tuple[List[List[int]], Dict[int, int], int]:
     """Re-emit the live value-number graph as an instruction list with
     linear-scan scratch allocation (lowest free register first, freed at
@@ -320,7 +342,7 @@ def _emit(nodes: List[tuple], out_vns: List[int], n_slots: int
     rows: List[List[int]] = []
     loc: Dict[int, int] = {}
     free: List[int] = []
-    high = n_slots
+    high = n_gathered
 
     def alloc() -> int:
         nonlocal high
@@ -332,7 +354,8 @@ def _emit(nodes: List[tuple], out_vns: List[int], n_slots: int
 
     def release(vn: int, at: int) -> None:
         r = loc[vn]
-        if r >= n_slots and last_use.get(vn, -1) <= at and r not in free:
+        if r >= n_gathered and last_use.get(vn, -1) <= at \
+                and r not in free:
             free.append(r)
 
     for vn in sorted(live):
@@ -346,13 +369,18 @@ def _emit(nodes: List[tuple], out_vns: List[int], n_slots: int
             rows.append([mk.OP_ZERO, r, r, r])
             loc[vn] = r
             continue
+        if kind == "expand":
+            r = alloc()
+            rows.append([mk.OP_EXPAND, r, node[1], node[1]])
+            loc[vn] = r
+            continue
         if kind == "thresh":
             vd, va, vb = node[1], node[2], node[3]
             rd, ra, rb = loc[vd], loc[va], loc[vb]
             # Accumulate in place when this step is the accumulator's
             # last reader; otherwise the accumulator is still live and
             # the new version needs its own register seeded by a COPY.
-            in_place = (rd >= n_slots and last_use.get(vd, -1) <= vn)
+            in_place = (rd >= n_gathered and last_use.get(vd, -1) <= vn)
             if in_place:
                 release(va, vn)
                 release(vb, vn)
@@ -391,6 +419,7 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
     accounting."""
     stats = OptStats()
     n_slots = int(plan.n_slots)
+    n_gathered = n_slots + int(plan.n_xslots)
     n_instrs = int(plan.n_instrs)
     stats.entries_before = n_instrs
     stats.entries_after = n_instrs
@@ -406,14 +435,15 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
     nc = len(plan.lane_count_widths)
     nr = len(plan.lane_row_widths)
     try:
-        _reorder_folds(rows, _register_densities(plan), stats)
-        nodes, spans, reg_vn = _value_number(rows, n_slots, widths, stats)
+        _reorder_folds(rows, _register_densities(plan, rows), stats)
+        nodes, spans, reg_vn = _value_number(rows, n_slots, n_gathered,
+                                             widths, stats)
 
         out_vns: List[int] = []
         for r in plan.out_count[:nc].tolist() + plan.out_row[:nr].tolist():
-            out_vns.append(_lane_vn(int(r), reg_vn, n_slots))
+            out_vns.append(_lane_vn(int(r), reg_vn, n_slots, n_gathered))
 
-        # Lanes reading a slot register directly need its input vn to
+        # Lanes reading a gathered slot directly need its input vn to
         # exist even when no instruction read it.
         in_vns: Dict[int, int] = {}
         for i, node in enumerate(nodes):
@@ -430,7 +460,7 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
                     in_vns[r] = got
                 out_vns[j] = got
 
-        new_rows, loc, high = _emit(nodes, out_vns, n_slots)
+        new_rows, loc, high = _emit(nodes, out_vns, n_gathered)
     except _Bail:
         return plan, stats
 
@@ -462,7 +492,7 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
     new_plan = mk.Plan(
         banks=plan.banks,
         slots=plan.slots,
-        widths=np.asarray(widths[:n_slots] + [0] * (t_pad - n_slots),
+        widths=np.asarray(widths[:n_gathered] + [0] * (t_pad - n_gathered),
                           np.int32),
         instrs=np.asarray(instrs, np.int32).reshape(p_pad, 4),
         out_count=np.asarray(out_count, np.int32),
@@ -470,7 +500,9 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
         n_slots=n_slots, n_regs=t_pad, n_instrs=len(new_rows),
         lane_count_widths=tuple(narrow(plan.lane_count_widths,
                                        out_vns[:nc])),
-        lane_row_widths=tuple(narrow(plan.lane_row_widths, out_vns[nc:])))
+        lane_row_widths=tuple(narrow(plan.lane_row_widths, out_vns[nc:])),
+        xbanks=plan.xbanks, xslots=plan.xslots,
+        n_xslots=int(plan.n_xslots))
     stats.entries_after = len(new_rows)
     stats.regs_after = t_pad
     stats.slab_bytes_after = mk.slab_nbytes(t_pad, n_shards, w_mega)
@@ -478,11 +510,14 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
     return new_plan, stats
 
 
-def _lane_vn(r: int, reg_vn: Dict[int, int], n_slots: int) -> int:
-    """Output lane register -> value number; slot lanes that no
+def _lane_vn(r: int, reg_vn: Dict[int, int], n_slots: int,
+             n_gathered: int) -> int:
+    """Output lane register -> value number; gathered-slot lanes that no
     instruction read are flagged negative for the caller to materialize
     an input vn."""
-    if r < n_slots:
+    if r < n_gathered:
+        if r >= n_slots:
+            raise _Bail(f"output lane reads expand register {r}")
         return -r - 1
     vn = reg_vn.get(r)
     if vn is None:

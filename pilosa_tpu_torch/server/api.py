@@ -25,6 +25,7 @@ import numpy as np
 
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.core import timeq
+from pilosa_tpu_torch.core.layout import LayoutManager
 from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.executor import Executor
@@ -94,6 +95,11 @@ class API:
         self.holder = holder
         self.executor = Executor(holder, device=holder.device)
         self.coalescer = None
+        # The hybrid layout's re-layout pass over this holder; the server
+        # wiring configures and starts it (cli/main.py), as it does the
+        # memory watchdog.
+        self.layout = LayoutManager(holder)
+        self.watchdog = None
         self.node_id = uuid.uuid4().hex
 
     # ----------------------------------------------------------------- query

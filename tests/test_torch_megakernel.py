@@ -494,9 +494,11 @@ def _assert_same_plan(got, want):
 
 @pytest.fixture
 def no_jax_densities(monkeypatch):
-    """The JAX optimizer sorts by densities its banks reported by id();
-    the stand-in banks here have none, as in the port."""
+    """Both optimizers sort by densities their banks reported by id();
+    the stand-in banks here have none (an id reused from a freed bank of
+    another test must not lend them one)."""
     monkeypatch.setattr(jplan_opt, "_density", OrderedDict())
+    monkeypatch.setattr(plan_opt, "_density", OrderedDict())
 
 
 @pytest.mark.parametrize("seed", range(12))
@@ -517,10 +519,19 @@ def test_lowering_and_optimizer_match_jax(seed, no_jax_densities):
 
 
 def test_lowering_refuses_sparse_leaves():
+    """A sparse leaf lowers to an expand register read only through
+    OP_EXPAND, as in the JAX package; a leaf kind the lowering does not
+    know is still refused."""
+    pair = (np.zeros(1024, np.int32), np.zeros(3, np.int32))
     low = mk.Lowering()
+    low.add_entry((("xslot", 0, 0),), [pair], [0], [], 4, "count")
+    plan = low.finish()
+    assert plan.n_slots == 0 and plan.n_xslots == 1
+    assert plan.instrs[0].tolist() == [mk.OP_EXPAND, 1, 0, 0]
+    mk.verify_plan(plan, 1, 4)
     with pytest.raises(ValueError):
-        low.add_entry((("xslot", 0, 0),), [np.zeros((2, 1, 4))], [0], [],
-                      4, "count")
+        mk.Lowering().add_entry((("yslot", 0, 0),), [pair], [0], [], 4,
+                                "count")
 
 
 # -------------------------------------------------------- verifier parity
@@ -674,3 +685,89 @@ def test_cuda_time_range_or_fold_matches_plain(n_views):
     assert int(got[0][0]) == int(np.unpackbits(union.view(np.uint8)).sum())
     np.testing.assert_array_equal(got[1][0].cpu().numpy().view(np.uint32),
                                   union)
+
+
+def _sparse_rows(rng, n_rows, n_shards, width, widen=0):
+    """Encoded (shard << 16) | bitpos positions, unique per (row, shard),
+    row after row, with int32 offsets per row slot (rows past n_rows and
+    every fifth row empty) and a pad tail; ``widen`` words of positions
+    past width * 32."""
+    parts, lens = [], []
+    for r in range(n_rows):
+        row = [np.empty(0, np.uint32)]
+        if r % 5 != 3:
+            for sh in range(n_shards):
+                bits = np.unique(rng.integers(0, (width + widen) * 32,
+                                              int(rng.integers(0, 80))))
+                row.append(bits.astype(np.uint32) | np.uint32(sh << 16))
+        parts.append(np.concatenate(row))
+        lens.append(len(parts[-1]))
+    cap = 1 << n_rows.bit_length()
+    starts = np.zeros(cap + 1, np.int64)
+    np.cumsum(lens, out=starts[1:n_rows + 1])
+    starts[n_rows + 1:] = starts[n_rows]
+    pos = np.zeros(int(starts[-1]) + 1024, np.uint32)
+    pos[:starts[-1]] = np.concatenate(parts)
+    return pos.view(np.int32), starts.astype(np.int32), cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,n_shards,width,widen", [
+    (64, 1, 128, 0), (40, 96, 2048, 0), (20, 3, 128, 64), (33, 1, 2048, 0)])
+def test_cuda_expand_positions_matches_plain(n_rows, n_shards, width,
+                                             widen):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng([n_rows, n_shards, width])
+    pos, starts, cap = _sparse_rows(rng, n_rows, n_shards, width, widen)
+    slots = np.concatenate([np.arange(n_rows), [cap - 1, 0, 3]]).astype(
+        np.int32)  # the zero slot and repeats
+    args = (torch.from_numpy(pos).to(dev), torch.from_numpy(starts).to(dev),
+            slots, n_shards, width)
+    want = kernels.expand_positions_ref(*args[:2], torch.from_numpy(slots)
+                                        .to(dev), n_shards, width)
+    before = kernels.LAUNCHES["expand_positions"]
+    got = kernels.expand_positions(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expand_positions"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_mega_interpret_with_expand_registers_matches_plain():
+    """A plan reading a dense bank and a sparse bank through OP_EXPAND:
+    one expand_positions launch and one mega_interpret launch, equal to
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(29)
+    S, W = 3, 128
+    dense = rng.integers(0, 2**32, (8, S, W), dtype=np.uint32)
+    pos, starts, cap = _sparse_rows(rng, 12, S, W)
+    bank = torch.from_numpy(dense.view(np.int32)).to(dev)
+    pair = (torch.from_numpy(pos).to(dev), torch.from_numpy(starts).to(dev))
+    low = mk.Lowering()
+    for ir, idxs, width, mode in [
+            ((("slot", 0, 0), ("xslot", 1, 1), ("fold", "and", 2)), [1, 3],
+             W, "count"),
+            ((("xslot", 1, 0), ("xslot", 1, 1), ("fold", "or", 2)),
+             [2, cap - 1], 100, "row"),
+            ((("xslot", 1, 0), ("slot", 0, 1), ("slot", 0, 2),
+              ("thresh", 2, 3)), [4, 5, 6], W, "count")]:
+        low.add_entry(ir, [bank, pair], idxs, [], width, mode)
+    plan = low.finish()
+    mk.verify_plan(plan, S, W)
+    args = (plan.banks, plan.slots, plan.widths, plan.instrs,
+            plan.out_count, plan.out_row, plan.n_regs, S, W, plan.xbanks,
+            plan.xslots)
+    want = kernels.mega_interpret_ref(*args)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.mega_interpret(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expand_positions"] == \
+        before["expand_positions"] + 1
+    assert kernels.LAUNCHES["mega_interpret"] == before["mega_interpret"] + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
