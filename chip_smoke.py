@@ -30,9 +30,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fixed [1024, 128] and flat rows of 0-200 positions, W in {1, 128,
    2047}. Hold ``expand_positions`` bit-exact against its plain version
    at the 10M SparseBank's shape (S = 1, width 128, 65 slots with the
-   zero slot and empty rows), on a 96-shard bank of width 2048, with
-   positions past the width, a garbage pad tail and the sparse upload's
-   [cap, 1, W] form; and ``mega_interpret`` with expand registers (a
+   zero slot and empty rows), on a 96-shard bank of width 2048, at a
+   row of exactly one shared-memory tile and one word over, at S * W
+   not a multiple of 4, with positions past the width, a garbage pad
+   tail, the sparse upload's [cap, 1, W] form, n = 0, every slot
+   transport (a range, the launch's parameters, pinned memory), and
+   shuffled and repeated positions; and ``mega_interpret`` with expand
+   registers (a
    sparse bank's rows moved into scratch by OP_EXPAND, then every
    opcode) against its plain version extended with the sparse banks.
 3. taxi: build the NYC-taxi ride index (100M rides = 96 shards, seed 5;
@@ -76,13 +80,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    a burst of twelve reads over 1-, 7- and 8-view ranges and mutex and
    bool rows in ONE megakernel launch with no fallback, and the same
    burst with an 18-view range, which must count one unlowered eval;
-   the peak device memory of one warm ranged query; then a timestamped
-   Set that makes a day view, a mutex Set that moves a ride, a Store
-   into a time field and ClearRow on a time field and on the mutex
-   field. No plain version may run on the card, in the reads or in the
-   writes. Then row attributes on that holder: the TLC names of
-   rate_code rows 1-6 and ``airport=true`` on 2 (JFK) and 3 (Newark)
-   through SetRowAttrs, ``TopN(rate_code, n=6, attrName="airport",
+   a batch of two ranged reads over a period with no views, which must
+   answer 0 and an empty row through the megakernel path with no kernel
+   launch; the peak device memory of one warm ranged query; then a
+   timestamped Set that makes a day view, a mutex Set that moves a
+   ride, a Store into a time field and ClearRow on a time field and on
+   the mutex field. No plain version may run on the card, in the
+   reads or in the writes. Then row attributes on that holder: the TLC
+   names of rate_code rows 1-6 and ``airport=true`` on 2 (JFK) and 3
+   (Newark) through SetRowAttrs, ``TopN(rate_code, n=6, attrName="airport",
    attrValues=[true])`` exact at every ride, and a Row that carries the
    attributes.
 5. tanimoto: a fingerprint index of 10M molecules (``--molecules``;
@@ -104,16 +110,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    positions, build seconds and host peak beside the dense bank's bytes,
    the ledger's device bytes before and after); the burst again over
    the sparse layout, in ONE ``mega_interpret`` launch fed by
-   ``expand_positions``; the reads and the five queries one at a time,
-   with no dense bank; a Set into a candidate row, after which the
+   ``expand_positions``, and once more with that launch (the
+   expansion, the plan's upload and the interpreter) under
+   ``set_sync_debug_mode("error")``: it must not synchronise the
+   stream; the reads and the five queries one at a time, with no
+   dense bank; a Set into a candidate row, after which the
    SparseBank rebuilds; ``relayout_once`` over a watermark just under
    the ledger's device bytes, then ``promote`` and a dense read; one
    admission over a budget set just under the resident total, which
    must evict the ranking's pick, keep the total within the budget and
    rebuild the evicted bank exactly on its next read. Every answer
    exact against numpy, no plain version on the card; then the
-   expansion's time at the burst's shape beside its bound, its plain
-   version and ``index_add_``.
+   expansion's time at the burst's shape, at the phase's largest
+   sparse upload, at a 65,536-row upload chunk and at one row of a
+   96-shard view, back to back in a CUDA graph and between events,
+   beside an empty kernel's launch floor, its bound, its plain version
+   and ``index_add_``.
 6. serve: the port's HTTP server over the holders already loaded, each
    answer exact against numpy. On the taxi holder (``serve_taxi``): an
    ``API`` with a ``QueryCoalescer`` at its default window behind
@@ -184,7 +196,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    Set read back are the time to recover; ``GET /export`` of one shard
    of cab_type exact; ``import-roaring`` of a shard as raw bytes and of
    another as a protobuf ``ImportRoaringRequest``, exact; SIGTERM, exit
-   0. After the keys phase (``persist_keys``): the keyed star-trace
+   0; then ``GET /info`` of ``cli server --data-dir`` over a small
+   directory whose op log lost its last bytes must carry the
+   ``tailDroppedBytes`` of a holder reopened over a copy of it. After
+   the keys phase (``persist_keys``): the keyed star-trace
    index at full size on a directory through ``load_keys``' API calls
    (load seconds beside the keys phase's), closed, reopened (open
    seconds), its thirteen reads equal to the keys phase's answers. Then
@@ -216,7 +231,9 @@ device memory one warm burst allocates at its peak, and its device time
 by kernel under torch.profiler. Runs of two trees in turns compare them
 on one card. ``--load-probe [--tree DIR]`` runs only the fingerprint
 load (``--molecules``) with DIR's package and prints one ``probe`` line
-with its seconds.
+with its seconds. ``--expand-probe [--tree DIR]`` runs only the
+expansion's checks and timing rows with DIR's package and prints one
+``probe`` line.
 """
 
 from __future__ import annotations
@@ -415,6 +432,55 @@ def time_cuda(torch, fn, iters=20, warmup=3):
         times.append(start.elapsed_time(stop))
     times.sort()
     return times[len(times) // 2]
+
+
+class NoStreamSync:
+    """While active, a stream synchronisation PyTorch makes raises
+    (``torch.cuda.set_sync_debug_mode("error")``). ``bites`` shows that
+    it does for a blocking copy from pageable memory, the kind of copy
+    the expansion and the plan upload no longer make."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    @staticmethod
+    def bites(torch, device):
+        try:
+            with NoStreamSync(torch):
+                torch.ones(4, dtype=torch.int32).to(device)
+        except RuntimeError:
+            return
+        raise AssertionError("set_sync_debug_mode(\"error\") let a "
+                             "blocking copy through")
+
+    def __enter__(self):
+        self.torch.cuda.set_sync_debug_mode("error")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+
+
+def time_graph(torch, fn, launches=100, iters=10):
+    """Device ms of one ``fn(stream)`` when ``launches`` of them run back
+    to back: captured into one CUDA graph, whose replay is timed by
+    ``time_cuda``, divided by ``launches``. A launch-bound kernel reads
+    here at what the card spends on it, not at the host's enqueue gap."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        if fn(side.cuda_stream) not in (0, None):
+            raise RuntimeError("time_graph: the launch failed")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(launches):
+            if fn(stream) not in (0, None):
+                raise RuntimeError("time_graph: a captured launch failed")
+    ms = time_cuda(torch, graph.replay, iters=iters, warmup=2) / launches
+    del graph
+    return ms
 
 
 def time_kernels(torch, kernels, device, n_shards):
@@ -1072,6 +1138,7 @@ RMONTH = ("2019-01-01", "2019-02-01")
 RA = ("2019-01-01", "2019-01-03")
 RB = ("2019-01-20", "2019-01-22")
 RC = ("2019-01-14", "2019-01-21")
+R_EMPTY = ("2019-03-01", "2019-03-15")  # no view: every ride is in January
 
 
 def pickup(r, field="pickup", row=0):
@@ -1356,6 +1423,23 @@ def run_timefields(holder, device, cab, amount, iters=ITERS):
                                 "mega_launches": moved[0],
                                 "fallbacks": moved[1] + moved[2],
                                 "unlowered": moved[3]}
+            # A batch of ranged reads over a period with no views: a plan
+            # that reads no bank answers through the megakernel path,
+            # counted as one launch, with no kernel launch and no error.
+            empty = [("e_count", f"Count({pickup(R_EMPTY)})"),
+                     ("e_row", pickup(R_EMPTY))]
+            m0 = mega()
+            out, delta = launched(lambda: ex.execute_batch(
+                [("taxi", q, None) for _, q in empty]))
+            got = [item if isinstance(item, Exception)
+                   else result_to_json(item[0][0]) for item in out]
+            moved = tuple(b - a for a, b in zip(m0, mega()))
+            if got != [0, {"columns": []}] or moved != (1, 0, 0, 0) or delta:
+                raise AssertionError(f"timefields empty cover: answers "
+                                     f"{got}, megakernel moved {moved}, "
+                                     f"kernel launches {delta}")
+            report["empty_cover"] = {"answers": got, "mega_launches":
+                                     moved[0], "launches": delta}
         launches = dict(kernels.LAUNCHES)
         if cuda:
             if refs.calls:
@@ -2165,45 +2249,120 @@ def expand_case(rng, n_rows, n_shards, width, widen=0, pad=1024,
     return pos.view(np.int32), starts.astype(np.int32), cap
 
 
+def fp_expand_input(rng, n_rows, cap, width, bits=BITS_PER_MOL):
+    """Fingerprint rows for the expansion: rows 0..n_rows-1 of a cap-slot
+    table hold ``bits`` sorted unique positions below width * 32 (a power
+    of two) each, (base + step * i) mod width * 32 for a random base and
+    a random odd step, the other slots none. Returns (pos int32, starts
+    int32) as numpy."""
+    import numpy as np
+    span = width * 32
+    base = rng.integers(0, span, (n_rows, 1))
+    step = 2 * rng.integers(0, span // (2 * bits), (n_rows, 1)) + 1
+    rows = np.sort((base + step * np.arange(bits)) % span, axis=1)
+    starts = np.zeros(cap + 1, np.int64)
+    starts[1:n_rows + 1] = np.arange(1, n_rows + 1) * bits
+    starts[n_rows + 1:] = n_rows * bits
+    return rows.astype(np.int32).ravel(), starts.astype(np.int32)
+
+
 def check_expand(torch, kernels, device):
     """expand_positions bit-exact against its plain version: the 10M
     SparseBank's shape (S = 1, width 128, 65 slots with the zero slot and
-    empty rows, about 48 bits a row), a multi-shard bank (S = 96, width
-    2048), positions past width * 32, a pad tail of garbage no row
-    reaches, and the sparse upload's [cap, 1, width] form over slots
-    0..cap-1. Returns the max |kernel - plain| (0)."""
+    empty rows, in the launch's parameters), a 96-shard bank of width
+    2048 (24 tiles a row), a row of exactly one tile (4 x 2048 words) and
+    one word over (3 x 2731), S * W not a multiple of 4 (3 x 33, 1 x 5),
+    positions past width * 32, a pad tail of garbage no row reaches, the
+    sparse upload's [cap, 1, width] form over slots 0..cap-1 (a range),
+    one slot (a range), a list longer than the parameters hold (copied
+    through pinned memory), n = 0, every row's positions shuffled, and
+    repeated positions, whose expected rows are the plain version's over
+    the positions without the repeats. Each call must launch once (none
+    for n = 0) and none may synchronise the stream (``NoStreamSync``,
+    first shown to catch a blocking copy). Returns the max
+    |kernel - plain| (0)."""
     import numpy as np
     rng = np.random.default_rng(23)
+    NoStreamSync.bites(torch, device)
+
+    def shuffled(pos, starts, cap):
+        out = pos.copy()
+        for r in range(cap):
+            out[starts[r]:starts[r + 1]] = rng.permutation(
+                pos[starts[r]:starts[r + 1]])
+        return out
+
     cases = []
+
+    def case(name, pos, starts, slots, n_shards, width, kind, ref=None):
+        cases.append((name, pos, starts, np.asarray(slots, np.int32),
+                      n_shards, width, kind, ref or (pos, starts)))
+
     pos, starts, cap = expand_case(rng, 500, 1, 128, per_row=97)
     slots = np.concatenate([rng.choice(500, 64, replace=False),
-                            [cap - 1]]).astype(np.int32)
-    cases.append(("fp-10M shape", pos, starts, slots, 1, 128))
+                            [cap - 1]])
+    case("fp-10M shape", pos, starts, slots, 1, 128, "param")
+    case("fp-10M shape, rows shuffled", shuffled(pos, starts, cap), starts,
+         slots, 1, 128, "param", (pos, starts))
+    case("fp-10M shape, one slot", pos, starts, slots[:1], 1, 128, "range")
+    case("fp-10M shape, n = 0", pos, starts, slots[:0], 1, 128, "range")
+    many = rng.integers(0, cap, kernels.EXPAND_PARAM_SLOTS + 100)
+    case("fp-10M shape, a long list", pos, starts, many, 1, 128, "device")
     pos, starts, cap = expand_case(rng, 40, 96, 2048, per_row=30)
-    cases.append(("S=96 W=2048", pos, starts,
-                  np.arange(cap, dtype=np.int32), 96, 2048))
+    case("S=96 W=2048", pos, starts, np.arange(cap), 96, 2048, "range")
+    case("S=96 W=2048, shuffled list", shuffled(pos, starts, cap), starts,
+         rng.permutation(cap), 96, 2048, "param", (pos, starts))
+    case("S=96 W=2048, one slot", pos, starts, [7], 96, 2048, "range")
+    for S, W, what in ((4, 2048, "one tile"), (3, 2731, "one tile + 1"),
+                       (3, 33, "S*W % 4 = 3"), (1, 5, "S*W = 5")):
+        pos, starts, cap = expand_case(rng, 30, S, W, per_row=200)
+        case(f"{what} ({S} x {W})", pos, starts, np.arange(cap), S, W,
+             "range")
+        case(f"{what} ({S} x {W}), shuffled", shuffled(pos, starts, cap),
+             starts, rng.permutation(cap), S, W, "param", (pos, starts))
     pos, starts, cap = expand_case(rng, 30, 3, 128, widen=64)
-    cases.append(("widened", pos, starts,
-                  np.arange(cap, dtype=np.int32)[::-1].copy(), 3, 128))
+    case("widened", pos, starts, np.arange(cap)[::-1].copy(), 3, 128,
+         "param")
     pos, starts, cap = expand_case(rng, 30, 2, 128, pad=1 << 16,
                                    pad_fill=0xFFFF)
-    cases.append(("pad tail", pos, starts,
-                  np.arange(cap, dtype=np.int32), 2, 128))
+    case("pad tail", pos, starts, np.arange(cap), 2, 128, "range")
     pos, starts, cap = expand_case(rng, 1000, 1, 128, per_row=60)
-    cases.append(("sparse upload [cap, 1, W]", pos, starts,
-                  np.arange(cap, dtype=np.int32), 1, 128))
-    for name, pos, starts, slots, n_shards, width in cases:
+    case("sparse upload [cap, 1, W]", pos, starts, np.arange(cap), 1, 128,
+         "range")
+    # Repeats: every third position of a row once more, rows shuffled.
+    pos, starts, cap = expand_case(rng, 30, 2, 128, pad=0)
+    parts = [pos[starts[r]:starts[r + 1]] for r in range(cap)]
+    parts = [rng.permutation(np.concatenate([p, p[::3]])) for p in parts]
+    dstarts = np.zeros(cap + 1, np.int64)
+    np.cumsum([len(p) for p in parts], out=dstarts[1:])
+    case("repeated positions", np.concatenate(parts).astype(np.int32),
+         dstarts.astype(np.int32), rng.permutation(cap), 2, 128, "param",
+         (pos, starts))
+    for name, pos, starts, slots, n_shards, width, kind, (rpos, rst) \
+            in cases:
+        if kernels.expand_transport(slots)[0] != kind:
+            raise AssertionError(f"expand_positions {name}: transport "
+                                 f"{kernels.expand_transport(slots)}, "
+                                 f"expected {kind}")
         p = torch.from_numpy(pos).to(device)
         st = torch.from_numpy(starts).to(device)
-        got = kernels.expand_positions(p, st, slots, n_shards, width)
-        want = kernels.expand_positions_ref(p, st, slots, n_shards, width)
+        before = kernels.LAUNCHES["expand_positions"]
+        with NoStreamSync(torch):
+            got = kernels.expand_positions(p, st, slots, n_shards, width)
+        launched = kernels.LAUNCHES["expand_positions"] - before
+        want = kernels.expand_positions_ref(
+            torch.from_numpy(rpos).to(device),
+            torch.from_numpy(rst).to(device), slots, n_shards, width)
         torch.cuda.synchronize()
         if got.device.type != "cuda" or got.dtype != torch.int32 or \
                 tuple(got.shape) != (len(slots), n_shards, width) or \
-                not torch.equal(got, want):
+                not torch.equal(got, want) or \
+                launched != (1 if len(slots) else 0):
             raise AssertionError(f"expand_positions {name}: kernel != "
-                                 "plain")
-    log(f"kernels: expand_positions bit-exact over {len(cases)} cases")
+                                 f"plain ({launched} launches)")
+    log(f"kernels: expand_positions bit-exact over {len(cases)} cases "
+        "(every slot transport, tile edges, shuffled and repeated "
+        "positions)")
     return 0
 
 
@@ -2213,8 +2372,9 @@ def check_mega_expand(torch, kernels, device):
     slab: a random dense bank, a random sparse bank and random xslots
     (the zero slot among them), a plan that first moves every expand
     register into scratch with OP_EXPAND and then runs random rows of
-    every opcode over all registers. Returns the max |kernel - plain|
-    (0)."""
+    every opcode over all registers. The launch (the expansion, the
+    plan's upload, the interpreter) may not synchronise the stream.
+    Returns the max |kernel - plain| (0)."""
     import numpy as np
     rng = np.random.default_rng(31)
     # T leaves room for the dense slots, the expand registers and one
@@ -2241,7 +2401,8 @@ def check_mega_expand(torch, kernels, device):
         args = (banks, slots, widths, instrs, lanes, out_row, T, S, W,
                 xbanks, (xslots,))
         want = kernels.mega_interpret_ref(*args)
-        got = kernels.mega_interpret(*args)
+        with NoStreamSync(torch):
+            got = kernels.mega_interpret(*args)
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"mega_interpret with {n_x} expand "
@@ -2252,63 +2413,236 @@ def check_mega_expand(torch, kernels, device):
     return 0
 
 
-def time_expand(torch, kernels, device, tin):
-    """expand_positions at the layout burst's shape (its sparse bank and
-    the slots one burst expands): the zeroing and the kernel's C entry
-    (the zeroing is the output's one write), its byte bound (the rows'
-    positions, the slots and their two offsets read once, the output
-    written once), its plain version, and ``index_add_`` over word
-    indexes and bit values computed beforehand, one call, the nearest
-    PyTorch expression; each held equal to the kernel."""
-    from pilosa_tpu_torch.ops import build
-    lib = build.load()
-    pos, starts, S, W = tin["pos"], tin["starts"], tin["n_shards"], \
-        tin["width"]
-    slots = tin["slots"].to(device)
-    n = int(slots.numel())
+def expand_row(torch, kernels, lib, device, pos, starts, slots, S, W):
+    """One shape's timing row of expand_positions, each output held equal
+    to the plain version's and to ``index_add_``'s. The kernel is its C
+    entry alone (one launch into an uninitialised output): ``ms`` back
+    to back in a CUDA graph (``time_graph``),
+    ``event_ms`` one launch between CUDA events (``time_cuda``, as the
+    other kernels are timed). ``call_ms`` is the whole wrapper call
+    between events; the byte bound counts the rows' positions, the
+    slots and their two offsets read once and the output written once;
+    ``plain_ms`` the plain version; ``library_ms`` (graph) and
+    ``library_event_ms`` ``index_add_`` over word indexes and bit values
+    computed beforehand, one call, the nearest PyTorch expression. A
+    list that rides in the launch's parameters also gets
+    ``wrapper_host_us``."""
+    import numpy as np
+    slots = np.asarray(slots, np.int32)
+    host = torch.from_numpy(slots)
+    n = len(slots)
     out = torch.empty((n, S, W), dtype=torch.int32, device=device)
+    args, keep = kernels.expand_launch_args(pos, starts, host, S, W, out)
+
+    def kernel(stream):
+        return lib.expand_positions(*args[:-1], stream)
+    transport = kernels.expand_transport(slots)[0]
     stream = torch.cuda.current_stream(device).cuda_stream
-
-    def kernel():
-        out.zero_()
-        return lib.expand_positions(pos.data_ptr(), starts.data_ptr(),
-                                    slots.data_ptr(), out.data_ptr(), n, S,
-                                    W, stream)
-
-    if kernel() != 0:
+    if kernel(stream) != 0:
         raise RuntimeError("expand_positions: kernel launch failed")
-    want = kernels.expand_positions_ref(pos, starts, slots, S, W)
-    # The library form's inputs: every selected position's word and bit.
+    want = kernels.expand_positions_ref(pos, starts, host, S, W)
     st = starts.to(torch.int64)
-    sl = slots.to(torch.int64)
+    sl = host.to(device=device, dtype=torch.int64)
     lo, hi = st[sl], st[sl + 1]
     lens = hi - lo
     k = torch.repeat_interleave(torch.arange(n, device=device), lens)
     j = torch.repeat_interleave(lo - (torch.cumsum(lens, 0) - lens), lens) \
         + torch.arange(int(lens.sum()), device=device)
     p = pos.to(torch.int64)[j] & 0xFFFFFFFF
+    inside = ((p >> 16) < S) & ((p & 0xFFFF) < W * 32)
+    p, k = p[inside], k[inside]
     word = (k * S + (p >> 16)) * W + ((p & 0xFFFF) >> 5)
     val = torch.ones_like(p) << (p & 31)
     acc = torch.zeros(n * S * W, dtype=torch.int64, device=device)
     acc.index_add_(0, word, val)
     lib_out = (acc - ((acc >> 31) << 32)).to(torch.int32).reshape(n, S, W)
+    call = kernels.expand_positions(pos, starts, slots, S, W)
     torch.cuda.synchronize()
-    if not torch.equal(out, want) or not torch.equal(out, lib_out):
-        raise AssertionError("expand_positions differs at the burst shape")
-    ms = time_cuda(torch, kernel)
-    plain_ms = time_cuda(torch, lambda: kernels.expand_positions_ref(
-        pos, starts, slots, S, W), iters=5, warmup=1)
-    library_ms = time_cuda(torch, lambda: acc.index_add_(0, word, val))
+    if not (torch.equal(out, want) and torch.equal(out, lib_out)
+            and torch.equal(call, want)):
+        raise AssertionError(f"expand_positions differs at [{n}, {S}, {W}]")
+    row = {"shape": [n, S, W], "transport": transport,
+           "ms": time_graph(torch, kernel),
+           "event_ms": time_cuda(torch, lambda: kernel(stream)),
+           "call_ms": time_cuda(torch, lambda: kernels.expand_positions(
+               pos, starts, slots, S, W)),
+           "plain_ms": time_cuda(torch, lambda: kernels.expand_positions_ref(
+               pos, starts, host, S, W), iters=5, warmup=1),
+           "library_ms": time_graph(
+               torch, lambda _s: (acc.index_add_(0, word, val), None)[1]),
+           "library_event_ms": time_cuda(
+               torch, lambda: acc.index_add_(0, word, val))}
     n_pos = int(lens.sum())
     nbytes = n_pos * 4 + n * 4 + 2 * n * 4 + n * S * W * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"timing: expand_positions n={n} S={S} W={W} ({n_pos} positions) "
-        f"zero + kernel {ms:.4f} ms, bound {bound_ms:.6f} ms (bytes), "
-        f"plain {plain_ms:.4f} ms, index_add_ (indexes precomputed) "
-        f"{library_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "library_ms": library_ms, "shape": [n, S, W],
-            "positions": n_pos, "bound_bytes": nbytes}
+    row.update({"positions": n_pos, "bound_bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    if transport == "param":
+        row.update(wrapper_host_us(torch, kernels, pos, starts, slots, S, W))
+    return row
+
+
+def wrapper_host_us(torch, kernels, pos, starts, slots, S, W, calls=500,
+                    turns=3):
+    """Host microseconds of one ``expand_positions`` call when ``calls``
+    of them are enqueued back to back (the card keeps up), with the slot
+    list in the launch's parameters (``param_call_us``) and through
+    pinned memory and a non-blocking copy (``pinned_call_us``:
+    ``EXPAND_PARAM_SLOTS`` set to 0 for the turn), in turns; the median
+    turn of each."""
+    limit = kernels.EXPAND_PARAM_SLOTS
+    times = {"param": [], "pinned": []}
+    try:
+        for _ in range(turns):
+            for kind, got in times.items():
+                kernels.EXPAND_PARAM_SLOTS = limit if kind == "param" else 0
+                kernels.expand_positions(pos, starts, slots, S, W)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    kernels.expand_positions(pos, starts, slots, S, W)
+                torch.cuda.synchronize()
+                got.append((time.perf_counter() - t0) / calls * 1e6)
+    finally:
+        kernels.EXPAND_PARAM_SLOTS = limit
+    return {f"{kind}_call_us": sorted(got)[len(got) // 2]
+            for kind, got in times.items()}
+
+
+def expand_shapes(rng, torch, device, upload=None):
+    """The expansion's timed shapes, as (name, pos, starts, slots, S, W)
+    with pos and starts on the card: the layout burst's (a 10M-style
+    SparseBank's 65 slots: 64 fingerprint rows and the zero slot), the
+    sparse upload (``upload``, the fingerprint phase's largest as it
+    called ``_expand_sparse_chunk``; else the 2 rows of a 4-slot table
+    that phase uploads at its small size on the CPU), a 65,536-row upload
+    chunk of fingerprint rows, and one row of a 96-shard view of width
+    2048 (an eager Row leaf, 24 tiles)."""
+    import numpy as np
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    pos, starts = fp_expand_input(rng, 500, 512, 128)
+    slots = np.concatenate([rng.choice(500, 64, replace=False), [511]])
+    out = [("burst", dev(pos), dev(starts), slots, 1, 128)]
+    if upload is None:
+        pos, starts = fp_expand_input(rng, 2, 4, 128)
+        out.append(("upload", dev(pos), dev(starts), np.arange(4), 1, 128))
+    else:
+        out.append(("upload", *upload))
+    pos, starts = fp_expand_input(rng, 65536, 65536, 128)
+    out.append(("upload_65536", dev(pos), dev(starts), np.arange(65536), 1,
+                128))
+    pos, starts, _ = expand_case(rng, 8, 96, 2048, per_row=48)
+    out.append(("leaf_96x2048", dev(pos), dev(starts), [2], 96, 2048))
+    return out
+
+
+def time_expand(torch, kernels, device, tin, upload=None):
+    """expand_positions on the card, after the main path: timing rows
+    (``expand_row``) at the layout burst's shape (its SparseBank and the
+    slots one burst expands), at the fingerprint phase's largest sparse
+    upload and at ``expand_shapes``' other two, beside the launch floor:
+    an empty kernel launched and timed the same way. The top level is
+    the burst's row."""
+    import numpy as np
+    from pilosa_tpu_torch.ops import build
+    lib = build.load()
+    pos, starts, S, W = tin["pos"], tin["starts"], tin["n_shards"], \
+        tin["width"]
+    slots = tin["slots"].numpy()
+    out = launch_floor(torch, lib, device)
+    out["shapes"] = {}
+    rng = np.random.default_rng(29)
+    shapes = [("burst", pos, starts, slots, S, W)] + \
+        expand_shapes(rng, torch, device, upload)[1:]
+    for name, p, st, sl, s, w in shapes:
+        row = out["shapes"][name] = expand_row(torch, kernels, lib, device,
+                                               p, st, sl, s, w)
+        log(f"timing: expand_positions {name} {row['shape']} "
+            f"({row['positions']} positions, {row['transport']} slots) "
+            f"kernel {row['ms']:.5f} ms back to back (launch floor "
+            f"{out['floor_ms']:.5f}), {row['event_ms']:.4f} ms a launch "
+            f"between events (floor {out['floor_event_ms']:.4f}), call "
+            f"{row['call_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"(bytes), plain {row['plain_ms']:.4f} ms, index_add_ "
+            f"(indexes precomputed) {row['library_ms']:.5f} ms")
+    out.update({k: out["shapes"]["burst"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "shape", "positions",
+        "bound_bytes")})
+    return out
+
+
+def launch_floor(torch, lib, device):
+    """An empty kernel (``launch_floor`` in csrc/sparse_expand.cu) timed
+    as the expansion is: back to back in a CUDA graph (``floor_ms``) and
+    one launch between events (``floor_event_ms``)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if lib.launch_floor(stream) != 0:
+        raise RuntimeError("launch_floor: kernel launch failed")
+    return {"floor_ms": time_graph(torch, lib.launch_floor),
+            "floor_event_ms": time_cuda(torch,
+                                        lambda: lib.launch_floor(stream))}
+
+
+class UploadRecorder:
+    """Keeps the host arguments of the largest ``_expand_sparse_chunk``
+    call (by output words, then positions) while it is active, and
+    nothing else, so the phase it wraps runs as it would; ``largest()``
+    turns them into the card's (pos, starts, slots, S, W) of
+    ``expand_positions`` afterwards."""
+
+    def __init__(self, view_mod):
+        self.view_mod = view_mod
+        self.calls, self.args, self.key = 0, None, None
+
+    def __enter__(self):
+        real = self.real = self.view_mod._expand_sparse_chunk
+
+        def recorded(pos16, lens, rows_at, cap, width, device):
+            self.calls += 1
+            key = (cap * width, len(pos16))
+            if self.key is None or key > self.key:
+                self.key, self.args = key, (pos16, lens, rows_at, cap, width)
+            return real(pos16, lens, rows_at, cap, width, device)
+        self.view_mod._expand_sparse_chunk = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.view_mod._expand_sparse_chunk = self.real
+
+    def largest(self, torch, device):
+        """The recorded call's inputs on ``device``, or None."""
+        import numpy as np
+        if self.args is None:
+            return None
+        pos16, lens, rows_at, cap, width = self.args
+        starts = np.zeros(cap + 1, np.int64)
+        starts[np.asarray(rows_at, np.int64) + 1] = lens
+        np.cumsum(starts, out=starts)
+        return (torch.from_numpy(np.asarray(pos16).astype(np.int32)).to(
+                    device),
+                torch.from_numpy(starts.astype(np.int32)).to(device),
+                np.arange(cap, dtype=np.int32), 1, width)
+
+
+def run_expand_probe(torch, device, tree):
+    """``--expand-probe``: ``check_expand``, ``check_mega_expand`` and the
+    expansion's timing rows at ``expand_shapes`` beside the launch
+    floor, with the package of ``tree``. Returns the probe."""
+    import numpy as np
+    from pilosa_tpu_torch.ops import build, kernels
+    build.build(verbose=True)
+    lib = build.load()
+    check_expand(torch, kernels, device)
+    check_mega_expand(torch, kernels, device)
+    out = {"tree": tree, **launch_floor(torch, lib, device)}
+    rng = np.random.default_rng(29)
+    out["shapes"] = {name: expand_row(torch, kernels, lib, device, p, st,
+                                      sl, s, w)
+                     for name, p, st, sl, s, w in expand_shapes(rng, torch,
+                                                                device)}
+    return out
 
 
 # --------------------------------------------------------------- memory
@@ -2587,12 +2921,31 @@ def run_layout(holder, ex, field, pos, extra, device, iters=ITERS):
                 raise AssertionError(f"layout sparse: launches "
                                      f"{c['launches']}")
             c["p50_s"] = p50()
+            if cuda:
+                # Once more with the launch (its expansion, the plan's
+                # upload, the interpreter) barred from syncing.
+                real, strict_calls = kernels.mega_interpret, []
+
+                def strict(*a, **k):
+                    strict_calls.append(1)
+                    with NoStreamSync(torch):
+                        return real(*a, **k)
+                kernels.mega_interpret = strict
+                try:
+                    one_burst("sparse, no stream sync")
+                finally:
+                    kernels.mega_interpret = real
+                if len(strict_calls) != 1:
+                    raise AssertionError(f"layout sparse: {strict_calls} "
+                                         "launches under the sync check")
+                c["sync_free"] = True
             report["sparse"] = c
             log(f"layout: sparse burst in one launch with "
                 f"{c['launches'].get('expand_positions', 0)} expand "
                 f"launch(es), first {c['s']:.4f} s, warm p50 "
                 f"{c['p50_s']:.6f} s (staged {a['p50_s']:.6f} s), peak "
-                f"{c['peak_bytes']} bytes")
+                f"{c['peak_bytes']} bytes"
+                + (", its launch free of stream syncs" if cuda else ""))
             rows_read = []
             for _, pql in burst:
                 for tok in pql.split("fingerprint=")[1:]:
@@ -4337,6 +4690,48 @@ def persist_cli(path, device, cab, expect):
     return report
 
 
+def persist_torn_info(device):
+    """``GET /info`` of ``cli server --data-dir`` over a directory whose
+    fragment lost the end of its last op record: ``tailDroppedBytes``
+    must equal what a holder reopened over a copy of that directory
+    reports, and be above 0. Returns the report."""
+    import shutil
+    import tempfile
+    from pilosa_tpu_torch.server import API
+    path = tempfile.mkdtemp(prefix="pilosa-torn-")
+    try:
+        holder, _ = open_holder(path, device)
+        api = API(holder)
+        api.create_index("torn")
+        api.create_field("torn", "f", {})
+        for c in range(12):
+            api.executor.execute("torn", f"Set({c * 7}, f={c % 3})")
+        holder.close()
+        frag = os.path.join(path, "torn", "f", "views", "standard",
+                            "fragments", "0")
+        with open(frag, "rb") as f:
+            data = f.read()
+        with open(frag, "wb") as f:
+            f.write(data[:-7])
+        shutil.copytree(path, path + "-copy")
+        holder, _ = open_holder(path + "-copy", device)
+        want = holder.tail_dropped_bytes()
+        holder.close()
+        proc, base, _ = cli_start(["--data-dir", path] + (
+            ["--device", "cpu"] if device == "cpu" else []))
+        try:
+            info = http_json(base, "GET", "/info")
+        finally:
+            cli_stop(proc)
+        if not want > 0 or info.get("tailDroppedBytes") != want:
+            raise AssertionError(f"persist torn tail: /info {info}, the "
+                                 f"reopened holder dropped {want} bytes")
+        return {"tail_dropped_bytes": want, "info_device": info["device"]}
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        shutil.rmtree(path + "-copy", ignore_errors=True)
+
+
 def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
                 tf_http):
     """The persist phase on the taxi index (after the timefields phase):
@@ -4429,6 +4824,9 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
         # 4. the CLI server over the directory
         report["cli"] = persist_cli(path, device, cab, expect)
         log(f"persist: cli {report['cli']}")
+        report["torn_info"] = persist_torn_info(device)
+        log(f"persist: /info of the CLI server over a torn op log "
+            f"{report['torn_info']}")
     finally:
         megamod.MEGAKERNEL_ENABLED = prev
         shutil.rmtree(path, ignore_errors=True)
@@ -4558,17 +4956,19 @@ def main(argv=None) -> int:
     ap.add_argument("--load-probe", action="store_true",
                     help="run only the fingerprint load and print one "
                          "probe line (seconds)")
+    ap.add_argument("--expand-probe", action="store_true",
+                    help="run only the expansion kernel's checks and "
+                         "timing rows and print one probe line")
     ap.add_argument("--tree", metavar="DIR", default=REPO,
-                    help="with --burst-probe or --load-probe: the checkout "
-                         "whose pilosa_tpu_torch runs (default: this "
-                         "script's)")
+                    help="with a probe: the checkout whose "
+                         "pilosa_tpu_torch runs (default: this script's)")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the GPU only")
         return 1
-    probing = args.burst_probe or args.load_probe
+    probing = args.burst_probe or args.load_probe or args.expand_probe
     tree = os.path.abspath(args.tree if probing else REPO)
     if not os.path.isdir(os.path.join(tree, "pilosa_tpu_torch")):
         log(f"chip_smoke: pilosa_tpu_torch/ not found in {tree}")
@@ -4585,6 +4985,12 @@ def main(argv=None) -> int:
         probe = run_probe("cuda", N_RIDES)
         print(json.dumps({"probe": {"tree": tree, "card": card, **probe}}),
               flush=True)
+        return 0
+    if args.expand_probe:
+        card = card_line()
+        print(card, flush=True)
+        probe = run_expand_probe(torch, device, tree)
+        print(json.dumps({"probe": {"card": card, **probe}}), flush=True)
         return 0
     if args.load_probe:
         card = card_line()
@@ -4624,12 +5030,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # 5-6. the fingerprint path and the serve path's fingerprint phase
     torch.cuda.reset_peak_memory_stats()
-    fp, fp_launches, timing_in, serve_fp_launches = run_fingerprint(
-        "cuda", args.molecules, profile=args.profile)
+    from pilosa_tpu_torch.core import view as view_mod
+    with UploadRecorder(view_mod) as uploads:
+        fp, fp_launches, timing_in, serve_fp_launches = run_fingerprint(
+            "cuda", args.molecules, profile=args.profile)
     timing["pbank_membership_counts"] = time_pbank(torch, kernels, device,
                                                    timing_in)
-    timing["expand_positions"] = time_expand(torch, kernels, device,
-                                             timing_in["expand"])
+    timing["expand_positions"] = time_expand(
+        torch, kernels, device, timing_in["expand"],
+        uploads.largest(torch, device))
+    timing["expand_positions"]["uploads"] = uploads.calls
     layout_launches = timing_in["layout_launches"]
     del timing_in
     # 7. the keys phase: the keyed star-trace index and its serve path
@@ -4722,6 +5132,7 @@ def main(argv=None) -> int:
             "pql", "first_s", "p50_s", "launches", "peak_bytes")}
             for k, v in tf["queries"].items()},
         "burst": tf["burst"], "burst_wide": tf["burst_wide"],
+        "empty_cover": tf["empty_cover"],
         "writes": tf["writes"],
         "profile": {k: {f: v[f] for f in ("wall_ms", "device_ms",
                                           "busy_share", "kernels_ms")}
@@ -4780,7 +5191,7 @@ def main(argv=None) -> int:
             "fragments", "imported_bytes", "copy_s", "copy_mb_s",
             "disk_bytes", "nofile_limit", "open_s", "first_query_s",
             "topn_cache", "burst_s", "writes", "crash_open_s",
-            "after_crash", "cli", "keys", "fingerprint")},
+            "after_crash", "cli", "torn_info", "keys", "fingerprint")},
         "launches": persist_counts}}), flush=True)
     lay = fp["layout"]
     print(json.dumps({"layout": {

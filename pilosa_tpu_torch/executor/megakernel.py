@@ -12,7 +12,9 @@ entries read sparse views carries ``xbanks``: ``run_program`` expands
 each sparse bank's referenced rows with one ``expand_positions`` launch
 into a transient ``[n_x, S, w_mega]`` tensor, which enters the
 ``mega_interpret`` launch as one more bank at the expand registers'
-numbers and plan widths.
+numbers and plan widths. A plan that reads no bank at all (a cohort of
+empty time covers, each the zero row) answers zeros without a launch
+and counts in ``mega_launches`` as the JAX package's launch does.
 
 Routing, as in the JAX package's ``executor/megakernel.py``:
 
@@ -48,6 +50,8 @@ from __future__ import annotations
 
 import os
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops import megakernel as mk
@@ -181,6 +185,18 @@ def _build(cohort: List[Any]) -> Tuple[mk.Plan, int, List[List[int]]]:
     return plan, w_mega, lanes
 
 
+def _zero_lanes(executor: Any, plan: mk.Plan, n_shards: int, w_mega: int
+                ) -> Tuple[Any, Any]:
+    """The outputs of a plan that reads no bank (every group an empty
+    time cover): every register starts at zero and no opcode makes a bit
+    from zeros, so each count lane is 0 and each row lane the zero row.
+    Nothing launches."""
+    dev = executor.device
+    return (torch.zeros(len(plan.out_count), dtype=torch.int64, device=dev),
+            torch.zeros((len(plan.out_row), n_shards, w_mega),
+                        dtype=torch.int32, device=dev))
+
+
 def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
             n_shards: int, w_mega: int, lanes: List[List[int]]) -> None:
     try:
@@ -190,7 +206,10 @@ def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
                 and not executor._plan_verified(key)):
             mk.verify_plan(plan, n_shards, w_mega)
             executor._note_plan_verified(key)
-        counts, rows = mk.run_program(plan, n_shards, w_mega)
+        if plan.banks or plan.xbanks:
+            counts, rows = mk.run_program(plan, n_shards, w_mega)
+        else:
+            counts, rows = _zero_lanes(executor, plan, n_shards, w_mega)
     except Exception as e:
         for g in cohort:
             g.error = e

@@ -59,7 +59,9 @@ SIGNATURES = {
     "mega_interpret": (_P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _LL, _LL,
                        _P, _P, _P, _P),
     "pbank_membership_counts": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
-    "expand_positions": (_P, _P, _P, _P, _LL, _LL, _LL, _P),
+    "expand_positions": (_P, _P, _P, _P, _LL, _P, _LL, _LL, _LL, _LL, _LL,
+                         _LL, _P),
+    "launch_floor": (_P,),
 }
 
 

@@ -85,6 +85,17 @@ _OP_ZERO = 4
 # Widest filter the membership kernel takes: the pad position 0xFFFF
 # lies in word 2047, which must be past the filter.
 PBANK_MAX_WORDS = 2047
+# expand_positions (csrc/sparse_expand.cu): a block of EXPAND_THREADS
+# threads holds EXPAND_TILE_WORDS words of output tiles in shared memory,
+# at most EXPAND_MAX_UNITS row tiles (EXPAND_THREADS / units threads
+# each, at least 8), packed only while the grid keeps
+# EXPAND_TARGET_BLOCKS blocks (two an SM of the H100 SXM's 132); at most
+# EXPAND_PARAM_SLOTS slots travel in the launch's parameters.
+EXPAND_THREADS = 256
+EXPAND_TILE_WORDS = 8192
+EXPAND_MAX_UNITS = 32
+EXPAND_TARGET_BLOCKS = 264
+EXPAND_PARAM_SLOTS = 512
 
 
 _LAUNCHES_LOCK = threading.Lock()
@@ -510,7 +521,11 @@ def mega_launch_args(banks: Sequence[torch.Tensor], slots: Sequence[Any],
     T, S, w_mega), ``counts`` the zeroed int32 [Nc] and ``rows`` the int32
     [Nr, S, w_mega] outputs, ``buf`` the device buffer the pointers in
     ``args`` point into. Each slot descriptor is 16 bytes: the slot row's
-    address, then the bank's W and min(W, plan width) as int32."""
+    address, then the bank's W and min(W, plan width) as int32. The
+    buffer goes up from pinned memory with a non-blocking copy on the
+    current stream, so the host does not wait for the stream to drain;
+    PyTorch's pinned allocator keeps the host side until the copy has
+    run."""
     name = "mega_interpret"
     host_slots, host_widths, host_instrs, host_count, host_row = \
         _check_plan(name, banks, slots, widths, instrs, out_count, out_row,
@@ -539,7 +554,7 @@ def mega_launch_args(banks: Sequence[torch.Tensor], slots: Sequence[Any],
     packed = np.concatenate([desc.view(np.int32).ravel(),
                              plan[:n_run].ravel(), host_count.numpy(),
                              host_row.numpy()])
-    buf = torch.from_numpy(packed).to(device)
+    buf = torch.from_numpy(packed).pin_memory().to(device, non_blocking=True)
     at = buf.data_ptr()
     p_instrs = at + n_slots * 16
     p_count = p_instrs + n_run * 16
@@ -654,6 +669,79 @@ def pbank_membership_counts(pos: torch.Tensor, filt: torch.Tensor,
     return out
 
 
+def expand_geometry(n: int, n_shards: int, width: int) -> Dict[str, int]:
+    """The launch geometry of ``expand_positions`` over ``n`` rows of
+    ``n_shards * width`` words (``row_words``): ``tile_words`` (a multiple
+    of 4), ``tiles_per_row``, ``units_per_block`` (row tiles a block holds
+    in shared memory, each to ``EXPAND_THREADS / units_per_block``
+    threads) and ``blocks``. A row of at most ``EXPAND_TILE_WORDS`` words
+    is one tile of its words rounded up to 4. Such rows share a block (a
+    power of two of them, at most ``EXPAND_MAX_UNITS`` and what the
+    shared memory holds) only as far as the grid keeps
+    ``EXPAND_TARGET_BLOCKS`` blocks: a burst's few rows get a block each,
+    so a row's walk has the most threads; an upload's many rows go
+    fewer, fuller blocks. A wider row spans tiles of
+    ``EXPAND_TILE_WORDS`` words, one to a block."""
+    row_words = int(n_shards) * int(width)
+    if row_words <= EXPAND_TILE_WORDS:
+        tile = max(4, -(-row_words // 4) * 4)
+        tiles = 1
+        fit = 1 << ((EXPAND_TILE_WORDS // tile).bit_length() - 1)
+        spread = 1 << (max(1, int(n) // EXPAND_TARGET_BLOCKS)
+                       .bit_length() - 1)
+        units = min(EXPAND_MAX_UNITS, fit, spread)
+    else:
+        tile = EXPAND_TILE_WORDS
+        tiles = -(-row_words // tile)
+        units = 1
+    return {"row_words": row_words, "tile_words": tile,
+            "tiles_per_row": tiles, "units_per_block": units,
+            "blocks": -(-int(n) * tiles // units)}
+
+
+def expand_transport(slots: np.ndarray) -> Tuple[str, int]:
+    """How a host slot list reaches the kernel: ``("range", first)`` for
+    consecutive slots (one slot, the upload's 0..cap-1), ``("param", 0)``
+    for at most ``EXPAND_PARAM_SLOTS`` others (in the launch's
+    parameters), ``("device", 0)`` for a longer list (a non-blocking copy
+    from pinned memory)."""
+    n = len(slots)
+    if n <= 1 or (int(slots[-1]) - int(slots[0]) == n - 1
+                  and bool((np.diff(slots) == 1).all())):
+        return "range", int(slots[0]) if n else 0
+    if n <= EXPAND_PARAM_SLOTS:
+        return "param", 0
+    return "device", 0
+
+
+def expand_launch_args(pos: torch.Tensor, starts: torch.Tensor,
+                       host: torch.Tensor, n_shards: int, width: int,
+                       out: torch.Tensor) -> Tuple[tuple, Any]:
+    """The C entry's arguments for one launch that writes ``out`` from
+    the checked host int32 slots ``host``, and the tensor that must stay
+    alive until the launch is enqueued (the host list the entry copies
+    into the parameters, or the device list). A long list goes to the
+    card through pinned memory with a non-blocking copy on the current
+    stream; PyTorch's pinned allocator keeps the buffer until the copy
+    has run, and the device list is freed to the same stream."""
+    n = int(host.numel())
+    geo = expand_geometry(n, n_shards, width)
+    kind, first = expand_transport(host.numpy())
+    dev_ptr = host_ptr = keep = None
+    if kind == "param":
+        keep = host
+        host_ptr = host.data_ptr()
+    elif kind == "device":
+        pinned = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        pinned.copy_(host)
+        keep = pinned.to(pos.device, non_blocking=True)
+        dev_ptr = keep.data_ptr()
+    args = (pos.data_ptr(), starts.data_ptr(), dev_ptr, host_ptr, first,
+            out.data_ptr(), n, int(n_shards), int(width), geo["tile_words"],
+            geo["tiles_per_row"], geo["units_per_block"], _stream(pos.device))
+    return args, keep
+
+
 def expand_positions(pos: torch.Tensor, starts: torch.Tensor, slots: Any,
                      n_shards: int, width: int) -> torch.Tensor:
     """Dense int32 ``[n, n_shards, width]`` rows from encoded positions,
@@ -661,10 +749,13 @@ def expand_positions(pos: torch.Tensor, starts: torch.Tensor, slots: Any,
     has bit ``bitpos`` of word ``(shard, bitpos >> 5)`` set for every
     ``pos[j] = (shard << 16) | bitpos`` (int32 holding the u32 bits) with
     ``starts[slots[k]] <= j < starts[slots[k] + 1]``, ``shard <
-    n_shards`` and ``bitpos < width * 32``. ``starts`` is int32 [cap + 1]
-    on ``pos``'s device, nondecreasing and at most ``len(pos)`` (the
-    build guarantees it; it is not re-read here); ``slots`` is an int32
-    array, numpy or a tensor, checked on the host against ``cap``."""
+    n_shards`` and ``bitpos < width * 32``, in any order, duplicates
+    setting their bit once. ``starts`` is int32 [cap + 1] on ``pos``'s
+    device, nondecreasing and at most ``len(pos)`` (the build guarantees
+    it; it is not re-read here); ``slots`` is an int32 array, numpy or a
+    tensor, checked on the host against ``cap``. On the card: one launch
+    into an uninitialised output (``expand_geometry``,
+    ``expand_transport``), no fill, no blocking copy."""
     name = "expand_positions"
     for what, t in (("positions", pos), ("starts", starts)):
         if t.dtype != torch.int32:
@@ -695,14 +786,14 @@ def expand_positions(pos: torch.Tensor, starts: torch.Tensor, slots: Any,
         raise ValueError(f"{name}: operands must be contiguous")
     from pilosa_tpu_torch.ops import build
     lib = build.load()
-    n = int(host.numel())
-    out = torch.zeros((n, int(n_shards), int(width)), dtype=torch.int32,
-                      device=pos.device)
+    out = torch.empty((int(host.numel()), int(n_shards), int(width)),
+                      dtype=torch.int32, device=pos.device)
     if out.numel():
-        dev_slots = host.to(pos.device, non_blocking=False)
-        _raise_on(name, lib.expand_positions(
-            pos.data_ptr(), starts.data_ptr(), dev_slots.data_ptr(),
-            out.data_ptr(), n, int(n_shards), int(width),
-            _stream(pos.device)))
+        # keep holds the slot list the arguments point at until the
+        # launch is enqueued.
+        args, keep = expand_launch_args(pos, starts, host, int(n_shards),
+                                        int(width), out)
+        _raise_on(name, lib.expand_positions(*args))
         _count_launch(name)
+        del keep
     return out

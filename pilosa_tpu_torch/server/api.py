@@ -53,6 +53,21 @@ def not_ported(what: str) -> ApiError:
     return ApiError(f"{what} is not ported yet", 400)
 
 
+def _string_keys(what: str, keys) -> Optional[List[str]]:
+    """An import's keys as a list, refused (400) unless it is a list of
+    strings, before the translators allocate any id. None stays None."""
+    if keys is None:
+        return None
+    try:
+        keys = list(keys)
+    except TypeError:
+        raise ApiError(f"{what} must be a list of strings") from None
+    if not all(issubclass(t, str) for t in set(map(type, keys))):
+        bad = next(k for k in keys if not isinstance(k, str))
+        raise ApiError(f"{what} must be strings, got {bad!r}")
+    return keys
+
+
 def export_fragment_lines(idx, field_name: str, shard: int):
     """CSV lines ``row,col`` (each with its newline) of one shard of the
     field's standard view, row by row: keys in place of ids on a keyed
@@ -213,12 +228,14 @@ class API:
         if idx.keys and column_keys is None and columns is not None:
             raise ApiError("column ids cannot be used because index uses "
                            "string keys")
+        row_keys = _string_keys("rowKeys", row_keys)
+        column_keys = _string_keys("columnKeys", column_keys)
         if column_keys is not None:
             columns = self._column_ids(idx, column_keys)
         if row_keys is not None:
             if not f.options.keys:
                 raise ApiError(f"field {field} does not use row keys")
-            rows = f.row_translator.translate_keys(list(row_keys))
+            rows = f.row_translator.translate_keys(row_keys)
         rows = np.asarray(rows, dtype=np.uint64)
         columns = np.asarray(columns, dtype=np.uint64)
         if len(rows) != len(columns):
@@ -242,6 +259,7 @@ class API:
         if idx.keys and column_keys is None and columns is not None:
             raise ApiError("column ids cannot be used because index uses "
                            "string keys")
+        column_keys = _string_keys("columnKeys", column_keys)
         if column_keys is not None:
             columns = self._column_ids(idx, column_keys)
         columns = np.asarray(columns, dtype=np.uint64)
@@ -296,6 +314,7 @@ class API:
         return {"shardWidth": SHARD_WIDTH,
                 "cpuPhysicalCores": os.cpu_count(),
                 "version": __version__,
+                "tailDroppedBytes": self.holder.tail_dropped_bytes(),
                 "device": str(self.holder.device)}
 
     def version(self) -> Dict[str, str]:
@@ -313,7 +332,7 @@ class API:
     def _column_ids(idx, column_keys) -> np.ndarray:
         if not idx.keys:
             raise ApiError(f"index {idx.name} does not use column keys")
-        return idx.column_translator.translate_keys(list(column_keys))
+        return idx.column_translator.translate_keys(column_keys)
 
     def _field(self, idx, name: str):
         f = idx.field(name)

@@ -10,7 +10,10 @@ equality throughout:
   on, and the fuzzer's packed-numpy oracle (the port holds the sparse
   field ``s`` densely, which gives the same bits);
 - semantics: write fences inside a batch, per-request parse errors,
-  Threshold edges, the megakernel's fallbacks and error routing."""
+  Threshold edges, the megakernel's fallbacks and error routing, and
+  batches of ranged reads over periods with no views (plans that read
+  no bank), answers and megakernel counters equal to the JAX
+  package's."""
 
 import glob
 import json
@@ -354,3 +357,81 @@ def test_row_results_keep_device_words(pair, mega_on):
                                    ("i", "Count(Row(g=1))", None)])[0]
     assert isinstance(res.words, torch.Tensor)
     assert res.words.dtype == torch.int32
+
+
+# ------------------------------------------------- bankless megakernel plans
+
+
+EMPTY = "from='2019-01-15', to='2019-03-01'"  # no view in this period
+FULL = "from='2019-06-01', to='2019-06-30'"
+
+
+@pytest.fixture(scope="module")
+def timed(tmp_path_factory):
+    """(JAX executor, port executor) over a YMD time field ``t`` with
+    bits in June 2019 only, in two shards, and a set field ``c``."""
+    from datetime import datetime
+
+    from pilosa_tpu.core.field import FieldOptions as JaxFieldOptions
+    from pilosa_tpu.core.holder import Holder as JaxHolder
+    from pilosa_tpu_torch import FieldOptions
+    from pilosa_tpu.ops.bitset import SHARD_WIDTH
+    rng = np.random.default_rng(11)
+    cols = (rng.integers(0, 2, 300) * SHARD_WIDTH
+            + rng.integers(0, 5000, 300)).astype(np.uint64)
+    rows = rng.integers(1, 3, 300).astype(np.uint64)
+    stamps = [datetime(2019, 6, 1 + int(d)) for d in rng.integers(0, 29, 300)]
+    jh = JaxHolder(str(tmp_path_factory.mktemp("timed")))
+    jh.open()
+    th = Holder(device="cpu")
+    for h, opts in ((jh, JaxFieldOptions), (th, FieldOptions)):
+        idx = h.create_index("i")
+        idx.create_field("t", opts(type="time", time_quantum="YMD")) \
+            .import_bits(rows, cols, timestamps=stamps)
+        idx.create_field("c", opts()).import_bits(rows, cols)
+        idx.add_existence(cols)
+    jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
+    jex.result_cache.enabled = False
+    yield jex, tex
+    jh.close()
+
+
+@pytest.mark.parametrize("pqls", [
+    [f"Count(Row(t=1, {EMPTY}))", f"Row(t=1, {EMPTY})"],
+    [f"Count(Row(t=1, {EMPTY}))", f"Count(Row(t=2, {EMPTY}))",
+     f"Row(t=2, {EMPTY})"],
+    [f"Options(Count(Row(t=1, {EMPTY})), shards=[1])",
+     f"Options(Row(t=1, {EMPTY}), shards=[1])"],
+    [f"Options(Count(Row(t=1, {EMPTY})), shards=[0, 1])",
+     f"Options(Row(t=2, {EMPTY}), shards=[0])",
+     f"Options(Count(Row(t=2, {EMPTY})), shards=[0])"],
+    [f"Count(Row(t=1, {EMPTY}))", f"Row(t=1, {EMPTY})", "Count(Row(c=1))",
+     f"Count(Row(t=2, {FULL}))"],
+    [f"Options(Row(t=1, {EMPTY}), shards=[1])", "Options(Row(c=2), "
+     "shards=[1])", f"Count(Intersect(Row(t=1, {EMPTY}), Row(c=1)))"],
+], ids=["count-row", "two-rows", "shards", "shard-cohorts", "mixed",
+        "mixed-shards"])
+def test_empty_time_covers_batch_like_jax(timed, mega_on, pqls):
+    """A batch of ranged reads over a period with no views, alone or
+    beside reads that do hold banks, with and without ``shards=``, the
+    megakernel on in both packages: the same answers, and the port's
+    mega_launches and mega_queries move as the JAX package's do (a
+    cohort that reads no bank counts as a launch there and here, and
+    launches nothing here). The JAX package has no fallback counter and
+    takes no fallback; the port's mega_fallbacks stays put."""
+    jex, tex = timed
+    reqs = [("i", q, None) for q in pqls]
+    before = [(ex.mega_launches, ex.mega_queries) for ex in (jex, tex)]
+    fallbacks, launches = tex.mega_fallbacks, dict(kernels.LAUNCHES)
+    want = answers(jex.execute_batch(reqs))
+    got = answers(tex.execute_batch(reqs))
+    assert got == want
+    assert all(a != ("error",) for a in got), got
+    assert [(ex.mega_launches - b[0], ex.mega_queries - b[1])
+            for ex, b in zip((jex, tex), before)] == [
+        (jex.mega_launches - before[0][0],
+         jex.mega_queries - before[0][1])] * 2
+    assert jex.mega_launches > before[0][0]
+    assert tex.mega_fallbacks == fallbacks
+    assert kernels.LAUNCHES == launches
+    assert got == [[answer(r) for r in tex.execute("i", q)] for q in pqls]

@@ -132,7 +132,10 @@ def test_c_entry_points_match_build_signatures():
         exported = src[src.index('extern "C"'):]
         names |= set(re.findall(r'^(?:extern "C" )?int (\w+)\(', exported,
                                 re.M))
-    assert names == set(build.SIGNATURES) == set(kernels.LAUNCHES)
+    # launch_floor launches an empty kernel, the yardstick chip_smoke.py
+    # times launch-bound kernels against; it counts no launches.
+    assert names == set(build.SIGNATURES) == \
+        set(kernels.LAUNCHES) | {"launch_floor"}
 
 
 def test_c_entry_arity_matches_build_signatures():

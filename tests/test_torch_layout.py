@@ -4,7 +4,9 @@ unless stated:
 
 - the expansion's plain version (``kernels.expand_positions_ref``)
   against the JAX ``expand_positions`` and the sparse upload against
-  ``_expand_sparse_chunk``;
+  ``_expand_sparse_chunk``; the Hopper kernel's tiled algorithm,
+  emulated on the CPU with its launch geometry and slot transports, at
+  tile-boundary shapes, with shuffled and repeated positions;
 - ``SparseBank`` arrays against the JAX ``sparse_bank`` on the index of
   ``tests/test_layout.py``;
 - that file's fourteen queries through ``execute`` and ``execute_batch``
@@ -171,6 +173,201 @@ def test_expand_wrapper_refuses_bad_operands(case):
         width = -1
     with pytest.raises((TypeError, ValueError)):
         kernels.expand_positions(pos, starts, slots, n, width)
+
+
+def _emulate_tiled(pos, starts, slots, n_shards, width):
+    """``csrc/sparse_expand.cu``'s algorithm on the CPU, block by block,
+    with ``kernels.expand_geometry`` and ``kernels.expand_transport``:
+    each unit (row, tile) zeroes its tile, ORs in the row's positions
+    that fall inside it, and stores it as the kernel does (scalar words
+    up to a 16-byte boundary, 4-word stores, a scalar tail) into an
+    output of garbage. Every output word must be stored exactly once and
+    the 4-word stores must be aligned; returns int32 [n, n_shards,
+    width]."""
+    slots = np.asarray(slots, np.int32)
+    n = len(slots)
+    geo = kernels.expand_geometry(n, n_shards, width)
+    kind, first = kernels.expand_transport(slots)
+    rw, tw = geo["row_words"], geo["tile_words"]
+    tiles, units = geo["tiles_per_row"], geo["units_per_block"]
+    assert tw % 4 == 0 and units * tw <= kernels.EXPAND_TILE_WORDS
+    assert kernels.EXPAND_THREADS // units >= 8
+    assert (tiles - 1) * tw < max(rw, 1) <= tiles * tw
+    if kind == "param":
+        assert 1 < n <= kernels.EXPAND_PARAM_SLOTS
+    pos = pos.view(np.uint32)
+    out = np.full(n * rw, 0xA5A5A5A5, np.uint32)
+    stores = np.zeros(n * rw, np.int64)
+    for block in range(geo["blocks"]):
+        for group in range(units):
+            unit = block * units + group
+            if unit >= n * tiles:
+                continue
+            k, t = divmod(unit, tiles)
+            t0 = t * tw
+            length = min(tw, rw - t0)
+            s = first + k if kind == "range" else int(slots[k])
+            tile = np.zeros(tw, np.uint32)
+            p = pos[starts[s]:starts[s + 1]]
+            shard, bit = p >> 16, p & 0xFFFF
+            keep = (shard < n_shards) & (bit < width * 32)
+            shard, bit = shard[keep].astype(np.int64), bit[keep]
+            w = shard * width + (bit >> 5) - t0
+            inside = (w >= 0) & (w < length)
+            np.bitwise_or.at(tile, w[inside],
+                             np.left_shift(np.uint32(1),
+                                           bit[inside] & np.uint32(31)))
+            at = k * rw + t0
+            head = min(length, (-at) % 4)
+            body_end = head + ((length - head) & ~3)
+            assert (at + head) % 4 == 0 or body_end == head
+            for lo, hi in ((0, head), (head, body_end), (body_end, length)):
+                out[at + lo:at + hi] = tile[lo:hi]
+                stores[at + lo:at + hi] += 1
+    assert (stores == 1).all()
+    return out.view(np.int32).reshape(n, n_shards, width)
+
+
+def _jax_expand(pos, starts, slots, n_shards, width):
+    if len(slots) == 0:
+        return np.zeros((0, n_shards, width), np.uint32)
+    return np.asarray(jax.vmap(lambda r: jmk.expand_positions(
+        jnp.asarray(pos), jnp.asarray(starts), r, n_shards, width))(
+            jnp.asarray(slots)))
+
+
+def _shuffled_rows(rng, pos, starts, cap):
+    """The same rows with each row's positions in a random order."""
+    out = pos.copy()
+    for r in range(cap):
+        out[starts[r]:starts[r + 1]] = rng.permutation(
+            pos[starts[r]:starts[r + 1]])
+    return out
+
+
+# (rows, n_shards, width, slots kind): tile-boundary shapes and each
+# slot transport. 8192 words is exactly one tile, 8193 one word over;
+# 99 and 5 words are not multiples of 4.
+TILED = [
+    (70, 1, 128, "param"), (40, 1, 128, "range"), (3, 4, 2048, "range"),
+    (3, 4, 2048, "param"), (3, 3, 2731, "param"), (3, 3, 2731, "range"),
+    (3, 96, 2048, "param"), (1, 96, 2048, "one"), (30, 3, 33, "param"),
+    (30, 1, 5, "range"), (20, 2, 128, "device"), (20, 1, 7, "device"),
+    (20, 1, 128, "none"), (600, 1, 64, "range"), (12, 1, 2048, "param"),
+]
+
+
+@pytest.mark.parametrize("rows,n_shards,width,kind", TILED,
+                         ids=[f"{r}x{s}x{w}-{k}" for r, s, w, k in TILED])
+def test_tiled_expansion_matches_ref_and_jax(rows, n_shards, width, kind):
+    """The kernel's tiled algorithm, emulated, against the plain version
+    and the JAX ``expand_positions``, in the builds' sorted order and
+    with each row's positions shuffled (the kernel does not rely on the
+    order)."""
+    rng = np.random.default_rng(rows * 7 + n_shards * 13 + width)
+    pos, starts, cap = _encoded_case(rng, rows, n_shards, width,
+                                     widen=32 if width == 128 else 0)
+    if kind == "range":
+        slots = np.arange(cap, dtype=np.int32)
+    elif kind == "one":
+        slots = np.asarray([cap - 1], np.int32)
+    elif kind == "none":
+        slots = np.zeros(0, np.int32)
+    elif kind == "param":
+        slots = np.concatenate([rng.permutation(cap), [cap - 1, 0]]) \
+            .astype(np.int32)
+    else:
+        slots = rng.integers(0, cap, kernels.EXPAND_PARAM_SLOTS + 40) \
+            .astype(np.int32)
+    want_kind = {"one": "range", "none": "range"}.get(kind, kind)
+    assert kernels.expand_transport(slots)[0] == want_kind
+    want = _jax_expand(pos, starts, slots, n_shards, width)
+    ref = kernels.expand_positions_ref(
+        torch.from_numpy(pos.view(np.int32)), torch.from_numpy(starts),
+        torch.from_numpy(slots), n_shards, width)
+    np.testing.assert_array_equal(ref.numpy().view(np.uint32), want)
+    for p in (pos, _shuffled_rows(rng, pos, starts, cap)):
+        got = _emulate_tiled(p, starts, slots, n_shards, width)
+        np.testing.assert_array_equal(got.view(np.uint32), want)
+
+
+@pytest.mark.parametrize("rows,n_shards,width,kind", [
+    (70, 1, 128, "param"), (100, 1, 5, "range"), (40, 3, 33, "device"),
+    (40, 2, 2048, "range")])
+def test_tiled_expansion_packs_rows(monkeypatch, rows, n_shards, width,
+                                    kind):
+    """With the grid target lowered, rows of one tile share blocks (up
+    to EXPAND_MAX_UNITS, 8 threads each): the emulated kernel still
+    equals the plain version and the JAX ``expand_positions``."""
+    monkeypatch.setattr(kernels, "EXPAND_TARGET_BLOCKS", 2)
+    rng = np.random.default_rng(rows + width)
+    pos, starts, cap = _encoded_case(rng, rows, n_shards, width)
+    slots = {"range": np.arange(cap),
+             "param": np.concatenate([rng.permutation(cap), [cap - 1, 0]]),
+             "device": rng.integers(0, cap, kernels.EXPAND_PARAM_SLOTS + 9)
+             }[kind].astype(np.int32)
+    geo = kernels.expand_geometry(len(slots), n_shards, width)
+    assert geo["units_per_block"] > 1
+    want = _jax_expand(pos, starts, slots, n_shards, width)
+    got = _emulate_tiled(_shuffled_rows(rng, pos, starts, cap), starts,
+                         slots, n_shards, width)
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+
+
+def test_tiled_expansion_sets_a_duplicated_bit_once():
+    """A position repeated within a row sets its bit once (the kernel
+    ORs); the sum-based versions would carry, so the expected rows are
+    the plain version's over the positions without the repeats."""
+    rng = np.random.default_rng(4)
+    pos, starts, cap = _encoded_case(rng, 9, 2, 128)
+    dup = np.concatenate([np.concatenate([
+        pos[starts[r]:starts[r + 1]],
+        pos[starts[r]:starts[r + 1]][::3]]) for r in range(cap)])
+    lens = [(starts[r + 1] - starts[r]) + len(range(0, starts[r + 1]
+                                                    - starts[r], 3))
+            for r in range(cap)]
+    dstarts = np.zeros(cap + 1, np.int32)
+    np.cumsum(lens, out=dstarts[1:])
+    slots = rng.permutation(cap).astype(np.int32)
+    want = kernels.expand_positions_ref(
+        torch.from_numpy(pos.view(np.int32)), torch.from_numpy(starts),
+        torch.from_numpy(slots), 2, 128)
+    got = _emulate_tiled(_shuffled_rows(rng, dup, dstarts, cap), dstarts,
+                         slots, 2, 128)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("n,n_shards,width", [
+    (65, 1, 128), (1, 1, 128), (3, 1, 128), (4, 1, 2048), (9, 1, 2048),
+    (2, 4, 2048), (2, 3, 2731), (1, 96, 2048), (5, 3, 33), (7, 1, 1),
+    (0, 1, 128), (100000, 1, 128), (65536, 1, 128), (8192, 1, 128),
+    (600, 1, 2048), (3000, 1, 2048)])
+def test_expand_geometry_fits_the_block(n, n_shards, width):
+    """Tiles are multiples of 4 words; a block's tiles fit its shared
+    memory; every unit has at least 8 threads; rows of one tile are
+    packed only while the grid keeps EXPAND_TARGET_BLOCKS blocks, wider
+    rows cut into EXPAND_TILE_WORDS tiles one a block; the grid covers
+    every unit."""
+    g = kernels.expand_geometry(n, n_shards, width)
+    rw = n_shards * width
+    assert g["row_words"] == rw and g["tile_words"] % 4 == 0
+    assert g["units_per_block"] * g["tile_words"] <= kernels.EXPAND_TILE_WORDS
+    assert kernels.EXPAND_THREADS // g["units_per_block"] >= 8
+    assert g["tiles_per_row"] * g["tile_words"] >= rw
+    assert (g["tiles_per_row"] - 1) * g["tile_words"] < max(rw, 1)
+    assert g["blocks"] * g["units_per_block"] >= n * g["tiles_per_row"]
+    assert (g["blocks"] - 1) * g["units_per_block"] < max(
+        n * g["tiles_per_row"], 1)
+    if rw <= kernels.EXPAND_TILE_WORDS:
+        assert g["tiles_per_row"] == 1 and g["tile_words"] < rw + 4
+        units = g["units_per_block"]
+        assert units == 1 or g["blocks"] >= kernels.EXPAND_TARGET_BLOCKS
+        assert units == min(kernels.EXPAND_MAX_UNITS, 1 << (
+            (kernels.EXPAND_TILE_WORDS // g["tile_words"]).bit_length()
+            - 1)) or -(-n // (2 * units)) < kernels.EXPAND_TARGET_BLOCKS
+    else:
+        assert g["units_per_block"] == 1
+        assert g["tile_words"] == kernels.EXPAND_TILE_WORDS
 
 
 # ------------------------------------------------ the test_layout index

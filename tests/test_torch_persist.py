@@ -18,7 +18,9 @@
   the JAX package reopens and agrees again. The metadata, key and
   attribute files of the two packages hold the same content;
 - the translate log's torn tail: the port cuts it, the JAX store
-  appends after it (a reference fault recorded in ROADMAP.md).
+  appends after it (a reference fault recorded in ROADMAP.md);
+- ``tailDroppedBytes`` of ``API.info()`` and ``GET /info`` after a torn
+  op log and a reopen, equal to the JAX server's.
 
 The JAX side runs as its own tests run it on the CPU; its Python codec
 through ``pilosa_tpu.native.force_python()``. Exact equality throughout.
@@ -28,6 +30,7 @@ import json
 import os
 import shutil
 import struct
+import urllib.request
 from datetime import datetime
 
 import numpy as np
@@ -41,6 +44,7 @@ from pilosa_tpu.core.translate import TranslateStore as JaxTranslateStore
 from pilosa_tpu.executor import executor as jax_executor_mod
 from pilosa_tpu.ops.bitset import SHARD_WIDTH
 from pilosa_tpu.server import API as JaxAPI
+from pilosa_tpu.server import serve as jax_serve
 from pilosa_tpu.storage import roaring as jr
 from pilosa_tpu.utils.stats import MemStatsClient
 from pilosa_tpu_torch import Holder
@@ -48,7 +52,7 @@ from pilosa_tpu_torch.core import fragment as tfrag
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.executor import executor as executor_mod
 from pilosa_tpu_torch.executor import megakernel as megamod
-from pilosa_tpu_torch.server import API
+from pilosa_tpu_torch.server import API, serve
 from pilosa_tpu_torch.storage import roaring as tr
 
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -682,3 +686,56 @@ def test_attr_log_torn_line_and_compaction(tmp_path, monkeypatch):
     for suffix in ("", ".log"):
         assert (tmp_path / f"port{suffix}").read_bytes() == \
             (tmp_path / f"jax{suffix}").read_bytes()
+
+
+def _get_json(base, path):
+    with urllib.request.urlopen(base + path, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+@pytest.mark.parametrize("cut", [0, 7, 40])
+def test_info_reports_torn_tail_bytes_like_jax(tmp_path, cut):
+    """A data directory whose fragment op log lost its last ``cut``
+    bytes: after a reopen, ``API.info()`` and ``GET /info`` carry
+    ``tailDroppedBytes``, equal to the JAX package's over a copy of the
+    same directory (0 when nothing was cut)."""
+    src = tmp_path / "src"
+    jh = JaxHolder(str(src))
+    jh.open()
+    api = JaxAPI(jh, stats=MemStatsClient())
+    api.create_index("i")
+    api.create_field("i", "s", {})
+    for c in range(12):
+        api.executor.execute("i", f"Set({c * 7}, s={c % 3})")
+    jh.close()
+    frags = sorted(os.path.join(root, f) for root, _, files in os.walk(src)
+                   for f in files if f.isdigit())
+    assert frags
+    if cut:
+        data = open(frags[0], "rb").read()
+        with open(frags[0], "wb") as f:
+            f.write(data[:-cut])
+    shutil.copytree(src, tmp_path / "jax")
+    shutil.copytree(src, tmp_path / "port")
+    JAX_RANK_CACHE.clear()
+    jh = JaxHolder(str(tmp_path / "jax"))
+    jh.open()
+    th = Holder(str(tmp_path / "port"), device="cpu")
+    th.open()
+    japi, tapi = JaxAPI(jh, stats=MemStatsClient()), API(th)
+    want = japi.info()["tailDroppedBytes"]
+    assert (want > 0) == (cut > 0)
+    assert tapi.info()["tailDroppedBytes"] == want == th.tail_dropped_bytes()
+    servers = [jax_serve(japi, "localhost", 0, background=True),
+               serve(tapi, "localhost", 0, background=True)]
+    try:
+        got = [_get_json(f"http://localhost:{s.server_address[1]}", "/info")
+               for s in servers]
+    finally:
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        jh.close()
+        th.close()
+    assert got[1]["tailDroppedBytes"] == got[0]["tailDroppedBytes"] == want
+    assert got[1]["device"] == "cpu"

@@ -643,6 +643,47 @@ def test_keys_and_attributes_match_jax(servers):
         "key" in c for a in with_attrs for c in a["columnAttrs"])
 
 
+@pytest.mark.parametrize("body", [
+    {"rowKeys": ["a", 7], "columnKeys": ["x", "y"]},
+    {"rowKeys": ["a", "b"], "columnKeys": ["x", None]},
+    {"rowKeys": [["a"]], "columnKeys": ["x"]},
+    {"rowKeys": 5, "columnKeys": ["x"]},
+    {"columnKeys": [1.5], "values": [3]},
+], ids=["int-row", "null-column", "list-row", "not-a-list", "float-values"])
+def test_non_string_keys_are_refused_before_allocation(servers, body):
+    """A keyed JSON import holding a key that is not a string (or keys
+    that are not a list) answers 400 in the port before either
+    translator allocates an id; the JAX server answers 500 (its
+    translate log's AttributeError), the recorded divergence. The port
+    then takes a good import with the next ids."""
+    jbase, pbase, papi = servers
+    name = "dkn"
+    if papi.holder.index(name) is None:
+        run_script(servers, "keyed-schema", [
+            ("POST", f"/index/{name}", {"options": {"keys": True}}, None),
+            ("POST", f"/index/{name}/field/star",
+             {"options": {"keys": True}}, None),
+            ("POST", f"/index/{name}/field/n",
+             {"options": {"type": "int", "min": 0, "max": 100}}, None),
+            ("POST", f"/index/{name}/field/star/import",
+             {"rowKeys": ["u0"], "columnKeys": ["r0"]}, None)])
+    idx = papi.holder.index(name)
+    cols, rows = idx.column_translator, idx.field("star").row_translator
+    sizes = (cols.size(), rows.size())
+    path = f"/index/{name}/field/{'n' if 'values' in body else 'star'}" \
+        "/import"
+    js, _, _ = call(jbase, "POST", path, body)
+    ps, _, raw = call(pbase, "POST", path, body)
+    assert (js, ps) == (500, 400), raw
+    assert b"must be" in raw, raw
+    assert (cols.size(), rows.size()) == sizes
+    fresh = f"fresh{sizes[0]}"
+    st, _, raw = call(pbase, "POST", f"/index/{name}/field/star/import",
+                      {"rowKeys": [fresh], "columnKeys": [fresh]})
+    assert st == 200, raw
+    assert (cols.size(), rows.size()) == (sizes[0] + 1, sizes[1] + 1)
+
+
 def pb_import_times(index, field, rows, cols, nanos):
     """ImportRequest with Timestamps=6 (int64 nanoseconds, packed)."""
     return pb_import(index, field, rows, cols) \
