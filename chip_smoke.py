@@ -14,7 +14,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    its plain PyTorch version at the taxi path's shapes (R in {1, 8, 16},
    S = 96, W = 32768) and at ragged shapes (R = 5, S = 3, W in {33, 128,
    2048, 6144}), on random (p = 0.5) and all-ones banks; time each at
-   its main-path shape beside its bound and its plain version. Hold
+   its main-path shape, between events and back to back in a CUDA graph,
+   beside its bound and its plain version. Hold
    ``mega_interpret`` bit-exact (count lanes and row lanes) against its
    plain version on seeded random banks, slot lists, plan widths and
    plans over all eight opcodes, with read-after-write and THRESH
@@ -52,6 +53,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernel's time (its column tile, shared memory and grid, and its
    registers from ``-Xptxas -v``), its byte and shared-memory bounds and
    its plain version's time.
+   measure: on the same holder, through the port's server (an ``API``
+   with an in-memory stats client and a span recorder, a coalescer, the
+   HTTP routes): with the profiler's sampling off, the five queries and
+   the burst take no ``_fence_device`` call, and one burst's whole
+   launch (cost attribution and timeline events included) runs under
+   ``set_sync_debug_mode("error")``; the roofline resolves this card's
+   name, not estimated; ``?profile=true`` on the queries and on
+   ``/batch/query`` gives every eval a device time, and the burst's
+   ``launchBytes`` equals ``plan_cost`` of its plan; with sampling at 1,
+   20 bursts, whose launch's device time must be at least 0.8 x the
+   event-timed kernel on the same plan and at most the burst's wall;
+   ``/metrics`` parses with the executor, roofline, idle-ratio and
+   memory families and ``pilosa_roofline_gbps`` is the resolved figure;
+   ``/debug/timeline`` is trace-event JSON with device slices; then the
+   burst's p50 with the roofline and timeline recorders on and off, in
+   turns (recorded, not asserted). No plain version may run; the sweeps
+   and the interpreter must launch.
    groupby: on the same holder, through a new ``Executor``: four Rows
    queries (``previous``, ``limit``, ``column``) and five GroupBy
    queries (``GroupBy(Rows(passenger_count), Rows(cab_type))``, a
@@ -498,38 +516,46 @@ def time_kernels(torch, kernels, device, n_shards):
     stream = torch.cuda.current_stream(device).cuda_stream
     out = {}
 
-    def record(name, R, extra_in, n_out, kernel_fn, plain_fn):
+    def record(name, R, extra_in, n_out, kernel_at, plain_fn):
         nbytes = (R * n + extra_in) * 4 + n_out * R * 4
+
+        def kernel_fn():
+            return kernel_at(stream)
+
         if kernel_fn() != 0:
             raise RuntimeError(f"{name}: kernel launch failed")
         ms = time_cuda(torch, kernel_fn)
+        # Back to back: 100 launches in one CUDA graph, no host gap.
+        graph_ms = time_graph(torch, kernel_at)
         plain_ms = time_cuda(torch, plain_fn, iters=5, warmup=1)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         shape=[R, S, W])
-        log(f"timing: {name} [{R},{S},{W}] kernel {ms:.4f} ms, bound "
+        out[name] = dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, shape=[R, S, W])
+        log(f"timing: {name} [{R},{S},{W}] kernel {ms:.4f} ms between "
+            f"events, {graph_ms:.4f} ms back to back, bound "
             f"{bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} ms")
 
     bank = random_bank(torch, (8, S, W), gen, device)
     o1 = torch.zeros(8, dtype=torch.int32, device=device)
     record("bank_row_counts", 8, 0, 1,
-           lambda: lib.bank_row_counts(bank.data_ptr(), o1.data_ptr(), 8, n,
-                                       stream),
+           lambda st: lib.bank_row_counts(bank.data_ptr(), o1.data_ptr(), 8,
+                                          n, st),
            lambda: kernels.bank_row_counts_ref(bank))
     bank4 = bank[:4]
     filt = random_bank(torch, (S, W), gen, device)
     oi = torch.zeros(4, dtype=torch.int32, device=device)
     orw = torch.zeros_like(oi)
     record("bank_row_counts_masked", 4, n, 2,
-           lambda: lib.bank_row_counts_masked(
+           lambda st: lib.bank_row_counts_masked(
                bank4.data_ptr(), filt.data_ptr(), oi.data_ptr(),
-               orw.data_ptr(), 4, n, stream),
+               orw.data_ptr(), 4, n, st),
            lambda: kernels.bank_row_counts_masked_ref(bank4, filt))
     planes = random_bank(torch, (10, S, W), gen, device)
     op = torch.zeros(10, dtype=torch.int32, device=device)
     record("bsi_plane_counts", 10, n, 1,
-           lambda: lib.bsi_plane_counts(planes.data_ptr(), filt.data_ptr(),
-                                        op.data_ptr(), 10, n, stream),
+           lambda st: lib.bsi_plane_counts(planes.data_ptr(),
+                                           filt.data_ptr(), op.data_ptr(),
+                                           10, n, st),
            lambda: kernels.bsi_plane_counts_ref(planes, filt))
     del bank, bank4, filt, planes
     torch.cuda.empty_cache()
@@ -754,6 +780,9 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     report["burst"], burst_launches = run_burst(ex, want_burst, device,
                                                 iters, profile)
     memory_line("burst", device)
+    report["measure"], report["measure_launches"] = run_measure(
+        holder, want_taxi, want_burst, report["burst"], device, iters)
+    memory_line("measure", device)
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
@@ -2187,10 +2216,13 @@ def time_pbank(torch, kernels, device, tin):
     out = torch.empty(R, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
 
-    def kernel():
+    def kernel_at(st):
         return lib.pbank_membership_counts(pos.data_ptr(), None,
                                            filt.data_ptr(), out.data_ptr(),
-                                           R, L, filt.numel(), stream)
+                                           R, L, filt.numel(), st)
+
+    def kernel():
+        return kernel_at(stream)
 
     if kernel() != 0:
         raise RuntimeError("pbank_membership_counts: kernel launch failed")
@@ -2201,6 +2233,7 @@ def time_pbank(torch, kernels, device, tin):
         raise AssertionError("pbank_membership_counts differs on the "
                              "fingerprint segment")
     ms = time_cuda(torch, kernel)
+    graph_ms = time_graph(torch, kernel_at)
     plain_ms = time_cuda(torch, lambda: kernels.pbank_membership_counts_ref(
         pos, filt), iters=5, warmup=1)
     library_ms = time_cuda(torch, lambda: torch.isin(pos, qpos).sum(
@@ -2208,11 +2241,13 @@ def time_pbank(torch, kernels, device, tin):
     nbytes = R * L * 2 + filt.numel() * 4 + R * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"timing: pbank_membership_counts [{R},{L}] W={filt.numel()} kernel "
-        f"{ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), plain "
+        f"{ms:.4f} ms between events, {graph_ms:.4f} ms back to back, "
+        f"bound {bound_ms:.4f} ms (bytes), plain "
         f"{plain_ms:.4f} ms, torch.isin + sum (two calls) "
         f"{library_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "library_ms": library_ms, "shape": [R, L], "bound_bytes": nbytes}
+    return {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "library_ms": library_ms, "shape": [R, L],
+            "bound_bytes": nbytes}
 
 
 
@@ -3304,6 +3339,345 @@ def serve_burst(api, base, want_burst, iters):
         "pipelined": coal.counters.get("pipelined", 0)
         - c0.get("pipelined", 0),
         "mega_launches": check_mega_taken(ex, before, "concurrent rounds")}}
+
+
+
+# ------------------------------------------------------------- measure
+
+MEASURE_BURSTS = 20  # sampled bursts of phase (d)
+MEASURE_COST_ITERS = 21  # bursts a turn of phase (g)
+
+
+def eval_nodes(tree):
+    """Every ``eval:*`` node of a profile tree (its JSON form)."""
+    out = []
+    for op in tree.get("ops", []):
+        stack = [op]
+        while stack:
+            node = stack.pop()
+            if node.get("name", "").startswith("eval:"):
+                out.append(node)
+            stack.extend(node.get("children", []))
+    return out
+
+
+def parse_prometheus(text):
+    """{family: TYPE} of Prometheus text, each sample checked to name a
+    family declared before it and to carry a number."""
+    families = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, typ = line.split(" ", 3)
+            families[name] = typ
+        elif line and not line.startswith("#"):
+            name = line.split("{", 1)[0].split(" ", 1)[0]
+            base = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and name[:-len(suffix)] in families:
+                    base = name[:-len(suffix)]
+            if base not in families:
+                raise AssertionError(f"measure: /metrics sample {line!r} "
+                                     "has no TYPE line before it")
+            float(line.rsplit(" ", 1)[1])
+    return families
+
+
+def run_measure(holder, want_taxi, want_burst, burst, device,
+                iters=ITERS):
+    """The measurement plane on the loaded taxi holder, through the
+    port's server (API with a memory stats client and a span recorder, a
+    coalescer, the HTTP routes):
+
+    (a) sampling off: the five taxi queries and the burst over HTTP take
+        no fence (``_fence_device`` calls counted), and one burst's whole
+        launch, with cost attribution and timeline events, runs under
+        ``set_sync_debug_mode("error")``;
+    (b) the roofline resolves the card's own kind, not estimated;
+    (c) ``?profile=true`` on the five queries and on ``/batch/query``:
+        every eval has ``deviceS > 0``, the burst's ``launchBytes`` is
+        ``plan_cost`` of its plan, the answers exact;
+    (d) sampling at 1: MEASURE_BURSTS bursts, ``/debug/roofline`` read,
+        the launch's sampled ``deviceS`` at least 0.8 x the event-timed
+        kernel on the same plan (``burst["kernel_ms"]``) and at most the
+        burst's wall time;
+    (e) ``/metrics`` parses with the executor, roofline, idle-ratio and
+        memory families, ``pilosa_roofline_gbps`` the resolved figure;
+    (f) ``/debug/timeline`` is trace-event JSON with device slices;
+    (g) the burst's p50 with the plane on and sampling off, beside the
+        roofline and timeline recorders off (recorded, not asserted).
+
+    Launch counts are set to 0 just before and read just after; no plain
+    version may run on the card. Returns (report, launches)."""
+    import torch
+    from pilosa_tpu_torch.executor import executor as ex_mod
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.ops import megakernel as mk
+    from pilosa_tpu_torch.server import API, serve
+    from pilosa_tpu_torch.server.coalescer import QueryCoalescer
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    from pilosa_tpu_torch.utils.stats import MemStatsClient
+    from pilosa_tpu_torch.utils.timeline import LANE_DEVICE, TIMELINE
+    from pilosa_tpu_torch.utils.tracing import RecordingTracer
+    cuda = device != "cpu"
+    t_phase = time.perf_counter()
+    api = API(holder, stats=MemStatsClient(), tracer=RecordingTracer())
+    api.coalescer = QueryCoalescer(api.executor, stats=api.stats,
+                                   tracer=api.tracer)
+    api.coalescer.start()
+    srv = serve(api, "127.0.0.1", 0, background=True)
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    ex = api.executor
+    ROOFLINE.reset()
+    ROOFLINE.configure(enabled=True, gbps=0)
+    TIMELINE.reset()
+    TIMELINE.configure(enabled=True, sample_every=1)
+    fences = [0]
+    fenced_s = []
+    real_fence = ex_mod._fence_device
+
+    def counted_fence(start):
+        fences[0] += 1
+        fenced_s.append(real_fence(start))
+        return fenced_s[-1]
+
+    plans = []
+    build_fn = megamod._build
+
+    def capture(cohort):
+        plan, w_mega, lanes = build_fn(cohort)
+        plans.append((plan, cohort[0].entries[0].n_shards, w_mega))
+        return plan, w_mega, lanes
+
+    prev_mega = megamod.MEGAKERNEL_ENABLED
+    if not cuda:
+        megamod.MEGAKERNEL_ENABLED = True  # rehearsal: off by default
+    items = [{"index": "taxi", "query": q} for _, q in BURST]
+    want_items = [{"results": [burst_json(n, want_burst[n])]}
+                  for n, _ in BURST]
+    reqs = [("taxi", q, None) for _, q in BURST]
+    report = {}
+
+    def post_taxi(suffix=""):
+        out = {}
+        for name, pql in TAXI_QUERIES:
+            got = http_json(base, "POST", f"/index/taxi/query{suffix}",
+                            pql)
+            if got["results"] != [taxi_json(name, want_taxi[name])]:
+                raise AssertionError(f"measure: {name} != numpy")
+            out[name] = got
+        return out
+
+    def post_burst(suffix=""):
+        t0 = time.perf_counter()
+        got = http_json(base, "POST", f"/batch/query{suffix}",
+                        {"queries": items})["responses"]
+        wall = time.perf_counter() - t0
+        if [{"results": g["results"]} for g in got] != want_items:
+            raise AssertionError("measure: /batch/query burst != numpy")
+        return got, wall
+
+    kernels.reset_launches()
+    try:
+        ex_mod._fence_device = counted_fence
+        megamod._build = capture
+        with RefCalls(kernels) as refs:
+            # (a) sampling off: no fence, no sync.
+            api.profiler.configure(sample_every=0)
+            post_taxi()
+            post_burst()
+            if fences[0]:
+                raise AssertionError(f"measure: {fences[0]} fences with "
+                                     "sampling off")
+            profs = [api.profiler.begin("taxi", q, None) for _, q in BURST]
+            for p in profs:
+                p.timeline = TIMELINE.begin(None, "taxi")
+            before = mega_state(ex)
+            if cuda:
+                torch.cuda.synchronize()
+                with NoStreamSync(torch):
+                    flight = ex.execute_batch_begin(reqs, profiles=profs)
+            else:
+                flight = ex.execute_batch_begin(reqs, profiles=profs)
+            burst_answers(ex.execute_batch_finish(flight), want_burst)
+            check_mega_taken(ex, before, "the sync-checked burst")
+            if fences[0] or any(p.sample_device for p in profs):
+                raise AssertionError("measure: the unsampled burst fenced")
+            if not all(eval_nodes(p.to_json()) and all(
+                    "megaBatch" in n and "deviceS" not in n
+                    for n in eval_nodes(p.to_json())) for p in profs):
+                raise AssertionError("measure: the unsampled burst's evals "
+                                     "lack their launch attribution")
+            report["unsampled"] = {"fences": fences[0],
+                                   "sync_checked_launch": bool(cuda)}
+            # (b) the roofline of this card.
+            gbps, kind, estimated = ROOFLINE.roofline_gbps()
+            report["roofline"] = {"gbps": gbps, "kind": kind,
+                                  "estimated": estimated}
+            if cuda and (kind != torch.cuda.get_device_name(0)
+                         or estimated):
+                raise AssertionError(f"measure: roofline resolved "
+                                     f"{report['roofline']}")
+            log(f"measure: roofline {gbps} GB/s for {kind!r}"
+                f"{' (estimate)' if estimated else ''}")
+            # (c) forced profiles.
+            forced = post_taxi("?profile=true")
+            for name, got in forced.items():
+                # TopN without a filter evaluates no tree: no eval node.
+                evs = eval_nodes(got["profile"])
+                if (not evs and name != "topn") or not all(
+                        n.get("deviceS", 0) > 0 for n in evs):
+                    raise AssertionError(f"measure: {name} profile evals "
+                                         f"without deviceS: {evs}")
+            n_plans = len(plans)
+            got, _ = post_burst("?profile=true")
+            plan, n_shards, w_mega = plans[n_plans]
+            cost = mk.plan_cost(plan, n_shards, w_mega)
+            for g in got:
+                evs = eval_nodes(g["profile"])
+                if len(evs) != 1 or evs[0].get("deviceS", 0) <= 0 or \
+                        evs[0].get("launchBytes") != cost["totalBytes"]:
+                    raise AssertionError(f"measure: burst profile {evs} "
+                                         f"against plan_cost "
+                                         f"{cost['totalBytes']}")
+            report["forced"] = {
+                "taxi_device_s": {k: [n["deviceS"] for n in eval_nodes(
+                    v["profile"])] for k, v in forced.items()},
+                "burst_device_s": eval_nodes(got[0]["profile"])[0][
+                    "deviceS"],
+                "launch_bytes": cost["totalBytes"], "cost": cost}
+            # (d) sampling at 1.
+            ROOFLINE.reset()
+            api.profiler.configure(sample_every=1)
+            walls = []
+            first = len(fenced_s)
+            for _ in range(MEASURE_BURSTS):
+                n_plans = len(plans)
+                got, wall = post_burst()
+                walls.append(wall)
+                if len(plans) != n_plans + 1:
+                    raise AssertionError("measure: a sampled burst took "
+                                         f"{len(plans) - n_plans} launches")
+            stats_dev = api.stats.snapshot()["timings"].get(
+                "executor.device{sampled:true}", {})
+            roof = http_json(base, "GET", "/debug/roofline")
+            fenced = roof["fencedLaunches"]
+            if fenced < MEASURE_BURSTS:
+                raise AssertionError(f"measure: {fenced} fenced launches "
+                                     f"of {MEASURE_BURSTS} sampled bursts")
+            dev_s = p50(fenced_s[first:])
+            kernel_s = burst.get("kernel_ms", 0.0) / 1e3
+            wall_p50 = p50(walls)
+            if cuda and not (0.8 * kernel_s <= dev_s <= wall_p50):
+                raise AssertionError(
+                    f"measure: sampled deviceS {dev_s:.6f} s outside "
+                    f"[0.8 x {kernel_s:.6f}, {wall_p50:.6f}]")
+            report["sampled"] = {
+                "bursts": MEASURE_BURSTS, "launches": roof["launches"],
+                "fenced_launches": fenced,
+                "device_s_p50": dev_s,
+                "device_s_min": min(fenced_s[first:]),
+                "device_s_mean": roof["deviceSecondsSampled"] / fenced,
+                "kernel_event_s": kernel_s,
+                "device_to_kernel": dev_s / kernel_s if kernel_s else None,
+                "burst_wall_p50_s": wall_p50,
+                "achieved_gbps": roof["achievedGbps"],
+                "roofline_fraction": roof["rooflineFraction"],
+                "unattributed_fences": roof["unattributedFences"],
+                "cohorts": [{k: c[k] for k in (
+                    "cohort", "launches", "fenced", "lastCostBytes",
+                    "achievedGbpsEwma", "deviceSecondsEwma")}
+                    for c in roof["cohorts"]],
+                "executor_device_timing": stats_dev,
+                "predicted_bytes": (roof["cohorts"][0]["predictedBytesEwma"]
+                                    if roof["cohorts"] else None)}
+            log(f"measure: {fenced} fenced launches, deviceS {dev_s:.6f} s "
+                f"a launch (the event-timed kernel {kernel_s:.6f} s, the "
+                f"burst's wall p50 {wall_p50:.6f} s), achieved "
+                f"{roof['achievedGbps']:.1f} GB/s, rooflineFraction "
+                f"{roof['rooflineFraction']:.3f}")
+            # (e) /metrics.
+            status, raw = http(base, "GET", "/metrics")
+            if status != 200:
+                raise AssertionError(f"measure: /metrics {status}")
+            text = raw.decode()
+            fams = parse_prometheus(text)
+            for prefix in ("pilosa_executor_", "pilosa_roofline_",
+                           "pilosa_device_idle_ratio", "pilosa_memory_"):
+                if not any(f.startswith(prefix) for f in fams):
+                    raise AssertionError(f"measure: /metrics lacks "
+                                         f"{prefix}*")
+            gline = [ln for ln in text.splitlines()
+                     if ln.startswith("pilosa_roofline_gbps ")]
+            if not gline or float(gline[0].split()[1]) != gbps:
+                raise AssertionError(f"measure: pilosa_roofline_gbps "
+                                     f"{gline} != {gbps}")
+            idle = [float(ln.split()[1]) for ln in text.splitlines()
+                    if ln.startswith("pilosa_device_idle_ratio ")]
+            report["metrics"] = {"families": len(fams),
+                                 "device_idle_ratio": idle[0],
+                                 "roofline_gbps": gbps}
+            # (f) /debug/timeline.
+            doc = http_json(base, "GET", "/debug/timeline")
+            evs = doc["traceEvents"]
+            for ev in evs:
+                if not all(k in ev for k in ("ph", "ts", "dur", "pid",
+                                             "tid", "name")):
+                    raise AssertionError(f"measure: trace event {ev}")
+            device_slices = [e for e in evs if e["ph"] == "X"
+                             and e["name"] == "device"
+                             and e["tid"] == LANE_DEVICE]
+            if not device_slices:
+                raise AssertionError("measure: no device slices in "
+                                     "/debug/timeline")
+            report["timeline"] = {
+                "events": len(evs), "device_slices": len(device_slices),
+                "idle_ratio": doc["summary"]["deviceIdleRatio"],
+                "dispatch_gap": doc["summary"]["dispatchGap"],
+                "stage_median_s": doc["summary"]["stageMedianS"]}
+            # (g) the plane's host cost with sampling off.
+            api.profiler.configure(sample_every=0)
+            cost_p50 = {"plane_on": [], "plane_off": []}
+            for turn in ("plane_on", "plane_off", "plane_off",
+                         "plane_on", "plane_on", "plane_off"):
+                on = turn == "plane_on"
+                ROOFLINE.configure(enabled=on)
+                TIMELINE.configure(enabled=on)
+                times = []
+                for _ in range(MEASURE_COST_ITERS):
+                    t0 = time.perf_counter()
+                    out = api.query_batch(items)
+                    times.append(time.perf_counter() - t0)
+                    if [{"results": o["results"]} for o in out] != \
+                            want_items:
+                        raise AssertionError("measure: cost burst != numpy")
+                cost_p50[turn].append(p50(times))
+            ROOFLINE.configure(enabled=True)
+            TIMELINE.configure(enabled=True)
+            report["cost"] = {k: v for k, v in cost_p50.items()}
+            log(f"measure: burst p50 with the plane on "
+                f"{cost_p50['plane_on']} s, off {cost_p50['plane_off']} s "
+                "(sampling off)")
+        if cuda and refs.calls:
+            raise AssertionError(f"measure: plain versions ran on the card: "
+                                 f"{refs.calls}")
+    finally:
+        ex_mod._fence_device = real_fence
+        megamod._build = build_fn
+        megamod.MEGAKERNEL_ENABLED = prev_mega
+        srv.shutdown()
+        srv.server_close()
+        api.coalescer.stop()
+    launches = dict(kernels.LAUNCHES)
+    if cuda:
+        for name in ("bank_row_counts", "bank_row_counts_masked",
+                     "bsi_plane_counts", "mega_interpret"):
+            if launches[name] <= 0:
+                raise AssertionError(f"measure: {name} never launched")
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"measure: done in {report['seconds']:.1f} s; launches {launches}")
+    return report, launches
 
 
 def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
@@ -5201,6 +5575,24 @@ def main(argv=None) -> int:
                                "seconds", "launches")},
         "expand_timing": timing["expand_positions"]}}, default=str),
         flush=True)
+    measure = report["measure"]
+    print(json.dumps({"measure": {
+        "card": card,
+        **{k: measure[k] for k in ("unsampled", "roofline", "sampled",
+                                   "metrics", "timeline", "cost",
+                                   "seconds")},
+        "forced": {k: v for k, v in measure["forced"].items()
+                   if k != "cost"},
+        "launches": report["measure_launches"],
+        "sweeps_back_to_back": {
+            name: {"events_ms": timing[name]["ms"],
+                   "graph_ms": timing[name]["graph_ms"],
+                   "bound_ms": timing[name]["bound_ms"],
+                   "graph_share_of_bound":
+                       timing[name]["bound_ms"] / timing[name]["graph_ms"]}
+            for name in ("bank_row_counts", "bank_row_counts_masked",
+                         "bsi_plane_counts", "pbank_membership_counts")}}},
+        default=str), flush=True)
     print(json.dumps({"memory": MEMORY}), flush=True)
     print(card, flush=True)
 

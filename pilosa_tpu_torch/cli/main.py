@@ -19,6 +19,18 @@ the hybrid layout's re-layout pass with the JAX package's config
 defaults (a 10 s sample, a ring of 360, every 30 s, the watermark at 0.9
 of the device budget). ``export`` writes one field's standard view as
 ``row,col`` CSV, every shard or one. No TOML config.
+
+The server keeps its metrics in memory (``/metrics``, ``/debug/vars``)
+and records spans in process. Until the config module is ported, the
+measurement plane reads the JAX package's environment names
+(``measurement_settings``): ``PILOSA_TPU_PROFILE_SAMPLE_EVERY`` (fence 1
+in N queries for device time; 0, the default, only ``?profile=true``),
+``PILOSA_TPU_PROFILE_SLOW_RING``, ``PILOSA_TPU_LONG_QUERY_TIME``
+(seconds), ``PILOSA_TPU_TIMELINE_{ENABLED,RING,SAMPLE_EVERY,
+GAP_WINDOW_S}`` and ``PILOSA_TPU_ROOFLINE_{ENABLED,GBPS,EWMA_ALPHA,
+MAX_COHORTS}`` (``GBPS`` 0 resolves the card's own figure). At shutdown
+the slow-query ring, the last timelines, the roofline's state and the
+spans are written to the log (``drain_telemetry``).
 """
 
 from __future__ import annotations
@@ -46,6 +58,83 @@ LAYOUT_INTERVAL_S = 30.0
 LAYOUT_DEMOTE_DENSITY = 0.25
 LAYOUT_MIN_BYTES = 1 << 20
 LAYOUT_PROMOTE_RATE = 0.5
+
+
+# The JAX package's config defaults of the measurement plane
+# (utils/config.py), by the field name its PILOSA_TPU_* variable spells.
+MEASUREMENT_DEFAULTS = {
+    "profile_sample_every": 0,
+    "profile_slow_ring": 128,
+    "long_query_time": 0.0,
+    "timeline_enabled": True,
+    "timeline_ring": 256,
+    "timeline_sample_every": 1,
+    "timeline_gap_window_s": 60.0,
+    "roofline_enabled": True,
+    "roofline_gbps": 0.0,
+    "roofline_ewma_alpha": 0.25,
+    "roofline_max_cohorts": 256,
+}
+
+
+def measurement_settings(env=None) -> dict:
+    """The measurement plane's settings: each default overridden by its
+    ``PILOSA_TPU_<NAME>`` variable, parsed as the JAX package's config
+    parses it (a bool is on for 1, true or yes)."""
+    env = os.environ if env is None else env
+    out = dict(MEASUREMENT_DEFAULTS)
+    for k, cur in MEASUREMENT_DEFAULTS.items():
+        v = env.get("PILOSA_TPU_" + k.upper())
+        if v is None:
+            continue
+        if isinstance(cur, bool):
+            out[k] = v.lower() in ("1", "true", "yes")
+        elif isinstance(cur, int):
+            out[k] = int(v)
+        else:
+            out[k] = float(v)
+    return out
+
+
+def configure_measurement(api, settings: dict) -> None:
+    """Apply ``measurement_settings`` to the API's profiler and the
+    process-wide timeline and roofline recorders."""
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    from pilosa_tpu_torch.utils.timeline import TIMELINE
+
+    api.long_query_time = settings["long_query_time"]
+    api.profiler.configure(sample_every=settings["profile_sample_every"],
+                           ring_size=settings["profile_slow_ring"])
+    TIMELINE.configure(enabled=settings["timeline_enabled"],
+                       ring=settings["timeline_ring"],
+                       sample_every=settings["timeline_sample_every"],
+                       gap_window_s=settings["timeline_gap_window_s"])
+    ROOFLINE.configure(enabled=settings["roofline_enabled"],
+                       gbps=settings["roofline_gbps"],
+                       ewma_alpha=settings["roofline_ewma_alpha"],
+                       max_cohorts=settings["roofline_max_cohorts"])
+
+
+def drain_telemetry(api) -> None:
+    """The telemetry leg of the shutdown: dump the profiler's slow-query
+    ring, the last request timelines, the roofline's calibration state
+    and the finished spans to the log, then stop an exporting tracer
+    (its final flush). Runs once per API."""
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    from pilosa_tpu_torch.utils.timeline import TIMELINE
+
+    if getattr(api, "_telemetry_drained", False):
+        return
+    api._telemetry_drained = True
+    api.profiler.dump(api.logger)
+    if TIMELINE.enabled:
+        TIMELINE.dump(api.logger)
+    if ROOFLINE.enabled:
+        ROOFLINE.dump(api.logger)
+    if hasattr(api.tracer, "dump"):
+        api.tracer.dump(api.logger)
+    if hasattr(api.tracer, "stop"):
+        api.tracer.stop()
 
 
 def _start_memory_planes(api) -> None:
@@ -76,6 +165,8 @@ def cmd_server(args) -> int:
     from pilosa_tpu_torch.server.api import API
     from pilosa_tpu_torch.server.coalescer import QueryCoalescer
     from pilosa_tpu_torch.server.http import make_server
+    from pilosa_tpu_torch.utils.stats import MemStatsClient
+    from pilosa_tpu_torch.utils.tracing import RecordingTracer
 
     host, port = _bind(args.bind)
     holder = Holder(None if args.data_dir is None
@@ -83,10 +174,12 @@ def cmd_server(args) -> int:
                     device=args.device)
     if holder.path is not None:
         holder.open()
-    api = API(holder)
+    api = API(holder, stats=MemStatsClient(), tracer=RecordingTracer())
+    configure_measurement(api, measurement_settings())
     if not args.no_coalescer:
         api.coalescer = QueryCoalescer(
-            api.executor, window_s=args.coalescer_window_ms / 1e3)
+            api.executor, window_s=args.coalescer_window_ms / 1e3,
+            stats=api.stats, tracer=api.tracer)
         api.coalescer.start()
     _start_memory_planes(api)
     server = make_server(api, host, port)
@@ -108,6 +201,7 @@ def cmd_server(args) -> int:
     finally:
         if api.coalescer is not None:
             api.coalescer.stop()
+        drain_telemetry(api)
         api.layout.stop()
         api.watchdog.stop()
         server.server_close()

@@ -284,3 +284,11 @@ class RankCacheStore:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Live entries and their device bytes (the ``rank_cache.*``
+        gauges of ``/metrics``)."""
+        with self._lock:
+            return {"entries": len(self._entries),
+                    "bytes": sum(int(e.nbytes)
+                                 for _, e in self._entries.values())}

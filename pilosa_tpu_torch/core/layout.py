@@ -18,6 +18,11 @@ that are not hot. It promotes sparse views whose read rate climbed above
 the promotion threshold. A flip changes the representation, never the
 data, and both hold the same bits.
 
+The pass's counters go to the server's stats client as they move
+(``pilosa_layout_{demotions,promotions,relayout_runs}_total``) and
+``publish`` exports its gauges (``pilosa_layout_sparse_views``,
+``_sparse_bank_bytes``, ``_bytes_reclaimed``) at scrape time.
+
 ``HYBRID_LAYOUT_ENABLED`` (the JAX package's ``PILOSA_TPU_HYBRID_LAYOUT``,
 here a module attribute with its default) turns off sparse planning and
 the pass; answers are the same either way.
@@ -87,8 +92,10 @@ class LayoutManager:
     def __init__(self, holder: Any, interval_s: float = 30.0,
                  demote_density: float = 0.25, min_bytes: int = 1 << 20,
                  promote_rate: float = 0.5, watermark_bytes: int = 0,
-                 logger: Optional[logging.Logger] = None) -> None:
+                 logger: Optional[logging.Logger] = None,
+                 stats: Optional[Any] = None) -> None:
         self.holder = holder
+        self.stats = stats
         self.enabled = True
         self.interval_s = max(0.0, float(interval_s))
         self.demote_density = float(demote_density)
@@ -179,6 +186,7 @@ class LayoutManager:
             return False
         with self._lock:
             self.demotions += 1
+        self._count("layout.demotions")
         self.logger.info(
             "layout: demoted %s/%s/%s to sparse (%d rows, %d bytes "
             "resident)", view.index, view.field, view.name,
@@ -192,6 +200,7 @@ class LayoutManager:
             return False
         with self._lock:
             self.promotions += 1
+        self._count("layout.promotions")
         self.logger.info("layout: promoted %s/%s/%s to dense", view.index,
                          view.field, view.name)
         return True
@@ -245,6 +254,7 @@ class LayoutManager:
                 self.last_delta_bytes = delta
                 if delta < 0:
                     self.bytes_reclaimed += -delta
+            self._count("layout.relayout_runs")
             return {"ran": True, "overWatermark": over,
                     "demoted": demoted, "promoted": promoted,
                     "deviceBytesBefore": device_before,
@@ -270,6 +280,19 @@ class LayoutManager:
                 "lastDeltaBytes": self.last_delta_bytes,
                 "watermarkBytes": self.watermark_bytes,
             }
+
+    def _count(self, name: str) -> None:
+        if self.stats is not None:
+            self.stats.count(name, 1)
+
+    def publish(self, stats: Optional[Any]) -> None:
+        """Scrape-time gauges; the counters count as they move."""
+        if stats is None:
+            return
+        s = self.snapshot()
+        stats.gauge("layout.sparse_views", s["sparseViews"])
+        stats.gauge("layout.sparse_bank_bytes", s["sparseBankBytes"])
+        stats.gauge("layout.bytes_reclaimed", s["bytesReclaimed"])
 
     def start(self) -> None:
         if self._thread is not None or self.interval_s <= 0:

@@ -70,6 +70,17 @@ Options around any of them. ``execute_full`` and
 ``execute_batch_shaped[_finish]`` give the JSON-shaped responses the
 server sends, with ``columnAttrs`` when an Options asked for them.
 
+Measurement (``utils/profile.py``, ``utils/timeline.py``,
+``utils/roofline.py``): ``execute(..., profile=)`` and the batch entry
+points' ``profiles=`` attach a ``QueryProfile`` a request fills in, one
+op node a call and an ``eval:count``/``eval:row`` node for each tree the
+call evaluates (the JAX package's ``_eval_tree`` sites: Count, the
+bitmap calls, and the filters of TopN, GroupBy, Sum/Min/Max and Store).
+A sampled profile also reads the card's time of each evaluation between
+two CUDA events (``_device_mark``/``_fence_device``); an unsampled one
+records no event and takes no sync. ``stats`` is the server's stats
+client, fed the launch, plan and cost counters.
+
 Keys: a keyed index translates column keys and a keyed field row keys
 to ids before a call runs (``_translate_call``, get-or-create: a read
 of an unknown key allocates its id, as in the JAX package), request by
@@ -88,6 +99,7 @@ import itertools
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass
 from dataclasses import field as dc_field
 from datetime import datetime
@@ -117,6 +129,9 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD, \
 from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+from pilosa_tpu_torch.utils.timeline import (
+    LANE_DEVICE, LANE_DISPATCH, LANE_FETCH, LANE_PLAN, TIMELINE,
+)
 
 _BITMAP_CALLS = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
                  "Not", "Shift", "Threshold"}
@@ -156,6 +171,44 @@ PBANK_ENABLED = True
 # missed path into a counted mismatch and a cache repair. 0 disables.
 TOPN_SELFCHECK_EVERY = int(os.environ.get("PILOSA_TPU_TOPN_SELFCHECK",
                                           256))
+
+
+def _device_mark(device: torch.device) -> Any:
+    """Start of one sampled device reading: a timing CUDA event recorded
+    on the device's current stream, or the host clock on the CPU (where
+    torch runs each op before it returns). Only a sampled profile calls
+    it; the unsampled path records nothing."""
+    if device.type == "cuda":
+        return kernels.device_mark(device)
+    return time.perf_counter()
+
+
+def _fence_device(start: Any) -> float:
+    """Seconds of device time since ``start`` (``_device_mark``, or the
+    first kernel's event of a megakernel launch): an end event on the
+    same stream, waited on with ``synchronize``, then the two events'
+    elapsed time. The reading includes whatever the stream waited on the
+    host for between the two records: a launch's enqueue gap, and an
+    eager evaluation's host work between its kernels. The one fencing
+    site of the port: reached only for a sampled profile
+    (``?profile=true`` or the profiler's 1-in-N)."""
+    if isinstance(start, float):
+        return time.perf_counter() - start
+    event, stream = start
+    end = torch.cuda.Event(enable_timing=True)
+    end.record(stream)
+    end.synchronize()
+    return event.elapsed_time(end) / 1e3
+
+
+def _result_d2h(result: Any) -> int:
+    """Device bytes a result still holds for the host to fetch: a Row
+    result's words (its columns are read when it is shaped)."""
+    if isinstance(result, RowResult):
+        words = getattr(result, "words", None)
+        if isinstance(words, torch.Tensor):
+            return int(words.nbytes)
+    return 0
 
 
 class ExecutionError(ValueError):
@@ -425,52 +478,110 @@ class Executor:
         # host memory.
         self.groupby_spill_events = 0
         # Plan signatures whose first launch passed verify_plan (the
-        # "auto" gate), bounded.
+        # "auto" gate), bounded; the gate's passes and rejects.
         self._verified_sigs: Dict[str, None] = {}
+        self.plan_verify_passes = 0
+        self.plan_verify_rejects = 0
+        # The megakernel's uploaded plan bytes, and each launch's memory
+        # traffic by kind and instructions by opcode
+        # (ops/megakernel.plan_cost), as the JAX package counts them.
+        self.mega_plan_bytes = 0
+        self.launch_bytes_gather = 0
+        self.launch_bytes_compute = 0
+        self.launch_bytes_expand = 0
+        self.launch_bytes_pad = 0
+        self.opcode_counts: Dict[str, int] = {}
+        # Plan optimizer (ops/plan_opt.py): plans rewritten, CSE hits,
+        # instructions eliminated, fold chains reordered, bytes saved.
+        self.opt_plans = 0
+        self.opt_cse_hits = 0
+        self.opt_entries_eliminated = 0
+        self.opt_folds_reordered = 0
+        self.opt_bytes_saved = 0
+        # Evaluations that had to build or load the kernel library
+        # (ops/build.py) on the card: the JAX package's retraces.
+        self.jit_compiles = 0
+        # The stats client the API attaches (utils/stats.py); None
+        # records nothing.
+        self.stats: Any = None
 
     # ------------------------------------------------------------------ API
 
     def execute(self, index_name: str, query: Union[str, Call, Query],
-                shards: Optional[Sequence[int]] = None) -> List[Any]:
-        """Execute every call in ``query`` in order; one result each."""
-        return self._execute_query(index_name, query, shards)[0]
+                shards: Optional[Sequence[int]] = None,
+                profile: Any = None) -> List[Any]:
+        """Execute every call in ``query`` in order; one result each.
+        ``profile`` is an optional ``utils/profile.QueryProfile`` the
+        run fills in."""
+        return self._execute_query(index_name, query, shards,
+                                   profile=profile)[0]
 
     def _execute_query(self, index_name: str,
                        query: Union[str, Call, Query],
-                       shards: Optional[Sequence[int]]
+                       shards: Optional[Sequence[int]], profile: Any = None
                        ) -> Tuple[List[Any], ExecOptions]:
         """(results, options) of one request: each call's keys are
         translated just before it runs, and its result's ids turned
         back into keys once it resolves (a staged result when it is
-        resolved)."""
-        query = _parse(query)
-        idx = self.holder.index(index_name)
-        if idx is None:
-            raise ExecutionError(f"index not found: {index_name}")
-        opts = ExecOptions()
-        out = []
-        for call in query.calls:
-            self._translate_call(idx, call)
-            res = self._execute_call(idx, call, shards, opts)
-            if isinstance(res, _Deferred):
-                res = _Deferred(functools.partial(
-                    self._resolve_translated, idx, call, res))
-            else:
-                self._translate_result(idx, call, res)
-            out.append(res)
-        return out, opts
+        resolved). A profile gets one op node a call: its dispatch time
+        (the call's run, or its staging in a batch) and its materialize
+        time (the translation back, and the resolution of a staged
+        result)."""
+        with self._profiled(profile):
+            query = _parse(query)
+            idx = self.holder.index(index_name)
+            if idx is None:
+                raise ExecutionError(f"index not found: {index_name}")
+            opts = ExecOptions()
+            out = []
+            prof = profile
+            if prof is not None:
+                prof.mark_dispatch()
+            for i, call in enumerate(query.calls):
+                op = prof.begin_op(call.name) if prof is not None else None
+                t0 = time.perf_counter() if prof is not None else 0.0
+                try:
+                    self._translate_call(idx, call)
+                    res = self._execute_call(idx, call, shards, opts)
+                finally:
+                    if op is not None:
+                        prof.end_op(op, time.perf_counter() - t0)
+                if isinstance(res, _Deferred):
+                    res = _Deferred(functools.partial(
+                        self._resolve_translated, idx, call, res, i, prof))
+                else:
+                    t0 = time.perf_counter() if prof is not None else 0.0
+                    self._translate_result(idx, call, res)
+                    if prof is not None:
+                        self._finish_op(prof, i, t0, res, call)
+                out.append(res)
+            return out, opts
 
-    def _resolve_translated(self, idx: Index, call: Call,
-                            res: _Deferred) -> Any:
+    @staticmethod
+    def _finish_op(prof: Any, i: int, t0: float, result: Any,
+                   call: Call) -> None:
+        mat_s = time.perf_counter() - t0
+        d2h = _result_d2h(result)
+        prof.finish_op(i, mat_s, d2h)
+        if prof.timeline is not None:
+            TIMELINE.event(prof.timeline, "materialize", LANE_FETCH, t0,
+                           mat_s, op=call.name, d2hBytes=d2h)
+
+    def _resolve_translated(self, idx: Index, call: Call, res: _Deferred,
+                            i: int = 0, prof: Any = None) -> Any:
+        t0 = time.perf_counter() if prof is not None else 0.0
         got = res.resolve()
         self._translate_result(idx, call, got)
+        if prof is not None:
+            self._finish_op(prof, i, t0, got, call)
         return got
 
     def execute_full(self, index_name: str, query: Union[str, Call, Query],
-                     shards: Optional[Sequence[int]] = None
-                     ) -> Dict[str, Any]:
+                     shards: Optional[Sequence[int]] = None,
+                     profile: Any = None) -> Dict[str, Any]:
         """``execute`` shaped as the server's JSON response."""
-        results, opts = self._execute_query(index_name, query, shards)
+        results, opts = self._execute_query(index_name, query, shards,
+                                            profile=profile)
         return self.shape_response(index_name, results, opts)
 
     def shape_response(self, index_name: str, results: Sequence[Any],
@@ -492,7 +603,8 @@ class Executor:
         return resp
 
     def execute_batch(self, requests: Sequence[Tuple[str, Any, Optional[
-            Sequence[int]]]]) -> List[Any]:
+            Sequence[int]]]], profiles: Optional[Sequence[Any]] = None
+            ) -> List[Any]:
         """Execute N independent requests as one batch. Each element of
         ``requests`` is ``(index_name, query, shards)``. Returns one
         entry per request: a ``(results, opts)`` tuple (``opts`` is the
@@ -501,11 +613,14 @@ class Executor:
         never fails another. Keys translate request by request in
         order, so ids are allocated as one-by-one execution would. The
         two halves are ``execute_batch_begin`` and
-        ``execute_batch_finish``."""
-        return self.execute_batch_finish(self.execute_batch_begin(requests))
+        ``execute_batch_finish``. ``profiles`` (optional, aligned with
+        ``requests``) carries a ``QueryProfile`` or None per request."""
+        return self.execute_batch_finish(
+            self.execute_batch_begin(requests, profiles))
 
     def execute_batch_begin(self, requests: Sequence[Tuple[str, Any,
-            Optional[Sequence[int]]]]) -> _BatchInFlight:
+            Optional[Sequence[int]]]],
+            profiles: Optional[Sequence[Any]] = None) -> _BatchInFlight:
         """The dispatch half of ``execute_batch``: parse, stage, flush
         and launch every request's device work, and return with the
         results still on the device.
@@ -522,6 +637,8 @@ class Executor:
         what the finish reads."""
         from pilosa_tpu_torch.executor.fusion import FusionCollector
         out: List[Any] = [None] * len(requests)
+        profs = list(profiles) if profiles is not None \
+            else [None] * len(requests)
         parsed: List[Optional[Query]] = [None] * len(requests)
         has_writes = [False] * len(requests)
         for j, (_, q, _) in enumerate(requests):
@@ -540,11 +657,11 @@ class Executor:
                     if has_writes[j]:
                         fuser.flush()
                         results, opts = self._execute_query(
-                            index_name, parsed[j], shards)
+                            index_name, parsed[j], shards, profs[j])
                     else:
                         with self._fusing(fuser):
                             results, opts = self._execute_query(
-                                index_name, parsed[j], shards)
+                                index_name, parsed[j], shards, profs[j])
                     staged.append((j, index_name, results, opts))
                 except Exception as e:
                     out[j] = e
@@ -567,12 +684,13 @@ class Executor:
         return out
 
     def execute_batch_shaped(self, requests: Sequence[Tuple[
-            str, Any, Optional[Sequence[int]]]]) -> List[Any]:
+            str, Any, Optional[Sequence[int]]]],
+            profiles: Optional[Sequence[Any]] = None) -> List[Any]:
         """``execute_batch`` with each request's response shaped: one
         ``{"results": [...]}`` dict or exception per request (the
         ``/batch/query`` route and the coalescer)."""
         return self.execute_batch_shaped_finish(
-            self.execute_batch_begin(requests))
+            self.execute_batch_begin(requests, profiles))
 
     def execute_batch_shaped_finish(self, flight: _BatchInFlight
                                     ) -> List[Any]:
@@ -600,13 +718,142 @@ class Executor:
         finally:
             self._tls.fuser = prev
 
-    def _note_mega(self, queries: int, plan_entries: int) -> None:
+    # ------------------------------------------------------ profiling hooks
+
+    def _profile(self) -> Any:
+        """The QueryProfile of the current thread's request, or None."""
+        return getattr(self._tls, "profile", None)
+
+    @contextlib.contextmanager
+    def _profiled(self, profile: Any) -> Iterator[None]:
+        """Attach ``profile`` (may be None) to this thread while a
+        request runs; the evaluation sites read it through
+        ``_profile()``."""
+        prev = getattr(self._tls, "profile", None)
+        self._tls.profile = profile
+        try:
+            yield
+        finally:
+            self._tls.profile = prev
+
+    def _kernels_loaded(self) -> bool:
+        """The profile's jit hit: the CPU path always hits; on the card
+        a launch hits when the kernel library is already loaded."""
+        if self.device.type != "cuda":
+            return True
+        from pilosa_tpu_torch.ops import build
+        return build.loaded()
+
+    def _note_jit(self, hit: bool) -> None:
+        if not hit:
+            with self._stats_lock:
+                self.jit_compiles += 1
+
+    def _eval_node(self, idx: Index, call: Call, shards: List[int],
+                   mode: str, run: Callable[[], Any]) -> Any:
+        """Run one evaluation of a call tree (``run()``: the eager tree
+        and its kernels) with the measurement plane around it: the
+        dispatch-gap analyzer sees its host interval, and a profiled
+        request gets an ``eval:<mode>`` node. The node's ``planS`` is the
+        host walk that names the tree's signature, ``dispatchS`` the
+        evaluation's host time (bank builds and launches), and
+        ``deviceS``, on a sampled profile only, the card's time between
+        a CUDA event before the evaluation and one after it."""
+        prof = self._profile()
+        if prof is None:
+            t0 = time.perf_counter()
+            out = run()
+            TIMELINE.note_dispatch(t0, time.perf_counter() - t0)
+            return out
+        t_plan0 = time.perf_counter()
+        plan = _Plan()
+        try:
+            self._plan_call(idx, call, plan)
+        except Exception:
+            pass  # the evaluation below raises what the walk would
+        sig = f"{mode}|{''.join(plan.sig_parts)}|S{len(shards)}"
+        plan_s = time.perf_counter() - t_plan0
+        hit = self._kernels_loaded()
+        self._note_jit(hit)
+        node = prof.tree(mode, sig, hit, plan_s, 0, len(shards))
+        tl = prof.timeline
+        if tl is not None:
+            TIMELINE.event(tl, "plan", LANE_PLAN, t_plan0, plan_s,
+                           jit="hit" if hit else "miss")
+        start = _device_mark(self.device) if prof.sample_device else None
+        t_disp = time.perf_counter()
+        out = run()
+        dispatch_s = time.perf_counter() - t_disp
+        TIMELINE.note_dispatch(t_disp, dispatch_s)
+        prof.tree_dispatch(node, dispatch_s)
+        if tl is not None:
+            TIMELINE.event(tl, "dispatch", LANE_DISPATCH, t_disp,
+                           dispatch_s, shards=len(shards))
+        if start is not None:
+            t_dev = time.perf_counter()
+            device_s = _fence_device(start)
+            prof.tree_device(node, device_s)
+            if tl is not None:
+                TIMELINE.event(tl, "device", LANE_DEVICE, t_dev, device_s)
+        return out
+
+    def _count(self, name: str, n: int = 1) -> None:
+        if self.stats is not None:
+            self.stats.count(name, n)
+
+    def _note_mega(self, queries: int, plan_entries: int,
+                   plan_bytes: int = 0) -> None:
         """Account one megakernel launch covering `queries` staged evals
-        through `plan_entries` interpreted instructions."""
+        through `plan_entries` interpreted instructions and `plan_bytes`
+        of uploaded plan."""
         with self._stats_lock:
             self.mega_launches += 1
             self.mega_queries += queries
             self.mega_plan_entries += plan_entries
+            self.mega_plan_bytes += plan_bytes
+        if self.stats is not None:
+            self.stats.count("executor.mega_launches", 1)
+            self.stats.count("executor.mega_queries", queries)
+            self.stats.count("executor.mega_plan_entries", plan_entries)
+            self.stats.count("executor.mega_plan_bytes", plan_bytes)
+            self.stats.histogram("executor.mega_batch_size", queries)
+
+    def _note_launch_cost(self, cost: Dict[str, Any]) -> None:
+        """Account one launch's memory traffic by kind and its
+        instructions by opcode (``ops/megakernel.plan_cost``)."""
+        with self._stats_lock:
+            self.launch_bytes_gather += cost["gatherBytes"]
+            self.launch_bytes_compute += cost["computeBytes"]
+            self.launch_bytes_expand += cost["expandBytes"]
+            self.launch_bytes_pad += cost["padBytes"]
+            for name, n in cost["opcodeHist"].items():
+                self.opcode_counts[name] = \
+                    self.opcode_counts.get(name, 0) + n
+        if self.stats is not None:
+            for kind in ("gather", "compute", "expand", "pad"):
+                self.stats.with_tags(f"kind:{kind}").count(
+                    "executor.launch_bytes", cost[f"{kind}Bytes"])
+            for name, n in cost["opcodeHist"].items():
+                self.stats.with_tags(f"op:{name}").count(
+                    "executor.opcode", n)
+
+    def _note_opt(self, opt: Any) -> None:
+        """Account one launch of a rewritten plan
+        (``ops/plan_opt.OptStats``)."""
+        with self._stats_lock:
+            self.opt_plans += 1
+            self.opt_cse_hits += opt.cse_hits
+            self.opt_entries_eliminated += opt.entries_eliminated
+            self.opt_folds_reordered += opt.folds_reordered
+            self.opt_bytes_saved += opt.bytes_saved
+        if self.stats is not None:
+            self.stats.count("executor.opt_plans", 1)
+            self.stats.count("executor.opt_cse_hits", opt.cse_hits)
+            self.stats.count("executor.opt_entries_eliminated",
+                             opt.entries_eliminated)
+            self.stats.count("executor.opt_folds_reordered",
+                             opt.folds_reordered)
+            self.stats.count("executor.opt_bytes_saved", opt.bytes_saved)
 
     def _note_mega_fallback(self, groups: int) -> None:
         """A cohort whose lowering failed ran per group."""
@@ -630,11 +877,21 @@ class Executor:
         with self._stats_lock:
             return sig in self._verified_sigs
 
-    def _note_plan_verified(self, sig: str) -> None:
+    def _note_plan_verify(self, sig: str, ok: bool) -> None:
+        """One pre-launch verification: a pass remembers the signature
+        for the "auto" gate; a reject is a lowering bug surfacing as the
+        requests' error."""
         with self._stats_lock:
-            if len(self._verified_sigs) >= self._VERIFIED_SIGS_MAX:
-                self._verified_sigs.pop(next(iter(self._verified_sigs)))
-            self._verified_sigs[sig] = None
+            if ok:
+                self.plan_verify_passes += 1
+                if len(self._verified_sigs) >= self._VERIFIED_SIGS_MAX:
+                    self._verified_sigs.pop(
+                        next(iter(self._verified_sigs)))
+                self._verified_sigs[sig] = None
+            else:
+                self.plan_verify_rejects += 1
+        self._count("executor.plan_verify_passes" if ok
+                    else "executor.plan_verify_rejects")
 
     def _execute_call(self, idx: Index, call: Call,
                       shards: Optional[Sequence[int]],
@@ -880,9 +1137,10 @@ class Executor:
 
         fuser = self._fuser()
         if fuser is not None:
-            handle = fuser.add(self._stage_tree(idx, call, shards, "row"))
+            handle = self._stage_into(fuser, idx, call, shards, "row")
             return _Deferred(lambda: result(handle.value()))
-        words = self._eval(idx, call, shards)
+        words = self._eval_node(idx, call, shards, "row",
+                                lambda: self._eval(idx, call, shards))
         self._record_tree_reads(idx, call, shards)
         return result(words)
 
@@ -894,11 +1152,22 @@ class Executor:
         shards = self._restrict_shards(idx, child, self._shards(idx, shards))
         fuser = self._fuser()
         if fuser is not None:
-            handle = fuser.add(self._stage_tree(idx, child, shards, "count"))
+            handle = self._stage_into(fuser, idx, child, shards, "count")
             return _Deferred(handle.value)
-        count = self._count_eager(idx, child, shards)
+        count = self._eval_node(
+            idx, child, shards, "count",
+            lambda: self._count_eager(idx, child, shards))
         self._record_tree_reads(idx, child, shards)
         return count
+
+    def _stage_into(self, fuser: Any, idx: Index, call: Call,
+                    shards: List[int], mode: str) -> Any:
+        """Stage a terminal eval into the batch's collector; a profiled
+        request's eval node opens here with its planning time."""
+        prof = self._profile()
+        t_plan0 = time.perf_counter() if prof is not None else 0.0
+        return fuser.add(self._stage_tree(idx, call, shards, mode), prof,
+                         t_plan0)
 
     def _record_tree_reads(self, idx: Index, call: Call, shards) -> None:
         """Record an eagerly run tree's reads as staging records a staged
@@ -926,6 +1195,13 @@ class Executor:
             return int(inter[0])
         row = self._eval(idx, child, shards)
         return int(kernels.bank_row_counts(row.contiguous().unsqueeze(0))[0])
+
+    def _eval_row(self, idx: Index, call: Call, shards: List[int]
+                  ) -> torch.Tensor:
+        """``_eval`` of a tree another call consumes (a filter, Store's
+        source), through the measurement plane."""
+        return self._eval_node(idx, call, shards, "row",
+                               lambda: self._eval(idx, call, shards))
 
     def _eval(self, idx: Index, call: Call, shards: List[int]
               ) -> torch.Tensor:
@@ -1505,7 +1781,7 @@ class Executor:
             return PairsResult([])
         filter_words = None
         if call.children:
-            filter_words = self._eval(idx, call.children[0], shards)
+            filter_words = self._eval_row(idx, call.children[0], shards)
         # attrName/attrValues restrict the candidates to the rows whose
         # attribute matches, read afresh each call: an attribute write
         # changes no fragment version, so no cached answer may hold
@@ -1643,6 +1919,8 @@ class Executor:
                 self.rank_cache_patches += 1
             else:
                 self.rank_cache_rebuilds += 1
+        names = {"hit": "hits", "patch": "patches", "rebuild": "rebuilds"}
+        self._count(f"rank_cache.{names.get(kind, 'rebuilds')}")
 
     def _rank_counts(self, view, bank: ViewBank, shards) -> torch.Tensor:
         """The device per-row count vector of ``bank`` (int64
@@ -1919,7 +2197,7 @@ class Executor:
         filter_call = call.arg("filter")
         filter_words = None
         if isinstance(filter_call, Call):
-            filter_words = self._eval(idx, filter_call, shards)
+            filter_words = self._eval_row(idx, filter_call, shards)
 
         child_rows: List[Tuple[str, List[int]]] = []
         for child in call.children:
@@ -2074,7 +2352,8 @@ class Executor:
         planes = self._bsi_planes(bank, depth)
         filt = None
         if call.children:
-            filt = _align_words(self._eval(idx, call.children[0], shards),
+            filt = _align_words(self._eval_row(idx, call.children[0],
+                                               shards),
                                 bank.array.shape[-1])
         if op == "Sum":
             counts, cnt = bsi.sum_count(planes, filt)
@@ -2157,7 +2436,7 @@ class Executor:
                 f"Store() is not supported on {field.options.type} fields")
         row_id = self._write_row_id(field, row_ref)
         shards = self._shards(idx, shards)
-        words = to_numpy(self._eval(idx, call.children[0], shards))
+        words = to_numpy(self._eval_row(idx, call.children[0], shards))
         view = field.create_view_if_not_exists(VIEW_STANDARD)
         for i, shard in enumerate(shards):
             view.create_fragment_if_not_exists(shard).set_row(row_id,

@@ -44,11 +44,31 @@ Routing, as in the JAX package's ``executor/megakernel.py``:
 ``MEGAKERNEL_ENABLED`` (``PILOSA_TPU_MEGAKERNEL``: 1 on, 0 off, default
 ``auto``) is read per executor: ``auto`` means on for a CUDA executor
 and off on the CPU. Tests set the module attribute.
+
+Measurement, as in the JAX package: after the launch ``plan_cost``
+prices the plan from its host buffers (best effort: a surprise there
+never fails a request), the roofline plane records it under the cohort
+key ``S|W|T|P`` with the optimizer's predicted bytes, and every
+profiled member's eval node gets the launch's coordinates and cost
+(``megaBatch``, ``megaIndex``, ``planEntries``, ``planBytes``,
+``launchBytes``, ``opcodeHist``, ``planEntriesBefore/After``) and its
+timeline slices. When a member's profile is sampled, the launch's first
+kernel (the expansion, or the interpreter) records a CUDA event on its
+stream just before its C entry (``kernels.arm_device_mark``), one more
+is recorded after the launch, and the wait on the second gives the
+launch's device time, which the roofline plane joins with the bytes.
+The reading leaves out the host work before the first kernel and keeps
+what runs between the two events: the host gaps between the launch's
+kernels (the interpreter's plan upload after an expansion) and the
+enqueue gap of the last. An unsampled launch records no event and
+takes no sync. A failed fence,
+like a failed kernel, is the cohort's requests' error.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -56,6 +76,10 @@ import torch
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops import megakernel as mk
 from pilosa_tpu_torch.ops import plan_opt
+from pilosa_tpu_torch.utils.roofline import ROOFLINE
+from pilosa_tpu_torch.utils.timeline import (
+    LANE_DEVICE, LANE_DISPATCH, TIMELINE,
+)
 
 
 def _flag(env: str, default: str) -> str:
@@ -199,27 +223,143 @@ def _zero_lanes(executor: Any, plan: mk.Plan, n_shards: int, w_mega: int
 
 def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
             n_shards: int, w_mega: int, lanes: List[List[int]]) -> None:
+    from pilosa_tpu_torch.executor import executor as ex_mod
+    ex = executor
+    n_entries = sum(len(g.entries) for g in cohort)
+    sampled = any(p is not None and p.sample_device
+                  for g in cohort for p in g.profs)
+    start = None
     try:
         key = plan.sig(n_shards, w_mega)
         if PLAN_VERIFY_MODE == "on" or (
                 PLAN_VERIFY_MODE == "auto"
-                and not executor._plan_verified(key)):
-            mk.verify_plan(plan, n_shards, w_mega)
-            executor._note_plan_verified(key)
-        if plan.banks or plan.xbanks:
-            counts, rows = mk.run_program(plan, n_shards, w_mega)
-        else:
-            counts, rows = _zero_lanes(executor, plan, n_shards, w_mega)
+                and not ex._plan_verified(key)):
+            try:
+                mk.verify_plan(plan, n_shards, w_mega)
+            except mk.PlanVerifyError:
+                ex._note_plan_verify(key, False)
+                raise
+            ex._note_plan_verify(key, True)
+        jit_hit = ex._kernels_loaded()
+        if sampled:
+            kernels.arm_device_mark()
+        t0 = time.perf_counter()
+        try:
+            if plan.banks or plan.xbanks:
+                counts, rows = mk.run_program(plan, n_shards, w_mega)
+            else:
+                counts, rows = _zero_lanes(ex, plan, n_shards, w_mega)
+        finally:
+            if sampled:
+                # The first kernel's event; the host clock where no
+                # kernel ran (the CPU, a plan that reads no bank).
+                start = kernels.take_device_mark() or (
+                    ex_mod._device_mark(ex.device)
+                    if ex.device.type == "cuda" else t0)
+        dispatch_s = time.perf_counter() - t0
+        TIMELINE.note_dispatch(t0, dispatch_s)
     except Exception as e:
         for g in cohort:
             g.error = e
-            g.entries = []
+            g.entries, g.profs, g.nodes = [], [], []
         return
     launch = _MegaLaunch(counts, rows)
-    n_entries = 0
-    for g, g_lanes in zip(cohort, lanes):
-        rep = g.entries[0]
-        g.out = _MegaView(launch, rep.mode, g_lanes, rep.width)
-        n_entries += len(g.entries)
-        g.entries = []
-    executor._note_mega(n_entries, plan.n_instrs)
+    # Cost attribution is best effort: a surprised cost model must never
+    # fail a request whose results are already in flight.
+    try:
+        cost = mk.plan_cost(plan, n_shards, w_mega)
+    except Exception:
+        cost = None
+    ckey = (f"S{n_shards}|W{w_mega}|T{plan.n_regs}"
+            f"|P{plan.instrs.shape[0]}")
+    if cost is not None and ROOFLINE.enabled:
+        if ROOFLINE.needs_resolve():
+            try:
+                from pilosa_tpu_torch.utils.benchenv import resolve_roofline
+                ROOFLINE.set_resolved(*resolve_roofline(ex.device))
+            except Exception:
+                pass
+        opt = plan.opt_stats
+        ROOFLINE.note_launch(
+            ckey, cost, opt.predicted_bytes if opt is not None else None)
+    try:
+        for g, g_lanes in zip(cohort, lanes):
+            rep = g.entries[0]
+            g.out = _MegaView(launch, rep.mode, g_lanes, rep.width)
+        ex._note_mega(n_entries, plan.n_instrs, plan.plan_nbytes)
+        if cost is not None:
+            ex._note_launch_cost(cost)
+        if plan.opt_stats is not None:
+            ex._note_opt(plan.opt_stats)
+        _attribute(ex, cohort, jit_hit, t0, dispatch_s, plan, n_entries,
+                   cost, ckey, start)
+    except Exception as e:
+        # A failed fence surfaces here: the cohort's groups carry it, so
+        # the views already assigned never serve.
+        for g in cohort:
+            g.error = e
+    finally:
+        for g in cohort:
+            g.entries, g.profs, g.nodes = [], [], []
+
+
+def _attribute(ex: Any, cohort: List[Any], jit_hit: bool, t_disp: float,
+               dispatch_s: float, plan: mk.Plan, n_entries: int,
+               cost: Optional[Dict[str, Any]], ckey: str,
+               start: Any) -> None:
+    """Profiler and timeline attribution, the JAX package's convention:
+    the launch ran once for the whole cohort, so every member sees the
+    shared dispatch (and sampled device) time, labelled with its launch
+    coordinates. ``start`` is the sampled launch's first CUDA event (None
+    unsampled): the fence joins the cost with the measured device time in
+    the roofline plane."""
+    from pilosa_tpu_torch.executor import executor as ex_mod
+    fence_profs: List[Tuple[Any, Any]] = []
+    opt = plan.opt_stats
+    plan_bytes = plan.plan_nbytes
+    mega_index = 0
+    for g in cohort:
+        for prof, node in zip(g.profs, g.nodes):
+            b = mega_index
+            mega_index += 1
+            if prof is None or node is None:
+                continue
+            ex._note_jit(jit_hit)
+            prof.tree_jit(node, jit_hit)
+            prof.tree_h2d(node, plan_bytes // max(1, n_entries))
+            prof.tree_dispatch(node, dispatch_s)
+            node.attrs["megaBatch"] = n_entries
+            node.attrs["megaIndex"] = b
+            node.attrs["planEntries"] = plan.n_instrs
+            node.attrs["planBytes"] = plan_bytes
+            if cost is not None:
+                node.attrs["launchBytes"] = cost["totalBytes"]
+                node.attrs["opcodeHist"] = dict(cost["opcodeHist"])
+            if opt is not None:
+                node.attrs["planEntriesBefore"] = opt.entries_before
+                node.attrs["planEntriesAfter"] = opt.entries_after
+            prof.set_fused(n_entries)
+            if prof.timeline is not None:
+                extra = {}
+                if opt is not None:
+                    extra = dict(planEntriesBefore=opt.entries_before,
+                                 planEntriesAfter=opt.entries_after)
+                TIMELINE.event(prof.timeline, "dispatch", LANE_DISPATCH,
+                               t_disp, dispatch_s, megaBatch=n_entries,
+                               megaIndex=b, planEntries=plan.n_instrs,
+                               planBytes=plan_bytes, **extra)
+            if prof.sample_device:
+                fence_profs.append((prof, node))
+    if start is None:
+        return
+    t_dev = time.perf_counter()
+    device_s = ex_mod._fence_device(start)
+    for prof, node in fence_profs:
+        prof.tree_device(node, device_s)
+        if prof.timeline is not None:
+            TIMELINE.event(prof.timeline, "device", LANE_DEVICE, t_dev,
+                           device_s, megaBatch=n_entries)
+    if cost is not None:
+        bw = ROOFLINE.note_device(ckey, cost["totalBytes"], device_s)
+        if bw is not None:
+            TIMELINE.note_bandwidth(bw["bytesPerS"], bw["frac"])

@@ -159,6 +159,12 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library yet (the
+    profiler's jit hit: a launch before it builds or loads it)."""
+    return _LIB is not None
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB

@@ -41,18 +41,21 @@ required W = 32768). Each wrapper takes a CUDA tensor to its kernel and
 a CPU tensor to the plain version beside it (``*_ref``), and nothing
 else: no fallback. Counts come back as ``int64`` on the input's device
 (membership counts, at most 2^16 a row, as ``int32``).
-``LAUNCHES[name]`` counts kernel launches.
+``LAUNCHES[name]`` counts kernel launches; each launch's host enqueue
+interval also feeds the timeline's dispatch-gap analyzer.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops.bitset import popcount
+from pilosa_tpu_torch.utils.timeline import TIMELINE
 
 # Interpreter opcodes (ops/megakernel.py): AND, OR, XOR, ANDNOT, ZERO,
 # COPY, EXPAND (the identity here), THRESH (dst | (a & b)).
@@ -107,7 +110,52 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count_launch(name: str) -> None:
+# A sampled megakernel launch's start of device time: armed on the
+# launching thread, recorded by the first kernel the launch enqueues.
+_MARK = threading.local()
+
+
+def arm_device_mark() -> None:
+    """Have the next kernel this thread launches record a timing CUDA
+    event on its stream just before its C entry (the start of a sampled
+    launch's device time: host work before the first kernel stays
+    out)."""
+    _MARK.armed = True
+    _MARK.start = None
+
+
+def take_device_mark() -> Any:
+    """The ``(event, stream)`` the armed launch recorded, or None when
+    no kernel launched; disarms."""
+    start = getattr(_MARK, "start", None)
+    _MARK.armed = False
+    _MARK.start = None
+    return start
+
+
+def device_mark(device: torch.device) -> Tuple[Any, Any]:
+    """A timing CUDA event recorded now on the device's current stream,
+    with that stream."""
+    stream = torch.cuda.current_stream(device)
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(stream)
+    return event, stream
+
+
+def _enqueue_start(device: torch.device) -> float:
+    """Just before a C entry: record the armed device mark, if any, and
+    return the host clock for ``_count_launch``."""
+    if getattr(_MARK, "armed", False):
+        _MARK.armed = False
+        _MARK.start = device_mark(device)
+    return time.perf_counter()
+
+
+def _count_launch(name: str, t0: float) -> None:
+    """Count one launch of ``name`` whose C entry was called at ``t0``
+    (``time.perf_counter()``), and give its host enqueue interval to the
+    dispatch-gap analyzer (``utils/timeline.py``)."""
+    TIMELINE.note_dispatch(t0, time.perf_counter() - t0)
     # Server threads launch concurrently; '+=' alone could lose a count.
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
@@ -345,10 +393,11 @@ def bank_row_counts(bank: torch.Tensor) -> torch.Tensor:
     lib = build.load()
     out = torch.zeros(bank.shape[0], dtype=torch.int32, device=bank.device)
     if out.numel() and n:
+        t0 = _enqueue_start(bank.device)
         _raise_on(name, lib.bank_row_counts(
             bank.data_ptr(), out.data_ptr(), bank.shape[0], n,
             _stream(bank.device)))
-        _count_launch(name)
+        _count_launch(name, t0)
     return _as_counts(out)
 
 
@@ -367,10 +416,11 @@ def bank_row_counts_masked(bank: torch.Tensor, filt: torch.Tensor
     inter = torch.zeros(bank.shape[0], dtype=torch.int32, device=bank.device)
     raw = torch.zeros_like(inter)
     if inter.numel() and n:
+        t0 = _enqueue_start(bank.device)
         _raise_on(name, lib.bank_row_counts_masked(
             bank.data_ptr(), filt.data_ptr(), inter.data_ptr(),
             raw.data_ptr(), bank.shape[0], n, _stream(bank.device)))
-        _count_launch(name)
+        _count_launch(name, t0)
     return _as_counts(inter), _as_counts(raw)
 
 
@@ -389,10 +439,11 @@ def bsi_plane_counts(planes: torch.Tensor, mask: torch.Tensor
     out = torch.zeros(planes.shape[0], dtype=torch.int32,
                       device=planes.device)
     if out.numel() and n:
+        t0 = _enqueue_start(planes.device)
         _raise_on(name, lib.bsi_plane_counts(
             planes.data_ptr(), mask.data_ptr(), out.data_ptr(),
             planes.shape[0], n, _stream(planes.device)))
-        _count_launch(name)
+        _count_launch(name, t0)
     return _as_counts(out)
 
 
@@ -600,10 +651,11 @@ def mega_interpret(banks: Sequence[torch.Tensor], slots: Sequence[Any],
     from pilosa_tpu_torch.ops import build
     lib = build.load()
     if (counts.numel() or rows.numel()) and n_shards:
+        t0 = _enqueue_start(banks[0].device)
         _raise_on(name, lib.mega_interpret(
             *args, counts.data_ptr(), rows.data_ptr(), None,
             _stream(banks[0].device)))
-        _count_launch(name)
+        _count_launch(name, t0)
     del buf  # the stream orders its reuse after the launch
     return _as_counts(counts), rows
 
@@ -661,11 +713,12 @@ def pbank_membership_counts(pos: torch.Tensor, filt: torch.Tensor,
     out = torch.empty(rows, dtype=torch.int32, device=pos.device)
     if rows:
         L = int(pos.shape[1]) if starts is None else 0
+        t0 = _enqueue_start(pos.device)
         _raise_on(name, lib.pbank_membership_counts(
             pos.data_ptr(), starts.data_ptr() if starts is not None else None,
             filt.data_ptr(), out.data_ptr(), rows, L, filt.numel(),
             _stream(pos.device)))
-        _count_launch(name)
+        _count_launch(name, t0)
     return out
 
 
@@ -793,7 +846,8 @@ def expand_positions(pos: torch.Tensor, starts: torch.Tensor, slots: Any,
         # launch is enqueued.
         args, keep = expand_launch_args(pos, starts, host, int(n_shards),
                                         int(width), out)
+        t0 = _enqueue_start(pos.device)
         _raise_on(name, lib.expand_positions(*args))
-        _count_launch(name)
+        _count_launch(name, t0)
         del keep
     return out

@@ -389,7 +389,7 @@ class Plan:
     __slots__ = ("banks", "slots", "widths", "instrs", "out_count",
                  "out_row", "n_slots", "n_regs", "n_instrs",
                  "lane_count_widths", "lane_row_widths",
-                 "xbanks", "xslots", "n_xslots")
+                 "xbanks", "xslots", "n_xslots", "opt_stats")
 
     def __init__(self, banks: Tuple[Any, ...],
                  slots: Tuple[np.ndarray, ...], widths: np.ndarray,
@@ -420,6 +420,9 @@ class Plan:
         self.xbanks = xbanks
         self.xslots = xslots
         self.n_xslots = n_xslots
+        # Set by ops/plan_opt.optimize_plan on the plan it rewrote (None
+        # otherwise): the before/after accounting the executor reports.
+        self.opt_stats = None
 
     @property
     def plan_nbytes(self) -> int:
@@ -727,6 +730,133 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
                 f"pad instr {i}: zeroes register {dst} that a real "
                 f"output lane reads — the pad tail would corrupt a "
                 f"result")
+
+
+# ------------------------------------------------------ cost attribution
+#
+# plan_cost() is the measured half of the roofline plane's calibration
+# loop (utils/roofline.py): the [P, 4] plan the verifier types also
+# states the launch's memory traffic, so the executor attributes bytes to
+# every launch from host numpy alone, and the profiler's sampled device
+# fences turn them into achieved GB/s. It is the JAX package's model,
+# kept as it is: the same dict, keys and values for the same plan. It
+# prices the TPU interpreter (a [T, S, W] register slab in device memory,
+# one register row read and written per instruction); the port's kernel
+# keeps its registers in shared memory and reads each slot row once, so
+# the model counts more bytes than the card moves.
+
+
+def _buf_nbytes(a: Any) -> int:
+    """Byte size of a (possibly device-resident) buffer without reading
+    it: ``.nbytes``/``.shape`` are host metadata on numpy arrays and
+    torch tensors alike; opaque stubs fall back to 0."""
+    n = getattr(a, "nbytes", None)
+    if n is not None:
+        return int(n)
+    shape = getattr(a, "shape", None)
+    if isinstance(shape, tuple) and shape:
+        item = getattr(getattr(a, "dtype", None), "itemsize", 4) or 4
+        return int(np.prod(shape)) * int(item)
+    return 0
+
+
+def plan_cost(plan: Plan, n_shards: int, w_mega: int) -> Dict[str, Any]:
+    """Per-launch memory traffic model over one finished plan, split by
+    kind, plus the per-opcode instruction histogram.
+
+    The model (``row`` = one padded ``[S, W]`` register row =
+    ``n_shards * w_mega * 4`` bytes; ``live(r)`` = the masked words =
+    ``n_shards * widths[r] * 4``):
+
+    * ``gatherBytes``: per dense slot, ``live(r)`` read from the bank
+      plus one ``row`` written into the slab.
+    * ``expandBytes``: per expand register, its sparse bank's whole
+      ``(pos, starts)`` buffers read plus one ``row`` written; per
+      ``OP_EXPAND`` instruction one ``row`` read and one written.
+    * ``computeBytes``: per real non-EXPAND instruction one ``row`` per
+      register read (the verifier's read sets; ZERO reads nothing) plus
+      one ``row`` written; plus the output stage: each real count lane
+      reads one ``row`` and writes ``S * 4`` bytes, each real row lane
+      moves ``2 * row``.
+    * ``padBytes``: the pow2 capacity waste: slab registers above the
+      high-water mark (the spare included), pad OP_ZERO writes and pad
+      output lanes.
+
+    ``totalBytes`` is the sum of the four. ``slabBytes`` /
+    ``liveSlabBytes`` / ``planBytes`` restate the slab and plan sizes.
+    ``opcodeHist`` counts real instructions only, by ``OP_NAMES``,
+    zero counts omitted. It reads only the plan's host numpy buffers and
+    the banks' shapes: never a device buffer. The JAX package's mesh
+    keys are not ported."""
+    S, W = int(n_shards), int(w_mega)
+    row = S * W * 4
+    n_slots = int(plan.n_slots)
+    n_xslots = int(getattr(plan, "n_xslots", 0))
+    n_gathered = n_slots + n_xslots
+    n_instrs = int(plan.n_instrs)
+    P = int(plan.instrs.shape[0])
+    widths = [int(w) for w in plan.widths.tolist()]
+
+    gather = sum(S * widths[r] * 4 + row for r in range(n_slots))
+
+    hist: Dict[str, int] = {}
+    compute = 0
+    n_expand_instrs = 0
+    used_high = n_gathered  # slab high-water mark (exclusive)
+    for op, dst, a, b in plan.instrs[:n_instrs].tolist():
+        op, dst, a, b = int(op), int(dst), int(a), int(b)
+        name = OP_NAMES[op] if 0 <= op < len(OP_NAMES) else str(op)
+        hist[name] = hist.get(name, 0) + 1
+        used_high = max(used_high, dst + 1)
+        if op == OP_EXPAND:
+            n_expand_instrs += 1
+            used_high = max(used_high, a + 1)
+            continue
+        reads = 0
+        if op in _READS_A:
+            reads += 1
+            used_high = max(used_high, a + 1)
+        if op in _READS_B:
+            reads += 1
+            used_high = max(used_high, b + 1)
+        if op in _READS_DST:
+            reads += 1
+        compute += (reads + 1) * row
+
+    expand = n_expand_instrs * 2 * row
+    for pair, slots in zip(plan.xbanks, plan.xslots):
+        pair_bytes = 0
+        if isinstance(pair, (tuple, list)) and len(pair) == 2:
+            pair_bytes = _buf_nbytes(pair[0]) + _buf_nbytes(pair[1])
+        expand += len(slots) * (pair_bytes + row)
+
+    nc = len(plan.lane_count_widths)
+    nr = len(plan.lane_row_widths)
+    for j in range(nc):
+        used_high = max(used_high, int(plan.out_count[j]) + 1)
+    for j in range(nr):
+        used_high = max(used_high, int(plan.out_row[j]) + 1)
+    compute += nc * (row + S * 4) + nr * 2 * row
+
+    n_regs = int(plan.n_regs)
+    pad = ((n_regs - used_high) * row
+           + (P - n_instrs) * row
+           + (len(plan.out_count) - nc) * (row + S * 4)
+           + (len(plan.out_row) - nr) * 2 * row)
+
+    total = gather + compute + expand + pad
+    return {
+        "gatherBytes": int(gather),
+        "computeBytes": int(compute),
+        "expandBytes": int(expand),
+        "padBytes": int(pad),
+        "totalBytes": int(total),
+        "slabBytes": slab_nbytes(n_regs, S, W),
+        "liveSlabBytes": slab_nbytes(n_gathered, S, W),
+        "planBytes": int(plan.plan_nbytes),
+        "opcodeHist": hist,
+        "nInstrs": n_instrs,
+    }
 
 
 # ------------------------------------------------------------- program

@@ -26,8 +26,10 @@ the whole pipeline as best-effort: any surprise keeps the unoptimized
 plan. ``core/view.py`` feeds ``note_bank_density`` with each cached dense
 bank's sampled live density when it ledgers the bank, and expand
 registers (sparse operands) sort at ``SPARSE_DENSITY``; both change only
-the order of operations, never a bit. The roofline's calibration feed
-(``predict_cost_bytes``) waits for the measurement plane.
+the order of operations, never a bit. ``predict_cost_bytes`` prices the
+emitted plan body with the same weights; ``OptStats.predicted_bytes``
+carries it to the roofline plane (``utils/roofline.py``), which records
+it beside the measured cost of each launch.
 """
 
 from __future__ import annotations
@@ -86,7 +88,8 @@ class OptStats:
                  "folds_reordered", "regs_before", "regs_after",
                  "slab_bytes_before", "slab_bytes_after",
                  "plan_bytes_before", "plan_bytes_after",
-                 "narrowed_lanes")
+                 "narrowed_lanes", "predicted_bytes",
+                 "fold_order_densities")
 
     def __init__(self) -> None:
         self.entries_before = 0
@@ -100,6 +103,38 @@ class OptStats:
         self.plan_bytes_before = 0
         self.plan_bytes_after = 0
         self.narrowed_lanes = 0
+        # Calibration feed (utils/roofline.py): the density-weighted
+        # traffic this model predicts for the plan it emitted.
+        self.predicted_bytes = 0
+        # The sort weights of the first reordered fold chains (bounded):
+        # the predicted fold order a roofline reader compares against.
+        self.fold_order_densities: List[Tuple[float, ...]] = []
+
+    @property
+    def entries_eliminated(self) -> int:
+        return max(0, self.entries_before - self.entries_after)
+
+    @property
+    def bytes_saved(self) -> int:
+        """Slab and plan-buffer bytes the rewrite dropped."""
+        return max(0, (self.slab_bytes_before - self.slab_bytes_after)
+                   + (self.plan_bytes_before - self.plan_bytes_after))
+
+    def as_dict(self) -> Dict[str, int]:
+        return {
+            "entriesBefore": self.entries_before,
+            "entriesAfter": self.entries_after,
+            "entriesEliminated": self.entries_eliminated,
+            "cseHits": self.cse_hits,
+            "foldsReordered": self.folds_reordered,
+            "regsBefore": self.regs_before,
+            "regsAfter": self.regs_after,
+            "slabBytesBefore": self.slab_bytes_before,
+            "slabBytesAfter": self.slab_bytes_after,
+            "bytesSaved": self.bytes_saved,
+            "narrowedLanes": self.narrowed_lanes,
+            "predictedBytes": self.predicted_bytes,
+        }
 
 
 class _Bail(Exception):
@@ -165,12 +200,44 @@ def _reorder_folds(rows: List[List[int]], dens: Dict[int, float],
             head, tail = operands[0], operands[1:]
             ordered = [head] + [x for _, x in sorted(
                 enumerate(tail), key=lambda t: (-weight(t[1]), t[0]))]
+        if len(stats.fold_order_densities) < 8:
+            stats.fold_order_densities.append(
+                tuple(round(weight(x), 4) for x in ordered))
         if ordered != operands:
             stats.folds_reordered += 1
             rows[i] = [op, r, ordered[0], ordered[1]]
             for m, x in enumerate(ordered[2:]):
                 rows[i + 1 + m] = [op, r, r, x]
         i = j
+
+
+def predict_cost_bytes(rows: List[List[int]], dens: Dict[int, float],
+                       n_shards: int, w_mega: int) -> int:
+    """The optimizer's own density-weighted traffic prediction for a
+    plan body, in bytes: each instruction reads its operands at their
+    sampled live density and writes one dense row (the weights
+    ``_reorder_folds`` sorts by), priced in the megakernel's row unit so
+    the roofline plane can set it beside ``plan_cost``'s model and the
+    fenced device time of each cohort."""
+    row = int(n_shards) * int(w_mega) * 4
+
+    def weight(r: int) -> float:
+        return dens.get(r, SCRATCH_DENSITY)
+
+    total = 0.0
+    for op, dst, a, b in rows:
+        reads = 0.0
+        if op == mk.OP_EXPAND:
+            reads = SPARSE_DENSITY
+        else:
+            if op in mk._READS_A:
+                reads += weight(a)
+            if op in mk._READS_B:
+                reads += weight(b)
+            if op in mk._READS_DST:
+                reads += weight(dst)
+        total += (reads + 1.0) * row
+    return int(total)
 
 
 # ------------------------------------------------- value numbering / CSE
@@ -435,7 +502,12 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
     nc = len(plan.lane_count_widths)
     nr = len(plan.lane_row_widths)
     try:
-        _reorder_folds(rows, _register_densities(plan, rows), stats)
+        dens = _register_densities(plan, rows)
+        _reorder_folds(rows, dens, stats)
+        # Priced even when a later pass bails, so the calibration loop
+        # always has the heuristic's number.
+        stats.predicted_bytes = predict_cost_bytes(rows, dens, n_shards,
+                                                   w_mega)
         nodes, spans, reg_vn = _value_number(rows, n_slots, n_gathered,
                                              widths, stats)
 
@@ -507,6 +579,11 @@ def optimize_plan(plan: mk.Plan, n_shards: int,
     stats.regs_after = t_pad
     stats.slab_bytes_after = mk.slab_nbytes(t_pad, n_shards, w_mega)
     stats.plan_bytes_after = new_plan.plan_nbytes
+    # The rewritten plan is the one that launches: price it (slot
+    # registers keep their numbers, so the density map still applies).
+    stats.predicted_bytes = predict_cost_bytes(new_rows, dens, n_shards,
+                                               w_mega)
+    new_plan.opt_stats = stats
     return new_plan, stats
 
 

@@ -6,17 +6,28 @@ import's keys at once, ``TranslateStore.translate_keys``) and in the
 executor for queries. Over a holder with a data directory, every write
 reaches the fragments' files before the call returns; ``import_roaring``
 (the fastest import: a serialized roaring bitmap a shard) rewrites the
-fragment's snapshot, and ``export_csv`` reads one shard back as CSV. The cluster, the debug and metrics planes,
-health, failpoints and the sentinel are not ported: a request that
-needs one of them answers a 400 that names it, never a silently
-different result.
+fragment's snapshot, and ``export_csv`` reads one shard back as CSV.
+
+The measurement plane rides every query: ``stats`` (a
+``utils/stats.StatsClient``), ``tracer`` (``utils/tracing``) and
+``profiler`` (``utils/profile.Profiler``: the ``executor.*`` series,
+device sampling, the slow-query ring). ``query(..., profile=True)``
+embeds the profile tree in the response. ``refresh_memory_gauges``
+publishes the memory, layout, timeline, roofline and rank-cache gauges
+that ``/metrics`` serves; ``debug_memory``, ``debug_timeline`` and
+``debug_roofline`` are the documents of their routes. The cluster,
+health, the hotspots table, the result cache, failpoints and the
+sentinel are not ported: a request that needs one of them answers an
+error that names it, never a silently different result.
 """
 
 from __future__ import annotations
 
 import csv
 import io
+import logging
 import os
+import time
 import uuid
 from datetime import datetime
 from typing import Any, Dict, List, Optional, Sequence
@@ -30,6 +41,10 @@ from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
+from pilosa_tpu_torch.utils.profile import Profiler
+from pilosa_tpu_torch.utils.stats import NopStatsClient
+from pilosa_tpu_torch.utils.timeline import TIMELINE
+from pilosa_tpu_torch.utils.tracing import NopTracer
 
 # Field options the create-field body may carry (reference names).
 _FIELD_OPTIONS = {"type": "type", "cacheType": "cache_type",
@@ -37,6 +52,17 @@ _FIELD_OPTIONS = {"type": "type", "cacheType": "cache_type",
                   "timeQuantum": "time_quantum", "keys": "keys",
                   "noStandardView": "no_standard_view",
                   "maxColumns": "max_columns"}
+
+
+class PrintfLogger:
+    """The ``printf`` logger the measurement plane writes to (slow
+    queries, shutdown dumps), over the standard ``logging`` module."""
+
+    def __init__(self, name: str = "pilosa_tpu_torch") -> None:
+        self._log = logging.getLogger(name)
+
+    def printf(self, fmt: str, *args: Any) -> None:
+        self._log.info(fmt % args if args else fmt)
 
 
 class ApiError(ValueError):
@@ -104,48 +130,156 @@ class API:
     """Queries, schema and imports over one Holder (in memory or over a
     data directory). The executor runs on the holder's device.
     ``coalescer`` is attached by the server wiring (``cli/main.py``) or
-    a test; None means every query takes the direct path."""
+    a test; None means every query takes the direct path. ``stats`` and
+    ``tracer`` default to the nop clients; ``long_query_time`` (seconds,
+    0 off) sends slower queries to the log and the slow-query ring."""
 
-    def __init__(self, holder: Holder):
+    def __init__(self, holder: Holder, stats: Any = None,
+                 tracer: Any = None):
         self.holder = holder
         self.executor = Executor(holder, device=holder.device)
+        self.stats = stats or NopStatsClient()
+        self.executor.stats = self.stats
+        self.tracer = tracer or NopTracer()
+        self.logger = PrintfLogger()
+        self.long_query_time = 0.0
+        self.profiler = Profiler(stats=self.stats, tracer=self.tracer)
+        self._started_at = time.time()
         self.coalescer = None
         # The hybrid layout's re-layout pass over this holder; the server
         # wiring configures and starts it (cli/main.py), as it does the
         # memory watchdog.
-        self.layout = LayoutManager(holder)
+        self.layout = LayoutManager(holder, stats=self.stats)
         self.watchdog = None
         self.node_id = uuid.uuid4().hex
 
     # ----------------------------------------------------------------- query
 
+    def _observe_query(self, index: str, query: Any, dur: float,
+                       profile: Any = None, error: Any = None,
+                       kind: str = "query") -> None:
+        """The one stats and slow-query sink of every query path."""
+        self.profiler.observe(index, query, dur, profile=profile,
+                              error=error,
+                              long_query_time=self.long_query_time,
+                              logger=self.logger, kind=kind)
+
+    def _begin_timeline(self, index: str) -> Any:
+        """A request timeline under the trace id the tracer stamps on
+        this request's spans (minted when the request carried none)."""
+        tid = getattr(self.tracer, "ensure_trace_id", lambda: None)()
+        return TIMELINE.begin(tid, index)
+
+    def _end_timeline(self, tl: Any, err: Any) -> None:
+        TIMELINE.finish(tl, error=err)
+        # The request is over: an embedded caller's next query on this
+        # thread mints a fresh trace id.
+        adopt = getattr(self.tracer, "adopt", None)
+        if adopt is not None:
+            adopt(None)
+
     def query(self, index: str, query: Any,
-              shards: Optional[Sequence[int]] = None) -> Dict[str, Any]:
-        """The direct path: ``{"results": [...]}`` of one request."""
-        return self.executor.execute_full(index, query, shards=shards)
+              shards: Optional[Sequence[int]] = None,
+              profile: bool = False) -> Dict[str, Any]:
+        """The direct path: ``{"results": [...]}`` of one request.
+        ``profile=True`` (``?profile=true``) embeds the profile tree
+        under ``"profile"``, with device sampling on."""
+        tl = self._begin_timeline(index)
+        prof = self.profiler.begin(index, query, shards,
+                                   force=bool(profile))
+        prof.timeline = tl
+        t0 = time.perf_counter()
+        err = None
+        try:
+            with self.tracer.span("API.Query", index=index) as sp:
+                self.stats.count("query", 1)
+                try:
+                    resp = self.executor.execute_full(
+                        index, query, shards=shards, profile=prof)
+                finally:
+                    prof.annotate_span(sp)
+            if profile:
+                prof.close(time.perf_counter() - t0)
+                resp = dict(resp)
+                resp["profile"] = prof.to_json()
+            return resp
+        except Exception as e:
+            err = e
+            raise
+        finally:
+            dur = time.perf_counter() - t0
+            self.stats.timing("query.direct", dur)
+            self._end_timeline(tl, err)
+            self._observe_query(index, query, dur, prof, err)
 
     def query_coalesced(self, index: str, query: Any,
-                        shards: Optional[Sequence[int]] = None
-                        ) -> Dict[str, Any]:
+                        shards: Optional[Sequence[int]] = None,
+                        profile: bool = False) -> Dict[str, Any]:
         """``query`` through the coalescer when one is attached and
         running: concurrent requests share executor batches. Only a
         coalescer that stopped under the request (``CoalescerStopped``)
         re-runs it on the direct path; any other error is the
-        request's."""
+        request's. A forced profile is never shared with an identical
+        batchmate."""
         from pilosa_tpu_torch.server.coalescer import CoalescerStopped
         coal = self.coalescer
         if coal is None or not coal.running:
-            return self.query(index, query, shards=shards)
+            return self.query(index, query, shards=shards, profile=profile)
+        tl = self._begin_timeline(index)
+        prof = self.profiler.begin(index, query, shards,
+                                   force=bool(profile))
+        prof.timeline = tl
+        t0 = time.perf_counter()
+        err = None
         try:
-            return coal.submit(index, query, shards=shards)
-        except CoalescerStopped:
-            return self.query(index, query, shards=shards)
+            with self.tracer.span("API.QueryCoalesced", index=index) as sp:
+                self.stats.count("query", 1)
+                try:
+                    resp = coal.submit(index, query, shards=shards,
+                                       profile=prof)
+                except CoalescerStopped:
+                    t1 = time.perf_counter()
+                    try:
+                        resp = self.executor.execute_full(
+                            index, query, shards=shards, profile=prof)
+                    finally:
+                        self.stats.timing("query.direct",
+                                          time.perf_counter() - t1)
+                prof.annotate_span(sp)
+            if profile:
+                prof.close(time.perf_counter() - t0)
+                resp = dict(resp)
+                resp["profile"] = prof.to_json()
+            return resp
+        except Exception as e:
+            err = e
+            raise
+        finally:
+            dur = time.perf_counter() - t0
+            self._end_timeline(tl, err)
+            self._observe_query(index, query, dur, prof, err)
 
-    def query_batch(self, items: Sequence[Any]) -> List[Dict[str, Any]]:
+    def query_batch(self, items: Sequence[Any],
+                    profile: bool = False) -> List[Dict[str, Any]]:
         """N independent queries in one request and one executor batch.
         Each item is ``{"index", "query", "shards"?}``; the answer holds
         ``{"results": ...}`` or ``{"error": ...}`` per item, so one bad
-        item fails none of its batchmates."""
+        item fails none of its batchmates. ``profile=True`` profiles
+        every item with device sampling on and embeds each item's tree
+        under its ``"profile"``; with the profiler sampling (its
+        ``sample_every`` above 0) each item gets a profile sampled 1 in
+        N that feeds the ``executor.*`` series. Otherwise the items run
+        unprofiled, as in the JAX package."""
+        with self.tracer.span("API.QueryBatch", n=len(items)):
+            self.stats.count("query", len(items))
+            t0 = time.perf_counter()
+            out = self._query_batch(items, profile)
+            self._observe_query("*", f"{len(items)} queries",
+                                time.perf_counter() - t0, kind="batch")
+            return out
+
+    def _query_batch(self, items: Sequence[Any],
+                     profile: bool) -> List[Dict[str, Any]]:
         reqs: List[Any] = []
         bad: Dict[int, Dict[str, str]] = {}
         for pos, it in enumerate(items):
@@ -154,16 +288,31 @@ class API:
             except (KeyError, TypeError) as e:
                 bad[pos] = {"error": f"bad batch item: {e!r}"}
                 reqs.append(None)
-        shaped = iter(self.executor.execute_batch_shaped(
-            [r for r in reqs if r is not None]))
+        good = [r for r in reqs if r is not None]
+        profs = None
+        if profile or self.profiler.sample_every > 0:
+            profs = [self.profiler.begin(i, q, sh, force=profile)
+                     for i, q, sh in good]
+        t0 = time.perf_counter()
+        shaped = self.executor.execute_batch_shaped(good, profiles=profs)
+        dur = time.perf_counter() - t0
         out = []
+        it = iter(range(len(good)))
         for pos, r in enumerate(reqs):
             if r is None:
                 out.append(bad[pos])
                 continue
-            res = next(shaped)
-            out.append({"error": str(res)} if isinstance(res, Exception)
-                       else res)
+            k = next(it)
+            res = shaped[k]
+            err = res if isinstance(res, Exception) else None
+            resp = {"error": str(res)} if err is not None else dict(res)
+            if profs is not None:
+                # The stats feed; the batch is one slow-query record.
+                self.profiler.observe(good[k][0], good[k][1], dur,
+                                      profile=profs[k], error=err)
+                if profile:
+                    resp["profile"] = profs[k].to_json()
+            out.append(resp)
         return out
 
     # ---------------------------------------------------------------- schema
@@ -302,6 +451,94 @@ class API:
                 for v in list(f.views.values()):
                     for frag in list(v.fragments.values()):
                         frag.recalculate_cache()
+
+    # ------------------------------------------------ memory / measurement
+
+    def refresh_memory_gauges(self) -> None:
+        """Publish the scrape-time gauges into the stats client: the
+        memory ledger's (``pilosa_memory_*``, the telemetry rings
+        registered first), the timeline's idle ratio, the roofline's,
+        the rank cache's, the layout pass's, the uptime and the build
+        info. Host dict reads only, no device work."""
+        from pilosa_tpu_torch.utils.memledger import LEDGER
+        from pilosa_tpu_torch.utils.roofline import ROOFLINE
+        TIMELINE.register_memory(LEDGER)
+        ROOFLINE.register_memory(LEDGER)
+        if hasattr(self.tracer, "register_memory"):
+            self.tracer.register_memory(LEDGER)
+        LEDGER.publish(self.stats)
+        TIMELINE.publish(self.stats)
+        ROOFLINE.publish(self.stats)
+        rsnap = self.holder.rank_cache.snapshot()
+        self.stats.gauge("rank_cache.entries", rsnap["entries"])
+        self.stats.gauge("rank_cache.bytes", rsnap["bytes"])
+        self.layout.publish(self.stats)
+        self.stats.gauge("process_uptime_seconds",
+                         time.time() - self._started_at)
+        self.stats.with_tags(f"version:{__version__}",
+                             f"backend:{self.holder.device.type}").gauge(
+            "build_info", 1)
+
+    def debug_memory(self, top_k: int = 10) -> Dict[str, Any]:
+        """The ``GET /debug/memory`` document: bytes by category and the
+        largest entries (``totalBytes`` is the sum of the categories'),
+        with the layout pass's stanza beside them."""
+        from pilosa_tpu_torch.utils.memledger import LEDGER
+        self.refresh_memory_gauges()
+        doc = LEDGER.snapshot(top_k=top_k)
+        doc["layout"] = self.layout.snapshot()
+        return doc
+
+    def debug_timeline(self, last: Optional[int] = None,
+                       trace: Optional[str] = None) -> Dict[str, Any]:
+        """The ``GET /debug/timeline`` document: trace-event JSON of the
+        last N recorded requests (or one trace id) with the dispatch-gap
+        summary."""
+        self.refresh_memory_gauges()
+        return TIMELINE.snapshot(last=last, trace_id=trace,
+                                 node_id=self.node_id)
+
+    def debug_roofline(self) -> Dict[str, Any]:
+        """The ``GET /debug/roofline`` document: the recorder's byte
+        splits, opcode totals, per-cohort bandwidth and drift, with the
+        executor's cumulative splits beside them."""
+        from pilosa_tpu_torch.utils.roofline import ROOFLINE
+        self.refresh_memory_gauges()
+        doc = ROOFLINE.snapshot()
+        doc["node"] = self.node_id
+        ex = self.executor
+        doc["executor"] = {
+            "launchBytesGather": ex.launch_bytes_gather,
+            "launchBytesCompute": ex.launch_bytes_compute,
+            "launchBytesExpand": ex.launch_bytes_expand,
+            "launchBytesPad": ex.launch_bytes_pad,
+            "opcodeTotals": dict(ex.opcode_counts),
+            "megaLaunches": ex.mega_launches,
+        }
+        return doc
+
+    def debug_queries(self) -> Dict[str, Any]:
+        """The ``GET /debug/queries`` document: the slow-query ring, most
+        recent first, and the executor's launch and plan counters."""
+        ex = self.executor
+        return {"queries": self.profiler.slow_queries(),
+                "retraces": ex.jit_compiles,
+                "megaLaunches": ex.mega_launches,
+                "megaQueries": ex.mega_queries,
+                "megaPlanEntries": ex.mega_plan_entries,
+                "megaPlanBytes": ex.mega_plan_bytes,
+                "planVerifyPasses": ex.plan_verify_passes,
+                "planVerifyRejects": ex.plan_verify_rejects,
+                "optPlans": ex.opt_plans,
+                "optCseHits": ex.opt_cse_hits,
+                "optEntriesEliminated": ex.opt_entries_eliminated,
+                "optFoldsReordered": ex.opt_folds_reordered,
+                "optBytesSaved": ex.opt_bytes_saved,
+                "launchBytesGather": ex.launch_bytes_gather,
+                "launchBytesCompute": ex.launch_bytes_compute,
+                "launchBytesExpand": ex.launch_bytes_expand,
+                "launchBytesPad": ex.launch_bytes_pad,
+                "opcodeTotals": dict(ex.opcode_counts)}
 
     # ---------------------------------------------------------------- status
 

@@ -27,8 +27,15 @@ launch per shard-count cohort.
   a request still queued at its deadline is ejected and fails with
   ``DeadlineExceeded`` (HTTP 408); a claimed request always finishes.
 
-The JAX package's stats, tracing, workload-recorder and timeline hooks
-are not ported; ``counters`` holds the counts the serving checks read.
+Measurement, as in the JAX package: the stats client gets the
+``coalescer.*`` counters, the queue-depth gauge, the batch-size
+histogram and the request and queue-wait timings; a flush runs under a
+``Coalescer.flush`` span; a request's profile rides its item (a forced
+``?profile=true`` profile is never deduplicated, so its tree describes
+its own run), and its timeline gets a ``queue`` slice (enqueue to the
+flush's start) and a ``coalesce`` slice (the shared flush). The JAX
+package's workload-recorder feed (``coalescer.window_repeat``) is not
+ported. ``counters`` holds the counts the serving checks read.
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from pilosa_tpu_torch.server.api import ApiError
 from pilosa_tpu_torch.utils.fingerprint import request_key
+from pilosa_tpu_torch.utils.stats import NopStatsClient
+from pilosa_tpu_torch.utils.timeline import LANE_COALESCE, LANE_QUEUE, \
+    TIMELINE
+from pilosa_tpu_torch.utils.tracing import NopTracer
 
 # Item lifecycle: PENDING (queued, still ejectable) -> CLAIMED (taken by
 # the dispatcher; result imminent) or EJECTED (deadline passed while
@@ -70,11 +81,11 @@ class DeadlineExceeded(ApiError):
 
 class _Item:
     __slots__ = ("index", "query", "shards", "is_write", "deadline",
-                 "state", "event", "result")
+                 "state", "event", "result", "enqueued_at", "profile")
 
     def __init__(self, index: str, query: Any,
                  shards: Optional[Sequence[int]], is_write: bool,
-                 deadline: Optional[float]):
+                 deadline: Optional[float], profile: Any = None):
         self.index = index
         self.query = query
         self.shards = shards
@@ -83,6 +94,10 @@ class _Item:
         self.state = _PENDING
         self.event = threading.Event()
         self.result: Any = None
+        self.enqueued_at = time.perf_counter()
+        # The request's QueryProfile (None unprofiled), filled in when
+        # its batch runs.
+        self.profile = profile
 
 
 class QueryCoalescer:
@@ -94,8 +109,11 @@ class QueryCoalescer:
 
     def __init__(self, executor: Any, window_s: float = 0.0015,
                  max_batch: int = 64, max_queue: int = 256,
-                 deadline_s: float = 0.0):
+                 deadline_s: float = 0.0, stats: Any = None,
+                 tracer: Any = None):
         self.executor = executor
+        self.stats = stats or NopStatsClient()
+        self.tracer = tracer or NopTracer()
         self.window_s = max(0.0, float(window_s))
         self.max_batch = max(1, int(max_batch))
         self.max_queue = max(1, int(max_queue))
@@ -122,10 +140,6 @@ class QueryCoalescer:
         # of more than one item), batched_requests, pipelined,
         # flush.<reason>.
         self.counters: Dict[str, int] = {}
-
-    def _count(self, name: str, n: int = 1) -> None:
-        with self._counts_lock:
-            self.counters[name] = self.counters.get(name, 0) + n
 
     # ------------------------------------------------------------ lifecycle
 
@@ -188,16 +202,19 @@ class QueryCoalescer:
     # --------------------------------------------------------------- submit
 
     def submit(self, index: str, query: Any,
-               shards: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+               shards: Optional[Sequence[int]] = None,
+               profile: Any = None) -> Dict[str, Any]:
         """Queue one query and block until its batch resolves. Returns
         the shaped response; raises the request's own exception,
         ``CoalescerOverload``, ``DeadlineExceeded``, or
-        ``CoalescerStopped`` when the coalescer is not running."""
+        ``CoalescerStopped`` when the coalescer is not running.
+        ``profile`` (a QueryProfile) is filled in when the request
+        runs."""
         from pilosa_tpu_torch.executor.executor import query_is_write
         deadline = (time.monotonic() + self.deadline_s
                     if self.deadline_s > 0 else None)
         is_write = query_is_write(query)
-        item = _Item(index, query, shards, is_write, deadline)
+        item = _Item(index, query, shards, is_write, deadline, profile)
         with self._cond:
             if not self._running:
                 raise CoalescerStopped("coalescer stopped")
@@ -208,6 +225,7 @@ class QueryCoalescer:
                     retry_after=max(1.0, self.window_s * 2))
             self._queue.append(item)
             self._count("admitted")
+            self.stats.gauge("coalescer.queue_depth", len(self._queue))
             if is_write and self._flush_now is None:
                 # A write must not sit in a window.
                 self._flush_now = "write"
@@ -230,6 +248,8 @@ class QueryCoalescer:
                         except ValueError:
                             pass
                         self._count("deadline_ejected")
+                        self.stats.gauge("coalescer.queue_depth",
+                                         len(self._queue))
                         raise DeadlineExceeded(
                             f"deadline exceeded after "
                             f"{self.deadline_s * 1e3:.0f} ms in queue")
@@ -238,6 +258,8 @@ class QueryCoalescer:
                 item.event.wait()
         else:
             item.event.wait()
+        self.stats.timing("coalescer.request",
+                          time.perf_counter() - item.enqueued_at)
         if isinstance(item.result, Exception):
             raise item.result
         return item.result
@@ -319,60 +341,116 @@ class QueryCoalescer:
                 continue
             item.state = _CLAIMED
             batch.append(item)
+        self.stats.gauge("coalescer.queue_depth", len(self._queue))
         return batch
+
+    def _tally(self, name: str, n: int = 1) -> None:
+        with self._counts_lock:
+            self.counters[name] = self.counters.get(name, 0) + n
+
+    def _count(self, name: str, n: int = 1) -> None:
+        """Count in ``counters`` and as the JAX package's
+        ``coalescer.<name>`` stat."""
+        self._tally(name, n)
+        self.stats.count(f"coalescer.{name}", n)
 
     def _note_flush(self, batch: List[_Item], reason: str) -> None:
         self._count(f"flush.{reason}")
+        self.stats.histogram("coalescer.batch_size", len(batch))
         if len(batch) > 1:
-            self._count("batches")
-            self._count("batched_requests", len(batch))
+            self._tally("batches")
+            self._tally("batched_requests", len(batch))
 
     def _execute(self, batch: List[_Item], reason: str) -> None:
         self._note_flush(batch, reason)
         try:
-            if len(batch) == 1:
-                self._execute_direct(batch[0])
-            else:
-                reqs, owner = self._dedup(batch)
-                self._resolve(owner, self.executor.execute_batch_shaped(reqs))
+            with self.tracer.span("Coalescer.flush", n=len(batch),
+                                  reason=reason) as span:
+                if len(batch) == 1:
+                    self._execute_direct(batch[0], reason)
+                else:
+                    reqs, profiles, owner = self._dedup(batch)
+                    if span is not None:
+                        span.set("unique", len(reqs))
+                    exec_start = time.perf_counter()
+                    self._stamp_queue_wait(batch, exec_start, reason)
+                    shaped = self.executor.execute_batch_shaped(
+                        reqs, profiles=profiles)
+                    self._stamp_coalesce(batch, exec_start, reason,
+                                         len(reqs))
+                    self._resolve(owner, shaped)
         except Exception as e:  # the dispatcher must never die
             for item in batch:
                 if not item.event.is_set():
                     item.result = e
                     item.event.set()
 
-    def _execute_direct(self, item: _Item) -> None:
+    def _execute_direct(self, item: _Item, reason: str = "idle") -> None:
         """A batch of one runs the exact direct path."""
+        if item.profile is not None:
+            wait = time.perf_counter() - item.enqueued_at
+            item.profile.set_coalesced(1, wait)
+            TIMELINE.event(item.profile.timeline, "queue", LANE_QUEUE,
+                           item.enqueued_at, wait, batch=1, reason=reason)
         try:
             item.result = self.executor.execute_full(
-                item.index, item.query, shards=item.shards)
+                item.index, item.query, shards=item.shards,
+                profile=item.profile)
         except Exception as e:
             item.result = e
         item.event.set()
 
+    def _stamp_queue_wait(self, batch: List[_Item], exec_start: float,
+                          reason: str) -> None:
+        """Queue wait ends when the flush starts."""
+        for item in batch:
+            wait = exec_start - item.enqueued_at
+            self.stats.timing("coalescer.queue_wait", wait)
+            if item.profile is not None:
+                item.profile.set_coalesced(len(batch), wait)
+                TIMELINE.event(item.profile.timeline, "queue", LANE_QUEUE,
+                               item.enqueued_at, wait, batch=len(batch),
+                               reason=reason)
+
+    @staticmethod
+    def _stamp_coalesce(batch: List[_Item], exec_start: float,
+                        reason: str, unique: int, **extra: Any) -> None:
+        """The shared flush as one slice on every member's timeline."""
+        flush_s = time.perf_counter() - exec_start
+        for item in batch:
+            if item.profile is not None:
+                TIMELINE.event(item.profile.timeline, "coalesce",
+                               LANE_COALESCE, exec_start, flush_s,
+                               batch=len(batch), unique=unique,
+                               reason=reason, **extra)
+
     def _dedup(self, batch: List[_Item]) -> Tuple[
-            List[Tuple[str, Any, Optional[Sequence[int]]]],
+            List[Tuple[str, Any, Optional[Sequence[int]]]], List[Any],
             List[List[_Item]]]:
         """Collapse identical read-only queries when the flush carries no
         write (a write orders against its batchmates, so reads around it
-        each run in place)."""
+        each run in place). A forced profile never collapses: its tree
+        must describe its own request's run. Returns the requests, their
+        profiles and each request's items."""
         dedup_ok = not any(it.is_write for it in batch)
         first: Dict[tuple, int] = {}
         reqs: List[Tuple[str, Any, Optional[Sequence[int]]]] = []
+        profiles: List[Any] = []
         owner: List[List[_Item]] = []
         for item in batch:
-            key = None
-            if dedup_ok and isinstance(item.query, str):
+            forced = item.profile is not None and item.profile.forced
+            if dedup_ok and not forced and isinstance(item.query, str):
                 key = request_key(item.index, item.query, item.shards)
                 if key in first:
                     owner[first[key]].append(item)
                     continue
                 first[key] = len(reqs)
             reqs.append((item.index, item.query, item.shards))
+            profiles.append(item.profile)
             owner.append([item])
         if len(reqs) < len(batch):
             self._count("deduped", len(batch) - len(reqs))
-        return reqs, owner
+        return reqs, profiles, owner
 
     @staticmethod
     def _resolve(owner: List[List[_Item]], shaped: List[Any]) -> None:
@@ -403,8 +481,15 @@ class QueryCoalescer:
         the in-flight batch to the finalizer and go back to collecting."""
         self._note_flush(batch, reason)
         try:
-            reqs, owner = self._dedup(batch)
-            flight = self.executor.execute_batch_begin(reqs)
+            with self.tracer.span("Coalescer.flush", n=len(batch),
+                                  reason=reason, pipelined=True) as span:
+                reqs, profiles, owner = self._dedup(batch)
+                if span is not None:
+                    span.set("unique", len(reqs))
+                exec_start = time.perf_counter()
+                self._stamp_queue_wait(batch, exec_start, reason)
+                flight = self.executor.execute_batch_begin(
+                    reqs, profiles=profiles)
         except Exception as e:  # the begin failed: resolve everyone now
             for item in batch:
                 if not item.event.is_set():
@@ -412,6 +497,7 @@ class QueryCoalescer:
                     item.event.set()
             return
         self._count("pipelined")
+        work = (batch, owner, flight, exec_start, reason, len(reqs))
         with self._pl_cond:
             # Depth one: wait for the previous batch's slot. The wait
             # comes after this batch launched, so its device work
@@ -419,23 +505,26 @@ class QueryCoalescer:
             while self._pl_pending is not None:
                 self._pl_cond.wait()
             if not self._pl_stop:
-                self._pl_pending = (batch, owner, flight)
+                self._pl_pending = work
                 self._pl_cond.notify_all()
                 return
         # The finalizer ended while this batch began: drain it here.
         try:
-            self._finish(batch, owner, flight)
+            self._finish(*work)
         except Exception:
             pass  # resolved to the batch's requesters
 
     def _finish(self, batch: List[_Item], owner: List[List[_Item]],
-                flight: Any) -> None:
+                flight: Any, exec_start: float, reason: str,
+                unique: int) -> None:
         """Drain one in-flight batch and resolve its requesters; on a
         failure resolve them with it (an interrupt or exit as
         CoalescerStopped), then raise it."""
         try:
-            self._resolve(owner,
-                          self.executor.execute_batch_shaped_finish(flight))
+            shaped = self.executor.execute_batch_shaped_finish(flight)
+            self._stamp_coalesce(batch, exec_start, reason, unique,
+                                 pipelined=True)
+            self._resolve(owner, shaped)
         except BaseException as e:
             for item in batch:
                 if not item.event.is_set():

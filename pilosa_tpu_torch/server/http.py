@@ -5,12 +5,20 @@ Routes:
   GET    /  /schema  /status  /info  /version
   GET    /index  /index/{i}  /index/{i}/field
   GET    /export?index&field&shard  one shard as ``row,col`` CSV
+  GET    /metrics              Prometheus text of the stats client
+  GET    /debug/vars           the stats client's snapshot as JSON
+  GET    /debug/queries        the slow-query ring and launch counters
+  GET    /debug/memory         the memory ledger and the layout stanza
+  GET    /debug/timeline?last&trace  trace-event JSON of the timelines
+  GET    /debug/roofline       per-launch bytes, bandwidth and drift
   POST   /index/{i}/query      raw PQL, {"query": ...}, or a protobuf
                                QueryRequest; URL args shards,
                                excludeColumns, excludeRowAttrs,
-                               columnAttrs
+                               columnAttrs, profile (JSON only: the
+                               profile tree in the response)
   POST   /batch/query          {"queries": [{"index", "query",
-                               "shards"?}, ...]}, at most 1024
+                               "shards"?}, ...]}, at most 1024; URL
+                               arg profile
   POST   /index/{i}/field/{f}/import   JSON {"rowIDs"|"rowKeys",
                                "columnIDs"|"columnKeys"} or
                                {"columnIDs"|"columnKeys", "values"}, or
@@ -28,8 +36,15 @@ Routes:
 JSON query responses ride the coalescer when one is attached; protobuf
 queries take the direct path, as in the JAX package. Over a holder with
 a data directory every write is in the fragments' files before its 200
-goes out. The JAX package's cluster, node-to-node, debug and metrics
-routes answer 404 naming the part that is not ported.
+goes out. Each request reads a W3C ``traceparent`` (or the legacy
+``X-Trace-Id``) into the tracer, and its response carries the
+``traceparent`` of the trace it ran under, the id ``/debug/timeline``
+and ``/debug/queries`` know it by. Every request is observed in
+``pilosa_http_request_seconds{endpoint,status}`` (endpoints labelled as
+the JAX package labels them, unknown paths as "other"). The JAX
+package's cluster and node-to-node routes, ``/debug/hotspots``,
+``/debug/history`` and ``/debug/slo`` answer 404 naming the part that is
+not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +53,8 @@ import json
 import re
 import socket
 import threading
+import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 from urllib.parse import parse_qs, urlparse
@@ -46,17 +63,72 @@ from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.pql.ast import Call, Query
 from pilosa_tpu_torch.server import proto_compat
 from pilosa_tpu_torch.server.api import API, ApiError, not_ported
+from pilosa_tpu_torch.utils.stats import prometheus_text
+from pilosa_tpu_torch.utils.timeline import TIMELINE
+from pilosa_tpu_torch.utils.tracing import TRACEPARENT_HEADER, \
+    format_traceparent
 
 # Route prefixes the JAX package's server answers and this one does not
 # yet, with the part each needs.
 _NOT_PORTED_ROUTES = (
     (re.compile(r"/internal/.*"), "the node-to-node API (cluster)"),
     (re.compile(r"/cluster/.*"), "the cluster plane"),
-    (re.compile(r"/debug/.*|/metrics"), "the debug and metrics planes"),
+    (re.compile(r"/debug/hotspots"), "the workload signature table"),
+    (re.compile(r"/debug/(history|slo)"), "the sentinel"),
 )
 # URL args of the query route that name a part not ported.
-_QUERY_ARGS_NOT_PORTED = {"remote": "remote query legs (cluster)",
-                          "profile": "the query profiler"}
+_QUERY_ARGS_NOT_PORTED = {"remote": "remote query legs (cluster)"}
+
+# Per-endpoint latency buckets (seconds), the JAX package's: powers of
+# two from about 61 us to 8 s.
+SLO_BUCKETS = tuple(2.0 ** e for e in range(-14, 4))
+
+# Endpoint labels, the JAX package's: path parameters collapse to
+# placeholders so pilosa_http_request_seconds{endpoint=...} stays a
+# bounded label set.
+_EP_PATTERNS = [
+    (re.compile(r"/index/[^/]+/query"), "/index/{index}/query"),
+    (re.compile(r"/index/[^/]+/field/[^/]+/import-roaring/\d+"),
+     "/index/{index}/field/{field}/import-roaring/{shard}"),
+    (re.compile(r"/index/[^/]+/field/[^/]+/import"),
+     "/index/{index}/field/{field}/import"),
+    (re.compile(r"/index/[^/]+/field/[^/]+"),
+     "/index/{index}/field/{field}"),
+    (re.compile(r"/index/[^/]+/field"), "/index/{index}/field"),
+    (re.compile(r"/index/[^/]+"), "/index/{index}"),
+    (re.compile(r"/cluster/timeline/[^/]+"),
+     "/cluster/timeline/{trace}"),
+]
+_EP_STATIC = frozenset({
+    "/", "/schema", "/status", "/info", "/version", "/index",
+    "/metrics", "/batch/query", "/export", "/recalculate-caches",
+    "/debug/vars", "/debug/queries", "/debug/memory", "/debug/hotspots",
+    "/debug/timeline", "/debug/roofline", "/debug/history",
+    "/debug/slo", "/cluster/health", "/cluster/hotspots",
+    "/cluster/slo",
+    "/cluster/timeline", "/internal/failpoints",
+    "/internal/health", "/internal/nodes", "/internal/local-shards",
+    "/internal/views", "/internal/join", "/internal/cluster/message",
+    "/internal/sync", "/internal/resize/pull", "/internal/shards/max",
+    "/internal/fragment/blocks", "/internal/fragment/block/data",
+    "/internal/fragment/data", "/internal/fragment/nodes",
+    "/internal/attr/blocks", "/internal/attr/block/data",
+    "/internal/attr/merge", "/internal/translate/data",
+    "/internal/translate/keys", "/internal/translate/ids",
+    "/cluster/resize/remove-node", "/cluster/resize/set-coordinator",
+    "/cluster/resize/abort", "/cluster/resize/run",
+})
+
+
+def endpoint_label(path: str) -> str:
+    """Bounded endpoint label of a path; unknown paths fold into
+    "other", so a scanner walking random URLs mints no series."""
+    if path in _EP_STATIC:
+        return path
+    for rx, label in _EP_PATTERNS:
+        if rx.fullmatch(path):
+            return label
+    return "other"
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -82,10 +154,36 @@ class Handler(BaseHTTPRequestHandler):
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
+        tid = getattr(self, "_trace_id", None)
+        if tid:
+            self.send_header(TRACEPARENT_HEADER,
+                             format_traceparent(tid, uuid.uuid4().hex))
         for k, v in (extra_headers or {}).items():
             self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(data)
+
+    def send_response(self, code, message=None):
+        # The status of the response, for the latency histogram.
+        self._slo_status = code
+        super().send_response(code, message)
+
+    def _observe_slo(self, method: str, path: str, dur: float) -> None:
+        """One latency observation per request, by endpoint and status;
+        a slow request on another route than the query routes goes into
+        the slow-query ring under its trace id."""
+        api = self.api
+        ep = endpoint_label(path)
+        status = getattr(self, "_slo_status", 200)
+        api.stats.with_tags(f"endpoint:{ep}", f"status:{status}").histogram(
+            "http_request_seconds", dur, buckets=SLO_BUCKETS)
+        lqt = api.long_query_time
+        if lqt > 0 and dur > lqt and ep not in (
+                "/index/{index}/query", "/batch/query"):
+            api.profiler.record_slow("-", f"{method} {ep}", dur,
+                                     kind="http",
+                                     trace_id=getattr(self, "_trace_id",
+                                                      None))
 
     def _error(self, msg: str, status: int = 400,
                extra_headers: Optional[dict] = None) -> None:
@@ -139,7 +237,8 @@ class Handler(BaseHTTPRequestHandler):
     def _query_args(self, q: dict) -> Optional[list]:
         """Check the query route's URL args; returns ``shards``."""
         self._check_args(q, "shards", "columnAttrs", "excludeRowAttrs",
-                         "excludeColumns", *_QUERY_ARGS_NOT_PORTED)
+                         "excludeColumns", "profile",
+                         *_QUERY_ARGS_NOT_PORTED)
         for arg, what in _QUERY_ARGS_NOT_PORTED.items():
             if self._qbool(q, arg):
                 raise not_ported(what)
@@ -162,6 +261,11 @@ class Handler(BaseHTTPRequestHandler):
         parsed = urlparse(self.path)
         q = {k: v[0] for k, v in parse_qs(parsed.query).items()}
         path = parsed.path.rstrip("/") or "/"
+        tracer = self.api.tracer
+        tracer.extract(self.headers)
+        self._trace_id = getattr(tracer, "ensure_trace_id",
+                                 lambda: None)()
+        t0 = time.perf_counter()
         try:
             if not self._handle(method, path, q):
                 msg = f"no route for {method} {path}"
@@ -176,6 +280,11 @@ class Handler(BaseHTTPRequestHandler):
             self._error(str(e), e.status, e.headers)
         except Exception as e:  # the reference's panic recovery
             self._error(f"internal error: {type(e).__name__}: {e}", 500)
+        finally:
+            try:
+                self._observe_slo(method, path, time.perf_counter() - t0)
+            except Exception:
+                pass  # metrics never fail a served response
 
     def _handle(self, method: str, path: str, q: dict) -> bool:
         api = self.api
@@ -190,6 +299,24 @@ class Handler(BaseHTTPRequestHandler):
                 self._json(api.info())
             elif path == "/version":
                 self._json(api.version())
+            elif path == "/metrics":
+                # The scrape refreshes the gauges first.
+                api.refresh_memory_gauges()
+                self._bytes(prometheus_text(api.stats).encode(),
+                            ctype="text/plain; version=0.0.4")
+            elif path == "/debug/vars":
+                self._json(getattr(api.stats, "snapshot", lambda: {})())
+            elif path == "/debug/queries":
+                self._json(api.debug_queries())
+            elif path == "/debug/memory":
+                self._json(api.debug_memory())
+            elif path == "/debug/timeline":
+                self._check_args(q, "last", "trace")
+                self._json(api.debug_timeline(
+                    last=int(q["last"]) if q.get("last") else None,
+                    trace=q.get("trace")))
+            elif path == "/debug/roofline":
+                self._json(api.debug_roofline())
             elif path == "/export":
                 self._check_args(q, "index", "field", "shard")
                 csv = api.export_csv(q["index"], q["field"],
@@ -211,13 +338,15 @@ class Handler(BaseHTTPRequestHandler):
                 self._post_query(m.group(1), q)
             elif path == "/batch/query":
                 items = self._body_json().get("queries")
+                self._check_args(q, "profile")
                 if not isinstance(items, list):
                     raise ApiError("body must carry a 'queries' list")
                 if len(items) > 1024:
                     # Every item's device work launches before any
                     # result resolves: the batch must stay bounded.
                     raise ApiError("batch too large (max 1024 queries)")
-                self._json({"responses": api.query_batch(items)})
+                self._json({"responses": api.query_batch(
+                    items, profile=self._qbool(q, "profile"))})
             elif path == "/recalculate-caches":
                 api.recalculate_caches()
                 self._json({})
@@ -275,12 +404,18 @@ class Handler(BaseHTTPRequestHandler):
         pql = (body or {}).get("query") if body else raw.decode()
         try:
             pql = self._wrap_options(pql, self._exec_optargs(q))
-            resp = self.api.query_coalesced(index, pql, shards=shards)
+            resp = self.api.query_coalesced(
+                index, pql, shards=shards,
+                profile=self._qbool(q, "profile"))
         except ApiError:
             raise  # keeps its status (429 overload, 408 deadline)
         except ValueError as e:
             raise ApiError(str(e))
+        # The serialize slice attaches to the request this thread just
+        # finished (the API closed its timeline before the write).
+        ts0 = time.perf_counter()
         self._json(resp)
+        TIMELINE.note_serialize(ts0, time.perf_counter() - ts0)
 
     def _query_proto(self, index: str, raw: bytes, q: dict,
                      shards: Optional[list]) -> None:

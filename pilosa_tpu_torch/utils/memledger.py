@@ -15,9 +15,10 @@ it and how much of that is padding:
   totals into a bounded ring and logs a warning, with the largest
   device entries, when the device bytes cross a watermark.
 
-Host-only: no device work, so sampling never waits on the card. The
-``/debug/memory`` route, the ``/metrics`` gauges and the ring's dump on
-SIGTERM are not ported yet.
+Host-only: no device work, so sampling never waits on the card.
+``MemoryLedger.publish`` exports the ``pilosa_memory_*`` gauges that
+``/metrics`` serves; ``/debug/memory`` serves the snapshot. The ring's
+dump on SIGTERM is not ported yet.
 """
 
 from __future__ import annotations
@@ -228,6 +229,19 @@ class MemoryLedger:
             "categories": cats,
             "top": self.top(top_k),
         }
+
+    def publish(self, stats: Optional[Any]) -> None:
+        """Export per-category gauges: pilosa_memory_bytes{category},
+        pilosa_memory_padding_bytes{category}, pilosa_memory_objects.
+        Totals are read under the lock; the stats client (its own lock)
+        is called outside it."""
+        if stats is None:
+            return
+        for cat, t in self.totals().items():
+            tagged = stats.with_tags(f"category:{cat}")
+            tagged.gauge("memory.bytes", t["bytes"])
+            tagged.gauge("memory.padding_bytes", t["paddedBytes"])
+            tagged.gauge("memory.objects", t["count"])
 
 
 # The process-wide ledger every allocation site registers with.

@@ -58,14 +58,14 @@ class StubExecutor:
         if self.gate is not None:
             assert self.gate.wait(30), "gate never released"
 
-    def execute_full(self, index, query, shards=None):
+    def execute_full(self, index, query, shards=None, profile=None):
         self._wait_gate()
         res = self._run(index, query)
         if isinstance(res, Exception):
             raise res
         return res
 
-    def execute_batch_begin(self, reqs):
+    def execute_batch_begin(self, reqs, profiles=None):
         self._wait_gate()
         with self.lock:
             self.batches.append([q for _, q, _ in reqs])
@@ -74,7 +74,7 @@ class StubExecutor:
     def execute_batch_shaped_finish(self, flight):
         return list(flight)
 
-    def execute_batch_shaped(self, reqs):
+    def execute_batch_shaped(self, reqs, profiles=None):
         return self.execute_batch_shaped_finish(
             self.execute_batch_begin(reqs))
 
@@ -334,8 +334,8 @@ def test_drain_failure_respects_batch_boundaries():
     orig_begin, orig_finish = ex.execute_batch_begin, \
         ex.execute_batch_shaped_finish
 
-    def tagged_begin(reqs):
-        flight = orig_begin(reqs)
+    def tagged_begin(reqs, profiles=None):
+        flight = orig_begin(reqs, profiles=profiles)
         flights.append(flight)
         if len(flights) == 2:
             second_begin.set()
@@ -402,7 +402,7 @@ def test_api_reruns_only_after_coalescer_stopped():
         def __init__(self, exc):
             self.exc = exc
 
-        def submit(self, index, query, shards=None):
+        def submit(self, index, query, shards=None, profile=None):
             raise self.exc
 
     api.coalescer = Failing(CoalescerStopped("stopped under the request"))

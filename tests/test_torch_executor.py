@@ -346,6 +346,10 @@ def test_port_imports_neither_jax_nor_reference():
         "m.startswith('jax.') or m == 'pilosa_tpu' or "
         "m.startswith('pilosa_tpu.')]\n"
         "assert len(mods) >= 15, mods\n"
+        "need = ['pilosa_tpu_torch.utils.' + n for n in ('locks', "
+        "'stats', 'tracing', 'timeline', 'profile', 'roofline', "
+        "'benchenv')]\n"
+        "assert not set(need) - set(mods), set(need) - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -403,8 +403,6 @@ def test_port_refuses_what_is_not_ported(servers):
     before and is ported now is answered as the JAX server does."""
     _, pbase, _ = servers
     cases = [
-        ("POST", "/index/dn/query?profile=true", "Row(f=1)",
-         "query profiler"),
         ("POST", "/index/dn/query?remote=true", "Row(f=1)", "cluster"),
     ]
     # Column attributes, a column key, SetRowAttrs, index and field keys
@@ -458,10 +456,22 @@ def test_port_refuses_what_is_not_ported(servers):
         st, _, raw = call(pbase, method, path, body)
         assert st == 400, (path, body, st, raw)
         assert what in json.loads(raw)["error"], (path, body, raw)
-    for path, what in (("/metrics", "metrics"),
+    for path, what in (("/debug/hotspots", "signature table"),
+                       ("/debug/slo", "sentinel"),
                        ("/internal/nodes", "cluster")):
         st, _, raw = call(pbase, "GET", path)
         assert st == 404 and what in json.loads(raw)["error"], (path, raw)
+    # The profiler and /metrics are ported: a profiled query answers as
+    # the direct one, with its tree beside the results.
+    st, _, raw = call(pbase, "POST", "/index/dn/query?profile=true",
+                      "Row(f=1)")
+    assert st == 200, raw
+    got = json.loads(raw)
+    assert got["results"] == json.loads(call(
+        pbase, "POST", "/index/dn/query", "Row(f=1)")[2])["results"]
+    assert got["profile"]["ops"][0]["name"] == "Row"
+    # No stats client here (the nop one): an empty exposition.
+    assert call(pbase, "GET", "/metrics")[:1] == (200,)
     st, _, raw = call(pbase, "POST", "/index/dn/query",
                       pb_query("Row(f=1)") + jax_proto._varint_field(5, 1),
                       PROTO)
@@ -1017,3 +1027,145 @@ def test_cli_server_refuses_to_start_without_a_card():
     rc = proc.wait(timeout=120)
     assert rc != 0
     assert "no CUDA device" in proc.stderr.read()
+
+
+# ------------------------------------------------------ measurement plane
+
+# /metrics families of the JAX server whose parts the port has not
+# ported: the jit compile cache (the port compiles no programs; the CPU
+# path loads no kernel library, so no miss either), the per-program
+# operand uploads of the JAX eager path (the port's eager path uploads
+# no operand vectors), the workload recorder's publish and counters
+# (ROADMAP queue A item 7), the result cache and the sentinel.
+JAX_ONLY_FAMILIES = {
+    "pilosa_executor_jit_cache_size", "pilosa_executor_jit_miss_total",
+    "pilosa_executor_retrace_total", "pilosa_executor_h2d_bytes_total",
+    "pilosa_fragment_reads_total", "pilosa_fragment_writes_total",
+    "pilosa_query_repeat_ratio", "pilosa_workload_tracked_fragments",
+    "pilosa_workload_tracked_signatures",
+    "pilosa_result_cache_bytes", "pilosa_result_cache_entries",
+    "pilosa_result_cache_eval_misses_total",
+    "pilosa_result_cache_hit_ratio", "pilosa_result_cache_misses_total",
+    "pilosa_result_cache_request_misses_total",
+    "pilosa_sentinel_alerts_active", "pilosa_sentinel_alerts_fired",
+    "pilosa_sentinel_series",
+}
+
+METRICS_TRAFFIC = [
+    ("POST", "/index/m", {}),
+    ("POST", "/index/m/field/f", {}),
+    ("POST", "/index/m/field/g", {}),
+    ("POST", "/index/m/field/v",
+     {"options": {"type": "int", "min": 0, "max": 100}}),
+    ("POST", "/index/m/field/f/import",
+     {"rowIDs": [1, 1, 2, 3], "columnIDs": [1, 5, SHARD_WIDTH, 9]}),
+    ("POST", "/index/m/field/g/import", {"rowIDs": [1, 2],
+                                         "columnIDs": [1, 9]}),
+    ("POST", "/index/m/field/v/import", {"columnIDs": [1, 9],
+                                         "values": [5, 50]}),
+    ("POST", "/index/m/query", "Count(Intersect(Row(f=1), Row(g=1)))"),
+    ("POST", "/index/m/query?profile=true",
+     "Row(f=1) Sum(Row(f=1), field=v) TopN(f, n=2)"),
+    ("POST", "/batch/query", {"queries": [
+        {"index": "m", "query": q} for q in (
+            "Count(Row(f=1))", "Row(g=2)",
+            "Count(Union(Row(f=2), Row(g=1)))")]}),
+    ("GET", "/debug/queries", None),
+    ("GET", "/debug/memory", None),
+    ("GET", "/debug/roofline", None),
+    ("GET", "/debug/timeline?last=2", None),
+    ("GET", "/debug/vars", None),
+    ("GET", "/nope", None),
+]
+
+
+@pytest.fixture
+def stat_servers(tmp_path, monkeypatch):
+    """A JAX and a port server with in-memory stats clients, span
+    recorders and coalescers, the megakernel on in both."""
+    from pilosa_tpu.executor import megakernel as jmegamod
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.utils.stats import MemStatsClient as PortStats
+    from pilosa_tpu_torch.utils.tracing import RecordingTracer
+    monkeypatch.setattr(jmegamod, "MEGAKERNEL_ENABLED", True)
+    monkeypatch.setattr(megamod, "MEGAKERNEL_ENABLED", True)
+    jh = JaxHolder(str(tmp_path / "jax"))
+    jh.open()
+    japi = JaxAPI(jh, stats=MemStatsClient())
+    papi = API(Holder(device="cpu"), stats=PortStats(),
+               tracer=RecordingTracer())
+    japi.coalescer = JaxCoalescer(japi.executor, window_s=WINDOW_S,
+                                  stats=japi.stats, tracer=japi.tracer)
+    papi.coalescer = QueryCoalescer(papi.executor, window_s=WINDOW_S,
+                                    stats=papi.stats, tracer=papi.tracer)
+    servers = []
+    for api, srv_fn in ((japi, jax_serve), (papi, serve)):
+        api.coalescer.start()
+        servers.append(srv_fn(api, "localhost", 0, background=True))
+    yield [f"http://localhost:{s.server_address[1]}" for s in servers], \
+        papi
+    for srv, api in zip(servers, (japi, papi)):
+        srv.shutdown()
+        srv.server_close()
+        api.coalescer.stop()
+    jh.close()
+
+
+def _families(base):
+    st, ctype, raw = call(base, "GET", "/metrics")
+    assert st == 200 and ctype.startswith("text/plain"), (st, ctype)
+    return {ln.split()[2] for ln in raw.decode().splitlines()
+            if ln.startswith("# TYPE ")}
+
+
+def test_metrics_families_match_jax(stat_servers):
+    """After the same traffic both servers answer every request with the
+    same status, and their /metrics carry the same families apart from
+    JAX_ONLY_FAMILIES."""
+    (jbase, pbase), _ = stat_servers
+    for method, path, body in METRICS_TRAFFIC:
+        js = call(jbase, method, path, body)[0]
+        ps = call(pbase, method, path, body)[0]
+        assert js == ps, (path, js, ps)
+    jf, pf = _families(jbase), _families(pbase)
+    assert pf == jf - JAX_ONLY_FAMILIES, (sorted(pf ^ (jf - JAX_ONLY_FAMILIES)))
+    for fam in ("pilosa_executor_mega_launches_total",
+                "pilosa_executor_launch_bytes_total",
+                "pilosa_roofline_gbps", "pilosa_device_idle_ratio",
+                "pilosa_memory_bytes", "pilosa_http_request_seconds",
+                "pilosa_executor_device_seconds"):
+        assert fam in pf, fam
+
+
+def test_debug_routes_and_traceparent(stat_servers):
+    """The port's /debug routes answer the JAX server's documents' keys;
+    a request's traceparent comes back on its response and names its
+    timeline."""
+    (jbase, pbase), papi = stat_servers
+    for method, path, body in METRICS_TRAFFIC[:10]:
+        call(jbase, method, path, body)
+        call(pbase, method, path, body)
+    for path in ("/debug/memory", "/debug/roofline", "/debug/timeline",
+                 "/debug/vars"):
+        jdoc = json.loads(call(jbase, "GET", path)[2])
+        pdoc = json.loads(call(pbase, "GET", path)[2])
+        assert set(pdoc) <= set(jdoc), (path, set(pdoc) - set(jdoc))
+        assert pdoc, path
+    pq = json.loads(call(pbase, "GET", "/debug/queries")[2])
+    jq = json.loads(call(jbase, "GET", "/debug/queries")[2])
+    assert set(pq) <= set(jq)
+    roof = json.loads(call(pbase, "GET", "/debug/roofline")[2])
+    assert roof["launches"] >= 1 and roof["estimateOnly"] is True
+    assert roof["executor"]["megaLaunches"] == papi.executor.mega_launches
+    tid = "12" * 16
+    req = urllib.request.Request(
+        pbase + "/index/m/query", data=b"Count(Row(f=1))", method="POST",
+        headers={"traceparent": f"00-{tid}-{'34' * 8}-01"})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        assert json.loads(resp.read())["results"] == [2]
+        assert resp.headers["traceparent"].split("-")[1] == tid
+    doc = json.loads(call(pbase, "GET", f"/debug/timeline?trace={tid}")[2])
+    assert doc["summary"]["requests"] == 1
+    with urllib.request.urlopen(pbase + "/version", timeout=30) as resp:
+        minted = resp.headers["traceparent"].split("-")[1]
+    assert len(minted) == 32 and minted != tid
