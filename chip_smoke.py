@@ -70,6 +70,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
    burst's p50 with the roofline and timeline recorders on and off, in
    turns (recorded, not asserted). No plain version may run; the sweeps
    and the interpreter must launch.
+   serving (``run_serving``): on the same holder, the result cache, on
+   by default in a new ``Executor``: the five queries as misses (the
+   same kernels as the taxi phase launched, exact), then 200 hits and
+   200 misses (the cache off) of each Count and of the burst's Row
+   request in turns hit, miss, miss, hit (a Row answer timed to its
+   columns, the copy a miss makes), every hit an eval-tier hit
+   with no launch and no plain version, one more each under
+   ``set_sync_debug_mode("error")``, each side's p50 with its p10 and
+   p90 (``spread``); TopN and Sum move no cache counter. The burst
+   misses in one ``mega_interpret`` launch, its repeat launches
+   nothing (200 repeats timed), the miss overhead in 200 bursts a mode
+   (every call a miss, the cache off, no identity walk) in turns A B C
+   C B A; after a new ride's ``Set`` into
+   cab_type=1 the burst relaunches once, for the twelve members that
+   read cab_type, exact against numpy updated for the write (the ride
+   is removed again after). ``execute_full`` twice is a request-tier
+   hit, and a ``SetRowAttrs`` invalidates a Row answer embedding those
+   attributes. Then the server ``cli server -c`` builds from
+   ``SERVING_TOML`` over the holder: HTTP hit and miss (the cache off)
+   p50s and spreads over 200 sequential requests a side in turns hit,
+   miss, miss, hit, 200 reads
+   of the burst's mix, ``/debug/hotspots`` (signatures, repeat ratios,
+   ``estSavedS``, the result cache), ``/debug/history``,
+   ``/debug/slo``, ``/internal/health``, the ``/metrics`` families, the
+   shutdown's workload and sentinel dumps; and the CLI itself as a
+   subprocess with that TOML, dumping both on SIGTERM. The
+   ``result_cache`` ledger bytes are the caches' and within their
+   budgets. Every earlier and later phase switches the cache off
+   (``cache_off``, and ``PILOSA_TPU_RESULT_CACHE=0`` for the CLI
+   subprocesses), so their timings and launch counts keep their meaning.
    groupby: on the same holder, through a new ``Executor``: four Rows
    queries (``previous``, ``limit``, ``column``) and five GroupBy
    queries (``GroupBy(Rows(passenger_count), Rows(cab_type))``, a
@@ -237,14 +267,16 @@ keys, the serve path's taxi and fingerprint servers)
 and read just after; every kernel must have launched on its path, and
 on the serve and persist paths. The ``taxi``, ``groupby``,
 ``timefields``, ``burst``, ``tanimoto``, ``keys``, ``serve``,
-``persist``, ``layout`` and ``memory`` lines, the card's name
+``persist``, ``layout``, ``measure``, ``serving`` and ``memory`` lines,
+the card's name
 and power limit, the kernels JSON and the ``{"ok": true, "device":
 {...}}`` line end the output. The script imports nothing of JAX or of the JAX
 package.
 
 ``--burst-probe [--tree DIR]`` runs only the taxi load and the burst,
 with the ``pilosa_tpu_torch`` package of DIR (default: beside this
-script), and prints one ``probe`` JSON line: the burst's warm p50, the
+script), and prints one ``probe`` JSON line: the burst's warm p50 (and
+its ``spread`` over 200 more bursts), the
 device memory one warm burst allocates at its peak, and its device time
 by kernel under torch.profiler. Runs of two trees in turns compare them
 on one card. ``--load-probe [--tree DIR]`` runs only the fingerprint
@@ -265,6 +297,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# A probe on another checkout (``--tree``), which may predate a module.
+PROBE_TREE = False
 SOURCES = {
     "bank_row_counts": "pilosa_tpu_torch/csrc/bank_counts.cu",
     "bank_row_counts_masked": "pilosa_tpu_torch/csrc/bank_counts.cu",
@@ -288,6 +322,11 @@ WORDS = 32768
 N_RIDES = 100_000_000  # 96 shards
 ITERS = 5  # warm runs per taxi query for the p50
 PROBE_ITERS = 21  # warm bursts for the p50 of --burst-probe
+# Sequential requests a side for each latency the serving phase reports
+# (hit and miss, each miss-overhead mode), spread over turns against
+# host drift.
+SERVING_SAMPLES = 200
+PROBE_SAMPLES = 200  # warm bursts for its spread, after them
 
 # The fingerprint index: the reference's chemical-similarity example
 # (benches/tanimoto_chunked.py) — one row per molecule, 48 draws of a
@@ -360,6 +399,23 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------- kernels
+
+
+def cache_off(obj):
+    """Switch the result cache off on an Executor (or an API's): every
+    phase before ``serving`` times warm repeats and counts launches,
+    which the cache would answer instead. A probe's ``--tree`` from
+    before the result cache has none to switch off. Returns ``obj``."""
+    rc = getattr(getattr(obj, "executor", obj), "result_cache", None)
+    if rc is not None or not PROBE_TREE:
+        rc.enabled = False
+    return obj
+
+
+def cache_off_env():
+    """The environment of a ``cli server`` subprocess of a phase before
+    ``serving``: the result cache's kill switch set."""
+    return {**os.environ, "PILOSA_TPU_RESULT_CACHE": "0"}
 
 
 def random_bank(torch, shape, gen, device):
@@ -721,7 +777,7 @@ def load_taxi(device, cab, pax, dist, amount):
     idx.create_field("amount", FieldOptions(type="int", min=0, max=1000)) \
         .import_values(cols, amount)
     idx.add_existence(cols)
-    return holder, Executor(holder, device=device), \
+    return holder, cache_off(Executor(holder, device=device)), \
         time.perf_counter() - t0
 
 
@@ -748,7 +804,8 @@ def burst_expected(cab, pax, dist, amount):
     return want
 
 
-def run_main(device, n_rides, iters=ITERS, profile=False):
+def run_main(device, n_rides, iters=ITERS, profile=False,
+             samples=SERVING_SAMPLES):
     """Load the taxi index, then drive five paths on it: the five taxi
     queries one at a time, the eighteen-request burst through
     execute_batch, the groupby phase (``run_groupby``), the timefields
@@ -783,6 +840,9 @@ def run_main(device, n_rides, iters=ITERS, profile=False):
     report["measure"], report["measure_launches"] = run_measure(
         holder, want_taxi, want_burst, report["burst"], device, iters)
     memory_line("measure", device)
+    report["serving"] = run_serving(holder, device, want_taxi, want_burst,
+                                    taxi_launches, n_rides, samples)
+    memory_line("serving", device)
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
@@ -980,7 +1040,7 @@ def run_groupby(holder, device, cab, want, iters=ITERS):
     from pilosa_tpu_torch.executor.results import result_to_json
     from pilosa_tpu_torch.ops import kernels
     cuda = device != "cpu"
-    ex = Executor(holder, device=device)
+    ex = cache_off(Executor(holder, device=device))
     n_rides = len(cab)
 
     def one(pql):
@@ -1366,7 +1426,7 @@ def run_timefields(holder, device, cab, amount, iters=ITERS):
     log("timefields: loaded pickup, rate_code and store_and_fwd at "
         f"{n_rides} rides: " + ", ".join(f"{k} {v:.2f} s"
                                           for k, v in load_s.items()))
-    ex = Executor(holder, device=device)
+    ex = cache_off(Executor(holder, device=device))
 
     def one(pql):
         (res,) = ex.execute("taxi", pql)
@@ -1721,8 +1781,9 @@ def run_burst(ex, want, device, iters=ITERS, profile=False):
     return report, launches
 
 
-def burst_p50(ex, reqs, want, device, iters):
-    """Warm p50 (s) of the burst through execute_batch, each run checked."""
+def burst_times(ex, reqs, want, device, iters):
+    """Warm times (s) of the burst through execute_batch, each run
+    checked."""
     import torch
     times = []
     for _ in range(iters):
@@ -1732,8 +1793,12 @@ def burst_p50(ex, reqs, want, device, iters):
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         burst_answers(out, want)
-    times.sort()
-    return times[len(times) // 2]
+    return times
+
+
+def burst_p50(ex, reqs, want, device, iters):
+    """Warm p50 (s) of the burst through execute_batch, each run checked."""
+    return p50(burst_times(ex, reqs, want, device, iters))
 
 
 def burst_peak(torch, ex, reqs, want):
@@ -2009,7 +2074,7 @@ def load_fingerprints(device, pos, path=None):
             np.repeat(np.arange(c0, c0 + len(chunk), dtype=np.uint64),
                       BITS_PER_MOL),
             chunk.reshape(-1).astype(np.uint64))
-    return holder, Executor(holder, device=device), field, \
+    return holder, cache_off(Executor(holder, device=device)), field, \
         time.perf_counter() - t0
 
 
@@ -3157,7 +3222,9 @@ def run_probe(device, n_rides, iters=PROBE_ITERS):
         raise AssertionError(f"probe: megakernel launches/fallbacks/budget "
                              f"fallbacks {before} -> {after}")
     report = {"rides": n_rides, "load_s": load_s,
-              "p50_s": burst_p50(ex, reqs, want, device, iters)}
+              "p50_s": burst_p50(ex, reqs, want, device, iters),
+              "spread_s": spread(burst_times(ex, reqs, want, device,
+                                             PROBE_SAMPLES))}
     report.update(burst_peak(torch, ex, reqs, want))
     report["profile"] = profile_burst(torch, ex, reqs, iters)
     report["serve"] = None
@@ -3213,7 +3280,7 @@ def start_server(holder):
     Returns (api, server, base URL)."""
     from pilosa_tpu_torch.server import API, serve
     from pilosa_tpu_torch.server.coalescer import QueryCoalescer
-    api = API(holder)
+    api = cache_off(API(holder))
     api.coalescer = QueryCoalescer(api.executor)
     api.coalescer.start()
     srv = serve(api, "127.0.0.1", 0, background=True)
@@ -3421,7 +3488,8 @@ def run_measure(holder, want_taxi, want_burst, burst, device,
     from pilosa_tpu_torch.utils.tracing import RecordingTracer
     cuda = device != "cpu"
     t_phase = time.perf_counter()
-    api = API(holder, stats=MemStatsClient(), tracer=RecordingTracer())
+    api = cache_off(API(holder, stats=MemStatsClient(),
+                        tracer=RecordingTracer()))
     api.coalescer = QueryCoalescer(api.executor, stats=api.stats,
                                    tracer=api.tracer)
     api.coalescer.start()
@@ -3678,6 +3746,550 @@ def run_measure(holder, want_taxi, want_burst, burst, device,
     report["seconds"] = time.perf_counter() - t_phase
     log(f"measure: done in {report['seconds']:.1f} s; launches {launches}")
     return report, launches
+
+
+# ------------------------------------------------------------- serving
+
+SERVING_HTTP_READS = 200  # reads from the burst's mix over HTTP
+SERVING_RIDE = 13  # the phase's new ride is rides + 13, removed after
+# The phase's server config (``cli server -c``): an SLO, the result cache
+# and workload keys, the sentinel's rings, a watchdog sample every 0.25 s
+# (the sentinel's history), and no background layout pass.
+SERVING_TOML = """bind = "127.0.0.1:0"
+[slo]
+query = "99% < 25ms"
+[cache]
+result_enabled = true
+result_max_bytes = 268435456
+[workload]
+top_k = 5
+max_signatures = 2048
+[sentinel]
+ring = 120
+decimate = 4
+[telemetry]
+sample_every_s = 0.25
+[layout]
+interval_s = 0.0
+"""
+
+
+class LogLines:
+    """A ``printf`` logger keeping its lines (the shutdown dumps)."""
+
+    def __init__(self):
+        self.lines = []
+
+    def printf(self, fmt, *args):
+        self.lines.append(fmt % args if args else fmt)
+
+
+def spread(times):
+    """The p50 (s) of ``times`` with its spread: p10, p90 and the count."""
+    t = sorted(times)
+    n = len(t)
+    return {"p50": t[n // 2], "p10": t[n // 10],
+            "p90": t[min(n - 1, 9 * n // 10)], "n": n}
+
+
+def in_turns(order, samples, run):
+    """``run(side)`` (one timed request, in s) ``samples`` times for each
+    side of ``order``, in its turns (a side's samples split evenly over
+    its turns, as in hit, miss, miss, hit: the host drifts across
+    turns). Returns side -> ``spread``."""
+    times = {}
+    for side in order:
+        for _ in range(samples // order.count(side)):
+            times.setdefault(side, []).append(run(side))
+    return {side: spread(t) for side, t in times.items()}
+
+
+def serving_answer(name, got):
+    """A TAXI_QUERIES or BURST answer as the checks compare it."""
+    if name in dict(BURST):
+        return got if isinstance(got, int) else got.columns().tolist()
+    return taxi_answer(name, got)
+
+
+def serving_wants(want_taxi, want_burst):
+    """(name, PQL, want) of the phase's cached reads: the taxi queries
+    that are Counts and the burst's Row request."""
+    rows_name, rows_pql = BURST[-1]
+    return [(n, q, want_taxi[n]) for n, q in TAXI_QUERIES
+            if q.startswith("Count(")] + \
+        [(rows_name, rows_pql, want_burst[rows_name])]
+
+
+def serving_in_process(holder, device, want_taxi, want_burst,
+                       taxi_launches, samples):
+    """Steps (a)-(b) of ``run_serving``: the five taxi queries as misses
+    on a new Executor (its cache on), then the cached reads' repeats as
+    eval-tier hits with no launch and no plain version, one under
+    ``set_sync_debug_mode("error")``; TopN and Sum never look up."""
+    import torch
+    from pilosa_tpu_torch import Executor
+    from pilosa_tpu_torch.ops import kernels
+    cuda = device != "cpu"
+    ex = Executor(holder, device=device)
+    rc = ex.result_cache
+    if not rc.enabled:
+        raise AssertionError("serving: the result cache is off by default")
+    report = {}
+    kernels.reset_launches()
+    for name, pql in TAXI_QUERIES:
+        (got,) = ex.execute("taxi", pql)
+        if taxi_answer(name, got) != want_taxi[name]:
+            raise AssertionError(f"serving: {name} miss differs")
+    launched = sorted(k for k, v in kernels.LAUNCHES.items() if v)
+    if launched != sorted(k for k, v in taxi_launches.items() if v):
+        raise AssertionError(f"serving: the misses launched {launched}, "
+                             f"the taxi phase {taxi_launches}")
+    report["miss_launches"] = dict(kernels.LAUNCHES)
+    cached = serving_wants(want_taxi, want_burst)
+    (got,) = ex.execute("taxi", cached[-1][1])  # the Row request's miss
+    if serving_answer(cached[-1][0], got) != cached[-1][2]:
+        raise AssertionError("serving: the Row request's miss differs")
+    # Each cached read hit and missed (the cache off) in turns hit, miss,
+    # miss, hit: every hit answers from the eval tier with no launch and
+    # no plain version (nor does a miss on the card), one more hit of
+    # each under the sync check.
+    hits0 = rc.hits["eval"]
+    timed = {}
+    with RefCalls(kernels) as refs:
+        for name, pql, want in cached:
+            def run(side):
+                rc.enabled = side == "hit"
+                h0, l0 = rc.hits["eval"], dict(kernels.LAUNCHES)
+                r0 = sum(refs.calls.values())
+                t0 = time.perf_counter()
+                (got,) = ex.execute("taxi", pql)
+                if not isinstance(got, int):
+                    got.columns()  # a Row answer's copy (a miss) and unpack
+                elif cuda:
+                    torch.cuda.synchronize()
+                s = time.perf_counter() - t0
+                if serving_answer(name, got) != want:
+                    raise AssertionError(f"serving: {name} {side} differs")
+                if side == "hit" and (
+                        rc.hits["eval"] != h0 + 1
+                        or dict(kernels.LAUNCHES) != l0
+                        or sum(refs.calls.values()) != r0
+                        or not (type(got) is int
+                                or getattr(got, "cached", False))):
+                    raise AssertionError(
+                        f"serving: {name}'s repeat is no clean eval-tier "
+                        f"hit: a {type(got).__name__}, launches {l0} -> "
+                        f"{dict(kernels.LAUNCHES)}, plain versions "
+                        f"{refs.calls}")
+                return s
+            timed[name] = in_turns(("hit", "miss", "miss", "hit"),
+                                   samples, run)
+        rc.enabled = True
+        if cuda:
+            NoStreamSync.bites(torch, device)
+            with NoStreamSync(torch):
+                for name, pql, want in cached:
+                    (got,) = ex.execute("taxi", pql)
+                    if serving_answer(name, got) != want:
+                        raise AssertionError(f"serving: {name} differs "
+                                             "under the sync check")
+    n_hits = rc.hits["eval"] - hits0
+    want_hits = (samples + int(cuda)) * len(cached)
+    if n_hits != want_hits or (cuda and refs.calls):
+        raise AssertionError(f"serving: {n_hits} eval hits (want "
+                             f"{want_hits}), plain versions {refs.calls}")
+    hit_s = {n: t["hit"] for n, t in timed.items()}
+    miss_s = {n: t["miss"] for n, t in timed.items()}
+    # TopN and Sum are not eligible: no lookup, no counter moves.
+    counters = (dict(rc.hits), dict(rc.misses))
+    for name, pql in TAXI_QUERIES:
+        if not pql.startswith("Count("):
+            (got,) = ex.execute("taxi", pql)
+            if taxi_answer(name, got) != want_taxi[name]:
+                raise AssertionError(f"serving: {name} differs")
+    if (dict(rc.hits), dict(rc.misses)) != counters:
+        raise AssertionError("serving: TopN or Sum moved a result-cache "
+                             "counter")
+    report.update(hit_s=hit_s, miss_s=miss_s, eval_hits=n_hits,
+                  hit_launches=0, hit_ref_calls=0,
+                  sync_checked_hits=len(cached) if cuda else 0)
+    log(f"serving: {n_hits} eval-tier hits, no launch, no plain version; "
+        f"hit p50 {({n: t['p50'] for n, t in hit_s.items()})} s against "
+        f"miss p50 {({n: t['p50'] for n, t in miss_s.items()})} s")
+    return ex, report
+
+
+def serving_burst(holder, device, want_burst, n_rides, samples):
+    """Step (c) of ``run_serving``: the burst's miss in one launch, its
+    repeat in none, the cache's miss overhead, then a new ride's Set
+    into cab_type=1 and the relaunch of only the members that read
+    cab_type; the ride is removed again (its Clear and its existence
+    bit), so the later phases see the index they expect."""
+    import torch
+    from pilosa_tpu_torch import Executor
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+    cuda = device != "cpu"
+    reqs = [("taxi", pql, None) for _, pql in BURST]
+    n_cab = sum("cab_type" in pql for _, pql in BURST)
+    prev = megamod.MEGAKERNEL_ENABLED
+    if not cuda:
+        # Rehearsal only: the megakernel defaults to off on the CPU.
+        megamod.MEGAKERNEL_ENABLED = True
+    report = {}
+    try:
+        ex = Executor(holder, device=device)
+        rc = ex.result_cache
+
+        def run(want):
+            t0 = time.perf_counter()
+            out = ex.execute_batch(reqs)
+            if cuda:
+                torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            burst_answers(out, want)
+            return s
+
+        kernels.reset_launches()
+        m0 = mega_state(ex)
+        report["miss_s"] = run(want_burst)
+        if mega_state(ex) != (m0[0] + 1,) + m0[1:] or (
+                cuda and kernels.LAUNCHES["mega_interpret"] != 1):
+            raise AssertionError(f"serving: the burst's miss: mega "
+                                 f"{m0} -> {mega_state(ex)}, launches "
+                                 f"{kernels.LAUNCHES}")
+        report["miss_launches"] = dict(kernels.LAUNCHES)
+        l1, m1, h1 = dict(kernels.LAUNCHES), mega_state(ex), \
+            rc.hits["eval"]
+        with RefCalls(kernels) as refs:
+            report["hit_s"] = run(want_burst)
+        if mega_state(ex) != m1 or dict(kernels.LAUNCHES) != l1 \
+                or rc.hits["eval"] != h1 + len(BURST) or refs.calls:
+            raise AssertionError("serving: the burst's repeat launched or "
+                                 "missed")
+        report["hit_s"] = spread([run(want_burst)
+                                  for _ in range(samples)])
+        # The cache's miss overhead on the unsampled burst: every call a
+        # miss (a cache of 0 bytes fills nothing), against the cache off
+        # (the workload recorder still walks each eval), against no walk
+        # at all (the recorder off too); in turns A B C C B A, since the
+        # burst's host time drifts across turns.
+        budget = rc.max_bytes
+        modes = {"miss_path": (True, 0, True),
+                 "off": (False, budget, True),
+                 "off_no_walk": (False, budget, False)}
+
+        def run_mode(key):
+            enabled, max_bytes, walk = modes[key]
+            if rc.max_bytes != max_bytes:
+                rc.configure(max_bytes=max_bytes)
+            rc.enabled, WORKLOAD.enabled = enabled, walk
+            try:
+                return run(want_burst)
+            finally:
+                WORKLOAD.enabled = True
+        report["overhead_s"] = in_turns(
+            list(modes) + list(modes)[::-1], samples, run_mode)
+        rc.configure(max_bytes=budget)
+        rc.enabled = True
+        run(want_burst)  # refill
+        col = n_rides + SERVING_RIDE
+        (ok,) = ex.execute("taxi", f"Set({col}, cab_type=1)")
+        if ok is not True:
+            raise AssertionError(f"serving: the Set answered {ok}")
+        # The new ride is in cab_type 1 and in no other field.
+        want2 = dict(want_burst)
+        want2["not_cab0"] += 1
+        want2["cab1_minus_dist_gt_20"] += 1
+        kernels.reset_launches()
+        m2, q2, h2 = mega_state(ex), ex.mega_queries, rc.hits["eval"]
+        report["after_write_s"] = run(want2)
+        relaunched = ex.mega_queries - q2
+        if mega_state(ex) != (m2[0] + 1,) + m2[1:] \
+                or relaunched != n_cab \
+                or rc.hits["eval"] != h2 + len(BURST) - n_cab \
+                or (cuda and kernels.LAUNCHES["mega_interpret"] != 1):
+            raise AssertionError(
+                f"serving: after the write {relaunched} members relaunched"
+                f" (want {n_cab}), hits {rc.hits['eval'] - h2}, mega "
+                f"{m2} -> {mega_state(ex)}, launches {kernels.LAUNCHES}")
+        report["after_write_launches"] = dict(kernels.LAUNCHES)
+        report["relaunched_members"] = relaunched
+        report["after_write_hits"] = len(BURST) - n_cab
+        ex.execute("taxi", f"Clear({col}, cab_type=1)")
+        holder.index("taxi").existence_field().clear_bit(0, col)
+        run(want_burst)
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+    log(f"serving: the burst missed in one launch ({report['miss_s']:.4f}"
+        f" s), hit in none (p50 {report['hit_s']['p50']:.6f} s); after a "
+        f"write {report['relaunched_members']} members relaunched in one "
+        f"launch, {report['after_write_hits']} hit")
+    return ex, report
+
+
+def serving_request_tier(holder, ex, want_taxi):
+    """Step (d) of ``run_serving``: execute_full of a Count twice (a
+    request-tier hit), and a SetRowAttrs invalidating a Row answer that
+    embeds those attributes (on a field made and dropped here)."""
+    import numpy as np
+    rc = ex.result_cache
+    pql = TAXI_QUERIES[0][1]
+    want = {"results": [want_taxi[TAXI_QUERIES[0][0]]]}
+    h0 = rc.hits["request"]
+    if ex.execute_full("taxi", pql) != want or \
+            ex.execute_full("taxi", pql) != want or \
+            rc.hits["request"] != h0 + 1:
+        raise AssertionError("serving: execute_full's repeat is no "
+                             "request-tier hit")
+    idx = holder.index("taxi")
+    cols = np.arange(50, dtype=np.uint64) * 997
+    idx.create_field("serving_tag").import_bits(
+        np.ones(50, np.uint64), cols)
+    try:
+        answers = []
+        for zone in ("a", "b"):
+            ex.execute("taxi", f'SetRowAttrs(serving_tag, 1, zone="{zone}")')
+            h = rc.hits["request"]
+            first = ex.execute_full("taxi", "Row(serving_tag=1)")
+            again = ex.execute_full("taxi", "Row(serving_tag=1)")
+            answers.append((first, again, rc.hits["request"] - h))
+        for (first, again, hits), zone in zip(answers, "ab"):
+            row = first["results"][0]
+            if again != first or row["attrs"] != {"zone": zone} or \
+                    row["columns"] != cols.tolist() or hits != 1:
+                raise AssertionError(f"serving: the Row answer after "
+                                     f"SetRowAttrs: {row['attrs']}, "
+                                     f"{hits} hits")
+    finally:
+        idx.delete_field("serving_tag")
+    log("serving: execute_full's repeat hit the request tier; "
+        "SetRowAttrs invalidated the embedding answer")
+    return {"request_hits": rc.hits["request"] - h0}
+
+
+def serving_http(holder, want_taxi, want_burst, samples):
+    """Step (e) of ``run_serving``: the server ``cli server -c`` builds
+    (``cli.main.build_server`` of SERVING_TOML) over the in-memory taxi
+    holder: HTTP miss and hit p50s, 200 reads of the burst's mix (half
+    of them spelled apart, so the eval tier serves what the request tier
+    misses), the planes' routes and metric families, and the shutdown's
+    dumps."""
+    import tempfile
+    import threading
+    from pilosa_tpu_torch.cli.main import build_server, stop_server
+    from pilosa_tpu_torch.utils.config import load_config
+    from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+    from pilosa_tpu_torch.utils.sentinel import SENTINEL
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serving.toml")
+        with open(path, "w") as f:
+            f.write(SERVING_TOML)
+        cfg = load_config(path)
+    api, srv, watchdog = build_server(cfg, holder)
+    api.logger = logs = LogLines()
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    report = {}
+    try:
+        name, pql = TAXI_QUERIES[0]
+        want = {"results": [want_taxi[name]]}
+        rc = api.executor.result_cache
+        http_json(base, "POST", "/index/taxi/query", pql)
+
+        def run(side):
+            rc.enabled = side == "hit"
+            h0 = rc.hits["request"]
+            t0 = time.perf_counter()
+            got = http_json(base, "POST", "/index/taxi/query", pql)
+            s = time.perf_counter() - t0
+            if got != want or (side == "hit") != (rc.hits["request"] > h0):
+                raise AssertionError(f"serving: HTTP {side} answered {got}"
+                                     f", request hits {h0} -> "
+                                     f"{rc.hits['request']}")
+            return s
+        timed = in_turns(("hit", "miss", "miss", "hit"), samples, run)
+        rc.enabled = True
+        report["http_hit_s"], report["http_miss_s"] = timed["hit"], \
+            timed["miss"]
+        sent = 0
+        rounds = 0
+        while sent < SERVING_HTTP_READS:
+            batch = BURST[:SERVING_HTTP_READS - sent]
+            spelled = [(n, q if rounds % 2 == 0 else q.replace("(", "( ", 1))
+                       for n, q in batch]
+            out, _ = concurrent_round(base, spelled)
+            for n, _q in batch:
+                if out[n] != {"results": [burst_json(n, want_burst[n])]}:
+                    raise AssertionError(f"serving: HTTP {n} differs")
+            sent += len(batch)
+            rounds += 1
+        deadline = time.time() + 60
+        while api.watchdog.samples_taken < 3:
+            if time.time() > deadline:
+                raise AssertionError("serving: the watchdog took no sample")
+            time.sleep(0.05)
+        hot = http_json(base, "GET", "/debug/hotspots")
+        saved = [s for s in hot["opportunity"]["signatures"]
+                 if (s["estSavedS"] or 0) > 0]
+        if not hot["signatures"] or not saved or \
+                hot["queriesWindow"]["ratio"] <= 0 or \
+                hot["requestsWindow"]["ratio"] <= 0 or \
+                hot["resultCache"]["hits"] <= 0 or \
+                "observed" not in hot["opportunity"]:
+            raise AssertionError(f"serving: /debug/hotspots {hot}")
+        history = http_json(base, "GET", "/debug/history")
+        slo = http_json(base, "GET", "/debug/slo")
+        health = http_json(base, "GET", "/internal/health")
+        status, raw = http(base, "GET", "/metrics")
+        metrics = raw.decode()
+        if history["samples"] < 1 or "result_cache_hit_ratio" not in \
+                history["series"] or \
+                slo["objectives"]["query"]["thresholdS"] != 0.025 or \
+                not any(e.get("alias") == "query" for e in slo["endpoints"]):
+            raise AssertionError(f"serving: /debug/history or /debug/slo: "
+                                 f"{history['samples']}, {slo}")
+        missing = [k for k in ("resultCache", "workload", "slo", "layout",
+                               "timeline") if k not in health]
+        families = {fam: fam in metrics for fam in (
+            "pilosa_result_cache_hits_total", "pilosa_result_cache_bytes",
+            "pilosa_workload_tracked_signatures",
+            "pilosa_sentinel_series")}
+        if status != 200 or missing or not all(families.values()):
+            raise AssertionError(f"serving: health lacks {missing}, "
+                                 f"metrics {families}")
+        report.update(
+            reads=sent, rounds=rounds,
+            tiers=hot["resultCache"]["tiers"],
+            hit_ratio=hot["resultCache"]["hitRatio"],
+            query_repeat_ratio=hot["queriesWindow"]["ratio"],
+            request_repeat_ratio=hot["requestsWindow"]["ratio"],
+            signatures=len(hot["signatures"]),
+            est_saved_s=hot["opportunity"]["totalEstSavedS"],
+            history_samples=history["samples"],
+            slo_endpoints=[e["endpoint"] for e in slo["endpoints"]],
+            health_stanzas=sorted(health), families=families)
+    finally:
+        srv.shutdown()
+        stop_server(api, srv, watchdog)
+        WORKLOAD.configure(top_k=10, max_signatures=1024)
+        SENTINEL.configure(enabled=True, ring=720, decimate=10,
+                           alert_ring=256, objectives={})
+    dumps = {k: any(ln.startswith(k) for ln in logs.lines)
+             for k in ("workload:", "sentinel:")}
+    if not all(dumps.values()):
+        raise AssertionError(f"serving: the shutdown dumps {dumps}")
+    report["shutdown_dumps"] = dumps
+    log(f"serving: over HTTP a hit p50 {report['http_hit_s']['p50']:.6f} s"
+        f" against a miss p50 {report['http_miss_s']['p50']:.6f} s; "
+        f"{sent} reads, tiers {report['tiers']}")
+    return api, report
+
+
+def serving_cli(device):
+    """Step (f) of ``run_serving``: ``python -m pilosa_tpu_torch.cli
+    server -c`` with SERVING_TOML as a subprocess on a small index made
+    over HTTP: repeated reads hit the request tier, and on SIGTERM its
+    log holds the workload recorder's and the sentinel's dumps."""
+    import queue
+    import signal
+    import tempfile
+    import threading
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serving.toml")
+        with open(path, "w") as f:
+            f.write(SERVING_TOML)
+        cmd = [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+               "-c", path]
+        if device == "cpu":
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines = queue.Queue()
+        reader = threading.Thread(target=lambda: [lines.put(ln)
+                                                  for ln in proc.stdout],
+                                  daemon=True)
+        reader.start()
+        out = []
+        try:
+            # The config's log lines (objectives) come before the
+            # listening line.
+            while not out or "listening on " not in out[-1]:
+                out.append(lines.get(timeout=300))
+            base = out[-1].split("listening on ")[1].split()[0]
+            for p, body in (("/index/sv", {}), ("/index/sv/field/f", {}),
+                            ("/index/sv/field/f/import",
+                             {"rowIDs": [1] * 100,
+                              "columnIDs": list(range(0, 3000, 30))})):
+                http_json(base, "POST", p, body)
+            for _ in range(5):
+                got = http_json(base, "POST", "/index/sv/query",
+                                "Count(Row(f=1))")
+                if got != {"results": [100]}:
+                    raise AssertionError(f"serving: CLI answered {got}")
+            deadline = time.time() + 60
+            while http_json(base, "GET", "/internal/health")[
+                    "watchdog"]["samples"] < 1:
+                if time.time() > deadline:
+                    raise AssertionError("serving: the CLI's watchdog "
+                                         "took no sample")
+                time.sleep(0.05)
+            tiers = http_json(base, "GET",
+                              "/debug/hotspots")["resultCache"]["tiers"]
+            if tiers["request"]["hits"] < 4:
+                raise AssertionError(f"serving: CLI cache tiers {tiers}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reader.join(timeout=30)  # the pipe's last lines
+        while not lines.empty():
+            out.append(lines.get())
+    text = "".join(out)
+    dumps = {k: k in text for k in ("workload:", "sentinel:")}
+    if rc != 0 or not all(dumps.values()):
+        raise AssertionError(f"serving: the CLI exited {rc}, dumps {dumps}")
+    return {"start_to_sigterm_s": time.perf_counter() - t0,
+            "tiers": tiers, "sigterm_dumps": dumps}
+
+
+def run_serving(holder, device, want_taxi, want_burst, taxi_launches,
+                n_rides, samples=SERVING_SAMPLES):
+    """The serving phase on the taxi holder, after the measure phase: the
+    result cache, on by default, in process (the taxi misses and their
+    eval-tier hits, the burst's one launch, its repeat in none and its
+    relaunch after a write, the request tier), then the serving planes
+    over HTTP through the CLI's server wiring and the ``cli server -c``
+    subprocess; last, the ``result_cache`` ledger bytes within the
+    caches' budgets. Returns the report."""
+    from pilosa_tpu_torch.utils.memledger import LEDGER
+    t0 = time.perf_counter()
+    ex1, report = serving_in_process(holder, device, want_taxi, want_burst,
+                                     taxi_launches, samples)
+    ex2, report["burst"] = serving_burst(holder, device, want_burst,
+                                         n_rides, samples)
+    report.update(serving_request_tier(holder, ex1, want_taxi))
+    api, report["http"] = serving_http(holder, want_taxi, want_burst,
+                                       samples)
+    report["cli"] = serving_cli(device)
+    caches = [ex1.result_cache, ex2.result_cache, api.executor.result_cache]
+    ledgered = sum(e["bytes"] for e in LEDGER.entries("result_cache"))
+    if ledgered != sum(c.bytes for c in caches) or any(
+            c.bytes > c.max_bytes for c in caches):
+        raise AssertionError(f"serving: result_cache ledger {ledgered} "
+                             f"against {[c.bytes for c in caches]}")
+    report["ledger_bytes"] = ledgered
+    report["cache_bytes"] = [c.bytes for c in caches]
+    for c in caches:
+        c.clear()
+    report["seconds"] = time.perf_counter() - t0
+    log(f"serving: {report['seconds']:.1f} s, result_cache ledger "
+        f"{ledgered} bytes")
+    return report
 
 
 def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
@@ -3939,7 +4551,8 @@ def serve_cli(device):
         cmd += ["--device", "cpu"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            env=cache_off_env())
     lines = queue.Queue()
     threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
                      daemon=True).start()
@@ -4288,7 +4901,7 @@ def load_keys(device, d, path=None):
     holder = Holder(path, device=device)
     if path is not None:
         holder.open()
-    api = API(holder)
+    api = cache_off(API(holder))
     api.create_index("repository", keys=True, track_existence=True)
     api.create_field("repository", "stargazer", {"keys": True})
     api.create_field("repository", "language", {"keys": True})
@@ -4691,7 +5304,7 @@ def run_taxi_attrs(holder, device, rate_top, iters=ITERS):
     import torch
     from pilosa_tpu_torch import Executor
     from pilosa_tpu_torch.ops import kernels
-    ex = Executor(holder, device=device)
+    ex = cache_off(Executor(holder, device=device))
     report = {}
     calls = " ".join(
         f"SetRowAttrs(rate_code, {r}, name='{n}'"
@@ -4772,7 +5385,7 @@ def copy_taxi(mem, path, device):
     import dataclasses
     from pilosa_tpu_torch.server import API
     holder, _ = open_holder(path, device)
-    api = API(holder)
+    api = cache_off(API(holder))
     api.create_index("taxi")
     src = mem.index("taxi")
     t0 = time.perf_counter()
@@ -4797,9 +5410,14 @@ def persist_expect(cab, amount, pax_counts, n_rides, want_taxi, want_burst,
     """The answers the reopened directory must give after the phase's
     writes: a Set of a new ride into passenger_count 2 and a pickup day,
     a Clear of ride 3's cab_type, then (over HTTP) a Set of another new
-    ride into cab_type 2."""
+    ride into cab_type 2. The 1M-bit import fills all of shard
+    PERSIST_SHARD, so below (PERSIST_SHARD + 1) * 2^20 rides it adds
+    existence bits past the last ride: ``fresh`` counts them (new1 is
+    one of them, counted already)."""
     import numpy as np
     new1, new2 = n_rides + 11, n_rides + 12
+    lo, hi = PERSIST_SHARD * SHARD_WIDTH, (PERSIST_SHARD + 1) * SHARD_WIDTH
+    fresh = max(0, hi - max(n_rides, lo)) - int(lo <= new1 < hi)
     c3 = int(cab[3])
     pax = pax_counts.copy()
     pax[2] += 1
@@ -4812,7 +5430,7 @@ def persist_expect(cab, amount, pax_counts, n_rides, want_taxi, want_burst,
         "pax2": int(pax[2]), "cab3": int(cab_counts[c3]) - 1,
         "cab1": int(cab_counts[1]) - (c3 == 1),
         "cab2_after": int(cab_counts[2]) + 1 - (c3 == 2),
-        "not_cab0": want_burst["not_cab0"] + 1 + (c3 == 0),
+        "not_cab0": want_burst["not_cab0"] + 1 + (c3 == 0) + fresh,
         "topn_pax": [{"id": r, "count": int(pax[r])} for r in sorted(
             range(1, 7), key=lambda r: (-pax[r], r))[:3]],
         "bsi_range_count": want_taxi["bsi_range_count"],
@@ -4947,7 +5565,7 @@ def cli_start(args):
         [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
          "--bind", "127.0.0.1:0", *args],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        text=True, env=cache_off_env())
     lines = queue.Queue()
     threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
                      daemon=True).start()
@@ -5013,13 +5631,16 @@ def persist_cli(path, device, cab, expect):
         if got != {"results": [expect["cab2_after"]]}:
             raise AssertionError(f"persist cli: after SIGKILL the Set is "
                                  f"lost: {got} != {expect['cab2_after']}")
-        # The export of one shard of cab_type.
+        # The export of one shard of cab_type, with new2's Set over HTTP
+        # when it falls in that shard (below 2^21 rides).
         lo = PERSIST_SHARD * SHARD_WIDTH
         seg = cab[lo:lo + SHARD_WIDTH]
-        want_csv = "".join(
-            "".join(f"{r},{c}\n" for c in (np.flatnonzero(seg == r)
-                                           + lo).tolist())
-            for r in range(3) if (seg == r).any())
+        by_row = {r: (np.flatnonzero(seg == r) + lo).tolist()
+                  for r in range(3)}
+        if lo <= expect["new2"] < lo + SHARD_WIDTH:
+            by_row[2].append(expect["new2"])
+        want_csv = "".join("".join(f"{r},{c}\n" for c in cols)
+                           for r, cols in by_row.items())
         t0 = time.perf_counter()
         status, raw = http(base, "GET", "/export?index=taxi&field=cab_type"
                            f"&shard={PERSIST_SHARD}")
@@ -5075,7 +5696,7 @@ def persist_torn_info(device):
     path = tempfile.mkdtemp(prefix="pilosa-torn-")
     try:
         holder, _ = open_holder(path, device)
-        api = API(holder)
+        api = cache_off(API(holder))
         api.create_index("torn")
         api.create_field("torn", "f", {})
         for c in range(12):
@@ -5125,7 +5746,7 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
     from pilosa_tpu_torch.server import API
     cuda = device != "cpu"
     n_rides = len(cab)
-    mex = Executor(mem, device=device)
+    mex = cache_off(Executor(mem, device=device))
     queries = [("count_7", tf_http["count_7"][0]),
                ("topn_rate", "TopN(rate_code)")]
     mem_answers = {"queries": queries}
@@ -5158,7 +5779,7 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
         kernels.reset_launches()
         with RefCalls(kernels) as refs:
             holder, report["open_s"] = open_holder(path, device)
-            ex = Executor(holder, device=device)
+            ex = cache_off(Executor(holder, device=device))
             report.update(persist_reads(ex, want_taxi, want_burst,
                                         mem_answers, cuda))
             log(f"persist: reopened in {report['open_s']:.2f} s, first "
@@ -5167,7 +5788,7 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
                 f"TopN(passenger_count) from the reloaded caches "
                 f"{report['topn_cache']}")
             # 3. writes, then a drop without close
-            api = API(holder)
+            api = cache_off(API(holder))
             report["writes"], fill_rows = persist_writes(
                 api.executor, api, expect, n_rides)
             # The drop: nothing is closed or saved. The process-wide bank
@@ -5179,7 +5800,7 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
             del ex, api, holder
             gc.collect()
             holder, report["crash_open_s"] = open_holder(path, device)
-            ex = Executor(holder, device=device)
+            ex = cache_off(Executor(holder, device=device))
             report["after_crash"] = persist_check_writes(ex, expect,
                                                          fill_rows)
             holder.close()
@@ -5228,7 +5849,7 @@ def persist_keys(device, mem_load, n_repos=KEY_REPOS, n_users=KEY_USERS,
         report["disk_bytes"] = dir_bytes(path)
         holder, report["open_s"] = open_holder(path, device)
         from pilosa_tpu_torch import Executor
-        ex = Executor(holder, device=device)
+        ex = cache_off(Executor(holder, device=device))
         t0 = time.perf_counter()
         for name, pql, want in reads:
             got = ex.execute_full("repository", pql)
@@ -5278,7 +5899,7 @@ def persist_fingerprint(device, n_molecules=PERSIST_MOLECULES):
         del holder
         report["disk_bytes"] = dir_bytes(path)
         holder, report["open_s"] = open_holder(path, device)
-        ex = Executor(holder, device=device)
+        ex = cache_off(Executor(holder, device=device))
         kernels.reset_launches()
         with RefCalls(kernels) as refs:
             for name, pql in FP_QUERIES:
@@ -5344,6 +5965,8 @@ def main(argv=None) -> int:
         return 1
     probing = args.burst_probe or args.load_probe or args.expand_probe
     tree = os.path.abspath(args.tree if probing else REPO)
+    global PROBE_TREE
+    PROBE_TREE = tree != REPO
     if not os.path.isdir(os.path.join(tree, "pilosa_tpu_torch")):
         log(f"chip_smoke: pilosa_tpu_torch/ not found in {tree}")
         return 1
@@ -5593,6 +6216,9 @@ def main(argv=None) -> int:
             for name in ("bank_row_counts", "bank_row_counts_masked",
                          "bsi_plane_counts", "pbank_membership_counts")}}},
         default=str), flush=True)
+    serving = report["serving"]
+    print(json.dumps({"serving": {"card": card, **serving}}, default=str),
+          flush=True)
     print(json.dumps({"memory": MEMORY}), flush=True)
     print(card, flush=True)
 

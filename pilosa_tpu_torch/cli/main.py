@@ -1,188 +1,256 @@
-"""``python -m pilosa_tpu_torch.cli``: the port's server and export.
+"""``python -m pilosa_tpu_torch.cli``: the port's server, export and
+config commands.
 
-    python -m pilosa_tpu_torch.cli server --bind HOST:PORT \\
-        [--data-dir DIR] [--device cuda|cpu] [--no-coalescer] \\
-        [--coalescer-window-ms MS]
+    python -m pilosa_tpu_torch.cli server [-c CONFIG.toml] \\
+        [--bind HOST:PORT] [--data-dir DIR] [--device cuda|cpu] \\
+        [--verbose] [--no-coalescer] [--coalescer-window-ms MS]
     python -m pilosa_tpu_torch.cli export --data-dir DIR --index I \\
         --field F [--shard S] [--output PATH]
+    python -m pilosa_tpu_torch.cli config [-c CONFIG.toml]
+    python -m pilosa_tpu_torch.cli generate-config
 
-The flags are the JAX package's (``pilosa_tpu/cli/main.py``). With
-``--data-dir`` the server opens ``Holder(DIR)`` (the JAX package's
-directory layout; either package opens the other's), and every
-acknowledged write is in its files; without it the holder lives in
-memory. SIGTERM stops the server like Ctrl-C: the coalescer drains what
-it admitted and the holder closes, which saves the count caches. The
-server runs on CUDA unless ``--device cpu`` is given, and raises where
-there is no card. Port 0 binds a free port; the first line on stdout
-names the address served. The server also runs the memory watchdog and
-the hybrid layout's re-layout pass with the JAX package's config
-defaults (a 10 s sample, a ring of 360, every 30 s, the watermark at 0.9
-of the device budget). ``export`` writes one field's standard view as
-``row,col`` CSV, every shard or one. No TOML config.
+The flags are the JAX package's (``pilosa_tpu/cli/main.py``). ``server``
+resolves its settings through ``utils/config.load_config``: flags over
+``PILOSA_TPU_*`` variables over the TOML file over defaults, with the
+JAX package's keys; a key the port has no counterpart of yet (TLS, the
+cluster, the mesh, the JAX platform keys) fails at startup with a
+message that says so. With ``--data-dir`` (or ``data_dir``) the server
+opens ``Holder(DIR)`` (the JAX package's directory layout; either
+package opens the other's), and every acknowledged write is in its
+files; without it the holder lives in memory. SIGTERM stops the server
+like Ctrl-C: the coalescer drains what it admitted, the telemetry is
+written to the log (``drain_telemetry``) and the holder closes, which
+saves the count caches. The server runs on CUDA unless ``--device cpu``
+is given, and raises where there is no card. Port 0 binds a free port;
+the first line on stdout names the address served.
 
-The server keeps its metrics in memory (``/metrics``, ``/debug/vars``)
-and records spans in process. Until the config module is ported, the
-measurement plane reads the JAX package's environment names
-(``measurement_settings``): ``PILOSA_TPU_PROFILE_SAMPLE_EVERY`` (fence 1
-in N queries for device time; 0, the default, only ``?profile=true``),
-``PILOSA_TPU_PROFILE_SLOW_RING``, ``PILOSA_TPU_LONG_QUERY_TIME``
-(seconds), ``PILOSA_TPU_TIMELINE_{ENABLED,RING,SAMPLE_EVERY,
-GAP_WINDOW_S}`` and ``PILOSA_TPU_ROOFLINE_{ENABLED,GBPS,EWMA_ALPHA,
-MAX_COHORTS}`` (``GBPS`` 0 resolves the card's own figure). At shutdown
-the slow-query ring, the last timelines, the roofline's state and the
-spans are written to the log (``drain_telemetry``).
+The server wires every plane from its config: the profiler and the
+slow-query ring, the timeline, the roofline, the workload recorder, the
+result and rank caches, the optimizer switch, the sentinel and its
+objectives (``[slo]``), the failpoints (``[failpoints]`` or
+``PILOSA_TPU_FAILPOINTS``, which also enable ``/internal/failpoints``),
+the memory watchdog (whose gauge hook samples the sentinel) and the
+hybrid layout's re-layout pass. ``config`` prints the resolved settings
+as JSON; ``generate-config`` prints the defaults as TOML.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import logging
 import os
 import signal
 import sys
 
 
-def _bind(bind: str):
-    host, _, port = bind.rpartition(":")
-    if not port.isdigit():
-        raise SystemExit(f"--bind wants HOST:PORT, got {bind!r}")
-    return host or "localhost", int(port)
-
-
-# The JAX package's server defaults (utils/config.py): the watchdog's
-# sample period, ring and watermark share of the device budget, and the
-# layout pass's period, demotion density, least bank and promotion rate.
-TELEMETRY_SAMPLE_EVERY_S = 10.0
-TELEMETRY_RING = 360
-WATERMARK_SHARE = 0.9
-LAYOUT_INTERVAL_S = 30.0
-LAYOUT_DEMOTE_DENSITY = 0.25
-LAYOUT_MIN_BYTES = 1 << 20
-LAYOUT_PROMOTE_RATE = 0.5
-
-
-# The JAX package's config defaults of the measurement plane
-# (utils/config.py), by the field name its PILOSA_TPU_* variable spells.
-MEASUREMENT_DEFAULTS = {
-    "profile_sample_every": 0,
-    "profile_slow_ring": 128,
-    "long_query_time": 0.0,
-    "timeline_enabled": True,
-    "timeline_ring": 256,
-    "timeline_sample_every": 1,
-    "timeline_gap_window_s": 60.0,
-    "roofline_enabled": True,
-    "roofline_gbps": 0.0,
-    "roofline_ewma_alpha": 0.25,
-    "roofline_max_cohorts": 256,
-}
-
-
-def measurement_settings(env=None) -> dict:
-    """The measurement plane's settings: each default overridden by its
-    ``PILOSA_TPU_<NAME>`` variable, parsed as the JAX package's config
-    parses it (a bool is on for 1, true or yes)."""
-    env = os.environ if env is None else env
-    out = dict(MEASUREMENT_DEFAULTS)
-    for k, cur in MEASUREMENT_DEFAULTS.items():
-        v = env.get("PILOSA_TPU_" + k.upper())
-        if v is None:
-            continue
-        if isinstance(cur, bool):
-            out[k] = v.lower() in ("1", "true", "yes")
-        elif isinstance(cur, int):
-            out[k] = int(v)
-        else:
-            out[k] = float(v)
-    return out
-
-
-def configure_measurement(api, settings: dict) -> None:
-    """Apply ``measurement_settings`` to the API's profiler and the
-    process-wide timeline and roofline recorders."""
+def drain_telemetry(api, watchdog=None) -> None:
+    """The telemetry leg of the shutdown, once per API: stop the memory
+    watchdog and dump its ring, then the slow-query ring, what the
+    workload recorder saw as hot, the last request timelines, the
+    roofline's calibration state, the sentinel's budgets and alerts,
+    and the finished spans; then stop an exporting tracer (its final
+    flush)."""
+    from pilosa_tpu_torch.utils.hotspots import WORKLOAD
     from pilosa_tpu_torch.utils.roofline import ROOFLINE
-    from pilosa_tpu_torch.utils.timeline import TIMELINE
-
-    api.long_query_time = settings["long_query_time"]
-    api.profiler.configure(sample_every=settings["profile_sample_every"],
-                           ring_size=settings["profile_slow_ring"])
-    TIMELINE.configure(enabled=settings["timeline_enabled"],
-                       ring=settings["timeline_ring"],
-                       sample_every=settings["timeline_sample_every"],
-                       gap_window_s=settings["timeline_gap_window_s"])
-    ROOFLINE.configure(enabled=settings["roofline_enabled"],
-                       gbps=settings["roofline_gbps"],
-                       ewma_alpha=settings["roofline_ewma_alpha"],
-                       max_cohorts=settings["roofline_max_cohorts"])
-
-
-def drain_telemetry(api) -> None:
-    """The telemetry leg of the shutdown: dump the profiler's slow-query
-    ring, the last request timelines, the roofline's calibration state
-    and the finished spans to the log, then stop an exporting tracer
-    (its final flush). Runs once per API."""
-    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    from pilosa_tpu_torch.utils.sentinel import SENTINEL
     from pilosa_tpu_torch.utils.timeline import TIMELINE
 
     if getattr(api, "_telemetry_drained", False):
         return
     api._telemetry_drained = True
+    if watchdog is not None:
+        watchdog.stop()
+        watchdog.dump(api.logger)
     api.profiler.dump(api.logger)
+    if WORKLOAD.enabled:
+        WORKLOAD.dump(api.logger)
     if TIMELINE.enabled:
         TIMELINE.dump(api.logger)
     if ROOFLINE.enabled:
         ROOFLINE.dump(api.logger)
+    if SENTINEL.enabled:
+        SENTINEL.dump(api.logger)
     if hasattr(api.tracer, "dump"):
         api.tracer.dump(api.logger)
     if hasattr(api.tracer, "stop"):
         api.tracer.stop()
 
 
-def _start_memory_planes(api) -> None:
-    """Start the memory watchdog and the layout pass with the watermark
-    at WATERMARK_SHARE of the device budget (none while it is
-    unbounded, as on the CPU)."""
+def _stats(cfg):
+    from pilosa_tpu_torch.utils.stats import MemStatsClient, \
+        MultiStatsClient, NopStatsClient, StatsdStatsClient
+    if cfg.metric_service == "mem":
+        return MemStatsClient()
+    if cfg.metric_service == "statsd":
+        # Mem rides along so /metrics and /debug/vars keep working.
+        return MultiStatsClient(MemStatsClient(),
+                                StatsdStatsClient(cfg.metric_host))
+    return NopStatsClient()
+
+
+def _tracer(cfg):
+    from pilosa_tpu_torch.utils.tracing import ExportingTracer, \
+        RecordingTracer
+    if not cfg.tracing_endpoint:
+        return RecordingTracer()
+    tracer = ExportingTracer(cfg.tracing_endpoint,
+                             service_name=cfg.tracing_service_name,
+                             sampler_type=cfg.tracing_sampler_type,
+                             sampler_param=cfg.tracing_sampler_param)
+    tracer.start()
+    return tracer
+
+
+def configure_planes(api, cfg) -> None:
+    """Apply the config to the API's profiler and executor and to the
+    process-wide planes: timeline, roofline, workload recorder,
+    sentinel, failpoints, result and rank caches, optimizer."""
+    from pilosa_tpu_torch.core.view import BANK_BUDGET
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.utils.failpoints import FAILPOINTS
+    from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    from pilosa_tpu_torch.utils.sentinel import SENTINEL
+    from pilosa_tpu_torch.utils.timeline import TIMELINE
+
+    api.long_query_time = cfg.long_query_time
+    api.executor.max_writes_per_request = cfg.max_writes_per_request
+    api.profiler.configure(sample_every=cfg.profile_sample_every,
+                           ring_size=cfg.profile_slow_ring)
+    TIMELINE.configure(enabled=cfg.timeline_enabled,
+                       ring=cfg.timeline_ring,
+                       sample_every=cfg.timeline_sample_every,
+                       gap_window_s=cfg.timeline_gap_window_s)
+    ROOFLINE.configure(enabled=cfg.roofline_enabled,
+                       gbps=cfg.roofline_gbps,
+                       ewma_alpha=cfg.roofline_ewma_alpha,
+                       max_cohorts=cfg.roofline_max_cohorts)
+    WORKLOAD.configure(enabled=cfg.workload_enabled,
+                       half_life_s=cfg.workload_half_life_s,
+                       window_s=cfg.workload_window_s,
+                       top_k=cfg.workload_top_k,
+                       max_fragments=cfg.workload_max_fragments,
+                       max_rows=cfg.workload_max_rows,
+                       max_signatures=cfg.workload_max_signatures)
+    budget = BANK_BUDGET.resolve(api.holder.device)
+    SENTINEL.configure(enabled=cfg.sentinel_enabled,
+                       ring=cfg.sentinel_ring,
+                       decimate=cfg.sentinel_decimate,
+                       alert_ring=cfg.sentinel_alert_ring,
+                       objectives=cfg.slo,
+                       watermark_bytes=int((budget or 0)
+                                           * cfg.telemetry_hbm_watermark))
+    if cfg.slo:
+        api.logger.printf("slo objectives: %s", ", ".join(
+            f"{k}: {v}" for k, v in sorted(cfg.slo.items())))
+    if cfg.failpoints:
+        FAILPOINTS.configure(cfg.failpoints, env="")
+        FAILPOINTS.http_enabled = True
+        api.logger.printf(
+            "failpoints ARMED (test-only surface enabled): %s",
+            ", ".join(f"{k}={v}" for k, v in sorted(cfg.failpoints.items())))
+    api.executor.result_cache.configure(
+        enabled=cfg.cache_result_enabled,
+        max_bytes=cfg.cache_result_max_bytes)
+    api.holder.rank_cache.configure(
+        enabled=cfg.cache_rank_enabled,
+        max_entries=cfg.cache_rank_max_entries)
+    if not cfg.optimizer_enabled:
+        megamod.PLAN_OPT_ENABLED = False
+
+
+def _start_memory_planes(api, cfg):
+    """Start the memory watchdog (its gauge hook samples the sentinel)
+    and the layout pass, both with the watermark at
+    ``telemetry_hbm_watermark`` of the device budget (none while it is
+    unbounded, as on the CPU). Returns the watchdog, or None when
+    ``telemetry_sample_every_s`` is 0."""
     from pilosa_tpu_torch.core.view import BANK_BUDGET
     from pilosa_tpu_torch.utils.memledger import LEDGER, MemoryWatchdog
 
     budget = BANK_BUDGET.resolve(api.holder.device)
-    watermark = int(budget * WATERMARK_SHARE) if budget else 0
-    coal = api.coalescer
-    api.watchdog = MemoryWatchdog(
-        LEDGER, sample_every_s=TELEMETRY_SAMPLE_EVERY_S,
-        ring=TELEMETRY_RING, watermark_bytes=watermark,
-        extra_gauges=lambda: {
-            "queueDepth": coal.queue_depth() if coal is not None else 0})
-    api.watchdog.start()
+    watermark = int(budget * cfg.telemetry_hbm_watermark) if budget else 0
+    watchdog = None
+    if cfg.telemetry_sample_every_s > 0:
+        def gauges():
+            try:
+                api.sample_sentinel()
+            except Exception:
+                pass  # a sentinel fault must not stop the watchdog
+            coal = api.coalescer
+            return {"queueDepth": coal.queue_depth()
+                    if coal is not None else 0}
+
+        watchdog = MemoryWatchdog(
+            LEDGER, sample_every_s=cfg.telemetry_sample_every_s,
+            ring=cfg.telemetry_ring, watermark_bytes=watermark,
+            extra_gauges=gauges)
+        watchdog.start()
+        api.watchdog = watchdog
     api.layout.configure(
-        enabled=True, interval_s=LAYOUT_INTERVAL_S,
-        demote_density=LAYOUT_DEMOTE_DENSITY, min_bytes=LAYOUT_MIN_BYTES,
-        promote_rate=LAYOUT_PROMOTE_RATE, watermark_bytes=watermark)
-    api.layout.start()
+        enabled=cfg.layout_enabled, interval_s=cfg.layout_interval_s,
+        demote_density=cfg.layout_demote_density,
+        min_bytes=cfg.layout_min_bytes,
+        promote_rate=cfg.layout_promote_rate, watermark_bytes=watermark)
+    if cfg.layout_enabled and cfg.layout_interval_s > 0:
+        api.layout.start()
+    return watchdog
+
+
+def build_server(cfg, holder):
+    """The server of ``cfg`` over ``holder``: the API with its stats
+    client and tracer, every plane configured, the coalescer and the
+    memory planes started, and the HTTP server bound (not yet serving).
+    Returns (api, server, watchdog); ``stop_server`` undoes it."""
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.server.coalescer import QueryCoalescer
+    from pilosa_tpu_torch.server.http import make_server
+
+    api = API(holder, stats=_stats(cfg), tracer=_tracer(cfg))
+    configure_planes(api, cfg)
+    if cfg.coalescer_enabled:
+        api.coalescer = QueryCoalescer(
+            api.executor, window_s=cfg.coalescer_window_ms / 1e3,
+            max_batch=cfg.coalescer_max_batch,
+            max_queue=cfg.coalescer_max_queue,
+            deadline_s=cfg.coalescer_deadline_ms / 1e3,
+            stats=api.stats, tracer=api.tracer,
+            pipeline=cfg.coalescer_pipeline)
+        api.coalescer.start()
+    watchdog = _start_memory_planes(api, cfg)
+    return api, make_server(api, cfg.host, cfg.port), watchdog
+
+
+def stop_server(api, server, watchdog) -> None:
+    """The shutdown: drain the coalescer, stop the layout pass, write the
+    telemetry to the log, close the listener."""
+    if api.coalescer is not None:
+        api.coalescer.stop()
+    api.layout.stop()
+    drain_telemetry(api, watchdog=watchdog)
+    server.server_close()
+    if hasattr(api.stats, "flush"):
+        api.stats.flush()
 
 
 def cmd_server(args) -> int:
     from pilosa_tpu_torch.core.holder import Holder
-    from pilosa_tpu_torch.server.api import API
-    from pilosa_tpu_torch.server.coalescer import QueryCoalescer
-    from pilosa_tpu_torch.server.http import make_server
-    from pilosa_tpu_torch.utils.stats import MemStatsClient
-    from pilosa_tpu_torch.utils.tracing import RecordingTracer
+    from pilosa_tpu_torch.utils.config import load_config
 
-    host, port = _bind(args.bind)
-    holder = Holder(None if args.data_dir is None
-                    else os.path.expanduser(args.data_dir),
-                    device=args.device)
+    cfg = load_config(args.config, {
+        "data_dir": args.data_dir, "bind": args.bind,
+        "verbose": args.verbose or None,
+        "coalescer_enabled": False if args.no_coalescer else None,
+        "coalescer_window_ms": args.coalescer_window_ms,
+    })
+    logging.basicConfig(level=logging.DEBUG if cfg.verbose
+                        else logging.INFO)
+    holder = Holder(os.path.expanduser(cfg.data_dir) if cfg.data_dir
+                    else None, device=args.device)
     if holder.path is not None:
         holder.open()
-    api = API(holder, stats=MemStatsClient(), tracer=RecordingTracer())
-    configure_measurement(api, measurement_settings())
-    if not args.no_coalescer:
-        api.coalescer = QueryCoalescer(
-            api.executor, window_s=args.coalescer_window_ms / 1e3,
-            stats=api.stats, tracer=api.tracer)
-        api.coalescer.start()
-    _start_memory_planes(api)
-    server = make_server(api, host, port)
+    api, server, watchdog = build_server(cfg, holder)
 
     def _graceful(signum, frame):
         raise KeyboardInterrupt
@@ -190,7 +258,7 @@ def cmd_server(args) -> int:
     signal.signal(signal.SIGTERM, _graceful)
     addr = server.server_address
     coal = "off" if api.coalescer is None \
-        else f"{args.coalescer_window_ms:g} ms"
+        else f"{cfg.coalescer_window_ms:g} ms"
     print(f"pilosa-tpu-torch server listening on http://{addr[0]}:{addr[1]}"
           f" device={holder.device} coalescer={coal}"
           f" data_dir={holder.path or '(memory)'}", flush=True)
@@ -199,14 +267,23 @@ def cmd_server(args) -> int:
     except KeyboardInterrupt:
         pass
     finally:
-        if api.coalescer is not None:
-            api.coalescer.stop()
-        drain_telemetry(api)
-        api.layout.stop()
-        api.watchdog.stop()
-        server.server_close()
+        stop_server(api, server, watchdog)
         if holder.path is not None:
             holder.close()
+    return 0
+
+
+def cmd_config(args) -> int:
+    from dataclasses import asdict
+
+    from pilosa_tpu_torch.utils.config import load_config
+    print(json.dumps(asdict(load_config(args.config, {})), indent=2))
+    return 0
+
+
+def cmd_generate_config(args) -> int:
+    from pilosa_tpu_torch.utils.config import Config
+    print(Config().to_toml(), end="")
     return 0
 
 
@@ -246,15 +323,19 @@ def main(argv=None) -> int:
     sp = sub.add_parser("server", help="run the server")
     sp.add_argument("-d", "--data-dir", default=None,
                     help="data directory (default: in memory)")
-    sp.add_argument("-b", "--bind", default="localhost:10101",
-                    help="HOST:PORT to listen on (port 0: any free port)")
+    sp.add_argument("-b", "--bind", default=None,
+                    help="HOST:PORT to listen on (port 0: any free port; "
+                         "default localhost:10101)")
+    sp.add_argument("-c", "--config", default=None,
+                    help="TOML config file")
+    sp.add_argument("--verbose", action="store_true")
     sp.add_argument("--device", default=None,
                     help="torch device (default cuda; cpu to run without "
                          "a card)")
     sp.add_argument("--no-coalescer", action="store_true",
                     help="serve every query on the direct path "
                          "(disable cross-request coalescing)")
-    sp.add_argument("--coalescer-window-ms", type=float, default=1.5,
+    sp.add_argument("--coalescer-window-ms", type=float, default=None,
                     help="coalescer batching window in milliseconds")
     sp.set_defaults(fn=cmd_server)
     ep = sub.add_parser("export", help="export a field as CSV")
@@ -268,6 +349,12 @@ def main(argv=None) -> int:
                     help="torch device of the holder (default cuda; cpu "
                          "to run without a card)")
     ep.set_defaults(fn=cmd_export)
+    gp = sub.add_parser("config", help="print resolved configuration")
+    gp.add_argument("-c", "--config", default=None)
+    gp.set_defaults(fn=cmd_config)
+    gg = sub.add_parser("generate-config",
+                        help="print default TOML config")
+    gg.set_defaults(fn=cmd_generate_config)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -120,6 +120,17 @@ class LRUCache:
             while len(self.counts) > self.size:
                 self.counts.popitem(last=False)
 
+    def get(self, row_id: int) -> int:
+        """The row's count (0 when absent); a read makes it recent."""
+        with self._lock:
+            if row_id in self.counts:
+                self.counts.move_to_end(row_id)
+                return self.counts[row_id]
+            return 0
+
+    def ids(self) -> List[int]:
+        return sorted(self.counts)
+
     def top(self) -> List[Tuple[int, int]]:
         return sorted(self.counts.items(), key=lambda kv: (-kv[1], kv[0]))
 
@@ -246,6 +257,17 @@ class RankCacheStore:
         self._lock = threading.Lock()
         self._entries: "OrderedDict[tuple, Tuple[Any, RankEntry]]" = \
             OrderedDict()
+        self.evictions = 0
+
+    def configure(self, enabled: Optional[bool] = None,
+                  max_entries: Optional[int] = None) -> None:
+        """The ``[cache]`` rank keys; PILOSA_TPU_RANK_CACHE=0 wins
+        (config can switch the store off, never on past it)."""
+        with self._lock:
+            if enabled is not None:
+                self.enabled = bool(enabled) and _rank_env_enabled()
+            if max_entries is not None:
+                self.max_entries = max(1, int(max_entries))
 
     def get(self, view: Any, key: tuple) -> Optional[RankEntry]:
         with self._lock:
@@ -262,6 +284,7 @@ class RankCacheStore:
             self._entries.pop(ek, None)
             while len(self._entries) >= self.max_entries:
                 (_vid, vkey), (v, _e) = self._entries.popitem(last=False)
+                self.evictions += 1
                 # Under the store lock (the ledger's is a leaf), so an
                 # evict and a re-put cannot interleave.
                 LEDGER.unregister("rank_cache", vkey, owner=v)
@@ -281,6 +304,14 @@ class RankCacheStore:
             for ek in [ek for ek in self._entries if ek[0] == vid]:
                 self._entries.pop(ek, None)
                 LEDGER.unregister("rank_cache", ek[1], owner=view)
+
+    def clear(self) -> None:
+        """Drop every entry with its ledger row."""
+        from pilosa_tpu_torch.utils.memledger import LEDGER
+        with self._lock:
+            for ek, (v, _e) in list(self._entries.items()):
+                self._entries.pop(ek, None)
+                LEDGER.unregister("rank_cache", ek[1], owner=v)
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -69,10 +69,24 @@ IMPORT_CHUNK_PAIRS = 4 << 20
 MAX_TORN_TAIL_BYTES = 2 * (18 * IMPORT_CHUNK_PAIRS + (1 << 16))
 
 _VERSIONS = itertools.count(1)
+# Moves after every version a fragment takes and every fragment a view
+# adds: a value derived from fragment versions after the epoch was read
+# holds while the epoch stays (the views' version memos).
+_EPOCH = [0]
+_EPOCH_LOCK = threading.Lock()
 
 
 def _next_version() -> int:
     return next(_VERSIONS)
+
+
+def version_epoch() -> int:
+    return _EPOCH[0]
+
+
+def bump_epoch() -> None:
+    with _EPOCH_LOCK:
+        _EPOCH[0] += 1
 
 
 def _strictly_increasing(a: np.ndarray) -> bool:
@@ -259,6 +273,7 @@ class Fragment:
             return
         prev = self.version
         self.version = v = _next_version()
+        bump_epoch()
         self._row_versions.update(zip(rows, itertools.repeat(v)))
         if same_row_set and self._row_ids_cache[0] == prev:
             self._row_ids_cache = (v, self._row_ids_cache[1])

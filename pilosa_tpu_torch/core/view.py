@@ -62,7 +62,8 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core import cache as cache_mod
-from pilosa_tpu_torch.core.fragment import CONTAINER_BITS, Fragment
+from pilosa_tpu_torch.core.fragment import CONTAINER_BITS, Fragment, \
+    bump_epoch, version_epoch
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.memledger import LEDGER
@@ -80,6 +81,8 @@ SMART_EVICT = True
 # The device budget's share of the card's memory: the rest is left to
 # transient banks, expansions, filter rows and the kernels' outputs.
 BANK_BUDGET_SHARE = 0.75
+# Shard tuples a view keeps version answers for (View._memo_versions).
+VERSIONS_MEMO_MAX = 64
 
 
 class BankBudget:
@@ -387,6 +390,9 @@ class View:
         self.cache_size = cache_size
         self.fragments: Dict[int, Fragment] = {}
         self._lock = threading.RLock()
+        # version_stamp/shard_versions answers by shard tuple, each with
+        # the fragment epoch read before it was computed.
+        self._versions_memo: Dict[Any, Tuple[int, tuple]] = {}
         # "dense" serves Row leaves from ViewBanks, "sparse" from the
         # SparseBank (core/layout.py). Staging reads it once per bank key,
         # and both layouts hold the same bits, so a flip mid-query only
@@ -404,6 +410,38 @@ class View:
     def fragment(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
 
+    def version_stamp(self) -> tuple:
+        """Every fragment's write version as one tuple: the stamp the
+        result cache's request tier validates against. Any write in the
+        view changes it (versions are never reused, a new fragment's
+        too)."""
+        return self._memo_versions(None, lambda: tuple(sorted(
+            (s, f.version) for s, f in self.fragments.items())))
+
+    def shard_versions(self, shards: Sequence[int]) -> tuple:
+        """``((shard, version or -1), ...)`` over ``shards``: the version
+        map a bank over them is stamped with, read without building it
+        (the result cache's eval-tier generation)."""
+        frags = self.fragments
+        return self._memo_versions(tuple(shards), lambda: tuple(sorted(
+            (s, f.version if f is not None else -1)
+            for s, f in ((s, frags.get(s)) for s in set(shards)))))
+
+    def _memo_versions(self, key: Any, compute: Any) -> tuple:
+        """``compute()`` under the view's lock, or its memo while no
+        fragment has moved since: the epoch is read first, so a write
+        that lands during the computation leaves the memo stale."""
+        epoch = version_epoch()
+        memo = self._versions_memo.get(key)
+        if memo is not None and memo[0] == epoch:
+            return memo[1]
+        with self._lock:
+            out = compute()
+        if len(self._versions_memo) >= VERSIONS_MEMO_MAX:
+            self._versions_memo.clear()
+        self._versions_memo[key] = (epoch, out)
+        return out
+
     def _new_fragment(self, shard: int) -> Fragment:
         return Fragment(shard, cache_type=self.cache_type,
                         cache_size=self.cache_size,
@@ -418,6 +456,7 @@ class View:
                 frag = self._new_fragment(shard)
                 frag.open()
                 self.fragments[shard] = frag
+                bump_epoch()
             return frag
 
     def open(self) -> None:
@@ -431,6 +470,7 @@ class View:
             frag = self._new_fragment(int(name))
             frag.open()
             self.fragments[int(name)] = frag
+            bump_epoch()
 
     def close(self) -> None:
         """Drop the banks, then close every fragment (which saves its

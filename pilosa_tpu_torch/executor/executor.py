@@ -81,6 +81,22 @@ two CUDA events (``_device_mark``/``_fence_device``); an unsampled one
 records no event and takes no sync. ``stats`` is the server's stats
 client, fed the launch, plan and cost counters.
 
+Result cache (``executor/result_cache.py``, ``Executor.result_cache``,
+on by default): every evaluation first walks its tree into an
+``_EvalIdent`` (the plan, a fingerprint of its tree, rows and predicate
+values, and its views' fragment versions over its shards, read before
+any bank is), which the workload recorder records. A terminal eval
+(Count, a top-level bitmap call) then looks it up in the eval tier; a
+hit answers the cached count, or a Row result over the cached host
+words, with no staging, launch or copy, so a batch whose evals all hit
+forms no cohort. A miss runs or stages and fills from the host copy its
+answer makes (the count's fetch, the Row result's column copy).
+``execute_full`` and ``execute_batch_shaped[_begin]`` put the request
+tier before all of it: an eligible request (Count and bitmap calls)
+answers its cached response while the dependency snapshot its fill
+recorded (views' version stamps, row-attribute generations, the column
+translator's size) is current.
+
 Keys: a keyed index translates column keys and a keyed field row keys
 to ids before a call runs (``_translate_call``, get-or-create: a read
 of an unknown key allocates its id, as in the JAX package), request by
@@ -121,6 +137,8 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD, PositionsBank, \
     SparseBank, ViewBank, bank_capacity, view_bsi_name
 from pilosa_tpu_torch.device import resolve_device
 from pilosa_tpu_torch.executor import bsi
+from pilosa_tpu_torch.executor.result_cache import ResultCache, \
+    approx_nbytes
 from pilosa_tpu_torch.executor.results import FieldRow, GroupCount, \
     PairsResult, RowIdentifiers, RowResult, ValCount, result_to_json
 from pilosa_tpu_torch.ops import kernels
@@ -128,9 +146,10 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD, \
     b_and, b_andnot, b_not, b_or, b_xor, shift_bits, to_numpy
 from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
+from pilosa_tpu_torch.utils.fingerprint import request_key
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.timeline import (
-    LANE_DEVICE, LANE_DISPATCH, LANE_FETCH, LANE_PLAN, TIMELINE,
+    LANE_CACHE, LANE_DEVICE, LANE_DISPATCH, LANE_FETCH, LANE_PLAN, TIMELINE,
 )
 
 _BITMAP_CALLS = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
@@ -204,7 +223,7 @@ def _fence_device(start: Any) -> float:
 def _result_d2h(result: Any) -> int:
     """Device bytes a result still holds for the host to fetch: a Row
     result's words (its columns are read when it is shaped)."""
-    if isinstance(result, RowResult):
+    if isinstance(result, RowResult) and not result.cached:
         words = getattr(result, "words", None)
         if isinstance(words, torch.Tensor):
             return int(words.nbytes)
@@ -254,6 +273,10 @@ def _parse(query: Union[str, Call, Query]) -> Query:
 
 def _query_writes(query: Query) -> bool:
     return any(_peel_options(c).writes() for c in query.calls)
+
+
+def write_call_count(query: Query) -> int:
+    return sum(1 for c in query.calls if _peel_options(c).writes())
 
 
 def query_is_write(query: Union[str, Call, Query]) -> bool:
@@ -353,7 +376,8 @@ class _Plan:
     once the banks exist), the BSI predicate values as two u32 limbs each,
     the operand widths and a postfix IR for the megakernel lowering.
     ``ir_ok=False`` (Shift, a time range over more than
-    MAX_STATIC_RANGE_VIEWS views) means the tree is not lowerable.
+    MAX_STATIC_RANGE_VIEWS views) means the tree is not lowerable;
+    ``literal`` marks the wide time range.
     ``rows_for[key]`` is every row the tree reads from a bank, so an
     over-budget view stages a bank of just those rows. ``bank_sparse``
     snapshots each key's layout once per plan; ``force_dense`` holds keys
@@ -377,6 +401,10 @@ class _Plan:
         dc_field(default_factory=dict)
     force_dense: set = dc_field(default_factory=set)
     sparse_widths: Dict[int, int] = dc_field(default_factory=dict)
+    # A time range over more than MAX_STATIC_RANGE_VIEWS views: the eager
+    # union's operand is named by no bank key, so the result cache must
+    # neither serve nor fill such a tree (the JAX package's literals).
+    literal: bool = False
 
     def bank(self, key: Tuple[str, str]) -> int:
         pos = self.bank_pos.get(key)
@@ -411,20 +439,71 @@ class _StagedEval:
     params: List[int]
     ir: Optional[tuple]
     run_eager: Callable[[], Any]
+    # The workload recorder's fingerprint (``_EvalIdent.fp``), for the
+    # eval seconds the batch's attribution notes; None when not recorded.
+    fp: Any = None
+
+
+class _EvalIdent:
+    """The identity of one evaluation, from one host walk of its tree
+    and no device touch: the plan, the signature (mode, tree, shard
+    count), the fingerprint (signature, row ids, predicate values: the
+    workload recorder's signature key) and the generation (each operand
+    view's fragment versions over the shards, read before any bank is,
+    so a write racing the evaluation leaves the stamp stale). ``key`` is
+    the result cache's eval-tier key, None when the eval may not be
+    served from or fill the cache. ``t0``/``plan_s``: when the walk
+    started and how long it took (the profile's planning time)."""
+
+    __slots__ = ("plan", "sig", "fp", "gen", "key", "t0", "plan_s")
+
+    def __init__(self, plan: _Plan, sig: str, fp: Any, gen: Any,
+                 key: Any, t0: float, plan_s: float) -> None:
+        self.plan = plan
+        self.sig = sig
+        self.fp = fp
+        self.gen = gen
+        self.key = key
+        self.t0 = t0
+        self.plan_s = plan_s
 
 
 class _BatchInFlight:
     """A batch between its begin and its finish: per request its
     position, index name, results (``_Deferred`` where staged) and
-    options, and the per-request errors so far."""
+    options, the per-request errors so far, and each request's
+    dependency-capture dict (None where the request tier does not
+    fill)."""
 
-    __slots__ = ("staged", "out")
+    __slots__ = ("staged", "out", "deps_l")
 
     def __init__(self, staged: List[Tuple[int, str, List[Any],
                                           ExecOptions]],
-                 out: List[Any]) -> None:
+                 out: List[Any],
+                 deps_l: Optional[List[Optional[dict]]] = None) -> None:
         self.staged = staged
         self.out = out
+        self.deps_l = deps_l
+
+
+class _ShapedInFlight:
+    """``execute_batch_shaped_begin``'s flight: the batch of the
+    requests the request tier did not answer (``run``: their positions),
+    the answers so far, and the keys and dependency captures of the
+    requests that fill after shaping."""
+
+    __slots__ = ("flight", "out", "keys", "deps_l", "run", "names")
+
+    def __init__(self, flight: _BatchInFlight, out: List[Any],
+                 keys: List[Optional[tuple]],
+                 deps_l: List[Optional[dict]], run: List[int],
+                 names: List[str]) -> None:
+        self.flight = flight
+        self.out = out
+        self.keys = keys
+        self.deps_l = deps_l
+        self.run = run
+        self.names = names
 
 
 class _Deferred:
@@ -504,6 +583,14 @@ class Executor:
         # The stats client the API attaches (utils/stats.py); None
         # records nothing.
         self.stats: Any = None
+        # The cross-request result cache (executor/result_cache.py): the
+        # request tier keyed on the coalescer's request identity, the
+        # eval tier on the eval's fingerprint and shards under its
+        # operand views' generation. On unless PILOSA_TPU_RESULT_CACHE=0.
+        self.result_cache = ResultCache()
+        # Requests with more write calls than this fail; 0 is no limit
+        # (the server sets its config's max_writes_per_request).
+        self.max_writes_per_request = 0
 
     # ------------------------------------------------------------------ API
 
@@ -529,6 +616,9 @@ class Executor:
         result)."""
         with self._profiled(profile):
             query = _parse(query)
+            if self.max_writes_per_request > 0 and \
+                    write_call_count(query) > self.max_writes_per_request:
+                raise ExecutionError("too many write commands")
             idx = self.holder.index(index_name)
             if idx is None:
                 raise ExecutionError(f"index not found: {index_name}")
@@ -579,10 +669,145 @@ class Executor:
     def execute_full(self, index_name: str, query: Union[str, Call, Query],
                      shards: Optional[Sequence[int]] = None,
                      profile: Any = None) -> Dict[str, Any]:
-        """``execute`` shaped as the server's JSON response."""
-        results, opts = self._execute_query(index_name, query, shards,
-                                            profile=profile)
-        return self.shape_response(index_name, results, opts)
+        """``execute`` shaped as the server's JSON response.
+
+        An eligible request (PQL text of Count and bitmap calls only)
+        rides the request tier of the result cache: a repeat whose
+        dependency snapshot is still current returns the cached
+        response with no parse, plan, launch or copy; a miss runs under
+        dependency capture and fills after shaping. A forced profile
+        (``?profile=true``) skips the lookup, so its tree describes a
+        real run, but still fills."""
+        key = self._request_cache_key(index_name, query, shards)
+        forced = profile is not None and getattr(profile, "forced", False)
+        if key is not None and not forced:
+            hit = self._request_cache_get(key, profile)
+            if hit is not None:
+                return hit
+        deps: Optional[dict] = {} if key is not None else None
+        with self._dep_capture(deps):
+            results, opts = self._execute_query(index_name, query, shards,
+                                                profile=profile)
+            resp = self.shape_response(index_name, results, opts)
+        if deps is not None:
+            self._request_cache_fill(key, deps, resp, opts)
+        return resp
+
+    # ------------------------------------------------ request-tier cache
+
+    @contextlib.contextmanager
+    def _dep_capture(self, deps: Optional[dict]) -> Iterator[None]:
+        """Attach a request-tier dependency collector to this thread
+        while a request runs (None: no capture). Staging and the
+        attribute and translation reads stamp into it."""
+        if deps is None:
+            yield
+            return
+        prev = getattr(self._tls, "deps", None)
+        self._tls.deps = deps
+        try:
+            yield
+        finally:
+            self._tls.deps = prev
+
+    def _request_cache_key(self, index_name: str, query: Any,
+                           shards: Optional[Sequence[int]]
+                           ) -> Optional[tuple]:
+        """The request tier's key, or None when the request is not
+        eligible: the cache is off, the query is not PQL text or does
+        not parse, or a call is not Count or a bitmap call (TopN rides
+        the rank cache; writes never cache)."""
+        if not self.result_cache.enabled or not isinstance(query, str):
+            return None
+        try:
+            q = parse_string_cached(query)
+        except Exception:
+            return None
+        calls = q.calls if isinstance(q, Query) else [q]
+        for c in calls:
+            if c.name != "Count" and c.name not in _BITMAP_CALLS:
+                return None
+        return ("req",) + request_key(index_name, query, shards)
+
+    def _request_deps_current(self, deps: dict) -> bool:
+        """Whether a request-tier dependency snapshot is still current:
+        host dict reads only (views' version stamps, the row attribute
+        stores' generations, the column translator's size)."""
+        for dk, val in deps.items():
+            if not isinstance(dk, tuple):
+                return False
+            kind = dk[0]
+            if kind == "view":
+                _, iname, fname, vname = dk
+                idx = self.holder.index(iname)
+                f = idx.field(fname) if idx is not None else None
+                view = f.view(vname) if f is not None else None
+                cur = view.version_stamp() if view is not None else ()
+            elif kind == "rattr":
+                _, iname, fname = dk
+                idx = self.holder.index(iname)
+                f = idx.field(fname) if idx is not None else None
+                cur = f.row_attr_store.gen if f is not None else -1
+            elif kind == "ctrans":
+                _, iname = dk
+                idx = self.holder.index(iname)
+                cur = idx.column_translator.size() \
+                    if idx is not None else -1
+            else:
+                return False
+            if cur != val:
+                return False
+        return True
+
+    def _request_cache_get(self, key: tuple, profile: Any = None
+                           ) -> Optional[Dict[str, Any]]:
+        """Request-tier lookup; a hit gets a ``cache`` op with
+        ``cacheHit`` in the profile and a ``cache`` lane slice on the
+        timeline."""
+        t0 = time.perf_counter()
+        val = self.result_cache.lookup_request(
+            key, self._request_deps_current)
+        if val is None:
+            return None
+        if profile is not None:
+            dur = time.perf_counter() - t0
+            op = profile.begin_op("cache")
+            op.attrs["cacheHit"] = True
+            profile.end_op(op, dur)
+            if profile.timeline is not None:
+                TIMELINE.event(profile.timeline, "cache", LANE_CACHE, t0,
+                               dur, hit=True)
+        return val
+
+    def _request_cache_fill(self, key: tuple, deps: dict,
+                            resp: Dict[str, Any],
+                            opts: Optional[ExecOptions] = None) -> None:
+        """Fill the request tier after shaping; refused when the capture
+        met a dependency it cannot name, or the response embeds
+        ``columnAttrs`` (shaped outside the capture's stamps)."""
+        if "uncacheable" in deps or not deps:
+            return
+        if opts is not None and opts.column_attrs:
+            return
+        self.result_cache.fill(key, dict(deps), resp, approx_nbytes(resp),
+                               tier="request")
+
+    def _capture_deps(self, idx: Index, plan: _Plan) -> None:
+        """Stamp every operand view of ``plan`` into the request's
+        dependency capture, before any bank is read: a write racing the
+        read then leaves the stored stamp behind, and the fill can never
+        validate (stamp, then read; the first stamp of a view wins)."""
+        cap = getattr(self._tls, "deps", None)
+        if cap is None:
+            return
+        for key in plan.bank_keys:
+            dk = ("view", idx.name, key[0], key[1])
+            if dk not in cap:
+                f = idx.field(key[0])
+                view = f.view(key[1]) if f is not None else None
+                cap[dk] = view.version_stamp() if view is not None else ()
+        if plan.literal:
+            cap["uncacheable"] = True
 
     def shape_response(self, index_name: str, results: Sequence[Any],
                        opts: Optional[ExecOptions] = None
@@ -603,7 +828,8 @@ class Executor:
         return resp
 
     def execute_batch(self, requests: Sequence[Tuple[str, Any, Optional[
-            Sequence[int]]]], profiles: Optional[Sequence[Any]] = None
+            Sequence[int]]]], profiles: Optional[Sequence[Any]] = None,
+            deps: Optional[Sequence[Optional[dict]]] = None
             ) -> List[Any]:
         """Execute N independent requests as one batch. Each element of
         ``requests`` is ``(index_name, query, shards)``. Returns one
@@ -614,13 +840,18 @@ class Executor:
         order, so ids are allocated as one-by-one execution would. The
         two halves are ``execute_batch_begin`` and
         ``execute_batch_finish``. ``profiles`` (optional, aligned with
-        ``requests``) carries a ``QueryProfile`` or None per request."""
+        ``requests``) carries a ``QueryProfile`` or None per request;
+        ``deps`` (aligned too) a request-tier dependency-capture dict or
+        None per request, attached while that request runs and
+        resolves."""
         return self.execute_batch_finish(
-            self.execute_batch_begin(requests, profiles))
+            self.execute_batch_begin(requests, profiles, deps))
 
     def execute_batch_begin(self, requests: Sequence[Tuple[str, Any,
             Optional[Sequence[int]]]],
-            profiles: Optional[Sequence[Any]] = None) -> _BatchInFlight:
+            profiles: Optional[Sequence[Any]] = None,
+            deps: Optional[Sequence[Optional[dict]]] = None
+            ) -> _BatchInFlight:
         """The dispatch half of ``execute_batch``: parse, stage, flush
         and launch every request's device work, and return with the
         results still on the device.
@@ -639,6 +870,7 @@ class Executor:
         out: List[Any] = [None] * len(requests)
         profs = list(profiles) if profiles is not None \
             else [None] * len(requests)
+        deps_l = list(deps) if deps is not None else [None] * len(requests)
         parsed: List[Optional[Query]] = [None] * len(requests)
         has_writes = [False] * len(requests)
         for j, (_, q, _) in enumerate(requests):
@@ -656,10 +888,12 @@ class Executor:
                 try:
                     if has_writes[j]:
                         fuser.flush()
-                        results, opts = self._execute_query(
-                            index_name, parsed[j], shards, profs[j])
+                        with self._dep_capture(deps_l[j]):
+                            results, opts = self._execute_query(
+                                index_name, parsed[j], shards, profs[j])
                     else:
-                        with self._fusing(fuser):
+                        with self._fusing(fuser), \
+                                self._dep_capture(deps_l[j]):
                             results, opts = self._execute_query(
                                 index_name, parsed[j], shards, profs[j])
                     staged.append((j, index_name, results, opts))
@@ -668,17 +902,19 @@ class Executor:
         finally:
             # Staged evals must run before any result resolves.
             fuser.flush()
-        return _BatchInFlight(staged, out)
+        return _BatchInFlight(staged, out, deps_l)
 
     def execute_batch_finish(self, flight: _BatchInFlight) -> List[Any]:
         """The drain half of ``execute_batch``: resolve every staged
         result (the host syncs of the megakernel's counts happen here).
         Safe on another thread than the begin's."""
         out = flight.out
+        deps_l = flight.deps_l or [None] * len(out)
         for j, _, results, opts in flight.staged:
             try:
-                out[j] = ([r.resolve() if isinstance(r, _Deferred) else r
-                           for r in results], opts)
+                with self._dep_capture(deps_l[j]):
+                    out[j] = ([r.resolve() if isinstance(r, _Deferred)
+                               else r for r in results], opts)
             except Exception as e:
                 out[j] = e
         return out
@@ -688,26 +924,72 @@ class Executor:
             profiles: Optional[Sequence[Any]] = None) -> List[Any]:
         """``execute_batch`` with each request's response shaped: one
         ``{"results": [...]}`` dict or exception per request (the
-        ``/batch/query`` route and the coalescer)."""
-        return self.execute_batch_shaped_finish(
-            self.execute_batch_begin(requests, profiles))
+        ``/batch/query`` route and the coalescer).
 
-    def execute_batch_shaped_finish(self, flight: _BatchInFlight
+        The batch seam of the request tier: eligible requests answer
+        from the cache before anything runs, and misses run under
+        dependency capture and fill after shaping. A request after a
+        batchmate that writes never looks up: it must see that write."""
+        return self.execute_batch_shaped_finish(
+            self.execute_batch_shaped_begin(requests, profiles))
+
+    def execute_batch_shaped_begin(self, requests: Sequence[Tuple[
+            str, Any, Optional[Sequence[int]]]],
+            profiles: Optional[Sequence[Any]] = None) -> _ShapedInFlight:
+        """The request tier's lookups, then ``execute_batch_begin`` of
+        the requests it did not answer."""
+        n = len(requests)
+        profs = list(profiles) if profiles is not None else [None] * n
+        out: List[Any] = [None] * n
+        keys: List[Optional[tuple]] = [None] * n
+        deps_l: List[Optional[dict]] = [None] * n
+        run: List[int] = []
+        write_seen = False
+        for j, (index_name, q, shards) in enumerate(requests):
+            forced = profs[j] is not None and getattr(
+                profs[j], "forced", False)
+            key = None
+            if not write_seen and not forced:
+                key = self._request_cache_key(index_name, q, shards)
+            if not write_seen and query_is_write(q):
+                write_seen = True
+            if key is not None:
+                hit = self._request_cache_get(key, profs[j])
+                if hit is not None:
+                    out[j] = hit
+                    continue
+                keys[j] = key
+                deps_l[j] = {}
+            run.append(j)
+        flight = self.execute_batch_begin(
+            [requests[j] for j in run], profiles=[profs[j] for j in run],
+            deps=[deps_l[j] for j in run])
+        return _ShapedInFlight(flight, out, keys, deps_l, run,
+                               [r[0] for r in requests])
+
+    def execute_batch_shaped_finish(self, flight: _ShapedInFlight
                                     ) -> List[Any]:
-        """``execute_batch_finish`` of ``execute_batch_begin``'s flight,
-        then each request's response shaped. The port has no result
-        cache, so the shaped batch's begin is ``execute_batch_begin``."""
-        names = {j: name for j, name, _, _ in flight.staged}
-        shaped: List[Any] = []
-        for j, r in enumerate(self.execute_batch_finish(flight)):
+        """``execute_batch_finish`` of ``execute_batch_shaped_begin``'s
+        flight, then each request's response shaped, and the request tier
+        filled for its misses."""
+        out = flight.out
+        res = self.execute_batch_finish(flight.flight)
+        for j, r in zip(flight.run, res):
             if isinstance(r, Exception):
-                shaped.append(r)
+                out[j] = r
                 continue
+            results, opts = r
             try:
-                shaped.append(self.shape_response(names[j], *r))
+                shaped = self.shape_response(flight.names[j], results,
+                                             opts)
             except Exception as e:
-                shaped.append(e)
-        return shaped
+                out[j] = e
+                continue
+            if flight.deps_l[j] is not None:
+                self._request_cache_fill(flight.keys[j], flight.deps_l[j],
+                                         shaped, opts)
+            out[j] = shaped
+        return out
 
     @contextlib.contextmanager
     def _fusing(self, fuser: Any) -> Iterator[None]:
@@ -750,29 +1032,32 @@ class Executor:
                 self.jit_compiles += 1
 
     def _eval_node(self, idx: Index, call: Call, shards: List[int],
-                   mode: str, run: Callable[[], Any]) -> Any:
+                   mode: str, run: Callable[[], Any],
+                   ident: Optional[_EvalIdent] = None) -> Any:
         """Run one evaluation of a call tree (``run()``: the eager tree
         and its kernels) with the measurement plane around it: the
-        dispatch-gap analyzer sees its host interval, and a profiled
-        request gets an ``eval:<mode>`` node. The node's ``planS`` is the
-        host walk that names the tree's signature, ``dispatchS`` the
-        evaluation's host time (bank builds and launches), and
-        ``deviceS``, on a sampled profile only, the card's time between
-        a CUDA event before the evaluation and one after it."""
+        dispatch-gap analyzer sees its host interval, the workload
+        recorder its signature and reads, and a profiled request gets an
+        ``eval:<mode>`` node. The node's ``planS`` is the host walk that
+        names the tree's signature (``ident``'s, when the caller walked
+        it already), ``dispatchS`` the evaluation's host time (bank
+        builds and launches), and ``deviceS``, on a sampled profile
+        only, the card's time between a CUDA event before the
+        evaluation and one after it. A profiled evaluation's seconds
+        feed the signature's cache-opportunity estimate."""
         prof = self._profile()
-        if prof is None:
+        if ident is None:
+            ident = self._eval_ident(idx, call, shards, mode)
+            if ident is not None:
+                self._record_eval(idx, ident, mode, shards)
+        if prof is None or ident is None:
+            # Unprofiled, or a tree whose walk failed (the evaluation
+            # raises its error; the JAX package opens no node for it).
             t0 = time.perf_counter()
             out = run()
             TIMELINE.note_dispatch(t0, time.perf_counter() - t0)
             return out
-        t_plan0 = time.perf_counter()
-        plan = _Plan()
-        try:
-            self._plan_call(idx, call, plan)
-        except Exception:
-            pass  # the evaluation below raises what the walk would
-        sig = f"{mode}|{''.join(plan.sig_parts)}|S{len(shards)}"
-        plan_s = time.perf_counter() - t_plan0
+        t_plan0, plan_s, sig = ident.t0, ident.plan_s, ident.sig
         hit = self._kernels_loaded()
         self._note_jit(hit)
         node = prof.tree(mode, sig, hit, plan_s, 0, len(shards))
@@ -789,13 +1074,121 @@ class Executor:
         if tl is not None:
             TIMELINE.event(tl, "dispatch", LANE_DISPATCH, t_disp,
                            dispatch_s, shards=len(shards))
+        device_s = 0.0
         if start is not None:
             t_dev = time.perf_counter()
             device_s = _fence_device(start)
             prof.tree_device(node, device_s)
             if tl is not None:
                 TIMELINE.event(tl, "device", LANE_DEVICE, t_dev, device_s)
+        if ident is not None:
+            WORKLOAD.note_eval_seconds(ident.fp, dispatch_s + device_s)
         return out
+
+    # ------------------------------------------------------ eval identity
+
+    def _eval_ident(self, idx: Index, call: Call, shards: List[int],
+                    mode: str, terminal: bool = False
+                    ) -> Optional[_EvalIdent]:
+        """The identity of one evaluation (``_EvalIdent``), from a plan
+        walk and the views' version maps: no bank is built or read. Also
+        stamps the tree's views into the request's dependency capture.
+        None when nothing asks for it (the result cache, the workload
+        recorder, a profile and the capture all off) or the walk fails
+        (the evaluation then raises its own error; under a capture the
+        request's fill is refused). ``terminal``: the eval's answer is
+        the call's result (Count, a top-level bitmap call), so the eval
+        tier may key it."""
+        rc = self.result_cache
+        cap = getattr(self._tls, "deps", None)
+        prof = self._profile()
+        if not (rc.enabled or WORKLOAD.enabled or prof is not None
+                or cap is not None):
+            return None
+        t0 = time.perf_counter()
+        plan = _Plan()
+        try:
+            self._plan_call(idx, call, plan)
+        except Exception:
+            if cap is not None:
+                cap["uncacheable"] = True
+            return None
+        self._capture_deps(idx, plan)
+        sig = f"{mode}|{''.join(plan.sig_parts)}|S{len(shards)}"
+        fp = (sig, tuple((key, row) for _, key, row in plan.slot_refs),
+              tuple(plan.params))
+        gen = tuple(self._view_versions(idx, key, shards)
+                    for key in plan.bank_keys) \
+            if rc.enabled or WORKLOAD.enabled else None
+        key = None
+        if terminal and rc.enabled and not plan.literal \
+                and not (prof is not None and prof.forced):
+            key = ("eval", idx.name, fp, tuple(int(s) for s in shards))
+        return _EvalIdent(plan, sig, fp, gen, key, t0,
+                          time.perf_counter() - t0)
+
+    @staticmethod
+    def _view_versions(idx: Index, key: Tuple[str, str], shards) -> tuple:
+        field = idx.field(key[0])
+        view = field.view(key[1]) if field is not None else None
+        return view.shard_versions(shards) if view is not None else ()
+
+    def _record_eval(self, idx: Index, ident: _EvalIdent, mode: str,
+                     shards: List[int]) -> None:
+        """Record one evaluation in the workload recorder: its signature
+        under its generation (the repeat tracking the opportunity
+        estimate reads) and its reads."""
+        if not WORKLOAD.enabled:
+            return
+        WORKLOAD.record_query(ident.fp, ident.gen, index=idx.name,
+                              mode=mode, n_shards=len(shards),
+                              sig=ident.sig)
+        self._record_plan_reads(idx, ident.plan, shards)
+
+    def _eval_cache_hit(self, ident: _EvalIdent, mode: str,
+                        n_shards: int) -> Any:
+        """The eval tier's answer for ``ident``, or None. A hit runs,
+        stages and copies nothing; a profiled request gets an
+        ``eval:<mode>`` node with ``cacheHit`` and a ``cache`` lane
+        slice."""
+        if ident is None or ident.key is None:
+            return None
+        hit = self.result_cache.lookup(ident.key, ident.gen)
+        if hit is None:
+            return None
+        prof = self._profile()
+        if prof is not None:
+            plan_s = time.perf_counter() - ident.t0
+            node = prof.tree(mode, ident.sig, None, plan_s, 0, n_shards)
+            node.attrs["cacheHit"] = True
+            if prof.timeline is not None:
+                TIMELINE.event(prof.timeline, "cache", LANE_CACHE,
+                               ident.t0, plan_s, hit=True)
+        return hit
+
+    def _fill_count(self, ident: Optional[_EvalIdent], count: int) -> int:
+        """Fill the eval tier with a count the evaluation already has on
+        the host."""
+        if ident is not None and ident.key is not None:
+            self.result_cache.fill(ident.key, ident.gen, count,
+                                   approx_nbytes(count))
+        return count
+
+    def _row_filler(self, ident: Optional[_EvalIdent]
+                    ) -> Optional[Callable[[np.ndarray], None]]:
+        """The hook a Row result calls with its words when it copies
+        them to the host for its columns: the eval tier fills from that
+        one copy."""
+        if ident is None or ident.key is None:
+            return None
+        rc, key, gen = self.result_cache, ident.key, ident.gen
+
+        def fill(host: np.ndarray) -> None:
+            # Every hit of the entry shares these words: a write into
+            # them must fail, not change later answers.
+            host.setflags(write=False)
+            rc.fill(key, gen, host, host.nbytes)
+        return fill
 
     def _count(self, name: str, n: int = 1) -> None:
         if self.stats is not None:
@@ -897,6 +1290,12 @@ class Executor:
                       shards: Optional[Sequence[int]],
                       opts: Optional[ExecOptions] = None) -> Any:
         name = call.name
+        cap = getattr(self._tls, "deps", None)
+        if cap is not None and name != "Count" \
+                and name not in _BITMAP_CALLS:
+            # The request key admits only these calls; any other read
+            # under a capture would cache with dependencies unnamed.
+            cap["uncacheable"] = True
         if name == "Options":
             return self._execute_options(idx, call, shards, opts)
         if name == "Count":
@@ -1001,8 +1400,8 @@ class Executor:
         for child in call.children:
             self._translate_call(idx, child)
 
-    @staticmethod
-    def _translate_result(idx: Index, call: Call, result: Any) -> None:
+    def _translate_result(self, idx: Index, call: Call, result: Any
+                          ) -> None:
         """Ids back to keys on a result, as the JAX package's
         ``_translate_result``: a keyed index's Row result gets one key a
         column (its decimal id where the column has no key), a keyed
@@ -1011,6 +1410,13 @@ class Executor:
         call = _peel_options(call)
         if isinstance(result, RowResult):
             if idx.keys:
+                cap = getattr(self._tls, "deps", None)
+                if cap is not None:
+                    # The response embeds column keys; an id without a key
+                    # may gain one later, which the translator's size
+                    # stamp (taken before the read) invalidates.
+                    cap.setdefault(("ctrans", idx.name),
+                                   idx.column_translator.size())
                 cols = result.columns()
                 keys = idx.column_translator.translate_ids(cols)
                 if None in keys:
@@ -1121,68 +1527,91 @@ class Executor:
     def _execute_bitmap(self, idx: Index, call: Call, shards,
                         opts: Optional[ExecOptions] = None
                         ) -> Union[RowResult, _Deferred]:
+        """A top-level bitmap call. Its eval identity comes first: an
+        eval-tier hit answers from the host words the miss copied, with
+        no staging, launch or copy; a miss runs (or stages) and fills
+        when its Row result copies its words for its columns."""
         shards = self._restrict_shards(idx, call, self._shards(idx, shards))
         opts = opts or ExecOptions()
+        ident = self._eval_ident(idx, call, shards, "row", terminal=True)
         # Read now, not when a staged result resolves: a later write of
         # the same batch must not show in this answer.
         attrs = {} if opts.exclude_row_attrs \
             else self._row_attrs(idx, call)
 
-        def result(words: torch.Tensor) -> RowResult:
-            res = RowResult(shards, words)
+        def result(words: Optional[torch.Tensor],
+                   host: Optional[np.ndarray] = None) -> RowResult:
+            res = RowResult(shards, words, host)
             res.attrs = attrs
+            if host is None:
+                res.on_host = self._row_filler(ident)
             if opts.exclude_columns:
                 res.clear_columns()
             return res
 
+        if ident is not None:
+            self._record_eval(idx, ident, "row", shards)
+            hit = self._eval_cache_hit(ident, "row", len(shards))
+            if hit is not None:
+                return result(None, hit)
         fuser = self._fuser()
         if fuser is not None:
-            handle = self._stage_into(fuser, idx, call, shards, "row")
+            handle = self._stage_into(fuser, idx, call, shards, "row",
+                                      ident)
             return _Deferred(lambda: result(handle.value()))
         words = self._eval_node(idx, call, shards, "row",
-                                lambda: self._eval(idx, call, shards))
-        self._record_tree_reads(idx, call, shards)
+                                lambda: self._eval(idx, call, shards), ident)
         return result(words)
 
     def _execute_count(self, idx: Index, call: Call, shards
                        ) -> Union[int, _Deferred]:
+        """Count(tree): an eval-tier hit answers the cached int; a miss
+        runs (or stages) and fills with the count it fetched."""
         if len(call.children) != 1:
             raise ExecutionError("Count() takes exactly one row argument")
         child = call.children[0]
         shards = self._restrict_shards(idx, child, self._shards(idx, shards))
+        ident = self._eval_ident(idx, child, shards, "count", terminal=True)
+        if ident is not None:
+            self._record_eval(idx, ident, "count", shards)
+            hit = self._eval_cache_hit(ident, "count", len(shards))
+            if hit is not None:
+                return hit
         fuser = self._fuser()
         if fuser is not None:
-            handle = self._stage_into(fuser, idx, child, shards, "count")
+            handle = self._stage_into(fuser, idx, child, shards, "count",
+                                      ident)
+            if ident is not None and ident.key is not None:
+                return _Deferred(
+                    lambda: self._fill_count(ident, handle.value()))
             return _Deferred(handle.value)
         count = self._eval_node(
             idx, child, shards, "count",
-            lambda: self._count_eager(idx, child, shards))
-        self._record_tree_reads(idx, child, shards)
-        return count
+            lambda: self._count_eager(idx, child, shards), ident)
+        return self._fill_count(ident, count)
 
     def _stage_into(self, fuser: Any, idx: Index, call: Call,
-                    shards: List[int], mode: str) -> Any:
+                    shards: List[int], mode: str,
+                    ident: Optional[_EvalIdent] = None) -> Any:
         """Stage a terminal eval into the batch's collector; a profiled
-        request's eval node opens here with its planning time."""
+        request's eval node opens here with its planning time (from the
+        identity walk on, which also recorded its reads)."""
         prof = self._profile()
-        t_plan0 = time.perf_counter() if prof is not None else 0.0
-        return fuser.add(self._stage_tree(idx, call, shards, mode), prof,
-                         t_plan0)
+        t_plan0 = (ident.t0 if ident is not None else time.perf_counter()) \
+            if prof is not None else 0.0
+        staged = self._stage_tree(idx, call, shards, mode,
+                                  ident.plan if ident is not None else None)
+        if ident is not None:
+            staged.fp = ident.fp
+        return fuser.add(staged, prof, t_plan0)
 
-    def _record_tree_reads(self, idx: Index, call: Call, shards) -> None:
-        """Record an eagerly run tree's reads as staging records a staged
-        one's: one read per operand bank key, with the rows it names."""
-        if not WORKLOAD.enabled:
-            return
-        plan = _Plan()
-        self._plan_call(idx, call, plan)
-        self._record_plan_reads(idx, plan, shards)
-
-    @staticmethod
-    def _record_plan_reads(idx: Index, plan: _Plan, shards) -> None:
+    def _record_plan_reads(self, idx: Index, plan: _Plan, shards) -> None:
+        prof = self._profile()
         for key in plan.bank_keys:
             WORKLOAD.record_read(idx.name, key[0], key[1], shards,
                                  rows=plan.rows_for.get(key))
+            if prof is not None:
+                prof.touch_fragments(idx.name, key[0], key[1], shards)
 
     def _count_eager(self, idx: Index, child: Call, shards: List[int]
                      ) -> int:
@@ -1391,20 +1820,24 @@ class Executor:
     # ------------------------------------------------------------ staging
 
     def _stage_tree(self, idx: Index, call: Call, shards: List[int],
-                    mode: str) -> _StagedEval:
-        """Plan a terminal eval without running it: walk the tree, build
-        its banks (SparseBanks for sparse-planned keys, dense banks of
-        the rows the tree reads for the rest), resolve slots, widths and
-        the shape signature. A sparse build that bails forces its key
-        dense and replans: each retry adds a key that was planned sparse,
-        so the loop ends."""
+                    mode: str, plan: Optional[_Plan] = None
+                    ) -> _StagedEval:
+        """Plan a terminal eval without running it: walk the tree (or
+        take ``plan``, the eval identity's walk of it), build its banks
+        (SparseBanks for sparse-planned keys, dense banks of the rows
+        the tree reads for the rest), resolve slots, widths and the
+        shape signature. A sparse build that bails forces its key dense
+        and replans: each retry adds a key that was planned sparse, so
+        the loop ends."""
         force_dense: set = set()
         while True:
-            plan = _Plan(force_dense=force_dense)
-            self._plan_call(idx, call, plan)
+            if plan is None:
+                plan = _Plan(force_dense=force_dense)
+                self._plan_call(idx, call, plan)
             banks, retry = self._stage_banks(idx, plan, shards, force_dense)
             if not retry:
                 break
+            plan = None
         for i, key, row in plan.slot_refs:
             plan.idxs[i] = banks[plan.bank_pos[key]].slot(row)
         # The plan width resolves after the banks are built, so it covers
@@ -1423,7 +1856,6 @@ class Executor:
         sig = (f"{mode}|{''.join(plan.sig_parts)}|W{plan.width}"
                f"|B{bshapes}{f'|XW{xw}' if xw else ''}|LNone"
                f"|S{len(shards)}")
-        self._record_plan_reads(idx, plan, shards)
         if mode == "count":
             def run_eager() -> Any:
                 return self._count_eager(idx, call, shards)
@@ -1594,6 +2026,7 @@ class Executor:
             # The eager union answers; nothing is staged for it.
             plan.sig_parts.append(f"L{len(views)}")
             plan.ir_ok = False
+            plan.literal = True
 
     def _plan_bsi_leaf(self, field: Field, cond: Condition, plan: _Plan
                        ) -> None:
@@ -1731,6 +2164,12 @@ class Executor:
         if field is None or isinstance(row_ref, bool) \
                 or not isinstance(row_ref, int):
             return {}
+        cap = getattr(self._tls, "deps", None)
+        if cap is not None:
+            # Attribute writes bump no fragment version: the request tier
+            # stamps the store's own generation, before the read.
+            cap.setdefault(("rattr", idx.name, field.name),
+                           field.row_attr_store.gen)
         return field.row_attr_store.get(row_ref)
 
     def _write_row_id(self, field: Field, row_ref) -> int:
@@ -1808,6 +2247,10 @@ class Executor:
         # Before the warm caches: a cached answer is still a read.
         WORKLOAD.record_read(idx.name, field_name, VIEW_STANDARD, shards,
                              rows=all_rows)
+        prof = self._profile()
+        if prof is not None:
+            prof.touch_fragments(idx.name, field_name, VIEW_STANDARD,
+                                 shards)
 
         selfcheck_pairs = None  # a warm answer this sweep verifies
         if filter_words is None and not tanimoto:

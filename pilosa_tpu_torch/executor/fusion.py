@@ -17,7 +17,10 @@ Measurement: ``add`` takes the request's profile and opens its eval
 node with the planning time; a group run per member times each member's
 evaluation as its dispatch (the dispatch-gap analyzer sees it too), and
 a sampled member reads its device time between two CUDA events, counted
-in the roofline plane's unattributed fences (no plan, so no bytes).
+in the roofline plane's unattributed fences (no plan, so no bytes). Each
+member's seconds feed its signature's entry in the workload recorder.
+Evals the result cache answered never reach the collector, so a batch
+whose evals all hit forms no group and launches nothing.
 
 Write fencing is the caller's job: ``execute_batch`` flushes the
 collector before dispatching any write-containing request and dispatches
@@ -30,6 +33,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional
 
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.roofline import ROOFLINE
 from pilosa_tpu_torch.utils.timeline import (
     LANE_DEVICE, LANE_DISPATCH, LANE_PLAN, TIMELINE,
@@ -113,10 +117,13 @@ class _FuseGroup:
         start = ex_mod._device_mark(self.executor.device) \
             if sampled else None
         t0 = time.perf_counter()
-        out = self.entries[b].run_eager()
+        entry = self.entries[b]
+        out = entry.run_eager()
         dispatch_s = time.perf_counter() - t0
         TIMELINE.note_dispatch(t0, dispatch_s)
         if prof is None or node is None:
+            if entry.fp is not None:
+                WORKLOAD.note_eval_seconds(entry.fp, dispatch_s)
             return out
         self.executor._note_jit(hit)
         prof.tree_jit(node, hit)
@@ -124,6 +131,7 @@ class _FuseGroup:
         if prof.timeline is not None:
             TIMELINE.event(prof.timeline, "dispatch", LANE_DISPATCH, t0,
                            dispatch_s)
+        device_s = 0.0
         if start is not None:
             t_dev = time.perf_counter()
             device_s = ex_mod._fence_device(start)
@@ -134,6 +142,10 @@ class _FuseGroup:
             # No plan on this path, so no bytes: the roofline plane
             # states how much sampled device time its bytes explain.
             ROOFLINE.note_unattributed_fence(device_s)
+        if entry.fp is not None:
+            # What one evaluation of this signature cost: the seconds a
+            # result-cache hit saves (the opportunity estimate).
+            WORKLOAD.note_eval_seconds(entry.fp, dispatch_s + device_s)
         return out
 
 

@@ -76,6 +76,7 @@ import torch
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops import megakernel as mk
 from pilosa_tpu_torch.ops import plan_opt
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.roofline import ROOFLINE
 from pilosa_tpu_torch.utils.timeline import (
     LANE_DEVICE, LANE_DISPATCH, TIMELINE,
@@ -350,16 +351,23 @@ def _attribute(ex: Any, cohort: List[Any], jit_hit: bool, t_disp: float,
                                planBytes=plan_bytes, **extra)
             if prof.sample_device:
                 fence_profs.append((prof, node))
-    if start is None:
-        return
-    t_dev = time.perf_counter()
-    device_s = ex_mod._fence_device(start)
-    for prof, node in fence_profs:
-        prof.tree_device(node, device_s)
-        if prof.timeline is not None:
-            TIMELINE.event(prof.timeline, "device", LANE_DEVICE, t_dev,
-                           device_s, megaBatch=n_entries)
-    if cost is not None:
-        bw = ROOFLINE.note_device(ckey, cost["totalBytes"], device_s)
-        if bw is not None:
-            TIMELINE.note_bandwidth(bw["bytesPerS"], bw["frac"])
+    device_s = 0.0
+    if start is not None:
+        t_dev = time.perf_counter()
+        device_s = ex_mod._fence_device(start)
+        for prof, node in fence_profs:
+            prof.tree_device(node, device_s)
+            if prof.timeline is not None:
+                TIMELINE.event(prof.timeline, "device", LANE_DEVICE, t_dev,
+                               device_s, megaBatch=n_entries)
+        if cost is not None:
+            bw = ROOFLINE.note_device(ckey, cost["totalBytes"], device_s)
+            if bw is not None:
+                TIMELINE.note_bandwidth(bw["bytesPerS"], bw["frac"])
+    # The cache-opportunity estimate: each entry's share of the launch,
+    # the cost basis of the eager and per-group paths.
+    per_eval = (dispatch_s + device_s) / max(1, n_entries)
+    for g in cohort:
+        for e in g.entries:
+            if e.fp is not None:
+                WORKLOAD.note_eval_seconds(e.fp, per_eval)

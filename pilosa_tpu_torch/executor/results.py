@@ -5,7 +5,7 @@ words on the device until something asks for columns."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -17,19 +17,42 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, to_numpy, \
 class RowResult:
     """A query-result bitmap partitioned by shard."""
 
-    def __init__(self, shards: List[int], words: torch.Tensor):
+    def __init__(self, shards: List[int], words: Optional[torch.Tensor],
+                 host: Optional[np.ndarray] = None):
         # words: int32 tensor [len(shards), W]
         self.shards = list(shards)
-        self.words = words
+        self._words = words
+        # A result-cache hit's words: the entry's host array, read-only
+        # (shared by every hit of the entry, so nothing may write it).
+        self._host = host
         self.attrs: Dict[str, Any] = {}
         self.keys: Optional[List[str]] = None
         self._columns: Optional[np.ndarray] = None
+        # Served from the result cache: the words are host words already.
+        self.cached = host is not None
+        # Called once with the host words when columns() copies them
+        # (the result cache's eval-tier fill rides that copy).
+        self.on_host: Optional[Callable[[np.ndarray], None]] = None
+
+    @property
+    def words(self) -> torch.Tensor:
+        """The words as an int32 tensor; a cache hit's are a copy of the
+        entry's read-only host words, made when first asked for."""
+        if self._words is None:
+            self._words = torch.from_numpy(
+                self._host.view(np.int32).copy())
+        return self._words
 
     def columns(self) -> np.ndarray:
         """Absolute column ids, sorted (one device->host copy, cached)."""
         if self._columns is not None:
             return self._columns
-        host = to_numpy(self.words)
+        host = self._host if self._host is not None \
+            else to_numpy(self.words)
+        if self.on_host is not None:
+            hook, self.on_host = self.on_host, None
+            # On the CPU the host words alias the tensor: keep a copy.
+            hook(host.copy() if self.words.device.type == "cpu" else host)
         out = []
         for i, shard in enumerate(self.shards):
             pos = unpack_positions(host[i])
@@ -41,8 +64,10 @@ class RowResult:
 
     def clear_columns(self) -> None:
         """Drop the column data, keeping attrs (``excludeColumns``)."""
-        self.words = torch.zeros((len(self.shards), 0), dtype=torch.int32,
-                                 device=self.words.device)
+        device = self._words.device if self._words is not None else "cpu"
+        self._words = torch.zeros((len(self.shards), 0), dtype=torch.int32,
+                                  device=device)
+        self._host = None
         self._columns = np.empty(0, dtype=np.uint64)
 
     def count(self) -> int:

@@ -13,12 +13,17 @@ The measurement plane rides every query: ``stats`` (a
 ``profiler`` (``utils/profile.Profiler``: the ``executor.*`` series,
 device sampling, the slow-query ring). ``query(..., profile=True)``
 embeds the profile tree in the response. ``refresh_memory_gauges``
-publishes the memory, layout, timeline, roofline and rank-cache gauges
-that ``/metrics`` serves; ``debug_memory``, ``debug_timeline`` and
-``debug_roofline`` are the documents of their routes. The cluster,
-health, the hotspots table, the result cache, failpoints and the
-sentinel are not ported: a request that needs one of them answers an
-error that names it, never a silently different result.
+publishes the memory, layout, timeline, roofline, workload, result- and
+rank-cache and sentinel gauges that ``/metrics`` serves;
+``debug_memory``, ``debug_timeline``, ``debug_roofline``,
+``debug_hotspots``, ``debug_history``, ``debug_slo`` and ``node_health``
+are the documents of their routes. ``sample_sentinel`` is one history
+tick of the sentinel (the memory watchdog's hook calls it). The
+failpoint sites ``api.query`` and ``api.status`` fire here;
+``failpoints_snapshot``/``failpoints_update`` answer only when the plane
+was enabled at boot. The cluster is not ported: a request that needs it
+answers an error that names it, and the health document's cluster
+fields answer as a single JAX node's do.
 """
 
 from __future__ import annotations
@@ -41,10 +46,18 @@ from pilosa_tpu_torch.core.field import FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.executor import Executor
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
+from pilosa_tpu_torch.utils.failpoints import FAILPOINTS
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.profile import Profiler
+from pilosa_tpu_torch.utils.sentinel import SENTINEL
 from pilosa_tpu_torch.utils.stats import NopStatsClient
 from pilosa_tpu_torch.utils.timeline import TIMELINE
 from pilosa_tpu_torch.utils.tracing import NopTracer
+
+# Fault-injection sites on the server's seams (utils/failpoints.py):
+# /status (what a prober hits) and the query entry.
+_FP_STATUS = FAILPOINTS.register("api.status")
+_FP_QUERY = FAILPOINTS.register("api.query")
 
 # Field options the create-field body may carry (reference names).
 _FIELD_OPTIONS = {"type": "type", "cacheType": "cache_type",
@@ -140,6 +153,11 @@ class API:
         self.executor = Executor(holder, device=holder.device)
         self.stats = stats or NopStatsClient()
         self.executor.stats = self.stats
+        # The workload recorder and the result cache count into the stats
+        # client at event time (the last API attached wins, as the
+        # ledger's publish target does).
+        WORKLOAD.stats = self.stats
+        self.executor.result_cache.stats = self.stats
         self.tracer = tracer or NopTracer()
         self.logger = PrintfLogger()
         self.long_query_time = 0.0
@@ -184,6 +202,7 @@ class API:
         """The direct path: ``{"results": [...]}`` of one request.
         ``profile=True`` (``?profile=true``) embeds the profile tree
         under ``"profile"``, with device sampling on."""
+        _FP_QUERY.fire(index=index, remote=False)
         tl = self._begin_timeline(index)
         prof = self.profiler.begin(index, query, shards,
                                    force=bool(profile))
@@ -225,6 +244,7 @@ class API:
         coal = self.coalescer
         if coal is None or not coal.running:
             return self.query(index, query, shards=shards, profile=profile)
+        _FP_QUERY.fire(index=index, remote=False)
         tl = self._begin_timeline(index)
         prof = self.profiler.begin(index, query, shards,
                                    force=bool(profile))
@@ -464,15 +484,19 @@ class API:
         from pilosa_tpu_torch.utils.roofline import ROOFLINE
         TIMELINE.register_memory(LEDGER)
         ROOFLINE.register_memory(LEDGER)
+        SENTINEL.register_memory(LEDGER)
         if hasattr(self.tracer, "register_memory"):
             self.tracer.register_memory(LEDGER)
         LEDGER.publish(self.stats)
+        WORKLOAD.publish(self.stats)
         TIMELINE.publish(self.stats)
         ROOFLINE.publish(self.stats)
+        self.executor.result_cache.publish(self.stats)
         rsnap = self.holder.rank_cache.snapshot()
         self.stats.gauge("rank_cache.entries", rsnap["entries"])
         self.stats.gauge("rank_cache.bytes", rsnap["bytes"])
         self.layout.publish(self.stats)
+        SENTINEL.publish(self.stats)
         self.stats.gauge("process_uptime_seconds",
                          time.time() - self._started_at)
         self.stats.with_tags(f"version:{__version__}",
@@ -517,6 +541,238 @@ class API:
         }
         return doc
 
+    def debug_hotspots(self, top_k: Optional[int] = None
+                       ) -> Dict[str, Any]:
+        """The ``GET /debug/hotspots`` document: the workload recorder's
+        snapshot (hot fragments, rows and signatures, churn, the repeat
+        windows, the opportunity report with the banks' quadrants from
+        the ledger), the result cache's observed hits beside the
+        predicted savings, and the rank cache."""
+        from pilosa_tpu_torch.utils.memledger import LEDGER
+        self.refresh_memory_gauges()
+        doc = WORKLOAD.snapshot(
+            top_k=top_k,
+            bank_entries=LEDGER.entries("bank", "fragment_bank"))
+        rc = self.executor.result_cache.snapshot()
+        doc["resultCache"] = rc
+        doc["rankCache"] = self.holder.rank_cache.snapshot()
+        doc["rankCache"]["hits"] = self.executor.rank_cache_hits
+        doc["rankCache"]["patches"] = self.executor.rank_cache_patches
+        doc["rankCache"]["rebuilds"] = self.executor.rank_cache_rebuilds
+        doc["opportunity"]["observed"] = {
+            "hits": rc["hits"],
+            "misses": rc["misses"],
+            "hitRatio": rc["hitRatio"],
+            "predictedTotalEstSavedS":
+                doc["opportunity"]["totalEstSavedS"],
+        }
+        return doc
+
+    def sample_sentinel(self) -> None:
+        """One sentinel history tick: the key gauges of every plane
+        (host dict reads, no device touch) and the cumulative RED
+        histograms, then the edge-triggered conditions (roofline drift,
+        device-memory watermark pressure). The memory watchdog's gauge
+        hook calls it at its period; tests call it with an injected
+        clock."""
+        from pilosa_tpu_torch.utils.memledger import HOST_CATEGORIES, \
+            LEDGER
+        from pilosa_tpu_torch.utils.roofline import ROOFLINE
+        if not SENTINEL.enabled:
+            return
+        rsnap = ROOFLINE.snapshot()
+        rc = self.executor.result_cache.snapshot()
+        live = padded = 0
+        for cat, t in LEDGER.totals().items():
+            if cat not in HOST_CATEGORIES:
+                live += t["bytes"]
+                padded += t["paddedBytes"]
+        hits = self.executor.rank_cache_hits
+        rebuilds = self.executor.rank_cache_rebuilds
+        coal = self.coalescer
+        gauges = {
+            "device_idle_ratio": TIMELINE.idle_ratio(),
+            "roofline_achieved_gbps": rsnap["achievedGbps"],
+            "roofline_fraction": rsnap["rooflineFraction"],
+            "result_cache_hit_ratio": rc["hitRatio"],
+            "rank_cache_hit_ratio": (hits / (hits + rebuilds)
+                                     if hits + rebuilds else 0.0),
+            "hbm_live_bytes": live,
+            "hbm_padded_bytes": padded,
+            # One card and no mesh: no collective moves a byte.
+            "mesh_collective_bytes": 0,
+            "coalescer_queue_depth": (coal.queue_depth()
+                                      if coal is not None else 0),
+        }
+        snap_fn = getattr(self.stats, "snapshot", None)
+        histos = (snap_fn() or {}).get("histograms") \
+            if snap_fn is not None else None
+        SENTINEL.sample(gauges=gauges, histograms=histos)
+        flagged = sum(1 for c in rsnap["cohorts"] if c["drift"])
+        SENTINEL.note_condition(
+            "roofline.drift", flagged > 0,
+            f"{flagged} cohort(s) invert the optimizer's predicted "
+            f"cost ordering (see /debug/roofline)", kind="roofline")
+        if SENTINEL.watermark_bytes > 0:
+            SENTINEL.note_condition(
+                "hbm.pressure", live >= SENTINEL.watermark_bytes,
+                f"{live} device bytes ledgered (watermark "
+                f"{SENTINEL.watermark_bytes})", kind="memory")
+
+    def debug_history(self, series: Optional[List[str]] = None,
+                      last: Optional[int] = None) -> Dict[str, Any]:
+        """The ``GET /debug/history`` document: the sentinel's history
+        rings (raw and decimated) and their trace-event counter tracks."""
+        self.refresh_memory_gauges()
+        doc = SENTINEL.history(series=series, last=last)
+        doc["node"] = self.node_id
+        return doc
+
+    def debug_slo(self) -> Dict[str, Any]:
+        """The ``GET /debug/slo`` document: the declared objectives,
+        their error budgets and burn rates, the request rates and
+        windowed quantiles by endpoint, and the alert ring."""
+        self.refresh_memory_gauges()
+        doc = SENTINEL.slo_snapshot()
+        doc["node"] = self.node_id
+        return doc
+
+    def node_health(self) -> Dict[str, Any]:
+        """The ``GET /internal/health`` document, with the JAX package's
+        keys: memory totals, the coalescer, the executor's launch, plan
+        and roofline counters, the result and rank caches, the
+        slow-query counts, the workload summary, the timeline, the
+        watchdog, the SLO stanza, the layout and the failpoints. The
+        cluster fields answer as a single JAX node's do, and the JAX
+        executor's compile-cache and vmapped-fusion counters, which the
+        port has no counterpart of, answer 0."""
+        from pilosa_tpu_torch.utils.memledger import LEDGER
+        now = time.time()
+        mem = LEDGER.snapshot(top_k=3)
+        coal = self.coalescer
+        wd = self.watchdog
+        ex = self.executor
+        return {
+            "id": self.node_id,
+            "uri": "",
+            "state": "NORMAL",
+            "healthy": True,
+            "time": now,
+            "uptimeS": now - self._started_at,
+            "memory": {
+                "totalBytes": mem["totalBytes"],
+                "deviceBytes": mem["deviceBytes"],
+                "paddingBytes": mem["paddingBytes"],
+                "categories": {c: t["bytes"]
+                               for c, t in mem["categories"].items()},
+            },
+            "coalescer": {
+                "attached": coal is not None,
+                "running": bool(coal is not None and coal.running),
+                "queueDepth": coal.queue_depth() if coal is not None
+                else 0,
+            },
+            "executor": {
+                "jitCacheSize": 0,
+                "retraces": ex.jit_compiles,
+                "fusedDispatches": 0,
+                "fusedQueries": 0,
+                "megaLaunches": ex.mega_launches,
+                "megaQueries": ex.mega_queries,
+                "megaPlanEntries": ex.mega_plan_entries,
+                "megaPlanBytes": ex.mega_plan_bytes,
+                "meshLaunches": 0,
+                "meshCollectiveBytes": 0,
+                "planVerifyPasses": ex.plan_verify_passes,
+                "planVerifyRejects": ex.plan_verify_rejects,
+                "opt": {
+                    "plans": ex.opt_plans,
+                    "cseHits": ex.opt_cse_hits,
+                    "entriesEliminated": ex.opt_entries_eliminated,
+                    "foldsReordered": ex.opt_folds_reordered,
+                    "bytesSaved": ex.opt_bytes_saved,
+                },
+                "roofline": self._roofline_health(),
+            },
+            "resultCache": ex.result_cache.snapshot(),
+            "rankCache": {
+                "hits": ex.rank_cache_hits,
+                "patches": ex.rank_cache_patches,
+                "rebuilds": ex.rank_cache_rebuilds,
+            },
+            "slowQueries": self.profiler.slow_total,
+            "slowRing": self.profiler.ring_count(),
+            "workload": WORKLOAD.summary(),
+            "timeline": {
+                "requestsRecorded": TIMELINE.requests_recorded,
+                "deviceIdleRatio": TIMELINE.idle_ratio(),
+            },
+            "watchdog": {
+                "running": bool(wd is not None and wd.running),
+                "samples": wd.samples_taken if wd is not None else 0,
+                "lastSampleAt": (wd.last_sample_at if wd is not None
+                                 else None),
+            },
+            "slo": SENTINEL.health_stanza(),
+            "layout": self.layout.snapshot(),
+            "failpoints": {k: v for k, v in FAILPOINTS.snapshot().items()
+                           if k in ("armed", "fired")},
+            "clusterEvents": [],
+            "placementGen": 0,
+        }
+
+    def _roofline_health(self) -> Dict[str, Any]:
+        """The roofline stanza of ``node_health``."""
+        from pilosa_tpu_torch.utils.roofline import ROOFLINE
+        snap = ROOFLINE.snapshot()
+        ex = self.executor
+        return {
+            "enabled": snap["enabled"],
+            "launches": snap["launches"],
+            "fencedLaunches": snap["fencedLaunches"],
+            "launchBytes": (ex.launch_bytes_gather
+                            + ex.launch_bytes_compute
+                            + ex.launch_bytes_expand
+                            + ex.launch_bytes_pad),
+            "rooflineGbps": snap["rooflineGbps"],
+            "achievedGbps": snap["achievedGbps"],
+            "fraction": snap["rooflineFraction"],
+            "estimateOnly": snap["estimateOnly"],
+            "driftFlags": snap["driftFlags"],
+        }
+
+    # ------------------------------------------------------ failpoints
+
+    def failpoints_snapshot(self) -> Dict[str, Any]:
+        """``GET /internal/failpoints``: the sites, their armed specs
+        and hit counts; 403 unless the plane was enabled at boot."""
+        self._failpoints_gate()
+        return FAILPOINTS.snapshot()
+
+    def failpoints_update(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """``POST /internal/failpoints``: ``{"arm": {site: spec},
+        "disarm": [site, ...], "disarm_all": bool}``; disarms apply
+        first, so one request can retarget the plane."""
+        self._failpoints_gate()
+        try:
+            if body.get("disarm_all"):
+                FAILPOINTS.disarm_all()
+            for name in body.get("disarm") or []:
+                FAILPOINTS.disarm(name)
+            for name, spec in (body.get("arm") or {}).items():
+                FAILPOINTS.arm(name, str(spec))
+        except (KeyError, ValueError) as e:
+            raise ApiError(str(e), 400)
+        return FAILPOINTS.snapshot()
+
+    @staticmethod
+    def _failpoints_gate() -> None:
+        if not FAILPOINTS.http_enabled:
+            raise ApiError(
+                "failpoints surface disabled (enable with "
+                "PILOSA_TPU_FAILPOINTS / [failpoints] config at boot)",
+                403)
+
     def debug_queries(self) -> Dict[str, Any]:
         """The ``GET /debug/queries`` document: the slow-query ring, most
         recent first, and the executor's launch and plan counters."""
@@ -543,6 +799,8 @@ class API:
     # ---------------------------------------------------------------- status
 
     def status(self) -> Dict[str, Any]:
+        # An armed api.status makes this node look dead to a prober.
+        _FP_STATUS.fire()
         return {"state": "NORMAL",
                 "nodes": [{"id": self.node_id, "isCoordinator": True,
                            "uri": {}}]}

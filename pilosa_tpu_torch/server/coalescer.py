@@ -3,8 +3,9 @@ package's ``server/coalescer.py``.
 
 Concurrent ``POST /index/{i}/query`` requests are collected into one
 executor batch, so independent single-query clients share the batch
-path (``Executor.execute_batch_begin``): one flush, one ``mega_interpret``
-launch per shard-count cohort.
+path (``Executor.execute_batch_shaped_begin``): the result cache's request
+tier first, then one flush, one ``mega_interpret`` launch per shard-count
+cohort of what missed.
 
 - A request thread enqueues its query and blocks on its item's event.
 - One dispatcher thread collects the items that arrive within a short
@@ -12,8 +13,8 @@ launch per shard-count cohort.
   ``max_batch``, when a write arrives, or when the previous batch was
   still running as they arrived (they have waited already).
 - A batch of one runs the exact direct path (``execute_full``). A
-  larger batch runs ``execute_batch_begin`` and
-  ``execute_batch_shaped_finish`` with per-request errors: one bad query
+  larger batch runs ``execute_batch_shaped`` (pipelined: its
+  ``_begin`` and ``_finish``) with per-request errors: one bad query
   fails only itself.
 - Identical reads in a write-free flush run once and share the answer.
 - Pipelined dispatch: a read-only batch's begin runs on the dispatcher,
@@ -33,19 +34,23 @@ histogram and the request and queue-wait timings; a flush runs under a
 ``Coalescer.flush`` span; a request's profile rides its item (a forced
 ``?profile=true`` profile is never deduplicated, so its tree describes
 its own run), and its timeline gets a ``queue`` slice (enqueue to the
-flush's start) and a ``coalesce`` slice (the shared flush). The JAX
-package's workload-recorder feed (``coalescer.window_repeat``) is not
-ported. ``counters`` holds the counts the serving checks read.
+flush's start) and a ``coalesce`` slice (the shared flush). Every read
+request's identity goes to the workload recorder's rolling window
+(``_note_workload``): a repeat across flushes counts in
+``coalescer.window_repeat``. ``counters`` holds the counts the serving
+checks read.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from pilosa_tpu_torch.server.api import ApiError
 from pilosa_tpu_torch.utils.fingerprint import request_key
+from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.stats import NopStatsClient
 from pilosa_tpu_torch.utils.timeline import LANE_COALESCE, LANE_QUEUE, \
     TIMELINE
@@ -55,6 +60,10 @@ from pilosa_tpu_torch.utils.tracing import NopTracer
 # the dispatcher; result imminent) or EJECTED (deadline passed while
 # queued; the dispatcher skips it).
 _PENDING, _CLAIMED, _EJECTED = 0, 1, 2
+
+# Pipelined dispatch's kill switch, the JAX package's: 0 runs every
+# batch begin-to-finish on the dispatcher.
+PIPELINE_ENABLED = os.environ.get("PILOSA_TPU_PIPELINE", "1") != "0"
 
 
 class CoalescerStopped(RuntimeError):
@@ -110,8 +119,11 @@ class QueryCoalescer:
     def __init__(self, executor: Any, window_s: float = 0.0015,
                  max_batch: int = 64, max_queue: int = 256,
                  deadline_s: float = 0.0, stats: Any = None,
-                 tracer: Any = None):
+                 tracer: Any = None, pipeline: Optional[bool] = None):
         self.executor = executor
+        # Config can switch pipelining off, never on past the env switch.
+        self.pipeline = PIPELINE_ENABLED and (pipeline is None
+                                              or bool(pipeline))
         self.stats = stats or NopStatsClient()
         self.tracer = tracer or NopTracer()
         self.window_s = max(0.0, float(window_s))
@@ -163,7 +175,8 @@ class QueryCoalescer:
             self._thread = threading.Thread(
                 target=self._run, daemon=True, name="query-coalescer")
         self._thread.start()
-        if self._pl_thread is None or not self._pl_thread.is_alive():
+        if self.pipeline and (self._pl_thread is None
+                              or not self._pl_thread.is_alive()):
             with self._pl_cond:
                 self._pl_stop = False
             self._pl_thread = threading.Thread(
@@ -357,9 +370,28 @@ class QueryCoalescer:
     def _note_flush(self, batch: List[_Item], reason: str) -> None:
         self._count(f"flush.{reason}")
         self.stats.histogram("coalescer.batch_size", len(batch))
+        self._note_workload(batch)
         if len(batch) > 1:
             self._tally("batches")
             self._tally("batched_requests", len(batch))
+
+    def _note_workload(self, batch: List[_Item]) -> None:
+        """Record every read request's identity in the workload
+        recorder's rolling window: a repeat there is a duplicate read
+        across flushes, which the in-flush dedup cannot see. Counted as
+        ``coalescer.window_repeat``; the key is the one the request tier
+        of the result cache caches under."""
+        if not WORKLOAD.enabled:
+            return
+        repeats = 0
+        for item in batch:
+            if item.is_write:
+                continue
+            if WORKLOAD.record_request(
+                    request_key(item.index, item.query, item.shards)):
+                repeats += 1
+        if repeats:
+            self._count("window_repeat", repeats)
 
     def _execute(self, batch: List[_Item], reason: str) -> None:
         self._note_flush(batch, reason)
@@ -488,7 +520,7 @@ class QueryCoalescer:
                     span.set("unique", len(reqs))
                 exec_start = time.perf_counter()
                 self._stamp_queue_wait(batch, exec_start, reason)
-                flight = self.executor.execute_batch_begin(
+                flight = self.executor.execute_batch_shaped_begin(
                     reqs, profiles=profiles)
         except Exception as e:  # the begin failed: resolve everyone now
             for item in batch:

@@ -11,6 +11,14 @@ Routes:
   GET    /debug/memory         the memory ledger and the layout stanza
   GET    /debug/timeline?last&trace  trace-event JSON of the timelines
   GET    /debug/roofline       per-launch bytes, bandwidth and drift
+  GET    /debug/hotspots?topk  hot fragments, rows and signatures, the
+                               repeat windows, the opportunity report
+                               and the result and rank caches
+  GET    /debug/history?series&last  the sentinel's history rings
+  GET    /debug/slo            objectives, burn rates, quantiles, alerts
+  GET    /internal/health      this node's health document
+  GET    /internal/failpoints  the failpoint sites (403 unless enabled
+                               at boot)
   POST   /index/{i}/query      raw PQL, {"query": ...}, or a protobuf
                                QueryRequest; URL args shards,
                                excludeColumns, excludeRowAttrs,
@@ -31,6 +39,8 @@ Routes:
   POST   /index/{i}            {"options": {"keys", "trackExistence"}}
   POST   /index/{i}/field/{f}  {"options": {...}}
   POST   /recalculate-caches   rebuild every fragment's TopN count cache
+  POST   /internal/failpoints  {"arm": {site: spec}, "disarm": [...],
+                               "disarm_all": bool} (403 unless enabled)
   DELETE /index/{i}  /index/{i}/field/{f}
 
 JSON query responses ride the coalescer when one is attached; protobuf
@@ -42,9 +52,8 @@ goes out. Each request reads a W3C ``traceparent`` (or the legacy
 and ``/debug/queries`` know it by. Every request is observed in
 ``pilosa_http_request_seconds{endpoint,status}`` (endpoints labelled as
 the JAX package labels them, unknown paths as "other"). The JAX
-package's cluster and node-to-node routes, ``/debug/hotspots``,
-``/debug/history`` and ``/debug/slo`` answer 404 naming the part that is
-not ported.
+package's cluster and node-to-node routes answer 404 naming the part
+that is not ported.
 """
 
 from __future__ import annotations
@@ -71,10 +80,9 @@ from pilosa_tpu_torch.utils.tracing import TRACEPARENT_HEADER, \
 # Route prefixes the JAX package's server answers and this one does not
 # yet, with the part each needs.
 _NOT_PORTED_ROUTES = (
-    (re.compile(r"/internal/.*"), "the node-to-node API (cluster)"),
+    (re.compile(r"/internal/(?!health$|failpoints$).*"),
+     "the node-to-node API (cluster)"),
     (re.compile(r"/cluster/.*"), "the cluster plane"),
-    (re.compile(r"/debug/hotspots"), "the workload signature table"),
-    (re.compile(r"/debug/(history|slo)"), "the sentinel"),
 )
 # URL args of the query route that name a part not ported.
 _QUERY_ARGS_NOT_PORTED = {"remote": "remote query legs (cluster)"}
@@ -317,6 +325,23 @@ class Handler(BaseHTTPRequestHandler):
                     trace=q.get("trace")))
             elif path == "/debug/roofline":
                 self._json(api.debug_roofline())
+            elif path == "/debug/hotspots":
+                self._check_args(q, "topk")
+                self._json(api.debug_hotspots(
+                    top_k=int(q["topk"]) if q.get("topk") else None))
+            elif path == "/debug/history":
+                self._check_args(q, "series", "last")
+                series = [s for s in (q.get("series") or "").split(",")
+                          if s]
+                self._json(api.debug_history(
+                    series=series or None,
+                    last=int(q["last"]) if q.get("last") else None))
+            elif path == "/debug/slo":
+                self._json(api.debug_slo())
+            elif path == "/internal/health":
+                self._json(api.node_health())
+            elif path == "/internal/failpoints":
+                self._json(api.failpoints_snapshot())
             elif path == "/export":
                 self._check_args(q, "index", "field", "shard")
                 csv = api.export_csv(q["index"], q["field"],
@@ -350,6 +375,8 @@ class Handler(BaseHTTPRequestHandler):
             elif path == "/recalculate-caches":
                 api.recalculate_caches()
                 self._json({})
+            elif path == "/internal/failpoints":
+                self._json(api.failpoints_update(self._body_json()))
             elif m := re.fullmatch(r"/index/([^/]+)/field/([^/]+)/import",
                                    path):
                 self._post_import(m.group(1), m.group(2), q)

@@ -329,6 +329,11 @@ class MemoryWatchdog:
                                         name="mem-watchdog")
         self._thread.start()
 
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
     def stop(self) -> None:
         self._stop.set()
         t = self._thread
@@ -340,3 +345,14 @@ class MemoryWatchdog:
         """Oldest-first copy of the ring."""
         with self._ring_lock:
             return list(self._ring)
+
+    def dump(self, logger: Optional[Any] = None, last: int = 10) -> int:
+        """Write the last ``last`` ring snapshots to a ``printf`` logger
+        (the shutdown dump); returns how many were written."""
+        snaps = self.snapshots()[-max(0, int(last)):]
+        if logger is not None and snaps:
+            logger.printf("memory watchdog: dumping last %d of %d "
+                          "snapshots", len(snaps), self.samples_taken)
+            for s in snaps:
+                logger.printf("memory watchdog: %s", s)
+        return len(snaps)

@@ -128,8 +128,23 @@ class QueryProfile:
         self.fused_batch: Optional[int] = None
         self._frag_lock = make_lock("QueryProfile._frag_lock")
         self.node_fragments: Dict[str, Any] = {}
+        # Fragments the query read, (index, field, view, shard): a slow
+        # record joins them with the workload recorder's standings.
+        self.touched: Dict[tuple, None] = {}
 
     # ------------------------------------------------ executor-facing hooks
+
+    # Touched-fragment keys kept per profile: every operand of a
+    # realistic tree, without a 1024-shard sweep bloating ring records.
+    TOUCHED_CAP = 64
+
+    def touch_fragments(self, index: str, field: str, view: str,
+                        shards) -> None:
+        """Note fragments an evaluation or a TopN sweep read."""
+        for s in shards:
+            if len(self.touched) >= self.TOUCHED_CAP:
+                return
+            self.touched[(index, field, view, int(s))] = None
 
     def mark_dispatch(self) -> None:
         """A dispatch run begins: ops appended from here on belong to
@@ -410,6 +425,13 @@ class Profiler:
             if profile.shards is not None:
                 rec["shards"] = profile.shards
             rec["profile"] = profile.to_json()
+            if profile.touched:
+                # The workload recorder's standings of the fragments
+                # this query read, hottest first.
+                from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+                hot = WORKLOAD.fragment_ranks(list(profile.touched))
+                if hot:
+                    rec["hotFragments"] = hot
         if error is not None:
             rec["error"] = f"{type(error).__name__}: {error}"
         with self._lock:

@@ -79,6 +79,7 @@ def pair(tmp_path_factory):
     th = load_state(Holder(device="cpu"), state_from_jax(jh))
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     jex.result_cache.enabled = False
+    tex.result_cache.enabled = False
     yield jex, tex
     jh.close()
 
@@ -125,7 +126,11 @@ def test_staging_matches_jax(pair, pql):
 def fuzz():
     h = Harness(data_seed=0)
     th = load_state(Holder(device="cpu"), state_from_jax(h.holder))
-    yield h, Executor(th, device="cpu")
+    tex = Executor(th, device="cpu")
+    # Cases repeat across tests of this module: each must run (and
+    # launch) the megakernel and the eager path, not the result cache.
+    tex.result_cache.enabled = False
+    yield h, tex
     h.close()
 
 
@@ -204,6 +209,7 @@ def test_write_in_batch_fences_like_jax(tmp_path, mega_on):
     th = load_state(Holder(device="cpu"), state_from_jax(jh))
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     jex.result_cache.enabled = False
+    tex.result_cache.enabled = False
     reqs = [("i", q, None) for q in (
         "Count(Row(f=1))", "Count(Intersect(Row(f=1), Row(g=2)))",
         "Set(5, f=1) Set(6, g=2)", "Count(Row(f=1))",
@@ -224,6 +230,7 @@ def test_clearrow_and_store_fence_like_jax(tmp_path, mega_on):
     th = load_state(Holder(device="cpu"), state_from_jax(jh))
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     jex.result_cache.enabled = False
+    tex.result_cache.enabled = False
     reqs = [("i", q, None) for q in (
         "Count(Row(f=1))", "Count(Row(g=2))", "Row(f=1)",
         "Store(Row(g=2), f=1)", "Count(Row(f=1))", "Row(f=1)",
@@ -392,6 +399,7 @@ def timed(tmp_path_factory):
         idx.add_existence(cols)
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     jex.result_cache.enabled = False
+    tex.result_cache.enabled = False
     yield jex, tex
     jh.close()
 

@@ -45,7 +45,9 @@ def build_pair(path, seed=11):
     th = load_state(Holder(device="cpu"), state_from_jax(jh))
     jex = JaxExecutor(jh)
     jex.result_cache.enabled = False
-    return jh, jex, Executor(th, device="cpu")
+    tex = Executor(th, device="cpu")
+    tex.result_cache.enabled = False
+    return jh, jex, tex
 
 
 def answer(res):

@@ -399,6 +399,7 @@ def _pair(tmp_path, **kw):
         idx.add_existence(np.concatenate([s_cols, f_cols]))
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     jex.result_cache.enabled = False
+    tex.result_cache.enabled = False
     return jh, th, jex, tex
 
 
@@ -560,6 +561,7 @@ def _fingerprint_pair(tmp_path, n=3000, seed=9):
         "fingerprint", FieldOptions(**FP)).import_bits(rows, cols)
     jex, tex = JaxExecutor(jh), Executor(th, device="cpu")
     jex.result_cache.enabled = False
+    tex.result_cache.enabled = False
     return jh, th, jex, tex
 
 
@@ -956,6 +958,9 @@ def test_sparse_bank_too_dense_self_heals():
         f.import_bits(np.full(2500, r, np.uint64), cols)
     idx.add_existence(np.arange(4096, dtype=np.uint64))
     tex = Executor(th, device="cpu")
+    # Each repeat must stage the sparse leaf: a result-cache hit stages
+    # nothing, so it would never reach the build that heals the view.
+    tex.result_cache.enabled = False
     view = f.view("standard")
     dense = tex.execute("i", "Count(Row(d=1))")[0]
     assert view.sparse_bank((0,)) is None

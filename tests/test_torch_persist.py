@@ -533,7 +533,9 @@ def open_jax(path):
 def open_port(path):
     th = Holder(str(path), device="cpu")
     th.open()
-    return th, API(th).executor
+    ex = API(th).executor
+    ex.result_cache.enabled = False
+    return th, ex
 
 
 def test_directories_open_both_ways(tmp_path, monkeypatch):

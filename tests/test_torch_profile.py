@@ -33,6 +33,19 @@ from pilosa_tpu_torch.utils.profile import Profiler, QueryProfile
 from pilosa_tpu_torch.utils.roofline import ROOFLINE
 from pilosa_tpu_torch.utils.stats import MemStatsClient, prometheus_text
 
+
+@pytest.fixture(autouse=True)
+def _reset_rooflines():
+    """The roofline recorders are process-wide: a drift flag this
+    file's sampled fences raise must not reach a later test's sentinel
+    (its ``roofline.drift`` alert)."""
+    from pilosa_tpu.utils.roofline import ROOFLINE as JAX_ROOFLINE
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    yield
+    JAX_ROOFLINE.reset()
+    ROOFLINE.reset()
+
+
 # The launch attributes an eval node carries, compared exactly.
 DATA = ("megaBatch", "megaIndex", "planEntries", "planBytes",
         "launchBytes", "opcodeHist", "planEntriesBefore",
@@ -69,7 +82,9 @@ def pair(tmp_path, monkeypatch):
     _seed(ph.create_index("p"), FieldOptions)
     jex = JaxExecutor(jh)
     jex.result_cache.enabled = False
-    yield jex, Executor(ph, device="cpu")
+    pex = Executor(ph, device="cpu")
+    pex.result_cache.enabled = False
+    yield jex, pex
     jh.close()
 
 
@@ -164,6 +179,9 @@ def test_batch_profile_trees_match_jax(pair, name, sampled):
 
 def _api():
     api = API(Holder(device="cpu"), stats=MemStatsClient())
+    # Repeats must run (and fence) as in the JAX package's profile tests,
+    # which switch its result cache off too.
+    api.executor.result_cache.enabled = False
     idx = api.holder.create_index("p")
     cols = np.array([1, 2, SHARD_WIDTH + 3], np.uint64)
     idx.create_field("f").import_bits(np.full(3, 1, np.uint64), cols)
@@ -323,10 +341,10 @@ def test_profiler_observe_never_raises_without_sinks():
 
 def test_cli_reads_the_measurement_environment():
     """``cli server`` takes the profiler's rate, the slow ring and the
-    roofline from the JAX package's environment names."""
-    from pilosa_tpu_torch.cli.main import (
-        MEASUREMENT_DEFAULTS, configure_measurement, measurement_settings,
-    )
+    roofline from the JAX package's environment names (through
+    ``utils/config.load_config``)."""
+    from pilosa_tpu_torch.cli.main import configure_planes
+    from pilosa_tpu_torch.utils.config import Config, load_config
     from pilosa_tpu_torch.utils.timeline import TIMELINE
     env = {"PILOSA_TPU_PROFILE_SAMPLE_EVERY": "4",
            "PILOSA_TPU_PROFILE_SLOW_RING": "16",
@@ -334,22 +352,22 @@ def test_cli_reads_the_measurement_environment():
            "PILOSA_TPU_ROOFLINE_ENABLED": "false",
            "PILOSA_TPU_ROOFLINE_GBPS": "3350",
            "PILOSA_TPU_TIMELINE_SAMPLE_EVERY": "2"}
-    got = measurement_settings(env)
-    assert measurement_settings({}) == MEASUREMENT_DEFAULTS
-    assert (got["profile_sample_every"], got["profile_slow_ring"],
-            got["long_query_time"], got["roofline_enabled"],
-            got["roofline_gbps"], got["timeline_sample_every"]) == \
+    got = load_config(environ=env)
+    assert load_config(environ={}) == Config()
+    assert (got.profile_sample_every, got.profile_slow_ring,
+            got.long_query_time, got.roofline_enabled,
+            got.roofline_gbps, got.timeline_sample_every) == \
         (4, 16, 0.5, False, 3350.0, 2)
     api = _api()
     try:
-        configure_measurement(api, got)
+        configure_planes(api, got)
         assert api.profiler.sample_every == 4
         assert api.long_query_time == 0.5
         assert ROOFLINE.enabled is False
         assert ROOFLINE.roofline_gbps() == (3350.0, "config", False)
         assert TIMELINE.sample_every == 2
     finally:
-        configure_measurement(api, MEASUREMENT_DEFAULTS)
+        configure_planes(api, Config())
     assert ROOFLINE.enabled and ROOFLINE.gbps_configured == 0.0
     assert TIMELINE.sample_every == 1
 

@@ -306,6 +306,7 @@ def test_plan_cost_matches_jax_on_corpus_plans(name, tmp_path, monkeypatch,
     try:
         jex, pex = JaxExecutor(jh), Executor(ph, device="cpu")
         jex.result_cache.enabled = False
+        pex.result_cache.enabled = False
         jplans, jcap = _captured(jmegamod)
         pplans, pcap = _captured(megamod)
         monkeypatch.setattr(jmegamod, "_build", jcap)
@@ -359,7 +360,11 @@ def ex(monkeypatch):
     idx.create_field("g").import_bits(rows[::2], cols[::2])
     idx.add_existence(cols)
     monkeypatch.setattr(megamod, "MEGAKERNEL_ENABLED", True)
-    return Executor(h, device="cpu")
+    pex = Executor(h, device="cpu")
+    # Repeated batches must launch: the launch counters read the launch
+    # path, not the result cache.
+    pex.result_cache.enabled = False
+    return pex
 
 
 def test_zero_new_fences_on_unsampled_path(ex, monkeypatch):

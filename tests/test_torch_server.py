@@ -36,6 +36,19 @@ from pilosa_tpu_torch import Holder
 from pilosa_tpu_torch.server import API, serve
 from pilosa_tpu_torch.server.coalescer import QueryCoalescer
 
+
+@pytest.fixture(autouse=True)
+def _reset_rooflines():
+    """The roofline recorders are process-wide: a drift flag this
+    file's sampled fences raise must not reach a later test's sentinel
+    (its ``roofline.drift`` alert)."""
+    from pilosa_tpu.utils.roofline import ROOFLINE as JAX_ROOFLINE
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    yield
+    JAX_ROOFLINE.reset()
+    ROOFLINE.reset()
+
+
 WINDOW_S = 0.0005
 PROTO = "application/x-protobuf"
 
@@ -456,11 +469,17 @@ def test_port_refuses_what_is_not_ported(servers):
         st, _, raw = call(pbase, method, path, body)
         assert st == 400, (path, body, st, raw)
         assert what in json.loads(raw)["error"], (path, body, raw)
-    for path, what in (("/debug/hotspots", "signature table"),
-                       ("/debug/slo", "sentinel"),
-                       ("/internal/nodes", "cluster")):
+    for path, what in (("/internal/nodes", "cluster"),
+                       ("/internal/fragment/blocks", "cluster")):
         st, _, raw = call(pbase, "GET", path)
         assert st == 404 and what in json.loads(raw)["error"], (path, raw)
+    # The serving planes are ported: their routes answer as the JAX
+    # server's do.
+    jbase = servers[0]
+    for path in ("/debug/hotspots", "/debug/history", "/debug/slo",
+                 "/internal/health", "/internal/failpoints"):
+        st, _, raw = call(pbase, "GET", path)
+        assert st == call(jbase, "GET", path)[0], (path, st, raw)
     # The profiler and /metrics are ported: a profiled query answers as
     # the direct one, with its tree beside the results.
     st, _, raw = call(pbase, "POST", "/index/dn/query?profile=true",
@@ -875,12 +894,15 @@ def test_write_between_begin_and_finish_does_not_leak(monkeypatch,
         rng.integers(0, 4, 3000).astype(np.uint64), cols)
     idx.add_existence(cols)
     ex = Executor(h, device="cpu")
+    # The batch must launch after the same reads ran once: no result
+    # cache.
+    ex.result_cache.enabled = False
     reqs = [("i", q, None) for q in (
         "Count(Row(f=1))", "Row(f=1)", "Count(Intersect(Row(f=1), "
         "Row(f=2)))", "Count(Not(Row(f=1)))", "TopN(f, n=2)")]
     want = [ex.execute_full(i, q) for i, q, _ in reqs]
     launches = ex.mega_launches
-    flight = ex.execute_batch_begin(reqs)
+    flight = ex.execute_batch_shaped_begin(reqs)
     new_col = 2 * SHARD_WIDTH + 17
     assert ex.execute("i", f"Set({new_col}, f=1) Set({new_col}, f=2)") \
         == [True, True]
@@ -1031,24 +1053,20 @@ def test_cli_server_refuses_to_start_without_a_card():
 
 # ------------------------------------------------------ measurement plane
 
-# /metrics families of the JAX server whose parts the port has not
-# ported: the jit compile cache (the port compiles no programs; the CPU
-# path loads no kernel library, so no miss either), the per-program
-# operand uploads of the JAX eager path (the port's eager path uploads
-# no operand vectors), the workload recorder's publish and counters
-# (ROADMAP queue A item 7), the result cache and the sentinel.
+# /metrics families of the JAX server that only XLA has, and so stay
+# the JAX server's alone:
+# - pilosa_executor_jit_cache_size: the size of the JAX executor's cache
+#   of compiled XLA programs; the port compiles no program per shape
+#   (its kernels are one prebuilt library).
+# - pilosa_executor_jit_miss_total and pilosa_executor_retrace_total:
+#   XLA traces and compiles of a new program shape; the port's CPU path
+#   loads no kernel library, so it never counts one.
+# - pilosa_executor_h2d_bytes_total: the per-program operand vectors the
+#   JAX eager path uploads to its jitted program; the port's eager path
+#   passes no operand vector.
 JAX_ONLY_FAMILIES = {
     "pilosa_executor_jit_cache_size", "pilosa_executor_jit_miss_total",
     "pilosa_executor_retrace_total", "pilosa_executor_h2d_bytes_total",
-    "pilosa_fragment_reads_total", "pilosa_fragment_writes_total",
-    "pilosa_query_repeat_ratio", "pilosa_workload_tracked_fragments",
-    "pilosa_workload_tracked_signatures",
-    "pilosa_result_cache_bytes", "pilosa_result_cache_entries",
-    "pilosa_result_cache_eval_misses_total",
-    "pilosa_result_cache_hit_ratio", "pilosa_result_cache_misses_total",
-    "pilosa_result_cache_request_misses_total",
-    "pilosa_sentinel_alerts_active", "pilosa_sentinel_alerts_fired",
-    "pilosa_sentinel_series",
 }
 
 METRICS_TRAFFIC = [
@@ -1087,8 +1105,14 @@ def stat_servers(tmp_path, monkeypatch):
     from pilosa_tpu_torch.executor import megakernel as megamod
     from pilosa_tpu_torch.utils.stats import MemStatsClient as PortStats
     from pilosa_tpu_torch.utils.tracing import RecordingTracer
+    from pilosa_tpu.utils.roofline import ROOFLINE as JAX_ROOFLINE
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
     monkeypatch.setattr(jmegamod, "MEGAKERNEL_ENABLED", True)
     monkeypatch.setattr(megamod, "MEGAKERNEL_ENABLED", True)
+    # The roofline recorders are process-wide: an earlier test's drift
+    # must not publish into these servers' fresh stats clients.
+    JAX_ROOFLINE.reset()
+    ROOFLINE.reset()
     jh = JaxHolder(str(tmp_path / "jax"))
     jh.open()
     japi = JaxAPI(jh, stats=MemStatsClient())
@@ -1169,3 +1193,79 @@ def test_debug_routes_and_traceparent(stat_servers):
     with urllib.request.urlopen(pbase + "/version", timeout=30) as resp:
         minted = resp.headers["traceparent"].split("-")[1]
     assert len(minted) == 32 and minted != tid
+
+
+def _key_tree(doc, depth=2):
+    """A document's keys, nested ``depth`` levels into dicts."""
+    if not isinstance(doc, dict) or depth == 0:
+        return None
+    return {k: _key_tree(v, depth - 1) for k, v in doc.items()}
+
+
+def test_serving_plane_routes_answer_like_jax(stat_servers, monkeypatch):
+    """/debug/hotspots, /debug/history, /debug/slo, /internal/health and
+    /internal/failpoints (GET and POST) answer with the JAX server's
+    statuses and document shapes after the same traffic; the SLO stanza,
+    the failpoint counts and the result cache's per-tier counters are
+    equal."""
+    from pilosa_tpu.utils.failpoints import FAILPOINTS as JAX_FAILPOINTS
+    from pilosa_tpu_torch.utils.failpoints import FAILPOINTS
+    # The registries are process-wide and other test files fire them:
+    # the counts compared are this test's own.
+    for reg in (JAX_FAILPOINTS, FAILPOINTS):
+        monkeypatch.setattr(reg, "fired_total", 0)
+        for site in reg._sites.values():
+            monkeypatch.setattr(site, "hits", 0)
+    (jbase, pbase), papi = stat_servers
+    for method, path, body in METRICS_TRAFFIC:
+        assert call(jbase, method, path, body)[0] == \
+            call(pbase, method, path, body)[0]
+    docs = {}
+    for path in ("/debug/hotspots", "/debug/hotspots?topk=2",
+                 "/debug/history", "/debug/history?series=x&last=1",
+                 "/debug/slo", "/internal/health", "/internal/failpoints",
+                 "/debug/history?bogus=1", "/debug/hotspots?topk=x"):
+        (js, _, jb), (ps, _, pb) = (call(jbase, "GET", path),
+                                    call(pbase, "GET", path))
+        assert js == ps, (path, js, ps, pb[:300])
+        docs[path] = (json.loads(jb), json.loads(pb))
+    j, p = docs["/debug/hotspots"]
+    assert _key_tree(p, 1) == _key_tree(j, 1)
+    assert _key_tree(p["opportunity"]) == _key_tree(j["opportunity"])
+    assert p["resultCache"]["tiers"] == j["resultCache"]["tiers"]
+    j, p = docs["/debug/slo"]
+    j.pop("node"), p.pop("node")
+    assert p == j
+    j, p = docs["/internal/health"]
+    assert set(p) == set(j)
+    for k, v in j.items():
+        if isinstance(v, dict) and k != "layout":
+            assert _key_tree(p[k], 1) == _key_tree(v, 1), k
+    assert p["slo"] == j["slo"] and p["failpoints"] == j["failpoints"]
+    assert p["clusterEvents"] == j["clusterEvents"] == []
+    assert p["placementGen"] == j["placementGen"] == 0
+    assert p["executor"]["meshLaunches"] == 0
+    assert docs["/internal/failpoints"][1]["error"].startswith(
+        "failpoints surface disabled")
+    post = {"arm": {"api.status": "errorx1"}}
+    assert call(jbase, "POST", "/internal/failpoints", post)[0] == \
+        call(pbase, "POST", "/internal/failpoints", post)[0] == 403
+    try:
+        for fp in (JAX_FAILPOINTS, FAILPOINTS):
+            fp.http_enabled = True
+        outs = [json.loads(call(b, "POST", "/internal/failpoints",
+                                post)[2]) for b in (jbase, pbase)]
+        assert outs[1]["sites"]["api.status"] == \
+            outs[0]["sites"]["api.status"] == {"armed": "errorx1",
+                                               "hits": 0}
+        assert [call(b, "GET", "/status")[0] for b in (jbase, pbase)] \
+            == [500, 500]
+        assert [call(b, "GET", "/status")[0] for b in (jbase, pbase)] \
+            == [200, 200]
+        bad = {"arm": {"nope": "error"}}
+        assert call(jbase, "POST", "/internal/failpoints", bad)[0] == \
+            call(pbase, "POST", "/internal/failpoints", bad)[0] == 400
+    finally:
+        for fp in (JAX_FAILPOINTS, FAILPOINTS):
+            fp.disarm_all()
+            fp.http_enabled = False

@@ -102,7 +102,9 @@ def build(path, seed=3):
     load(th, d, jax=False)
     jex = JaxExecutor(jh)
     jex.result_cache.enabled = False
-    return jh, jex, Executor(th, device="cpu")
+    tex = Executor(th, device="cpu")
+    tex.result_cache.enabled = False
+    return jh, jex, tex
 
 
 def bits_of(field):

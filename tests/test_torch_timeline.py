@@ -28,6 +28,18 @@ from pilosa_tpu_torch.utils.timeline import (
 
 
 @pytest.fixture(autouse=True)
+def _reset_rooflines():
+    """The roofline recorders are process-wide: a drift flag this
+    file's sampled fences raise must not reach a later test's sentinel
+    (its ``roofline.drift`` alert)."""
+    from pilosa_tpu.utils.roofline import ROOFLINE as JAX_ROOFLINE
+    from pilosa_tpu_torch.utils.roofline import ROOFLINE
+    yield
+    JAX_ROOFLINE.reset()
+    ROOFLINE.reset()
+
+
+@pytest.fixture(autouse=True)
 def _reset_timeline():
     TIMELINE.reset()
     TIMELINE.configure(enabled=True, ring=256, sample_every=1,
