@@ -100,6 +100,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    budgets. Every earlier and later phase switches the cache off
    (``cache_off``, and ``PILOSA_TPU_RESULT_CACHE=0`` for the CLI
    subprocesses), so their timings and launch counts keep their meaning.
+   cluster (``run_cluster``, right after serving): three nodes of a
+   static cluster in this process on the one card (each its own
+   ``Holder(device="cuda")``, ``API(cluster=...)`` with the result cache
+   off, server on a free loopback port and heartbeat every 0.25 s),
+   replica 2, loaded from the taxi holder as the reference client
+   loads: each fragment's owners from node 0's
+   ``/internal/fragment/nodes``, its ``write_bytes()`` POSTed to each
+   owner's import-roaring route; each node must hold exactly the shards
+   placement gives it and node 0's schema. The five taxi queries, the
+   two-level GroupBy and the burst as one ``/batch/query`` through every
+   node as coordinator, exact against numpy, TopN and GroupBy under the
+   reference's merge (each leg's top-n summed in one pass, ties and
+   groups ordered by ``str``, applied to numpy's per-leg counts); on
+   the first pass through node 0, with the launch counts set to 0 just
+   before, every sweep must launch on every node's leg (launches
+   counted by the node whose request made them). p50 with p10-p90 of
+   each read through node 0 (CLUSTER_SAMPLES requests) beside one node
+   over HTTP in the same run; a ``?profile=true`` query must carry both
+   remote nodes' fragments; a Set and a Clear through a node that does
+   not own the column, read back from both owners with
+   ``remote=true&shards=``. Then node 2's server stops: every read
+   exact through node 0, node 2 marked down by the heartbeat within its
+   window and sent no query RPC after, a Set read back from its live
+   owner. Last, two ``cli server`` processes naming each other in
+   ``cluster_peers`` (replica 2) answer a Count and a TopN over a
+   4-shard index imported through the first one, exact, and exit 0 on
+   SIGTERM. It prints a ``cluster`` line.
    groupby: on the same holder, through a new ``Executor``: four Rows
    queries (``previous``, ``limit``, ``column``) and five GroupBy
    queries (``GroupBy(Rows(passenger_count), Rows(cab_type))``, a
@@ -267,8 +294,8 @@ keys, the serve path's taxi and fingerprint servers)
 and read just after; every kernel must have launched on its path, and
 on the serve and persist paths. The ``taxi``, ``groupby``,
 ``timefields``, ``burst``, ``tanimoto``, ``keys``, ``serve``,
-``persist``, ``layout``, ``measure``, ``serving`` and ``memory`` lines,
-the card's name
+``persist``, ``layout``, ``measure``, ``serving``, ``cluster`` and
+``memory`` lines, the card's name
 and power limit, the kernels JSON and the ``{"ok": true, "device":
 {...}}`` line end the output. The script imports nothing of JAX or of the JAX
 package.
@@ -327,6 +354,18 @@ PROBE_ITERS = 21  # warm bursts for the p50 of --burst-probe
 # host drift.
 SERVING_SAMPLES = 200
 PROBE_SAMPLES = 200  # warm bursts for its spread, after them
+# The cluster phase (run_cluster): nodes, replicas, requests a p50, the
+# heartbeat's period, suspect count and probe timeout, the cab_type row
+# its writes use (no ride has it), the CLI cluster's shards and seed.
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+CLUSTER_SAMPLES = 50  # sequential requests a query for each p50
+CLUSTER_HB_INTERVAL = 0.25  # heartbeat period (s)
+CLUSTER_HB_SUSPECT = 2  # failed probes in a row that mark a node down
+CLUSTER_HB_TIMEOUT = 2.0  # a probe's timeout (s)
+CLUSTER_COL_ROW = 7  # a cab_type row no ride has: the phase's writes
+CLUSTER_CLI_SHARDS = 4
+CLUSTER_CLI_SEED = 29
 
 # The fingerprint index: the reference's chemical-similarity example
 # (benches/tanimoto_chunked.py) — one row per molecule, 48 draws of a
@@ -805,13 +844,14 @@ def burst_expected(cab, pax, dist, amount):
 
 
 def run_main(device, n_rides, iters=ITERS, profile=False,
-             samples=SERVING_SAMPLES):
+             samples=SERVING_SAMPLES, cluster_samples=CLUSTER_SAMPLES):
     """Load the taxi index, then drive five paths on it: the five taxi
     queries one at a time, the eighteen-request burst through
     execute_batch, the groupby phase (``run_groupby``), the timefields
     phase (``run_timefields``) and the row attributes on rate_code
-    (``run_taxi_attrs``), and the serve path's phases 1-3 over HTTP
-    (``serve_taxi``). Returns (report, taxi
+    (``run_taxi_attrs``), the serving and cluster phases
+    (``run_serving``, ``run_cluster``), and the serve path's phases 1-3
+    over HTTP (``serve_taxi``). Returns (report, taxi
     launches, burst launches, groupby launches, serve launches). Raises
     on any wrong answer."""
     import numpy as np
@@ -826,6 +866,7 @@ def run_main(device, n_rides, iters=ITERS, profile=False,
     cab_head[:min(n_rides, 2 * SHARD_WIDTH)] = cab[:2 * SHARD_WIDTH]
     holder, ex, load_s = load_taxi(device, cab, pax, dist, amount)
     pax_counts = np.bincount(pax.astype(np.int64), minlength=7)
+    wants_cluster = cluster_wants(cab, pax, dist, want_gb)
     del pax, dist
     log(f"taxi: loaded {n_rides} rides in {load_s:.2f} s")
     report = {"rides": n_rides,
@@ -843,6 +884,9 @@ def run_main(device, n_rides, iters=ITERS, profile=False,
     report["serving"] = run_serving(holder, device, want_taxi, want_burst,
                                     taxi_launches, n_rides, samples)
     memory_line("serving", device)
+    report["cluster"] = run_cluster(holder, device, want_taxi, want_burst,
+                                    wants_cluster, cluster_samples)
+    report["cluster"]["memory"] = memory_line("cluster", device)
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
@@ -4292,6 +4336,550 @@ def run_serving(holder, device, want_taxi, want_burst, taxi_launches,
     return report
 
 
+# ------------------------------------------------------------- cluster
+
+SWEEPS = ("bank_row_counts", "bank_row_counts_masked", "bsi_plane_counts")
+
+
+def cluster_wants(cab, pax, dist, want_gb):
+    """What the cluster phase checks besides the taxi and burst answers:
+    the per-shard counts its TopN expectations merge (pax, and cab_type
+    under passenger_count=2 and dist > 100), and the two-level GroupBy
+    in the reference's merge order (groups sorted by ``str(group)``)."""
+    import numpy as np
+    n_shards = (len(cab) + SHARD_WIDTH - 1) // SHARD_WIDTH
+    pax_s = np.zeros((n_shards, 7), np.int64)
+    filt_s = np.zeros((n_shards, 3), np.int64)
+    for s in range(n_shards):
+        sl = slice(s * SHARD_WIDTH, (s + 1) * SHARD_WIDTH)
+        pax_s[s] = np.bincount(pax[sl].astype(np.int64), minlength=7)
+        m = (pax[sl] == 2) & (dist[sl] > 100)
+        filt_s[s] = np.bincount(cab[sl][m].astype(np.int64), minlength=3)
+    gb = sorted(want_gb["pax_by_cab"], key=lambda g: str(g["group"]))
+    return {"topn": pax_s, "topn_filtered": filt_s, "groupby": gb}
+
+
+def topn_merge(per_shard, legs, n):
+    """The reference's TopN merge on numpy's counts: each leg's top-n of
+    its shards ((-count, id), counts above 0), summed in one pass, ties
+    ordered by ``str(id)``, cut to n."""
+    acc = {}
+    for shards in legs:
+        counts = per_shard[list(shards)].sum(axis=0)
+        top = sorted(((r, int(c)) for r, c in enumerate(counts) if c > 0),
+                     key=lambda rc: (-rc[1], rc[0]))[:n]
+        for r, c in top:
+            acc[r] = acc.get(r, 0) + c
+    ordered = sorted(acc.items(), key=lambda kv: (-kv[1], str(kv[0])))[:n]
+    return [{"id": r, "count": c} for r, c in ordered]
+
+
+def cluster_expected(want_taxi, want_burst, wants, legs):
+    """(pql, JSON answer) of every read of the phase under ``legs``
+    (the shard lists the coordinator sends out)."""
+    out = {}
+    for name, pql in TAXI_QUERIES:
+        if name in ("topn", "topn_filtered"):
+            want = topn_merge(wants[name], legs, 3)
+        else:
+            want = taxi_json(name, want_taxi[name])
+        out[name] = (pql, want)
+    out["groupby"] = (GB_QUERIES[0][1], wants["groupby"])
+    return out
+
+
+def cluster_batch():
+    return {"queries": [{"index": "taxi", "query": pql}
+                        for _, pql in BURST]}
+
+
+def cluster_batch_want(want_burst):
+    return {"responses": [{"results": [burst_json(name, want_burst[name])]}
+                          for name, _ in BURST]}
+
+
+class NodeLaunches:
+    """Kernel launches by the node whose request launched them: each
+    node's ``API.query`` (the coordinator's request and its local leg,
+    and a remote leg) tags its thread, and the launch counter records
+    the tag beside ``kernels.LAUNCHES``, which it still counts."""
+
+    def __init__(self, kernels, nodes):
+        import threading
+        self.kernels = kernels
+        self.tls = threading.local()
+        self.lock = threading.Lock()
+        self.counts = {}
+        self._orig = kernels._count_launch
+
+        def counted(name, t0):
+            self._orig(name, t0)
+            tag = getattr(self.tls, "node", None)
+            with self.lock:
+                per = self.counts.setdefault(tag, {})
+                per[name] = per.get(name, 0) + 1
+
+        kernels._count_launch = counted
+        for nd in nodes:
+            self._tag(nd["api"], nd["id"])
+
+    def _tag(self, api, node_id):
+        inner = api.query
+
+        def query(*a, **kw):
+            prev = getattr(self.tls, "node", None)
+            self.tls.node = node_id
+            try:
+                return inner(*a, **kw)
+            finally:
+                self.tls.node = prev
+
+        api.query = query
+
+    def take(self):
+        with self.lock:
+            out, self.counts = self.counts, {}
+        return out
+
+    def close(self):
+        self.kernels._count_launch = self._orig
+
+
+def cluster_start(device, n):
+    """``n`` nodes of a static cluster in this process: each its own
+    ``Holder``, ``API(cluster=...)`` (result cache off) and server on a
+    free loopback port, ids n0.. in order, replica CLUSTER_REPLICAS,
+    and a heartbeat each."""
+    from pilosa_tpu_torch import Holder
+    from pilosa_tpu_torch.parallel.cluster import STATE_NORMAL, Cluster, \
+        Node
+    from pilosa_tpu_torch.parallel.heartbeat import Heartbeater
+    from pilosa_tpu_torch.server import API, serve
+    nodes = []
+    for i in range(n):
+        holder = Holder(device=device)
+        srv = serve(API(holder), "127.0.0.1", 0, background=True)
+        nodes.append({"id": f"n{i}", "holder": holder, "srv": srv,
+                      "base": f"http://127.0.0.1:{srv.server_address[1]}"})
+    for nd in nodes:
+        cluster = Cluster(Node(nd["id"], nd["base"]),
+                          replica_n=CLUSTER_REPLICAS)
+        for other in nodes:
+            if other is not nd:
+                cluster.add_node(Node(other["id"], other["base"]))
+        cluster.set_state(STATE_NORMAL)
+        nd["api"] = cache_off(API(nd["holder"], cluster=cluster))
+        nd["cluster"] = cluster
+        nd["srv"].RequestHandlerClass.api = nd["api"]
+    for nd in nodes:
+        nd["hb"] = Heartbeater(nd["cluster"], interval=CLUSTER_HB_INTERVAL,
+                               suspect_after=CLUSTER_HB_SUSPECT,
+                               timeout=CLUSTER_HB_TIMEOUT)
+        nd["hb"].start()
+    return nodes
+
+
+def cluster_stop(nodes):
+    for nd in nodes:
+        nd["hb"].stop()
+        nd["api"].broadcaster.stop()
+        if nd["srv"] is not None:
+            nd["srv"].shutdown()
+            nd["srv"].server_close()
+        nd["holder"].close()
+
+
+def cluster_load(src, nodes):
+    """The reference client's import: for every fragment of the source
+    holder's taxi fields, its owners from node 0's
+    ``/internal/fragment/nodes``, then the fragment's bytes POSTed to
+    each owner's import-roaring route, eight requests at a time.
+    Returns (seconds, bytes sent, fragments, fragments by node)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+    base = nodes[0]["base"]
+    by_uri = {nd["base"]: nd["id"] for nd in nodes}
+    idx = src.index("taxi")
+    fields = [f for f in PERSIST_FIELDS if idx.field(f) is not None]
+    t0 = time.perf_counter()
+    http_json(base, "POST", "/index/taxi", {"options": {}})
+    for fname in fields:
+        if fname == "_exists":
+            continue
+        opts = {_OPTION_NAMES[k]: v for k, v in
+                dataclasses.asdict(idx.field(fname).options).items()}
+        http_json(base, "POST", f"/index/taxi/field/{fname}",
+                  {"options": opts})
+    owners = {}
+    jobs = []
+    for fname in fields:
+        for vname, view in sorted(idx.field(fname).views.items()):
+            for shard in sorted(view.fragments):
+                if shard not in owners:
+                    owners[shard] = [o["uri"] for o in http_json(
+                        base, "GET", "/internal/fragment/nodes?index=taxi"
+                                     f"&shard={shard}")]
+                jobs += [(uri, fname, vname, shard) for uri in owners[shard]]
+    per_node = {nd["id"]: 0 for nd in nodes}
+
+    def send(job):
+        uri, fname, vname, shard = job
+        data = idx.field(fname).view(vname).fragment(shard).write_bytes()
+        http_json(uri, "POST", f"/index/taxi/field/{fname}/import-roaring/"
+                               f"{shard}?view={vname}", data)
+        return uri, len(data)
+
+    nbytes = 0
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for uri, size in pool.map(send, jobs):
+            nbytes += size
+            per_node[by_uri[uri]] += 1
+    return time.perf_counter() - t0, nbytes, len(jobs), per_node
+
+
+def cluster_reads(base, index, expected, want_burst, what):
+    """Every read of the phase through the node at ``base``, each
+    checked: the five taxi queries, the GroupBy and the burst as one
+    ``/batch/query``."""
+    for name, (pql, want) in expected.items():
+        got = http_json(base, "POST", f"/index/{index}/query", pql)
+        if got != {"results": [want]}:
+            raise AssertionError(f"cluster {what}: {name} answered {got}, "
+                                 f"want {want}")
+    got = http_json(base, "POST", "/batch/query", cluster_batch())
+    if got != cluster_batch_want(want_burst):
+        raise AssertionError(f"cluster {what}: the burst answered "
+                             f"{str(got)[:300]}")
+
+
+def cluster_p50s(base, expected, want_burst, samples):
+    """p50 with p10-p90 (s) of each read through ``base``, ``samples``
+    sequential requests each, every answer checked."""
+    out = {}
+    reqs = [(name, f"/index/taxi/query", pql, {"results": [want]})
+            for name, (pql, want) in expected.items()]
+    reqs.append(("burst_batch", "/batch/query", cluster_batch(),
+                 cluster_batch_want(want_burst)))
+    for name, path, body, want in reqs:
+        times = []
+        for _ in range(samples):
+            t0 = time.perf_counter()
+            got = http_json(base, "POST", path, body)
+            times.append(time.perf_counter() - t0)
+            if got != want:
+                raise AssertionError(f"cluster: {name} answer changed")
+        out[name] = spread(times)
+    return out
+
+
+def cluster_write(nodes, coord, shard, down=()):
+    """A Set and a Clear of one column of ``shard`` through ``coord``,
+    each read back from every live owner with ``remote=true&shards=``."""
+    col = shard * SHARD_WIDTH + 7
+    pql = f"Row(cab_type={CLUSTER_COL_ROW})"
+    owners = [nd for nd in nodes if nd["id"] not in down
+              and nd["cluster"].owns_shard("taxi", shard)]
+    seen = {}
+    for op, want in (("Set", [col]), ("Clear", [])):
+        got = http_json(coord["base"], "POST", "/index/taxi/query",
+                        f"{op}({col}, cab_type={CLUSTER_COL_ROW})")
+        if got != {"results": [True]}:
+            raise AssertionError(f"cluster: {op} answered {got}")
+        for nd in owners:
+            back = http_json(nd["base"], "POST",
+                             f"/index/taxi/query?remote=true&shards={shard}",
+                             pql)["results"][0]["columns"]
+            if back != want:
+                raise AssertionError(f"cluster: {op} on {nd['id']} read "
+                                     f"back {back}")
+        seen[op] = [nd["id"] for nd in owners]
+    return {"column": col, "owners_read": seen, "through": coord["id"]}
+
+
+def cluster_cli(device):
+    """Two ``cli server`` processes that name each other in
+    ``cluster_peers`` (replica 2): a 4-shard index made and imported
+    through the first node's ``/import``, a Count and a TopN through
+    each node, exact under the reference's merge. Returns the report."""
+    import signal
+    import socket
+    import tempfile
+    import numpy as np
+    from pilosa_tpu_torch.parallel.hashing import shard_nodes
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    uris = [f"http://127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    for s in socks:
+        s.close()
+    rng = np.random.default_rng(CLUSTER_CLI_SEED)
+    n = 20_000
+    cols = (rng.integers(0, CLUSTER_CLI_SHARDS, n) * SHARD_WIDTH
+            + rng.integers(0, SHARD_WIDTH, n)).astype(np.uint64)
+    rows = rng.integers(0, 5, n).astype(np.uint64)
+    pairs = np.unique(np.stack([rows, cols]), axis=1)
+    rows, cols = pairs[0], pairs[1]
+    per_shard = np.zeros((CLUSTER_CLI_SHARDS, 5), np.int64)
+    np.add.at(per_shard, ((cols // SHARD_WIDTH).astype(np.int64),
+                          rows.astype(np.int64)), 1)
+    order = sorted(uris)
+    legs = {}
+    for s in range(CLUSTER_CLI_SHARDS):
+        primary = order[shard_nodes("cl", s, 2, 2)[0]]
+        legs.setdefault(primary, []).append(s)
+    want = {"results": [int(per_shard[:, 1].sum()),
+                        topn_merge(per_shard, list(legs.values()), 2)]}
+    procs = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        peers = ", ".join(f'"{u}"' for u in uris)
+        for i, uri in enumerate(uris):
+            path = os.path.join(tmp, f"node{i}.toml")
+            with open(path, "w") as f:
+                f.write(f'bind = "{uri.split("//")[1]}"\n'
+                        f"cluster_peers = [{peers}]\n"
+                        f"cluster_replicas = 2\n"
+                        "heartbeat_interval = 0.5\n")
+            cmd = [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
+                   "-c", path]
+            if device == "cpu":
+                cmd += ["--device", "cpu"]
+            procs.append(subprocess.Popen(
+                cmd, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, env=cache_off_env()))
+        try:
+            for proc, uri in zip(procs, uris):
+                line = ""
+                while "listening on " not in line:
+                    line = proc.stdout.readline()
+                    if not line:
+                        raise AssertionError(f"cluster cli: {uri} exited "
+                                             f"{proc.wait()}")
+                if "cluster=2 nodes" not in line:
+                    raise AssertionError(f"cluster cli: {uri} printed "
+                                         f"{line!r}")
+            up_s = time.perf_counter() - t0
+            base = uris[0]
+            http_json(base, "POST", "/index/cl", {"options": {}})
+            http_json(base, "POST", "/index/cl/field/f", {"options": {}})
+            http_json(base, "POST", "/index/cl/field/f/import",
+                      {"rowIDs": rows.tolist(), "columnIDs": cols.tolist()})
+            answers = {}
+            for uri in uris:
+                got = http_json(uri, "POST", "/index/cl/query",
+                                "Count(Row(f=1)) TopN(f, n=2)")
+                if got != want:
+                    raise AssertionError(f"cluster cli: {uri} answered "
+                                         f"{got}, want {want}")
+                answers[uri] = got["results"]
+            held = [http_json(u, "GET", "/internal/local-shards")["cl"]
+                    for u in uris]
+        finally:
+            rcs = []
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            for proc in procs:
+                try:
+                    rcs.append(proc.wait(timeout=120))
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rcs.append(proc.wait())
+    if rcs != [0, 0]:
+        raise AssertionError(f"cluster cli: exit codes {rcs}")
+    return {"start_s": up_s, "bits": int(len(rows)),
+            "answers": answers[uris[0]], "shards_held": held,
+            "seconds": time.perf_counter() - t0}
+
+
+def run_cluster(src, device, want_taxi, want_burst, wants,
+                samples=CLUSTER_SAMPLES):
+    """The cluster phase: three nodes of a static cluster in this process
+    (replica 2, a heartbeat each), loaded from the taxi holder by the
+    reference client's import-roaring path; every read through every
+    node as coordinator exact, each sweep launched by every node's leg;
+    the coordinator's p50s beside one node's over HTTP; a profiled
+    query's remote fragments; a Set and a Clear read back from both
+    owners; node 2's server stopped: the reads exact through node 0,
+    node 2 marked down by the heartbeat and sent no query RPC, a Set read
+    back from its live owner; then two ``cli server`` processes as a
+    cluster. Returns the report."""
+    from pilosa_tpu_torch.ops import kernels
+    t_phase = time.perf_counter()
+    nodes = cluster_start(device, CLUSTER_NODES)
+    n0 = nodes[0]
+    report = {"nodes": CLUSTER_NODES, "replicas": CLUSTER_REPLICAS}
+    tagger = None
+    try:
+        report["load_s"], report["bytes"], report["fragments"], \
+            report["fragments_by_node"] = cluster_load(src, nodes)
+        n_shards = len(src.index("taxi").available_shards())
+        all_shards = list(range(n_shards))
+        held = {}
+        for nd in nodes:
+            got = nd["holder"].index("taxi").available_shards()
+            want = [s for s in all_shards
+                    if nd["cluster"].owns_shard("taxi", s)]
+            if got != want:
+                raise AssertionError(f"cluster: {nd['id']} holds {got}, "
+                                     f"placement gives {want}")
+            held[nd["id"]] = len(got)
+        report["shards_by_node"] = held
+        log(f"cluster: loaded {report['fragments']} fragments "
+            f"({report['bytes']} bytes) in {report['load_s']:.2f} s; "
+            f"shards by node {held}")
+        # The schema made through node 0 is every node's (each lists its
+        # own shards).
+        schemas = {}
+        for nd in nodes:
+            doc = http_json(nd["base"], "GET", "/schema")
+            for ix in doc["indexes"]:
+                ix.pop("shards", None)
+            schemas[nd["id"]] = doc
+        if any(d != schemas["n0"] for d in schemas.values()):
+            raise AssertionError(f"cluster: schemas differ: {schemas}")
+        legs = list(n0["cluster"].shards_by_node("taxi", all_shards)
+                    .values())
+        expected = cluster_expected(want_taxi, want_burst, wants, legs)
+        # Every read through node 0 first, on fresh nodes, launches
+        # counted by node; then through the others.
+        tagger = NodeLaunches(kernels, nodes)
+        kernels.reset_launches()
+        per_query = {}
+        for name, (pql, want) in expected.items():
+            got = http_json(n0["base"], "POST", "/index/taxi/query", pql)
+            if got != {"results": [want]}:
+                raise AssertionError(f"cluster: {name} answered {got}, "
+                                     f"want {want}")
+            per_query[name] = tagger.take()
+        got = http_json(n0["base"], "POST", "/batch/query", cluster_batch())
+        if got != cluster_batch_want(want_burst):
+            raise AssertionError("cluster: the burst answered wrong")
+        per_query["burst_batch"] = tagger.take()
+        report["launches"] = {k: v for k, v in kernels.LAUNCHES.items()
+                              if v}
+        report["launches_by_query"] = per_query
+        if device != "cpu":
+            for k in SWEEPS:
+                by_node = {nd["id"]: sum(q.get(nd["id"], {}).get(k, 0)
+                                         for q in per_query.values())
+                           for nd in nodes}
+                if min(by_node.values()) <= 0:
+                    raise AssertionError(f"cluster: {k} launched by node "
+                                         f"{by_node}")
+            for name, q in per_query.items():
+                for k in SWEEPS:
+                    ran = {nid for nid, c in q.items() if c.get(k)}
+                    if ran and ran != {nd["id"] for nd in nodes}:
+                        raise AssertionError(f"cluster: {name} launched {k}"
+                                             f" on {sorted(ran)} only")
+        for nd in nodes[1:]:
+            cluster_reads(nd["base"], "taxi", expected, want_burst,
+                          f"through {nd['id']}")
+        # p50s through node 0, beside one node over HTTP (the source
+        # holder behind the port's server, result cache off).
+        report["p50_s"] = cluster_p50s(n0["base"], expected, want_burst,
+                                       samples)
+        api, srv, base = start_server(src)
+        try:
+            single = {k: (pql, taxi_json(k, want_taxi[k]) if k in want_taxi
+                          else want)
+                      for k, (pql, want) in expected.items()}
+            single["groupby"] = (GB_QUERIES[0][1],
+                                 sorted(wants["groupby"],
+                                        key=lambda g: [x["rowID"] for x in
+                                                       g["group"]]))
+            report["single_node_p50_s"] = cluster_p50s(
+                base, single, want_burst, samples)
+        finally:
+            stop_server(api, srv)
+        log("cluster: p50 ms through n0 / one node: " + ", ".join(
+            f"{k} {v['p50'] * 1e3:.2f}/"
+            f"{report['single_node_p50_s'][k]['p50'] * 1e3:.2f}"
+            for k, v in report["p50_s"].items()))
+        # A forced profile carries both remote nodes' fragments.
+        got = http_json(n0["base"], "POST", "/index/taxi/query?profile=true",
+                        TAXI_QUERIES[0][1])
+        frags = got["profile"].get("nodes", {})
+        if not {"n1", "n2"} <= set(frags) or \
+                not all(f.get("ops") for f in frags.values()):
+            raise AssertionError(f"cluster: profile nodes {sorted(frags)}")
+        report["profile_nodes"] = sorted(frags)
+        # Writes through a node that does not own the column.
+        shard = next(s for s in all_shards
+                     if not n0["cluster"].owns_shard("taxi", s))
+        report["write"] = cluster_write(nodes, n0, shard)
+        # Failover: node 2's server stops.
+        attempts = []
+        ce = n0["api"].cluster_executor
+        real = ce.client.query_node_full
+
+        def counting(uri, *a, **kw):
+            attempts.append(uri)
+            return real(uri, *a, **kw)
+
+        ce.client.query_node_full = counting
+        victim = nodes[2]
+        victim["srv"].shutdown()
+        victim["srv"].server_close()
+        victim["srv"] = None
+        t_stop = time.time()
+        f_legs = list(n0["cluster"].shards_by_node(
+            "taxi", all_shards, exclude_ids={victim["id"]}).values())
+        f_expected = cluster_expected(want_taxi, want_burst, wants, f_legs)
+        t0 = time.perf_counter()
+        cluster_reads(n0["base"], "taxi", f_expected, want_burst,
+                      "after node 2 stopped")
+        report["failover_reads_s"] = time.perf_counter() - t0
+        report["failover_answers"] = {
+            k: v[1] for k, v in f_expected.items()
+            if k in ("topn", "topn_filtered", "count_intersect")}
+        deadline = time.time() + 30
+        while victim["id"] not in n0["cluster"].down_ids:
+            if time.time() > deadline:
+                raise AssertionError("cluster: node 2 never marked down")
+            time.sleep(0.01)
+        down_ev = next(e for e in reversed(n0["cluster"].recent_events())
+                       if e["type"] == "node-down")
+        report["time_to_down_s"] = down_ev["time"] - t_stop
+        # The detector's bound: a probe round every interval, each of
+        # the SUSPECT failing rounds probing at most both peers, each
+        # probe within its timeout.
+        window = CLUSTER_HB_SUSPECT * (CLUSTER_HB_INTERVAL
+                                       + 2 * CLUSTER_HB_TIMEOUT) \
+            + CLUSTER_HB_INTERVAL
+        report["down_window_s"] = window
+        if report["time_to_down_s"] > window:
+            raise AssertionError(f"cluster: node 2 down after "
+                                 f"{report['time_to_down_s']:.2f} s, past "
+                                 f"its window {window} s")
+        del attempts[:]
+        cluster_reads(n0["base"], "taxi", f_expected, want_burst,
+                      "with node 2 down")
+        to_victim = sum(1 for u in attempts if u == victim["base"])
+        if to_victim:
+            raise AssertionError(f"cluster: node 2 got {to_victim} query "
+                                 "RPCs while marked down")
+        report["rpcs_to_down_node"] = to_victim
+        report["state_with_node_down"] = n0["cluster"].state
+        shard = next(s for s in all_shards
+                     if victim["id"] in [n.id for n in
+                                         n0["cluster"].shard_nodes("taxi",
+                                                                   s)])
+        report["write_with_node_down"] = cluster_write(
+            nodes, n0, shard, down=(victim["id"],))
+        ce.client.query_node_full = real
+    finally:
+        if tagger is not None:
+            tagger.close()
+        cluster_stop(nodes)
+    report["cli"] = cluster_cli(device)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"cluster: {report['seconds']:.1f} s, node 2 down after "
+        f"{report.get('time_to_down_s', float('nan')):.2f} s")
+    return report
+
+
 def serve_taxi(holder, want_taxi, want_burst, cab_head, in_process,
                iters=ITERS):
     """Phases 1-2 of the serve path on the loaded taxi holder: the five
@@ -6219,6 +6807,8 @@ def main(argv=None) -> int:
     serving = report["serving"]
     print(json.dumps({"serving": {"card": card, **serving}}, default=str),
           flush=True)
+    print(json.dumps({"cluster": {"card": card, **report["cluster"]}},
+                     default=str), flush=True)
     print(json.dumps({"memory": MEMORY}), flush=True)
     print(card, flush=True)
 

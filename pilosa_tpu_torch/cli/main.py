@@ -12,9 +12,9 @@ config commands.
 The flags are the JAX package's (``pilosa_tpu/cli/main.py``). ``server``
 resolves its settings through ``utils/config.load_config``: flags over
 ``PILOSA_TPU_*`` variables over the TOML file over defaults, with the
-JAX package's keys; a key the port has no counterpart of yet (TLS, the
-cluster, the mesh, the JAX platform keys) fails at startup with a
-message that says so. With ``--data-dir`` (or ``data_dir``) the server
+JAX package's keys; a key the port has no counterpart of yet (seed
+join, resize and anti-entropy, the mesh, the JAX platform keys) fails at
+startup with a message that says so. With ``--data-dir`` (or ``data_dir``) the server
 opens ``Holder(DIR)`` (the JAX package's directory layout; either
 package opens the other's), and every acknowledged write is in its
 files; without it the holder lives in memory. SIGTERM stops the server
@@ -30,8 +30,15 @@ result and rank caches, the optimizer switch, the sentinel and its
 objectives (``[slo]``), the failpoints (``[failpoints]`` or
 ``PILOSA_TPU_FAILPOINTS``, which also enable ``/internal/failpoints``),
 the memory watchdog (whose gauge hook samples the sentinel) and the
-hybrid layout's re-layout pass. ``config`` prints the resolved settings
-as JSON; ``generate-config`` prints the defaults as TOML.
+hybrid layout's re-layout pass. With ``cluster_peers`` (every node's
+URI, this one's among them; the node's id is its URI) the server is one
+node of a static cluster of ``cluster_replicas`` replicas: the
+coordinator fans queries out, imports go to every owner, the heartbeat
+marks dead peers down and the translate replication loop pulls the
+primary's key log; ``.topology`` in the data directory keeps the
+topology. With ``tls_certificate`` and ``tls_key`` it serves HTTPS, to
+clients and peers alike. ``config`` prints the resolved settings as
+JSON; ``generate-config`` prints the defaults as TOML.
 """
 
 from __future__ import annotations
@@ -198,17 +205,75 @@ def _start_memory_planes(api, cfg):
     return watchdog
 
 
+def build_cluster(cfg, holder):
+    """The static cluster of ``cfg.cluster_peers`` with this node among
+    them, its ``.topology`` read back from the data directory (none in
+    memory); None without peers."""
+    from pilosa_tpu_torch.parallel.cluster import STATE_NORMAL, Cluster, \
+        Node
+    if not cfg.cluster_peers:
+        return None
+    local_uri = cfg.advertise or f"{cfg.scheme}://{cfg.bind}"
+    cluster = Cluster(
+        Node(local_uri, local_uri,
+             is_coordinator=local_uri == sorted(cfg.cluster_peers)[0]),
+        replica_n=cfg.cluster_replicas,
+        topology_path=(os.path.join(holder.path, ".topology")
+                       if holder.path else None))
+    for peer in cfg.cluster_peers:
+        if peer != local_uri:
+            cluster.add_node(Node(peer, peer))
+    cluster.load()
+    cluster.set_state(STATE_NORMAL)
+    return cluster
+
+
+def start_cluster_loops(api, cfg):
+    """The heartbeat and the translate replication loop of a cluster
+    node (each off at an interval of 0); returns them."""
+    from pilosa_tpu_torch.parallel.heartbeat import Heartbeater, \
+        TranslateReplicationLoop
+    loops = []
+    if api.cluster is None:
+        return loops
+    if cfg.heartbeat_interval > 0:
+        hb = Heartbeater(api.cluster, interval=cfg.heartbeat_interval,
+                         suspect_after=cfg.heartbeat_suspect,
+                         probes_per_round=cfg.heartbeat_probes,
+                         logger=api.logger,
+                         ssl_context=cfg.client_ssl_context())
+        hb.start()
+        loops.append(hb)
+    if cfg.translate_replication_interval > 0:
+        tr = TranslateReplicationLoop(api,
+                                      cfg.translate_replication_interval)
+        tr.start()
+        loops.append(tr)
+    return loops
+
+
 def build_server(cfg, holder):
     """The server of ``cfg`` over ``holder``: the API with its stats
-    client and tracer, every plane configured, the coalescer and the
-    memory planes started, and the HTTP server bound (not yet serving).
-    Returns (api, server, watchdog); ``stop_server`` undoes it."""
+    client, tracer and cluster, every plane configured, the coalescer
+    and the memory planes started, and the HTTP server bound (not yet
+    serving), over TLS when configured. Returns (api, server,
+    watchdog); ``stop_server`` undoes it."""
     from pilosa_tpu_torch.server.api import API
     from pilosa_tpu_torch.server.coalescer import QueryCoalescer
     from pilosa_tpu_torch.server.http import make_server
 
-    api = API(holder, stats=_stats(cfg), tracer=_tracer(cfg))
+    api = API(holder, stats=_stats(cfg), tracer=_tracer(cfg),
+              cluster=build_cluster(cfg, holder),
+              client_ssl_context=cfg.client_ssl_context())
     configure_planes(api, cfg)
+    if api.cluster_executor is not None:
+        api.cluster_executor.configure(
+            fanout_deadline_s=cfg.cluster_fanout_deadline_s,
+            backoff_base_s=cfg.cluster_backoff_base_s,
+            backoff_cap_s=cfg.cluster_backoff_cap_s,
+            hedge_quantile=cfg.cluster_hedge_quantile)
+        api._client.configure(timeout=cfg.cluster_rpc_timeout_s,
+                              health_timeout=cfg.cluster_health_timeout_s)
     if cfg.coalescer_enabled:
         api.coalescer = QueryCoalescer(
             api.executor, window_s=cfg.coalescer_window_ms / 1e3,
@@ -219,12 +284,18 @@ def build_server(cfg, holder):
             pipeline=cfg.coalescer_pipeline)
         api.coalescer.start()
     watchdog = _start_memory_planes(api, cfg)
-    return api, make_server(api, cfg.host, cfg.port), watchdog
+    return api, make_server(api, cfg.host, cfg.port,
+                            ssl_context=cfg.server_ssl_context()), watchdog
 
 
-def stop_server(api, server, watchdog) -> None:
-    """The shutdown: drain the coalescer, stop the layout pass, write the
-    telemetry to the log, close the listener."""
+def stop_server(api, server, watchdog, loops=()) -> None:
+    """The shutdown: stop the cluster loops and the broadcaster, drain
+    the coalescer, stop the layout pass, write the telemetry to the log,
+    close the listener."""
+    for loop in loops:
+        loop.stop()
+    if api.broadcaster is not None:
+        api.broadcaster.stop()
     if api.coalescer is not None:
         api.coalescer.stop()
     api.layout.stop()
@@ -251,6 +322,7 @@ def cmd_server(args) -> int:
     if holder.path is not None:
         holder.open()
     api, server, watchdog = build_server(cfg, holder)
+    loops = start_cluster_loops(api, cfg)
 
     def _graceful(signum, frame):
         raise KeyboardInterrupt
@@ -259,15 +331,19 @@ def cmd_server(args) -> int:
     addr = server.server_address
     coal = "off" if api.coalescer is None \
         else f"{cfg.coalescer_window_ms:g} ms"
-    print(f"pilosa-tpu-torch server listening on http://{addr[0]}:{addr[1]}"
+    nodes = "" if api.cluster is None else \
+        f" cluster={len(api.cluster.nodes())} nodes" \
+        f" replicas={api.cluster.replica_n}"
+    print(f"pilosa-tpu-torch server listening on "
+          f"{cfg.scheme}://{addr[0]}:{addr[1]}"
           f" device={holder.device} coalescer={coal}"
-          f" data_dir={holder.path or '(memory)'}", flush=True)
+          f" data_dir={holder.path or '(memory)'}{nodes}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
-        stop_server(api, server, watchdog)
+        stop_server(api, server, watchdog, loops)
         if holder.path is not None:
             holder.close()
     return 0

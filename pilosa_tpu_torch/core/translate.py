@@ -24,6 +24,14 @@ the bytes the JAX package writes one key at a time. ``open`` replays
 the log and cuts a record torn by a crash, so the next append starts on
 a record boundary (the JAX store appends after the torn bytes; see
 ROADMAP.md's reference notes).
+
+Replication, as the JAX package's: in a cluster only the translate
+primary allocates ids; a replica pulls the primary's id-ordered log
+from ``replica_offset`` (``read_log_from`` on the source, ``apply_log(
+resume=True)`` here) and serves its successor in the chain only the
+streamed prefix (``served_limit``), never the entries it adopted out of
+band (``apply_entries``) at higher ids. The cut of a torn tail at open
+changes no stream: the log served is rebuilt from the entries, by id.
 """
 
 from __future__ import annotations
@@ -92,6 +100,15 @@ class TranslateStore:
         self._next_id = 1
         self._lock = threading.RLock()
         self._file = None
+        # Byte cursor into the replication source's stream (the
+        # primary's id-ordered log); in memory only, so a restart
+        # replays from 0, idempotently.
+        self.replica_offset = 0
+        # How many bytes of the id-ordered log may be served to a
+        # chained successor (read_log_from): None = all (this store
+        # allocates, so its log is the stream); on a replica, the
+        # streamed prefix (replica_offset).
+        self.served_limit: Optional[int] = None
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -155,14 +172,29 @@ class TranslateStore:
             return encode_records([k for k, _ in entries],
                                   [i for _, i in entries])
 
-    def apply_log(self, data: bytes) -> int:
+    def apply_log(self, data: bytes, resume: bool = False) -> int:
         """Adopt the whole records of ``data`` whose keys are new (a
-        torn last record stops it); returns how many."""
-        keys, ids, _ = parse_records(data)
+        torn last record stops it); returns how many. ``resume=True``
+        (a replication pull) advances ``replica_offset`` by the bytes of
+        whole records read and serves that prefix on."""
+        keys, ids, used = parse_records(data)
         with self._lock:
             new = [(k, i) for k, i in zip(keys, ids) if k not in self._ids]
-            self.apply_entries(new)
+            self._take(new)
+            if resume:
+                self.replica_offset += used
+                self.served_limit = self.replica_offset
             return len(new)
+
+    def read_log_from(self, offset: int) -> bytes:
+        """The replication stream from byte ``offset``: the id-ordered
+        log, cut at ``served_limit`` on a replica. Every node of a chain
+        serves the same bytes, so one cursor is valid at any source."""
+        with self._lock:
+            data = self.log_bytes()
+            if self.served_limit is not None:
+                data = data[:self.served_limit]
+            return data[int(offset):]
 
     def _store(self, fresh: range, keys: Sequence[str]) -> None:
         """Record ``keys`` under the consecutive ids ``fresh``."""
@@ -187,6 +219,8 @@ class TranslateStore:
                 self._append([key], [id_])
                 self._ids[key] = id_
                 self._store(range(id_, id_ + 1), [key])
+                # Allocating makes this store the stream's source.
+                self.served_limit = None
             return id_
 
     def translate_keys(self, keys: Sequence[str], create: bool = True
@@ -203,6 +237,7 @@ class TranslateStore:
                     self._append(new, fresh)
                     ids.update(zip(new, fresh))
                     self._store(fresh, new)
+                    self.served_limit = None
             # A list first: np.fromiter converts item by item, slower.
             return np.array(list(map(ids.get, keys, itertools.repeat(0))),
                             dtype=np.uint64)
@@ -230,9 +265,18 @@ class TranslateStore:
             return keys
 
     def apply_entries(self, pairs: Iterable[Tuple[str, int]]) -> None:
-        """Adopt (key, id) entries made elsewhere (``core/state.py``),
-        logged with a path; a key already held under another id is
-        refused."""
+        """Adopt (key, id) entries made elsewhere (``core/state.py``, the
+        primary's answer to a lookup), logged with a path; a key already
+        held under another id is refused. An entry adopted out of band
+        makes this store a replica that serves only its streamed
+        prefix."""
+        with self._lock:
+            if self._take(pairs) and self.served_limit is None:
+                self.served_limit = self.replica_offset
+
+    def _take(self, pairs: Iterable[Tuple[str, int]]) -> int:
+        """Log and record the (key, id) pairs whose keys are new;
+        returns how many."""
         with self._lock:
             keys: List[str] = []
             ids: List[int] = []
@@ -249,6 +293,7 @@ class TranslateStore:
                         f"translate conflict for {key!r}: {cur} != {id_}")
             self._append(keys, ids)
             self._adopt(keys, ids)
+            return len(keys)
 
     def size(self) -> int:
         """Number of allocated (key, id) entries."""

@@ -243,15 +243,19 @@ class ExecOptions:
     column_attrs: bool = False
 
 
-def column_attr_sets(idx: Index, ids: Sequence[int]
+def column_attr_sets(idx: Index, ids: Sequence[int],
+                     resolve: Optional[Callable[[List[int]],
+                                                List[Optional[str]]]] = None
                      ) -> List[Dict[str, Any]]:
     """The non-empty column attribute sets of ``ids``, named by key on a
     keyed index (by id where a column has no key), as the JAX package's
-    ``column_attr_sets`` gives them."""
+    ``column_attr_sets`` gives them; ``resolve`` looks the keys up (the
+    local column translator by default)."""
     withattrs = list(idx.column_attr_store.get_many(ids).items())
     if not idx.keys:
         return [{"id": c, "attrs": a} for c, a in withattrs]
-    keys = idx.column_translator.translate_ids([c for c, _ in withattrs])
+    keys = (resolve or idx.column_translator.translate_ids)(
+        [c for c, _ in withattrs])
     return [({"key": k, "attrs": a} if k is not None
              else {"id": c, "attrs": a})
             for (c, a), k in zip(withattrs, keys)]
@@ -591,6 +595,13 @@ class Executor:
         # Requests with more write calls than this fail; 0 is no limit
         # (the server sets its config's max_writes_per_request).
         self.max_writes_per_request = 0
+        # In a cluster the API sets these to allocate keys on the
+        # translate primary (``key_resolver(index, field, keys) -> ids``)
+        # and to look up an id the local replica has not replayed yet
+        # there (``id_resolver(index, field, ids) -> keys``); None uses
+        # the local stores. ``field`` is None for column keys.
+        self.key_resolver: Optional[Callable[..., List[int]]] = None
+        self.id_resolver: Optional[Callable[..., List[Optional[str]]]] = None
 
     # ------------------------------------------------------------------ API
 
@@ -714,10 +725,13 @@ class Executor:
                            shards: Optional[Sequence[int]]
                            ) -> Optional[tuple]:
         """The request tier's key, or None when the request is not
-        eligible: the cache is off, the query is not PQL text or does
-        not parse, or a call is not Count or a bitmap call (TopN rides
-        the rank cache; writes never cache)."""
-        if not self.result_cache.enabled or not isinstance(query, str):
+        eligible: the cache is off, the executor is a cluster node's
+        (its remote legs cache through the eval tier, as in the JAX
+        package), the query is not PQL text or does not parse, or a
+        call is not Count or a bitmap call (TopN rides the rank cache;
+        writes never cache)."""
+        if not self.result_cache.enabled or not isinstance(query, str) \
+                or self.key_resolver is not None:
             return None
         try:
             q = parse_string_cached(query)
@@ -1326,23 +1340,59 @@ class Executor:
 
     # ------------------------------------------------------ key translation
 
-    @staticmethod
-    def _row_key(field: Optional[Field], fname: Any, key: str,
-                  msg: Optional[str] = None) -> int:
-        """The id of row key ``key`` of ``field`` (allocated when new);
-        refused with ``msg`` (by default the JAX package's message) when
-        the field is missing or not keyed."""
+    def _row_key(self, idx: Index, field: Optional[Field], fname: Any,
+                 key: str, msg: Optional[str] = None) -> int:
+        """The id of row key ``key`` of ``field`` (allocated when new,
+        on the translate primary in a cluster); refused with ``msg`` (by
+        default the JAX package's message) when the field is missing or
+        not keyed."""
         if field is None or not field.options.keys:
             raise ExecutionError(
                 msg or f"string row value not allowed on field {fname}")
+        if self.key_resolver is not None:
+            return int(self.key_resolver(idx.name, field.name, [key])[0])
         return int(field.row_translator.translate_key(key))
 
-    @staticmethod
-    def _col_key(idx: Index, key: str) -> int:
-        """The id of column key ``key`` (allocated when new)."""
+    def _col_key(self, idx: Index, key: str) -> int:
+        """The id of column key ``key`` (allocated when new, on the
+        translate primary in a cluster)."""
         if not idx.keys:
             raise ExecutionError(f"index {idx.name} does not use column keys")
+        if self.key_resolver is not None:
+            return int(self.key_resolver(idx.name, None, [key])[0])
         return int(idx.column_translator.translate_key(key))
+
+    def col_keys(self, idx: Index, keys: Sequence[str]) -> np.ndarray:
+        """uint64 ids of column keys, allocated when new (on the
+        translate primary in a cluster)."""
+        if self.key_resolver is not None:
+            return np.asarray(self.key_resolver(idx.name, None, list(keys)),
+                              dtype=np.uint64)
+        return idx.column_translator.translate_keys(keys)
+
+    def row_keys(self, idx: Index, field: Field,
+                 keys: Sequence[str]) -> np.ndarray:
+        """uint64 ids of a keyed field's row keys, allocated when new (on
+        the translate primary in a cluster)."""
+        if self.key_resolver is not None:
+            return np.asarray(self.key_resolver(idx.name, field.name,
+                                                list(keys)), dtype=np.uint64)
+        return field.row_translator.translate_keys(keys)
+
+    def _col_ids(self, idx: Index, ids: Sequence[int]
+                 ) -> List[Optional[str]]:
+        """Keys of column ids (None where an id has none); in a cluster
+        a miss asks the translate primary."""
+        if self.id_resolver is not None:
+            return self.id_resolver(idx.name, None, [int(i) for i in ids])
+        return idx.column_translator.translate_ids(ids)
+
+    def _row_ids(self, idx: Index, field: Field,
+                 ids: Sequence[int]) -> List[Optional[str]]:
+        if self.id_resolver is not None:
+            return self.id_resolver(idx.name, field.name,
+                                    [int(i) for i in ids])
+        return field.row_translator.translate_ids(ids)
 
     def _translate_call(self, idx: Index, call: Call) -> None:
         """String keys to ids in place, as the JAX package's
@@ -1358,7 +1408,7 @@ class Executor:
         fname = call.args.get("_field")
         if isinstance(row, str):
             field = idx.field(fname) if fname else None
-            call.args["_row"] = self._row_key(field, fname, row)
+            call.args["_row"] = self._row_key(idx, field, fname, row)
         # The one field=row argument of these calls.
         if call.name in ("Row", "Range", "Set", "Clear", "ClearRow",
                          "Store"):
@@ -1367,13 +1417,13 @@ class Executor:
             except ExecutionError:
                 k, v = None, None
             if isinstance(v, str):
-                call.args[k] = self._row_key(idx.field(k), k, v)
+                call.args[k] = self._row_key(idx, idx.field(k), k, v)
         if call.name in ("Rows", "TopN"):
             field = idx.field(fname) if fname else None
             prev = call.args.get("previous")
             if isinstance(prev, str):
                 call.args["previous"] = self._row_key(
-                    field, fname, prev,
+                    idx, field, fname, prev,
                     f"string previous not allowed on field {fname}")
             column = call.args.get("column")
             if isinstance(column, str):
@@ -1391,7 +1441,7 @@ class Executor:
                 for i, (p, child) in enumerate(zip(prev, call.children)):
                     if isinstance(p, str):
                         prev[i] = self._row_key(
-                            idx.field(child.args.get("_field")), None, p,
+                            idx, idx.field(child.args.get("_field")), None, p,
                             "prev value must be a row id (int) when field "
                             "doesn't have keys")
         filt = call.args.get("filter")
@@ -1418,7 +1468,7 @@ class Executor:
                     cap.setdefault(("ctrans", idx.name),
                                    idx.column_translator.size())
                 cols = result.columns()
-                keys = idx.column_translator.translate_ids(cols)
+                keys = self._col_ids(idx, cols)
                 if None in keys:
                     keys = [k if k is not None else str(c)
                             for c, k in zip(cols.tolist(), keys)]
@@ -1430,10 +1480,10 @@ class Executor:
         if isinstance(result, PairsResult) and keyed:
             ids = [r for r, _ in result.pairs]
             result.keys = [k or str(r) for r, k in zip(
-                ids, field.row_translator.translate_ids(ids))]
+                ids, self._row_ids(idx, field, ids))]
         elif isinstance(result, RowIdentifiers) and keyed:
             result.keys = [k or str(r) for r, k in zip(
-                result.rows, field.row_translator.translate_ids(result.rows))]
+                result.rows, self._row_ids(idx, field, result.rows))]
         elif isinstance(result, list):
             for gc in result:
                 if isinstance(gc, GroupCount):

@@ -1,5 +1,6 @@
-"""HTTP surface of the port's server: the single-node routes of the JAX
-package's ``server/http.py`` on the stdlib threading HTTP server.
+"""HTTP surface of the port's server: the routes of the JAX package's
+``server/http.py`` on the stdlib threading HTTP server, over HTTP or
+HTTPS (``serve(ssl_context=)``).
 
 Routes:
   GET    /  /schema  /status  /info  /version
@@ -19,11 +20,21 @@ Routes:
   GET    /internal/health      this node's health document
   GET    /internal/failpoints  the failpoint sites (403 unless enabled
                                at boot)
+  GET    /cluster/health  /cluster/hotspots?topk  /cluster/slo
+                               every member's document, merged
+  GET    /cluster/timeline     the members' lifecycle events, merged
+  GET    /cluster/timeline/{trace}  one trace's slices on every member
+  GET    /internal/nodes  /internal/local-shards
+  GET    /internal/views?index&field  /internal/shards/max
+  GET    /internal/fragment/nodes?index&shard  the owners of a shard
+  GET    /internal/translate/data?index&field&offset  the translate
+                               log's replication stream
   POST   /index/{i}/query      raw PQL, {"query": ...}, or a protobuf
                                QueryRequest; URL args shards,
                                excludeColumns, excludeRowAttrs,
                                columnAttrs, profile (JSON only: the
-                               profile tree in the response)
+                               profile tree in the response), remote
+                               (a node-to-node leg)
   POST   /batch/query          {"queries": [{"index", "query",
                                "shards"?}, ...]}, at most 1024; URL
                                arg profile
@@ -31,16 +42,23 @@ Routes:
                                "columnIDs"|"columnKeys"} or
                                {"columnIDs"|"columnKeys", "values"}, or
                                a protobuf ImportRequest /
-                               ImportValueRequest
+                               ImportValueRequest; URL args clear,
+                               remote, ignoreKeyCheck
   POST   /index/{i}/field/{f}/import-roaring/{shard}  a serialized
                                roaring bitmap (raw bytes), or a protobuf
                                ImportRoaringRequest (per-view bitmaps);
-                               URL args clear, view
+                               URL args clear, view, remote
   POST   /index/{i}            {"options": {"keys", "trackExistence"}}
-  POST   /index/{i}/field/{f}  {"options": {...}}
+  POST   /index/{i}/field/{f}  {"options": {...}} (both: URL arg remote,
+                               a copy sent by the node that made it)
   POST   /recalculate-caches   rebuild every fragment's TopN count cache
   POST   /internal/failpoints  {"arm": {site: spec}, "disarm": [...],
                                "disarm_all": bool} (403 unless enabled)
+  POST   /internal/cluster/message  a cluster message
+  POST   /internal/translate/keys  {"index", "field", "keys"} (or a
+                               protobuf TranslateKeysRequest): ids,
+                               allocated here
+  POST   /internal/translate/ids   {"index", "field", "ids"}: keys
   DELETE /index/{i}  /index/{i}/field/{f}
 
 JSON query responses ride the coalescer when one is attached; protobuf
@@ -51,9 +69,11 @@ goes out. Each request reads a W3C ``traceparent`` (or the legacy
 ``traceparent`` of the trace it ran under, the id ``/debug/timeline``
 and ``/debug/queries`` know it by. Every request is observed in
 ``pilosa_http_request_seconds{endpoint,status}`` (endpoints labelled as
-the JAX package labels them, unknown paths as "other"). The JAX
-package's cluster and node-to-node routes answer 404 naming the part
-that is not ported.
+the JAX package labels them, unknown paths as "other"). A request
+that accepts ``application/x-pilosa-wire`` gets its JSON answer in the
+binary wire codec (``server/wire.py``), and a body of that type is read
+with it, as between nodes. The routes of seed join, resize and
+anti-entropy answer 404 naming that part.
 """
 
 from __future__ import annotations
@@ -70,22 +90,22 @@ from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.pql.ast import Call, Query
-from pilosa_tpu_torch.server import proto_compat
-from pilosa_tpu_torch.server.api import API, ApiError, not_ported
+from pilosa_tpu_torch.server import proto_compat, wire
+from pilosa_tpu_torch.server.api import API, RESIZE_PART, ApiError
 from pilosa_tpu_torch.utils.stats import prometheus_text
 from pilosa_tpu_torch.utils.timeline import TIMELINE
 from pilosa_tpu_torch.utils.tracing import TRACEPARENT_HEADER, \
     format_traceparent
 
-# Route prefixes the JAX package's server answers and this one does not
-# yet, with the part each needs.
+# Routes the JAX package's server answers and this one does not yet,
+# with the part each needs.
 _NOT_PORTED_ROUTES = (
-    (re.compile(r"/internal/(?!health$|failpoints$).*"),
-     "the node-to-node API (cluster)"),
-    (re.compile(r"/cluster/.*"), "the cluster plane"),
+    (re.compile(r"/internal/(sync|join|resize/pull)"), RESIZE_PART),
+    (re.compile(r"/internal/fragment/(blocks|block/data|data)"),
+     RESIZE_PART),
+    (re.compile(r"/internal/attr/.*"), RESIZE_PART),
+    (re.compile(r"/cluster/resize/.*"), RESIZE_PART),
 )
-# URL args of the query route that name a part not ported.
-_QUERY_ARGS_NOT_PORTED = {"remote": "remote query legs (cluster)"}
 
 # Per-endpoint latency buckets (seconds), the JAX package's: powers of
 # two from about 61 us to 8 s.
@@ -151,10 +171,23 @@ class Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):
         pass  # no access log
 
+    def _encode(self, obj: Any, force_json: bool = False):
+        """(body, content type) of ``obj``: JSON, or the wire codec when
+        the request accepts it (a value the codec cannot hold, an int
+        past 64 bits, falls back to JSON)."""
+        if not force_json and wire.CONTENT_TYPE in (
+                self.headers.get("Accept") or ""):
+            try:
+                return wire.dumps(obj), wire.CONTENT_TYPE
+            except TypeError:
+                pass
+        return json.dumps(obj).encode("utf-8"), "application/json"
+
     def _json(self, obj: Any, status: int = 200,
-              extra_headers: Optional[dict] = None) -> None:
-        self._bytes(json.dumps(obj).encode("utf-8"), status,
-                    "application/json", extra_headers)
+              extra_headers: Optional[dict] = None,
+              force_json: bool = False) -> None:
+        data, ctype = self._encode(obj, force_json)
+        self._bytes(data, status, ctype, extra_headers)
 
     def _bytes(self, data: bytes, status: int = 200,
                ctype: str = "application/octet-stream",
@@ -195,7 +228,7 @@ class Handler(BaseHTTPRequestHandler):
 
     def _error(self, msg: str, status: int = 400,
                extra_headers: Optional[dict] = None) -> None:
-        self._json({"error": msg}, status, extra_headers)
+        self._json({"error": msg}, status, extra_headers, force_json=True)
 
     def _body(self) -> bytes:
         n = int(self.headers.get("Content-Length") or 0)
@@ -205,6 +238,12 @@ class Handler(BaseHTTPRequestHandler):
         raw = self._body()
         if not raw:
             return {}
+        if (self.headers.get("Content-Type") or "").startswith(
+                wire.CONTENT_TYPE):
+            try:
+                return wire.loads(raw)
+            except wire.WireError as e:
+                raise ApiError(f"invalid wire body: {e}")
         try:
             return json.loads(raw)
         except json.JSONDecodeError as e:
@@ -244,12 +283,8 @@ class Handler(BaseHTTPRequestHandler):
 
     def _query_args(self, q: dict) -> Optional[list]:
         """Check the query route's URL args; returns ``shards``."""
-        self._check_args(q, "shards", "columnAttrs", "excludeRowAttrs",
-                         "excludeColumns", "profile",
-                         *_QUERY_ARGS_NOT_PORTED)
-        for arg, what in _QUERY_ARGS_NOT_PORTED.items():
-            if self._qbool(q, arg):
-                raise not_ported(what)
+        self._check_args(q, "shards", "remote", "columnAttrs",
+                         "excludeRowAttrs", "excludeColumns", "profile")
         if q.get("shards"):
             return [int(s) for s in q["shards"].split(",")]
         return None
@@ -342,6 +377,32 @@ class Handler(BaseHTTPRequestHandler):
                 self._json(api.node_health())
             elif path == "/internal/failpoints":
                 self._json(api.failpoints_snapshot())
+            elif path == "/cluster/health":
+                self._json(api.cluster_health())
+            elif path == "/cluster/hotspots":
+                self._check_args(q, "topk")
+                self._json(api.cluster_hotspots(
+                    top_k=int(q["topk"]) if q.get("topk") else None))
+            elif path == "/cluster/slo":
+                self._json(api.cluster_slo())
+            elif path == "/cluster/timeline":
+                self._json(api.cluster_timeline_events())
+            elif m := re.fullmatch(r"/cluster/timeline/([^/]+)", path):
+                self._json(api.cluster_timeline(m.group(1)))
+            elif path == "/internal/fragment/nodes":
+                self._check_args(q, "index", "shard")
+                self._json(api.fragment_nodes(q["index"], int(q["shard"])))
+            elif path == "/internal/shards/max":
+                self._json({"standard": api.shards_max()})
+            elif path == "/internal/translate/data":
+                self._bytes(api.translate_data(
+                    q["index"], q.get("field"), int(q.get("offset", 0))))
+            elif path == "/internal/nodes":
+                self._json(api.status().get("nodes", []))
+            elif path == "/internal/local-shards":
+                self._json(api.local_shards())
+            elif path == "/internal/views":
+                self._json({"views": api.views_of(q["index"], q["field"])})
             elif path == "/export":
                 self._check_args(q, "index", "field", "shard")
                 csv = api.export_csv(q["index"], q["field"],
@@ -377,6 +438,16 @@ class Handler(BaseHTTPRequestHandler):
                 self._json({})
             elif path == "/internal/failpoints":
                 self._json(api.failpoints_update(self._body_json()))
+            elif path == "/internal/cluster/message":
+                api.handle_cluster_message(self._body_json())
+                self._json({})
+            elif path == "/internal/translate/keys":
+                self._post_translate_keys()
+            elif path == "/internal/translate/ids":
+                b = self._body_json()
+                ids = b.get("ids", [])
+                self._json({"ids": ids, "keys": api.translate_ids_local(
+                    b["index"], b.get("field"), ids)})
             elif m := re.fullmatch(r"/index/([^/]+)/field/([^/]+)/import",
                                    path):
                 self._post_import(m.group(1), m.group(2), q)
@@ -388,12 +459,14 @@ class Handler(BaseHTTPRequestHandler):
             elif m := re.fullmatch(r"/index/([^/]+)/field/([^/]+)", path):
                 b = self._body_json()
                 self._json(api.create_field(m.group(1), m.group(2),
-                                            b.get("options")))
+                                            b.get("options"),
+                                            remote=self._qbool(q, "remote")))
             elif m := re.fullmatch(r"/index/([^/]+)", path):
                 opts = self._body_json().get("options", {})
                 self._json(api.create_index(
                     m.group(1), keys=opts.get("keys", False),
-                    track_existence=opts.get("trackExistence", True)))
+                    track_existence=opts.get("trackExistence", True),
+                    remote=self._qbool(q, "remote")))
             else:
                 return False
             return True
@@ -432,17 +505,19 @@ class Handler(BaseHTTPRequestHandler):
         try:
             pql = self._wrap_options(pql, self._exec_optargs(q))
             resp = self.api.query_coalesced(
-                index, pql, shards=shards,
+                index, pql, shards=shards, remote=self._qbool(q, "remote"),
                 profile=self._qbool(q, "profile"))
         except ApiError:
             raise  # keeps its status (429 overload, 408 deadline)
         except ValueError as e:
             raise ApiError(str(e))
-        # The serialize slice attaches to the request this thread just
-        # finished (the API closed its timeline before the write).
+        # The serialize slice (the answer's encoding) attaches to the
+        # request this thread just finished, before its bytes go out: a
+        # client's next request always finds it.
         ts0 = time.perf_counter()
-        self._json(resp)
+        data, ctype = self._encode(resp)
         TIMELINE.note_serialize(ts0, time.perf_counter() - ts0)
+        self._bytes(data, ctype=ctype)
 
     def _query_proto(self, index: str, raw: bytes, q: dict,
                      shards: Optional[list]) -> None:
@@ -453,12 +528,12 @@ class Handler(BaseHTTPRequestHandler):
         except proto_compat.ProtoError as e:
             raise ApiError(f"invalid protobuf body: {e}")
         try:
-            if req["remote"]:
-                raise not_ported(_QUERY_ARGS_NOT_PORTED["remote"])
             pql = self._wrap_options(req["query"],
                                      self._exec_optargs(q, req))
             res = self.api.query(index, pql,
-                                 shards=shards or req["shards"] or None)
+                                 shards=shards or req["shards"] or None,
+                                 remote=req["remote"]
+                                 or self._qbool(q, "remote"))
             body = proto_compat.encode_query_response(
                 res["results"], column_attr_sets=res.get("columnAttrs"))
         except ValueError as e:
@@ -470,19 +545,43 @@ class Handler(BaseHTTPRequestHandler):
     def _post_import(self, index: str, field: str, q: dict) -> None:
         b = self._proto_import_body(index, field) if self._is_proto() \
             else self._body_json()
-        self._check_args(q, "clear")
+        self._check_args(q, "clear", "remote", "ignoreKeyCheck")
         clear = self._qbool(q, "clear")
+        remote = self._qbool(q, "remote")
+        ignore_keys = self._qbool(q, "ignoreKeyCheck")
         if "values" in b:
             self.api.import_values(
                 index, field, columns=b.get("columnIDs"), values=b["values"],
-                column_keys=b.get("columnKeys"), clear=clear)
+                column_keys=b.get("columnKeys"), clear=clear, remote=remote,
+                ignore_key_check=ignore_keys)
         else:
             self.api.import_bits(
                 index, field, rows=b.get("rowIDs"),
                 columns=b.get("columnIDs"), row_keys=b.get("rowKeys"),
                 column_keys=b.get("columnKeys"),
-                timestamps=b.get("timestamps"), clear=clear)
+                timestamps=b.get("timestamps"), clear=clear, remote=remote,
+                ignore_key_check=ignore_keys)
         self._json({})
+
+    def _post_translate_keys(self) -> None:
+        """Ids of keys, allocated here: a JSON (or wire) body answers
+        ``{"keys", "ids"}``, a protobuf TranslateKeysRequest a
+        TranslateKeysResponse."""
+        if self._is_proto():
+            try:
+                b = proto_compat.decode_translate_keys_request(self._body())
+            except proto_compat.ProtoError as e:
+                raise ApiError(f"invalid protobuf body: {e}")
+            ids = self.api.translate_keys_local(b["index"],
+                                                b.get("field") or None,
+                                                b["keys"])
+            self._bytes(proto_compat.encode_translate_keys_response(ids),
+                        ctype=proto_compat.RESPONSE_CONTENT_TYPE)
+            return
+        b = self._body_json()
+        keys = b.get("keys", [])
+        self._json({"keys": keys, "ids": self.api.translate_keys_local(
+            b["index"], b.get("field"), keys)})
 
     def _post_import_roaring(self, index: str, field: str, shard: int,
                              q: dict) -> None:
@@ -491,9 +590,8 @@ class Handler(BaseHTTPRequestHandler):
         own clear flag, OR'd with ``?clear``."""
         raw = self._body()
         self._check_args(q, "remote", "clear", "view")
-        if self._qbool(q, "remote"):
-            raise not_ported("remote imports (cluster)")
         clear = self._qbool(q, "clear")
+        remote = self._qbool(q, "remote")
         view = q.get("view", "standard")
         if self._is_proto():
             try:
@@ -503,10 +601,10 @@ class Handler(BaseHTTPRequestHandler):
             for name, blob in b["views"]:
                 self.api.import_roaring(index, field, shard, blob,
                                         clear=b["clear"] or clear,
-                                        view=name or view)
+                                        view=name or view, remote=remote)
         else:
             self.api.import_roaring(index, field, shard, raw, clear=clear,
-                                    view=view)
+                                    view=view, remote=remote)
         self._json({})
 
     def _proto_import_body(self, index: str, field: str) -> dict:
@@ -572,19 +670,28 @@ class PilosaHTTPServer(ThreadingHTTPServer):
             s.close()
 
 
-def make_server(api: API, host: str = "localhost",
-                port: int = 10101) -> PilosaHTTPServer:
+def make_server(api: API, host: str = "localhost", port: int = 10101,
+                ssl_context: Any = None) -> PilosaHTTPServer:
     """A bound (not yet serving) server for ``api``; port 0 picks a free
-    one (``server.server_address``)."""
+    one (``server.server_address``). With ``ssl_context`` the listener
+    speaks TLS; each connection's handshake runs on its handler thread,
+    so a slow client cannot stall the accept loop."""
     handler = type("BoundHandler", (Handler,), {"api": api})
-    return PilosaHTTPServer((host, port), handler)
+    server = PilosaHTTPServer((host, port), handler)
+    if ssl_context is not None:
+        server.socket = ssl_context.wrap_socket(
+            server.socket, server_side=True, do_handshake_on_connect=False)
+    return server
 
 
 def serve(api: API, host: str = "localhost", port: int = 10101,
-          background: bool = False) -> PilosaHTTPServer:
+          background: bool = False, ssl_context: Any = None
+          ) -> PilosaHTTPServer:
     """Serve ``api``; blocks unless ``background``, and returns the
-    server (stop it with ``shutdown()`` and ``server_close()``)."""
-    server = make_server(api, host, port)
+    server (stop it with ``shutdown()`` and ``server_close()``).
+    ``ssl_context`` (``Config.server_ssl_context()``) serves HTTPS, to
+    clients and to the other nodes alike."""
+    server = make_server(api, host, port, ssl_context=ssl_context)
     if background:
         threading.Thread(target=server.serve_forever, daemon=True,
                          name="http-serve").start()

@@ -5,9 +5,9 @@ numbers of the reference's ``internal/public.proto``). A copy of the
 JAX package's ``server/proto_compat.py`` for those four messages, with
 their keys (``RowKeys``/``ColumnKeys`` in, keys in ``Row``, ``Pair``,
 ``RowIdentifiers`` and ``FieldRow`` out) and ``ColumnAttrSets``, and for
-the ``ImportRoaringRequest`` of the roaring-import route; its
-node-to-node translation messages belong to the cluster, not ported
-yet.
+the ``ImportRoaringRequest`` of the roaring-import route, and the
+node-to-node ``TranslateKeysRequest``/``TranslateKeysResponse`` of
+``/internal/translate/keys``.
 
 The QueryResult.Type enum: 0=nil, 1=Row, 2=Pairs, 3=ValCount, 4=uint64,
 5=bool, 6=RowIDs, 7=GroupCounts, 8=RowIdentifiers. Decoders accept
@@ -233,6 +233,24 @@ def decode_import_roaring_request(data: bytes) -> Dict[str, Any]:
                     blob = bytes(v2)
             out["views"].append((name, blob))
     return out
+
+
+def decode_translate_keys_request(data: bytes) -> Dict[str, Any]:
+    """internal.TranslateKeysRequest: Index=1, Field=2, Keys=3."""
+    out: Dict[str, Any] = {"index": "", "field": "", "keys": []}
+    for f, wt, v in _fields(data):
+        if f == 1 and wt == _WIRE_LEN:
+            out["index"] = _utf8(v)
+        elif f == 2 and wt == _WIRE_LEN:
+            out["field"] = _utf8(v)
+        elif f == 3 and wt == _WIRE_LEN:
+            out["keys"].append(_utf8(v))
+    return out
+
+
+def encode_translate_keys_response(ids) -> bytes:
+    """internal.TranslateKeysResponse: IDs=3 (packed uint64)."""
+    return _packed_uint64(3, ids)
 
 
 def _encode_attr(key: str, value) -> bytes:

@@ -8,14 +8,21 @@ is the flat key ``name_key``; ``[failpoints]`` and ``[slo]`` stay tables
 
 Two differences, both loud:
 
-- keys with no counterpart in the port yet (TLS, the cluster and its
-  failure detection and replication, the mesh, the JAX platform and
-  multi-process keys, the runtime monitor and diagnostics) are refused
+- keys with no counterpart in the port yet (seed join, resize and
+  anti-entropy, the mesh, the JAX platform and multi-process keys, the
+  runtime monitor and diagnostics) are refused
   by ``load_config`` with a message saying they are not ported yet,
   whether they come from the file, the environment or a flag; none is
   ever silently ignored (``NOT_PORTED``);
 - ``data_dir`` defaults to ``""``: the server keeps its holder in memory
   unless a directory is given.
+
+The static cluster's keys (``cluster_peers``, ``cluster_replicas``, the
+fan-out and RPC timeouts, backoff and hedging, ``advertise``, the
+heartbeat and translate replication intervals) and TLS
+(``tls_certificate``, ``tls_key``, ``tls_ca_certificate``,
+``tls_skip_verify``; ``server_ssl_context``/``client_ssl_context``) are
+the JAX package's. A list key from the environment is comma-separated.
 """
 
 from __future__ import annotations
@@ -35,19 +42,12 @@ NOT_PORTED: Dict[str, str] = {
     "platform": "the JAX platform override",
     **{k: "JAX multi-process startup" for k in (
         "jax_coordinator", "jax_num_processes", "jax_process_id")},
-    **{k: "the cluster" for k in (
-        "anti_entropy_interval", "heartbeat_interval", "heartbeat_suspect",
-        "heartbeat_probes", "translate_replication_interval",
-        "cluster_peers", "cluster_replicas", "cluster_seeds",
-        "cluster_fanout_deadline_s", "cluster_rpc_timeout_s",
-        "cluster_health_timeout_s", "cluster_resize_pull_timeout_s",
-        "cluster_backoff_base_s", "cluster_backoff_cap_s",
-        "cluster_hedge_quantile", "advertise")},
+    **{k: "the cluster's seed join, resize and anti-entropy" for k in (
+        "anti_entropy_interval", "cluster_seeds",
+        "cluster_resize_pull_timeout_s")},
     "metric_poll_interval": "the runtime monitor",
     **{k: "diagnostics" for k in ("diagnostics_interval",
                                   "diagnostics_url")},
-    **{k: "TLS" for k in ("tls_certificate", "tls_key",
-                          "tls_ca_certificate", "tls_skip_verify")},
 }
 
 
@@ -80,6 +80,14 @@ class Config:
     coalescer_max_queue: int = 256
     coalescer_deadline_ms: float = 0.0
     coalescer_pipeline: bool = True
+    # [heartbeat]: the failure detector probes this often (0: off),
+    # marks a peer down after `suspect` failed probes in a row and
+    # probes at most `probes` healthy peers a round.
+    heartbeat_interval: float = 5.0
+    heartbeat_suspect: int = 3
+    heartbeat_probes: int = 2
+    # Standing translate-log replication from the primary (0: off).
+    translate_replication_interval: float = 10.0
     # [telemetry]: the memory watchdog's period (0 disables it), its
     # ring, and the pressure watermark as a share of the bank budget.
     telemetry_sample_every_s: float = 10.0
@@ -128,6 +136,18 @@ class Config:
     tracing_service_name: str = "pilosa-tpu"
     tracing_sampler_type: str = "const"
     tracing_sampler_param: float = 1.0
+    # [cluster]: the static peer URIs (this node's own among them) and
+    # the replica count; the fan-out's deadline budget, the internal
+    # client's RPC and health-probe timeouts, the failover backoff and
+    # the hedged-read quantile (0: off).
+    cluster_peers: list = field(default_factory=list)
+    cluster_replicas: int = 1
+    cluster_fanout_deadline_s: float = 30.0
+    cluster_rpc_timeout_s: float = 30.0
+    cluster_health_timeout_s: float = 5.0
+    cluster_backoff_base_s: float = 0.05
+    cluster_backoff_cap_s: float = 2.0
+    cluster_hedge_quantile: float = 0.0
     # [failpoints]: site -> spec (utils/failpoints.py); any entry arms
     # it and enables POST /internal/failpoints.
     failpoints: dict = field(default_factory=dict)
@@ -139,6 +159,24 @@ class Config:
     sentinel_ring: int = 720
     sentinel_decimate: int = 10
     sentinel_alert_ring: int = 256
+    # The URI peers reach this node at (default <scheme>://<bind>).
+    advertise: str = ""
+    # [tls]: with certificate and key the listener serves HTTPS, to
+    # clients and nodes alike, and peers are dialed over https;
+    # ca_certificate verifies peers against a private CA, skip_verify
+    # verifies nothing.
+    tls_certificate: str = ""
+    tls_key: str = ""
+    tls_ca_certificate: str = ""
+    tls_skip_verify: bool = False
+
+    @property
+    def tls_enabled(self) -> bool:
+        return bool(self.tls_certificate or self.tls_key)
+
+    @property
+    def scheme(self) -> str:
+        return "https" if self.tls_enabled else "http"
 
     @property
     def host(self) -> str:
@@ -154,6 +192,9 @@ class Config:
         of 0 binds a free port)."""
         if self.port < 0 or self.port > 65535:
             raise ValueError(f"invalid port {self.port}")
+        if bool(self.tls_certificate) != bool(self.tls_key):
+            raise ValueError(
+                "tls_certificate and tls_key must be set together")
         if self.coalescer_window_ms < 0 or self.coalescer_deadline_ms < 0:
             raise ValueError("coalescer window/deadline must be >= 0")
         if self.coalescer_max_batch < 1 or self.coalescer_max_queue < 1:
@@ -201,6 +242,18 @@ class Config:
         if not 0 <= self.telemetry_hbm_watermark <= 1:
             raise ValueError(
                 "telemetry hbm_watermark must be in [0, 1]")
+        if self.cluster_fanout_deadline_s < 0:
+            raise ValueError("cluster fanout_deadline_s must be >= 0")
+        if self.cluster_rpc_timeout_s <= 0 \
+                or self.cluster_health_timeout_s <= 0:
+            raise ValueError(
+                "cluster rpc/health/resize_pull timeouts must be > 0")
+        if self.cluster_backoff_base_s < 0 \
+                or self.cluster_backoff_cap_s < 0:
+            raise ValueError("cluster backoff base/cap must be >= 0")
+        if not 0 <= self.cluster_hedge_quantile < 1:
+            raise ValueError(
+                "cluster hedge_quantile must be in [0, 1)")
         if self.failpoints:
             from pilosa_tpu_torch.utils.failpoints import parse_spec
             for site, spec in self.failpoints.items():
@@ -222,6 +275,35 @@ class Config:
             raise ValueError("sentinel decimate must be >= 1")
         if self.sentinel_alert_ring < 8:
             raise ValueError("sentinel alert_ring must be >= 8")
+
+    def server_ssl_context(self) -> Any:
+        """The listener's ``ssl.SSLContext``, or None when TLS is off."""
+        if not self.tls_enabled:
+            return None
+        import ssl
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(os.path.expanduser(self.tls_certificate),
+                            os.path.expanduser(self.tls_key))
+        return ctx
+
+    def client_ssl_context(self) -> Any:
+        """The ``ssl.SSLContext`` that dials https peers, or None on a
+        plain http cluster: the CA bundle's, the system's, or one that
+        verifies nothing (``tls_skip_verify``)."""
+        if not (self.tls_enabled or self.tls_ca_certificate
+                or self.tls_skip_verify):
+            return None
+        import ssl
+        if self.tls_skip_verify:
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+            return ctx
+        ctx = ssl.create_default_context()
+        if self.tls_ca_certificate:
+            ctx.load_verify_locations(
+                os.path.expanduser(self.tls_ca_certificate))
+        return ctx
 
     def to_toml(self) -> str:
         """The ``generate-config`` text: one ``key = value`` line a flat
@@ -256,6 +338,8 @@ def _parse_env(cur: Any, env: str, key: str) -> Any:
         return int(env)
     if isinstance(cur, float):
         return float(env)
+    if isinstance(cur, list):
+        return [part for part in env.split(",") if part]
     if isinstance(cur, dict):
         # PILOSA_TPU_FAILPOINTS="site=spec;site=spec": entries merge over
         # (and win against) the TOML table.

@@ -3,7 +3,7 @@ named failpoint sites on the server's seams.
 
 Sites are registered once at module import and fired at the seam; a
 disarmed site costs one attribute read. The port registers the
-single-node sites:
+single-node sites and the static cluster's (with the API):
 
 =====================  ====================================================
 ``api.status``         the ``/status`` answer: arming ``error`` makes this
@@ -11,10 +11,16 @@ single-node sites:
                        data plane.
 ``api.query``          the query entry of this node: arming ``error``
                        fails every query routed here.
+``client.connect``     an internal RPC's connect (refused, partitioned).
+``client.read``        an internal RPC's connection lost mid-flight.
+``client.5xx``         an internal RPC answered 500.
+``client.torn_body``   an internal RPC's response torn (``error``) or
+                       lost after the peer acted (``drop``).
+``heartbeat.probe``    one heartbeat probe: ``error`` fails it, ``drop``
+                       loses it with no verdict.
 =====================  ====================================================
 
-The sites that exist only across nodes (the internal client's, the
-resize pull's, the heartbeat's) come with the cluster.
+The resize pull's site comes with resize.
 
 Spec syntax (env ``PILOSA_TPU_FAILPOINTS``, the ``[failpoints]`` config
 table, ``POST /internal/failpoints``)::

@@ -3,8 +3,10 @@
 the CPU: the same TOML files and environments resolve every shared key to
 the same value, ``generate-config`` prints the JAX package's text but for
 the keys the port refuses (and ``data_dir``, whose default is the
-in-memory holder), a refused key fails naming itself as not ported, and
-the server started from a TOML file wires its planes from it."""
+in-memory holder), a refused key fails naming itself as not ported, the
+static cluster's and TLS keys resolve from every source as the JAX
+package's, and the server started from a TOML file wires its planes from
+it."""
 
 import dataclasses
 import json
@@ -171,8 +173,74 @@ def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
         pcfg.load_config(overrides={key: value}, environ={})
 
 
-@pytest.mark.parametrize("table,key", [("tls", "certificate"),
-                                       ("cluster", "replicas"),
+# The static cluster's and TLS keys, each with a value that is not its
+# default (and, for the TLS pair, the key that must come with it).
+CLUSTER_KEYS = {
+    "cluster_peers": (["http://a:1", "http://b:2"], None),
+    "cluster_replicas": (3, None),
+    "cluster_fanout_deadline_s": (12.5, None),
+    "cluster_rpc_timeout_s": (7.0, None),
+    "cluster_health_timeout_s": (2.5, None),
+    "cluster_backoff_base_s": (0.2, None),
+    "cluster_backoff_cap_s": (4.0, None),
+    "cluster_hedge_quantile": (0.9, None),
+    "advertise": ("http://node0:10101", None),
+    "heartbeat_interval": (0.5, None),
+    "heartbeat_suspect": (5, None),
+    "heartbeat_probes": (4, None),
+    "translate_replication_interval": (2.5, None),
+    "tls_certificate": ("c.pem", ("tls_key", "k.pem")),
+    "tls_key": ("k.pem", ("tls_certificate", "c.pem")),
+    "tls_ca_certificate": ("ca.pem", None),
+    "tls_skip_verify": (True, None),
+}
+
+
+def _toml_value(v):
+    return str(v).lower() if isinstance(v, bool) else json.dumps(v)
+
+
+def _env_value(v):
+    return ",".join(v) if isinstance(v, list) else str(v).lower() \
+        if isinstance(v, bool) else str(v)
+
+
+@pytest.mark.parametrize("key", sorted(CLUSTER_KEYS))
+def test_ported_cluster_keys_match_jax(tmp_path, clean_env, key):
+    """Each key of the static cluster and TLS, set in the TOML file (flat
+    and as its table), in the environment and as a flag, resolves as
+    the JAX package's ``Config`` does."""
+    value, pair = CLUSTER_KEYS[key]
+    assert key not in pcfg.NOT_PORTED
+    sets = {key: value}
+    if pair is not None:
+        sets[pair[0]] = pair[1]
+    texts = ["".join(f"{k} = {_toml_value(v)}\n" for k, v in sets.items())]
+    table, _, rest = key.partition("_")
+    if table in ("cluster", "heartbeat", "tls") and pair is None:
+        texts.append(f"[{table}]\n{rest} = {_toml_value(value)}\n")
+    for i, text in enumerate(texts):
+        path = tmp_path / f"c{i}.toml"
+        path.write_text(text)
+        got, want = pcfg.load_config(str(path)), jcfg.load_config(str(path))
+        assert getattr(got, key) == getattr(want, key) == value, text
+        assert _shared(got) == _shared(want)
+    for k, v in sets.items():
+        clean_env.setenv("PILOSA_TPU_" + k.upper(), _env_value(v))
+    got, want = pcfg.load_config(), jcfg.load_config()
+    assert getattr(got, key) == getattr(want, key) == value
+    assert _shared(got) == _shared(want)
+    for k in sets:
+        clean_env.delenv("PILOSA_TPU_" + k.upper())
+    got = pcfg.load_config(overrides=dict(sets), environ={})
+    want = jcfg.load_config(overrides=dict(sets))
+    assert getattr(got, key) == getattr(want, key) == value
+    assert _shared(got) == _shared(want)
+    assert (got.scheme, got.tls_enabled) == (want.scheme, want.tls_enabled)
+
+
+@pytest.mark.parametrize("table,key", [("anti_entropy", "interval"),
+                                       ("cluster", "seeds"),
                                        ("mesh", "devices")])
 def test_refused_table_key_names_its_table(tmp_path, table, key):
     path = tmp_path / "c.toml"
@@ -265,10 +333,15 @@ def test_server_takes_its_planes_from_the_toml(tmp_path):
         assert proc.wait(timeout=60) == 0
     err = proc.stderr.read()
     assert "sentinel:" in err and "workload:" in err
-    bad = tmp_path / "bad.toml"
-    bad.write_text('bind = "127.0.0.1:0"\ntls_certificate = "x.pem"\n')
-    res = subprocess.run(
-        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-c",
-         str(bad), "--device", "cpu"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0 and "not ported yet" in res.stderr
+    # TLS is validated as the JAX package validates it, and a key that is
+    # not ported yet stops the server before it listens.
+    for text, msg in (('tls_certificate = "x.pem"\n',
+                       "tls_certificate and tls_key must be set together"),
+                      ("anti_entropy_interval = 5.0\n", "not ported yet")):
+        bad = tmp_path / "bad.toml"
+        bad.write_text('bind = "127.0.0.1:0"\n' + text)
+        res = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "-c",
+             str(bad), "--device", "cpu"], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0 and msg in res.stderr, res.stderr

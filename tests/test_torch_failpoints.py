@@ -3,9 +3,9 @@ package's, on the CPU: the spec parser, the registry's modes and count
 exhaustion, the configuration string, and the server's single-node sites
 (``api.query``, ``api.status``) and ``/internal/failpoints`` gate. Each
 case runs one script through both packages and compares what they do and
-their ``snapshot()`` documents. The JAX package's cluster sites (the
-internal client's, the heartbeat's, the resize pull's) come with the
-cluster."""
+their ``snapshot()`` documents. The static cluster's sites (the
+internal client's and the heartbeat's) are registered with the API;
+the resize pull's come with resize."""
 
 import json
 import time
@@ -172,9 +172,11 @@ def test_http_surface_gated(apis):
         with pytest.raises(err) as ei:
             api.failpoints_update({"arm": {"nope": "error"}})
         assert ei.value.status == 400
-    # The port registers exactly the single-node sites.
+    # The port registers exactly the single-node sites and the static
+    # cluster's (the internal client's and the heartbeat's).
     assert set(pfp.FAILPOINTS.snapshot()["sites"]) == \
-        {"api.query", "api.status"}
+        {"api.query", "api.status", "client.connect", "client.read",
+         "client.5xx", "client.torn_body", "heartbeat.probe"}
 
 
 def test_http_route_serves_and_gates(apis):

@@ -541,8 +541,9 @@ def _load_doctor():
 
 def test_doctor_bundle_diff_and_baseline(servers, tmp_path):
     """The operator's doctor tool reads the port's server as it reads
-    the JAX one: every single-node surface answers, the healthy bundle
-    judges with no failure, and an active alert fails it."""
+    the JAX one: every surface answers (``/cluster/health`` too), the
+    healthy bundle judges with no failure, and an active alert fails
+    it."""
     doctor = _load_doctor()
     for sent, _ in MODS:
         sent.SENTINEL.configure(objectives={"query": "99.9% < 25ms"},
@@ -552,14 +553,13 @@ def test_doctor_bundle_diff_and_baseline(servers, tmp_path):
     bundles = [doctor.snapshot_bundle(b) for b in servers.bases]
     errs = [{k for k, s in b["surfaces"].items() if "error" in s}
             for b in bundles]
-    # The port's one missing surface is the cluster's.
-    assert errs[0] == set() and errs[1] == {"cluster_health"}
+    # Every surface answers on both, the cluster's (ported) too.
+    assert errs[0] == set() and errs[1] == set()
     p1 = tmp_path / "a.json"
     p1.write_text(json.dumps(bundles[1]))
     assert doctor.main(["diff", str(p1), str(p1)]) == 0
     verdicts = doctor.judge_bundle(bundles[1], baseline={"published": {}})
-    bad = [(c, s) for c, s, _ in verdicts if s in ("FAIL", "REGRESSED")
-           and c != "surface:cluster_health"]
+    bad = [(c, s) for c, s, _ in verdicts if s in ("FAIL", "REGRESSED")]
     assert bad == []
     assert ("memory.sentinel-ledgered", "PASS") in \
         [(c, s) for c, s, _ in verdicts]

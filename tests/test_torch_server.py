@@ -411,13 +411,12 @@ def test_queue_c_faults_match_jax(servers):
 
 
 def test_port_refuses_what_is_not_ported(servers):
-    """Requests that need an unported part answer 400 (404 for a route)
-    naming it: never a silently different answer. What was refused
-    before and is ported now is answered as the JAX server does."""
+    """The routes of seed join, resize and anti-entropy answer 404
+    naming that part: never a silently different answer. What was
+    refused before and is ported now (remote query legs and the static
+    cluster's node-to-node routes among it) is answered as the JAX server
+    does."""
     _, pbase, _ = servers
-    cases = [
-        ("POST", "/index/dn/query?remote=true", "Row(f=1)", "cluster"),
-    ]
     # Column attributes, a column key, SetRowAttrs, index and field keys
     # and a keyed import are ported: the port answers them as the JAX
     # server does (an unkeyed index refuses a column key with the JAX
@@ -465,17 +464,41 @@ def test_port_refuses_what_is_not_ported(servers):
          roaring([1 * SHARD_WIDTH + 4, 2 * SHARD_WIDTH + 4]), None),
         ("GET", "/export?index=dn&field=f&shard=0", None, None),
     ])
-    for method, path, body, what in cases:
-        st, _, raw = call(pbase, method, path, body)
-        assert st == 400, (path, body, st, raw)
-        assert what in json.loads(raw)["error"], (path, body, raw)
-    for path, what in (("/internal/nodes", "cluster"),
-                       ("/internal/fragment/blocks", "cluster")):
-        st, _, raw = call(pbase, "GET", path)
-        assert st == 404 and what in json.loads(raw)["error"], (path, raw)
+    # A remote query leg (the static cluster is ported) answers on a
+    # single node as the JAX server's does.
+    run_script(servers, "remote-ported", [
+        ("POST", "/index/dn/query?remote=true", "Row(f=1)", None),
+        ("POST", "/index/dn/query?remote=true&shards=0", "Count(Row(f=1))",
+         None),
+        ("GET", "/internal/local-shards", None, None),
+        ("GET", "/internal/fragment/nodes?index=dn&shard=1", None, None),
+        ("GET", "/internal/shards/max", None, None),
+        ("GET", "/internal/views?index=dn&field=f", None, None),
+    ])
+    jbase = servers[0]
+    assert call(pbase, "GET", "/internal/nodes")[0] == \
+        call(jbase, "GET", "/internal/nodes")[0] == 200
+    # Seed join, resize and anti-entropy are not: their routes answer
+    # 404 naming that part.
+    for method, path in (("GET", "/internal/fragment/blocks"),
+                         ("GET", "/internal/fragment/block/data"),
+                         ("GET", "/internal/fragment/data"),
+                         ("GET", "/internal/attr/blocks"),
+                         ("GET", "/internal/attr/block/data"),
+                         ("POST", "/internal/attr/merge"),
+                         ("POST", "/internal/sync"),
+                         ("POST", "/internal/join"),
+                         ("POST", "/internal/resize/pull"),
+                         ("POST", "/cluster/resize/remove-node"),
+                         ("POST", "/cluster/resize/set-coordinator"),
+                         ("POST", "/cluster/resize/abort"),
+                         ("POST", "/cluster/resize/run")):
+        st, _, raw = call(pbase, method, path, {} if method == "POST"
+                          else None)
+        assert st == 404 and "resize" in json.loads(raw)["error"], \
+            (path, raw)
     # The serving planes are ported: their routes answer as the JAX
     # server's do.
-    jbase = servers[0]
     for path in ("/debug/hotspots", "/debug/history", "/debug/slo",
                  "/internal/health", "/internal/failpoints"):
         st, _, raw = call(pbase, "GET", path)
@@ -491,10 +514,10 @@ def test_port_refuses_what_is_not_ported(servers):
     assert got["profile"]["ops"][0]["name"] == "Row"
     # No stats client here (the nop one): an empty exposition.
     assert call(pbase, "GET", "/metrics")[:1] == (200,)
-    st, _, raw = call(pbase, "POST", "/index/dn/query",
-                      pb_query("Row(f=1)") + jax_proto._varint_field(5, 1),
-                      PROTO)
-    assert st == 400 and b"cluster" in raw
+    # A protobuf query with its Remote flag is a remote leg too.
+    body = pb_query("Row(f=1)") + jax_proto._varint_field(5, 1)
+    assert call(pbase, "POST", "/index/dn/query", body, PROTO) == \
+        call(jbase, "POST", "/index/dn/query", body, PROTO)
 
 
 def roaring(positions):
