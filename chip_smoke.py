@@ -123,10 +123,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``remote=true&shards=``. Then node 2's server stops: every read
    exact through node 0, node 2 marked down by the heartbeat within its
    window and sent no query RPC after, a Set read back from its live
-   owner. Last, two ``cli server`` processes naming each other in
-   ``cluster_peers`` (replica 2) answer a Count and a TopN over a
-   4-shard index imported through the first one, exact, and exit 0 on
-   SIGTERM. It prints a ``cluster`` line.
+   owner. Then the ``resize`` part (``run_resize``), its launch counts
+   set to 0 just before: a Set on cab_type and an int Set into a column
+   past the last ride, in a shard node 2 owns, while node 2 is down
+   (read back from the live owner); node 2's server back on a new port,
+   rejoined through ``join_via_seeds`` (every node dials the new URI,
+   the heartbeat marks it up, no resize), the writes absent from it;
+   ``POST /internal/sync`` on each node in turn, timed, cold then warm
+   (the writes on both owners after the first round, every read exact
+   through node 2); a fourth node ``n3`` (its own holder on the card)
+   joins through a seed with the ``resize.pull`` failpoint armed in
+   delay mode: while the cluster is RESIZING every read through n3 and
+   n0 is exact; disarmed, every node NORMAL within the pull's bound, the
+   fragments and bytes each node pulled; ``POST /cluster/resize/run`` on
+   every node (each holds exactly its placement's shards, the dropped
+   banks leave the ledger; memory lines before and after), every sweep
+   launched on n3's leg on its first pass, every read exact through
+   every node; ``remove-node n3`` through n0, NORMAL again, every read
+   exact through n0, n1 and n2. Last, two ``cli server`` processes
+   naming each other in ``cluster_peers`` (replica 2) answer a Count and
+   a TopN over a 4-shard index imported through the first one, exact; a
+   third names the first in ``cluster_seeds`` with a short
+   ``anti_entropy_interval``, joins (the first's ``/status`` lists three
+   nodes) and answers exactly; all exit 0 on SIGTERM. It prints a
+   ``cluster`` line.
    groupby: on the same holder, through a new ``Executor``: four Rows
    queries (``previous``, ``limit``, ``column``) and five GroupBy
    queries (``GroupBy(Rows(passenger_count), Rows(cab_type))``, a
@@ -366,6 +386,11 @@ CLUSTER_HB_TIMEOUT = 2.0  # a probe's timeout (s)
 CLUSTER_COL_ROW = 7  # a cab_type row no ride has: the phase's writes
 CLUSTER_CLI_SHARDS = 4
 CLUSTER_CLI_SEED = 29
+# The resize part (run_resize): the value of the int write node 2
+# misses (no read of the phase counts it), and the seconds the
+# resize.pull failpoint holds each fetch while the window is read.
+RESIZE_DIST = 299
+RESIZE_PULL_DELAY = 0.5
 
 # The fingerprint index: the reference's chemical-similarity example
 # (benches/tanimoto_chunked.py) — one row per molecule, 48 draws of a
@@ -885,7 +910,7 @@ def run_main(device, n_rides, iters=ITERS, profile=False,
                                     taxi_launches, n_rides, samples)
     memory_line("serving", device)
     report["cluster"] = run_cluster(holder, device, want_taxi, want_burst,
-                                    wants_cluster, cluster_samples)
+                                    wants_cluster, cluster_samples, n_rides)
     report["cluster"]["memory"] = memory_line("cluster", device)
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
@@ -4600,18 +4625,23 @@ def cluster_cli(device):
     """Two ``cli server`` processes that name each other in
     ``cluster_peers`` (replica 2): a 4-shard index made and imported
     through the first node's ``/import``, a Count and a TopN through
-    each node, exact under the reference's merge. Returns the report."""
+    each node, exact under the reference's merge; then a third that
+    names the first in ``cluster_seeds`` (a short anti-entropy
+    interval) joins, pulls its shards and answers exactly under the
+    three-node merge. Returns the report."""
     import signal
     import socket
     import tempfile
+    import threading
     import numpy as np
     from pilosa_tpu_torch.parallel.hashing import shard_nodes
-    socks = [socket.socket() for _ in range(2)]
+    socks = [socket.socket() for _ in range(3)]
     for s in socks:
         s.bind(("127.0.0.1", 0))
     uris = [f"http://127.0.0.1:{s.getsockname()[1]}" for s in socks]
     for s in socks:
         s.close()
+    uris, joiner_uri = uris[:2], uris[2]
     rng = np.random.default_rng(CLUSTER_CLI_SEED)
     n = 20_000
     cols = (rng.integers(0, CLUSTER_CLI_SHARDS, n) * SHARD_WIDTH
@@ -4633,28 +4663,34 @@ def cluster_cli(device):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         peers = ", ".join(f'"{u}"' for u in uris)
-        for i, uri in enumerate(uris):
+
+        def start(i, uri, member):
             path = os.path.join(tmp, f"node{i}.toml")
             with open(path, "w") as f:
-                f.write(f'bind = "{uri.split("//")[1]}"\n'
-                        f"cluster_peers = [{peers}]\n"
-                        f"cluster_replicas = 2\n"
-                        "heartbeat_interval = 0.5\n")
+                f.write(f'bind = "{uri.split("//")[1]}"\n' + member
+                        + "cluster_replicas = 2\n"
+                          "heartbeat_interval = 0.5\n")
             cmd = [sys.executable, "-m", "pilosa_tpu_torch.cli", "server",
                    "-c", path]
             if device == "cpu":
                 cmd += ["--device", "cpu"]
-            procs.append(subprocess.Popen(
+            proc = subprocess.Popen(
                 cmd, cwd=REPO, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True, env=cache_off_env()))
+                stderr=subprocess.STDOUT, text=True, env=cache_off_env())
+            procs.append(proc)
+            line = ""
+            while "listening on " not in line:
+                line = proc.stdout.readline()
+                if not line:
+                    raise AssertionError(f"cluster cli: {uri} exited "
+                                         f"{proc.wait()}")
+            # The rest of its output goes unread: drain it.
+            threading.Thread(target=proc.stdout.read, daemon=True).start()
+            return line
+
         try:
-            for proc, uri in zip(procs, uris):
-                line = ""
-                while "listening on " not in line:
-                    line = proc.stdout.readline()
-                    if not line:
-                        raise AssertionError(f"cluster cli: {uri} exited "
-                                             f"{proc.wait()}")
+            for i, uri in enumerate(uris):
+                line = start(i, uri, f"cluster_peers = [{peers}]\n")
                 if "cluster=2 nodes" not in line:
                     raise AssertionError(f"cluster cli: {uri} printed "
                                          f"{line!r}")
@@ -4674,6 +4710,40 @@ def cluster_cli(device):
                 answers[uri] = got["results"]
             held = [http_json(u, "GET", "/internal/local-shards")["cl"]
                     for u in uris]
+            # The third process joins through its seed and pulls.
+            t_join = time.perf_counter()
+            start(2, joiner_uri, f'cluster_seeds = ["{uris[0]}"]\n'
+                                 "anti_entropy_interval = 0.5\n")
+            all_uris = uris + [joiner_uri]
+            deadline = time.time() + 120
+            while True:
+                docs = [http_json(u, "GET", "/status") for u in all_uris]
+                if len(docs[0]["nodes"]) == 3 and all(
+                        d["state"] == "NORMAL" for d in docs):
+                    break
+                if time.time() > deadline:
+                    raise AssertionError(f"cluster cli: the seed join "
+                                         f"never completed: {docs}")
+                time.sleep(0.1)
+            joined_s = time.perf_counter() - t_join
+            ids = sorted(n["id"] for n in docs[0]["nodes"])
+            legs3 = {}
+            for s in range(CLUSTER_CLI_SHARDS):
+                legs3.setdefault(ids[shard_nodes("cl", s, 3, 2)[0]],
+                                 []).append(s)
+            want3 = {"results": [
+                int(per_shard[:, 1].sum()),
+                topn_merge(per_shard, list(legs3.values()), 2)]}
+            got = http_json(joiner_uri, "POST", "/index/cl/query",
+                            "Count(Row(f=1)) TopN(f, n=2)")
+            if got != want3:
+                raise AssertionError(f"cluster cli: the joiner answered "
+                                     f"{got}, want {want3}")
+            joiner = {"nodes": [n["uri"] for n in docs[0]["nodes"]],
+                      "joined_s": joined_s, "answers": got["results"],
+                      "shards_held": http_json(
+                          joiner_uri, "GET", "/internal/local-shards").get(
+                              "cl", [])}
         finally:
             rcs = []
             for proc in procs:
@@ -4685,15 +4755,333 @@ def cluster_cli(device):
                 except subprocess.TimeoutExpired:
                     proc.kill()
                     rcs.append(proc.wait())
-    if rcs != [0, 0]:
+    if rcs != [0, 0, 0]:
         raise AssertionError(f"cluster cli: exit codes {rcs}")
     return {"start_s": up_s, "bits": int(len(rows)),
             "answers": answers[uris[0]], "shards_held": held,
-            "seconds": time.perf_counter() - t0}
+            "seed_joiner": joiner, "seconds": time.perf_counter() - t0}
+
+
+def resize_owner_reads(nd, shard, col):
+    """Whether the two writes node 2 missed are on ``nd``, read with
+    ``remote=true&shards=``: the cab_type Set, and the int Set beside
+    it."""
+    q = f"/index/taxi/query?remote=true&shards={shard}"
+    cab = http_json(nd["base"], "POST", q, f"Row(cab_type={CLUSTER_COL_ROW})")
+    both = http_json(nd["base"], "POST", q,
+                     f"Intersect(Row(cab_type={CLUSTER_COL_ROW}), "
+                     f"Row(dist == {RESIZE_DIST}))")
+    return {"cab_type": cab["results"][0]["columns"] == [col],
+            "dist": both["results"][0]["columns"] == [col]}
+
+
+def resize_missed_writes(nodes, victim, n_rides):
+    """Step 1: while node 2 is down, a Set on cab_type and a Set of the
+    int field into one column past the last ride (no value yet), in a
+    shard node 2 owns, each read back from the live owner. Returns
+    (shard, column, report), or (None, None, report) when node 2 owns
+    no such shard at this size."""
+    n0 = nodes[0]
+    col = n_rides + 5
+    shard = col // SHARD_WIDTH
+    owners = [n.id for n in n0["cluster"].shard_nodes("taxi", shard)]
+    if (n_rides - 1) // SHARD_WIDTH != shard or victim["id"] not in owners:
+        return None, None, {"skipped": f"node 2 owns no shard with a "
+                                       f"column past ride {n_rides}"}
+    for pql in (f"Set({col}, cab_type={CLUSTER_COL_ROW})",
+                f"Set({col}, dist={RESIZE_DIST})"):
+        got = http_json(n0["base"], "POST", "/index/taxi/query", pql)
+        if got != {"results": [True]}:
+            raise AssertionError(f"resize: {pql} answered {got}")
+    live = [nd for nd in nodes if nd["id"] in owners and nd is not victim]
+    for nd in live:
+        back = resize_owner_reads(nd, shard, col)
+        if not all(back.values()):
+            raise AssertionError(f"resize: {nd['id']} read back {back}")
+    return shard, col, {"column": col, "shard": shard, "owners": owners,
+                        "read_from": [nd["id"] for nd in live]}
+
+
+def resize_wait(pred, bound, what):
+    """Poll ``pred`` until it holds, failing past ``bound`` seconds (a
+    bound the protocol gives). Returns the seconds it took."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > bound:
+            raise AssertionError(f"resize: {what} not within {bound} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class PullRecorder:
+    """The fragments and bytes each node's resize puller fetches (its
+    client's ``retrieve_shard``, counted by node)."""
+
+    def __init__(self, nodes):
+        self.counts = {}
+        for nd in nodes:
+            self.add(nd)
+
+    def add(self, nd):
+        client = nd["api"].resize_puller.client
+        inner = client.retrieve_shard
+        rec = self.counts.setdefault(nd["id"], {"fragments": 0, "bytes": 0})
+
+        def retrieve(*a, **kw):
+            data = inner(*a, **kw)
+            rec["fragments"] += 1
+            rec["bytes"] += len(data)
+            return data
+
+        client.retrieve_shard = retrieve
+
+    def take(self):
+        out = {k: dict(v) for k, v in self.counts.items()}
+        for v in self.counts.values():
+            v["fragments"] = v["bytes"] = 0
+        return out
+
+
+def resize_start_node(device, node_id):
+    """A node of no cluster but itself, on a free loopback port: its own
+    holder, ``API(cluster=...)`` with the result cache off, a heartbeat
+    with the phase's settings."""
+    from pilosa_tpu_torch import Holder
+    from pilosa_tpu_torch.parallel.cluster import Cluster, Node
+    from pilosa_tpu_torch.parallel.heartbeat import Heartbeater
+    from pilosa_tpu_torch.server import API, serve
+    holder = Holder(device=device)
+    srv = serve(API(holder), "127.0.0.1", 0, background=True)
+    nd = {"id": node_id, "holder": holder, "srv": srv,
+          "base": f"http://127.0.0.1:{srv.server_address[1]}"}
+    nd["cluster"] = Cluster(Node(node_id, nd["base"]),
+                            replica_n=CLUSTER_REPLICAS)
+    nd["api"] = cache_off(API(holder, cluster=nd["cluster"]))
+    srv.RequestHandlerClass.api = nd["api"]
+    nd["hb"] = Heartbeater(nd["cluster"], interval=CLUSTER_HB_INTERVAL,
+                           suspect_after=CLUSTER_HB_SUSPECT,
+                           timeout=CLUSTER_HB_TIMEOUT)
+    nd["hb"].start()
+    return nd
+
+
+def resize_holdings(nodes, n_shards):
+    """{node: (shards held, shards owned)} of the taxi index."""
+    out = {}
+    for nd in nodes:
+        idx = nd["holder"].index("taxi")
+        held = idx.available_shards() if idx is not None else []
+        owned = [s for s in range(n_shards)
+                 if nd["cluster"].owns_shard("taxi", s)]
+        out[nd["id"]] = (held, owned)
+    return out
+
+
+def run_resize(nodes, victim, tagger, want_taxi, want_burst, wants,
+               all_shards, device, n_rides):
+    """The resize part of the cluster phase, on its three loaded nodes
+    with node 2's server stopped (steps 1-6 of the module docstring's
+    ``resize``). Returns its report."""
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.parallel.client import InternalClient
+    from pilosa_tpu_torch.parallel.cluster import STATE_NORMAL, \
+        STATE_RESIZING
+    from pilosa_tpu_torch.server import serve
+    from pilosa_tpu_torch.utils.failpoints import FAILPOINTS
+    t_part = time.perf_counter()
+    n0 = nodes[0]
+    n_shards = len(all_shards)
+    kernels.reset_launches()
+    tagger.take()
+    rep = {}
+    # The detector's bound (run_cluster's down window) for a mark up,
+    # and the pull RPC's timeout for a resize to end.
+    hb_bound = CLUSTER_HB_SUSPECT * (CLUSTER_HB_INTERVAL
+                                     + 2 * CLUSTER_HB_TIMEOUT) \
+        + CLUSTER_HB_INTERVAL
+    pull_bound = InternalClient.RESIZE_PULL_TIMEOUT
+    # 1. Writes node 2 misses; the burst's Not counts the new column.
+    shard, col, rep["missed_writes"] = resize_missed_writes(
+        nodes, victim, n_rides)
+    burst_want = dict(want_burst)
+    if col is not None:
+        burst_want["not_cab0"] = want_burst["not_cab0"] + 1
+    # 2. Node 2 returns on a new port and rejoins through a seed.
+    gen0 = n0["cluster"].resize_gen
+    srv = serve(victim["api"], "127.0.0.1", 0, background=True)
+    srv.RequestHandlerClass.api = victim["api"]
+    victim["srv"] = srv
+    victim["base"] = f"http://127.0.0.1:{srv.server_address[1]}"
+    victim["cluster"].local.uri = victim["base"]
+    t0 = time.perf_counter()
+    status = victim["api"].join_via_seeds([n0["base"]])
+    rep["rejoin"] = {"members": len(status["nodes"]),
+                     "resizes": n0["cluster"].resize_gen - gen0}
+    if rep["rejoin"] != {"members": CLUSTER_NODES, "resizes": 0}:
+        raise AssertionError(f"resize: the rejoin gave {rep['rejoin']}")
+    rep["rejoin"]["dial_s"] = resize_wait(lambda: all(
+        nd["cluster"].node_by_id(victim["id"]).uri == victim["base"]
+        for nd in nodes), hb_bound, "every node dialing node 2's new URI")
+    rep["rejoin"]["up_s"] = resize_wait(lambda: all(
+        victim["id"] not in nd["cluster"].down_ids for nd in nodes),
+        hb_bound, "node 2 marked up")
+    rep["rejoin"]["seconds"] = time.perf_counter() - t0
+    # Every node up: the legs of three nodes.
+    legs3 = list(n0["cluster"].shards_by_node("taxi", all_shards).values())
+    expected3 = cluster_expected(want_taxi, want_burst, wants, legs3)
+    if shard is not None:
+        rep["missed_writes"]["on_node2_before_sync"] = resize_owner_reads(
+            victim, shard, col)
+        if any(rep["missed_writes"]["on_node2_before_sync"].values()):
+            raise AssertionError("resize: node 2 holds a write it missed")
+    # 3. Anti-entropy: a cold pass on each node in turn, then a warm one.
+    passes = []
+    for round_ in ("cold", "warm"):
+        for nd in nodes:
+            t0 = time.perf_counter()
+            got = http_json(nd["base"], "POST", "/internal/sync", {})
+            passes.append({"node": nd["id"], "round": round_,
+                           "seconds": time.perf_counter() - t0, **got})
+        if round_ == "cold" and shard is not None:
+            owners = [nd for nd in nodes
+                      if nd["id"] in rep["missed_writes"]["owners"]]
+            back = {nd["id"]: resize_owner_reads(nd, shard, col)
+                    for nd in owners}
+            rep["missed_writes"]["after_sync"] = back
+            if not all(all(v.values()) for v in back.values()):
+                raise AssertionError(f"resize: after the sync {back}")
+    rep["sync_passes"] = passes
+    log("resize: anti-entropy passes " + ", ".join(
+        f"{p['node']} {p['round']} {p['seconds']:.2f} s "
+        f"(merged {p['merged']}, pushed {p['pushed']})" for p in passes))
+    tagger.take()
+    cluster_reads(victim["base"], "taxi", expected3, burst_want,
+                  "through node 2 after anti-entropy")
+    rep["launches_healed_first_pass"] = tagger.take()
+    # 4. A fourth node joins through a seed; the pull is held open.
+    pulls = PullRecorder(nodes)
+    n3 = resize_start_node(device, "n3")
+    pulls.add(n3)
+    tagger._tag(n3["api"], "n3")
+    nodes4 = nodes + [n3]
+    try:
+        FAILPOINTS.arm("resize.pull", f"delay({RESIZE_PULL_DELAY})")
+        try:
+            t_join = time.perf_counter()
+            status = n3["api"].join_via_seeds([n0["base"]])
+            if len(status["nodes"]) != CLUSTER_NODES + 1:
+                raise AssertionError(f"resize: the join gave {status}")
+            window = []
+            for nd in (n3, n0):
+                if nd["cluster"].state != STATE_RESIZING:
+                    raise AssertionError(f"resize: {nd['id']} is "
+                                         f"{nd['cluster'].state}")
+                t0 = time.perf_counter()
+                cluster_reads(nd["base"], "taxi", expected3, burst_want,
+                              f"through {nd['id']} while RESIZING")
+                window.append({"node": nd["id"],
+                               "seconds": time.perf_counter() - t0})
+            for nd in (n3, n0):
+                if nd["cluster"].state != STATE_RESIZING:
+                    raise AssertionError("resize: the window closed "
+                                         "before its reads ended")
+            rep["resizing_reads"] = window
+        finally:
+            FAILPOINTS.disarm("resize.pull")
+        t_disarm = time.perf_counter()
+        resize_wait(lambda: all(
+            nd["cluster"].state == STATE_NORMAL
+            and len(nd["cluster"].nodes()) == CLUSTER_NODES + 1
+            for nd in nodes4), pull_bound, "NORMAL after the join")
+        rep["join"] = {"to_normal_s": time.perf_counter() - t_join,
+                       "after_disarm_s": time.perf_counter() - t_disarm,
+                       "pulled": pulls.take()}
+        held = resize_holdings(nodes4, n_shards)
+        rep["join"]["holdings"] = {k: {"held": len(h), "owned": len(o)}
+                                   for k, (h, o) in held.items()}
+        for k, (h, o) in held.items():
+            if not set(o) <= set(h):
+                raise AssertionError(f"resize: {k} lacks owned shards "
+                                     f"{sorted(set(o) - set(h))}")
+        log(f"resize: n3 joined, NORMAL after "
+            f"{rep['join']['to_normal_s']:.2f} s "
+            f"({rep['join']['after_disarm_s']:.2f} s after the disarm); "
+            f"pulled {rep['join']['pulled']}")
+        # 5. Resize run: each node keeps exactly its placement's shards.
+        before = memory_line("resize_before_run", device)
+        runs = {}
+        for nd in nodes4:
+            t0 = time.perf_counter()
+            got = http_json(nd["base"], "POST", "/cluster/resize/run", {})
+            runs[nd["id"]] = {**got, "seconds": time.perf_counter() - t0}
+        after = memory_line("resize_after_run", device)
+        rep["run"] = runs
+        for k, (h, o) in resize_holdings(nodes4, n_shards).items():
+            if h != o:
+                raise AssertionError(f"resize: after the run {k} holds "
+                                     f"{len(h)} shards, owns {len(o)}")
+        rep["run_bank_bytes"] = [before["ledger"].get("bank", 0),
+                                 after["ledger"].get("bank", 0)]
+        if sum(r["removed"] for r in runs.values()) and \
+                rep["run_bank_bytes"][1] >= rep["run_bank_bytes"][0]:
+            raise AssertionError(f"resize: the dropped fragments' banks "
+                                 f"stayed: {rep['run_bank_bytes']}")
+        legs4 = list(n0["cluster"].shards_by_node("taxi", all_shards)
+                     .values())
+        expected4 = cluster_expected(want_taxi, want_burst, wants, legs4)
+        tagger.take()
+        per_query = {}
+        for name, (pql, want) in expected4.items():
+            got = http_json(n0["base"], "POST", "/index/taxi/query", pql)
+            if got != {"results": [want]}:
+                raise AssertionError(f"resize: {name} answered {got}, "
+                                     f"want {want}")
+            per_query[name] = tagger.take()
+        rep["launches_joiner_first_pass"] = {
+            name: q.get("n3", {}) for name, q in per_query.items()}
+        if device != "cpu":
+            for k in SWEEPS:
+                n = sum(q.get("n3", {}).get(k, 0)
+                        for q in per_query.values())
+                if n <= 0:
+                    raise AssertionError(f"resize: {k} never launched on "
+                                         "n3's leg")
+        for nd in nodes4:
+            cluster_reads(nd["base"], "taxi", expected4, burst_want,
+                          f"through {nd['id']} after the resize run")
+        # 6. Remove n3: the survivors pull back what they own.
+        t0 = time.perf_counter()
+        http_json(n0["base"], "POST", "/cluster/resize/remove-node",
+                  {"id": n3["id"]})
+        resize_wait(lambda: all(
+            nd["cluster"].state == STATE_NORMAL
+            and len(nd["cluster"].nodes()) == CLUSTER_NODES
+            for nd in nodes), pull_bound, "NORMAL after the removal")
+        rep["remove"] = {"to_normal_s": time.perf_counter() - t0,
+                         "pulled": pulls.take()}
+        for nd in nodes:
+            cluster_reads(nd["base"], "taxi", expected3, burst_want,
+                          f"through {nd['id']} after the removal")
+    finally:
+        FAILPOINTS.disarm_all()
+        n3["hb"].stop()
+        n3["api"].broadcaster.stop()
+        n3["srv"].shutdown()
+        n3["srv"].server_close()
+        n3["holder"].close()
+    rep["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if device != "cpu":
+        for k in SWEEPS:
+            if not rep["launches"].get(k):
+                raise AssertionError(f"resize: {k} never launched")
+    rep["seconds"] = time.perf_counter() - t_part
+    log(f"resize: {rep['seconds']:.1f} s; removal NORMAL after "
+        f"{rep['remove']['to_normal_s']:.2f} s")
+    return rep
 
 
 def run_cluster(src, device, want_taxi, want_burst, wants,
-                samples=CLUSTER_SAMPLES):
+                samples=CLUSTER_SAMPLES, n_rides=N_RIDES):
     """The cluster phase: three nodes of a static cluster in this process
     (replica 2, a heartbeat each), loaded from the taxi holder by the
     reference client's import-roaring path; every read through every
@@ -4869,6 +5257,9 @@ def run_cluster(src, device, want_taxi, want_burst, wants,
         report["write_with_node_down"] = cluster_write(
             nodes, n0, shard, down=(victim["id"],))
         ce.client.query_node_full = real
+        report["resize"] = run_resize(nodes, victim, tagger, want_taxi,
+                                      want_burst, wants, all_shards, device,
+                                      n_rides)
     finally:
         if tagger is not None:
             tagger.close()

@@ -12,8 +12,8 @@ config commands.
 The flags are the JAX package's (``pilosa_tpu/cli/main.py``). ``server``
 resolves its settings through ``utils/config.load_config``: flags over
 ``PILOSA_TPU_*`` variables over the TOML file over defaults, with the
-JAX package's keys; a key the port has no counterpart of yet (seed
-join, resize and anti-entropy, the mesh, the JAX platform keys) fails at
+JAX package's keys; a key the port has no counterpart of yet (the mesh,
+the JAX platform keys, the runtime monitor, diagnostics) fails at
 startup with a message that says so. With ``--data-dir`` (or ``data_dir``) the server
 opens ``Holder(DIR)`` (the JAX package's directory layout; either
 package opens the other's), and every acknowledged write is in its
@@ -32,11 +32,16 @@ objectives (``[slo]``), the failpoints (``[failpoints]`` or
 the memory watchdog (whose gauge hook samples the sentinel) and the
 hybrid layout's re-layout pass. With ``cluster_peers`` (every node's
 URI, this one's among them; the node's id is its URI) the server is one
-node of a static cluster of ``cluster_replicas`` replicas: the
-coordinator fans queries out, imports go to every owner, the heartbeat
-marks dead peers down and the translate replication loop pulls the
-primary's key log; ``.topology`` in the data directory keeps the
-topology. With ``tls_certificate`` and ``tls_key`` it serves HTTPS, to
+node of a cluster of ``cluster_replicas`` replicas: the coordinator
+fans queries out, imports go to every owner, the heartbeat marks dead
+peers down and the translate replication loop pulls the primary's key
+log; ``.topology`` in the data directory keeps the topology. With
+``cluster_seeds`` (any members' URIs) the node joins an existing
+cluster once its own listener answers, retrying every 5 s until a seed
+takes it; its id is the holder's ``.id`` (a fresh one in memory), so a
+restart on a new address rejoins as the same member. With
+``anti_entropy_interval`` above 0 a cluster node reconciles its
+replicas that often. With ``tls_certificate`` and ``tls_key`` it serves HTTPS, to
 clients and peers alike. ``config`` prints the resolved settings as
 JSON; ``generate-config`` prints the defaults as TOML.
 """
@@ -48,7 +53,10 @@ import json
 import logging
 import os
 import signal
+import socket
 import sys
+import threading
+import uuid
 
 
 def drain_telemetry(api, watchdog=None) -> None:
@@ -206,17 +214,24 @@ def _start_memory_planes(api, cfg):
 
 
 def build_cluster(cfg, holder):
-    """The static cluster of ``cfg.cluster_peers`` with this node among
-    them, its ``.topology`` read back from the data directory (none in
-    memory); None without peers."""
+    """The cluster of ``cfg.cluster_peers`` with this node among them, or
+    of this node alone until it joins through ``cfg.cluster_seeds``, its
+    ``.topology`` read back from the data directory (none in memory);
+    None with neither. A static peer names a node by its URI, so that is
+    the id there; a seed-joined node introduces itself by the holder's
+    id (a fresh one for a holder in memory)."""
     from pilosa_tpu_torch.parallel.cluster import STATE_NORMAL, Cluster, \
         Node
-    if not cfg.cluster_peers:
+    if not (cfg.cluster_peers or cfg.cluster_seeds):
         return None
     local_uri = cfg.advertise or f"{cfg.scheme}://{cfg.bind}"
+    local_id = local_uri if cfg.cluster_peers \
+        else holder.node_id or uuid.uuid4().hex
     cluster = Cluster(
-        Node(local_uri, local_uri,
-             is_coordinator=local_uri == sorted(cfg.cluster_peers)[0]),
+        Node(local_id, local_uri,
+             is_coordinator=bool(
+                 cfg.cluster_peers
+                 and local_uri == sorted(cfg.cluster_peers)[0])),
         replica_n=cfg.cluster_replicas,
         topology_path=(os.path.join(holder.path, ".topology")
                        if holder.path else None))
@@ -228,14 +243,64 @@ def build_cluster(cfg, holder):
     return cluster
 
 
+class SeedJoin:
+    """The seed join of ``cli server``, on a thread: wait until this
+    node's own listener takes a connection (the seed's resize job calls
+    back with ``/internal/resize/pull``), then ``join_via_seeds`` every
+    5 s until a seed answers. ``stop`` ends the retries."""
+
+    def __init__(self, api, cfg):
+        self.api = api
+        self.cfg = cfg
+        self._stop = threading.Event()
+
+    def start(self) -> None:
+        threading.Thread(target=self._run, daemon=True,
+                         name="seed-join").start()
+
+    def _run(self) -> None:
+        cfg, api = self.cfg, self.api
+        # The bind address (loopback for a wildcard bind); a plain TCP
+        # connect, so TLS certificates need not name it.
+        host = cfg.host
+        if host in ("", "0.0.0.0", "::", "localhost"):
+            host = "127.0.0.1"
+        while not self._stop.is_set():
+            try:
+                socket.create_connection((host, cfg.port),
+                                         timeout=1.0).close()
+                break
+            except OSError:
+                self._stop.wait(0.3)
+        while not self._stop.is_set():
+            try:
+                api.join_via_seeds(cfg.cluster_seeds)
+                api.logger.printf("seed join ok: cluster has %d node(s)",
+                                  len(api.cluster.nodes()))
+                return
+            except Exception as e:
+                api.logger.printf("seed join: %s; retrying in 5s", e)
+                self._stop.wait(5.0)
+
+    def stop(self) -> None:
+        self._stop.set()
+
+
 def start_cluster_loops(api, cfg):
-    """The heartbeat and the translate replication loop of a cluster
-    node (each off at an interval of 0); returns them."""
+    """The loops of a cluster node: the anti-entropy pass, the
+    heartbeat and the translate replication loop (each off at an
+    interval of 0), and the seed join with ``cluster_seeds``; returns
+    them."""
     from pilosa_tpu_torch.parallel.heartbeat import Heartbeater, \
         TranslateReplicationLoop
+    from pilosa_tpu_torch.parallel.syncer import AntiEntropyLoop
     loops = []
     if api.cluster is None:
         return loops
+    if cfg.anti_entropy_interval > 0:
+        ae = AntiEntropyLoop(api.syncer, cfg.anti_entropy_interval)
+        ae.start()
+        loops.append(ae)
     if cfg.heartbeat_interval > 0:
         hb = Heartbeater(api.cluster, interval=cfg.heartbeat_interval,
                          suspect_after=cfg.heartbeat_suspect,
@@ -249,6 +314,10 @@ def start_cluster_loops(api, cfg):
                                       cfg.translate_replication_interval)
         tr.start()
         loops.append(tr)
+    if cfg.cluster_seeds:
+        sj = SeedJoin(api, cfg)
+        sj.start()
+        loops.append(sj)
     return loops
 
 
@@ -272,8 +341,10 @@ def build_server(cfg, holder):
             backoff_base_s=cfg.cluster_backoff_base_s,
             backoff_cap_s=cfg.cluster_backoff_cap_s,
             hedge_quantile=cfg.cluster_hedge_quantile)
-        api._client.configure(timeout=cfg.cluster_rpc_timeout_s,
-                              health_timeout=cfg.cluster_health_timeout_s)
+        api._client.configure(
+            timeout=cfg.cluster_rpc_timeout_s,
+            health_timeout=cfg.cluster_health_timeout_s,
+            resize_pull_timeout=cfg.cluster_resize_pull_timeout_s)
     if cfg.coalescer_enabled:
         api.coalescer = QueryCoalescer(
             api.executor, window_s=cfg.coalescer_window_ms / 1e3,

@@ -19,10 +19,14 @@ LOG_COMPACT_ENTRIES lines or LOG_COMPACT_BYTES bytes.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import threading
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+# Ids a checksum block covers (reference attr.go:80-119).
+ATTR_BLOCK_SIZE = 100
 
 # Log lines or bytes after which the log folds into the snapshot (the
 # JAX package's defaults).
@@ -150,3 +154,25 @@ class AttrStore:
             # attribute values).
             return sorted(i for i, a in self.attrs.items()
                           if any(a.get(key) == v for v in vals))
+
+    def blocks(self) -> List[Tuple[int, bytes]]:
+        """(block, digest) pairs, ascending, over every block holding an
+        id with attributes."""
+        with self._lock:
+            by_block: Dict[int, List[Tuple[int, str]]] = {}
+            for id_, attrs in self.attrs.items():
+                by_block.setdefault(id_ // ATTR_BLOCK_SIZE, []).append(
+                    (id_, json.dumps(attrs, sort_keys=True)))
+        out = []
+        for blk in sorted(by_block):
+            h = hashlib.blake2b(digest_size=16)
+            for id_, payload in sorted(by_block[blk]):
+                h.update(f"{id_}:{payload};".encode())
+            out.append((blk, h.digest()))
+        return out
+
+    def block_data(self, block: int) -> Dict[int, Dict[str, Any]]:
+        """{id: attributes} of the ids in ``block``."""
+        with self._lock:
+            return {i: dict(a) for i, a in self.attrs.items()
+                    if i // ATTR_BLOCK_SIZE == block}

@@ -19,9 +19,8 @@ sidecar to the storage bytes it was computed from, then little-endian
 (u64 row, u64 count) pairs, by count descending. A saturated ranked
 cache is saved empty. Every stored rank vector is registered with the
 memory ledger as a ``rank_cache`` row of its device bytes, unregistered
-when the store evicts or forgets it. The store's resize invalidation and
-its ``[cache]`` config belong to the cluster and config items and are
-left out with them.
+when the store evicts or forgets it, or when a resize moves the
+ownership of a shard its vector covers (``invalidate_shards``).
 """
 
 from __future__ import annotations
@@ -258,6 +257,9 @@ class RankCacheStore:
         self._entries: "OrderedDict[tuple, Tuple[Any, RankEntry]]" = \
             OrderedDict()
         self.evictions = 0
+        # Entries dropped because a resize moved shard ownership
+        # (server/api.py _note_placement_change).
+        self.placement_invalidations = 0
 
     def configure(self, enabled: Optional[bool] = None,
                   max_entries: Optional[int] = None) -> None:
@@ -305,6 +307,31 @@ class RankCacheStore:
                 self._entries.pop(ek, None)
                 LEDGER.unregister("rank_cache", ek[1], owner=view)
 
+    def invalidate_shards(self, moved: Any) -> int:
+        """Drop entries whose count vector covers a shard whose owner
+        set changed in a resize (``moved``: a set of ``(index, shard)``
+        pairs), with their ledger rows. The per-shard version stamps
+        already refuse a stale reuse; this frees the device bytes at the
+        placement change and counts the drop
+        (``placement_invalidations``). Returns the entries dropped."""
+        if not moved:
+            return 0
+        from pilosa_tpu_torch.utils.memledger import LEDGER
+        by_index: Dict[str, set] = {}
+        for iname, shard in moved:
+            by_index.setdefault(str(iname), set()).add(int(shard))
+        with self._lock:
+            dead = []
+            for ek, (v, e) in self._entries.items():
+                shs = by_index.get(str(getattr(v, "index", "")))
+                if shs and shs & {int(s) for s in e.versions}:
+                    dead.append(ek)
+            for ek in dead:
+                v, _e = self._entries.pop(ek)
+                LEDGER.unregister("rank_cache", ek[1], owner=v)
+            self.placement_invalidations += len(dead)
+            return len(dead)
+
     def clear(self) -> None:
         """Drop every entry with its ledger row."""
         from pilosa_tpu_torch.utils.memledger import LEDGER
@@ -317,9 +344,10 @@ class RankCacheStore:
         return len(self._entries)
 
     def snapshot(self) -> Dict[str, Any]:
-        """Live entries and their device bytes (the ``rank_cache.*``
-        gauges of ``/metrics``)."""
+        """Live entries, their device bytes (the ``rank_cache.*`` gauges
+        of ``/metrics``) and the entries a resize dropped."""
         with self._lock:
             return {"entries": len(self._entries),
                     "bytes": sum(int(e.nbytes)
-                                 for _, e in self._entries.values())}
+                                 for _, e in self._entries.values()),
+                    "placementInvalidations": self.placement_invalidations}

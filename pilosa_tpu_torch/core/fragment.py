@@ -31,12 +31,22 @@ storage file's size and the checksum of its last 64 bytes; a sidecar
 whose stamp no longer matches loads cold. Without a path a fragment
 lives in memory and writes no records.
 
+Anti-entropy compares fragments a block of HASH_BLOCK_SIZE rows at a
+time (``checksum_blocks``): a block's digest is blake2b (16 bytes) over
+its sorted absolute positions as little-endian u64, byte for byte the
+JAX package's digest, so a port node and a JAX node diff each other.
+Digests are cached and every write marks its rows' blocks dirty in
+``_touch_rows``, so a pass re-hashes only what changed. ``block_data``
+and ``merge_block`` (a union) move one block's bits between replicas;
+``replace_with_bytes`` overwrites the whole fragment (the resize pull).
+
 BSI layout: rows 0..bit_depth-1 hold value bits LSB-first; row bit_depth
 is the not-null marker.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import os
 import struct
@@ -67,6 +77,11 @@ IMPORT_CHUNK_PAIRS = 4 << 20
 # worst legitimate record (a chunk with every pair in its own container,
 # 18 bytes a container).
 MAX_TORN_TAIL_BYTES = 2 * (18 * IMPORT_CHUNK_PAIRS + (1 << 16))
+# Rows an anti-entropy checksum block covers (reference HashBlockSize,
+# fragment.go:76).
+HASH_BLOCK_SIZE = 100
+# Containers a checksum block spans.
+_BLOCK_CONTAINERS = HASH_BLOCK_SIZE * CONTAINERS_PER_ROW
 
 _VERSIONS = itertools.count(1)
 # Moves after every version a fragment takes and every fragment a view
@@ -117,6 +132,10 @@ class Fragment:
         self._lock = threading.RLock()
         self._row_ids_cache: Tuple[int, Tuple[int, ...]] = (-1, ())
         self._max_col_cache: Tuple[int, int] = (-1, -1)
+        # Block digests (None: cold, the next checksum_blocks hashes
+        # every block) and the blocks written since they were taken.
+        self._block_digests: Optional[Dict[int, bytes]] = None
+        self._dirty_blocks: set = set()
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -275,6 +294,9 @@ class Fragment:
         self.version = v = _next_version()
         bump_epoch()
         self._row_versions.update(zip(rows, itertools.repeat(v)))
+        # Every mutation funnels through here: the checksum pass
+        # re-hashes only these blocks.
+        self._dirty_blocks.update(r // HASH_BLOCK_SIZE for r in rows)
         if same_row_set and self._row_ids_cache[0] == prev:
             self._row_ids_cache = (v, self._row_ids_cache[1])
         if self.owner is not None:
@@ -507,6 +529,26 @@ class Fragment:
             self._cache_update(rows)
             self._snapshot()
 
+    def replace_with_bytes(self, data: bytes) -> None:
+        """Overwrite the whole fragment with the bits of a serialized
+        roaring bitmap (the resize pull): bits absent from ``data`` go,
+        so a stale copy resurrects nothing cleared while this node did
+        not own the shard. The union of the old and the new rows is
+        touched, so banks patch or rebuild every moved row; then the
+        snapshot is rewritten."""
+        other = Bitmap.from_bytes(data)
+        with self._lock:
+            old_rows = set(self.row_ids())
+            self.storage.containers = other.containers
+            self.storage._counts = {}
+            self.storage.optimize()
+            rows = sorted(old_rows | {k // CONTAINERS_PER_ROW
+                                      for k in self.storage.containers})
+            self._prelatch_cache_saturation(np.asarray(rows, np.uint64))
+            self._touch_rows(rows)
+            self._cache_update(rows)
+            self._snapshot()
+
     def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
         """Write one BSI value bit by bit (an OP_ADD or OP_REMOVE record
         a changed bit), then the not-null bit."""
@@ -704,6 +746,94 @@ class Fragment:
             self._touch_rows((row_id,))
             self._cache_update((row_id,))
             self._maybe_snapshot()
+
+    # -- block checksums (the anti-entropy unit) ----------------------------
+
+    def _block_positions(self, blocks) -> np.ndarray:
+        """Sorted positions of every bit in ``blocks`` (a set of block
+        ids), from one scan of the container keys."""
+        return self.storage.sorted_positions(sorted(
+            k for k in self.storage.containers
+            if k // _BLOCK_CONTAINERS in blocks))
+
+    @staticmethod
+    def _digest_blocks(pos: np.ndarray) -> Dict[int, bytes]:
+        """{block: digest} of sorted positions, one blake2b a block over
+        its positions as little-endian u64."""
+        if not len(pos):
+            return {}
+        blk_of = pos // np.uint64(HASH_BLOCK_SIZE * SHARD_WIDTH)
+        # Sorted input: each block's positions are one contiguous run.
+        cuts = np.nonzero(np.diff(blk_of))[0] + 1
+        bounds = np.concatenate(([0], cuts, [len(pos)]))
+        raw = pos.astype("<u8", copy=False)
+        return {int(blk_of[a]): hashlib.blake2b(
+                    memoryview(raw[a:b]), digest_size=16).digest()
+                for a, b in zip(bounds[:-1].tolist(), bounds[1:].tolist())}
+
+    def checksum_blocks(self) -> List[Tuple[int, bytes]]:
+        """(block, digest) pairs, ascending, over every block holding a
+        bit. Digests are cached: a pass re-hashes the blocks written
+        since the last one, or every block when cold or when most of
+        them were written."""
+        with self._lock:
+            known = 0 if self._block_digests is None \
+                else len(self._block_digests)
+            if self._block_digests is None or \
+                    len(self._dirty_blocks) * 4 > known + 4:
+                self._block_digests = self._checksum_all_blocks()
+            elif self._dirty_blocks:
+                dirty = self._dirty_blocks
+                for blk in dirty:
+                    self._block_digests.pop(blk, None)
+                self._block_digests.update(
+                    self._digest_blocks(self._block_positions(dirty)))
+            self._dirty_blocks = set()
+            return sorted(self._block_digests.items())
+
+    def _checksum_all_blocks(self) -> Dict[int, bytes]:
+        """Every block's digest from one extraction of the whole
+        store."""
+        with self._lock:
+            return self._digest_blocks(self.storage.slice())
+
+    def _invalidate_block_checksums(self) -> None:
+        """Forget the cached digests: the next pass hashes every
+        block."""
+        with self._lock:
+            self._block_digests = None
+            self._dirty_blocks = set()
+
+    def block_data(self, block: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(row ids, absolute column ids) of every bit in ``block``."""
+        with self._lock:
+            pos = self._block_positions({block})
+        rows = pos >> np.uint64(SHARD_WIDTH_EXP)
+        cols = (pos & np.uint64(SHARD_WIDTH - 1)) \
+            + np.uint64(self.shard * SHARD_WIDTH)
+        return rows, cols
+
+    def merge_block(self, block: int, their_rows: np.ndarray,
+                    their_cols: np.ndarray):
+        """Union a peer's pairs of ``block`` into this fragment; returns
+        ((rows, cols) set here, (rows, cols) the peer lacks), the second
+        for the caller to push back. A union only: a bit cleared on one
+        replica and not the other comes back (the reference's mergeBlock
+        also takes the clear side)."""
+        their_pos = np.asarray(their_rows, np.uint64) \
+            * np.uint64(SHARD_WIDTH) \
+            + np.asarray(their_cols, np.uint64) % np.uint64(SHARD_WIDTH)
+        with self._lock:
+            ours = self._block_positions({block})
+            missing_here = np.setdiff1d(their_pos, ours)
+            missing_there = np.setdiff1d(ours, their_pos)
+            if len(missing_here):
+                self.import_bits(missing_here >> np.uint64(SHARD_WIDTH_EXP),
+                                 missing_here & np.uint64(SHARD_WIDTH - 1))
+        base = np.uint64(self.shard * SHARD_WIDTH)
+        width = np.uint64(SHARD_WIDTH)
+        return ((missing_here // width, missing_here % width + base),
+                (missing_there // width, missing_there % width + base))
 
     def mutex_vector(self, column_id: int) -> Optional[int]:
         """The row holding ``column_id`` in a mutex or bool fragment, or

@@ -345,6 +345,16 @@ class PositionsBank:
         self.nbytes = nbytes
 
 
+def _key_shards(key: tuple) -> tuple:
+    """The shards a bank cache key covers: ``(shards, trim[, rows])``,
+    ``("sbank", shards, width)`` or ``("pbank", shard, width)``."""
+    if key[0] == "sbank":
+        return key[1]
+    if key[0] == "pbank":
+        return (key[1],)
+    return key[0]
+
+
 def view_bsi_name(field: str) -> str:
     return VIEW_BSI_PREFIX + field
 
@@ -495,6 +505,36 @@ class View:
                 HOST_BLOCK_BUDGET.forget(self, key)
             self._host_blocks.clear()
             self._merged_rows.clear()
+
+    def remove_fragment(self, shard: int) -> Optional[Fragment]:
+        """Drop the shard's fragment (a resize left this node without
+        it): close it, delete its file and count-cache sidecar, move the
+        write epoch (so no version memo outlives it), and forget every
+        cached bank, host block and merged row list whose shards include
+        it, with their budget entries and ledger rows. Returns the
+        fragment, or None when the view had none."""
+        with self._lock:
+            frag = self.fragments.pop(shard, None)
+            if frag is None:
+                return None
+            bump_epoch()
+            for key in list(self._bank_cache):
+                if shard in _key_shards(key):
+                    self._bank_cache.pop(key, None)
+                    BANK_BUDGET.forget(self, key)
+            for key in list(self._host_blocks):
+                if shard in key[0]:
+                    self._host_blocks.pop(key, None)
+                    HOST_BLOCK_BUDGET.forget(self, key)
+            for key in list(self._merged_rows):
+                if shard in key:
+                    self._merged_rows.pop(key, None)
+            frag.close()
+        if frag.path is not None:
+            for p in (frag.path, frag.cache_path()):
+                if os.path.exists(p):
+                    os.remove(p)
+        return frag
 
     def set_bit(self, row_id: int, column_id: int) -> bool:
         return self.create_fragment_if_not_exists(

@@ -4,12 +4,13 @@ on every socket, TLS through an ``ssl_context``), the binary wire codec
 (``server/wire.py``) with JSON as the fallback, one stale-connection
 retry, and the four fault-injection sites of an internal RPC.
 
-The calls are the static cluster's: query legs, imports, schema and
-status, the health, hotspots, SLO and timeline probes of the cluster
+The calls are the cluster's: query legs, imports, schema and status,
+the health, hotspots, SLO and timeline probes of the cluster
 documents, local shards and views, schema creation and deletion,
-cluster messages and key translation through the primary. The calls
-that move fragments and attributes between nodes (anti-entropy,
-resize) are not ported yet.
+cluster messages, key translation through the primary, and the calls
+that move fragments and attributes between nodes: block checksums and
+block data for anti-entropy (``parallel/syncer.py``), whole fragments
+for a resize pull, the seed join and the resize job's pull RPC.
 
 Reference: http/client.go (InternalClient — query fan-out :241,
 imports :439) and client.go:32.
@@ -138,28 +139,34 @@ class InternalClient:
     # old scattered 5 s / 30 s / 600 s literals all resolve here now.
     DEFAULT_TIMEOUT = 30.0       # general RPC ([cluster] rpc_timeout_s)
     HEALTH_TIMEOUT = 5.0         # health/hotspots/timeline probes
+    RESIZE_PULL_TIMEOUT = 600.0  # synchronous resize pull pass
 
     def __init__(self, timeout: float = DEFAULT_TIMEOUT, tracer=None,
                  ssl_context=None,
-                 health_timeout: float = HEALTH_TIMEOUT):
+                 health_timeout: float = HEALTH_TIMEOUT,
+                 resize_pull_timeout: float = RESIZE_PULL_TIMEOUT):
         """`ssl_context` verifies https peers (config.client_ssl_context
         builds it: CA bundle or skip-verify, reference
         server/server.go:244 InsecureSkipVerify). None + an https URI =
         strict system-CA verification."""
         self.timeout = timeout
         self.health_timeout = health_timeout
+        self.resize_pull_timeout = resize_pull_timeout
         self.tracer = tracer
         self._pool = _ConnPool(timeout, ssl_context=ssl_context)
 
     def configure(self, timeout: Optional[float] = None,
-                  health_timeout: Optional[float] = None) -> None:
+                  health_timeout: Optional[float] = None,
+                  resize_pull_timeout: Optional[float] = None) -> None:
         """[cluster] config wiring (cli/main.py): rpc_timeout_s /
-        health_timeout_s."""
+        health_timeout_s / resize_pull_timeout_s."""
         if timeout is not None:
             self.timeout = float(timeout)
             self._pool.timeout = float(timeout)
         if health_timeout is not None:
             self.health_timeout = float(health_timeout)
+        if resize_pull_timeout is not None:
+            self.resize_pull_timeout = float(resize_pull_timeout)
 
     def drop_idle(self) -> None:
         """Close every idle pooled connection (test harnesses use this to
@@ -302,6 +309,48 @@ class InternalClient:
                   f"{uri}/index/{index}/field/{field}/import-roaring/{shard}"
                   f"?view={view}&remote=true", data)
 
+    # -- fragment sync (reference :711-901) ----------------------------------
+
+    def retrieve_shard(self, uri: str, index: str, field: str, view: str,
+                       shard: int) -> bytes:
+        return self._req(
+            "GET", f"{uri}/internal/fragment/data?index={index}"
+                   f"&field={field}&view={view}&shard={shard}", raw=True)
+
+    def fragment_blocks(self, uri: str, index: str, field: str, view: str,
+                        shard: int) -> List[dict]:
+        res = self._req(
+            "GET", f"{uri}/internal/fragment/blocks?index={index}"
+                   f"&field={field}&view={view}&shard={shard}")
+        return res["blocks"]
+
+    def block_data(self, uri: str, index: str, field: str, view: str,
+                   shard: int, block: int) -> dict:
+        return self._req(
+            "GET", f"{uri}/internal/fragment/block/data?index={index}"
+                   f"&field={field}&view={view}&shard={shard}&block={block}")
+
+    # -- attr sync (reference http/client.go:903-983 attr diff) ---------------
+
+    def attr_blocks(self, uri: str, index: str,
+                    field: Optional[str] = None) -> List[dict]:
+        f = f"&field={field}" if field else ""
+        return self._req(
+            "GET", f"{uri}/internal/attr/blocks?index={index}{f}")["blocks"]
+
+    def attr_block_data(self, uri: str, index: str, field: Optional[str],
+                        block: int) -> Dict[str, Any]:
+        f = f"&field={field}" if field else ""
+        return self._req(
+            "GET", f"{uri}/internal/attr/block/data?index={index}{f}"
+                   f"&block={block}")["attrs"]
+
+    def attr_merge(self, uri: str, index: str, field: Optional[str],
+                   attrs: Dict[str, Any]) -> None:
+        f = f"&field={field}" if field else ""
+        self._req("POST", f"{uri}/internal/attr/merge?index={index}{f}",
+                  obj={"attrs": attrs})
+
     # -- schema / membership --------------------------------------------------
 
     def schema(self, uri: str) -> dict:
@@ -357,6 +406,19 @@ class InternalClient:
         return self._req(
             "GET", f"{uri}/internal/views?index={index}&field={field}"
         )["views"]
+
+    def join(self, uri: str, node: dict) -> dict:
+        return self._req("POST", f"{uri}/internal/join", obj=node)
+
+    def resize_pull(self, uri: str,
+                    timeout: Optional[float] = None) -> dict:
+        """Synchronous pull pass on a member during a resize job (the data
+        motion of the reference's ResizeInstruction, cluster.go:1251).
+        Long timeout (default `resize_pull_timeout`, [cluster]
+        resize_pull_timeout_s): the node streams every fragment it now
+        owns."""
+        return self._req("POST", f"{uri}/internal/resize/pull", body=b"",
+                         timeout=timeout or self.resize_pull_timeout)
 
     def cluster_message(self, uri: str, message: dict) -> None:
         self._req("POST", f"{uri}/internal/cluster/message", obj=message)

@@ -5,8 +5,8 @@ the failure detector's down set, the pinned translate primary, a
 bounded ring of lifecycle events and the ``.topology`` file.
 
 The resize lifecycle (``begin_resize``/``end_resize``, the pre-change
-placement pinned for reads) is kept as data model; the job that moves
-fragments is not ported yet. A holder kept in memory has no
+placement pinned for reads) is driven by the API's resize job, whose
+data motion is ``syncer.ResizePuller``. A holder kept in memory has no
 ``.topology``: ``topology_path`` None (or "") makes ``save``/``load``
 do nothing.
 

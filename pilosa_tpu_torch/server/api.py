@@ -1,8 +1,8 @@
 """API facade of the port's server: the programmatic surface between the
 HTTP routes and the executor, after the JAX package's ``server/api.py``.
 
-A single node, or one node of a static cluster (``cluster=``, after the
-JAX package's cluster half of ``server/api.py``): the coordinator of a
+A single node, or one node of a cluster (``cluster=``, after the JAX
+package's cluster half of ``server/api.py``): the coordinator of a
 query fans it out by owning node and merges the legs
 (``parallel/cluster_executor.py``), a ``remote`` leg runs only its
 shards, imports go to every replica that owns their shard, schema
@@ -29,15 +29,24 @@ failpoint sites ``api.query`` and ``api.status`` fire here;
 ``failpoints_snapshot``/``failpoints_update`` answer only when the plane
 was enabled at boot. ``cluster_health``, ``cluster_hotspots``,
 ``cluster_slo`` and ``cluster_timeline`` merge every member's document
-(an unreachable node is reported with its error). What the static
-cluster does not do yet (seed join, resize, anti-entropy) answers an
-error that names it.
+(an unreachable node is reported with its error).
+
+The cluster is dynamic: a node joins through a seed (``handle_join``,
+``join_via_seeds``), which starts the coordinator's resize job
+(``_start_resize_job``): the cluster stays RESIZING, reads pinned to the
+pre-change placement, until every member has pulled the fragments it
+now owns (``parallel/syncer.py`` ``ResizePuller``). ``remove_node``,
+``set_coordinator``, ``resize_abort`` and ``resize_now`` (which drops
+the fragments a node no longer owns) are the operator's; ``sync_now``
+is one anti-entropy pass (``HolderSyncer``) over the block checksums
+that ``fragment_blocks`` and ``attr_blocks`` serve.
 """
 
 from __future__ import annotations
 
 import csv
 import io
+import json
 import logging
 import os
 import threading
@@ -62,6 +71,7 @@ from pilosa_tpu_torch.parallel.broadcast import AsyncBroadcaster
 from pilosa_tpu_torch.parallel.client import ClientError, InternalClient
 from pilosa_tpu_torch.parallel.cluster import STATE_RESIZING, Node
 from pilosa_tpu_torch.parallel.cluster_executor import ClusterExecutor
+from pilosa_tpu_torch.parallel.syncer import HolderSyncer, ResizePuller
 from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.utils.failpoints import FAILPOINTS
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
@@ -72,9 +82,11 @@ from pilosa_tpu_torch.utils.timeline import TIMELINE
 from pilosa_tpu_torch.utils.tracing import NopTracer
 
 # Fault-injection sites on the server's seams (utils/failpoints.py):
-# /status (what a prober hits) and the query entry.
+# /status (what a prober hits), the query entry and the coordinator's
+# per-node pull RPC inside the resize job.
 _FP_STATUS = FAILPOINTS.register("api.status")
 _FP_QUERY = FAILPOINTS.register("api.query")
+_FP_RESIZE_RPC = FAILPOINTS.register("resize.job.rpc")
 
 # Field options the create-field body may carry (reference names).
 _FIELD_OPTIONS = {"type": "type", "cacheType": "cache_type",
@@ -103,19 +115,6 @@ class ApiError(ValueError):
         super().__init__(msg)
         self.status = status
         self.headers: Optional[Dict[str, str]] = None
-
-
-def not_ported(what: str) -> ApiError:
-    return ApiError(f"{what} is not ported yet", 400)
-
-
-# What the static cluster leaves to the seed join, resize and
-# anti-entropy slice.
-RESIZE_PART = "seed join, resize and anti-entropy"
-
-# Cluster messages of that part, refused by handle_cluster_message.
-_RESIZE_MESSAGES = ("node-join", "node-leave", "resize-complete",
-                    "topology", "set-coordinator")
 
 
 def _string_keys(what: str, keys) -> Optional[List[str]]:
@@ -203,9 +202,7 @@ class API:
         # Ids the translate primary could not resolve, by (index,
         # field), valid for the local store size they were found at.
         self._translate_negative: Dict[Any, Any] = {}
-        # The static cluster (parallel/): None on a single node. The
-        # anti-entropy syncer and the resize puller stay None until
-        # seed join and resize are ported.
+        # The cluster (parallel/): None on a single node.
         self.cluster = cluster
         self.cluster_executor = None
         self.broadcaster = None
@@ -221,6 +218,8 @@ class API:
             self.cluster_executor = ClusterExecutor(
                 self.executor, cluster, client,
                 broadcaster=self.broadcaster, stats=self.stats)
+            self.syncer = HolderSyncer(holder, cluster, client)
+            self.resize_puller = ResizePuller(holder, cluster, client)
             self.executor.key_resolver = self._resolve_key_via_primary
             self.executor.id_resolver = self._resolve_ids_via_primary
             self._client = client
@@ -830,6 +829,56 @@ class API:
         return "".join(export_fragment_lines(self._index(index), field,
                                              shard))
 
+    # ------------------------------------------------------- sync primitives
+
+    def fragment_blocks(self, index: str, field: str, view: str,
+                        shard: int) -> List[Dict[str, Any]]:
+        """``GET /internal/fragment/blocks``: the fragment's block
+        digests, hex."""
+        frag = self._fragment(index, field, view, shard)
+        return [{"block": b, "checksum": c.hex()}
+                for b, c in frag.checksum_blocks()]
+
+    def fragment_block_data(self, index: str, field: str, view: str,
+                            shard: int, block: int) -> Dict[str, Any]:
+        """``GET /internal/fragment/block/data``: one block's pairs."""
+        frag = self._fragment(index, field, view, shard)
+        rows, cols = frag.block_data(block)
+        return {"rows": rows.tolist(), "columns": cols.tolist()}
+
+    def fragment_data(self, index: str, field: str, view: str,
+                      shard: int) -> bytes:
+        """``GET /internal/fragment/data``: the whole fragment as one
+        snapshot, the JAX package's bytes."""
+        return self._fragment(index, field, view, shard).write_bytes()
+
+    def _attr_store(self, index: str, field: Optional[str]):
+        """The index's column attributes (``field`` None) or a field's
+        row attributes."""
+        idx = self._index(index)
+        if field is None:
+            return idx.column_attr_store
+        return self._field(idx, field).row_attr_store
+
+    def attr_blocks(self, index: str,
+                    field: Optional[str] = None) -> List[Dict[str, Any]]:
+        """``GET /internal/attr/blocks``: the store's block digests."""
+        return [{"block": b, "checksum": c.hex()}
+                for b, c in self._attr_store(index, field).blocks()]
+
+    def attr_block_data(self, index: str, field: Optional[str],
+                        block: int) -> Dict[str, Any]:
+        """``GET /internal/attr/block/data``: one block's attributes."""
+        store = self._attr_store(index, field)
+        return {"attrs": {str(i): a
+                          for i, a in store.block_data(block).items()}}
+
+    def attr_merge(self, index: str, field: Optional[str],
+                   attrs: Dict[str, Dict[str, Any]]) -> None:
+        """``POST /internal/attr/merge``: adopt a replica's attributes."""
+        self._attr_store(index, field).set_bulk(
+            {int(i): a for i, a in attrs.items()})
+
     def recalculate_caches(self) -> None:
         """Rebuild every fragment's TopN count cache from its storage."""
         for idx in list(self.holder.indexes.values()):
@@ -1238,24 +1287,363 @@ class API:
         return [n.to_json()
                 for n in self.cluster.shard_nodes(index, int(shard))]
 
+    def handle_join(self, node_info: dict) -> dict:
+        """``POST /internal/join``: a node announces itself. A member
+        that rejoins (same id) starts no resize: a changed URI is adopted
+        and sent to the other members. A new node starts one: the
+        cluster enters RESIZING with the pre-join placement pinned for
+        reads, the translate primary is pinned to a pre-join member, the
+        other members and the joiner get the new topology, and this node
+        runs the resize job (reference nodeJoin, cluster.go:1017-1230).
+        Returns the cluster's status."""
+        if self.cluster is None:
+            raise ApiError("not clustered", 400)
+        node = Node.from_json(node_info)
+        existing = self.cluster.node_by_id(node.id)
+        if existing is not None and self.cluster.state != STATE_RESIZING:
+            if existing.uri != node.uri:
+                existing.uri = node.uri
+                self.cluster.save()
+                for peer in self.cluster.nodes():
+                    if peer.id in (self.cluster.local.id, node.id):
+                        continue
+                    self.broadcaster.send_now_or_queue(
+                        peer.uri, {"type": "topology", "complete": True,
+                                   "nodes": [n.to_json() for n in
+                                             self.cluster.nodes()]})
+            return self.cluster.status()
+        # The read placement to send is the oldest one in flight
+        # (begin_resize pins and returns it): a node added by an
+        # unfinished earlier resize may not hold its shards yet.
+        prev = [n.to_json() for n in self.cluster.begin_resize()]
+        # The joiner's empty key store must never allocate.
+        tp = self.cluster.pin_translate_primary()
+        self.cluster.add_node(node)
+        for peer in self.cluster.nodes():
+            if peer.id in (self.cluster.local.id, node.id):
+                continue
+            # Sent now where the peer answers: it must see the change
+            # before the job's pull RPC reaches it.
+            self.broadcaster.send_now_or_queue(
+                peer.uri, {"type": "node-join", "node": node.to_json(),
+                           "prev": prev, "translatePrimary": tp})
+        # The joiner adopts the topology and the resize in flight (it
+        # also gets them in the join's answer; this covers a join an
+        # operator sent for it).
+        try:
+            self._client.cluster_message(
+                node.uri, {"type": "topology", "complete": True,
+                           "nodes": [n.to_json()
+                                     for n in self.cluster.nodes()],
+                           "prev": prev, "translatePrimary": tp})
+        except ClientError:
+            pass
+        self._start_resize_job()
+        return self.cluster.status()
+
+    def join_via_seeds(self, seeds, attempts: int = 1,
+                       retry_delay: float = 2.0) -> dict:
+        """Announce this node through the first seed that answers
+        (``POST /internal/join``) and adopt the topology and resize
+        state it returns; the seed drives the resize and this node
+        answers its pull once it listens. Raises ApiError (503) when no
+        seed answered in ``attempts`` passes over the list (``cli
+        server`` runs it in a retry loop)."""
+        if self.cluster is None:
+            raise ApiError("not clustered", 400)
+        body = json.dumps(self.cluster.local.to_json()).encode()
+        last: Optional[Exception] = None
+        for attempt in range(max(1, attempts)):
+            if attempt:
+                time.sleep(retry_delay)
+            for seed in seeds:
+                if not seed or seed == self.cluster.local.uri:
+                    continue
+                try:
+                    status = self._client._req(
+                        "POST", f"{seed}/internal/join", body)
+                except ClientError as e:
+                    last = e
+                    continue
+                self.handle_cluster_message({
+                    "type": "topology", "complete": True,
+                    "nodes": status.get("nodes", []),
+                    "prev": status.get("prevNodes"),
+                    "translatePrimary": status.get("translatePrimary"),
+                })
+                return status
+        raise ApiError(f"no seed reachable (tried {list(seeds)}): {last}",
+                       503)
+
+    def _start_resize_job(self) -> None:
+        """The data motion of a topology change, on a thread: every
+        member pulls the fragments it now owns (``POST
+        /internal/resize/pull``, this node in process), then
+        ``resize-complete`` goes out. A failed pull leaves the cluster
+        RESIZING, reads on the pre-change placement, until a retry or an
+        abort; a newer topology change supersedes the job."""
+        if self.resize_puller is None:
+            return
+        gen0 = self.cluster.resize_gen
+
+        def pull_one(node, errors):
+            try:
+                _FP_RESIZE_RPC.fire(uri=node.uri, node=node.id)
+                if node.id == self.cluster.local.id:
+                    self.resize_puller.pull_owned()
+                else:
+                    self._client.resize_pull(node.uri)
+            except Exception as e:
+                errors.append((node.id, e))
+                self.logger.printf("resize: pull on %s failed: %r",
+                                   node.id, e)
+
+        def run():
+            errors: list = []
+            threads = [threading.Thread(target=pull_one, args=(n, errors))
+                       for n in self.cluster.nodes()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                self.logger.printf(
+                    "resize: %d node(s) failed to pull; cluster stays "
+                    "RESIZING (reads keep pre-change placement); retry "
+                    "with /internal/join or /cluster/resize/abort",
+                    len(errors))
+                return
+            if self.cluster.resize_gen != gen0:
+                self.logger.printf(
+                    "resize: superseded by a newer topology change; "
+                    "leaving finalization to the newer job")
+                return
+            self._finish_resize()
+
+        threading.Thread(target=run, daemon=True).start()
+
+    def _moved_shards(self) -> set:
+        """``(index, shard)`` pairs whose owner set differs between the
+        pinned pre-change placement and the current one (host placement
+        math, run before ``end_resize`` unpins it)."""
+        moved: set = set()
+        if self.cluster is None or self.cluster.prev_nodes is None:
+            return moved
+        for iname, idx in list(self.holder.indexes.items()):
+            for shard in idx.available_shards():
+                prev = [n.id for n in self.cluster.shard_nodes(
+                    iname, int(shard), previous=True)]
+                cur = [n.id for n in self.cluster.shard_nodes(
+                    iname, int(shard))]
+                if prev != cur:
+                    moved.add((iname, int(shard)))
+        return moved
+
+    def _note_placement_change(self, moved: set) -> None:
+        """A resize adopted a new placement: drop the result cache's
+        eval entries and the rank vectors that cover a moved shard (the
+        version stamps already refuse a stale hit; this frees the bytes
+        at the change and counts them)."""
+        if not moved:
+            return
+        dropped = self.executor.result_cache.invalidate_placement(moved)
+        dropped += self.holder.rank_cache.invalidate_shards(moved)
+        self.stats.count("cluster.placement_invalidations", dropped)
+        self.logger.printf(
+            "resize: placement change moved %d shard(s); dropped %d "
+            "result/rank cache entr%s (placement gen %d)",
+            len(moved), dropped, "y" if dropped == 1 else "ies",
+            self.cluster.placement_gen)
+
+    def _finish_resize(self) -> None:
+        """Adopt the new placement here and send ``resize-complete``
+        with the membership it completes (a peer that saw a newer change
+        ignores it and stays RESIZING) and the pinned translate primary,
+        on the retried queue."""
+        members = self.cluster.member_ids()
+        moved = self._moved_shards()
+        self.cluster.end_resize()
+        self._note_placement_change(moved)
+        tp = self.cluster.translate_primary_id
+        for peer in self.cluster.nodes():
+            if peer.id == self.cluster.local.id:
+                continue
+            self.broadcaster.send_now_or_queue(
+                peer.uri, {"type": "resize-complete", "members": members,
+                           **({"translatePrimary": tp} if tp else {})})
+
+    def resize_pull(self) -> dict:
+        """``POST /internal/resize/pull``: one synchronous pull pass (a
+        member's side of the resize job)."""
+        if self.resize_puller is None:
+            return {"fetched": 0}
+        return {"fetched": self.resize_puller.pull_owned()}
+
     def handle_cluster_message(self, msg: dict) -> None:
         """``POST /internal/cluster/message``: a translate primary pin
         (which lifts this node's serving limit when it is the new
-        primary) and the shard-list invalidation of a static cluster.
-        The membership and resize messages answer an error naming the
-        part they belong to; an unknown type is ignored, as in the JAX
-        package."""
+        primary), then by type: ``node-join`` and ``node-leave`` (enter
+        RESIZING on the sender's pre-change placement; a node told it
+        left detaches to a cluster of itself), ``shards-changed``,
+        ``resize-complete`` (end the resize when the membership matches),
+        ``topology`` (adopt its nodes and resize state; ``complete``
+        drops members it does not list) and ``set-coordinator``. An
+        unknown type is ignored, as in the JAX package."""
         if self.cluster is None:
             return
         typ = msg.get("type")
-        if typ in _RESIZE_MESSAGES:
-            raise not_ported(f"cluster message {typ!r} ({RESIZE_PART})")
         if msg.get("translatePrimary"):
             self.cluster.pin_translate_primary(msg["translatePrimary"])
             if msg["translatePrimary"] == self.cluster.local.id:
                 self._lift_translate_serving()
-        if typ == "shards-changed":
+        if typ == "node-join":
+            prev = [Node.from_json(nd) for nd in msg["prev"]] \
+                if msg.get("prev") else None
+            self.cluster.begin_resize(prev)
+            self.cluster.add_node(Node.from_json(msg["node"]))
+        elif typ == "node-leave":
+            if msg["nodeID"] == self.cluster.local.id:
+                self.cluster.end_resize()
+                for n in list(self.cluster.nodes()):
+                    if n.id != self.cluster.local.id:
+                        self.cluster.remove_node(n.id)
+            else:
+                prev = [Node.from_json(nd) for nd in msg["prev"]] \
+                    if msg.get("prev") else None
+                self.cluster.begin_resize(prev)
+                self.cluster.remove_node(msg["nodeID"])
+        elif typ == "shards-changed":
             self.cluster_executor.invalidate_shards_cache(msg["index"])
+        elif typ == "resize-complete":
+            members = msg.get("members")
+            if members is None or \
+                    self.cluster.owners_match_membership(members):
+                moved = self._moved_shards()
+                self.cluster.end_resize()
+                self._note_placement_change(moved)
+        elif typ == "topology":
+            if msg.get("prev"):
+                self.cluster.begin_resize(
+                    [Node.from_json(nd) for nd in msg["prev"]])
+            incoming = [Node.from_json(nd) for nd in msg.get("nodes", [])]
+            for node in incoming:
+                self.cluster.add_node(node)
+            if msg.get("complete"):
+                # The sender's view is the whole membership: a member it
+                # does not list is gone (a stale .topology must not
+                # resurrect it). Never this node: node-leave detaches.
+                keep = {n.id for n in incoming} | {self.cluster.local.id}
+                for n in list(self.cluster.nodes()):
+                    if n.id not in keep:
+                        self.cluster.remove_node(n.id)
+        elif typ == "set-coordinator":
+            for n in self.cluster.nodes():
+                n.is_coordinator = (n.id == msg.get("nodeID"))
+            self.cluster.save()
+
+    def remove_node(self, node_id: str) -> dict:
+        """``POST /cluster/resize/remove-node``: take a member out and
+        rebalance; the survivors pull what they now own, from the
+        removed node too while it lives (reference api.RemoveNode,
+        api.go:1084-1141). When the removed node is the translate
+        primary, this node catches its stores up from it directly and
+        becomes the primary first. The removed node is told, and
+        detaches."""
+        if self.cluster is None:
+            raise ApiError("not clustered", 400)
+        if self.cluster.node_by_id(node_id) is None:
+            raise ApiError(f"node not found: {node_id}", 404)
+        if node_id == self.cluster.local.id:
+            raise ApiError("cannot remove the receiving node; send the "
+                           "request to another node", 400)
+        removed = self.cluster.node_by_id(node_id)
+        prev = [n.to_json() for n in self.cluster.begin_resize()]
+        was_primary = self.cluster.translate_primary().id == node_id
+        tp = None
+        if was_primary:
+            # Without a consensus protocol a key the old primary
+            # allocates after this catch-up, or one it never replicated
+            # before dying, may be lost (logged).
+            try:
+                self._sync_translate_stores(direct_primary=True)
+            except Exception as e:
+                self.logger.printf(
+                    "remove-node: translate catch-up from departing "
+                    "primary failed (%s: %s); promoting %s with its "
+                    "current replica — ids allocated on the old primary "
+                    "but not yet replicated may be lost",
+                    type(e).__name__, e, self.cluster.local.id)
+            # Pinned before the removal, so no allocation in between
+            # routes to a lagging fallback.
+            tp = self.cluster.pin_translate_primary(self.cluster.local.id)
+            self._lift_translate_serving()
+        self.cluster.remove_node(node_id)
+        for peer in self.cluster.nodes():
+            if peer.id == self.cluster.local.id:
+                continue
+            self.broadcaster.send_now_or_queue(
+                peer.uri, {"type": "node-leave", "nodeID": node_id,
+                           "prev": prev,
+                           **({"translatePrimary": tp} if tp else {})})
+        # The removed node keeps its data and serves reads through the
+        # pre-change placement until the survivors have pulled.
+        try:
+            self._client.cluster_message(
+                removed.uri, {"type": "node-leave", "nodeID": node_id})
+        except ClientError:
+            pass  # already dead: nothing to detach
+        self._start_resize_job()
+        return self.cluster.status()
+
+    def set_coordinator(self, node_id: str) -> dict:
+        """``POST /cluster/resize/set-coordinator`` (reference
+        api.SetCoordinator, api.go:1104): applied here through the
+        handler the peers run, then sent to them."""
+        if self.cluster is None:
+            raise ApiError("not clustered", 400)
+        if self.cluster.node_by_id(node_id) is None:
+            raise ApiError(f"node not found: {node_id}", 404)
+        self.handle_cluster_message({"type": "set-coordinator",
+                                     "nodeID": node_id})
+        for peer in self.cluster.nodes():
+            if peer.id == self.cluster.local.id:
+                continue
+            self.broadcaster.send_now_or_queue(
+                peer.uri, {"type": "set-coordinator", "nodeID": node_id})
+        return self.cluster.status()
+
+    def resize_abort(self) -> dict:
+        """``POST /cluster/resize/abort``. A pull-based resize cannot
+        undo a topology change: the abort adopts the new placement now,
+        cluster-wide, and data motion left undone heals by anti-entropy,
+        as the answer says."""
+        if self.cluster is None:
+            raise ApiError("not clustered", 400)
+        aborted = self.cluster.state == STATE_RESIZING
+        self._finish_resize()
+        st = self.cluster.status()
+        st["aborted"] = bool(aborted)
+        st["note"] = ("pull-based resize: abort adopts the new placement "
+                      "now; incomplete data motion heals via anti-entropy")
+        return st
+
+    def sync_now(self) -> dict:
+        """``POST /internal/sync``: the translate stores from the
+        primary first (so pushed ids mean the same everywhere), then one
+        anti-entropy pass; returns its counts."""
+        if self.syncer is None:
+            raise ApiError("not clustered", 400)
+        self._sync_translate_stores()
+        return self.syncer.sync_holder()
+
+    def resize_now(self) -> dict:
+        """``POST /cluster/resize/run``: pull the fragments this node
+        now owns, then drop those it no longer owns."""
+        if self.resize_puller is None:
+            raise ApiError("not clustered", 400)
+        fetched = self.resize_puller.pull_owned()
+        removed = self.resize_puller.clean_unowned()
+        return {"fetched": fetched, "removed": removed}
 
     def _fan_docs(self, fetch) -> Dict[str, Any]:
         """``fetch(node)`` for every member at once, each on a thread;
@@ -1602,3 +1990,10 @@ class API:
         if f is None:
             raise ApiError(f"field not found: {name}", 404)
         return f
+
+    def _fragment(self, index: str, field: str, view: str, shard: int):
+        v = self._field(self._index(index), field).view(view)
+        frag = v.fragment(shard) if v else None
+        if frag is None:
+            raise ApiError("fragment not found", 404)
+        return frag

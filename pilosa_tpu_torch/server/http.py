@@ -29,6 +29,17 @@ Routes:
   GET    /internal/fragment/nodes?index&shard  the owners of a shard
   GET    /internal/translate/data?index&field&offset  the translate
                                log's replication stream
+  GET    /internal/fragment/blocks?index&field&view&shard  the block
+                               digests of a fragment
+  GET    /internal/fragment/block/data?index&field&view&shard&block
+                               one block's (row, column) pairs
+  GET    /internal/fragment/data?index&field&view&shard  the whole
+                               fragment (roaring bytes)
+  GET    /internal/attr/blocks?index&field  the block digests of an
+                               attribute store (the index's without
+                               field)
+  GET    /internal/attr/block/data?index&field&block  one block's
+                               attributes
   POST   /index/{i}/query      raw PQL, {"query": ...}, or a protobuf
                                QueryRequest; URL args shards,
                                excludeColumns, excludeRowAttrs,
@@ -59,6 +70,14 @@ Routes:
                                protobuf TranslateKeysRequest): ids,
                                allocated here
   POST   /internal/translate/ids   {"index", "field", "ids"}: keys
+  POST   /internal/attr/merge?index&field  {"attrs": {id: {...}}}
+  POST   /internal/join        a node's {"id", "uri"}: a seed join
+  POST   /internal/sync        one anti-entropy pass: its counts
+  POST   /internal/resize/pull  one resize pull pass: fragments fetched
+  POST   /cluster/resize/remove-node  {"id"}: the node leaves
+  POST   /cluster/resize/set-coordinator  {"id"}
+  POST   /cluster/resize/abort  adopt the new placement now
+  POST   /cluster/resize/run   pull what this node owns, drop the rest
   DELETE /index/{i}  /index/{i}/field/{f}
 
 JSON query responses ride the coalescer when one is attached; protobuf
@@ -72,8 +91,7 @@ and ``/debug/queries`` know it by. Every request is observed in
 the JAX package labels them, unknown paths as "other"). A request
 that accepts ``application/x-pilosa-wire`` gets its JSON answer in the
 binary wire codec (``server/wire.py``), and a body of that type is read
-with it, as between nodes. The routes of seed join, resize and
-anti-entropy answer 404 naming that part.
+with it, as between nodes.
 """
 
 from __future__ import annotations
@@ -91,21 +109,11 @@ from urllib.parse import parse_qs, urlparse
 from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.pql.ast import Call, Query
 from pilosa_tpu_torch.server import proto_compat, wire
-from pilosa_tpu_torch.server.api import API, RESIZE_PART, ApiError
+from pilosa_tpu_torch.server.api import API, ApiError
 from pilosa_tpu_torch.utils.stats import prometheus_text
 from pilosa_tpu_torch.utils.timeline import TIMELINE
 from pilosa_tpu_torch.utils.tracing import TRACEPARENT_HEADER, \
     format_traceparent
-
-# Routes the JAX package's server answers and this one does not yet,
-# with the part each needs.
-_NOT_PORTED_ROUTES = (
-    (re.compile(r"/internal/(sync|join|resize/pull)"), RESIZE_PART),
-    (re.compile(r"/internal/fragment/(blocks|block/data|data)"),
-     RESIZE_PART),
-    (re.compile(r"/internal/attr/.*"), RESIZE_PART),
-    (re.compile(r"/cluster/resize/.*"), RESIZE_PART),
-)
 
 # Per-endpoint latency buckets (seconds), the JAX package's: powers of
 # two from about 61 us to 8 s.
@@ -311,12 +319,7 @@ class Handler(BaseHTTPRequestHandler):
         t0 = time.perf_counter()
         try:
             if not self._handle(method, path, q):
-                msg = f"no route for {method} {path}"
-                for rx, what in _NOT_PORTED_ROUTES:
-                    if rx.fullmatch(path):
-                        msg += f": {what} is not ported yet"
-                        break
-                self._error(msg, 404)
+                self._error(f"no route for {method} {path}", 404)
         except ApiError as e:
             # Carries its status (404, 408, 409, 429) and headers
             # (Retry-After on the coalescer's overload).
@@ -392,6 +395,26 @@ class Handler(BaseHTTPRequestHandler):
             elif path == "/internal/fragment/nodes":
                 self._check_args(q, "index", "shard")
                 self._json(api.fragment_nodes(q["index"], int(q["shard"])))
+            elif path == "/internal/fragment/blocks":
+                self._check_args(q, "index", "field", "view", "shard")
+                self._json({"blocks": api.fragment_blocks(
+                    q["index"], q["field"], q.get("view", "standard"),
+                    int(q["shard"]))})
+            elif path == "/internal/fragment/block/data":
+                self._json(api.fragment_block_data(
+                    q["index"], q["field"], q.get("view", "standard"),
+                    int(q["shard"]), int(q["block"])))
+            elif path == "/internal/fragment/data":
+                self._check_args(q, "index", "field", "view", "shard")
+                self._bytes(api.fragment_data(
+                    q["index"], q["field"], q.get("view", "standard"),
+                    int(q["shard"])))
+            elif path == "/internal/attr/blocks":
+                self._json({"blocks": api.attr_blocks(
+                    q["index"], q.get("field"))})
+            elif path == "/internal/attr/block/data":
+                self._json(api.attr_block_data(
+                    q["index"], q.get("field"), int(q["block"])))
             elif path == "/internal/shards/max":
                 self._json({"standard": api.shards_max()})
             elif path == "/internal/translate/data":
@@ -441,6 +464,25 @@ class Handler(BaseHTTPRequestHandler):
             elif path == "/internal/cluster/message":
                 api.handle_cluster_message(self._body_json())
                 self._json({})
+            elif path == "/internal/attr/merge":
+                api.attr_merge(q["index"], q.get("field"),
+                               self._body_json().get("attrs", {}))
+                self._json({})
+            elif path == "/internal/join":
+                self._json(api.handle_join(self._body_json()))
+            elif path == "/internal/sync":
+                self._json(api.sync_now())
+            elif path == "/internal/resize/pull":
+                self._json(api.resize_pull())
+            elif path == "/cluster/resize/remove-node":
+                self._json(api.remove_node(self._body_json().get("id")))
+            elif path == "/cluster/resize/set-coordinator":
+                self._json(api.set_coordinator(
+                    self._body_json().get("id")))
+            elif path == "/cluster/resize/abort":
+                self._json(api.resize_abort())
+            elif path == "/cluster/resize/run":
+                self._json(api.resize_now())
             elif path == "/internal/translate/keys":
                 self._post_translate_keys()
             elif path == "/internal/translate/ids":

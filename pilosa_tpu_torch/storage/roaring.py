@@ -988,14 +988,42 @@ class Bitmap:
 
     def slice(self) -> np.ndarray:
         """Every set position, sorted, as uint64."""
-        out = []
-        for key in sorted(self.containers):
-            arr = self._positions(self.containers[key])
-            if len(arr):
-                out.append(np.uint64(key << 16) + arr.astype(np.uint64))
-        if not out:
-            return np.empty(0, dtype=np.uint64)
-        return np.concatenate(out)
+        return self.sorted_positions(sorted(self.containers))
+
+    def sorted_positions(self, keys: List[int]) -> np.ndarray:
+        """Every set position of the containers ``keys`` (ascending
+        container keys, each present), as one sorted uint64 array: the
+        dense containers' positions in one C++ sweep, the arrays'
+        widened in place."""
+        cs = [self.containers[k] for k in keys]
+        counts = np.fromiter(map(self.container_count, keys), np.int64,
+                             count=len(keys))
+        out = np.empty(int(counts.sum()), dtype=np.uint64)
+        starts = np.cumsum(counts) - counts
+        dense = [i for i, c in enumerate(cs) if c.dtype != np.uint16]
+        if dense:
+            ptrs = np.fromiter(
+                (_ptr(np.ascontiguousarray(cs[i])) for i in dense),
+                dtype=np.uint64, count=len(dense))
+            bases = np.fromiter((keys[i] << 16 for i in dense),
+                                dtype=np.uint64, count=len(dense))
+            every = len(dense) == len(cs)
+            buf = out if every else np.empty(
+                max(1, int(counts[dense].sum())), dtype=np.uint64)
+            _lib().rc_dense_positions_ptrs(_ptr(ptrs), len(ptrs),
+                                           _ptr(bases), _ptr(buf))
+            if not every:
+                off = 0
+                for i in dense:
+                    n = int(counts[i])
+                    out[starts[i]:starts[i] + n] = buf[off:off + n]
+                    off += n
+        for i, c in enumerate(cs):
+            if c.dtype == np.uint16:
+                seg = out[starts[i]:starts[i] + len(c)]
+                seg[:] = c
+                seg += np.uint64(keys[i] << 16)
+        return out
 
     def count_range(self, start: int, end: int) -> int:
         """Bits in [start, end)."""

@@ -8,18 +8,19 @@ is the flat key ``name_key``; ``[failpoints]`` and ``[slo]`` stay tables
 
 Two differences, both loud:
 
-- keys with no counterpart in the port yet (seed join, resize and
-  anti-entropy, the mesh, the JAX platform and multi-process keys, the
-  runtime monitor and diagnostics) are refused
+- keys with no counterpart in the port yet (the mesh, the JAX platform
+  and multi-process keys, the runtime monitor and diagnostics) are
+  refused
   by ``load_config`` with a message saying they are not ported yet,
   whether they come from the file, the environment or a flag; none is
   ever silently ignored (``NOT_PORTED``);
 - ``data_dir`` defaults to ``""``: the server keeps its holder in memory
   unless a directory is given.
 
-The static cluster's keys (``cluster_peers``, ``cluster_replicas``, the
-fan-out and RPC timeouts, backoff and hedging, ``advertise``, the
-heartbeat and translate replication intervals) and TLS
+The cluster's keys (``cluster_peers``, ``cluster_replicas``,
+``cluster_seeds``, the fan-out, RPC and resize-pull timeouts, backoff
+and hedging, ``advertise``, the anti-entropy, heartbeat and translate
+replication intervals) and TLS
 (``tls_certificate``, ``tls_key``, ``tls_ca_certificate``,
 ``tls_skip_verify``; ``server_ssl_context``/``client_ssl_context``) are
 the JAX package's. A list key from the environment is comma-separated.
@@ -42,9 +43,6 @@ NOT_PORTED: Dict[str, str] = {
     "platform": "the JAX platform override",
     **{k: "JAX multi-process startup" for k in (
         "jax_coordinator", "jax_num_processes", "jax_process_id")},
-    **{k: "the cluster's seed join, resize and anti-entropy" for k in (
-        "anti_entropy_interval", "cluster_seeds",
-        "cluster_resize_pull_timeout_s")},
     "metric_poll_interval": "the runtime monitor",
     **{k: "diagnostics" for k in ("diagnostics_interval",
                                   "diagnostics_url")},
@@ -80,6 +78,8 @@ class Config:
     coalescer_max_queue: int = 256
     coalescer_deadline_ms: float = 0.0
     coalescer_pipeline: bool = True
+    # The anti-entropy pass's period (seconds; 0 or less: off).
+    anti_entropy_interval: float = 600.0
     # [heartbeat]: the failure detector probes this often (0: off),
     # marks a peer down after `suspect` failed probes in a row and
     # probes at most `probes` healthy peers a round.
@@ -136,15 +136,19 @@ class Config:
     tracing_service_name: str = "pilosa-tpu"
     tracing_sampler_type: str = "const"
     tracing_sampler_param: float = 1.0
-    # [cluster]: the static peer URIs (this node's own among them) and
-    # the replica count; the fan-out's deadline budget, the internal
-    # client's RPC and health-probe timeouts, the failover backoff and
+    # [cluster]: the static peer URIs (this node's own among them), the
+    # replica count and the seeds a node joins through at boot (any one
+    # member that answers; a member that restarts rejoins); the
+    # fan-out's deadline budget, the internal client's RPC,
+    # health-probe and resize-pull timeouts, the failover backoff and
     # the hedged-read quantile (0: off).
     cluster_peers: list = field(default_factory=list)
     cluster_replicas: int = 1
+    cluster_seeds: list = field(default_factory=list)
     cluster_fanout_deadline_s: float = 30.0
     cluster_rpc_timeout_s: float = 30.0
     cluster_health_timeout_s: float = 5.0
+    cluster_resize_pull_timeout_s: float = 600.0
     cluster_backoff_base_s: float = 0.05
     cluster_backoff_cap_s: float = 2.0
     cluster_hedge_quantile: float = 0.0
@@ -245,7 +249,8 @@ class Config:
         if self.cluster_fanout_deadline_s < 0:
             raise ValueError("cluster fanout_deadline_s must be >= 0")
         if self.cluster_rpc_timeout_s <= 0 \
-                or self.cluster_health_timeout_s <= 0:
+                or self.cluster_health_timeout_s <= 0 \
+                or self.cluster_resize_pull_timeout_s <= 0:
             raise ValueError(
                 "cluster rpc/health/resize_pull timeouts must be > 0")
         if self.cluster_backoff_base_s < 0 \

@@ -3,7 +3,7 @@ named failpoint sites on the server's seams.
 
 Sites are registered once at module import and fired at the seam; a
 disarmed site costs one attribute read. The port registers the
-single-node sites and the static cluster's (with the API):
+single-node sites and the cluster's (with the API):
 
 =====================  ====================================================
 ``api.status``         the ``/status`` answer: arming ``error`` makes this
@@ -18,9 +18,12 @@ single-node sites and the static cluster's (with the API):
                        lost after the peer acted (``drop``).
 ``heartbeat.probe``    one heartbeat probe: ``error`` fails it, ``drop``
                        loses it with no verdict.
+``resize.pull``        one (peer, shard) fetch of a resize pull: ``error``
+                       fails the pass (the cluster stays RESIZING),
+                       ``delay`` holds the resize window open.
+``resize.job.rpc``     the coordinator's pull RPC to one node inside the
+                       resize job.
 =====================  ====================================================
-
-The resize pull's site comes with resize.
 
 Spec syntax (env ``PILOSA_TPU_FAILPOINTS``, the ``[failpoints]`` config
 table, ``POST /internal/failpoints``)::

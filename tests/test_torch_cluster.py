@@ -8,7 +8,9 @@ time, mutex and bool fields go through every node as coordinator, one
 request at a time and as ``/batch/query``, at replica 1 and 2, and the
 JSON answers must be equal; so must they with a node stopped, and in a
 mixed cluster of two JAX nodes and one port node (the node-to-node API
-and the wire codec between the packages)."""
+and the wire codec between the packages). ``run_script`` also drives
+``tests/test_torch_cluster_resize.py``, the same scripts through a
+node stopped and healed, a join and a removal."""
 
 import json
 import urllib.error
@@ -208,23 +210,36 @@ def random_pql(rng):
     return pool[int(rng.integers(0, len(pool)))]
 
 
-def run_script(clusters, index, seed, steps=12, nodes=(0, 1, 2)):
+def set_pql(rng):
+    """A write a union-only merge heals: a Set into the set or the time
+    field (no Clear, no mutex or int overwrite)."""
+    r = int(rng.integers(0, 6))
+    col = int(rng.integers(0, N_SHARDS + 1) * SW + rng.integers(0, 400))
+    day = int(rng.integers(1, 28))
+    return [f"Set({col}, f={r})",
+            f"Set({col}, t={r % 3}, 2019-01-{day:02d}T00:00)"][r % 2]
+
+
+def run_script(clusters, index, seed, steps=12, nodes=(0, 1, 2),
+               single=None, draw=random_pql):
     """``steps`` seeded requests, each through a coordinator drawn from
-    ``nodes``: a single query, or every fourth a /batch/query of three."""
+    ``nodes``: a single query, or every fourth a /batch/query of three.
+    ``single``, a server of no cluster, takes every request too."""
     rng = np.random.default_rng(1000 + seed)
     for i in range(steps):
         node = nodes[int(rng.integers(0, len(nodes)))]
         if i % 4 == 3:
-            items = [{"index": index, "query": random_pql(rng)}
+            items = [{"index": index, "query": draw(rng)}
                      for _ in range(3)]
             items.append({"index": index, "query": "Count(Row(f=1))",
                           "shards": [0, 1]})
-            st, _ = both(clusters, node, "POST", "/batch/query",
-                         {"queries": items}, where=f"step {i}")
+            req = ("POST", "/batch/query", {"queries": items})
         else:
-            st, _ = both(clusters, node, "POST", f"/index/{index}/query",
-                         random_pql(rng).encode(), where=f"step {i}")
+            req = ("POST", f"/index/{index}/query", draw(rng).encode())
+        st, _ = both(clusters, node, *req, where=f"step {i}")
         assert st == 200, (i, st)
+        if single is not None:
+            assert call(single.uri, *req)[0] == 200
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

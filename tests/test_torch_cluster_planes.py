@@ -568,11 +568,22 @@ def test_cluster_documents_match_jax(tmp_path):
         close_all(jc, pc)
 
 
+def _no_uris(doc):
+    """A status document without its nodes' URIs (each cluster's own
+    ports), for comparing two clusters."""
+    if isinstance(doc, dict):
+        return {k: _no_uris(v) for k, v in doc.items() if k != "uri"}
+    if isinstance(doc, list):
+        return [_no_uris(v) for v in doc]
+    return doc
+
+
 def test_schema_broadcast_and_resize_refusals(tmp_path):
     """A schema change through one node reaches every node (a remote
     create that already exists reads as success); the membership and
-    resize messages and routes answer an error naming seed join and
-    resize; status and /internal/nodes answer as the JAX cluster's."""
+    resize messages and routes, which the port refused before it had the
+    dynamic cluster, answer as the JAX cluster's; status and
+    /internal/nodes answer as the JAX cluster's."""
     jc = start_cluster(tmp_path, ["jax"] * 2, prefix="j")
     pc = start_cluster(tmp_path, ["torch"] * 2, prefix="p")
     try:
@@ -590,27 +601,52 @@ def test_schema_broadcast_and_resize_refusals(tmp_path):
         assert st[1]["state"] == "NORMAL" and st[1]["localID"] == "n0"
         assert st[1]["translatePrimary"] == "n0"
         assert call(pc[0].uri, "GET", "/internal/nodes")[1] == st[1]["nodes"]
-        for msg in ({"type": "node-join", "node": {"id": "x", "uri": "y"}},
-                    {"type": "resize-complete"}):
-            s, res = call(pc[0].uri, "POST", "/internal/cluster/message",
-                          msg)
-            assert s == 400 and "resize" in res["error"], res
-        s, res = call(pc[0].uri, "POST", "/internal/cluster/message",
-                      {"type": "shards-changed", "index": "sb"})
-        assert s == 200
-        for method, path in (("POST", "/internal/sync"),
-                             ("POST", "/internal/join"),
-                             ("POST", "/internal/resize/pull"),
-                             ("GET", "/internal/fragment/blocks"),
-                             ("GET", "/internal/fragment/block/data"),
-                             ("GET", "/internal/fragment/data"),
-                             ("GET", "/internal/attr/blocks"),
-                             ("POST", "/internal/attr/merge"),
-                             ("POST", "/cluster/resize/abort"),
-                             ("POST", "/cluster/resize/remove-node")):
-            s, res = call(pc[0].uri, method, path, {} if method == "POST"
-                          else None)
-            assert s == 404 and "resize" in res["error"], (path, res)
+        # The membership messages: a node joins (RESIZING), leaves, the
+        # resize completes; each state as the JAX node's.
+        prev = [{"id": "n0", "uri": "u0"}, {"id": "n1", "uri": "u1"}]
+        for msg in ({"type": "node-join", "node": {"id": "x", "uri": "y"},
+                     "prev": prev},
+                    {"type": "node-leave", "nodeID": "x", "prev": prev},
+                    {"type": "resize-complete"},
+                    {"type": "set-coordinator", "nodeID": "n1"},
+                    {"type": "shards-changed", "index": "sb"}):
+            got = [call(c[0].uri, "POST", "/internal/cluster/message",
+                        msg) for c in cl]
+            assert got[0] == got[1] and got[1][0] == 200, (msg, got)
+            st = [_no_uris(call(c[0].uri, "GET", "/status")[1])
+                  for c in cl]
+            assert st[0] == st[1], (msg, st)
+        both(cl, 0, "POST", "/index/sb/query",
+             b"Set(1, t=2, 2019-02-03T00:00) Set(70, t=2, 2019-02-03T00:00)")
+        # The routes of seed join, resize and anti-entropy.
+        shard0 = "index=sb&field=t&view=standard&shard=0"
+        for method, path, body in (
+                ("POST", "/internal/sync", None),
+                ("POST", "/internal/resize/pull", None),
+                ("GET", f"/internal/fragment/blocks?{shard0}", None),
+                ("GET", f"/internal/fragment/block/data?{shard0}&block=0",
+                 None),
+                ("GET", "/internal/fragment/blocks?index=sb&field=t&shard=7",
+                 None),
+                ("GET", "/internal/attr/blocks?index=sb", None),
+                ("POST", "/internal/attr/merge?index=sb",
+                 {"attrs": {"1": {"a": 1}}}),
+                ("POST", "/internal/sync", None),
+                ("GET", "/internal/attr/blocks?index=sb", None),
+                ("POST", "/cluster/resize/remove-node", {"id": "zz"}),
+                ("POST", "/cluster/resize/run", None)):
+            both(cl, 0, method, path, body)
+            both(cl, 1, method, path, body)
+        data = [urllib.request.urlopen(
+            f"{c[1].uri}/internal/fragment/data?{shard0}").read()
+            for c in cl]
+        assert data[0] == data[1]
+        for path, body in (("/cluster/resize/abort", None),
+                           ("/cluster/resize/set-coordinator",
+                            {"id": "n0"})):
+            got = [call(c[1].uri, "POST", path, body) for c in cl]
+            assert _no_uris(list(got[0])) == _no_uris(list(got[1])), \
+                (path, got)
     finally:
         close_all(jc, pc)
 

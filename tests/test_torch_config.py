@@ -4,7 +4,8 @@ the CPU: the same TOML files and environments resolve every shared key to
 the same value, ``generate-config`` prints the JAX package's text but for
 the keys the port refuses (and ``data_dir``, whose default is the
 in-memory holder), a refused key fails naming itself as not ported, the
-static cluster's and TLS keys resolve from every source as the JAX
+cluster's keys (the seed join's, the resize pull's and the anti-entropy
+interval among them) and TLS keys resolve from every source as the JAX
 package's, and the server started from a TOML file wires its planes from
 it."""
 
@@ -152,11 +153,19 @@ def test_generate_config_matches_jax_but_refused_keys():
                                                              "slo"}
 
 
-@pytest.mark.parametrize("key", sorted(pcfg.NOT_PORTED))
+# The keys of seed join, resize and anti-entropy: refused until the port
+# had the dynamic cluster, taken as the JAX package takes them since.
+DYNAMIC_CLUSTER_KEYS = ("anti_entropy_interval", "cluster_resize_pull_timeout_s",
+                        "cluster_seeds")
+
+
+@pytest.mark.parametrize("key", sorted(pcfg.NOT_PORTED)
+                         + sorted(DYNAMIC_CLUSTER_KEYS))
 def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
     """Set in the file, the environment or a flag, a key the port has no
     counterpart of fails at load, naming itself; the JAX package takes
-    the same file."""
+    the same file. A key of the dynamic cluster loads from that file as
+    the JAX package loads it."""
     value = dataclasses.asdict(jcfg.Config())[key]
     text = json.dumps(value) if not isinstance(value, bool) \
         else str(value).lower()
@@ -164,7 +173,13 @@ def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
         text = json.dumps(["http://localhost:10101"])
     path = tmp_path / "c.toml"
     path.write_text(f"{key} = {text}\n")
-    jcfg.load_config(str(path))
+    want = jcfg.load_config(str(path))
+    if key in DYNAMIC_CLUSTER_KEYS:
+        assert key not in pcfg.NOT_PORTED
+        got = pcfg.load_config(str(path), environ={})
+        assert getattr(got, key) == getattr(want, key)
+        assert _shared(got) == _shared(want)
+        return
     with pytest.raises(ValueError, match=f"'{key}'.*not ported yet"):
         pcfg.load_config(str(path))
     with pytest.raises(ValueError, match=f"'{key}'.*not ported yet"):
@@ -178,6 +193,9 @@ def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
 CLUSTER_KEYS = {
     "cluster_peers": (["http://a:1", "http://b:2"], None),
     "cluster_replicas": (3, None),
+    "cluster_seeds": (["http://a:1"], None),
+    "cluster_resize_pull_timeout_s": (45.0, None),
+    "anti_entropy_interval": (1.5, None),
     "cluster_fanout_deadline_s": (12.5, None),
     "cluster_rpc_timeout_s": (7.0, None),
     "cluster_health_timeout_s": (2.5, None),
@@ -243,7 +261,19 @@ def test_ported_cluster_keys_match_jax(tmp_path, clean_env, key):
                                        ("cluster", "seeds"),
                                        ("mesh", "devices")])
 def test_refused_table_key_names_its_table(tmp_path, table, key):
+    """A refused key set in its table fails naming the table; the
+    dynamic cluster's keys, set in theirs, resolve as the JAX package
+    resolves them."""
     path = tmp_path / "c.toml"
+    flat = f"{table}_{key}"
+    if flat in DYNAMIC_CLUSTER_KEYS:
+        value = '["http://a:1"]' if flat == "cluster_seeds" else "2.5"
+        path.write_text(f"[{table}]\n{key} = {value}\n")
+        got = pcfg.load_config(str(path), environ={})
+        want = jcfg.load_config(str(path))
+        assert getattr(got, flat) == getattr(want, flat) == \
+            json.loads(value)
+        return
     path.write_text(f'[{table}]\n{key} = "x"\n')
     with pytest.raises(ValueError, match=rf"\[{table}\] {key}.*not ported"):
         pcfg.load_config(str(path), environ={})
@@ -285,12 +315,14 @@ def test_cli_config_prints_the_resolved_settings(tmp_path):
 def test_server_takes_its_planes_from_the_toml(tmp_path):
     """``cli server -c`` on the CPU: the sentinel's objectives, the
     workload recorder, the result cache and the failpoints come from the
-    file; a refused key stops the server before it listens."""
+    file; a refused key stops the server before it listens, and the
+    anti-entropy interval, which the JAX package takes, no longer does."""
     import queue
     import threading
     import urllib.request
     path = tmp_path / "c.toml"
-    path.write_text('bind = "127.0.0.1:0"\n[slo]\nquery = "99% < 25ms"\n'
+    path.write_text('bind = "127.0.0.1:0"\nanti_entropy_interval = 5.0\n'
+                    '[slo]\nquery = "99% < 25ms"\n'
                     "[cache]\nresult_max_bytes = 4096\n"
                     "[workload]\ntop_k = 3\n"
                     "[sentinel]\nring = 50\n"
@@ -337,7 +369,7 @@ def test_server_takes_its_planes_from_the_toml(tmp_path):
     # not ported yet stops the server before it listens.
     for text, msg in (('tls_certificate = "x.pem"\n',
                        "tls_certificate and tls_key must be set together"),
-                      ("anti_entropy_interval = 5.0\n", "not ported yet")):
+                      ("metric_poll_interval = 5.0\n", "not ported yet")):
         bad = tmp_path / "bad.toml"
         bad.write_text('bind = "127.0.0.1:0"\n' + text)
         res = subprocess.run(

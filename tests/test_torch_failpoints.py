@@ -3,9 +3,10 @@ package's, on the CPU: the spec parser, the registry's modes and count
 exhaustion, the configuration string, and the server's single-node sites
 (``api.query``, ``api.status``) and ``/internal/failpoints`` gate. Each
 case runs one script through both packages and compares what they do and
-their ``snapshot()`` documents. The static cluster's sites (the
-internal client's and the heartbeat's) are registered with the API;
-the resize pull's come with resize."""
+their ``snapshot()`` documents. The cluster's sites (the internal
+client's, the heartbeat's, the resize pull's and the resize job's RPC)
+are registered with the API; the two resize sites fail a join's resize
+job as the JAX package's do, and leave the cluster RESIZING."""
 
 import json
 import time
@@ -172,11 +173,12 @@ def test_http_surface_gated(apis):
         with pytest.raises(err) as ei:
             api.failpoints_update({"arm": {"nope": "error"}})
         assert ei.value.status == 400
-    # The port registers exactly the single-node sites and the static
-    # cluster's (the internal client's and the heartbeat's).
+    # The port registers exactly the single-node sites and the
+    # cluster's (the internal client's, the heartbeat's and resize's).
     assert set(pfp.FAILPOINTS.snapshot()["sites"]) == \
         {"api.query", "api.status", "client.connect", "client.read",
-         "client.5xx", "client.torn_body", "heartbeat.probe"}
+         "client.5xx", "client.torn_body", "heartbeat.probe",
+         "resize.pull", "resize.job.rpc"}
 
 
 def test_http_route_serves_and_gates(apis):
@@ -226,3 +228,56 @@ def test_api_query_site_fails_queries(apis):
         m.FAILPOINTS.disarm_all()
     assert out[1] == out[0] == ({"results": [0]},
                                 {"armed": None, "hits": 1})
+
+
+@pytest.mark.parametrize("site", ["resize.pull", "resize.job.rpc"])
+def test_resize_sites_fail_the_job_like_jax(tmp_path, monkeypatch, site):
+    """An armed resize site fails a join's resize job in both packages
+    alike: the coordinator logs that the cluster stays RESIZING, reads
+    stay exact on the pre-change placement, and the sites' hit counts
+    are equal; disarmed, an abort adopts the new placement."""
+    import threading
+    from test_torch_cluster import ClusterNode, call, close_all, \
+        start_cluster
+    zero_counts(monkeypatch, *(m.FAILPOINTS for m in MODS))
+    out = []
+    for m, kind in zip(MODS, ("jax", "torch")):
+        d = tmp_path / kind
+        d.mkdir()
+        nodes = start_cluster(d, [kind], 1)
+        newcomer = ClusterNode(kind, d, "n9")
+        newcomer.attach([("n0", nodes[0].uri), ("n9", newcomer.uri)], 1)
+        base = nodes[0].uri
+        try:
+            call(base, "POST", "/index/fp", {"options": {}})
+            call(base, "POST", "/index/fp/field/f", {"options": {}})
+            call(base, "POST", "/index/fp/field/f/import",
+                 {"rowIDs": [1] * 6,
+                  "columnIDs": [s * (1 << 20) for s in range(6)]})
+            handled = threading.Event()
+            orig = nodes[0].api.logger.printf
+
+            def recording(fmt, *args, orig=orig, handled=handled):
+                if "stays" in fmt and "RESIZING" in fmt:
+                    handled.set()
+                return orig(fmt, *args)
+
+            nodes[0].api.logger.printf = recording
+            m.FAILPOINTS.arm(site, "error")
+            call(base, "POST", "/internal/join",
+                 {"id": "n9", "uri": newcomer.uri})
+            assert handled.wait(timeout=15)
+            rec = [call(base, "GET", "/status")[1]["state"],
+                   call(base, "POST", "/index/fp/query",
+                        b"Count(Row(f=1))")[1]]
+            m.FAILPOINTS.disarm_all()
+            rec.append(m.FAILPOINTS.snapshot()["sites"][site])
+            rec.append(call(base, "POST", "/cluster/resize/abort")[1][
+                "aborted"])
+            out.append(rec)
+        finally:
+            m.FAILPOINTS.disarm_all()
+            close_all(nodes, [newcomer])
+    assert out[1] == out[0]
+    assert out[1][:2] == ["RESIZING", {"results": [6]}]
+    assert out[1][2]["hits"] >= 1 and out[1][3] is True

@@ -4,7 +4,8 @@ script through both packages over the same seeded data and compares the
 answers and the counters (per-tier hits, misses and evictions, the rank
 cache's hits, patches and rebuilds) exactly. The cases are those of the
 JAX package's ``tests/test_result_cache.py``, apart from its two-node
-cluster case (the cluster is not ported)."""
+cluster case (the placement change it checks runs in
+``tests/test_torch_resize.py``)."""
 
 import json
 import threading
@@ -785,8 +786,8 @@ def test_rank_cache_fragment_recreation_forces_rebuild(topn):
     """A fragment that did not exist when the rank vector was built has
     no write record the vector can be patched from: the next TopN
     rebuilds, never patches. (The JAX package's case recreates a
-    fragment in place, which only its cluster resize does; in the port a
-    fragment only ever appears, so this case makes one appear.)"""
+    fragment in place, as a resize pull does: that is
+    ``test_rank_cache_fragment_replaced_in_place``.)"""
     shards = [0, 1, 2]
     assert topn.topn("t", "TopN(tf, n=8)", shards=shards)
     topn.write("t", "Set(299, tf=7)")
@@ -797,6 +798,32 @@ def test_rank_cache_fragment_recreation_forces_rebuild(topn):
     got = topn.topn("t", "TopN(tf, n=8)", shards=shards)
     assert got == expect and (7, 7) in got and (0, 21) in got
     assert topn.counters()[1] == 0
+
+
+def test_rank_cache_fragment_replaced_in_place(topn):
+    """The JAX package's case: a fragment recreated in place under a
+    built rank vector, as the resize pull recreates it
+    (``replace_with_bytes``, which drops a whole row and adds bits):
+    the next TopN answers as with the rank cache off, and both packages
+    patch or rebuild alike."""
+    from pilosa_tpu_torch.core.fragment import Fragment
+    assert topn.topn("t", "TopN(tf, n=8)")
+    topn.write("t", "Set(299, tf=7)")
+    copy = Fragment(0)
+    copy.import_roaring(
+        topn.th.index("t").field("tf").view().fragment(0).write_bytes())
+    copy.clear_row(3)
+    copy.import_bits(np.array([6, 6, 2], np.uint64),
+                     np.array([500, 501, 502], np.uint64))
+    data = copy.write_bytes()
+    for h in (topn.jh, topn.th):
+        h.index("t").field("tf").view().fragment(0).replace_with_bytes(data)
+    topn.configure(enabled=False)
+    expect = topn.topn("t", "TopN(tf, n=8)")
+    topn.configure(enabled=True)
+    got = topn.topn("t", "TopN(tf, n=8)")
+    assert got == expect
+    topn.counters()
 
 
 def test_rank_cache_disabled_sweeps_identically(topn):

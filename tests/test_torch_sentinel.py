@@ -6,7 +6,8 @@ client) on an injected clock and compare the ``history`` and
 server cases drive both packages' APIs and HTTP servers the same way.
 The cases are those of the JAX package's ``tests/test_sentinel.py``; its
 two-node 5xx case runs here on one node through the ``api.query``
-failpoint (the cluster is not ported)."""
+failpoint (the cluster's failover is held against the JAX package's in
+``tests/test_torch_cluster_planes.py``)."""
 
 import importlib.util
 import json

@@ -411,11 +411,10 @@ def test_queue_c_faults_match_jax(servers):
 
 
 def test_port_refuses_what_is_not_ported(servers):
-    """The routes of seed join, resize and anti-entropy answer 404
-    naming that part: never a silently different answer. What was
-    refused before and is ported now (remote query legs and the static
-    cluster's node-to-node routes among it) is answered as the JAX server
-    does."""
+    """What was refused before and is ported now (remote query legs, the
+    cluster's node-to-node routes, and the routes of seed join, resize
+    and anti-entropy among it) is answered as the JAX server does: never
+    a silently different answer."""
     _, pbase, _ = servers
     # Column attributes, a column key, SetRowAttrs, index and field keys
     # and a keyed import are ported: the port answers them as the JAX
@@ -478,25 +477,38 @@ def test_port_refuses_what_is_not_ported(servers):
     jbase = servers[0]
     assert call(pbase, "GET", "/internal/nodes")[0] == \
         call(jbase, "GET", "/internal/nodes")[0] == 200
-    # Seed join, resize and anti-entropy are not: their routes answer
-    # 404 naming that part.
-    for method, path in (("GET", "/internal/fragment/blocks"),
-                         ("GET", "/internal/fragment/block/data"),
-                         ("GET", "/internal/fragment/data"),
-                         ("GET", "/internal/attr/blocks"),
-                         ("GET", "/internal/attr/block/data"),
-                         ("POST", "/internal/attr/merge"),
-                         ("POST", "/internal/sync"),
-                         ("POST", "/internal/join"),
-                         ("POST", "/internal/resize/pull"),
-                         ("POST", "/cluster/resize/remove-node"),
-                         ("POST", "/cluster/resize/set-coordinator"),
-                         ("POST", "/cluster/resize/abort"),
-                         ("POST", "/cluster/resize/run")):
-        st, _, raw = call(pbase, method, path, {} if method == "POST"
-                          else None)
-        assert st == 404 and "resize" in json.loads(raw)["error"], \
-            (path, raw)
+    # Seed join, resize and anti-entropy are ported: their routes answer
+    # as the JAX server's do, on a single node (block digests and data,
+    # the fragment's bytes, the attribute blocks and merge; the cluster
+    # operations refuse a node with no cluster), with their arguments
+    # and without.
+    frag = "index=dn&field=f&view=standard&shard=0"
+    routes = [
+        ("GET", f"/internal/fragment/blocks?{frag}", None, None),
+        ("GET", f"/internal/fragment/block/data?{frag}&block=0", None, None),
+        ("GET", f"/internal/fragment/data?{frag}", None, None),
+        ("GET", "/internal/fragment/blocks?index=dn&field=f&shard=9",
+         None, None),
+        ("POST", "/internal/attr/merge?index=dn",
+         {"attrs": {"3": {"y": "z"}, "250": {"w": 1}}}, None),
+        ("POST", "/internal/attr/merge?index=dn&field=f",
+         {"attrs": {"1": {"q": True}}}, None),
+        ("GET", "/internal/attr/blocks?index=dn", None, None),
+        ("GET", "/internal/attr/blocks?index=dn&field=f", None, None),
+        ("GET", "/internal/attr/block/data?index=dn&block=2", None, None),
+        ("GET", "/internal/attr/block/data?index=dn&field=f&block=0",
+         None, None),
+        ("POST", "/internal/sync", {}, None),
+        ("POST", "/internal/join", {"id": "x", "uri": "http://x:1"}, None),
+        ("POST", "/internal/resize/pull", {}, None),
+        ("POST", "/cluster/resize/remove-node", {"id": "x"}, None),
+        ("POST", "/cluster/resize/set-coordinator", {"id": "x"}, None),
+        ("POST", "/cluster/resize/abort", {}, None),
+        ("POST", "/cluster/resize/run", {}, None),
+    ]
+    routes += [(m, p.split("?")[0], {} if m == "POST" else None, None)
+               for m, p, _, _ in routes[:10]]
+    run_script(servers, "resize-ported", routes)
     # The serving planes are ported: their routes answer as the JAX
     # server's do.
     for path in ("/debug/hotspots", "/debug/history", "/debug/slo",
