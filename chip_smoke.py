@@ -912,6 +912,8 @@ def run_main(device, n_rides, iters=ITERS, profile=False,
     report["cluster"] = run_cluster(holder, device, want_taxi, want_burst,
                                     wants_cluster, cluster_samples, n_rides)
     report["cluster"]["memory"] = memory_line("cluster", device)
+    report["mesh"] = run_mesh(holder, device, ex, want_taxi, want_burst)
+    report["mesh"]["memory"] = memory_line("mesh", device)
     if device != "cpu":
         report["device_bytes"] = max(torch.cuda.max_memory_allocated(),
                                      report["burst"]["peak_before_bytes"])
@@ -6912,6 +6914,245 @@ def persist_fingerprint(device, n_molecules=PERSIST_MOLECULES):
     return report, launches
 
 
+# ----------------------------------------------------------------- mesh
+
+MESH_PARTS = 4         # 96 shards: 24 a part, no padding
+MESH_PARTS_PADDED = 5  # 96 shards padded to 100
+MESH_ITERS = 5         # turns of plain and mesh reads for the p50s
+MULTIHOST_TIMEOUT_S = 120
+
+
+def run_mesh(holder, device, ex, want_taxi, want_burst, iters=MESH_ITERS):
+    """The mesh phase on the taxi holder: the JAX server's default on a
+    host with several devices, here as slices of the one card.
+
+    - ``MeshContext([card] * 4)``: the five taxi queries through
+      ``Executor(holder, mesh=)`` exact against numpy, every sweep
+      launched a multiple of 4 times (once a part); the 18-read burst
+      exact as ONE mesh cohort launch: ``mesh_launches`` 1, four
+      ``mega_interpret`` launches, no fallback, no plain version, and
+      ``mesh_collective_bytes`` equal to ``plan_cost``'s
+      ``collectiveBytes`` for the plan;
+    - ``MeshContext([card] * 5)``: 96 shards padded to 100, the five
+      queries exact;
+    - ``MeshContext([card] * 4, replicas=2)``: Count and TopN exact and
+      equal to the unmeshed executor's answers;
+    - ``dryrun_multichip(4)`` on the card;
+    - the multihost dryrun as subprocesses: NCCL at world size 1, and two
+      gloo ranks holding CUDA tensors on the one card (NCCL refuses two
+      ranks on one GPU); on the CPU two gloo ranks;
+    - the p50 of each taxi read and of the burst with the mesh and
+      without, in turns (recorded, not asserted).
+
+    ``ex`` is the unmeshed executor of the taxi phase. Returns the
+    report."""
+    import subprocess
+
+    import torch
+    from pilosa_tpu_torch import Executor
+    from pilosa_tpu_torch.executor import megakernel as megamod
+    from pilosa_tpu_torch.ops import kernels
+    from pilosa_tpu_torch.ops import megakernel as mk
+    from pilosa_tpu_torch.parallel import MeshContext
+    from pilosa_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    sweeps = ("bank_row_counts", "bank_row_counts_masked",
+              "bsi_plane_counts")
+    reqs = [("taxi", pql, None) for _, pql in BURST]
+    idx = holder.index("taxi")
+    report = {"shards": len(idx.available_shards())}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def taxi(mex, label):
+        """The five queries, exact; launches by query."""
+        out = {}
+        for name, pql in TAXI_QUERIES:
+            before = dict(kernels.LAUNCHES)
+            (got,) = mex.execute("taxi", pql)
+            if taxi_answer(name, got) != want_taxi[name]:
+                raise AssertionError(
+                    f"mesh {label} {name}: port {taxi_answer(name, got)} "
+                    f"!= numpy {want_taxi[name]}")
+            out[name] = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                         if kernels.LAUNCHES[k] != before[k]}
+        return out
+
+    # 1. four parts: the queries, every sweep on every part, the burst
+    # as one mesh cohort.
+    mesh4 = MeshContext([dev] * MESH_PARTS)
+    ex4 = cache_off(Executor(holder, device=dev, mesh=mesh4))
+    report["parts"] = MESH_PARTS
+    report["padded_shards"] = len(ex4._shards(idx, None))
+    captured = []
+    build_fn = megamod._build
+
+    def capture(cohort):
+        plan, w_mega, lanes = build_fn(cohort)
+        captured.append((plan, cohort[0].entries[0].n_shards, w_mega))
+        return plan, w_mega, lanes
+
+    prev = megamod.MEGAKERNEL_ENABLED
+    with RefCalls(kernels) as refs:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report["taxi_launches"] = taxi(ex4, f"{MESH_PARTS} parts")
+        report["taxi_first_s"] = time.perf_counter() - t0
+        launched = dict(kernels.LAUNCHES)
+        megamod._build = capture
+        if not on_card:
+            # Rehearsal only: the megakernel defaults to off on the CPU.
+            megamod.MEGAKERNEL_ENABLED = True
+        try:
+            before = (ex4.mesh_launches, ex4.mesh_collective_bytes,
+                      ex4.mega_launches, ex4.mega_fallbacks,
+                      ex4.mega_budget_fallbacks)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = ex4.execute_batch(reqs)
+            sync()
+            report["burst_first_s"] = time.perf_counter() - t0
+            burst_launches = dict(kernels.LAUNCHES)
+            burst_answers(out, want_burst)
+            after = (ex4.mesh_launches, ex4.mesh_collective_bytes,
+                     ex4.mega_launches, ex4.mega_fallbacks,
+                     ex4.mega_budget_fallbacks)
+        finally:
+            megamod._build = build_fn
+            megamod.MEGAKERNEL_ENABLED = prev
+    if len(captured) != 1:
+        raise AssertionError(f"mesh burst: {len(captured)} plans, not one")
+    plan, n_shards, w_mega = captured[0]
+    spec = mk.MeshSpec(mesh4.SHARD_AXIS, mesh4.REPLICA_AXIS,
+                       mesh4.n_shard_devices, mesh4.replicas,
+                       mk.mesh_epilogue(plan, mesh4.SHARD_AXIS))
+    cost = mk.plan_cost(plan, n_shards, w_mega, mesh=spec)
+    moved = tuple(a - b for a, b in zip(after, before))
+    report["burst"] = {
+        "mesh_launches": moved[0], "mesh_collective_bytes": moved[1],
+        "plan_collective_bytes": cost["collectiveBytes"],
+        "psum_bytes": cost["psumBytes"],
+        "all_gather_bytes": cost["allGatherBytes"],
+        "device_bytes": cost["deviceBytes"], "n_shards": n_shards,
+        "launches": {k: v for k, v in burst_launches.items() if v}}
+    if moved != (1, cost["collectiveBytes"], 1, 0, 0):
+        raise AssertionError(
+            f"mesh burst: (mesh launches, collective bytes, megakernel "
+            f"launches, fallbacks, budget fallbacks) moved by {moved}; "
+            f"expected (1, {cost['collectiveBytes']}, 1, 0, 0)")
+    if on_card:
+        if refs.calls:
+            raise AssertionError(f"mesh: plain versions ran: {refs.calls}")
+        if burst_launches["mega_interpret"] != MESH_PARTS:
+            raise AssertionError(
+                f"mesh burst: {burst_launches['mega_interpret']} "
+                f"mega_interpret launches, expected one a part "
+                f"({MESH_PARTS})")
+        for name in sweeps:
+            n = launched[name]
+            if n <= 0 or n % MESH_PARTS:
+                raise AssertionError(
+                    f"mesh: {name} launched {n} times over the taxi "
+                    f"queries, not a positive multiple of {MESH_PARTS}")
+    report["sweep_launches_per_part"] = {
+        name: launched[name] // MESH_PARTS for name in sweeps}
+    log(f"mesh: {MESH_PARTS} parts, taxi launches "
+        f"{report['taxi_launches']}, burst {report['burst']}")
+
+    # 2. five parts: 96 shards padded to 100.
+    mesh5 = MeshContext([dev] * MESH_PARTS_PADDED)
+    ex5 = cache_off(Executor(holder, device=dev, mesh=mesh5))
+    report["padded"] = {"parts": MESH_PARTS_PADDED,
+                        "padded_shards": len(ex5._shards(idx, None)),
+                        "launches": taxi(ex5, f"{MESH_PARTS_PADDED} parts")}
+    del ex5, mesh5
+
+    # 3. the replica axis: 2 replicas of 2 parts.
+    meshr = MeshContext([dev] * MESH_PARTS, replicas=2)
+    exr = cache_off(Executor(holder, device=dev, mesh=meshr))
+    replica = {}
+    for name, pql in TAXI_QUERIES:
+        if name not in ("count_intersect", "topn"):
+            continue
+        (got,) = exr.execute("taxi", pql)
+        (plain,) = ex.execute("taxi", pql)
+        if not taxi_answer(name, got) == taxi_answer(name, plain) \
+                == want_taxi[name]:
+            raise AssertionError(f"mesh replicas {name}: "
+                                 f"{taxi_answer(name, got)} != unmeshed "
+                                 f"{taxi_answer(name, plain)}")
+        replica[name] = taxi_answer(name, got)
+    report["replicas"] = {"shape": meshr.shape, "answers": replica}
+    del exr, meshr
+
+    # 4. the dryrun.
+    t0 = time.perf_counter()
+    report["dryrun"] = dryrun_multichip(4, dev)
+    report["dryrun"]["s"] = time.perf_counter() - t0
+
+    # 5. the multihost dryrun, as subprocesses.
+    runs = ([("nccl", "cuda", 1), ("gloo", "cuda", 2)] if on_card
+            else [("gloo", "cpu", 2)])
+    report["multihost"] = []
+    for backend, kind, procs in runs:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch.parallel.multihost",
+             "--backend", backend, "--device", kind, "--processes",
+             str(procs), "--timeout", str(MULTIHOST_TIMEOUT_S)],
+            cwd=REPO, capture_output=True, text=True,
+            timeout=MULTIHOST_TIMEOUT_S + 30)
+        oks = [ln for ln in res.stdout.splitlines()
+               if ln.startswith("multihost child") and ": OK " in ln]
+        rec = {"backend": backend, "device": kind, "processes": procs,
+               "rc": res.returncode, "children_ok": len(oks),
+               "s": time.perf_counter() - t0}
+        report["multihost"].append(rec)
+        if res.returncode != 0 or len(oks) != procs:
+            raise AssertionError(f"multihost {backend}/{kind}: {rec}\n"
+                                 f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        log(f"mesh: multihost {rec}")
+
+    # 6. p50s with the mesh and without, in turns (plain, mesh, mesh,
+    # plain, ...).
+    times = {name: {"plain": [], "mesh": []} for name, _ in TAXI_QUERIES}
+    times["burst"] = {"plain": [], "mesh": []}
+    prev = megamod.MEGAKERNEL_ENABLED
+    if not on_card:
+        megamod.MEGAKERNEL_ENABLED = True
+    try:
+        for i in range(iters):
+            order = (("plain", ex), ("mesh", ex4))
+            if i % 2:
+                order = order[::-1]
+            for name, pql in TAXI_QUERIES + [("burst", None)]:
+                for kind, e in order:
+                    t0 = time.perf_counter()
+                    if pql is None:
+                        out = e.execute_batch(reqs)
+                    else:
+                        (got,) = e.execute("taxi", pql)
+                    sync()
+                    times[name][kind].append(time.perf_counter() - t0)
+                    if pql is None:
+                        burst_answers(out, want_burst)
+                    elif taxi_answer(name, got) != want_taxi[name]:
+                        raise AssertionError(f"mesh p50 {kind} {name}")
+    finally:
+        megamod.MEGAKERNEL_ENABLED = prev
+    report["p50_s"] = {name: {kind: sorted(v)[len(v) // 2]
+                              for kind, v in t.items()}
+                       for name, t in times.items()}
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh: p50s {report['p50_s']}, {report['seconds']:.1f} s")
+    del ex4, mesh4
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -7199,6 +7440,8 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": {"card": card, **serving}}, default=str),
           flush=True)
     print(json.dumps({"cluster": {"card": card, **report["cluster"]}},
+                     default=str), flush=True)
+    print(json.dumps({"mesh": {"card": card, **report["mesh"]}},
                      default=str), flush=True)
     print(json.dumps({"memory": MEMORY}), flush=True)
     print(card, flush=True)

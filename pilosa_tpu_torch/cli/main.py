@@ -173,6 +173,42 @@ def configure_planes(api, cfg) -> None:
         max_entries=cfg.cache_rank_max_entries)
     if not cfg.optimizer_enabled:
         megamod.PLAN_OPT_ENABLED = False
+    # [mesh] collectives can switch the mesh cohort launches off (one
+    # way: never on past PILOSA_TPU_MESH=0).
+    if not cfg.mesh_collectives:
+        megamod.MESH_ENABLED = False
+
+
+def build_mesh(cfg, device):
+    """The server's mesh, as the JAX cli builds it: with ``mesh_devices``
+    other than 1, the first ``mesh_devices`` visible devices of the
+    server's type (0: all of them), when that is more than one or
+    ``mesh_replicas`` is more than 1; else None."""
+    import torch
+
+    from pilosa_tpu_torch.parallel.mesh import MeshContext
+    if cfg.mesh_devices == 1:
+        return None
+    if device.type == "cuda":
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
+    n = cfg.mesh_devices or len(devices)
+    if n > 1 or cfg.mesh_replicas > 1:
+        return MeshContext(devices[:n], replicas=cfg.mesh_replicas)
+    return None
+
+
+def init_distributed(cfg, device) -> None:
+    """With ``jax_coordinator`` set and ``jax_num_processes`` above 1,
+    join the torch.distributed process group there (the JAX cli's
+    ``jax.distributed.initialize``): NCCL for a CUDA server, gloo for
+    the CPU."""
+    if cfg.jax_coordinator and cfg.jax_num_processes > 1:
+        from pilosa_tpu_torch.parallel.multihost import init_process_group
+        init_process_group(cfg.jax_coordinator, cfg.jax_num_processes,
+                           cfg.jax_process_id, device.type)
 
 
 def _start_memory_planes(api, cfg):
@@ -333,7 +369,8 @@ def build_server(cfg, holder):
 
     api = API(holder, stats=_stats(cfg), tracer=_tracer(cfg),
               cluster=build_cluster(cfg, holder),
-              client_ssl_context=cfg.client_ssl_context())
+              client_ssl_context=cfg.client_ssl_context(),
+              mesh=build_mesh(cfg, holder.device))
     configure_planes(api, cfg)
     if api.cluster_executor is not None:
         api.cluster_executor.configure(
@@ -390,6 +427,7 @@ def cmd_server(args) -> int:
                         else logging.INFO)
     holder = Holder(os.path.expanduser(cfg.data_dir) if cfg.data_dir
                     else None, device=args.device)
+    init_distributed(cfg, holder.device)
     if holder.path is not None:
         holder.open()
     api, server, watchdog = build_server(cfg, holder)
@@ -405,9 +443,12 @@ def cmd_server(args) -> int:
     nodes = "" if api.cluster is None else \
         f" cluster={len(api.cluster.nodes())} nodes" \
         f" replicas={api.cluster.replica_n}"
+    mesh = api.executor.mesh
     print(f"pilosa-tpu-torch server listening on "
           f"{cfg.scheme}://{addr[0]}:{addr[1]}"
-          f" device={holder.device} coalescer={coal}"
+          f" device={holder.device}"
+          f" mesh={mesh.shape if mesh is not None else 'single-device'}"
+          f" coalescer={coal}"
           f" data_dir={holder.path or '(memory)'}{nodes}", flush=True)
     try:
         server.serve_forever()

@@ -346,8 +346,9 @@ class PositionsBank:
 
 
 def _key_shards(key: tuple) -> tuple:
-    """The shards a bank cache key covers: ``(shards, trim[, rows])``,
-    ``("sbank", shards, width)`` or ``("pbank", shard, width)``."""
+    """The shards a bank cache key covers: ``(shards, trim[, rows]
+    [, mesh])``, ``("sbank", shards, width)`` or ``("pbank", shard,
+    width)``."""
     if key[0] == "sbank":
         return key[1]
     if key[0] == "pbank":
@@ -652,8 +653,8 @@ class View:
 
     def device_bank(self, shards: Sequence[int],
                     rows: Optional[Sequence[int]] = None,
-                    trim: bool = False, cache_rows: bool = False
-                    ) -> ViewBank:
+                    trim: bool = False, cache_rows: bool = False,
+                    mesh: Any = None) -> ViewBank:
         """Bank for ``shards`` covering ``rows`` (default: every row present
         in any of the shards). The full bank is cached per (shards, trim)
         and rebuilt when any fragment's version moved. A ``rows`` subset
@@ -667,8 +668,16 @@ class View:
         full bank of the same width is patched when it can be
         (``_patch_bank``), so its slots keep their rows; consumers map
         rows to slots through ``slots`` and never assume them ascending.
-        Cached banks are admitted to ``BANK_BUDGET`` and ledgered."""
+        Cached banks are admitted to ``BANK_BUDGET`` and ledgered.
+
+        With a ``mesh`` (``parallel/mesh.MeshContext``) the bank is
+        sharded over the mesh's shard axis (``put_bank``: one contiguous
+        ``[R, S/D, W]`` part a shard device), ``shards`` being the
+        padded list whose absent shards are all-zero columns; the cache
+        key gains the mesh's key. A sharded bank is rebuilt, never
+        patched, and never takes the sparse upload."""
         shards = tuple(shards)
+        mesh_key = (mesh.cache_key(),) if mesh is not None else ()
         with self._lock:
             frags = {sh: self.fragments.get(sh) for sh in shards}
             versions = {sh: (f.version if f else -1)
@@ -676,12 +685,12 @@ class View:
             width = self.trimmed_words() if trim else WORDS_PER_SHARD
             cached = None
             if rows is None:
-                cache_key: Optional[Tuple] = (shards, trim)
+                cache_key: Optional[Tuple] = (shards, trim) + mesh_key
                 row_set = None
             else:
                 row_set = sorted(set(rows))
-                cache_key = (shards, trim, tuple(row_set)) if cache_rows \
-                    else None
+                cache_key = (shards, trim, tuple(row_set)) + mesh_key \
+                    if cache_rows else None
             if cache_key is not None:
                 cached = self._bank_cache.get(cache_key)
                 if cached is not None and cached.versions == versions \
@@ -709,7 +718,8 @@ class View:
                 BANK_BUDGET.forget(self, cache_key)
             if row_set is None:
                 row_set = _row_union(frags.values())
-                if cached is not None and cached.array.shape[-1] == width:
+                if cached is not None and mesh is None \
+                        and cached.array.shape[-1] == width:
                     patched = self._patch_bank(cached, frags, versions,
                                                row_set, shards, width)
                     if patched is not None:
@@ -723,7 +733,7 @@ class View:
                         return patched
             subset = rows is not None
             bank = self._build_bank(frags, shards, row_set, width, versions,
-                                    subset)
+                                    subset, mesh)
             if cache_key is not None:
                 self._bank_cache[cache_key] = bank
                 BANK_BUDGET.admit(self, cache_key)
@@ -735,7 +745,8 @@ class View:
 
     def _build_bank(self, frags: Dict[int, Optional[Fragment]],
                     shards: Tuple[int, ...], row_set: List[int], width: int,
-                    versions: Dict[int, int], subset: bool) -> ViewBank:
+                    versions: Dict[int, int], subset: bool,
+                    mesh: Any = None) -> ViewBank:
         """A new bank of ``row_set``: from a cached host block of the
         subset, else by the sparse upload (one shard, a width within one
         container), else from a gathered dense host block, which a subset
@@ -753,7 +764,8 @@ class View:
                     self._host_blocks.pop(hb_key, None)
                     HOST_BLOCK_BUDGET.forget(self, hb_key)
         array = None
-        if host is None and SPARSE_UPLOAD and len(shards) == 1 \
+        if host is None and SPARSE_UPLOAD and mesh is None \
+                and len(shards) == 1 \
                 and width * 32 <= CONTAINER_BITS and cap * width < (1 << 31):
             f = frags[shards[0]]
             sp = (f.rows_positions(row_set, width) if f is not None else
@@ -785,7 +797,8 @@ class View:
                         owner=self, index=self.index, field=self.field,
                         view=self.name, nShards=len(shards),
                         rows=len(row_set))
-            array = torch.from_numpy(host.view(np.int32)).to(self.device)
+            array = mesh.put_bank(host) if mesh is not None \
+                else torch.from_numpy(host.view(np.int32)).to(self.device)
         return ViewBank(array, slots, cap - 1, versions)
 
     @staticmethod

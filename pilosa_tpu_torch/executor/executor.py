@@ -144,6 +144,7 @@ from pilosa_tpu_torch.executor.results import FieldRow, GroupCount, \
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD, \
     b_and, b_andnot, b_not, b_or, b_xor, shift_bits, to_numpy
+from pilosa_tpu_torch.parallel.mesh import MeshTensor
 from pilosa_tpu_torch.pql import Call, Condition, Query, parse_string_cached
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
 from pilosa_tpu_torch.utils.fingerprint import request_key
@@ -225,7 +226,7 @@ def _result_d2h(result: Any) -> int:
     result's words (its columns are read when it is shaped)."""
     if isinstance(result, RowResult) and not result.cached:
         words = getattr(result, "words", None)
-        if isinstance(words, torch.Tensor):
+        if isinstance(words, (torch.Tensor, MeshTensor)):
             return int(words.nbytes)
     return 0
 
@@ -526,15 +527,28 @@ class _Deferred:
 class Executor:
     """Runs PQL against a Holder on the holder's device. ``device``
     defaults to CUDA (raising where there is none) and must match the
-    holder's."""
+    holder's.
+
+    With a ``mesh`` (``parallel/mesh.MeshContext`` of devices of the
+    executor's type) the shard list is padded onto the mesh and banks
+    are sharded over its shard axis: the tree's row operations run part
+    by part, each kernel once a part, and counts and rows are reduced on
+    the mesh's first device (the JAX package's SPMD executor with its
+    XLA-inserted collectives). The result cache, the positions bank and
+    the hybrid layout are off under a mesh, as in the JAX package."""
 
     def __init__(self, holder: Holder,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Any = None):
         self.device = resolve_device(device)
         if self.device != holder.device:
             raise ValueError(f"executor device {self.device} does not "
                              f"match holder device {holder.device}")
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"mesh devices {mesh.devices} are not of the "
+                             f"executor's type {self.device.type}")
         self.holder = holder
+        self.mesh = mesh
         self._empty_banks: Dict[int, ViewBank] = {}
         self._tls = threading.local()
         # Megakernel accounting ('+=' is not atomic; batches may run
@@ -569,6 +583,13 @@ class Executor:
         # traffic by kind and instructions by opcode
         # (ops/megakernel.plan_cost), as the JAX package counts them.
         self.mega_plan_bytes = 0
+        # Mesh cohort launches (executor/megakernel.py under a mesh,
+        # PILOSA_TPU_MESH): one plan buffer run on every part, the
+        # reductions finished by the collective epilogue;
+        # collective_bytes is plan_cost's model of what the collectives
+        # move (psum + all-gather).
+        self.mesh_launches = 0
+        self.mesh_collective_bytes = 0
         self.launch_bytes_gather = 0
         self.launch_bytes_compute = 0
         self.launch_bytes_expand = 0
@@ -727,11 +748,11 @@ class Executor:
         """The request tier's key, or None when the request is not
         eligible: the cache is off, the executor is a cluster node's
         (its remote legs cache through the eval tier, as in the JAX
-        package), the query is not PQL text or does not parse, or a
-        call is not Count or a bitmap call (TopN rides the rank cache;
-        writes never cache)."""
+        package) or runs over a mesh, the query is not PQL text or does
+        not parse, or a call is not Count or a bitmap call (TopN rides
+        the rank cache; writes never cache)."""
         if not self.result_cache.enabled or not isinstance(query, str) \
-                or self.key_resolver is not None:
+                or self.key_resolver is not None or self.mesh is not None:
             return None
         try:
             q = parse_string_cached(query)
@@ -1136,6 +1157,7 @@ class Executor:
             if rc.enabled or WORKLOAD.enabled else None
         key = None
         if terminal and rc.enabled and not plan.literal \
+                and self.mesh is None \
                 and not (prof is not None and prof.forced):
             key = ("eval", idx.name, fp, tuple(int(s) for s in shards))
         return _EvalIdent(plan, sig, fp, gen, key, t0,
@@ -1224,6 +1246,19 @@ class Executor:
             self.stats.count("executor.mega_plan_entries", plan_entries)
             self.stats.count("executor.mega_plan_bytes", plan_bytes)
             self.stats.histogram("executor.mega_batch_size", queries)
+
+    def _note_mesh(self, n_devices: int, collective_bytes: int) -> None:
+        """Account one mesh cohort launch: the plan ran on every part of
+        the shard axis and the epilogue's collectives moved
+        ``collective_bytes`` (plan_cost's model)."""
+        with self._stats_lock:
+            self.mesh_launches += 1
+            self.mesh_collective_bytes += collective_bytes
+        if self.stats is not None:
+            self.stats.count("executor.mesh_launches", 1)
+            self.stats.count("executor.mesh_collective_bytes",
+                             collective_bytes)
+            self.stats.histogram("executor.mesh_devices", n_devices)
 
     def _note_launch_cost(self, cost: Dict[str, Any]) -> None:
         """Account one launch's memory traffic by kind and its
@@ -1525,10 +1560,15 @@ class Executor:
 
     # --------------------------------------------------------------- shards
 
-    def _shards(self, idx: Index, shards) -> List[int]:
-        if shards is not None:
-            return list(shards)
-        return idx.available_shards() or [0]
+    def _shards(self, idx: Index, shards, pad: bool = True) -> List[int]:
+        available = idx.available_shards()
+        out = list(shards) if shards is not None else (available or [0])
+        if pad and self.mesh is not None:
+            # Pad ids must be absent from the whole index, not only from
+            # the requested subset.
+            floor = (max(available) + 1) if available else 0
+            out = self.mesh.pad_shards(out, floor=floor)
+        return out
 
     def _referenced_fields(self, idx: Index, call: Call, out: set) -> bool:
         """Collect every field a row-call tree reads; False when the walk
@@ -1572,7 +1612,18 @@ class Executor:
     # ------------------------------------------------------------ bitmaps
 
     def _fuser(self) -> Any:
+        if self.mesh is not None and not self._mesh_fusion_enabled():
+            return None
         return getattr(self._tls, "fuser", None)
+
+    def _mesh_fusion_enabled(self) -> bool:
+        """Mesh requests enter the batch collector exactly when the mesh
+        cohort launch can take their staged evals (the megakernel on and
+        ``PILOSA_TPU_MESH`` not 0); groups the launch does not take run
+        per group, byte-identical to the unfused mesh path. Otherwise
+        they skip the collector, the path before the mesh cohort."""
+        from pilosa_tpu_torch.executor import megakernel as megamod
+        return megamod.enabled_for(self) and megamod.MESH_ENABLED
 
     def _execute_bitmap(self, idx: Index, call: Call, shards,
                         opts: Optional[ExecOptions] = None
@@ -1581,7 +1632,8 @@ class Executor:
         eval-tier hit answers from the host words the miss copied, with
         no staging, launch or copy; a miss runs (or stages) and fills
         when its Row result copies its words for its columns."""
-        shards = self._restrict_shards(idx, call, self._shards(idx, shards))
+        shards = self._shards(idx, self._restrict_shards(
+            idx, call, self._shards(idx, shards, pad=False)))
         opts = opts or ExecOptions()
         ident = self._eval_ident(idx, call, shards, "row", terminal=True)
         # Read now, not when a staged result resolves: a later write of
@@ -1620,7 +1672,8 @@ class Executor:
         if len(call.children) != 1:
             raise ExecutionError("Count() takes exactly one row argument")
         child = call.children[0]
-        shards = self._restrict_shards(idx, child, self._shards(idx, shards))
+        shards = self._shards(idx, self._restrict_shards(
+            idx, child, self._shards(idx, shards, pad=False)))
         ident = self._eval_ident(idx, child, shards, "count", terminal=True)
         if ident is not None:
             self._record_eval(idx, ident, "count", shards)
@@ -1785,7 +1838,8 @@ class Executor:
         rows = []
         for v in views:
             bank = field.view(v).device_bank(shards, rows=[row_id],
-                                             trim=True, cache_rows=True)
+                                             trim=True, cache_rows=True,
+                                             mesh=self.mesh)
             rows.append(bank.array[bank.slot(row_id)])
         return functools.reduce(b_or, _align_all(rows))
 
@@ -2008,13 +2062,12 @@ class Executor:
             view.set_layout("dense")
         return bank
 
-    @staticmethod
-    def _leaf_sparse(field: Field, view_name: str,
+    def _leaf_sparse(self, field: Field, view_name: str,
                      force_dense: set = frozenset()) -> bool:
         """Whether a Row leaf of this view serves from its SparseBank: the
         view is in the sparse layout, its width fits the bit-position
-        encoding, and its key is not forced dense."""
-        if not layout_mod.HYBRID_LAYOUT_ENABLED \
+        encoding, its key is not forced dense, and there is no mesh."""
+        if not layout_mod.HYBRID_LAYOUT_ENABLED or self.mesh is not None \
                 or (field.name, view_name) in force_dense:
             return False
         view = field.view(view_name)
@@ -2169,14 +2222,17 @@ class Executor:
             if full_bytes > self.BANK_MAX_BYTES and \
                     len(rows_needed) < bound:
                 return view.device_bank(shards, rows=sorted(rows_needed),
-                                        trim=True, cache_rows=True)
-        return view.device_bank(shards, trim=True)
+                                        trim=True, cache_rows=True,
+                                        mesh=self.mesh)
+        return view.device_bank(shards, trim=True, mesh=self.mesh)
 
     def _empty_bank(self, n_shards: int) -> ViewBank:
         bank = self._empty_banks.get(n_shards)
         if bank is None:
             arr = torch.zeros((1, n_shards, _CONTAINER_WORDS),
                               dtype=torch.int32, device=self.device)
+            if self.mesh is not None:
+                arr = self.mesh.put_bank(arr)
             bank = ViewBank(arr, {}, 0, {})
             self._empty_banks[n_shards] = bank
         return bank
@@ -2265,9 +2321,11 @@ class Executor:
         if view is None:
             return PairsResult([])
         # Sweep only shards the view covers: absent fragments add zero.
-        shards = [s for s in shards if view.fragment(s) is not None]
-        if not shards:
+        covered = [s for s in shards if view.fragment(s) is not None]
+        if not covered:
             return PairsResult([])
+        if len(covered) < len(shards):
+            shards = self._shards(idx, covered)
         filter_words = None
         if call.children:
             filter_words = self._eval_row(idx, call.children[0], shards)
@@ -2335,17 +2393,20 @@ class Executor:
         bank_bytes = bank_capacity(len(view_rows)) * len(shards) * width * 4
         if bank_bytes <= TOPN_MAX_BANK_BYTES:
             parts = [self._topn_sweep(
-                all_rows, view.device_bank(tuple(shards), trim=True),
+                all_rows, view.device_bank(tuple(shards), trim=True,
+                                           mesh=self.mesh),
                 filter_words)]
         else:
-            if PBANK_ENABLED and len(shards) == 1 and not ids_arg and n \
+            if PBANK_ENABLED and self.mesh is None and len(shards) == 1 \
+                    and not ids_arg and n \
                     and allowed_rows is None and selfcheck_pairs is None:
                 pb = view.positions_bank(shards[0], width)
                 if pb is not None:
                     return self._topn_positions(pb, filter_words, width, n,
                                                 tanimoto, min_threshold)
             parts = [self._topn_sweep(
-                rows, view.device_bank(tuple(shards), rows=rows, trim=True),
+                rows, view.device_bank(tuple(shards), rows=rows, trim=True,
+                                       mesh=self.mesh),
                 filter_words)
                 for rows in (all_rows[c0:c0 + TOPN_CHUNK_ROWS]
                              for c0 in range(0, len(all_rows),
@@ -2476,7 +2537,7 @@ class Executor:
         if bank_capacity(len(view_rows)) * len(shards) * width * 4 \
                 > TOPN_MAX_BANK_BYTES:
             return None
-        bank = view.device_bank(tuple(shards), trim=True)
+        bank = view.device_bank(tuple(shards), trim=True, mesh=self.mesh)
         counts = self._rank_counts(view, bank, shards)
         slot_rows = np.fromiter(bank.slots, np.uint64, len(bank.slots))
         # The top-k breaks count ties by the lower slot, which is the
@@ -2670,7 +2731,7 @@ class Executor:
         eager row evaluation, also under execute_batch's collector."""
         if not call.children or any(c.name != "Rows" for c in call.children):
             raise ExecutionError("GroupBy requires Rows() arguments")
-        shards = self._shards(idx, shards)
+        shards = self._shards(idx, shards, pad=False)
         # Groups only intersect, so a shard some child field does not
         # cover counts zero: keep the children's common shards.
         child_fields = [idx.field(c.arg("_field")) for c in call.children]
@@ -2681,6 +2742,7 @@ class Executor:
             shards = [s for s in shards if s in covered]
             if not shards:
                 return []
+        shards = self._shards(idx, shards)
         limit = call.uint_arg("limit") or 0
         previous = call.arg("previous")
         if previous is not None:
@@ -2903,7 +2965,7 @@ class Executor:
             raise ExecutionError(
                 f"ClearRow() is not supported on {field.options.type} fields")
         row_id = self._write_row_id(field, row_ref)
-        shards = self._shards(idx, shards)
+        shards = self._shards(idx, shards, pad=False)  # host-side write
         changed = False
         for view in list(field.views.values()):
             for shard in shards:
@@ -2928,10 +2990,13 @@ class Executor:
             raise ExecutionError(
                 f"Store() is not supported on {field.options.type} fields")
         row_id = self._write_row_id(field, row_ref)
-        shards = self._shards(idx, shards)
-        words = to_numpy(self._eval_row(idx, call.children[0], shards))
+        real_shards = self._shards(idx, shards, pad=False)
+        padded = self._shards(idx, shards)
+        words = to_numpy(self._eval_row(idx, call.children[0], padded))
         view = field.create_view_if_not_exists(VIEW_STANDARD)
-        for i, shard in enumerate(shards):
+        # Only real shards: the mesh's pad shards sit at the tail and
+        # must never become fragments.
+        for i, shard in enumerate(real_shards):
             view.create_fragment_if_not_exists(shard).set_row(row_id,
                                                               words[i])
         return True

@@ -45,6 +45,20 @@ Routing, as in the JAX package's ``executor/megakernel.py``:
 ``auto``) is read per executor: ``auto`` means on for a CUDA executor
 and off on the CPU. Tests set the module attribute.
 
+Under an executor's mesh (``parallel/mesh.MeshContext``) a cohort is a
+mesh cohort launch, as in the JAX package: the plan is verified against
+a ``MeshSpec`` carrying ``mesh_epilogue``'s typed collectives, its
+signature gains ``|<mesh key>|epi``, and one ``run_program`` runs it,
+which launches ``mega_interpret`` once per part over the parts' banks
+(the plan copied to each part's device) and finishes with the epilogue:
+count lanes summed and row lanes gathered along S on the mesh's first
+device. ``plan_cost`` adds the mesh keys, the executor counts the launch
+in ``mesh_launches`` and its ``collectiveBytes`` in
+``mesh_collective_bytes``, and profiled members get ``meshDevices`` and
+``collectiveBytes``. ``MESH_ENABLED`` (``PILOSA_TPU_MESH``, default on)
+set to 0 sends mesh requests past the collector (``Executor._fuser``):
+no mesh launch, the same bytes.
+
 Measurement, as in the JAX package: after the launch ``plan_cost``
 prices the plan from its host buffers (best effort: a surprise there
 never fails a request), the roofline plane records it under the cohort
@@ -103,6 +117,9 @@ MEGA_MAX_BYTES = int(os.environ.get("PILOSA_TPU_MEGA_BYTES", 1 << 30))
 # Plan verification gate: "on", "off" or "auto".
 PLAN_VERIFY_MODE = _flag("PILOSA_TPU_PLAN_VERIFY", "auto")
 
+# The mesh cohort path (PILOSA_TPU_MESH): on unless 0/false/no/off.
+MESH_ENABLED = _flag("PILOSA_TPU_MESH", "on") != "off"
+
 
 def enabled_for(executor: Any) -> bool:
     if MEGAKERNEL_ENABLED is None:
@@ -156,7 +173,8 @@ def run_megakernel(executor: Any, groups: Dict[tuple, Any]
                    ) -> Dict[tuple, Any]:
     """Take what lowers, launch one program per shard-count cohort, and
     return the groups the caller must still run per group."""
-    if not enabled_for(executor):
+    if not enabled_for(executor) or (executor.mesh is not None
+                                     and not MESH_ENABLED):
         return groups
     cohorts: Dict[int, List[Any]] = {}
     remaining: Dict[tuple, Any] = {}
@@ -230,13 +248,22 @@ def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
     sampled = any(p is not None and p.sample_device
                   for g in cohort for p in g.profs)
     start = None
+    mesh = ex.mesh
+    spec = None
     try:
         key = plan.sig(n_shards, w_mega)
+        if mesh is not None:
+            # Mesh cohort: one plan, every part; the epilogue types one
+            # collective per real output lane.
+            spec = mk.MeshSpec(mesh.SHARD_AXIS, mesh.REPLICA_AXIS,
+                               mesh.n_shard_devices, mesh.replicas,
+                               mk.mesh_epilogue(plan, mesh.SHARD_AXIS))
+            key = f"{key}|{mesh.cache_key()}|epi"
         if PLAN_VERIFY_MODE == "on" or (
                 PLAN_VERIFY_MODE == "auto"
                 and not ex._plan_verified(key)):
             try:
-                mk.verify_plan(plan, n_shards, w_mega)
+                mk.verify_plan(plan, n_shards, w_mega, mesh=spec)
             except mk.PlanVerifyError:
                 ex._note_plan_verify(key, False)
                 raise
@@ -268,7 +295,7 @@ def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
     # Cost attribution is best effort: a surprised cost model must never
     # fail a request whose results are already in flight.
     try:
-        cost = mk.plan_cost(plan, n_shards, w_mega)
+        cost = mk.plan_cost(plan, n_shards, w_mega, mesh=spec)
     except Exception:
         cost = None
     ckey = (f"S{n_shards}|W{w_mega}|T{plan.n_regs}"
@@ -288,6 +315,9 @@ def _launch(executor: Any, cohort: List[Any], plan: mk.Plan,
             rep = g.entries[0]
             g.out = _MegaView(launch, rep.mode, g_lanes, rep.width)
         ex._note_mega(n_entries, plan.n_instrs, plan.plan_nbytes)
+        if spec is not None:
+            ex._note_mesh(spec.n_devices, cost.get("collectiveBytes", 0)
+                          if cost is not None else 0)
         if cost is not None:
             ex._note_launch_cost(cost)
         if plan.opt_stats is not None:
@@ -336,6 +366,10 @@ def _attribute(ex: Any, cohort: List[Any], jit_hit: bool, t_disp: float,
             if cost is not None:
                 node.attrs["launchBytes"] = cost["totalBytes"]
                 node.attrs["opcodeHist"] = dict(cost["opcodeHist"])
+                if "collectiveBytes" in cost:
+                    node.attrs["meshDevices"] = cost["meshDevices"]
+                    node.attrs["collectiveBytes"] = \
+                        cost["collectiveBytes"]
             if opt is not None:
                 node.attrs["planEntriesBefore"] = opt.entries_before
                 node.attrs["planEntriesAfter"] = opt.entries_after

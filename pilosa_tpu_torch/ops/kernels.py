@@ -36,6 +36,14 @@ scatter:
   megakernel's expand registers, a sparse view's eager Row leaf and the
   sparse upload of a dense bank.
 
+A sharded bank (``parallel/mesh.MeshTensor``, under an executor's
+mesh) goes to the same wrappers: each sweep and ``mega_interpret``
+launches once per part on the part's ``[R, S/D, W]`` tensor (the
+filter's or mask's part beside it), the parts' counts are summed on the
+mesh's first device and ``mega_interpret``'s row lanes concatenated
+along S there. So a sharded bank costs D counted launches, none of them
+the plain version on a card.
+
 Banks are width-trimmed, so W is any width >= 1 (the Pallas versions
 required W = 32768). Each wrapper takes a CUDA tensor to its kernel and
 a CPU tensor to the plain version beside it (``*_ref``), and nothing
@@ -55,6 +63,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops.bitset import popcount
+from pilosa_tpu_torch.parallel.mesh import MeshTensor, split_like
 from pilosa_tpu_torch.utils.timeline import TIMELINE
 
 # Interpreter opcodes (ops/megakernel.py): AND, OR, XOR, ANDNOT, ZERO,
@@ -384,6 +393,8 @@ def _as_counts(out: torch.Tensor) -> torch.Tensor:
 
 def bank_row_counts(bank: torch.Tensor) -> torch.Tensor:
     """Per-row popcount of an [R, S, W] int32 bank -> int64[R]."""
+    if isinstance(bank, MeshTensor):
+        return bank.mesh.psum([bank_row_counts(p) for p in bank.parts])
     name = "bank_row_counts"
     _check_bank(name, bank)
     if bank.device.type == "cpu":
@@ -405,6 +416,13 @@ def bank_row_counts_masked(bank: torch.Tensor, filt: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """([R, S, W] bank, [S, W] filter) -> (|row ∧ filt|, |row|), each
     int64[R], in one pass over the bank."""
+    if isinstance(bank, MeshTensor):
+        outs = [bank_row_counts_masked(p, f.contiguous()) for p, f in
+                zip(bank.parts, split_like(bank, filt))]
+        return (bank.mesh.psum([o[0] for o in outs]),
+                bank.mesh.psum([o[1] for o in outs]))
+    if isinstance(filt, MeshTensor):
+        filt = filt.gather()
     name = "bank_row_counts_masked"
     _check_bank(name, bank)
     _check_filter(name, bank, filt)
@@ -428,6 +446,12 @@ def bsi_plane_counts(planes: torch.Tensor, mask: torch.Tensor
                      ) -> torch.Tensor:
     """([D, S, W] bit planes, [S, W] column mask) -> int64[D] masked
     popcounts; the caller weights plane d by 2^d."""
+    if isinstance(planes, MeshTensor):
+        return planes.mesh.psum([
+            bsi_plane_counts(p, m.contiguous()) for p, m in
+            zip(planes.parts, split_like(planes, mask))])
+    if isinstance(mask, MeshTensor):
+        mask = mask.gather()
     name = "bsi_plane_counts"
     _check_bank(name, planes)
     _check_filter(name, planes, mask)
@@ -637,7 +661,25 @@ def mega_interpret(banks: Sequence[torch.Tensor], slots: Sequence[Any],
     rows runs in order. Returns ``(counts, rows)``: int64[Nc] with
     ``counts[j] = |reg[out_count[j]]|`` and int32 [Nr, S, w_mega] with
     ``rows[j] = reg[out_row[j]]``, on the banks' device. The index arrays
-    are int32, numpy or tensors on either device (checked on the host)."""
+    are int32, numpy or tensors on either device (checked on the host).
+
+    Over sharded banks (a mesh cohort) the plan runs once per part, on
+    each part's ``[R, S/D, W]`` banks (a plain bank is split to match):
+    the count lanes of the parts are summed and their row lanes
+    concatenated along S on the mesh's first device. A mesh plan reads
+    no sparse bank (the hybrid layout is off under a mesh)."""
+    ref = next((b for b in banks if isinstance(b, MeshTensor)), None)
+    if ref is not None:
+        if xbanks:
+            raise ValueError("mega_interpret: a mesh plan reads no "
+                             "sparse bank")
+        per_bank = [split_like(ref, b) for b in banks]
+        outs = [mega_interpret([pb[d] for pb in per_bank], slots, widths,
+                               instrs, out_count, out_row, n_regs,
+                               int(ref.parts[d].shape[ref.axis]), w_mega)
+                for d in range(len(ref.parts))]
+        return (ref.mesh.psum([o[0] for o in outs]),
+                ref.mesh.all_gather([o[1] for o in outs], 1))
     name = "mega_interpret"
     banks, slots = _expanded_banks(banks, slots, xbanks, xslots, n_shards,
                                    w_mega, expand_positions)

@@ -39,9 +39,9 @@ BSI comparison predicates lower too: the ``executor/bsi.py`` scans are
 AND/OR/ANDNOT folds whose per-bit branches depend only on the host-known
 predicate value, so ``v > 300`` becomes about 2·depth plan rows.
 
-The host half (``Lowering``, ``Plan``, ``verify_plan``) is this
-package's own copy of the JAX package's ``ops/megakernel.py``; the mesh
-epilogue is not ported yet. On the card ``OP_EXPAND`` is the identity
+The host half (``Lowering``, ``Plan``, ``verify_plan``, the mesh
+epilogue) is this package's own copy of the JAX package's
+``ops/megakernel.py``. On the card ``OP_EXPAND`` is the identity
 after the width mask, as in the JAX interpreter: the expansion happened
 before the plan, and the opcode is the typed boundary.
 """
@@ -453,6 +453,73 @@ def slab_nbytes(n_regs: int, n_shards: int, w_mega: int) -> int:
     return int(n_regs) * int(n_shards) * int(w_mega) * 4
 
 
+# ------------------------------------------------------- mesh epilogue
+#
+# A mesh launch runs the same [P, 4] plan buffer on every part of the
+# shard axis (banks sharded by MeshContext.put_bank, the plan copied to
+# each part's device), so the instruction loop needs no change: each
+# part's registers are its [S/D, W] slice. What changes is the output
+# stage: count lanes are summed over the parts on the mesh's first
+# device (the psum), and row lanes are concatenated along S there (the
+# all-gather), so the caller reads one count per lane and whole rows.
+# The epilogue is typed data, one collective opcode per real output
+# lane, verified before the launch (verify_plan's mesh rules) so a
+# mis-built mesh plan fails loudly instead of double-counting.
+
+EPI_NONE = 0
+# Count lane: sum the parts' counts (the psum over the shard axis).
+EPI_PSUM = 1
+# Row lane: concatenate the parts' [S/D, W] rows along S (the
+# all-gather).
+EPI_ALL_GATHER = 2
+
+EPI_NAMES = ("none", "psum", "all_gather")
+
+
+class Epilogue:
+    """Typed collective plan for one mesh launch: the named mesh axes
+    the epilogue reduces over, and one collective opcode per real
+    output lane (count lanes and row lanes apart; pad lanes never reach
+    a collective). Pure host data, verified before the launch."""
+
+    __slots__ = ("axes", "count_ops", "row_ops")
+
+    def __init__(self, axes: Sequence[str], count_ops: Sequence[int],
+                 row_ops: Sequence[int]):
+        self.axes = tuple(str(a) for a in axes)
+        self.count_ops = np.asarray(list(count_ops), dtype=np.int32)
+        self.row_ops = np.asarray(list(row_ops), dtype=np.int32)
+
+
+class MeshSpec:
+    """Host-side description of the mesh a plan is verified against:
+    axis names, device counts and the collective epilogue. Not
+    ``parallel.mesh.MeshContext``: ``verify_plan`` and ``plan_cost``
+    stay pure host numpy with no device handle."""
+
+    __slots__ = ("shard_axis", "replica_axis", "n_devices", "replicas",
+                 "epilogue")
+
+    def __init__(self, shard_axis: str, replica_axis: str,
+                 n_devices: int, replicas: int = 1,
+                 epilogue: Optional[Epilogue] = None):
+        self.shard_axis = str(shard_axis)
+        self.replica_axis = str(replica_axis)
+        self.n_devices = int(n_devices)
+        self.replicas = int(replicas)
+        self.epilogue = epilogue
+
+
+def mesh_epilogue(plan: Plan, shard_axis: str = "shards") -> Epilogue:
+    """The canonical epilogue of a finished plan: every real count lane
+    a shard-axis psum, every real row lane an all-gather (pad lanes
+    excluded)."""
+    nc = len(plan.lane_count_widths)
+    nr = len(plan.lane_row_widths)
+    return Epilogue((shard_axis,), [EPI_PSUM] * nc,
+                    [EPI_ALL_GATHER] * nr)
+
+
 # --------------------------------------------------------- verification
 #
 # The plan buffer is data handed to one interpreter, so a lowering bug
@@ -479,7 +546,8 @@ def _is_pow2(n: int) -> bool:
     return n >= 1 and (n & (n - 1)) == 0
 
 
-def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
+def verify_plan(plan: Plan, n_shards: int, w_mega: int,
+                mesh: Optional[MeshSpec] = None) -> None:
     """Validate one launch's plan buffers against the interpreter's
     execution model; raise :class:`PlanVerifyError` on the first
     violation, return ``None`` when every invariant holds.
@@ -510,6 +578,12 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
       ``max``, ANDNOT/COPY the left span, ZERO 0, EXPAND the expand
       register's width, THRESH ``max(dst, min(a, b))``); every real
       output lane must prove a span <= its plan width.
+    * **Mesh collectives** (``mesh`` given): the shard axis splits
+      evenly over the mesh's shard devices, the epilogue reduces over
+      exactly the shard axis and never the replica axis (a sum over
+      replicas would count every bit R times), and every real output
+      lane carries its typed collective: count lanes ``psum``, row
+      lanes ``all_gather``.
     """
     instrs = plan.instrs
     if instrs.ndim != 2 or instrs.shape[1] != 4:
@@ -731,6 +805,62 @@ def verify_plan(plan: Plan, n_shards: int, w_mega: int) -> None:
                 f"output lane reads — the pad tail would corrupt a "
                 f"result")
 
+    if mesh is not None:
+        _verify_mesh(mesh, n_shards, nc, nr)
+
+
+def _verify_mesh(mesh: MeshSpec, n_shards: int, nc: int,
+                 nr: int) -> None:
+    """The mesh rules of verify_plan: shard-axis agreement, the
+    replica-axis no-op proof, and per-lane collective typing."""
+    D = int(mesh.n_devices)
+    if D < 1:
+        raise PlanVerifyError(f"mesh: n_devices={D} must be >= 1")
+    if int(n_shards) % D != 0:
+        raise PlanVerifyError(
+            f"mesh: n_shards={int(n_shards)} does not split evenly "
+            f"over {D} shard devices — shard-axis agreement requires "
+            f"identical local register shapes on every chip")
+    if not mesh.shard_axis or mesh.shard_axis == mesh.replica_axis:
+        raise PlanVerifyError(
+            f"mesh: shard axis {mesh.shard_axis!r} must be a named "
+            f"axis distinct from replica axis {mesh.replica_axis!r}")
+    epi = mesh.epilogue
+    if epi is None:
+        raise PlanVerifyError(
+            "mesh: launch has no collective epilogue — a mesh plan "
+            "without typed collectives would return per-device "
+            "partials")
+    if epi.axes != (mesh.shard_axis,):
+        raise PlanVerifyError(
+            f"mesh: epilogue reduces over axes {epi.axes}, expected "
+            f"exactly ({mesh.shard_axis!r},)")
+    if mesh.replica_axis in epi.axes:
+        raise PlanVerifyError(
+            f"mesh: epilogue reduces over the replica axis "
+            f"{mesh.replica_axis!r} — replicated operands would be "
+            f"counted {int(mesh.replicas)}x (the replica-axis no-op "
+            f"proof fails)")
+    if len(epi.count_ops) != nc or len(epi.row_ops) != nr:
+        raise PlanVerifyError(
+            f"mesh: epilogue types {len(epi.count_ops)} count / "
+            f"{len(epi.row_ops)} row lanes, plan has {nc} / {nr} real "
+            f"lanes")
+    for j, op in enumerate(epi.count_ops.tolist()):
+        if op != EPI_PSUM:
+            name = EPI_NAMES[op] if 0 <= op < len(EPI_NAMES) else op
+            raise PlanVerifyError(
+                f"mesh: count lane {j} typed {name!r}, must be "
+                f"'psum' — anything else ships per-shard partials "
+                f"to the host")
+    for j, op in enumerate(epi.row_ops.tolist()):
+        if op != EPI_ALL_GATHER:
+            name = EPI_NAMES[op] if 0 <= op < len(EPI_NAMES) else op
+            raise PlanVerifyError(
+                f"mesh: row lane {j} typed {name!r}, must be "
+                f"'all_gather' — the coordinator reads whole rows, "
+                f"not per-device slices")
+
 
 # ------------------------------------------------------ cost attribution
 #
@@ -760,7 +890,8 @@ def _buf_nbytes(a: Any) -> int:
     return 0
 
 
-def plan_cost(plan: Plan, n_shards: int, w_mega: int) -> Dict[str, Any]:
+def plan_cost(plan: Plan, n_shards: int, w_mega: int,
+              mesh: Optional[MeshSpec] = None) -> Dict[str, Any]:
     """Per-launch memory traffic model over one finished plan, split by
     kind, plus the per-opcode instruction histogram.
 
@@ -786,8 +917,13 @@ def plan_cost(plan: Plan, n_shards: int, w_mega: int) -> Dict[str, Any]:
     ``liveSlabBytes`` / ``planBytes`` restate the slab and plan sizes.
     ``opcodeHist`` counts real instructions only, by ``OP_NAMES``,
     zero counts omitted. It reads only the plan's host numpy buffers and
-    the banks' shapes: never a device buffer. The JAX package's mesh
-    keys are not ported."""
+    the banks' shapes: never a device buffer.
+
+    With a ``mesh``: ``meshDevices`` (D), ``deviceBytes`` (the total
+    split over the D parts, rounded up: the slowest part),
+    ``psumBytes`` = 2(D-1)·nc·4, ``allGatherBytes`` = (D-1)·nr·row and
+    ``collectiveBytes``, their sum (the JAX package's ring model of the
+    collectives)."""
     S, W = int(n_shards), int(w_mega)
     row = S * W * 4
     n_slots = int(plan.n_slots)
@@ -845,7 +981,7 @@ def plan_cost(plan: Plan, n_shards: int, w_mega: int) -> Dict[str, Any]:
            + (len(plan.out_row) - nr) * 2 * row)
 
     total = gather + compute + expand + pad
-    return {
+    out = {
         "gatherBytes": int(gather),
         "computeBytes": int(compute),
         "expandBytes": int(expand),
@@ -857,6 +993,16 @@ def plan_cost(plan: Plan, n_shards: int, w_mega: int) -> Dict[str, Any]:
         "opcodeHist": hist,
         "nInstrs": n_instrs,
     }
+    if mesh is not None:
+        D = max(1, int(mesh.n_devices))
+        psum = 2 * (D - 1) * nc * 4
+        ag = (D - 1) * nr * row
+        out["meshDevices"] = D
+        out["deviceBytes"] = int(-(-total // D))
+        out["psumBytes"] = int(psum)
+        out["allGatherBytes"] = int(ag)
+        out["collectiveBytes"] = int(psum + ag)
+    return out
 
 
 # ------------------------------------------------------------- program

@@ -2,15 +2,17 @@
 the JAX package's ``parallel/syncer.py``.
 
 ``HolderSyncer`` reconciles every fragment this node owns with its
-other owners block by block, SYNC_WORKERS fragments at a time: the block digests of both sides
-(``Fragment.checksum_blocks``), then the pairs of each differing block,
-merged here as a union and the peer's missing pairs pushed back as an
-import; a peer without the fragment gets it whole (its schema made
-first). Attribute stores are reconciled the same way with every peer.
-``ResizePuller`` is the resize's data motion: after a topology change
-it fetches each fragment this node now owns from the most authoritative
-holder and replaces its copy; ``clean_unowned`` drops the fragments it
-no longer owns. ``AntiEntropyLoop`` runs a sync pass every interval.
+other owners block by block, SYNC_WORKERS shards at a time (a shard's
+fragments one after another, in the order the JAX package walks them):
+the block digests of both sides (``Fragment.checksum_blocks``), then
+the pairs of each differing block, merged here as a union and the
+peer's missing pairs pushed back as an import; a peer without the
+fragment gets it whole (its schema made first). Attribute stores are
+reconciled the same way with every peer. ``ResizePuller`` is the
+resize's data motion: after a topology change it fetches each fragment
+this node now owns from the most authoritative holder and replaces its
+copy; ``clean_unowned`` drops the fragments it no longer owns.
+``AntiEntropyLoop`` runs a sync pass every interval.
 
 Reference: holderSyncer (holder.go:637-858), fragmentSyncer
 (fragment.go:2231-2432), holderCleaner (holder.go:859) and
@@ -36,9 +38,10 @@ from pilosa_tpu_torch.utils.locks import make_lock
 # holds the cluster mid-resize.
 _FP_RESIZE_PULL = FAILPOINTS.register("resize.pull")
 
-# Fragments a sync pass reconciles at once. Each is independent of the
-# others; a cold pass is bound by hashing (which, like the C++ position
-# sweep, runs without the GIL) on this node and on the peers it asks.
+# Shards a sync pass reconciles at once. A shard's pushes write only the
+# peer's fragments of that shard, so shards are independent; a cold
+# pass is bound by hashing (which, like the C++ position sweep, runs
+# without the GIL) on this node and on the peers it asks.
 SYNC_WORKERS = 8
 
 
@@ -63,7 +66,7 @@ class HolderSyncer:
         sent to peers (``pushed``, ``attrs_pushed``)."""
         stats = {"merged": 0, "pushed": 0, "attrs_merged": 0,
                  "attrs_pushed": 0}
-        jobs = []
+        shards: Dict[tuple, list] = {}
         for iname, idx in list(self.holder.indexes.items()):
             self.sync_attrs(iname, None, idx.column_attr_store, stats)
             for fname, field in list(idx.fields.items()):
@@ -71,15 +74,22 @@ class HolderSyncer:
                 for vname, view in list(field.views.items()):
                     for shard, frag in list(view.fragments.items()):
                         if self.cluster.owns_shard(iname, shard):
-                            jobs.append((iname, fname, vname, shard, frag))
+                            shards.setdefault((iname, shard), []).append(
+                                (iname, fname, vname, shard, frag))
 
-        def run(job):
+        def run(jobs):
+            # One shard's fragments one after another, in index, field
+            # and view order: a push writes the peer's fragments of the
+            # same shard (the field's and `_exists`), so a later
+            # comparison in this shard must see it, as it does when the
+            # whole pass runs in this order.
             part = {"merged": 0, "pushed": 0}
-            self.sync_fragment(*job, part)
+            for job in jobs:
+                self.sync_fragment(*job, part)
             return part
 
         with ThreadPoolExecutor(max_workers=SYNC_WORKERS) as pool:
-            for part in pool.map(run, jobs):
+            for part in pool.map(run, shards.values()):
                 stats["merged"] += part["merged"]
                 stats["pushed"] += part["pushed"]
         return stats

@@ -170,13 +170,15 @@ class API:
     ``coalescer`` is attached by the server wiring (``cli/main.py``) or
     a test; None means every query takes the direct path. ``stats`` and
     ``tracer`` default to the nop clients; ``long_query_time`` (seconds,
-    0 off) sends slower queries to the log and the slow-query ring."""
+    0 off) sends slower queries to the log and the slow-query ring.
+    ``mesh`` (``parallel/mesh.MeshContext``) goes to the executor, which
+    then runs every query over the mesh."""
 
     def __init__(self, holder: Holder, stats: Any = None,
                  tracer: Any = None, cluster: Any = None,
-                 client_ssl_context: Any = None):
+                 client_ssl_context: Any = None, mesh: Any = None):
         self.holder = holder
-        self.executor = Executor(holder, device=holder.device)
+        self.executor = Executor(holder, device=holder.device, mesh=mesh)
         self.stats = stats or NopStatsClient()
         self.executor.stats = self.stats
         # The workload recorder and the result cache count into the stats
@@ -953,6 +955,8 @@ class API:
             "launchBytesPad": ex.launch_bytes_pad,
             "opcodeTotals": dict(ex.opcode_counts),
             "megaLaunches": ex.mega_launches,
+            "meshLaunches": ex.mesh_launches,
+            "meshCollectiveBytes": ex.mesh_collective_bytes,
         }
         return doc
 
@@ -1014,8 +1018,7 @@ class API:
                                      if hits + rebuilds else 0.0),
             "hbm_live_bytes": live,
             "hbm_padded_bytes": padded,
-            # One card and no mesh: no collective moves a byte.
-            "mesh_collective_bytes": 0,
+            "mesh_collective_bytes": self.executor.mesh_collective_bytes,
             "coalescer_queue_depth": (coal.queue_depth()
                                       if coal is not None else 0),
         }
@@ -1112,8 +1115,8 @@ class API:
                 "megaQueries": ex.mega_queries,
                 "megaPlanEntries": ex.mega_plan_entries,
                 "megaPlanBytes": ex.mega_plan_bytes,
-                "meshLaunches": 0,
-                "meshCollectiveBytes": 0,
+                "meshLaunches": ex.mesh_launches,
+                "meshCollectiveBytes": ex.mesh_collective_bytes,
                 "planVerifyPasses": ex.plan_verify_passes,
                 "planVerifyRejects": ex.plan_verify_rejects,
                 "opt": {
@@ -1216,6 +1219,8 @@ class API:
                 "megaQueries": ex.mega_queries,
                 "megaPlanEntries": ex.mega_plan_entries,
                 "megaPlanBytes": ex.mega_plan_bytes,
+                "meshLaunches": ex.mesh_launches,
+                "meshCollectiveBytes": ex.mesh_collective_bytes,
                 "planVerifyPasses": ex.plan_verify_passes,
                 "planVerifyRejects": ex.plan_verify_rejects,
                 "optPlans": ex.opt_plans,

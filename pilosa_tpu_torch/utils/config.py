@@ -8,14 +8,20 @@ is the flat key ``name_key``; ``[failpoints]`` and ``[slo]`` stay tables
 
 Two differences, both loud:
 
-- keys with no counterpart in the port yet (the mesh, the JAX platform
-  and multi-process keys, the runtime monitor and diagnostics) are
-  refused
-  by ``load_config`` with a message saying they are not ported yet,
+- keys with no counterpart in the port yet (the JAX platform override,
+  the runtime monitor and diagnostics) are refused by ``load_config`` with a message saying they are not ported yet,
   whether they come from the file, the environment or a flag; none is
   ever silently ignored (``NOT_PORTED``);
 - ``data_dir`` defaults to ``""``: the server keeps its holder in memory
   unless a directory is given.
+
+The mesh's keys (``mesh_devices``, 0 meaning every visible CUDA
+device; ``mesh_replicas``; ``mesh_collectives``, which can switch the
+mesh cohort path off but never on past ``PILOSA_TPU_MESH=0``; a
+``[mesh]`` table or the flat spelling) and the multi-process keys
+(``jax_coordinator``, ``jax_num_processes``, ``jax_process_id``, which
+``cli server`` hands to ``torch.distributed`` as the JAX package hands
+them to ``jax.distributed``) are the JAX package's.
 
 The cluster's keys (``cluster_peers``, ``cluster_replicas``,
 ``cluster_seeds``, the fan-out, RPC and resize-pull timeouts, backoff
@@ -38,11 +44,7 @@ ENV_PREFIX = "PILOSA_TPU_"
 # The JAX package's keys that have no counterpart in the port yet, with
 # what each belongs to. Setting one fails in load_config.
 NOT_PORTED: Dict[str, str] = {
-    **{k: "the mesh" for k in ("mesh_devices", "mesh_replicas",
-                               "mesh_collectives")},
     "platform": "the JAX platform override",
-    **{k: "JAX multi-process startup" for k in (
-        "jax_coordinator", "jax_num_processes", "jax_process_id")},
     "metric_poll_interval": "the runtime monitor",
     **{k: "diagnostics" for k in ("diagnostics_interval",
                                   "diagnostics_url")},
@@ -78,6 +80,18 @@ class Config:
     coalescer_max_queue: int = 256
     coalescer_deadline_ms: float = 0.0
     coalescer_pipeline: bool = True
+    # [mesh]: the device mesh of `cli server` (0 = every visible CUDA
+    # device; a mesh is built when that is more than one), its replica
+    # axis, and the mesh cohort path's switch.
+    mesh_devices: int = 0
+    mesh_replicas: int = 1
+    mesh_collectives: bool = True
+    # Multi-process startup: with more than one process the server joins
+    # a torch.distributed process group at tcp://<coordinator> (NCCL on
+    # the card, gloo on the CPU) before it builds its mesh.
+    jax_coordinator: str = ""
+    jax_num_processes: int = 0
+    jax_process_id: int = -1
     # The anti-entropy pass's period (seconds; 0 or less: off).
     anti_entropy_interval: float = 600.0
     # [heartbeat]: the failure detector probes this often (0: off),
@@ -196,6 +210,8 @@ class Config:
         of 0 binds a free port)."""
         if self.port < 0 or self.port > 65535:
             raise ValueError(f"invalid port {self.port}")
+        if self.mesh_replicas < 1:
+            raise ValueError("mesh_replicas must be >= 1")
         if bool(self.tls_certificate) != bool(self.tls_key):
             raise ValueError(
                 "tls_certificate and tls_key must be set together")

@@ -331,3 +331,28 @@ def test_resize_run_drops_unowned_and_reads_stay_exact(tmp_path):
             close_all(nodes, [n3] if n3 is not None else [])
 
     differential(tmp_path, scenario)
+
+
+@pytest.mark.parametrize("slow", ["_exists", "f"])
+@pytest.mark.parametrize("scenario", [_union_only, _paused_import],
+                         ids=["union_only", "paused_import"])
+def test_sync_order_within_a_shard_is_the_jax_packages(
+        tmp_path, monkeypatch, scenario, slow):
+    """A pass reconciles a shard's fragments in the JAX package's order,
+    whatever each peer takes to answer: with the port client's block
+    digests of one field slowed, a push into the peer's field must
+    still reach the peer before the comparison of its ``_exists`` that
+    follows it (and not after), so both passes count what the JAX
+    package's do."""
+    import time
+
+    from pilosa_tpu_torch.parallel.client import InternalClient
+    real = InternalClient.fragment_blocks
+
+    def slowed(self, uri, index, field, view, shard):
+        if field == slow:
+            time.sleep(0.3)
+        return real(self, uri, index, field, view, shard)
+
+    monkeypatch.setattr(InternalClient, "fragment_blocks", slowed)
+    differential(tmp_path, scenario)

@@ -157,15 +157,19 @@ def test_generate_config_matches_jax_but_refused_keys():
 # had the dynamic cluster, taken as the JAX package takes them since.
 DYNAMIC_CLUSTER_KEYS = ("anti_entropy_interval", "cluster_resize_pull_timeout_s",
                         "cluster_seeds")
+# The mesh's and the multi-process startup's keys: refused until the
+# port had the mesh, taken as the JAX package takes them since.
+MESH_KEYS = ("jax_coordinator", "jax_num_processes", "jax_process_id",
+             "mesh_collectives", "mesh_devices", "mesh_replicas")
 
 
 @pytest.mark.parametrize("key", sorted(pcfg.NOT_PORTED)
-                         + sorted(DYNAMIC_CLUSTER_KEYS))
+                         + sorted(DYNAMIC_CLUSTER_KEYS) + list(MESH_KEYS))
 def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
     """Set in the file, the environment or a flag, a key the port has no
     counterpart of fails at load, naming itself; the JAX package takes
-    the same file. A key of the dynamic cluster loads from that file as
-    the JAX package loads it."""
+    the same file. A key of the dynamic cluster or the mesh loads from
+    that file as the JAX package loads it."""
     value = dataclasses.asdict(jcfg.Config())[key]
     text = json.dumps(value) if not isinstance(value, bool) \
         else str(value).lower()
@@ -174,7 +178,7 @@ def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
     path = tmp_path / "c.toml"
     path.write_text(f"{key} = {text}\n")
     want = jcfg.load_config(str(path))
-    if key in DYNAMIC_CLUSTER_KEYS:
+    if key in DYNAMIC_CLUSTER_KEYS + MESH_KEYS:
         assert key not in pcfg.NOT_PORTED
         got = pcfg.load_config(str(path), environ={})
         assert getattr(got, key) == getattr(want, key)
@@ -259,15 +263,17 @@ def test_ported_cluster_keys_match_jax(tmp_path, clean_env, key):
 
 @pytest.mark.parametrize("table,key", [("anti_entropy", "interval"),
                                        ("cluster", "seeds"),
-                                       ("mesh", "devices")])
+                                       ("mesh", "devices"),
+                                       ("diagnostics", "interval")])
 def test_refused_table_key_names_its_table(tmp_path, table, key):
     """A refused key set in its table fails naming the table; the
-    dynamic cluster's keys, set in theirs, resolve as the JAX package
-    resolves them."""
+    dynamic cluster's and the mesh's keys, set in theirs, resolve as the
+    JAX package resolves them."""
     path = tmp_path / "c.toml"
     flat = f"{table}_{key}"
-    if flat in DYNAMIC_CLUSTER_KEYS:
-        value = '["http://a:1"]' if flat == "cluster_seeds" else "2.5"
+    if flat in DYNAMIC_CLUSTER_KEYS + MESH_KEYS:
+        value = {"cluster_seeds": '["http://a:1"]',
+                 "mesh_devices": "2"}.get(flat, "2.5")
         path.write_text(f"[{table}]\n{key} = {value}\n")
         got = pcfg.load_config(str(path), environ={})
         want = jcfg.load_config(str(path))

@@ -348,7 +348,8 @@ def test_port_imports_neither_jax_nor_reference():
         "assert len(mods) >= 15, mods\n"
         "need = ['pilosa_tpu_torch.utils.' + n for n in ('locks', "
         "'stats', 'tracing', 'timeline', 'profile', 'roofline', "
-        "'benchenv')]\n"
+        "'benchenv')] + ['pilosa_tpu_torch.parallel.' + n for n in "
+        "('mesh', 'multihost')]\n"
         "assert not set(need) - set(mods), set(need) - set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
