@@ -293,7 +293,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    another as a protobuf ``ImportRoaringRequest``, exact; SIGTERM, exit
    0; then ``GET /info`` of ``cli server --data-dir`` over a small
    directory whose op log lost its last bytes must carry the
-   ``tailDroppedBytes`` of a holder reopened over a copy of it. After
+   ``tailDroppedBytes`` of a holder reopened over a copy of it. Then
+   the cli phase (``run_cli_tools``) on the same directory, every tool
+   a ``python -m pilosa_tpu_torch.cli`` subprocess: ``check`` over every
+   fragment file (all ok; a copy with its last op record cut, TORN
+   TAIL and exit 1), ``inspect --verbose`` of two cab_type fragments
+   (rows, bits and containers as numpy counts them), ``backup``
+   (seconds, bytes), ``restore`` into a new directory (seconds; again
+   without ``--force``: refused), ``fold`` of every file (seconds) and
+   ``check`` (all ok, opN=0); ``cli server`` over the folded directory
+   with diagnostics and the runtime monitor at 1 s: the five queries and
+   the ``/batch/query`` burst exact against numpy with the persist
+   writes applied, a diagnostics report on a loopback listener with the
+   JAX payload's keys, the monitor's gauges on ``/metrics``, and its
+   log's launch counts showing bank_row_counts, its masked form,
+   bsi_plane_counts and mega_interpret; a 2M-ride CSV (cut from 100M:
+   the csv reader and JSON posts cost about 1 us a line) through
+   ``import -d`` and a ``cli server`` over it (Count and Sum exact) and
+   through ``import --host`` into the first server (Count exact), each
+   import's seconds and pairs a second; ``Field.value`` of 1,000 rides
+   and ``Field.row_time`` of one day on the in-memory holder. After
    the keys phase (``persist_keys``): the keyed star-trace
    index at full size on a directory through ``load_keys``' API calls
    (load seconds beside the keys phase's), closed, reopened (open
@@ -314,8 +333,8 @@ keys, the serve path's taxi and fingerprint servers)
 and read just after; every kernel must have launched on its path, and
 on the serve and persist paths. The ``taxi``, ``groupby``,
 ``timefields``, ``burst``, ``tanimoto``, ``keys``, ``serve``,
-``persist``, ``layout``, ``measure``, ``serving``, ``cluster`` and
-``memory`` lines, the card's name
+``persist``, ``cli``, ``layout``, ``measure``, ``serving``, ``cluster``,
+``mesh`` and ``memory`` lines, the card's name
 and power limit, the kernels JSON and the ``{"ok": true, "device":
 {...}}`` line end the output. The script imports nothing of JAX or of the JAX
 package.
@@ -326,9 +345,9 @@ script), and prints one ``probe`` JSON line: the burst's warm p50 (and
 its ``spread`` over 200 more bursts), the
 device memory one warm burst allocates at its peak, and its device time
 by kernel under torch.profiler. Runs of two trees in turns compare them
-on one card. ``--load-probe [--tree DIR]`` runs only the fingerprint
-load (``--molecules``) with DIR's package and prints one ``probe`` line
-with its seconds. ``--expand-probe [--tree DIR]`` runs only the
+on one card. ``--load-probe [--tree DIR]`` runs only the taxi load
+(100M rides) and the fingerprint load (``--molecules``) with DIR's
+package and prints one ``probe`` line with their seconds. ``--expand-probe [--tree DIR]`` runs only the
 expansion's checks and timing rows with DIR's package and prints one
 ``probe`` line.
 """
@@ -6538,7 +6557,8 @@ def persist_check_writes(ex, expect, fill_rows):
 
 def cli_start(args):
     """``python -m pilosa_tpu_torch.cli server ARGS`` on a free loopback
-    port: (process, base URL, seconds to its listening line)."""
+    port: (process, base URL, seconds to its listening line). Log lines
+    before that line (a torn tail's warning) are passed over."""
     import queue
     import threading
     t0 = time.perf_counter()
@@ -6550,10 +6570,17 @@ def cli_start(args):
     lines = queue.Queue()
     threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
                      daemon=True).start()
-    first = lines.get(timeout=600)
-    if "listening on " not in first:
-        proc.kill()
-        raise AssertionError(f"the CLI server printed {first!r}")
+    deadline, before, first = time.time() + 600, [], ""
+    while "listening on " not in first:
+        try:
+            first = lines.get(timeout=1)
+            before.append(first)
+        except queue.Empty:
+            if proc.poll() is not None or time.time() > deadline:
+                proc.kill()
+                raise AssertionError(f"the CLI server printed "
+                                     f"{''.join(before)[-500:]!r}")
+    proc.lines = lines  # the rest of its output, for cli_launches
     return proc, first.split("listening on ")[1].split()[0], \
         time.perf_counter() - t0
 
@@ -6708,14 +6735,537 @@ def persist_torn_info(device):
         shutil.rmtree(path + "-copy", ignore_errors=True)
 
 
+
+# ------------------------------------------------------------ cli tools
+
+# The cli phase (run_cli_tools): rides of its CSV import, cut from the
+# taxi index's 100M to 4M (4 shards): Python's csv reader and the
+# import's JSON posts cost about 1 us a line, and the phase took 319 s
+# at 10M and 150.2 s at 4M of its 150 s on an H100 host, the backup and
+# restore of the 918 MB directory 52 s of it; processes that split the
+# fragment files for check and fold; the seed of the Field.value probe;
+# its rides; diagnostics and monitor periods (s).
+CLI_CSV_RIDES = 4_000_000
+CLI_PROCS = 4
+CLI_VALUE_SEED = 31
+CLI_VALUE_RIDES = 1000
+CLI_DIAG_INTERVAL = 1.0
+# The keys of the JAX package's diagnostics report (its
+# DiagnosticsCollector.payload over a holder); tests/
+# test_torch_diagnostics.py holds the port's to them on the CPU.
+DIAG_KEYS = {"Version", "OS", "Arch", "PythonVersion", "NumCPU",
+             "NumIndexes", "NumFields"}
+# The runtime monitor's gauges as /metrics names them.
+MONITOR_GAUGES = ("pilosa_threads", "pilosa_tailDroppedBytes",
+                  "pilosa_gcGen0", "pilosa_garbageCollection",
+                  "pilosa_heapInuse", "pilosa_openFiles")
+
+
+def cli_run(args, timeout=900):
+    """``python -m pilosa_tpu_torch.cli ARGS`` to its end: (exit code,
+    stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli",
+                        *args], cwd=REPO, capture_output=True, text=True,
+                       timeout=timeout, env=cache_off_env())
+    return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def cli_split(cmd, files, tmp):
+    """``cli CMD`` over ``files`` split across CLI_PROCS processes run at
+    once (each writes its own files). Returns (exit codes, stdout,
+    stderr, seconds)."""
+    import tempfile
+    t0 = time.perf_counter()
+    procs = []
+    for i in range(CLI_PROCS):
+        part = files[i::CLI_PROCS]
+        if not part:
+            continue
+        out = tempfile.TemporaryFile("w+", dir=tmp)
+        err = tempfile.TemporaryFile("w+", dir=tmp)
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", *cmd, *part],
+            cwd=REPO, stdout=out, stderr=err, text=True,
+            env=cache_off_env()), out, err))
+    rcs, outs, errs = [], [], []
+    try:
+        for proc, out, err in procs:
+            rcs.append(proc.wait(timeout=900))
+            out.seek(0)
+            err.seek(0)
+            outs.append(out.read())
+            errs.append(err.read())
+    finally:
+        for proc, out, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    return rcs, "".join(outs), "".join(errs), time.perf_counter() - t0
+
+
+def import_own_s(err):
+    """The seconds an import process logged for its own work (after its
+    start and module loads): its ``import: N records in S s`` line."""
+    for line in err.splitlines():
+        if " import: " in line and " records in " in line:
+            return float(line.rsplit(" in ", 1)[1].split()[0])
+    raise AssertionError(f"cli import logged no seconds: {err[-300:]}")
+
+
+def fragment_paths(path):
+    """Every fragment file under a data directory, sorted."""
+    return sorted(os.path.join(dp, n) for dp, _, fs in os.walk(path)
+                  for n in fs if n.isdigit()
+                  and os.path.basename(dp) == "fragments")
+
+
+def cli_launches(proc):
+    """The ``kernel launches:`` object a stopped ``cli server`` logged at
+    its drain (a process of its own counts from 0)."""
+    import queue
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        try:
+            line = proc.lines.get(timeout=1)
+        except queue.Empty:
+            continue
+        if "kernel launches: " in line:
+            return json.loads(line.split("kernel launches: ", 1)[1])
+    raise AssertionError("the CLI server logged no kernel launches")
+
+
+def cli_expected(n_rides, c3):
+    """Columns of the persist directory after run_persist's writes, and
+    the answers of TAXI_QUERIES and BURST over them, recomputed with
+    numpy: ride 3 out of cab_type c3, new ride n + 11 in passenger_count
+    2 and n + 12 in cab_type 2 (both existing), shard PERSIST_SHARD
+    existing whole (the 1M-bit import). Returns (cab column, 255 where
+    none; taxi answers; burst answers; amount)."""
+    import numpy as np
+    cab, pax, dist, amount = taxi_data(n_rides)
+    new1, new2 = n_rides + 11, n_rides + 12
+    lo, hi = PERSIST_SHARD * SHARD_WIDTH, (PERSIST_SHARD + 1) * SHARD_WIDTH
+    n = max(new2 + 1, hi)
+    cabv = np.full(n, 255, np.uint8)
+    cabv[:n_rides] = cab
+    cabv[3] = 255
+    cabv[new2] = 2
+    del cab
+    paxv = np.zeros(n, np.uint8)
+    paxv[:n_rides] = pax
+    paxv[new1] = 2
+    del pax
+    has = np.zeros(n, bool)  # dist and amount are set together
+    has[:n_rides] = True
+    distv = np.zeros(n, np.int16)
+    distv[:n_rides] = dist
+    del dist
+    amountv = np.zeros(n, np.int16)
+    amountv[:n_rides] = amount
+    exists = has.copy()
+    exists[[new1, new2]] = True
+    exists[lo:hi] = True
+    c1 = (cabv == 1) & has
+    taxi = {"count_intersect": int(((cabv == 0) & (paxv == 2)).sum()),
+            "bsi_range_count": int((has & (distv < 50)).sum()),
+            "sum_filtered": (int(amountv[c1].sum(dtype=np.int64)),
+                             int(c1.sum()))}
+    counts = [(p, int((paxv == p).sum())) for p in range(1, 7)]
+    taxi["topn"] = sorted(counts, key=lambda rc: (-rc[1], rc[0]))[:3]
+    m = (paxv == 2) & has & (distv > 100)
+    counts = [(c, int((m & (cabv == c)).sum())) for c in range(3)]
+    taxi["topn_filtered"] = sorted([rc for rc in counts if rc[1] > 0],
+                                   key=lambda rc: (-rc[1], rc[0]))[:3]
+    burst = {}
+    for c in range(3):
+        for p in (1, 2):
+            burst[f"cab{c}_pax{p}"] = int(((cabv == c) & (paxv == p)).sum())
+    for v in (10, 50, 100, 250):
+        burst[f"dist_lt_{v}"] = int((has & (distv < v)).sum())
+    burst["cab1_amount_ge_400"] = int((c1 & (amountv >= 400)).sum())
+    burst["pax1_amount_lt_100"] = int(
+        ((paxv == 1) & has & (amountv < 100)).sum())
+    burst["not_cab0"] = int((exists & (cabv != 0)).sum())
+    burst["pax5_or_pax6"] = int(((paxv == 5) | (paxv == 6)).sum())
+    burst["cab0_xor_pax2"] = int(((cabv == 0) ^ (paxv == 2)).sum())
+    burst["cab1_minus_dist_gt_20"] = int(
+        ((cabv == 1) & ~(has & (distv > 20))).sum())
+    votes = (cabv == 2).astype(np.int8) + (paxv == 1) \
+        + (has & (distv >= 200))
+    burst["threshold_2_of_3"] = int((votes >= 2).sum())
+    burst["rows_cab2_pax6_dist299"] = np.flatnonzero(
+        (cabv == 2) & (paxv == 6) & has & (distv == 299)).tolist()
+    return cabv, taxi, burst, amountv[:n_rides]
+
+
+def inspect_expected(cabv, shard):
+    """``cli inspect --verbose`` of cab_type's fragment of ``shard``, as
+    numpy counts it from the column: {row: (containers, bits)}."""
+    import numpy as np
+    seg = np.full(SHARD_WIDTH, 255, np.uint8)
+    part = cabv[shard * SHARD_WIDTH:(shard + 1) * SHARD_WIDTH]
+    seg[:len(part)] = part
+    out = {}
+    for r in range(3):
+        m = (seg == r).reshape(-1, 1 << 16)
+        if m.any():
+            out[r] = (int(m.any(axis=1).sum()), int(m.sum()))
+    return out
+
+
+def parse_inspect(text):
+    """{path: ({row: (containers, bits)}, bits, containers)} of ``inspect
+    --verbose`` over several files."""
+    out = {}
+    for ln in text.strip().splitlines():
+        if not ln.startswith(" "):
+            path, rest = ln.split(": ", 1)
+            tail = rest.split(", ")
+            rows = {}
+            out[path] = (rows, int(tail[0].split()[0]),
+                         int(tail[1].split()[0]))
+            continue
+        r, rest = ln.strip()[4:].split(": ")
+        nc, nb = rest.replace(" containers", "").replace(" bits", "") \
+            .split(", ")
+        rows[int(r)] = (int(nc), int(nb))
+    return out
+
+
+def write_csv(path, first, second):
+    """``first,second`` a line."""
+    with open(path, "w") as f:
+        for i in range(0, len(first), 1_000_000):
+            f.write("".join(f"{a},{b}\n" for a, b in zip(
+                first[i:i + 1_000_000].tolist(),
+                second[i:i + 1_000_000].tolist())))
+
+
+class DiagnosticsSink:
+    """A loopback listener that keeps every JSON report POSTed to it."""
+
+    def __enter__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+        received = self.received = []
+
+        class H(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                received.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = HTTPServer(("127.0.0.1", 0), H)
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.srv.server_port}/diagnostics"
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def run_cli_tools(path, mem, device, n_rides, c3):
+    """The cli phase, on the persist phase's taxi directory after its
+    writes, every tool a ``python -m pilosa_tpu_torch.cli`` subprocess:
+
+    (a) ``check`` over every fragment file (CLI_PROCS processes at once):
+        exit 0, every file ok; then over a copy of a file with an op
+        record, its last record cut: exit 1, TORN TAIL;
+    (b) ``inspect --verbose`` of cab_type's fragments of shard
+        PERSIST_SHARD and the last shard (new ride n + 12's): rows,
+        bits and containers as numpy counts them;
+    (c) ``backup`` of the directory (seconds, bytes), ``restore`` into a
+        new one (seconds), and a restore into it again without
+        ``--force``: refused, exit 1;
+    (d) ``fold`` of every fragment file of the restored directory
+        (seconds), then ``check``: every file ok with opN=0;
+    (e) ``cli server`` over it, with diagnostics at CLI_DIAG_INTERVAL s
+        to a loopback listener and the runtime monitor as often: the
+        five taxi queries and the burst over ``/batch/query`` exact
+        against numpy (the writes applied), a report with the JAX
+        payload's keys and NumIndexes 1, ``/metrics`` with the
+        monitor's gauges; on the card bank_row_counts, its masked
+        form, bsi_plane_counts and mega_interpret launched in it;
+    (f) a CSV of CLI_CSV_RIDES rides from the taxi seed (cab_type as
+        ``row,col``, amount as ``col,value``) through ``import -d`` into
+        a fresh directory (``--field-type int`` for amount), a ``cli
+        server`` over it answering Count(Row(cab_type=1)) and
+        Sum(field=amount) exact; the cab_type CSV through ``import
+        --host`` into (e)'s server as a new index, its Count exact;
+        seconds and pairs a second of each import, by the wall clock
+        and by the seconds the import logged for its own work;
+    (g) in process, ``Field.value`` of amount for CLI_VALUE_RIDES
+        seeded rides of the in-memory holder against numpy, and
+        ``Field.row_time`` on pickup for one day: the holder's own
+        view of that day.
+
+    Returns the report."""
+    import numpy as np
+    import shutil
+    import tempfile
+    from datetime import datetime
+    t_phase = time.perf_counter()
+    cuda = device != "cpu"
+    dev = ["--device", "cpu"] if not cuda else []
+    report = {"csv_rides": min(CLI_CSV_RIDES, n_rides),
+              "csv_cut": "4M of the taxi index's 100M rides: Python's csv "
+                         "reader and the import's JSON posts cost about "
+                         "1 us a line, and the phase must fit 150 s"}
+    cabv, want_taxi, want_burst, amount = cli_expected(n_rides, c3)
+    tmp = tempfile.mkdtemp(prefix="pilosa-cli-")
+    procs = []
+    try:
+        # (a) check
+        files = fragment_paths(path)
+        rcs, out, err, report["check_s"] = cli_split(["check"], files, tmp)
+        lines = out.splitlines()
+        if set(rcs) != {0} or len(lines) != len(files) or err or \
+                not all(": ok (" in ln for ln in lines):
+            raise AssertionError(f"cli check: exit {rcs}, {len(lines)} ok "
+                                 f"of {len(files)}: {err[:300]}")
+        report["files"] = len(files)
+        report["bytes"] = sum(os.path.getsize(f) for f in files)
+        logged = [ln.split(": ok")[0] for ln in lines
+                  if not ln.endswith("opN=0)")]
+        if not logged:
+            raise AssertionError("cli check: no file has an op record")
+        torn = os.path.join(tmp, "torn")
+        with open(logged[0], "rb") as f:
+            data = f.read()
+        with open(torn, "wb") as f:
+            f.write(data[:-5])
+        rc, out, err, _ = cli_run(["check", torn])
+        if rc != 1 or "TORN TAIL" not in err:
+            raise AssertionError(f"cli check of a torn tail: exit {rc}, "
+                                 f"{err[:300]}")
+        # (b) inspect
+        shards = (PERSIST_SHARD, (n_rides + 12) // SHARD_WIDTH)
+        frags = [os.path.join(path, "taxi", "cab_type", "views", "standard",
+                              "fragments", str(shard)) for shard in shards]
+        rc, out, err, _ = cli_run(["inspect", "--verbose", *frags])
+        got = parse_inspect(out)
+        report["inspect"] = {}
+        for shard, frag in zip(shards, frags):
+            rows, bits, conts = got.get(frag, ({}, -1, -1))
+            want = inspect_expected(cabv, shard)
+            if rc != 0 or rows != want or bits != sum(
+                    b for _, b in want.values()) or conts != sum(
+                    c for c, _ in want.values()):
+                raise AssertionError(f"cli inspect shard {shard}: {out} "
+                                     f"!= numpy {want}")
+            report["inspect"][shard] = {"bits": bits, "containers": conts}
+        # (c) backup and restore
+        tar = os.path.join(tmp, "taxi.tar.gz")
+        rc, out, err, report["backup_s"] = cli_run(
+            ["backup", "-d", path, "-o", tar])
+        if rc != 0 or "backed up" not in out:
+            raise AssertionError(f"cli backup: exit {rc}: {err[:300]}")
+        report["backup_bytes"] = os.path.getsize(tar)
+        restored = os.path.join(tmp, "restored")
+        rc, out, err, report["restore_s"] = cli_run(
+            ["restore", "-d", restored, "-i", tar])
+        if rc != 0 or "restored" not in out:
+            raise AssertionError(f"cli restore: exit {rc}: {err[:300]}")
+        rc, out, err, _ = cli_run(["restore", "-d", restored, "-i", tar])
+        if rc != 1 or "refusing to restore" not in err:
+            raise AssertionError(f"cli restore into a full directory: exit "
+                                 f"{rc}: {err[:300]}")
+        # (d) fold, then check
+        files = fragment_paths(restored)
+        if len(files) != report["files"]:
+            raise AssertionError(f"cli restore: {len(files)} fragment "
+                                 f"files of {report['files']}")
+        rcs, out, err, report["fold_s"] = cli_split(["fold"], files, tmp)
+        if set(rcs) != {0} or out.count("folded to pure snapshot") != \
+                len(files):
+            raise AssertionError(f"cli fold: exit {rcs}: {err[:300]}")
+        rcs, out, err, report["check_folded_s"] = cli_split(["check"],
+                                                            files, tmp)
+        lines = out.splitlines()
+        if set(rcs) != {0} or len(lines) != len(files) or \
+                not all(ln.endswith("opN=0)") for ln in lines):
+            raise AssertionError(f"cli check after fold: exit {rcs}: "
+                                 f"{err[:300]}")
+        report["folded_bytes"] = sum(os.path.getsize(f) for f in files)
+        # (e) the server over the folded directory
+        with DiagnosticsSink() as sink:
+            toml = os.path.join(tmp, "server.toml")
+            with open(toml, "w") as f:
+                f.write(f'data_dir = "{restored}"\n'
+                        f"metric_poll_interval = {CLI_DIAG_INTERVAL}\n"
+                        f'[diagnostics]\nurl = "{sink.url}"\n'
+                        f"interval = {CLI_DIAG_INTERVAL}\n")
+            t0 = time.perf_counter()
+            proc, base, _ = cli_start(["-c", toml] + dev)
+            procs.append(proc)
+            for name, pql in TAXI_QUERIES:
+                got = http_json(base, "POST", "/index/taxi/query", pql)
+                want = {"results": [taxi_json(name, want_taxi[name])]}
+                if got != want:
+                    raise AssertionError(f"cli server {name}: {got} != "
+                                         f"numpy {want}")
+                report.setdefault("server_first_answer_s",
+                                  time.perf_counter() - t0)
+            want_items = [{"results": [burst_json(n, want_burst[n])]}
+                          for n, _ in BURST]
+            body = {"queries": [{"index": "taxi", "query": q}
+                                for _, q in BURST]}
+            t0 = time.perf_counter()
+            got = http_json(base, "POST", "/batch/query", body)
+            report["burst_s"] = time.perf_counter() - t0
+            if got["responses"] != want_items:
+                raise AssertionError("cli server: /batch/query burst != "
+                                     "numpy")
+            deadline = time.time() + 10 * CLI_DIAG_INTERVAL + 30
+            metrics = ""
+            while time.time() < deadline and (not sink.received or not all(
+                    g in metrics for g in MONITOR_GAUGES)):
+                time.sleep(0.2)
+                metrics = http(base, "GET", "/metrics")[1].decode()
+            if not sink.received or set(sink.received[0]) != DIAG_KEYS or \
+                    sink.received[0]["NumIndexes"] != 1:
+                raise AssertionError(f"cli server: diagnostics reports "
+                                     f"{sink.received[:1]}")
+            missing = [g for g in MONITOR_GAUGES if g not in metrics]
+            if missing:
+                raise AssertionError(f"cli server: /metrics lacks {missing}")
+            report["diagnostics"] = {"posts": len(sink.received),
+                                     "first": sink.received[0]}
+            # (f) the CSV imports
+            m = report["csv_rides"]
+            cab_csv = os.path.join(tmp, "cab.csv")
+            amount_csv = os.path.join(tmp, "amount.csv")
+            cols = np.arange(m, dtype=np.int64)
+            # The seed's rides: ride 3 keeps its cab_type, which the
+            # persist phase's Clear took out of the directory.
+            cab_m = cabv[:m].astype(np.int64)
+            cab_m[3] = c3
+            t0 = time.perf_counter()
+            write_csv(cab_csv, cab_m, cols)
+            write_csv(amount_csv, cols, amount[:m])
+            report["csv_write_s"] = time.perf_counter() - t0
+            imported = os.path.join(tmp, "imported")
+            for key, argv in (
+                    ("import_cab", ["-f", "cab_type", cab_csv]),
+                    ("import_amount", ["-f", "amount", "--field-type",
+                                       "int", amount_csv])):
+                rc, out, err, secs = cli_run(
+                    ["import", "-d", imported, "-i", "taxi", *argv] + dev)
+                if rc != 0 or out.strip() != (
+                        f"imported {m} records into taxi/{argv[1]}"):
+                    raise AssertionError(f"cli {key}: exit {rc}: "
+                                         f"{out[:200]} {err[-500:]}")
+                report[key + "_s"] = secs
+                report[key + "_pairs_s"] = m / secs
+                report[key + "_own_s"] = own = import_own_s(err)
+                report[key + "_own_pairs_s"] = m / own
+            want = {"results": [int((cab_m == 1).sum()),
+                                {"value": int(amount[:m].sum(
+                                    dtype=np.int64)), "count": m}]}
+            # The remote import into (e)'s server runs while a second
+            # server starts over the imported directory and answers.
+            t0 = time.perf_counter()
+            host = subprocess.Popen(
+                [sys.executable, "-m", "pilosa_tpu_torch.cli", "import",
+                 "--host", base, "-i", "csvtaxi", "-f", "cab_type",
+                 cab_csv], cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=cache_off_env())
+            procs.append(host)
+            proc2, base2, _ = cli_start(["--data-dir", imported] + dev)
+            procs.append(proc2)
+            got = http_json(base2, "POST", "/index/taxi/query",
+                            "Count(Row(cab_type=1)) Sum(field=amount)")
+            cli_stop(proc2)
+            procs.remove(proc2)
+            if got != want:
+                raise AssertionError(f"cli import -d: {got} != numpy {want}")
+            out, err = host.communicate(timeout=900)
+            secs = time.perf_counter() - t0
+            procs.remove(host)
+            if host.returncode != 0 or out.strip() != (
+                    f"imported {m} records into csvtaxi/cab_type via "
+                    f"{base}"):
+                raise AssertionError(f"cli import --host: exit "
+                                     f"{host.returncode}: {out[:200]} "
+                                     f"{err[-500:]}")
+            report["import_host_s"] = secs
+            report["import_host_pairs_s"] = m / secs
+            report["import_host_own_s"] = own = import_own_s(err)
+            report["import_host_own_pairs_s"] = m / own
+            got = http_json(base, "POST", "/index/csvtaxi/query",
+                            "Count(Row(cab_type=1))")
+            if got != {"results": [want["results"][0]]}:
+                raise AssertionError(f"cli import --host: {got} != numpy "
+                                     f"{want['results'][0]}")
+            cli_stop(proc)
+            procs.remove(proc)
+            launches = cli_launches(proc)
+        report["server_launches"] = {k: v for k, v in launches.items() if v}
+        if cuda:
+            for name in ("bank_row_counts", "bank_row_counts_masked",
+                         "bsi_plane_counts", "mega_interpret"):
+                if launches.get(name, 0) <= 0:
+                    raise AssertionError(f"cli server: {name} never "
+                                         f"launched")
+        # (g) Field.value and row_time, in process
+        from pilosa_tpu_torch.core import timeq
+        idx = mem.index("taxi")
+        rides = np.random.default_rng(CLI_VALUE_SEED).integers(
+            0, n_rides, CLI_VALUE_RIDES)
+        f = idx.field("amount")
+        t0 = time.perf_counter()
+        got = [f.value(int(c)) for c in rides]
+        report["value_s"] = time.perf_counter() - t0
+        if got != [(int(amount[c]), True) for c in rides]:
+            raise AssertionError("cli Field.value != numpy")
+        pickup = idx.field("pickup")
+        day = sorted(v for v in pickup.views if len(v) == len(
+            "standard_20190101"))[0]
+        t = datetime.strptime(day.split("_")[1], "%Y%m%d")
+        view = pickup.row_time(0, t, "D")
+        if view is None or view is not pickup.view(
+                timeq.view_by_time_unit("standard", t, "D")) or \
+                view.name != day:
+            raise AssertionError(f"cli row_time({t}): {view}")
+        report["row_time_view"] = day
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"cli: check {report['check_s']:.1f} s over {report['files']} "
+        f"files, backup {report['backup_s']:.1f} s "
+        f"({report['backup_bytes'] / 1e6:.1f} MB), restore "
+        f"{report['restore_s']:.1f} s, fold {report['fold_s']:.1f} s; "
+        f"the folded directory served exact; import -d "
+        f"{report['import_cab_s']:.1f} + {report['import_amount_s']:.1f} s "
+        f"({report['import_cab_own_s']:.1f} + "
+        f"{report['import_amount_own_s']:.1f} s after start), --host "
+        f"{report['import_host_s']:.1f} s "
+        f"({report['import_host_own_s']:.1f} s) for {report['csv_rides']} "
+        f"rides; {report['seconds']:.1f} s in all")
+    return report
+
+
 def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
                 tf_http):
     """The persist phase on the taxi index (after the timefields phase):
     copy it to a data directory, close, reopen and read; write, drop the
     holder without close and reopen; then the CLI server over the
-    directory. Launch counts are 0 just before the reopened holder's
-    reads and read just after the crash's; no plain version may run on
-    the card. Returns (report, launches)."""
+    directory, and the cli phase (``run_cli_tools``) on it. Launch
+    counts are 0 just before the reopened holder's reads and read just
+    after the crash's; no plain version may run on the card. Returns
+    (report, launches)."""
     import gc
     import resource
     import shutil
@@ -6803,6 +7353,10 @@ def run_persist(mem, device, cab, amount, pax_counts, want_taxi, want_burst,
         report["torn_info"] = persist_torn_info(device)
         log(f"persist: /info of the CLI server over a torn op log "
             f"{report['torn_info']}")
+        # 5. the cli phase, on this directory
+        report["cli_tools"] = run_cli_tools(path, mem, device, n_rides,
+                                            expect["c3"])
+        report["cli_tools"]["memory"] = memory_line("cli_tools", device)
     finally:
         megamod.MEGAKERNEL_ENABLED = prev
         shutil.rmtree(path, ignore_errors=True)
@@ -7169,8 +7723,9 @@ def main(argv=None) -> int:
                     help="run only the taxi load and the burst and print "
                          "one probe line (p50, peak memory, device time)")
     ap.add_argument("--load-probe", action="store_true",
-                    help="run only the fingerprint load and print one "
-                         "probe line (seconds)")
+                    help="run only the taxi load (N_RIDES) and the "
+                         "fingerprint load and print one probe line "
+                         "(seconds)")
     ap.add_argument("--expand-probe", action="store_true",
                     help="run only the expansion kernel's checks and "
                          "timing rows and print one probe line")
@@ -7211,9 +7766,16 @@ def main(argv=None) -> int:
         return 0
     if args.load_probe:
         card = card_line()
+        cab, pax, dist, amount = taxi_data(N_RIDES)
+        holder, _, taxi_load_s = load_taxi("cuda", cab, pax, dist, amount)
+        holder.close()
+        del cab, pax, dist, amount, holder
+        torch.cuda.empty_cache()
         pos = fingerprint_positions(args.molecules)
         load_s = load_fingerprints("cuda", pos)[3]
         print(json.dumps({"probe": {"tree": tree, "card": card,
+                                    "rides": N_RIDES,
+                                    "taxi_load_s": taxi_load_s,
                                     "molecules": args.molecules,
                                     "load_s": load_s}}), flush=True)
         return 0
@@ -7410,6 +7972,8 @@ def main(argv=None) -> int:
             "topn_cache", "burst_s", "writes", "crash_open_s",
             "after_crash", "cli", "torn_info", "keys", "fingerprint")},
         "launches": persist_counts}}), flush=True)
+    print(json.dumps({"cli": {"card": card, **persist["cli_tools"]}},
+                     default=str), flush=True)
     lay = fp["layout"]
     print(json.dumps({"layout": {
         "card": card, "molecules": fp["molecules"],

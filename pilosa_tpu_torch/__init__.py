@@ -10,12 +10,29 @@ its indexes in a data directory in the JAX package's layout and roaring
 file format, which either package opens (``close()`` saves the count
 caches). ``Bitmap`` is the roaring container store of a fragment, with
 the file codec.
+
+The names below load on first use, so a tool that needs none of them
+(``cli check``, ``fold``, ``backup``) starts without importing torch.
 """
 
 __version__ = "0.1.0"
 
-from pilosa_tpu_torch.core.field import FieldOptions  # noqa: F401
-from pilosa_tpu_torch.core.holder import Holder  # noqa: F401
-from pilosa_tpu_torch.core.state import load_state  # noqa: F401
-from pilosa_tpu_torch.executor import Executor  # noqa: F401
-from pilosa_tpu_torch.storage.roaring import Bitmap  # noqa: F401
+_EXPORTS = {
+    "Bitmap": "pilosa_tpu_torch.storage.roaring",
+    "Executor": "pilosa_tpu_torch.executor",
+    "FieldOptions": "pilosa_tpu_torch.core.field",
+    "Holder": "pilosa_tpu_torch.core.holder",
+    "load_state": "pilosa_tpu_torch.core.state",
+}
+__all__ = sorted(_EXPORTS) + ["__version__"]
+
+
+def __getattr__(name):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'pilosa_tpu_torch' has no attribute "
+                             f"{name!r}")
+    import importlib
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value

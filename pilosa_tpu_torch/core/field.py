@@ -319,6 +319,16 @@ class Field:
             return False
         return frag.set_value(column_id, depth, base)
 
+    def value(self, column_id: int) -> Tuple[int, bool]:
+        """(value, True) of an int field's column, or (0, False) when it
+        holds none; a field of another type raises ValueError."""
+        bsig = self._bsig()
+        view = self.view(view_bsi_name(self.name))
+        if view is None:
+            return 0, False
+        base, exists = view.value(column_id, bsig.bit_depth)
+        return (base + bsig.min, True) if exists else (0, False)
+
     def clear_value(self, column_id: int) -> bool:
         bsig = self._bsig()
         view = self.view(view_bsi_name(self.name))
@@ -414,6 +424,14 @@ class Field:
         return timeq.views_by_time_range(VIEW_STANDARD, start, end,
                                          self.options.time_quantum)
 
+
+    def row_time(self, row_id: int, t: datetime, quantum: str
+                 ) -> Optional[View]:
+        """The time view of ``t`` at one unit of the quantum (Y, M, D or
+        H), or None when it does not exist (the JAX package's
+        ``Field.row_time``, which returns that view; ``row_id`` selects
+        nothing there either)."""
+        return self.view(timeq.view_by_time_unit(VIEW_STANDARD, t, quantum))
 
 def _truncate(t: datetime, unit: str) -> datetime:
     """``t`` cut to the start of its ``unit`` (Y, M, D or H)."""

@@ -60,8 +60,9 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, SHARD_WIDTH_EXP
 from pilosa_tpu_torch.storage.roaring import ARRAY_MAX_SIZE, \
     CONTAINER_BITS, CONTAINER_WORDS, OP_REMOVE_BATCH, Bitmap, \
     _dense_to_array, _popcount_rows, _popcount_words, dense_scatter, \
-    fnv1a32, serialize_masks, serialize_positions
+    fnv1a32, scatter_rows, serialize_import, serialize_positions
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+from pilosa_tpu_torch.utils.logger import default_logger
 
 # Containers per shard row: 2^20 / 2^16.
 CONTAINERS_PER_ROW = SHARD_WIDTH // CONTAINER_BITS
@@ -163,6 +164,9 @@ class Fragment:
                     # Keep the torn bytes, then cut them so the next
                     # append starts on a record boundary.
                     self.tail_dropped_bytes += nd
+                    default_logger.printf(
+                        "%s: moving %d-byte torn op-log tail to sidecar",
+                        self.path, nd)
                     with open(self.path + ".torn", "ab") as f:
                         f.write(data[len(data) - nd:])
                     with open(self.path, "r+b") as f:
@@ -549,6 +553,16 @@ class Fragment:
             self._cache_update(rows)
             self._snapshot()
 
+    def value(self, column_id: int, bit_depth: int) -> Tuple[int, bool]:
+        """(base value, True) of a column of the BSI planes, from its
+        bits in rows 0..bit_depth-1 (least significant first); (0, False)
+        when its not-null bit (row bit_depth) is clear."""
+        with self._lock:
+            if not self.bit(bit_depth, column_id):
+                return 0, False
+            return sum(1 << i for i in range(bit_depth)
+                       if self.bit(i, column_id)), True
+
     def set_value(self, column_id: int, bit_depth: int, value: int) -> bool:
         """Write one BSI value bit by bit (an OP_ADD or OP_REMOVE record
         a changed bit), then the not-null bit."""
@@ -633,7 +647,7 @@ class Fragment:
                 counts = _popcount_rows(words)
                 if n_pairs <= IMPORT_CHUNK_PAIRS:
                     nz = np.flatnonzero(counts)
-                    self.storage._log_roaring(n_pairs, lambda: serialize_masks(
+                    self.storage._log_roaring(n_pairs, lambda: serialize_import(
                         nz.astype(np.uint64), words[nz]))
                 else:
                     self._log_value_chunks(offs, planes, bit_depth, n_pairs)
@@ -738,7 +752,7 @@ class Fragment:
             return
         k0 = row_id * CONTAINERS_PER_ROW
         with self._lock:
-            self.storage._log_roaring(int(counts.sum()), lambda: serialize_masks(
+            self.storage._log_roaring(int(counts.sum()), lambda: serialize_import(
                 nz.astype(np.uint64) + np.uint64(k0), words[nz]))
             self.storage.merge_masks(k0, words, counts)
             touched = np.array([row_id], dtype=np.uint64)
@@ -936,14 +950,10 @@ class Fragment:
                 for i, c in dense_items:
                     out[i] = c[:total64]
                 if arrays:
-                    lens = np.fromiter(map(len, arrays), dtype=np.int64,
-                                       count=len(arrays))
-                    pos = np.concatenate(arrays).astype(np.uint32)
-                    base = np.repeat(np.asarray(rows_at, np.int64) * total64,
-                                     lens)
-                    np.bitwise_or.at(out.reshape(-1), base + (pos >> 6),
-                                     np.left_shift(one, (pos & 63).astype(
-                                         np.uint64)))
+                    scatter_rows(np.concatenate(arrays),
+                                 np.fromiter(map(len, arrays), np.uint64,
+                                             count=len(arrays)),
+                                 np.asarray(rows_at, np.uint64), total64, out)
             else:
                 for i, r in enumerate(row_ids):
                     k0 = r * CONTAINERS_PER_ROW

@@ -37,6 +37,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+from pilosa_tpu_torch.utils.locks import make_lock
 from pilosa_tpu_torch.utils.memledger import LEDGER
 
 _LOG = logging.getLogger(__name__)
@@ -103,8 +104,8 @@ class LayoutManager:
         self.promote_rate = float(promote_rate)
         self.watermark_bytes = int(watermark_bytes)
         self.logger = logger or _LOG
-        self._lock = threading.Lock()
-        self._run_lock = threading.Lock()
+        self._lock = make_lock("LayoutManager._lock")
+        self._run_lock = make_lock("LayoutManager._run_lock")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.relayout_runs = 0

@@ -421,6 +421,14 @@ class View:
     def fragment(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
 
+
+    def value(self, column_id: int, bit_depth: int) -> Tuple[int, bool]:
+        """The BSI base value of a column (``Fragment.value``); (0,
+        False) without its shard's fragment."""
+        frag = self.fragment(column_id // SHARD_WIDTH)
+        if frag is None:
+            return 0, False
+        return frag.value(column_id, bit_depth)
     def version_stamp(self) -> tuple:
         """Every fragment's write version as one tuple: the stamp the
         result cache's request tier validates against. Any write in the

@@ -3,12 +3,16 @@
 // The roaring file format (cookie 12348), its op-log replay and the
 // checksums, as the JAX package's native library implements them
 // (native/pilosa_native.cpp: rb_load, rb_serialize_ptrs,
-// pn_serialize_groups, pn_fnv1a32, pn_dense_positions_ptrs); a copy of
-// those entry points only, so the port depends on nothing of the JAX
-// package. The bytes written are those of the numpy codec in
-// storage/roaring.py (the plain version): each container takes the
-// smallest of the run, array and bitmap encodings, run first on a tie
-// with nothing, array before bitmap.
+// pn_serialize_groups, pn_fnv1a32, pn_dense_positions_ptrs, and the bulk
+// import builder pn_import_build, pn_build_masks, pn_scatter_rows); a
+// copy of those entry points only, so the port depends on nothing of the
+// JAX package. The bytes written are those of the numpy codec in
+// storage/roaring.py (the plain version). A snapshot container
+// (rc_serialize) takes the smallest of the run, array and bitmap
+// encodings, run first on a tie with nothing, array before bitmap; an
+// import record's payload (rc_import_build, rc_serialize_groups,
+// rc_serialize_import) is array below 4096 bits and bitmap from there,
+// never run, as the JAX package's native builder writes it.
 //
 // File layout, little-endian:
 //   u16 magic 12348, u16 version 0, u32 container count N
@@ -24,13 +28,21 @@
 //       crc32 (zlib) over header and payload
 //
 // C interface only (ctypes). Built with g++ -O3 -std=c++17 -shared -fPIC
-// by pilosa_tpu_torch/ops/build.py into build/native/<hash>/.
+// -pthread by pilosa_tpu_torch/ops/build.py into build/native/<hash>/.
+// The import builder and the groups writer split large batches over
+// threads: PILOSA_NATIVE_THREADS of them (the JAX package's variable),
+// by default the hardware's count capped at 8; the bytes do not depend
+// on the count.
 
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
+#include <exception>
+#include <mutex>
 #include <new>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -69,6 +81,67 @@ inline uint32_t fnv1a32(const uint8_t* data, size_t n, uint32_t h = 0x811C9DC5u)
 }
 
 inline int popcount64(uint64_t x) { return __builtin_popcountll(x); }
+
+// Worker count of the parallel import paths: PILOSA_NATIVE_THREADS
+// (1..64), else the hardware's count capped at 8.
+int native_threads() {
+  static const int n = [] {
+    const char* e = std::getenv("PILOSA_NATIVE_THREADS");
+    if (e && *e) {
+      int v = std::atoi(e);
+      return v < 1 ? 1 : (v > 64 ? 64 : v);
+    }
+    unsigned hc = std::thread::hardware_concurrency();
+    int v = static_cast<int>(hc ? hc : 1);
+    return v > 8 ? 8 : v;
+  }();
+  return n;
+}
+
+// fn(lo, hi, t) over [0, n) in at most native_threads() contiguous
+// chunks of at least `grain` items, chunk t the t-th range in order
+// (callers concatenate per-chunk outputs in that order). Serial when one
+// chunk suffices. An exception in a worker is rethrown here after every
+// worker has joined; a chunk whose thread cannot start runs inline.
+template <typename F>
+void parallel_ranges(uint64_t n, uint64_t grain, F&& fn) {
+  const uint64_t nt = static_cast<uint64_t>(native_threads());
+  const uint64_t chunks = std::min<uint64_t>(nt, grain ? (n + grain - 1) / grain : 1);
+  if (chunks <= 1) {
+    fn(uint64_t{0}, n, uint64_t{0});
+    return;
+  }
+  const uint64_t per = (n + chunks - 1) / chunks;
+  std::vector<std::thread> ts;
+  ts.reserve(chunks);
+  std::exception_ptr err = nullptr;
+  std::mutex err_mu;
+  auto record = [&err, &err_mu]() {
+    std::lock_guard<std::mutex> g(err_mu);
+    if (!err) err = std::current_exception();
+  };
+  for (uint64_t t = 0; t < chunks; t++) {
+    const uint64_t lo = t * per, hi = std::min(n, lo + per);
+    if (lo >= hi) break;
+    try {
+      ts.emplace_back([&fn, &record, lo, hi, t] {
+        try {
+          fn(lo, hi, t);
+        } catch (...) {
+          record();
+        }
+      });
+    } catch (...) {
+      try {
+        fn(lo, hi, t);
+      } catch (...) {
+        record();
+      }
+    }
+  }
+  for (auto& th : ts) th.join();
+  if (err) std::rethrow_exception(err);
+}
 
 // crc32 (IEEE reflected, zlib's), slice-by-8, chainable as zlib.crc32.
 struct Crc32Tables {
@@ -512,6 +585,158 @@ inline Source source_of(uint64_t i, const uint16_t* lows, const uint64_t* arr_of
   return {nullptr, reinterpret_cast<const uint64_t*>(dense_ptrs[i]), 0};
 }
 
+// ---------------------------------------------------------------- import
+
+// The payload of an import record (a roaring file of the batch's bits):
+// header, then per container key, type and cardinality - 1, its offset,
+// and the payload: array below 4096 bits, bitmap from 4096. `dense(i)`
+// gives container i's 1024 words, `card[i]` its bits (non-zero); `out`
+// holds import_payload_size bytes. Containers fill in parallel, each a
+// disjoint region.
+uint64_t import_payload_size(const uint64_t* card, uint64_t m) {
+  uint64_t total = kHeaderBaseSize + 16 * m;
+  for (uint64_t i = 0; i < m; i++) total += card[i] < 4096 ? 2 * card[i] : 8192;
+  return total;
+}
+
+template <typename Dense>
+void write_import_payload(const uint64_t* keys, const uint64_t* card, uint64_t m,
+                          Dense dense, uint8_t* out) {
+  std::vector<uint64_t> offs(m + 1);
+  offs[0] = kHeaderBaseSize + 16 * m;
+  for (uint64_t i = 0; i < m; i++)
+    offs[i + 1] = offs[i] + (card[i] < 4096 ? 2 * card[i] : 8192);
+  wu16(out, kMagic);
+  wu16(out + 2, kVersion);
+  wu32(out + 4, static_cast<uint32_t>(m));
+  const size_t meta_pos = kHeaderBaseSize;
+  const size_t off_pos = meta_pos + 12 * m;
+  parallel_ranges(m, 256, [&](uint64_t lo, uint64_t hi, uint64_t) {
+    for (uint64_t i = lo; i < hi; i++) {
+      const uint64_t* c = dense(i);
+      uint16_t typ = card[i] < 4096 ? kTypeArray : kTypeBitmap;
+      wu64(out + meta_pos + 12 * i, keys[i]);
+      wu16(out + meta_pos + 12 * i + 8, typ);
+      wu16(out + meta_pos + 12 * i + 10, static_cast<uint16_t>(card[i] - 1));
+      wu32(out + off_pos + 4 * i, static_cast<uint32_t>(offs[i]));
+      uint8_t* p = out + offs[i];
+      if (typ == kTypeBitmap) {
+        std::memcpy(p, c, 8192);
+      } else {
+        size_t j = 0;
+        for (int w = 0; w < kContainerWords; w++) {
+          uint64_t x = c[w];
+          while (x) {
+            wu16(p + 2 * j++, static_cast<uint16_t>((w << 6) | __builtin_ctzll(x)));
+            x &= x - 1;
+          }
+        }
+      }
+    }
+  });
+}
+
+// One bulk import batch: positions row << swidth_exp | (col mod
+// 2^swidth_exp) scattered, without a sort, into dense masks over the
+// whole container range of [min row, max row], then each container
+// popcounted and, with want_payload, the import record's payload built.
+// A batch unsuited to the dense scatter (row span of 2^17 containers or
+// more, positions past 64 bits, fewer than 256 bits a container over a
+// span of more than 64 containers) is declined with a non-empty err; the
+// caller then sorts and groups it, as the JAX package's caller does.
+struct ImportBuild {
+  uint64_t* masks = nullptr;  // the whole container range, calloc'd
+  uint64_t range = 0, kmin = 0;
+  std::vector<uint64_t> keys;    // non-empty container keys, ascending
+  std::vector<uint64_t> counts;  // bits a non-empty container
+  std::vector<uint8_t> payload;
+  uint64_t nbits = 0;
+  char err[128] = {0};
+  ~ImportBuild() { std::free(masks); }
+};
+
+void import_scatter(ImportBuild* ib, const uint64_t* rows, const uint64_t* cols,
+                    uint64_t n, uint64_t rmin, uint32_t swidth_exp) {
+  const uint64_t col_mask = (1ull << swidth_exp) - 1;
+  // Threads split the output words, not the pairs: each reads every
+  // pair and applies those in its stripe, so no two threads write one
+  // cache line and no atomics are needed.
+  if (native_threads() > 1 && n >= (1u << 20)) {
+    parallel_ranges(ib->range * kContainerWords, 1u << 16,
+                    [&](uint64_t wlo, uint64_t whi, uint64_t) {
+      for (uint64_t i = 0; i < n; i++) {
+        uint64_t p = ((rows[i] - rmin) << swidth_exp) + (cols[i] & col_mask);
+        const uint64_t w = p >> 6;
+        if (w >= wlo && w < whi) ib->masks[w] |= 1ull << (p & 63);
+      }
+    });
+  } else {
+    for (uint64_t i = 0; i < n; i++) {
+      uint64_t p = ((rows[i] - rmin) << swidth_exp) + (cols[i] & col_mask);
+      ib->masks[p >> 6] |= 1ull << (p & 63);
+    }
+  }
+}
+
+void import_count(ImportBuild* ib) {
+  const uint64_t nt = static_cast<uint64_t>(native_threads());
+  std::vector<std::vector<uint64_t>> skeys(nt), scounts(nt);
+  parallel_ranges(ib->range, 512, [&](uint64_t lo, uint64_t hi, uint64_t t) {
+    for (uint64_t k = lo; k < hi; k++) {
+      const uint64_t* c = ib->masks + k * kContainerWords;
+      uint64_t cnt = 0;
+      for (int w = 0; w < kContainerWords; w++) cnt += popcount64(c[w]);
+      if (cnt) {
+        skeys[t].push_back(ib->kmin + k);
+        scounts[t].push_back(cnt);
+      }
+    }
+  });
+  for (uint64_t t = 0; t < nt; t++) {
+    ib->keys.insert(ib->keys.end(), skeys[t].begin(), skeys[t].end());
+    ib->counts.insert(ib->counts.end(), scounts[t].begin(), scounts[t].end());
+    for (uint64_t c : scounts[t]) ib->nbits += c;
+  }
+}
+
+void* import_build(ImportBuild* ib, const uint64_t* rows, const uint64_t* cols,
+                   uint64_t n, uint32_t swidth_exp, bool want_payload) {
+  auto bail = [ib](const char* msg) -> void* {
+    std::snprintf(ib->err, sizeof(ib->err), "%s", msg);
+    return ib;
+  };
+  if (n == 0) return ib;
+  if (swidth_exp < 16 || swidth_exp > 63) return bail("shard width below container width");
+  uint64_t rmin = ~0ull, rmax = 0;
+  for (uint64_t i = 0; i < n; i++) {
+    if (rows[i] < rmin) rmin = rows[i];
+    if (rows[i] > rmax) rmax = rows[i];
+  }
+  const uint64_t keys_per_row = 1ull << (swidth_exp - 16);
+  if (rmax - rmin >= (1ull << 17) / keys_per_row)
+    return bail("row range too wide for dense scatter");
+  if (rmax >= (1ull << (64 - swidth_exp)))
+    return bail("row id too large for 64-bit positions");
+  const uint64_t range = (rmax - rmin + 1) * keys_per_row;
+  if (range > 64 && n < range * 256) return bail("batch too sparse for dense scatter");
+  ib->masks = static_cast<uint64_t*>(std::calloc(range * kContainerWords, 8));
+  if (!ib->masks) return bail("out of memory");
+  ib->range = range;
+  ib->kmin = (rmin << swidth_exp) >> 16;
+  import_scatter(ib, rows, cols, n, rmin, swidth_exp);
+  import_count(ib);
+  if (want_payload) {
+    const uint64_t m = ib->keys.size();
+    ib->payload.resize(import_payload_size(ib->counts.data(), m));
+    write_import_payload(ib->keys.data(), ib->counts.data(), m,
+                         [ib](uint64_t i) {
+                           return ib->masks + (ib->keys[i] - ib->kmin) * kContainerWords;
+                         },
+                         ib->payload.data());
+  }
+  return ib;
+}
+
 }  // namespace
 
 extern "C" {
@@ -663,6 +888,161 @@ uint64_t rc_dense_positions_ptrs(const uint64_t* ptrs, uint64_t n,
     }
   }
   return cnt;
+}
+
+// The bulk import builder (import_build above). Returns a handle, or
+// null when out of memory; rc_ib_error non-empty means the batch was
+// declined (or could not be built) and the caller takes the grouped
+// path. The payload is built only with want_payload non-zero.
+void* rc_import_build(const uint64_t* rows, const uint64_t* cols, uint64_t n,
+                      uint32_t swidth_exp, int want_payload) {
+  auto* ib = new (std::nothrow) ImportBuild();
+  if (!ib) return nullptr;
+  try {
+    return import_build(ib, rows, cols, n, swidth_exp, want_payload != 0);
+  } catch (...) {
+    // Out of memory in a vector or a worker: declined, not a crash.
+    std::snprintf(ib->err, sizeof(ib->err), "%s", "import build failed");
+    return ib;
+  }
+}
+
+const char* rc_ib_error(void* h) { return static_cast<ImportBuild*>(h)->err; }
+uint64_t rc_ib_count(void* h) { return static_cast<ImportBuild*>(h)->keys.size(); }
+uint64_t rc_ib_nbits(void* h) { return static_cast<ImportBuild*>(h)->nbits; }
+uint64_t rc_ib_payload_size(void* h) { return static_cast<ImportBuild*>(h)->payload.size(); }
+
+void rc_ib_keys_counts(void* h, uint64_t* keys_out, uint64_t* counts_out) {
+  auto* ib = static_cast<ImportBuild*>(h);
+  std::memcpy(keys_out, ib->keys.data(), 8 * ib->keys.size());
+  std::memcpy(counts_out, ib->counts.data(), 8 * ib->counts.size());
+}
+
+// The non-empty containers' words, key order, into out[count * 1024].
+void rc_ib_words(void* h, uint64_t* out) {
+  auto* ib = static_cast<ImportBuild*>(h);
+  parallel_ranges(ib->keys.size(), 256, [&](uint64_t lo, uint64_t hi, uint64_t) {
+    for (uint64_t i = lo; i < hi; i++)
+      std::memcpy(out + i * kContainerWords,
+                  ib->masks + (ib->keys[i] - ib->kmin) * kContainerWords,
+                  8 * kContainerWords);
+  });
+}
+
+void rc_ib_payload(void* h, uint8_t* out) {
+  auto* ib = static_cast<ImportBuild*>(h);
+  std::memcpy(out, ib->payload.data(), ib->payload.size());
+}
+
+void rc_ib_free(void* h) { delete static_cast<ImportBuild*>(h); }
+
+// An import record's payload from sorted unique positions grouped by
+// container: keys[m] ascending, lows = every group's in-container
+// positions back to back, bounds[m + 1] the groups' offsets into lows.
+// `out` needs rc_serialize_groups_cap bytes. Returns the bytes written,
+// 0 for a group that is empty or holds more than 65536 positions, ~0
+// when the work could not run (out of memory).
+uint64_t rc_serialize_groups_cap(uint64_t m, uint64_t n) {
+  return kHeaderBaseSize + m * 16 + 4 * n + 8192;
+}
+
+uint64_t rc_serialize_groups(const uint64_t* keys, const uint16_t* lows,
+                             const uint64_t* bounds, uint64_t m, uint8_t* out) {
+  wu16(out, kMagic);
+  wu16(out + 2, kVersion);
+  wu32(out + 4, static_cast<uint32_t>(m));
+  const size_t meta_pos = kHeaderBaseSize;
+  const size_t off_pos = meta_pos + 12 * m;
+  try {
+    std::vector<uint64_t> offs(m + 1);
+    offs[0] = off_pos + 4 * m;
+    for (uint64_t i = 0; i < m; i++) {
+      uint64_t card = bounds[i + 1] - bounds[i];
+      if (card == 0 || card > 65536) return 0;
+      offs[i + 1] = offs[i] + (card < 4096 ? 2 * card : 8192);
+    }
+    parallel_ranges(m, 2048, [&](uint64_t lo, uint64_t hi, uint64_t) {
+      for (uint64_t i = lo; i < hi; i++) {
+        uint64_t card = bounds[i + 1] - bounds[i];
+        uint16_t typ = card < 4096 ? kTypeArray : kTypeBitmap;
+        wu64(out + meta_pos + 12 * i, keys[i]);
+        wu16(out + meta_pos + 12 * i + 8, typ);
+        wu16(out + meta_pos + 12 * i + 10, static_cast<uint16_t>(card - 1));
+        wu32(out + off_pos + 4 * i, static_cast<uint32_t>(offs[i]));
+        if (typ == kTypeArray) {
+          std::memcpy(out + offs[i], lows + bounds[i], 2 * card);
+        } else {
+          uint64_t mask[kContainerWords];
+          std::memset(mask, 0, sizeof(mask));
+          for (uint64_t j = bounds[i]; j < bounds[i + 1]; j++)
+            mask[lows[j] >> 6] |= 1ull << (lows[j] & 63);
+          std::memcpy(out + offs[i], mask, 8192);
+        }
+      }
+    });
+    return offs[m];
+  } catch (...) {
+    return ~0ull;
+  }
+}
+
+// An import record's payload from m dense containers (addresses in
+// `ptrs`, `card[i]` bits each, non-zero) under ascending `keys`; `out`
+// needs rc_serialize_import_size bytes. Returns the bytes written, ~0
+// when the work could not run.
+uint64_t rc_serialize_import_size(const uint64_t* card, uint64_t m) {
+  return import_payload_size(card, m);
+}
+
+uint64_t rc_serialize_import(const uint64_t* keys, const uint64_t* ptrs,
+                             const uint64_t* card, uint64_t m, uint8_t* out) {
+  try {
+    write_import_payload(keys, card, m,
+                         [ptrs](uint64_t i) { return reinterpret_cast<const uint64_t*>(ptrs[i]); },
+                         out);
+  } catch (...) {
+    return ~0ull;
+  }
+  return import_payload_size(card, m);
+}
+
+// Dense container masks from sorted positions grouped by pos >> 16:
+// keys_out[m], words_out[m * 1024] (zeroed by the caller; m the distinct
+// key count). Returns the groups written, 0 when there are more than m.
+uint64_t rc_build_masks(const uint64_t* positions, uint64_t n, uint64_t m,
+                        uint64_t* keys_out, uint64_t* words_out) {
+  if (n == 0 || m == 0) return 0;
+  uint64_t w = 0;
+  uint64_t cur = positions[0] >> 16;
+  keys_out[0] = cur;
+  for (uint64_t i = 0; i < n; i++) {
+    uint64_t key = positions[i] >> 16;
+    if (key != cur) {
+      if (++w >= m) return 0;
+      keys_out[w] = key;
+      cur = key;
+    }
+    uint64_t low = positions[i] & 0xFFFF;
+    words_out[w * kContainerWords + (low >> 6)] |= 1ull << (low & 63);
+  }
+  return w + 1;
+}
+
+// ORs rows of in-container u16 positions into a [*, words64] u64 block:
+// pos holds the rows' positions back to back, lens[r] of row r, which
+// lands in row row_index[r] of `out`. Positions at or past words64 * 64
+// are skipped (banks trimmed below a container's width).
+void rc_scatter_rows(const uint16_t* pos, const uint64_t* lens, uint64_t rows,
+                     const uint64_t* row_index, uint64_t words64, uint64_t* out) {
+  uint64_t off = 0;
+  for (uint64_t r = 0; r < rows; r++) {
+    uint64_t* row = out + row_index[r] * words64;
+    for (uint64_t j = 0; j < lens[r]; j++) {
+      uint16_t p = pos[off + j];
+      if (static_cast<uint64_t>(p >> 6) < words64) row[p >> 6] |= 1ull << (p & 63);
+    }
+    off += lens[r];
+  }
 }
 
 }  // extern "C"

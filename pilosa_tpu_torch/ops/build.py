@@ -38,8 +38,8 @@ HOST_SOURCES = ("roaring_codec.cpp",)
 HOST_BUILD_DIR = PKG_DIR.parent / "build" / "native"
 # The codec popcounts every container it reads or writes: on x86-64 the
 # popcnt instruction, not libgcc's bit loop.
-HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Wextra",
-              "-Werror") + (("-mpopcnt",) if platform.machine().lower() in (
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wall",
+              "-Wextra", "-Werror") + (("-mpopcnt",) if platform.machine().lower() in (
                   "x86_64", "amd64") else ())
 
 _LOCK = threading.Lock()
@@ -85,6 +85,21 @@ HOST_SIGNATURES = {
     "rc_fnv1a32": ((_P, _U64, ctypes.c_uint32), ctypes.c_uint32),
     "rc_popcount_ptrs": ((_P, _U64), _U64),
     "rc_dense_positions_ptrs": ((_P, _U64, _P, _P), _U64),
+    "rc_import_build": ((_P, _P, _U64, ctypes.c_uint32, ctypes.c_int), _P),
+    "rc_ib_error": ((_P,), ctypes.c_char_p),
+    "rc_ib_count": ((_P,), _U64),
+    "rc_ib_nbits": ((_P,), _U64),
+    "rc_ib_payload_size": ((_P,), _U64),
+    "rc_ib_keys_counts": ((_P, _P, _P), None),
+    "rc_ib_words": ((_P, _P), None),
+    "rc_ib_payload": ((_P, _P), None),
+    "rc_ib_free": ((_P,), None),
+    "rc_serialize_groups_cap": ((_U64, _U64), _U64),
+    "rc_serialize_groups": ((_P, _P, _P, _U64, _P), _U64),
+    "rc_serialize_import_size": ((_P, _U64), _U64),
+    "rc_serialize_import": ((_P, _P, _P, _U64, _P), _U64),
+    "rc_build_masks": ((_P, _U64, _U64, _P, _P), _U64),
+    "rc_scatter_rows": ((_P, _P, _U64, _P, _U64, _P), None),
 }
 
 

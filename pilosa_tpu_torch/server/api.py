@@ -47,7 +47,6 @@ from __future__ import annotations
 import csv
 import io
 import json
-import logging
 import os
 import threading
 import time
@@ -75,6 +74,7 @@ from pilosa_tpu_torch.parallel.syncer import HolderSyncer, ResizePuller
 from pilosa_tpu_torch.pql import parse_string
 from pilosa_tpu_torch.utils.failpoints import FAILPOINTS
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
+from pilosa_tpu_torch.utils.logger import Logger
 from pilosa_tpu_torch.utils.profile import Profiler
 from pilosa_tpu_torch.utils.sentinel import SENTINEL
 from pilosa_tpu_torch.utils.stats import NopStatsClient
@@ -94,17 +94,6 @@ _FIELD_OPTIONS = {"type": "type", "cacheType": "cache_type",
                   "timeQuantum": "time_quantum", "keys": "keys",
                   "noStandardView": "no_standard_view",
                   "maxColumns": "max_columns"}
-
-
-class PrintfLogger:
-    """The ``printf`` logger the measurement plane writes to (slow
-    queries, shutdown dumps), over the standard ``logging`` module."""
-
-    def __init__(self, name: str = "pilosa_tpu_torch") -> None:
-        self._log = logging.getLogger(name)
-
-    def printf(self, fmt: str, *args: Any) -> None:
-        self._log.info(fmt % args if args else fmt)
 
 
 class ApiError(ValueError):
@@ -187,7 +176,7 @@ class API:
         WORKLOAD.stats = self.stats
         self.executor.result_cache.stats = self.stats
         self.tracer = tracer or NopTracer()
-        self.logger = PrintfLogger()
+        self.logger = Logger()
         self.long_query_time = 0.0
         self.profiler = Profiler(stats=self.stats, tracer=self.tracer)
         self._started_at = time.time()

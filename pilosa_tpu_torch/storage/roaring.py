@@ -30,12 +30,20 @@ File format (the JAX package's bytes, little-endian):
              a ``value``-byte roaring file of the batch and a zlib crc32
              over header and payload.
 
-Each container is written in the smallest of the three encodings (run
-before array before bitmap). ``write_bytes`` and ``read_bytes`` run the
-C++ codec of ``csrc/roaring_codec.cpp`` (built with g++ on first use by
-``ops/build.py``; a failed build raises). ``write_bytes_plain`` and
-``from_bytes_plain`` are the numpy codec: the plain version the C++ one
-is held against, used by the tests and nowhere on the main path.
+A snapshot writes each container in the smallest of the three
+encodings (run before array before bitmap), except a bitmap whose
+containers are more than a quarter arrays: that one is written as the
+JAX package's native library writes it, array below 4096 bits and bitmap
+from there, never run. An import record's payload always takes that
+array-or-bitmap encoding. ``write_bytes`` and ``read_bytes``, the bulk
+import builder (``import_build``, behind ``import_batch``), the record
+writers (``serialize_groups``, ``serialize_import``), ``build_masks``,
+``dense_positions_of`` and ``scatter_rows`` run the C++ codec of
+``csrc/roaring_codec.cpp`` (built with g++ on first use by
+``ops/build.py``; a failed build raises). Each has a numpy twin with
+``_plain`` in its name (``write_bytes_plain``, ``from_bytes_plain``,
+``import_batch_plain``, ...): the plain version the C++ one is held
+against, used by the tests and nowhere on the main path.
 
 With ``op_writer`` set (an unbuffered file, ``core/fragment.py``),
 every logged write appends its record before it returns: ``add`` and
@@ -50,6 +58,7 @@ its bytes counted).
 from __future__ import annotations
 
 import struct
+import types
 import zlib
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -261,30 +270,17 @@ def serialize_containers(keys: Sequence[int],
 
 
 def serialize_positions(positions: np.ndarray) -> bytes:
-    """File bytes of sorted unique uint64 positions (an import record's
-    payload), through the C++ writer."""
+    """An import record's payload of sorted unique uint64 positions,
+    through the C++ groups writer."""
     positions = np.ascontiguousarray(positions, dtype=np.uint64)
     gkeys = positions >> np.uint64(16)
     starts = np.flatnonzero(np.concatenate(
         ([True], gkeys[1:] != gkeys[:-1]))) if len(positions) \
         else np.empty(0, dtype=np.int64)
     bounds = np.append(starts, len(positions)).astype(np.uint64)
-    return _native_serialize(
-        gkeys[starts], (positions & np.uint64(0xFFFF)).astype(np.uint16),
-        bounds[:-1], np.diff(bounds), np.zeros(len(starts), np.uint64))
-
-
-def serialize_masks(keys: np.ndarray, words: np.ndarray) -> bytes:
-    """File bytes of the non-empty dense containers ``words[i]`` (a
-    C-contiguous uint64 [m, 1024] block) under ascending ``keys``,
-    through the C++ writer."""
-    words = np.ascontiguousarray(words, dtype=np.uint64)
-    m = len(keys)
-    ptrs = np.uint64(_ptr(words)) + np.arange(m, dtype=np.uint64) \
-        * np.uint64(8 * CONTAINER_WORDS) if m else np.empty(0, np.uint64)
-    return _native_serialize(keys, np.empty(0, np.uint16),
-                             np.zeros(m, np.uint64), np.zeros(m, np.uint64),
-                             ptrs)
+    return serialize_groups(gkeys[starts],
+                            (positions & np.uint64(0xFFFF)).astype(np.uint16),
+                            bounds)
 
 
 def _native_load(data: bytes, tolerate_torn_tail: bool) -> dict:
@@ -328,21 +324,258 @@ def _native_load(data: bytes, tolerate_torn_tail: bool) -> dict:
         lib.rc_free(h)
 
 
-def _dense_positions(containers: List[np.ndarray]) -> List[np.ndarray]:
-    """The sorted uint16 positions of each dense container, in one C++
-    sweep."""
+def dense_positions_of(containers: Sequence[np.ndarray],
+                       bases: np.ndarray) -> np.ndarray:
+    """Every set bit of the dense containers (C-contiguous uint64[1024]
+    each) as ``bases[i]`` + its index, container by container, in one
+    C++ sweep."""
     lib = _lib()
+    if not len(containers):
+        return np.empty(0, dtype=np.uint64)
     ptrs = np.fromiter(map(_ptr, containers), dtype=np.uint64,
                        count=len(containers))
+    bases = np.ascontiguousarray(bases, dtype=np.uint64)
     n = int(lib.rc_popcount_ptrs(_ptr(ptrs), len(ptrs)))
     out = np.empty(max(n, 1), dtype=np.uint64)
-    bases = np.zeros(len(ptrs), dtype=np.uint64)
-    lib.rc_dense_positions_ptrs(_ptr(ptrs), len(ptrs), _ptr(bases),
-                                _ptr(out))
-    pos = out[:n].astype(np.uint16)
+    lib.rc_dense_positions_ptrs(_ptr(ptrs), len(ptrs), _ptr(bases), _ptr(out))
+    return out[:n]
+
+
+def _dense_positions(containers: List[np.ndarray]) -> List[np.ndarray]:
+    """The sorted uint16 positions of each dense container, in one C++
+    sweep (``dense_positions_of``)."""
+    pos = dense_positions_of(containers, np.zeros(len(containers),
+                                                  np.uint64)).astype(np.uint16)
     counts = [_popcount_words(c) for c in containers]
     return np.split(pos, np.cumsum(counts)[:-1])
 
+
+def dense_positions_of_plain(containers: Sequence[np.ndarray],
+                             bases: np.ndarray) -> np.ndarray:
+    """The plain version of ``dense_positions_of``."""
+    parts = [np.uint64(b) + _dense_to_array(c).astype(np.uint64)
+             for c, b in zip(containers, np.asarray(bases, np.uint64))]
+    return np.concatenate(parts) if parts else np.empty(0, dtype=np.uint64)
+
+
+def import_build(row_ids: np.ndarray, col_ids: np.ndarray, swidth_exp: int,
+                 want_payload: bool = True):
+    """The C++ bulk import builder: the (row, column) pairs at
+    ``row << swidth_exp | (col mod 2^swidth_exp)`` scattered into dense
+    masks over the batch's container range without a sort. Returns
+    (keys uint64[m] ascending, words uint64[m, 1024], counts uint64[m],
+    the import record's payload or None without ``want_payload``, bits)
+    for the m non-empty containers; None when the batch is declined
+    (the gates of ``dense_scatter``): the caller sorts and groups it."""
+    lib = _lib()
+    rows = np.ascontiguousarray(row_ids, dtype=np.uint64)
+    cols = np.ascontiguousarray(col_ids, dtype=np.uint64)
+    h = lib.rc_import_build(_ptr(rows), _ptr(cols), len(rows), swidth_exp,
+                            int(want_payload))
+    if not h:
+        raise MemoryError("import build: out of memory")
+    try:
+        if lib.rc_ib_error(h):
+            return None
+        m = int(lib.rc_ib_count(h))
+        keys = np.empty(m, dtype=np.uint64)
+        counts = np.empty(m, dtype=np.uint64)
+        words = np.empty((m, CONTAINER_WORDS), dtype=np.uint64)
+        if m:
+            lib.rc_ib_keys_counts(h, _ptr(keys), _ptr(counts))
+            lib.rc_ib_words(h, _ptr(words))
+        payload = None
+        if want_payload:
+            buf = np.empty(max(1, int(lib.rc_ib_payload_size(h))),
+                           dtype=np.uint8)
+            lib.rc_ib_payload(h, _ptr(buf))
+            payload = buf[:int(lib.rc_ib_payload_size(h))].tobytes()
+        return keys, words, counts, payload, int(lib.rc_ib_nbits(h))
+    finally:
+        lib.rc_ib_free(h)
+
+
+def import_build_plain(row_ids: np.ndarray, col_ids: np.ndarray,
+                       swidth_exp: int, want_payload: bool = True):
+    """The plain version of ``import_build`` (numpy): rows scatter
+    DENSE_GROUP_ROWS at a time into one bool mask, packed to words."""
+    rows = np.ascontiguousarray(row_ids, dtype=np.uint64)
+    cols = np.ascontiguousarray(col_ids, dtype=np.uint64)
+    rmin, rmax = int(rows.min()), int(rows.max())
+    if not dense_scatter(len(rows), rmin, rmax, swidth_exp):
+        return None
+    width = 1 << swidth_exp
+    kpr = width // CONTAINER_BITS
+    rel = (rows - np.uint64(rmin)).astype(np.int64)
+    offs = (cols & np.uint64(width - 1)).astype(np.int64)
+    n_rows = rmax - rmin + 1
+    keys, words, counts = [], [], []
+    for g0 in range(0, n_rows, DENSE_GROUP_ROWS):
+        g_rows = min(DENSE_GROUP_ROWS, n_rows - g0)
+        sel = (rel >= g0) & (rel < g0 + g_rows)
+        bits = np.zeros(g_rows * width, dtype=bool)
+        bits[(rel[sel] - g0) * width + offs[sel]] = True
+        w = np.packbits(bits, bitorder="little").view(np.uint64).reshape(
+            g_rows * kpr, CONTAINER_WORDS)
+        c = _popcount_rows(w)
+        nz = np.flatnonzero(c)
+        keys.append(np.uint64((rmin + g0) * kpr) + nz.astype(np.uint64))
+        words.append(w[nz])
+        counts.append(c[nz].astype(np.uint64))
+    keys = np.concatenate(keys)
+    words = np.concatenate(words)
+    counts = np.concatenate(counts)
+    payload = serialize_import_plain(keys, words) if want_payload else None
+    return keys, words, counts, payload, int(counts.sum())
+
+
+def serialize_groups(keys: np.ndarray, lows: np.ndarray,
+                     bounds: np.ndarray) -> bytes:
+    """An import record's payload from sorted unique positions grouped
+    by container (C++): ``keys`` ascending, ``lows`` every group's
+    in-container positions back to back, ``bounds`` the m + 1 group
+    offsets into ``lows``. Array below 4096 bits, bitmap from there."""
+    lib = _lib()
+    m = len(keys)
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    lows = np.ascontiguousarray(lows, dtype=np.uint16)
+    if not len(lows):
+        lows = np.zeros(1, dtype=np.uint16)
+    bounds = np.ascontiguousarray(bounds, dtype=np.uint64)
+    out = np.empty(int(lib.rc_serialize_groups_cap(m, len(lows))),
+                   dtype=np.uint8)
+    size = lib.rc_serialize_groups(_ptr(keys), _ptr(lows), _ptr(bounds), m,
+                                   _ptr(out))
+    if size == (1 << 64) - 1:
+        raise MemoryError("serialize groups: out of memory")
+    if size == 0 and m:
+        raise ValueError("serialize groups: bad group bounds")
+    return out[:size].tobytes()
+
+
+def _import_payload_plain(items: Iterable[Tuple[int, np.ndarray, int]],
+                          n: int) -> bytes:
+    """The plain import-record writer over (key, container, count)
+    triples: array below 4096 bits, bitmap from there."""
+    header = bytearray(struct.pack("<II", COOKIE, n))
+    payloads: List[bytes] = []
+    for key, c, card in items:
+        if card < ARRAY_MAX_SIZE:
+            typ = CONTAINER_ARRAY
+            arr = c if c.dtype == np.uint16 else _dense_to_array(c)
+            payloads.append(arr.astype("<u2").tobytes())
+        else:
+            typ = CONTAINER_BITMAP
+            payloads.append(_as_dense(c).astype("<u8").tobytes())
+        header += struct.pack("<QHH", int(key), typ, card - 1)
+    offset = HEADER_BASE_SIZE + n * 16
+    for pl in payloads:
+        header += struct.pack("<I", offset)
+        offset += len(pl)
+    return bytes(header) + b"".join(payloads)
+
+
+def serialize_groups_plain(keys: np.ndarray, lows: np.ndarray,
+                           bounds: np.ndarray) -> bytes:
+    """The plain version of ``serialize_groups``."""
+    b = np.asarray(bounds, dtype=np.int64)
+    return _import_payload_plain(
+        ((k, lows[b[i]:b[i + 1]], int(b[i + 1] - b[i]))
+         for i, k in enumerate(np.asarray(keys).tolist())), len(keys))
+
+
+def serialize_import(keys: np.ndarray, words: np.ndarray) -> bytes:
+    """An import record's payload from the non-empty dense containers
+    ``words[i]`` (a uint64 [m, 1024] block) under ascending ``keys``
+    (C++): array below 4096 bits, bitmap from there."""
+    lib = _lib()
+    words = np.ascontiguousarray(words, dtype=np.uint64)
+    m = len(keys)
+    keys = np.ascontiguousarray(keys, dtype=np.uint64)
+    card = np.ascontiguousarray(_popcount_rows(words), dtype=np.uint64) \
+        if m else np.zeros(1, np.uint64)
+    ptrs = np.uint64(_ptr(words)) + np.arange(m, dtype=np.uint64) \
+        * np.uint64(8 * CONTAINER_WORDS) if m else np.zeros(1, np.uint64)
+    size = int(lib.rc_serialize_import_size(_ptr(card), m))
+    out = np.empty(size, dtype=np.uint8)
+    if lib.rc_serialize_import(_ptr(keys), _ptr(ptrs), _ptr(card), m,
+                               _ptr(out)) != size:
+        raise MemoryError("serialize import: out of memory")
+    return out.tobytes()
+
+
+def serialize_import_plain(keys: np.ndarray, words: np.ndarray) -> bytes:
+    """The plain version of ``serialize_import``."""
+    counts = _popcount_rows(words) if len(keys) else []
+    return _import_payload_plain(
+        ((k, w, int(c)) for k, w, c in zip(np.asarray(keys).tolist(), words,
+                                           counts)), len(keys))
+
+
+def build_masks(positions: np.ndarray, m: int) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+    """(keys uint64[m], words uint64[m, 1024]): the dense mask of each
+    container of sorted ``positions`` with m distinct keys (C++)."""
+    positions = np.ascontiguousarray(positions, dtype=np.uint64)
+    keys = np.empty(m, dtype=np.uint64)
+    words = np.zeros((m, CONTAINER_WORDS), dtype=np.uint64)
+    got = _lib().rc_build_masks(_ptr(positions), len(positions), m,
+                                _ptr(keys), _ptr(words))
+    if got != m:
+        raise ValueError(f"build masks: {got} groups, expected {m}")
+    return keys, words
+
+
+def build_masks_plain(positions: np.ndarray, m: int) -> Tuple[np.ndarray,
+                                                               np.ndarray]:
+    """The plain version of ``build_masks``."""
+    positions = np.asarray(positions, dtype=np.uint64)
+    gkeys = positions >> np.uint64(16)
+    keys, idx = np.unique(gkeys, return_inverse=True)
+    if len(keys) != m:
+        raise ValueError(f"build masks: {len(keys)} groups, expected {m}")
+    words = np.zeros((m, CONTAINER_WORDS), dtype=np.uint64)
+    low = (positions & np.uint64(0xFFFF)).astype(np.int64)
+    np.bitwise_or.at(words, (idx, low >> 6),
+                     np.left_shift(np.uint64(1), (low & 63).astype(np.uint64)))
+    return keys.astype(np.uint64), words
+
+
+def scatter_rows(pos: np.ndarray, lens: np.ndarray, row_index: np.ndarray,
+                 words64: int, out: np.ndarray) -> None:
+    """OR rows of in-container uint16 positions (``lens[r]`` of row r,
+    back to back) into row ``row_index[r]`` of ``out`` (C-contiguous
+    uint64, ``words64`` a row); positions past the row's width are
+    skipped (C++)."""
+    assert out.flags.c_contiguous and out.dtype == np.uint64
+    pos = np.ascontiguousarray(pos, dtype=np.uint16)
+    lens = np.ascontiguousarray(lens, dtype=np.uint64)
+    row_index = np.ascontiguousarray(row_index, dtype=np.uint64)
+    if not len(lens):
+        return
+    _lib().rc_scatter_rows(_ptr(pos) if len(pos) else _ptr(out), _ptr(lens),
+                           len(lens), _ptr(row_index), words64, _ptr(out))
+
+
+def scatter_rows_plain(pos: np.ndarray, lens: np.ndarray,
+                       row_index: np.ndarray, words64: int,
+                       out: np.ndarray) -> None:
+    """The plain version of ``scatter_rows``."""
+    p = np.asarray(pos, dtype=np.int64)
+    rows = np.repeat(np.asarray(row_index, dtype=np.int64),
+                     np.asarray(lens, dtype=np.int64))
+    keep = (p >> 6) < words64
+    p, rows = p[keep], rows[keep]
+    np.bitwise_or.at(out.reshape(-1), rows * words64 + (p >> 6),
+                     np.left_shift(np.uint64(1), (p & 63).astype(np.uint64)))
+
+
+# The import builder's two implementations: the C++ codec on the main
+# path, numpy (the plain version) in the tests.
+CODEC = types.SimpleNamespace(import_build=import_build,
+                              serialize_groups=serialize_groups)
+PLAIN = types.SimpleNamespace(import_build=import_build_plain,
+                              serialize_groups=serialize_groups_plain)
 
 # -- op records ---------------------------------------------------------------
 
@@ -593,11 +826,18 @@ class Bitmap:
             positions = np.unique(np.asarray(positions, dtype=np.uint64))
         changed = 0
         uniq, bounds = self._groups(positions)
+        # A dense enough batch builds every group's mask in one C++ pass
+        # (the JAX package's gate); new containers take theirs.
+        masks = None
+        if len(positions) >= 4096 and len(uniq) <= 65536 and \
+                len(positions) >= 64 * len(uniq):
+            masks = build_masks(positions, len(uniq))[1]
         for i, key in enumerate(uniq.tolist()):
             group = positions[bounds[i]:bounds[i + 1]]
             low = (group & np.uint64(0xFFFF)).astype(np.uint32)
             if key not in self.containers:
-                self.containers[key] = _low_mask(low)
+                self.containers[key] = masks[i].copy() \
+                    if masks is not None else _low_mask(low)
                 self._counts[key] = len(group)
                 changed += len(group)
                 continue
@@ -638,20 +878,37 @@ class Bitmap:
                      swidth_exp: int) -> np.ndarray:
         """Add every (row, column) pair at position ``row << swidth_exp |
         (col mod 2^swidth_exp)``; returns the sorted touched container
-        keys. Duplicates are harmless.
+        keys. Duplicates are harmless. One OP_ADD_ROARING record holds
+        the batch's bits.
 
-        Two branches, chosen as the JAX package's native import build
-        chooses: a batch over a narrow, dense row span scatters into
-        dense per-container masks without sorting; any other batch
-        sorts and groups its positions into sorted-u16 array containers
-        (dense above ARRAY_MAX_SIZE). Positions that arrive sorted (a
-        bulk load in row order) skip the sort."""
+        Two branches, as in the JAX package with its native library: a
+        batch over a narrow, dense row span goes through the C++ import
+        builder (``import_build``: dense masks without a sort, its
+        containers kept dense with their counts cached); any other
+        batch sorts and groups its positions into sorted-u16 array
+        containers (dense above ARRAY_MAX_SIZE), its record written by
+        ``serialize_groups``. Positions that arrive sorted (a bulk load
+        in row order) skip the sort."""
+        return self._import(row_ids, col_ids, swidth_exp, CODEC)
+
+    def import_batch_plain(self, row_ids: np.ndarray, col_ids: np.ndarray,
+                           swidth_exp: int) -> np.ndarray:
+        """The plain version of ``import_batch`` (numpy builder and
+        writer): the same containers, counts and record bytes."""
+        return self._import(row_ids, col_ids, swidth_exp, PLAIN)
+
+    def _import(self, row_ids: np.ndarray, col_ids: np.ndarray,
+                swidth_exp: int, impl) -> np.ndarray:
         row_ids = np.ascontiguousarray(row_ids, dtype=np.uint64)
         col_ids = np.ascontiguousarray(col_ids, dtype=np.uint64)
         if len(row_ids) == 0:
             return np.empty(0, dtype=np.uint64)
-        keys = self._import_dense(row_ids, col_ids, swidth_exp)
-        if keys is not None:
+        built = impl.import_build(row_ids, col_ids, swidth_exp,
+                                  self.op_writer is not None)
+        if built is not None:
+            keys, masks, counts, payload, n_bits = built
+            self._log_roaring(n_bits, lambda: payload)
+            self._merge_built(keys, masks, counts)
             return keys
         positions = (row_ids << np.uint64(swidth_exp)) \
             + (col_ids & np.uint64((1 << swidth_exp) - 1))
@@ -671,8 +928,8 @@ class Bitmap:
         key_list = keys.tolist()
         lows = (positions & np.uint64(0xFFFF)).astype(np.uint16)
         counts = np.diff(bounds)
-        self._log_roaring(len(positions), lambda: _native_serialize(
-            keys, lows, bounds[:-1], counts, np.zeros(len(keys), np.uint64)))
+        self._log_roaring(len(positions), lambda: impl.serialize_groups(
+            keys, lows, bounds))
         groups = [lows[a:b] for a, b in zip(bounds[:-1].tolist(),
                                             bounds[1:].tolist())]
         if self.containers.keys().isdisjoint(key_list) and \
@@ -693,6 +950,25 @@ class Bitmap:
             self._invalidate(k)
         return keys
 
+    def _merge_built(self, keys: np.ndarray, masks: np.ndarray,
+                     counts: np.ndarray) -> None:
+        """OR the builder's non-empty masks into the store. A new key
+        takes its row of ``masks`` (a view of the block when most keys
+        are new, so a few survivors do not pin the whole block; else a
+        copy) with its count cached; an existing one is ORed."""
+        key_list = keys.tolist()
+        containers = self.containers
+        n_new = sum(1 for k in key_list if k not in containers)
+        adopt = n_new * 2 >= len(key_list)
+        for i, (key, n) in enumerate(zip(key_list, counts.tolist())):
+            if key not in containers:
+                containers[key] = masks[i] if adopt else masks[i].copy()
+                self._counts[key] = n
+            else:
+                c = self._container(key)
+                c |= masks[i]
+                self._invalidate(key)
+
     def merge_masks(self, first_key: int, words: np.ndarray,
                     counts: Optional[np.ndarray] = None) -> np.ndarray:
         """OR a block of dense container masks, uint64 [n, 1024] for keys
@@ -712,57 +988,6 @@ class Bitmap:
                 c |= words[i]
                 self._invalidate(key)
         return nz.astype(np.uint64) + np.uint64(first_key)
-
-    def _import_dense(self, row_ids: np.ndarray, col_ids: np.ndarray,
-                      swidth_exp: int) -> Optional[np.ndarray]:
-        """The dense-mask branch of import_batch, or None when the batch
-        does not qualify. Rows scatter DENSE_GROUP_ROWS at a time into
-        one bool mask, packed to words in one pass and merged."""
-        rmin, rmax = int(row_ids.min()), int(row_ids.max())
-        if not dense_scatter(len(row_ids), rmin, rmax, swidth_exp):
-            return None
-        width = 1 << swidth_exp
-        kpr = width // CONTAINER_BITS
-        rel = (row_ids - np.uint64(rmin)).astype(np.int64)
-        cols = (col_ids & np.uint64(width - 1)).astype(np.int64)
-        n_rows = rmax - rmin + 1
-        if n_rows > DENSE_GROUP_ROWS:
-            order = np.argsort((rel // DENSE_GROUP_ROWS).astype(np.uint16),
-                               kind="stable")
-            rel, cols = rel[order], cols[order]
-            bounds = np.searchsorted(
-                rel, np.arange(0, n_rows + DENSE_GROUP_ROWS,
-                               DENSE_GROUP_ROWS))
-        else:
-            bounds = np.array([0, len(rel)])
-        # Every group's masks first: the batch's record goes out before
-        # any bit lands.
-        groups = []
-        n_bits = 0
-        for g, (lo, hi) in enumerate(zip(bounds[:-1].tolist(),
-                                          bounds[1:].tolist())):
-            if lo == hi:
-                continue
-            g0 = g * DENSE_GROUP_ROWS
-            g_rows = min(DENSE_GROUP_ROWS, n_rows - g0)
-            bits = np.zeros(g_rows * width, dtype=bool)
-            bits[(rel[lo:hi] - g0) * width + cols[lo:hi]] = True
-            words = np.packbits(bits, bitorder="little").view(
-                np.uint64).reshape(g_rows * kpr, CONTAINER_WORDS)
-            counts = _popcount_rows(words)
-            n_bits += int(counts.sum())
-            groups.append(((rmin + g0) * kpr, words, counts))
-
-        def payload() -> bytes:
-            nz = [np.flatnonzero(c) for _, _, c in groups]
-            return serialize_masks(
-                np.concatenate([np.uint64(k0) + i.astype(np.uint64)
-                                for (k0, _, _), i in zip(groups, nz)]),
-                np.concatenate([w[i] for (_, w, _), i in zip(groups, nz)]))
-
-        self._log_roaring(n_bits, payload)
-        return np.concatenate([self.merge_masks(k0, w, c)
-                               for k0, w, c in groups])
 
     def union_in_place(self, *others: "Bitmap") -> None:
         """OR every container of ``others`` into this store (unlogged)."""
@@ -823,17 +1048,46 @@ class Bitmap:
         keys = sorted(k for k in self.containers if self.container_count(k))
         return keys, [self.containers[k] for k in keys]
 
+    def _groups_heavy(self, cs: List[np.ndarray]) -> bool:
+        """Whether more than a quarter of the containers are arrays: the
+        JAX package's native writer then writes the snapshot through its
+        groups writer (array below 4096 bits, bitmap from there, never
+        run)."""
+        return sum(1 for c in cs if c.dtype is _U16) * 4 > len(cs)
+
     def write_bytes(self) -> bytes:
         """The file bytes of the store (a snapshot, no op log), through
-        the C++ writer."""
-        return serialize_containers(*self._sorted_items())
+        the C++ writer: the smallest encoding a container, or the groups
+        writer's when more than a quarter of them are arrays."""
+        keys, cs = self._sorted_items()
+        if self._groups_heavy(cs):
+            lows, bounds = self._groups_of(keys, cs, _dense_positions)
+            return serialize_groups(np.asarray(keys, np.uint64), lows, bounds)
+        return serialize_containers(keys, cs)
 
     def write_bytes_plain(self) -> bytes:
         """The plain version of ``write_bytes`` (numpy): the same bytes."""
         keys, cs = self._sorted_items()
+        if self._groups_heavy(cs):
+            return _import_payload_plain(
+                ((k, c, self.container_count(k)) for k, c in zip(keys, cs)),
+                len(keys))
         return _serialize_container_seq(
             ((k, c, self.container_count(k)) for k, c in zip(keys, cs)),
             len(keys))
+
+    @staticmethod
+    def _groups_of(keys: List[int], cs: List[np.ndarray], positions_of):
+        """(lows, bounds) of the groups writer: arrays verbatim, dense
+        containers' positions from ``positions_of`` (one sweep)."""
+        dense = [i for i, c in enumerate(cs) if c.dtype is not _U16]
+        parts = list(cs)
+        if dense:
+            for i, arr in zip(dense, positions_of([cs[i] for i in dense])):
+                parts[i] = arr
+        lens = np.fromiter(map(len, parts), dtype=np.uint64, count=len(parts))
+        lows = np.concatenate(parts) if parts else np.empty(0, np.uint16)
+        return lows, np.concatenate(([0], np.cumsum(lens))).astype(np.uint64)
 
     @classmethod
     def from_bytes(cls, data: bytes,

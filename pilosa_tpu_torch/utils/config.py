@@ -6,14 +6,15 @@ package's name, default and validation. A TOML table ``[name] key = v``
 is the flat key ``name_key``; ``[failpoints]`` and ``[slo]`` stay tables
 (their keys carry dots and slashes).
 
-Two differences, both loud:
-
-- keys with no counterpart in the port yet (the JAX platform override,
-  the runtime monitor and diagnostics) are refused by ``load_config`` with a message saying they are not ported yet,
-  whether they come from the file, the environment or a flag; none is
-  ever silently ignored (``NOT_PORTED``);
-- ``data_dir`` defaults to ``""``: the server keeps its holder in memory
-  unless a directory is given.
+Every key of the JAX package's ``Config`` is taken, with one
+difference: ``data_dir`` defaults to ``""``, so the server keeps its
+holder in memory unless a directory is given. ``platform`` (also
+``PILOSA_TPU_PLATFORM`` and ``cli server --platform``) names the
+server's device the way the JAX package names its platform: ``""`` the
+default (``cuda``), ``cpu`` the CPU, ``gpu`` or ``cuda`` the card; any
+other value is refused (``Config.device``). ``metric_poll_interval`` is
+the runtime monitor's period, ``diagnostics_interval`` and
+``diagnostics_url`` the diagnostics reports' (``utils/diagnostics.py``).
 
 The mesh's keys (``mesh_devices``, 0 meaning every visible CUDA
 device; ``mesh_replicas``; ``mesh_collectives``, which can switch the
@@ -41,26 +42,11 @@ from typing import Any, Dict, Optional
 
 ENV_PREFIX = "PILOSA_TPU_"
 
-# The JAX package's keys that have no counterpart in the port yet, with
-# what each belongs to. Setting one fails in load_config.
-NOT_PORTED: Dict[str, str] = {
-    "platform": "the JAX platform override",
-    "metric_poll_interval": "the runtime monitor",
-    **{k: "diagnostics" for k in ("diagnostics_interval",
-                                  "diagnostics_url")},
-}
-
-
-def _refuse(key: str, where: str) -> None:
-    raise ValueError(f"config key {key!r} ({where}) is not ported yet: "
-                     f"{NOT_PORTED[key]} has no counterpart in "
-                     f"pilosa_tpu_torch")
-
 
 @dataclass
 class Config:
     """Resolved server settings; the fields are the JAX package's, in
-    its order, without ``NOT_PORTED``."""
+    its order."""
     data_dir: str = ""
     bind: str = "localhost:10101"
     verbose: bool = False
@@ -86,6 +72,9 @@ class Config:
     mesh_devices: int = 0
     mesh_replicas: int = 1
     mesh_collectives: bool = True
+    # The server's device, named as the JAX package names its platform:
+    # "" (the default, cuda), "cpu", "gpu" or "cuda".
+    platform: str = ""
     # Multi-process startup: with more than one process the server joins
     # a torch.distributed process group at tcp://<coordinator> (NCCL on
     # the card, gloo on the CPU) before it builds its mesh.
@@ -144,6 +133,11 @@ class Config:
     # Metrics: mem | statsd | none, and the statsd agent's address.
     metric_service: str = "mem"
     metric_host: str = "localhost:8125"
+    # The runtime monitor's period (seconds; 0: off).
+    metric_poll_interval: float = 10.0
+    # Diagnostics reports: off unless both are set.
+    diagnostics_interval: float = 0.0
+    diagnostics_url: str = ""
     # Tracing: an OTLP/HTTP JSON endpoint ("" records spans in memory)
     # and the head sampler.
     tracing_endpoint: str = ""
@@ -205,11 +199,22 @@ class Config:
         parts = self.bind.rsplit(":", 1)
         return int(parts[1]) if len(parts) == 2 and parts[1] else 10101
 
+    @property
+    def device(self) -> Optional[str]:
+        """The torch device ``platform`` names: "cpu", "cuda", or None
+        for the default (cuda)."""
+        return {"": None, "cpu": "cpu", "gpu": "cuda",
+                "cuda": "cuda"}[self.platform]
+
     def validate(self) -> None:
-        """The JAX package's checks of the keys the port serves (a port
-        of 0 binds a free port)."""
+        """The JAX package's checks of its keys (a port of 0 binds a
+        free port), and the platforms the port serves."""
         if self.port < 0 or self.port > 65535:
             raise ValueError(f"invalid port {self.port}")
+        if self.platform not in ("", "cpu", "gpu", "cuda"):
+            raise ValueError(
+                f"platform {self.platform!r} is not served by "
+                f"pilosa_tpu_torch (\"\", cpu, gpu or cuda)")
         if self.mesh_replicas < 1:
             raise ValueError("mesh_replicas must be >= 1")
         if bool(self.tls_certificate) != bool(self.tls_key):
@@ -383,8 +388,7 @@ def load_config(path: Optional[str] = None,
                 environ: Optional[Dict[str, str]] = None) -> Config:
     """flags (``overrides``, None values skipped) > environment
     (``environ``, default ``os.environ``) > the TOML file at ``path`` >
-    defaults. An unknown key fails as in the JAX package; a key of
-    ``NOT_PORTED`` fails saying so."""
+    defaults. An unknown key fails as in the JAX package."""
     env_map = os.environ if environ is None else environ
     cfg = Config()
     settable = {f.name for f in fields(cfg)}
@@ -404,21 +408,14 @@ def load_config(path: Optional[str] = None,
             if isinstance(v, dict):
                 for sk, sv in v.items():
                     flat = f"{k}_{sk.replace('-', '_')}"
-                    if flat in NOT_PORTED:
-                        _refuse(flat, f"[{k}] {sk} in {path}")
                     if flat not in settable:
                         raise ValueError(
                             f"unknown config key {k}.{sk!r}")
                     setattr(cfg, flat, sv)
-            elif k in NOT_PORTED:
-                _refuse(k, f"in {path}")
             elif k in settable:
                 setattr(cfg, k, v)
             else:
                 raise ValueError(f"unknown config key {k!r}")
-    for k in NOT_PORTED:
-        if env_map.get(ENV_PREFIX + k.upper()) is not None:
-            _refuse(k, f"environment {ENV_PREFIX}{k.upper()}")
     for k in settable:
         env = env_map.get(ENV_PREFIX + k.upper())
         if env is not None:
@@ -426,8 +423,6 @@ def load_config(path: Optional[str] = None,
     for k, v in (overrides or {}).items():
         if v is None:
             continue
-        if k in NOT_PORTED:
-            _refuse(k, "a flag")
         if k not in settable:
             raise ValueError(f"unknown config key {k!r}")
         setattr(cfg, k, v)

@@ -25,8 +25,11 @@ Granularity notes:
   ``lock_order_violations()``, so a test can assert emptiness even when
   application code swallows the raise.
 
-The JAX package's third factory mode (the interleaving explorer's
-``utils/sched.py`` wrappers) is not ported.
+Third factory mode: while a ``pilosa_tpu_torch.utils.sched.Scheduler``
+is active, the factories return its Sched* wrappers instead, so every
+acquire, release, wait and notify is a yield point of the interleaving
+explorer (``tests/test_torch_interleave.py``) over the port's modules,
+unchanged.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import os
 import threading
 from typing import Dict, List, Optional, Set, Tuple
 
-
+from pilosa_tpu_torch.utils import sched as _sched
 
 def _enabled() -> bool:
     return os.environ.get("PILOSA_TPU_LOCK_CHECK", "") == "1"
@@ -328,13 +331,23 @@ class _CondShim:
 
 def make_lock(name: str):
     """A mutex named for diagnostics: plain threading.Lock normally,
-    an order-checked DebugLock under PILOSA_TPU_LOCK_CHECK=1."""
+    order-checked DebugLock under PILOSA_TPU_LOCK_CHECK=1, and a
+    SchedLock while an interleaving explorer's Scheduler is active."""
+    sch = _sched.active_scheduler()
+    if sch is not None:
+        return _sched.SchedLock(name, sch)
     return DebugLock(name) if _enabled() else threading.Lock()
 
 
 def make_rlock(name: str):
+    sch = _sched.active_scheduler()
+    if sch is not None:
+        return _sched.SchedRLock(name, sch)
     return DebugRLock(name) if _enabled() else threading.RLock()
 
 
 def make_condition(name: str):
+    sch = _sched.active_scheduler()
+    if sch is not None:
+        return _sched.SchedCondition(name, sch)
     return DebugCondition(name) if _enabled() else threading.Condition()

@@ -2,8 +2,9 @@
 ``cli generate-config``, ``cli server -c``) against the JAX package's, on
 the CPU: the same TOML files and environments resolve every shared key to
 the same value, ``generate-config`` prints the JAX package's text but for
-the keys the port refuses (and ``data_dir``, whose default is the
-in-memory holder), a refused key fails naming itself as not ported, the
+``data_dir`` (whose default is the in-memory holder), every key the port
+once refused as not ported (the platform, the runtime monitor's and the
+diagnostics' keys among them) loads as the JAX package loads it, the
 cluster's keys (the seed join's, the resize pull's and the anti-entropy
 interval among them) and TLS keys resolve from every source as the JAX
 package's, and the server started from a TOML file wires its planes from
@@ -128,17 +129,16 @@ def test_every_shared_key_has_the_jax_default():
     for k, v in got.items():
         if k != "data_dir":
             assert v == want[k], k
-    # The port's keys and the refused ones are the JAX package's, all.
-    assert set(got) | set(pcfg.NOT_PORTED) == set(want)
-    assert not set(got) & set(pcfg.NOT_PORTED)
+    # The port's keys are the JAX package's, all of them.
+    assert set(got) == set(want)
+    assert not hasattr(pcfg, "NOT_PORTED")
     assert got["data_dir"] == ""
 
 
 def test_generate_config_matches_jax_but_refused_keys():
     def lines(text):
         return [ln for ln in text.splitlines()
-                if ln.split(" = ")[0] not in pcfg.NOT_PORTED
-                and not ln.startswith("data_dir = ")]
+                if not ln.startswith("data_dir = ")]
     got = subprocess.run(
         [sys.executable, "-m", "pilosa_tpu_torch.cli", "generate-config"],
         cwd=REPO, capture_output=True, text=True, check=True).stdout
@@ -163,13 +163,20 @@ MESH_KEYS = ("jax_coordinator", "jax_num_processes", "jax_process_id",
              "mesh_collectives", "mesh_devices", "mesh_replicas")
 
 
-@pytest.mark.parametrize("key", sorted(pcfg.NOT_PORTED)
+# The platform, runtime monitor and diagnostics keys: refused until the
+# port had the diagnostics plane, taken as the JAX package takes them
+# since (from the file, the environment and a flag).
+MONITOR_KEYS = ("diagnostics_interval", "diagnostics_url",
+                "metric_poll_interval", "platform")
+
+
+@pytest.mark.parametrize("key", list(MONITOR_KEYS)
                          + sorted(DYNAMIC_CLUSTER_KEYS) + list(MESH_KEYS))
 def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
-    """Set in the file, the environment or a flag, a key the port has no
-    counterpart of fails at load, naming itself; the JAX package takes
-    the same file. A key of the dynamic cluster or the mesh loads from
-    that file as the JAX package loads it."""
+    """Every key the port once refused as not ported loads from a file
+    as the JAX package loads it; the platform, monitor and diagnostics
+    keys also from the environment and a flag, with a value that is not
+    their default."""
     value = dataclasses.asdict(jcfg.Config())[key]
     text = json.dumps(value) if not isinstance(value, bool) \
         else str(value).lower()
@@ -178,18 +185,22 @@ def test_refused_key_fails_with_its_message(tmp_path, clean_env, key):
     path = tmp_path / "c.toml"
     path.write_text(f"{key} = {text}\n")
     want = jcfg.load_config(str(path))
-    if key in DYNAMIC_CLUSTER_KEYS + MESH_KEYS:
-        assert key not in pcfg.NOT_PORTED
-        got = pcfg.load_config(str(path), environ={})
-        assert getattr(got, key) == getattr(want, key)
-        assert _shared(got) == _shared(want)
+    got = pcfg.load_config(str(path), environ={})
+    assert getattr(got, key) == getattr(want, key)
+    assert _shared(got) == _shared(want)
+    if key not in MONITOR_KEYS:
         return
-    with pytest.raises(ValueError, match=f"'{key}'.*not ported yet"):
-        pcfg.load_config(str(path))
-    with pytest.raises(ValueError, match=f"'{key}'.*not ported yet"):
-        pcfg.load_config(environ={"PILOSA_TPU_" + key.upper(): "1"})
-    with pytest.raises(ValueError, match=f"'{key}'.*not ported yet"):
-        pcfg.load_config(overrides={key: value}, environ={})
+    other = {"diagnostics_interval": 2.5, "metric_poll_interval": 0.5,
+             "diagnostics_url": "http://127.0.0.1:1/d",
+             "platform": "cpu"}[key]
+    clean_env.setenv("PILOSA_TPU_" + key.upper(), str(other))
+    got, want = pcfg.load_config(), jcfg.load_config()
+    assert getattr(got, key) == getattr(want, key) == other
+    assert _shared(got) == _shared(want)
+    clean_env.delenv("PILOSA_TPU_" + key.upper())
+    got = pcfg.load_config(overrides={key: other}, environ={})
+    want = jcfg.load_config(overrides={key: other})
+    assert getattr(got, key) == getattr(want, key) == other
 
 
 # The static cluster's and TLS keys, each with a value that is not its
@@ -233,7 +244,6 @@ def test_ported_cluster_keys_match_jax(tmp_path, clean_env, key):
     and as its table), in the environment and as a flag, resolves as
     the JAX package's ``Config`` does."""
     value, pair = CLUSTER_KEYS[key]
-    assert key not in pcfg.NOT_PORTED
     sets = {key: value}
     if pair is not None:
         sets[pair[0]] = pair[1]
@@ -266,23 +276,16 @@ def test_ported_cluster_keys_match_jax(tmp_path, clean_env, key):
                                        ("mesh", "devices"),
                                        ("diagnostics", "interval")])
 def test_refused_table_key_names_its_table(tmp_path, table, key):
-    """A refused key set in its table fails naming the table; the
-    dynamic cluster's and the mesh's keys, set in theirs, resolve as the
-    JAX package resolves them."""
+    """A once-refused key set in its table (the dynamic cluster's, the
+    mesh's, the diagnostics') resolves as the JAX package resolves it."""
     path = tmp_path / "c.toml"
     flat = f"{table}_{key}"
-    if flat in DYNAMIC_CLUSTER_KEYS + MESH_KEYS:
-        value = {"cluster_seeds": '["http://a:1"]',
-                 "mesh_devices": "2"}.get(flat, "2.5")
-        path.write_text(f"[{table}]\n{key} = {value}\n")
-        got = pcfg.load_config(str(path), environ={})
-        want = jcfg.load_config(str(path))
-        assert getattr(got, flat) == getattr(want, flat) == \
-            json.loads(value)
-        return
-    path.write_text(f'[{table}]\n{key} = "x"\n')
-    with pytest.raises(ValueError, match=rf"\[{table}\] {key}.*not ported"):
-        pcfg.load_config(str(path), environ={})
+    value = {"cluster_seeds": '["http://a:1"]',
+             "mesh_devices": "2"}.get(flat, "2.5")
+    path.write_text(f"[{table}]\n{key} = {value}\n")
+    got = pcfg.load_config(str(path), environ={})
+    want = jcfg.load_config(str(path))
+    assert getattr(got, flat) == getattr(want, flat) == json.loads(value)
 
 
 @pytest.mark.parametrize("text,match", [
@@ -371,11 +374,11 @@ def test_server_takes_its_planes_from_the_toml(tmp_path):
         assert proc.wait(timeout=60) == 0
     err = proc.stderr.read()
     assert "sentinel:" in err and "workload:" in err
-    # TLS is validated as the JAX package validates it, and a key that is
-    # not ported yet stops the server before it listens.
+    # TLS is validated as the JAX package validates it, and a platform
+    # the port does not serve stops the server before it listens.
     for text, msg in (('tls_certificate = "x.pem"\n',
                        "tls_certificate and tls_key must be set together"),
-                      ("metric_poll_interval = 5.0\n", "not ported yet")):
+                      ('platform = "tpu"\n', "platform 'tpu'")):
         bad = tmp_path / "bad.toml"
         bad.write_text('bind = "127.0.0.1:0"\n' + text)
         res = subprocess.run(

@@ -348,10 +348,18 @@ def test_port_imports_neither_jax_nor_reference():
         "assert len(mods) >= 15, mods\n"
         "need = ['pilosa_tpu_torch.utils.' + n for n in ('locks', "
         "'stats', 'tracing', 'timeline', 'profile', 'roofline', "
-        "'benchenv')] + ['pilosa_tpu_torch.parallel.' + n for n in "
+        "'benchenv', 'diagnostics', 'logger', 'sched')] + "
+        "['pilosa_tpu_torch.parallel.' + n for n in "
         "('mesh', 'multihost')]\n"
         "assert not set(need) - set(mods), set(need) - set(mods)\n"
         "assert not bad, bad\n"
+        "import numpy as np\n"
+        "from pilosa_tpu_torch.storage import roaring\n"
+        "roaring.import_build(np.zeros(5000, np.uint64), "
+        "np.arange(5000, dtype=np.uint64), 20)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libpilosa_codec' in maps\n"
+        "assert 'libpilosa_native' not in maps\n"
         "print(len(mods))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

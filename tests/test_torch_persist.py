@@ -92,12 +92,26 @@ def port_bitmap(positions, optimize):
 @pytest.mark.parametrize("optimize", [False, True])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_write_bytes_match_jax_python_path(seed, optimize):
+    """Both of the port's writers give the JAX package's bytes for the
+    same containers: its Python path's (the smallest encoding a
+    container) while at most a quarter of them are arrays; past that,
+    the groups writer's (array or bitmap, never run) that the JAX
+    package with its native library takes there."""
     pos = lattice(seed)
+    jb = jr.Bitmap(pos)
+    if optimize:
+        jb.optimize()
     with native.force_python():
-        want = jr.Bitmap(pos).write_bytes()
+        want = jb.write_bytes()
     b = port_bitmap(pos, optimize)
+    assert {k: c.dtype for k, c in b.containers.items()} == \
+        {k: c.dtype for k, c in jb.containers.items()}
+    if b._groups_heavy(list(b.containers.values())):
+        assert jb.write_bytes() != want  # the lattice has run containers
+        want = jb.write_bytes()
     assert b.write_bytes_plain() == want
     assert b.write_bytes() == want
+    assert jb.write_bytes() == want
 
 
 @pytest.mark.parametrize("seed", [3, 4])

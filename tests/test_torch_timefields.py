@@ -578,3 +578,59 @@ def test_cpu_path_launches_no_kernel(pair):
     run(tex, "Count(Row(t=1, from='2019-01-02', to='2019-01-20')) "
              "TopN(c, Row(t=1, from='2019-01-05', to='2019-01-12'))")
     assert kernels.LAUNCHES == before
+
+
+# ----------------------------------------------------- values and row_time
+
+
+def test_field_value_matches_jax(pair, tmp_path):
+    """``Field.value`` on every imported column and on columns with no
+    value (in and out of an existing shard) as the JAX package answers,
+    then after sets on a fresh int field with a negative minimum;
+    fields of other types raise alike."""
+    jex, tex = pair
+    jf, tf = (ex.holder.index("i").field("v") for ex in (jex, tex))
+    cols = [int(c) for c in np.unique(data(3)["cols"])]
+    cols += [SHARD_WIDTH + 40001, 7 * SHARD_WIDTH + 3, 0]
+    got = [tf.value(c) for c in cols]
+    assert got == [jf.value(c) for c in cols]
+    assert any(ok for _, ok in got) and (0, False) in got
+    for name in ("c", "t", "m", "b"):
+        for ex in (jex, tex):
+            with pytest.raises(ValueError, match="not an int field"):
+                ex.holder.index("i").field(name).value(cols[1])
+    jh = JaxHolder(str(tmp_path))
+    jh.open()
+    fields = [h.create_index("w").create_field("n", o(
+        type="int", min=-50, max=70)) for h, o in (
+            (jh, JaxFieldOptions), (Holder(device="cpu"), FieldOptions))]
+    probe = [3, 4, SHARD_WIDTH + 9]
+    assert [fields[1].value(c) for c in probe] == [(0, False)] * 3
+    for c, v in ((3, -50), (4, 70), (SHARD_WIDTH + 9, 0), (3, -7)):
+        for f in fields:
+            f.set_value(c, v)
+        assert fields[1].value(c) == fields[0].value(c) == (v, True)
+    assert [fields[1].value(c) for c in probe + [5]] == \
+        [fields[0].value(c) for c in probe + [5]]
+    jh.close()
+
+
+@pytest.mark.parametrize("quantum", ["Y", "M", "D", "H"])
+def test_row_time_picks_the_jax_view(pair, quantum):
+    """``Field.row_time`` returns the view of the time's unit (None when
+    there is none) that the JAX package's returns, with the same bits."""
+    jex, tex = pair
+    for name in ("t", "th"):
+        jf, tf = (ex.holder.index("i").field(name) for ex in (jex, tex))
+        for t in (BASE + timedelta(days=3, hours=5), BASE,
+                  BASE + timedelta(days=400)):
+            jv, tv = jf.row_time(1, t, quantum), tf.row_time(1, t, quantum)
+            assert (tv is None) == (jv is None), (name, t, quantum)
+            if tv is not None:
+                assert tv.name == jv.name
+                assert bits_of_view(tv) == bits_of_view(jv)
+
+
+def bits_of_view(view):
+    return {s: {int(r): int(f.row_count(r)) for r in f.row_ids()}
+            for s, f in view.fragments.items()}
