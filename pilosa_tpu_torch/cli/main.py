@@ -135,10 +135,11 @@ def _stats(cfg):
 
 
 def _tracer(cfg):
-    from pilosa_tpu_torch.utils.tracing import ExportingTracer, \
-        RecordingTracer
+    """The exporting tracer of a configured endpoint, or None: the
+    holder then makes a recording tracer, which the API adopts."""
+    from pilosa_tpu_torch.utils.tracing import ExportingTracer
     if not cfg.tracing_endpoint:
-        return RecordingTracer()
+        return None
     tracer = ExportingTracer(cfg.tracing_endpoint,
                              service_name=cfg.tracing_service_name,
                              sampler_type=cfg.tracing_sampler_type,
@@ -389,15 +390,16 @@ def start_cluster_loops(api, cfg):
 
 def build_server(cfg, holder):
     """The server of ``cfg`` over ``holder``: the API with its stats
-    client, tracer and cluster, its logger verbose as ``cfg``, every plane
-    configured, the coalescer and the memory planes started, and the
-    HTTP server bound (not yet serving), over TLS when configured.
+    client, the holder's tracer and the cluster, its logger verbose as
+    ``cfg``, every plane configured, the coalescer and the memory planes
+    started, and the HTTP server bound (not yet serving), over TLS when
+    configured.
     Returns (api, server, watchdog); ``stop_server`` undoes it."""
     from pilosa_tpu_torch.server.api import API
     from pilosa_tpu_torch.server.coalescer import QueryCoalescer
     from pilosa_tpu_torch.server.http import make_server
 
-    api = API(holder, stats=_stats(cfg), tracer=_tracer(cfg),
+    api = API(holder, stats=_stats(cfg),
               cluster=build_cluster(cfg, holder),
               client_ssl_context=cfg.client_ssl_context(),
               mesh=build_mesh(cfg, holder.device))
@@ -478,7 +480,8 @@ def cmd_server(args) -> int:
     logging.basicConfig(level=logging.DEBUG if cfg.verbose
                         else logging.INFO)
     holder = Holder(os.path.expanduser(cfg.data_dir) if cfg.data_dir
-                    else None, device=args.device or cfg.device)
+                    else None, device=args.device or cfg.device,
+                    tracer=_tracer(cfg))
     init_distributed(cfg, holder.device)
     if holder.path is not None:
         holder.open()

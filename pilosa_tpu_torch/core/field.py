@@ -39,6 +39,7 @@ from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_STANDARD, View, view_bsi_name
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
+from pilosa_tpu_torch.utils import tracing
 
 FIELD_TYPE_SET = "set"
 FIELD_TYPE_INT = "int"
@@ -149,8 +150,12 @@ def _by_shard(column_ids: np.ndarray):
 class Field:
     def __init__(self, index: str, name: str, device: torch.device,
                  options: Optional[FieldOptions] = None,
-                 path: Optional[str] = None):
+                 path: Optional[str] = None,
+                 tracer: Any = None):
         self.path = path
+        # The node's tracer (the holder's): an import opens its root
+        # span there when no span is open on the calling thread.
+        self.tracer = tracer
         self.index = index
         self.name = name
         self.device = device
@@ -358,18 +363,21 @@ class Field:
                 raise ValueError("timestamps on non-time field")
             by_view.update(self._time_view_pairs(timestamps, len(row_ids)))
         mutex = self._is_mutex() and not clear
-        for vname, sel in by_view.items():
-            if vname == VIEW_STANDARD and self.options.no_standard_view:
-                continue
-            view = self.create_view_if_not_exists(vname)
-            rows = row_ids if sel is None else row_ids[sel]
-            cols = column_ids if sel is None else column_ids[sel]
-            for shard, s in _by_shard(cols):
-                frag = view.create_fragment_if_not_exists(shard)
-                if mutex:
-                    frag.bulk_import_mutex(rows[s], cols[s])
-                else:
-                    frag.import_bits(rows[s], cols[s], clear=clear)
+        with tracing.span_in(self.tracer, "Field.import",
+                             field=self.name, pairs=len(row_ids)):
+            for vname, sel in by_view.items():
+                if vname == VIEW_STANDARD and \
+                        self.options.no_standard_view:
+                    continue
+                view = self.create_view_if_not_exists(vname)
+                rows = row_ids if sel is None else row_ids[sel]
+                cols = column_ids if sel is None else column_ids[sel]
+                for shard, s in _by_shard(cols):
+                    frag = view.create_fragment_if_not_exists(shard)
+                    if mutex:
+                        frag.bulk_import_mutex(rows[s], cols[s])
+                    else:
+                        frag.import_bits(rows[s], cols[s], clear=clear)
 
     def _time_view_pairs(self, timestamps: Sequence[Any], n_pairs: int
                          ) -> Dict[str, Optional[np.ndarray]]:

@@ -63,6 +63,7 @@ from pilosa_tpu_torch.storage.roaring import ARRAY_MAX_SIZE, \
     fnv1a32, scatter_rows, serialize_import, serialize_positions
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.logger import default_logger
+from pilosa_tpu_torch.utils.tracing import span
 
 # Containers per shard row: 2^20 / 2^16.
 CONTAINERS_PER_ROW = SHARD_WIDTH // CONTAINER_BITS
@@ -383,7 +384,8 @@ class Fragment:
         offs = np.asarray(offsets, dtype=np.uint64)
         if len(rows) == 0:
             return
-        with self._lock:
+        with span("Fragment.import", shard=self.shard, pairs=len(rows)), \
+                self._lock:
             if clear:
                 positions = np.unique(
                     rows * np.uint64(SHARD_WIDTH)
@@ -400,8 +402,11 @@ class Fragment:
                     for i in range(0, len(rows), IMPORT_CHUNK_PAIRS)])
                 touched = np.unique(keys // np.uint64(CONTAINERS_PER_ROW))
             self._prelatch_cache_saturation(touched)
-            self._touch_rows(touched.tolist())
-            self._cache_update(touched.tolist())
+            touched_rows = touched.tolist()
+            with span("Fragment.touchRows", rows=len(touched_rows)):
+                self._touch_rows(touched_rows)
+            with span("Fragment.cacheUpdate", rows=len(touched_rows)):
+                self._cache_update(touched_rows)
             self._maybe_snapshot()
 
     def bulk_import_mutex(self, row_ids: np.ndarray,

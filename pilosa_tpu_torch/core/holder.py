@@ -16,13 +16,14 @@ import os
 import shutil
 import threading
 import uuid
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import torch
 
 from pilosa_tpu_torch.core.cache import RankCacheStore
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.device import resolve_device
+from pilosa_tpu_torch.utils.tracing import RecordingTracer
 
 
 class Holder:
@@ -31,14 +32,18 @@ class Holder:
     raises where there is none; pass ``device="cpu"`` to run on the
     CPU. The holder owns the store of device rank vectors
     (``rank_cache``) that TopN keeps per view bank, so two holders share
-    no state."""
+    no state. ``tracer`` is the node's tracer (a new ``RecordingTracer``
+    where none is given): the spans of the holder's imports land there
+    whether or not a server runs, and the API adopts it."""
 
     def __init__(self, path: Optional[str] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 tracer: Any = None):
         self.path = path
         self.device = resolve_device(device)
         self.indexes: Dict[str, Index] = {}
         self.rank_cache = RankCacheStore()
+        self.tracer = tracer if tracer is not None else RecordingTracer()
         self._lock = threading.RLock()
         self.node_id: Optional[str] = None
 
@@ -54,7 +59,7 @@ class Holder:
             if name.startswith(".") or not os.path.isdir(ipath):
                 continue
             idx = Index(name, self.device, rank_cache=self.rank_cache,
-                        path=ipath)
+                        path=ipath, tracer=self.tracer)
             idx.open()
             self.indexes[name] = idx
 
@@ -126,7 +131,8 @@ class Holder:
             path = None if self.path is None \
                 else os.path.join(self.path, name)
             idx = Index(name, self.device, track_existence=track_existence,
-                        rank_cache=self.rank_cache, keys=keys, path=path)
+                        rank_cache=self.rank_cache, keys=keys, path=path,
+                        tracer=self.tracer)
             if path is not None:
                 idx.save_meta()
                 idx.open()

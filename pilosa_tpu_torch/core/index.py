@@ -15,7 +15,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,13 +31,16 @@ EXISTENCE_FIELD_NAME = "_exists"
 
 class Index:
     """``rank_cache`` is the holder's store of device rank vectors; a
-    deleted field's views leave it."""
+    deleted field's views leave it. ``tracer`` is the holder's, handed
+    to every field."""
 
     def __init__(self, name: str, device: torch.device,
                  track_existence: bool = True,
                  rank_cache: Optional[RankCacheStore] = None,
-                 keys: bool = False, path: Optional[str] = None):
+                 keys: bool = False, path: Optional[str] = None,
+                 tracer: Any = None):
         self.path = path
+        self.tracer = tracer
         self.name = name
         self.device = device
         self.keys = keys
@@ -58,7 +61,8 @@ class Index:
     def _new_field(self, name: str,
                    options: Optional[FieldOptions] = None) -> Field:
         return Field(self.name, name, self.device, options,
-                     path=self._file(name))
+                     path=self._file(name),
+                     tracer=self.tracer)
 
     def _create_existence_field(self) -> Field:
         f = self._new_field(EXISTENCE_FIELD_NAME, FieldOptions(

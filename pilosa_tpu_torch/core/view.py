@@ -67,6 +67,7 @@ from pilosa_tpu_torch.core.fragment import CONTAINER_BITS, Fragment, \
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, WORDS_PER_SHARD
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.memledger import LEDGER
+from pilosa_tpu_torch.utils.tracing import span
 
 VIEW_STANDARD = "standard"
 VIEW_BSI_PREFIX = "bsig_"
@@ -343,6 +344,20 @@ class PositionsBank:
         self.row_ids = row_ids      # global sorted row ids
         self.versions = versions
         self.nbytes = nbytes
+
+
+def _note_build(sp: Any, rows: int, nbytes: int, patched: bool) -> None:
+    """A ``Bank.build`` span's attributes: its rows, its device bytes and
+    whether it patched a stale bank."""
+    if sp is not None:
+        sp.set("rows", rows)
+        sp.set("bytes", int(nbytes))
+        sp.set("patched", patched)
+
+
+def _bank_nbytes(array: Any) -> int:
+    """Device bytes of a dense bank (int32 words, [R, S, W])."""
+    return math.prod(int(x) for x in array.shape) * 4
 
 
 def _key_shards(key: tuple) -> tuple:
@@ -724,32 +739,39 @@ class View:
                 # the new bank are never both held by the cache.
                 self._bank_cache.pop(cache_key, None)
                 BANK_BUDGET.forget(self, cache_key)
-            if row_set is None:
-                row_set = _row_union(frags.values())
-                if cached is not None and mesh is None \
-                        and cached.array.shape[-1] == width:
-                    patched = self._patch_bank(cached, frags, versions,
-                                               row_set, shards, width)
-                    if patched is not None:
-                        # A patch moves the density little: keep the
-                        # prior estimate instead of resampling.
-                        self._bank_cache[cache_key] = patched
-                        BANK_BUDGET.admit(self, cache_key)
-                        self._ledger_bank(cache_key, patched, len(row_set),
-                                          live_density=(prior or {}).get(
-                                              "liveDensity"))
-                        return patched
-            subset = rows is not None
-            bank = self._build_bank(frags, shards, row_set, width, versions,
-                                    subset, mesh)
-            if cache_key is not None:
-                self._bank_cache[cache_key] = bank
-                BANK_BUDGET.admit(self, cache_key)
-                self._ledger_bank(
-                    cache_key, bank, len(row_set),
-                    live_density=self._sampled_live_density(
-                        frags, row_set, width, shards))
-            return bank
+            with span("Bank.build", kind="device_bank") as sp:
+                if row_set is None:
+                    row_set = _row_union(frags.values())
+                    if cached is not None and mesh is None \
+                            and cached.array.shape[-1] == width:
+                        patched = self._patch_bank(cached, frags,
+                                                   versions, row_set,
+                                                   shards, width)
+                        if patched is not None:
+                            # A patch moves the density little: keep the
+                            # prior estimate instead of resampling.
+                            self._bank_cache[cache_key] = patched
+                            BANK_BUDGET.admit(self, cache_key)
+                            self._ledger_bank(
+                                cache_key, patched, len(row_set),
+                                live_density=(prior or {}).get(
+                                    "liveDensity"))
+                            _note_build(sp, len(row_set),
+                                        _bank_nbytes(patched.array), True)
+                            return patched
+                subset = rows is not None
+                bank = self._build_bank(frags, shards, row_set, width,
+                                        versions, subset, mesh)
+                if cache_key is not None:
+                    self._bank_cache[cache_key] = bank
+                    BANK_BUDGET.admit(self, cache_key)
+                    self._ledger_bank(
+                        cache_key, bank, len(row_set),
+                        live_density=self._sampled_live_density(
+                            frags, row_set, width, shards))
+                _note_build(sp, len(row_set), _bank_nbytes(bank.array),
+                            False)
+                return bank
 
     def _build_bank(self, frags: Dict[int, Optional[Fragment]],
                     shards: Tuple[int, ...], row_set: List[int], width: int,
@@ -776,20 +798,24 @@ class View:
                 and len(shards) == 1 \
                 and width * 32 <= CONTAINER_BITS and cap * width < (1 << 31):
             f = frags[shards[0]]
-            sp = (f.rows_positions(row_set, width) if f is not None else
-                  (np.empty(0, np.uint16), np.empty(0, np.int64),
-                   np.empty(0, np.int64)))
+            with span("Fragment.rowsPositions", rows=len(row_set)):
+                sp = (f.rows_positions(row_set, width) if f is not None else
+                      (np.empty(0, np.uint16), np.empty(0, np.int64),
+                       np.empty(0, np.int64)))
             if sp is not None:
-                array = _expand_sparse_chunk(*sp, cap, width, self.device)
+                with span("Bank.upload"):
+                    array = _expand_sparse_chunk(*sp, cap, width,
+                                                 self.device)
                 slots = {r: i for i, r in enumerate(row_set)}
         if array is None:
             if host is None:
                 host = np.zeros((cap, len(shards), width), dtype=np.uint32)
-                for si, sh in enumerate(shards):
-                    f = frags[sh]
-                    if f is not None:
-                        host[:len(row_set), si] = f.rows_dense(row_set,
-                                                               width)
+                with span("Fragment.rowsDense", rows=len(row_set)):
+                    for si, sh in enumerate(shards):
+                        f = frags[sh]
+                        if f is not None:
+                            host[:len(row_set), si] = f.rows_dense(row_set,
+                                                                   width)
                 slots = {r: i for i, r in enumerate(row_set)}
                 # The slots dict is host memory too (about 100 B an
                 # entry): counted with the block.
@@ -805,8 +831,9 @@ class View:
                         owner=self, index=self.index, field=self.field,
                         view=self.name, nShards=len(shards),
                         rows=len(row_set))
-            array = mesh.put_bank(host) if mesh is not None \
-                else torch.from_numpy(host.view(np.int32)).to(self.device)
+            with span("Bank.upload"):
+                array = mesh.put_bank(host) if mesh is not None else \
+                    torch.from_numpy(host.view(np.int32)).to(self.device)
         return ViewBank(array, slots, cap - 1, versions)
 
     @staticmethod
@@ -912,7 +939,8 @@ class View:
             pos16 = (np.concatenate(pos_parts) if pos_parts
                      else np.empty(0, np.uint16))
             lens = np.concatenate(lens_parts)
-            seg, nb = self._flush_segment(pos16, lens, row_lo)
+            with span("Bank.upload", rows=len(lens)):
+                seg, nb = self._flush_segment(pos16, lens, row_lo)
             segments.append(seg)
             nbytes += nb
             pos_parts, lens_parts = [], []
@@ -921,7 +949,8 @@ class View:
 
         for c0 in range(0, len(rows), PBANK_GATHER_ROWS):
             chunk = rows[c0:c0 + PBANK_GATHER_ROWS]
-            rp = frag.rows_positions(chunk, width)
+            with span("Fragment.rowsPositions", rows=len(chunk)):
+                rp = frag.rows_positions(chunk, width)
             if rp is None:
                 return None
             pos16, lens, rows_at = rp
@@ -974,20 +1003,23 @@ class View:
                 if cached is not None and cached.versions == versions:
                     BANK_BUDGET.touch(self, key)
                     return cached
-                row_ids = frag.row_ids()
-                built = None
-                if cached is not None and cached.row_ids == row_ids:
-                    built = self._patch_pbank(cached, frag, width)
-                if built is None:
-                    # Drop the stale bank before the build, so the two
-                    # are never both held.
-                    if self._bank_cache.pop(key, None) is not None:
-                        BANK_BUDGET.forget(self, key)
-                    built = self._build_pbank_segments(frag, row_ids,
-                                                       width, 0)
-                if built is None:
-                    return None
-                segments, nbytes = built
+                with span("Bank.build", kind="positions_bank") as sp:
+                    row_ids = frag.row_ids()
+                    built = None
+                    if cached is not None and cached.row_ids == row_ids:
+                        built = self._patch_pbank(cached, frag, width)
+                    patched = built is not None
+                    if built is None:
+                        # Drop the stale bank before the build, so the two
+                        # are never both held.
+                        if self._bank_cache.pop(key, None) is not None:
+                            BANK_BUDGET.forget(self, key)
+                        built = self._build_pbank_segments(frag, row_ids,
+                                                           width, 0)
+                    if built is None:
+                        return None
+                    segments, nbytes = built
+                    _note_build(sp, len(row_ids), nbytes, patched)
                 bank = PositionsBank(segments, row_ids, versions, nbytes)
                 self._bank_cache[key] = bank
                 BANK_BUDGET.admit(self, key, nbytes=nbytes)

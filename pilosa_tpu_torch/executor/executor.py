@@ -152,6 +152,7 @@ from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.timeline import (
     LANE_CACHE, LANE_DEVICE, LANE_DISPATCH, LANE_FETCH, LANE_PLAN, TIMELINE,
 )
+from pilosa_tpu_torch.utils.tracing import span
 
 _BITMAP_CALLS = {"Row", "Range", "Intersect", "Union", "Difference", "Xor",
                  "Not", "Shift", "Threshold"}
@@ -221,6 +222,12 @@ def _fence_device(start: Any) -> float:
     return event.elapsed_time(end) / 1e3
 
 
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: the copy waits for the card's work on it."""
+    with span("Executor.fetch", bytes=t.numel() * t.element_size()):
+        return t.cpu()
+
+
 def _result_d2h(result: Any) -> int:
     """Device bytes a result still holds for the host to fetch: a Row
     result's words (its columns are read when it is shaped)."""
@@ -270,7 +277,8 @@ def _peel_options(call: Call) -> Call:
 
 def _parse(query: Union[str, Call, Query]) -> Query:
     if isinstance(query, str):
-        query = parse_string_cached(query)
+        with span("PQL.parse"):
+            query = parse_string_cached(query)
     if isinstance(query, Call):
         query = Query([query])
     return query
@@ -720,7 +728,8 @@ class Executor:
         with self._dep_capture(deps):
             results, opts = self._execute_query(index_name, query, shards,
                                                 profile=profile)
-            resp = self.shape_response(index_name, results, opts)
+            with span("Executor.shape"):
+                resp = self.shape_response(index_name, results, opts)
         if deps is not None:
             self._request_cache_fill(key, deps, resp, opts)
         return resp
@@ -755,11 +764,10 @@ class Executor:
                 or self.key_resolver is not None or self.mesh is not None:
             return None
         try:
-            q = parse_string_cached(query)
+            q = _parse(query)
         except Exception:
             return None
-        calls = q.calls if isinstance(q, Query) else [q]
-        for c in calls:
+        for c in q.calls:
             if c.name != "Count" and c.name not in _BITMAP_CALLS:
                 return None
         return ("req",) + request_key(index_name, query, shards)
@@ -1015,8 +1023,9 @@ class Executor:
                 continue
             results, opts = r
             try:
-                shaped = self.shape_response(flight.names[j], results,
-                                             opts)
+                with span("Executor.shape"):
+                    shaped = self.shape_response(flight.names[j], results,
+                                                 opts)
             except Exception as e:
                 out[j] = e
                 continue
@@ -1080,45 +1089,46 @@ class Executor:
         only, the card's time between a CUDA event before the
         evaluation and one after it. A profiled evaluation's seconds
         feed the signature's cache-opportunity estimate."""
-        prof = self._profile()
-        if ident is None:
-            ident = self._eval_ident(idx, call, shards, mode)
-            if ident is not None:
-                self._record_eval(idx, ident, mode, shards)
-        if prof is None or ident is None:
-            # Unprofiled, or a tree whose walk failed (the evaluation
-            # raises its error; the JAX package opens no node for it).
-            t0 = time.perf_counter()
-            out = run()
-            TIMELINE.note_dispatch(t0, time.perf_counter() - t0)
-            return out
-        t_plan0, plan_s, sig = ident.t0, ident.plan_s, ident.sig
-        hit = self._kernels_loaded()
-        self._note_jit(hit)
-        node = prof.tree(mode, sig, hit, plan_s, 0, len(shards))
-        tl = prof.timeline
-        if tl is not None:
-            TIMELINE.event(tl, "plan", LANE_PLAN, t_plan0, plan_s,
-                           jit="hit" if hit else "miss")
-        start = _device_mark(self.device) if prof.sample_device else None
-        t_disp = time.perf_counter()
-        out = run()
-        dispatch_s = time.perf_counter() - t_disp
-        TIMELINE.note_dispatch(t_disp, dispatch_s)
-        prof.tree_dispatch(node, dispatch_s)
-        if tl is not None:
-            TIMELINE.event(tl, "dispatch", LANE_DISPATCH, t_disp,
-                           dispatch_s, shards=len(shards))
-        device_s = 0.0
-        if start is not None:
-            t_dev = time.perf_counter()
-            device_s = _fence_device(start)
-            prof.tree_device(node, device_s)
+        with span("Executor.eval", mode=mode):
+            prof = self._profile()
+            if ident is None:
+                ident = self._eval_ident(idx, call, shards, mode)
+                if ident is not None:
+                    self._record_eval(idx, ident, mode, shards)
+            if prof is None or ident is None:
+                # Unprofiled, or a tree whose walk failed (the evaluation
+                # raises its error; the JAX package opens no node for it).
+                t0 = time.perf_counter()
+                out = run()
+                TIMELINE.note_dispatch(t0, time.perf_counter() - t0)
+                return out
+            t_plan0, plan_s, sig = ident.t0, ident.plan_s, ident.sig
+            hit = self._kernels_loaded()
+            self._note_jit(hit)
+            node = prof.tree(mode, sig, hit, plan_s, 0, len(shards))
+            tl = prof.timeline
             if tl is not None:
-                TIMELINE.event(tl, "device", LANE_DEVICE, t_dev, device_s)
-        if ident is not None:
-            WORKLOAD.note_eval_seconds(ident.fp, dispatch_s + device_s)
-        return out
+                TIMELINE.event(tl, "plan", LANE_PLAN, t_plan0, plan_s,
+                               jit="hit" if hit else "miss")
+            start = _device_mark(self.device) if prof.sample_device else None
+            t_disp = time.perf_counter()
+            out = run()
+            dispatch_s = time.perf_counter() - t_disp
+            TIMELINE.note_dispatch(t_disp, dispatch_s)
+            prof.tree_dispatch(node, dispatch_s)
+            if tl is not None:
+                TIMELINE.event(tl, "dispatch", LANE_DISPATCH, t_disp,
+                               dispatch_s, shards=len(shards))
+            device_s = 0.0
+            if start is not None:
+                t_dev = time.perf_counter()
+                device_s = _fence_device(start)
+                prof.tree_device(node, device_s)
+                if tl is not None:
+                    TIMELINE.event(tl, "device", LANE_DEVICE, t_dev, device_s)
+            if ident is not None:
+                WORKLOAD.note_eval_seconds(ident.fp, dispatch_s + device_s)
+            return out
 
     # ------------------------------------------------------ eval identity
 
@@ -1338,40 +1348,41 @@ class Executor:
     def _execute_call(self, idx: Index, call: Call,
                       shards: Optional[Sequence[int]],
                       opts: Optional[ExecOptions] = None) -> Any:
-        name = call.name
-        cap = getattr(self._tls, "deps", None)
-        if cap is not None and name != "Count" \
-                and name not in _BITMAP_CALLS:
-            # The request key admits only these calls; any other read
-            # under a capture would cache with dependencies unnamed.
-            cap["uncacheable"] = True
-        if name == "Options":
-            return self._execute_options(idx, call, shards, opts)
-        if name == "Count":
-            return self._execute_count(idx, call, shards)
-        if name in _BITMAP_CALLS:
-            return self._execute_bitmap(idx, call, shards, opts)
-        if name == "TopN":
-            return self._execute_topn(idx, call, shards)
-        if name == "Rows":
-            return self._execute_rows(idx, call, shards)
-        if name == "GroupBy":
-            return self._execute_group_by(idx, call, shards)
-        if name in ("Sum", "Min", "Max"):
-            return self._execute_val_count(idx, call, shards, name)
-        if name == "Set":
-            return self._execute_set(idx, call)
-        if name == "Clear":
-            return self._execute_clear(idx, call)
-        if name == "ClearRow":
-            return self._execute_clear_row(idx, call, shards)
-        if name == "Store":
-            return self._execute_store(idx, call, shards)
-        if name == "SetRowAttrs":
-            return self._execute_set_row_attrs(idx, call)
-        if name == "SetColumnAttrs":
-            return self._execute_set_column_attrs(idx, call)
-        raise ExecutionError(f"unknown call: {name}")
+        with span("Executor.call", call=call.name):
+            name = call.name
+            cap = getattr(self._tls, "deps", None)
+            if cap is not None and name != "Count" \
+                    and name not in _BITMAP_CALLS:
+                # The request key admits only these calls; any other read
+                # under a capture would cache with dependencies unnamed.
+                cap["uncacheable"] = True
+            if name == "Options":
+                return self._execute_options(idx, call, shards, opts)
+            if name == "Count":
+                return self._execute_count(idx, call, shards)
+            if name in _BITMAP_CALLS:
+                return self._execute_bitmap(idx, call, shards, opts)
+            if name == "TopN":
+                return self._execute_topn(idx, call, shards)
+            if name == "Rows":
+                return self._execute_rows(idx, call, shards)
+            if name == "GroupBy":
+                return self._execute_group_by(idx, call, shards)
+            if name in ("Sum", "Min", "Max"):
+                return self._execute_val_count(idx, call, shards, name)
+            if name == "Set":
+                return self._execute_set(idx, call)
+            if name == "Clear":
+                return self._execute_clear(idx, call)
+            if name == "ClearRow":
+                return self._execute_clear_row(idx, call, shards)
+            if name == "Store":
+                return self._execute_store(idx, call, shards)
+            if name == "SetRowAttrs":
+                return self._execute_set_row_attrs(idx, call)
+            if name == "SetColumnAttrs":
+                return self._execute_set_column_attrs(idx, call)
+            raise ExecutionError(f"unknown call: {name}")
 
     # ------------------------------------------------------ key translation
 
@@ -2343,13 +2354,16 @@ class Executor:
         ids_arg = call.arg("ids")
         min_threshold = call.uint_arg("threshold") or 0
 
-        view_rows = view.merged_row_ids(shards)
-        all_rows = view_rows
-        if allowed_rows is not None:
-            all_rows = [r for r in all_rows if r in allowed_rows]
-        if ids_arg:
-            wanted = {int(i) for i in ids_arg}
-            all_rows = [r for r in all_rows if r in wanted]
+        with span("Executor.rows") as sp:
+            view_rows = view.merged_row_ids(shards)
+            all_rows = view_rows
+            if allowed_rows is not None:
+                all_rows = [r for r in all_rows if r in allowed_rows]
+            if ids_arg:
+                wanted = {int(i) for i in ids_arg}
+                all_rows = [r for r in all_rows if r in wanted]
+            if sp is not None:
+                sp.set("rows", len(all_rows))
         if not all_rows:
             return PairsResult([])
         # Before the warm caches: a cached answer is still a read.
@@ -2557,12 +2571,12 @@ class Executor:
                                 torch.full_like(counts, -1))
             slot = torch.arange(cap, dtype=torch.int64, device=counts.device)
             top = torch.topk(score * cap + (cap - 1 - slot), k).values
-            got = torch.stack([torch.div(top, cap, rounding_mode="floor"),
-                               cap - 1 - torch.remainder(top, cap)]
-                              ).cpu().tolist()
+            got = _fetch(torch.stack([
+                torch.div(top, cap, rounding_mode="floor"),
+                cap - 1 - torch.remainder(top, cap)])).tolist()
             return PairsResult([(int(slot_rows[i]), v)
                                 for v, i in zip(*got) if v > 0])
-        c = counts.cpu().numpy()
+        c = _fetch(counts).numpy()
         slot_idx = np.fromiter(
             map(bank.slots.get, all_rows, itertools.repeat(bank.zero_slot)),
             dtype=np.int64, count=len(all_rows))
@@ -2580,19 +2594,20 @@ class Executor:
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(rows, |row ∧ filter| or |row|, |row|) of ``rows`` from one
         popcount sweep over ``bank``, as host arrays."""
-        if filter_words is not None:
-            filt = _align_words(filter_words, bank.array.shape[-1])
-            counts, raws = kernels.bank_row_counts_masked(
-                bank.array, filt.contiguous())
-        else:
-            counts = raws = kernels.bank_row_counts(bank.array)
+        with span("Executor.launch"):
+            if filter_words is not None:
+                filt = _align_words(filter_words, bank.array.shape[-1])
+                counts, raws = kernels.bank_row_counts_masked(
+                    bank.array, filt.contiguous())
+            else:
+                counts = raws = kernels.bank_row_counts(bank.array)
         # map(dict.get, ...) keeps the per-row probe loop in C.
         slot_idx = np.fromiter(
             map(bank.slots.get, rows, itertools.repeat(bank.zero_slot)),
             dtype=np.int64, count=len(rows))
-        counts_arr = counts.cpu().numpy()[slot_idx]
+        counts_arr = _fetch(counts).numpy()[slot_idx]
         raws_arr = counts_arr if raws is counts \
-            else raws.cpu().numpy()[slot_idx]
+            else _fetch(raws).numpy()[slot_idx]
         return np.asarray(rows, dtype=np.uint64), counts_arr, raws_arr
 
     def _topn_positions(self, pb: PositionsBank,
@@ -2612,26 +2627,27 @@ class Executor:
         with a filter."""
         fw = None
         src = 0
-        if filter_words is not None:
-            fw = filter_words[0, :width].contiguous()
-            if tanimoto:
-                src = self._row_popcount(filter_words)
-        else:
-            tanimoto = 0
         outs = []
-        for row_lo, n_rows, pos, aux, _p in pb.segments:
-            k = min(n, n_rows)
-            if k == 0:
-                continue
-            fixed = pos.dim() == 2
-            raw = aux if fixed else aux[1:] - aux[:-1]
-            c = raw if fw is None else kernels.pbank_membership_counts(
-                pos, fw, None if fixed else aux)
-            outs.append((row_lo, _pbank_topk(c, raw, k, min_threshold,
-                                             tanimoto, src)))
+        with span("Executor.launch", segments=len(pb.segments)):
+            if filter_words is not None:
+                fw = filter_words[0, :width].contiguous()
+                if tanimoto:
+                    src = self._row_popcount(filter_words)
+            else:
+                tanimoto = 0
+            for row_lo, n_rows, pos, aux, _p in pb.segments:
+                k = min(n, n_rows)
+                if k == 0:
+                    continue
+                fixed = pos.dim() == 2
+                raw = aux if fixed else aux[1:] - aux[:-1]
+                c = raw if fw is None else kernels.pbank_membership_counts(
+                    pos, fw, None if fixed else aux)
+                outs.append((row_lo, _pbank_topk(c, raw, k, min_threshold,
+                                                 tanimoto, src)))
         if not outs:
             return PairsResult([])
-        got = torch.cat([t for _, vi in outs for t in vi]).cpu().tolist()
+        got = _fetch(torch.cat([t for _, vi in outs for t in vi])).tolist()
         pairs = []
         at = 0
         for row_lo, (v, _) in outs:

@@ -95,6 +95,7 @@ from pilosa_tpu_torch.utils.roofline import ROOFLINE
 from pilosa_tpu_torch.utils.timeline import (
     LANE_DEVICE, LANE_DISPATCH, TIMELINE,
 )
+from pilosa_tpu_torch.utils.tracing import span
 
 
 def _flag(env: str, default: str) -> str:
@@ -140,7 +141,8 @@ class _MegaLaunch:
 
     def host_counts(self) -> List[int]:
         if self._host_counts is None:
-            self._host_counts = self.counts.tolist()
+            with span("Executor.fetch", bytes=8 * int(self.counts.shape[0])):
+                self._host_counts = self.counts.tolist()
         return self._host_counts
 
 

@@ -79,6 +79,7 @@ from pilosa_tpu_torch.utils.profile import Profiler
 from pilosa_tpu_torch.utils.sentinel import SENTINEL
 from pilosa_tpu_torch.utils.stats import NopStatsClient
 from pilosa_tpu_torch.utils.timeline import TIMELINE
+from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.tracing import NopTracer
 
 # Fault-injection sites on the server's seams (utils/failpoints.py):
@@ -157,8 +158,9 @@ class API:
     """Queries, schema and imports over one Holder (in memory or over a
     data directory). The executor runs on the holder's device.
     ``coalescer`` is attached by the server wiring (``cli/main.py``) or
-    a test; None means every query takes the direct path. ``stats`` and
-    ``tracer`` default to the nop clients; ``long_query_time`` (seconds,
+    a test; None means every query takes the direct path. ``stats``
+    defaults to the nop client and ``tracer`` to the holder's (the
+    node's tracer); ``long_query_time`` (seconds,
     0 off) sends slower queries to the log and the slow-query ring.
     ``mesh`` (``parallel/mesh.MeshContext``) goes to the executor, which
     then runs every query over the mesh."""
@@ -175,7 +177,8 @@ class API:
         # ledger's publish target does).
         WORKLOAD.stats = self.stats
         self.executor.result_cache.stats = self.stats
-        self.tracer = tracer or NopTracer()
+        self.tracer = tracer or getattr(holder, "tracer", None) \
+            or NopTracer()
         self.logger = Logger()
         self.long_query_time = 0.0
         self.profiler = Profiler(stats=self.stats, tracer=self.tracer)
@@ -408,8 +411,9 @@ class API:
         finally:
             dur = time.perf_counter() - t0
             self.stats.timing("query.direct", dur)
-            self._end_timeline(tl, err)
-            self._observe_query(index, query, dur, prof, err)
+            with tracing.span("API.observe"):
+                self._end_timeline(tl, err)
+                self._observe_query(index, query, dur, prof, err)
 
     def _query(self, index: str, query: Any,
                shards: Optional[Sequence[int]], remote: bool,
@@ -505,8 +509,9 @@ class API:
             raise
         finally:
             dur = time.perf_counter() - t0
-            self._end_timeline(tl, err)
-            self._observe_query(index, query, dur, prof, err)
+            with tracing.span("API.observe"):
+                self._end_timeline(tl, err)
+                self._observe_query(index, query, dur, prof, err)
 
     def query_batch(self, items: Sequence[Any],
                     profile: bool = False) -> List[Dict[str, Any]]:

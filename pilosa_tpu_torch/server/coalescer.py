@@ -31,10 +31,15 @@ cohort of what missed.
 Measurement, as in the JAX package: the stats client gets the
 ``coalescer.*`` counters, the queue-depth gauge, the batch-size
 histogram and the request and queue-wait timings; a flush runs under a
-``Coalescer.flush`` span; a request's profile rides its item (a forced
-``?profile=true`` profile is never deduplicated, so its tree describes
-its own run), and its timeline gets a ``queue`` slice (enqueue to the
-flush's start) and a ``coalesce`` slice (the shared flush). Every read
+``Coalescer.flush`` root span (a lone request's trace id, or the
+batch's trace ids in its ``traces`` attribute) and a pipelined batch's
+drain under ``Coalescer.finish``; a request's profile rides its item (a
+forced ``?profile=true`` profile is never deduplicated, so its tree
+describes its own run). A request's queue wait (enqueue to the start of
+the flush that serves it) is measured once and feeds the
+``coalescer.queue_wait`` timing, a ``Coalescer.queue`` span under the
+request's open span and its timeline's ``queue`` slice; the timeline
+also gets a ``coalesce`` slice (the shared flush). Every read
 request's identity goes to the workload recorder's rolling window
 (``_note_workload``): a repeat across flushes counts in
 ``coalescer.window_repeat``. ``counters`` holds the counts the serving
@@ -54,6 +59,7 @@ from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.stats import NopStatsClient
 from pilosa_tpu_torch.utils.timeline import LANE_COALESCE, LANE_QUEUE, \
     TIMELINE
+from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.tracing import NopTracer
 
 # Item lifecycle: PENDING (queued, still ejectable) -> CLAIMED (taken by
@@ -90,7 +96,8 @@ class DeadlineExceeded(ApiError):
 
 class _Item:
     __slots__ = ("index", "query", "shards", "is_write", "deadline",
-                 "state", "event", "result", "enqueued_at", "profile")
+                 "state", "event", "result", "enqueued_at", "profile",
+                 "parent", "trace_id")
 
     def __init__(self, index: str, query: Any,
                  shards: Optional[Sequence[int]], is_write: bool,
@@ -107,6 +114,10 @@ class _Item:
         # The request's QueryProfile (None unprofiled), filled in when
         # its batch runs.
         self.profile = profile
+        # The request's open span (its queue wait is recorded under it)
+        # and trace id.
+        self.parent = tracing.current()
+        self.trace_id = self.parent.trace_id if self.parent else None
 
 
 class QueryCoalescer:
@@ -393,11 +404,24 @@ class QueryCoalescer:
         if repeats:
             self._count("window_repeat", repeats)
 
+    def _flush_span(self, name: str, batch: List[_Item], reason: str,
+                    **attrs: Any):
+        """A root span of the dispatcher or the finalizer over ``batch``:
+        a lone request's trace id, else a fresh one with the requests'
+        trace ids in ``traces``."""
+        ids = [it.trace_id for it in batch if it.trace_id]
+        adopt = getattr(self.tracer, "adopt", None)
+        if adopt is not None:
+            adopt(ids[0] if len(batch) == 1 and ids else None)
+        if len(batch) > 1:
+            attrs["traces"] = ",".join(ids)
+        return self.tracer.span(name, n=len(batch), reason=reason, **attrs)
+
     def _execute(self, batch: List[_Item], reason: str) -> None:
-        self._note_flush(batch, reason)
         try:
-            with self.tracer.span("Coalescer.flush", n=len(batch),
-                                  reason=reason) as span:
+            with self._flush_span("Coalescer.flush", batch,
+                                  reason) as span:
+                self._note_flush(batch, reason)
                 if len(batch) == 1:
                     self._execute_direct(batch[0], reason)
                 else:
@@ -419,11 +443,7 @@ class QueryCoalescer:
 
     def _execute_direct(self, item: _Item, reason: str = "idle") -> None:
         """A batch of one runs the exact direct path."""
-        if item.profile is not None:
-            wait = time.perf_counter() - item.enqueued_at
-            item.profile.set_coalesced(1, wait)
-            TIMELINE.event(item.profile.timeline, "queue", LANE_QUEUE,
-                           item.enqueued_at, wait, batch=1, reason=reason)
+        self._stamp_queue_wait([item], time.perf_counter(), reason)
         try:
             item.result = self.executor.execute_full(
                 item.index, item.query, shards=item.shards,
@@ -434,10 +454,16 @@ class QueryCoalescer:
 
     def _stamp_queue_wait(self, batch: List[_Item], exec_start: float,
                           reason: str) -> None:
-        """Queue wait ends when the flush starts."""
+        """Queue wait ends when the flush starts: the stats timing, a
+        ``Coalescer.queue`` span under the request's open span, and the
+        profile's and timeline's slice."""
         for item in batch:
             wait = exec_start - item.enqueued_at
             self.stats.timing("coalescer.queue_wait", wait)
+            if item.parent is not None:
+                item.parent.add_closed("Coalescer.queue", item.enqueued_at,
+                                       exec_start, batch=len(batch),
+                                       reason=reason)
             if item.profile is not None:
                 item.profile.set_coalesced(len(batch), wait)
                 TIMELINE.event(item.profile.timeline, "queue", LANE_QUEUE,
@@ -511,10 +537,10 @@ class QueryCoalescer:
     def _execute_pipelined(self, batch: List[_Item], reason: str) -> None:
         """The begin half here (parse, stage, flush, launch), then hand
         the in-flight batch to the finalizer and go back to collecting."""
-        self._note_flush(batch, reason)
         try:
-            with self.tracer.span("Coalescer.flush", n=len(batch),
-                                  reason=reason, pipelined=True) as span:
+            with self._flush_span("Coalescer.flush", batch, reason,
+                                  pipelined=True) as span:
+                self._note_flush(batch, reason)
                 reqs, profiles, owner = self._dedup(batch)
                 if span is not None:
                     span.set("unique", len(reqs))
@@ -553,7 +579,8 @@ class QueryCoalescer:
         failure resolve them with it (an interrupt or exit as
         CoalescerStopped), then raise it."""
         try:
-            shaped = self.executor.execute_batch_shaped_finish(flight)
+            with self._flush_span("Coalescer.finish", batch, reason):
+                shaped = self.executor.execute_batch_shaped_finish(flight)
             self._stamp_coalesce(batch, exec_start, reason, unique,
                                  pipelined=True)
             self._resolve(owner, shaped)

@@ -84,9 +84,11 @@ JSON query responses ride the coalescer when one is attached; protobuf
 queries take the direct path, as in the JAX package. Over a holder with
 a data directory every write is in the fragments' files before its 200
 goes out. Each request reads a W3C ``traceparent`` (or the legacy
-``X-Trace-Id``) into the tracer, and its response carries the
-``traceparent`` of the trace it ran under, the id ``/debug/timeline``
-and ``/debug/queries`` know it by. Every request is observed in
+``X-Trace-Id``) into the tracer and runs under an ``HTTP.request``
+root span (a query's answer is encoded and written under
+``HTTP.encode``), and its response carries the ``traceparent`` of the
+trace it ran under, the id ``/debug/timeline`` and ``/debug/queries``
+know it by. Every request is observed in
 ``pilosa_http_request_seconds{endpoint,status}`` (endpoints labelled as
 the JAX package labels them, unknown paths as "other"). A request
 that accepts ``application/x-pilosa-wire`` gets its JSON answer in the
@@ -101,7 +103,6 @@ import re
 import socket
 import threading
 import time
-import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 from urllib.parse import parse_qs, urlparse
@@ -112,8 +113,9 @@ from pilosa_tpu_torch.server import proto_compat, wire
 from pilosa_tpu_torch.server.api import API, ApiError
 from pilosa_tpu_torch.utils.stats import prometheus_text
 from pilosa_tpu_torch.utils.timeline import TIMELINE
+from pilosa_tpu_torch.utils import tracing
 from pilosa_tpu_torch.utils.tracing import TRACEPARENT_HEADER, \
-    format_traceparent
+    format_traceparent, new_span_id
 
 # Per-endpoint latency buckets (seconds), the JAX package's: powers of
 # two from about 61 us to 8 s.
@@ -206,7 +208,7 @@ class Handler(BaseHTTPRequestHandler):
         tid = getattr(self, "_trace_id", None)
         if tid:
             self.send_header(TRACEPARENT_HEADER,
-                             format_traceparent(tid, uuid.uuid4().hex))
+                             format_traceparent(tid, new_span_id()))
         for k, v in (extra_headers or {}).items():
             self.send_header(k, str(v))
         self.end_headers()
@@ -318,14 +320,18 @@ class Handler(BaseHTTPRequestHandler):
                                  lambda: None)()
         t0 = time.perf_counter()
         try:
-            if not self._handle(method, path, q):
-                self._error(f"no route for {method} {path}", 404)
-        except ApiError as e:
-            # Carries its status (404, 408, 409, 429) and headers
-            # (Retry-After on the coalescer's overload).
-            self._error(str(e), e.status, e.headers)
-        except Exception as e:  # the reference's panic recovery
-            self._error(f"internal error: {type(e).__name__}: {e}", 500)
+            with tracer.span("HTTP.request", method=method,
+                             endpoint=endpoint_label(path)):
+                try:
+                    if not self._handle(method, path, q):
+                        self._error(f"no route for {method} {path}", 404)
+                except ApiError as e:
+                    # Carries its status (404, 408, 409, 429) and headers
+                    # (Retry-After on the coalescer's overload).
+                    self._error(str(e), e.status, e.headers)
+                except Exception as e:  # the reference's panic recovery
+                    self._error(f"internal error: {type(e).__name__}: {e}",
+                                500)
         finally:
             try:
                 self._observe_slo(method, path, time.perf_counter() - t0)
@@ -556,10 +562,11 @@ class Handler(BaseHTTPRequestHandler):
         # The serialize slice (the answer's encoding) attaches to the
         # request this thread just finished, before its bytes go out: a
         # client's next request always finds it.
-        ts0 = time.perf_counter()
-        data, ctype = self._encode(resp)
-        TIMELINE.note_serialize(ts0, time.perf_counter() - ts0)
-        self._bytes(data, ctype=ctype)
+        with tracing.span("HTTP.encode") as sp:
+            data, ctype = self._encode(resp)
+            if sp is not None:
+                TIMELINE.note_serialize(sp.pc_start, sp.duration())
+            self._bytes(data, ctype=ctype)
 
     def _query_proto(self, index: str, raw: bytes, q: dict,
                      shards: Optional[list]) -> None:

@@ -64,6 +64,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from pilosa_tpu_torch.utils.tracing import span
+
 MAGIC_NUMBER = 12348
 STORAGE_VERSION = 0
 COOKIE = MAGIC_NUMBER | (STORAGE_VERSION << 16)
@@ -889,7 +891,8 @@ class Bitmap:
         containers (dense above ARRAY_MAX_SIZE), its record written by
         ``serialize_groups``. Positions that arrive sorted (a bulk load
         in row order) skip the sort."""
-        return self._import(row_ids, col_ids, swidth_exp, CODEC)
+        with span("Bitmap.importBatch", pairs=len(row_ids)):
+            return self._import(row_ids, col_ids, swidth_exp, CODEC)
 
     def import_batch_plain(self, row_ids: np.ndarray, col_ids: np.ndarray,
                            swidth_exp: int) -> np.ndarray:

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from pilosa_tpu_torch.utils.fingerprint import digest
 from pilosa_tpu_torch.utils.locks import make_lock
+from pilosa_tpu_torch.utils.tracing import span
 
 # Row identities recorded per record_read call: queries naming more
 # rows than this (chunked TopN sweeps over 500k-row fields) record the
@@ -284,30 +285,32 @@ class WorkloadRecorder:
         `rows_scanned` counts aggregate sweep rows beyond that."""
         if not self.enabled:
             return
-        now = self.clock()
-        hl = self.half_life_s
-        row_ids: List[int] = []
-        if rows is not None:
-            row_ids = list(rows)[:ROW_CAP_PER_CALL]
-            if len(rows) > ROW_CAP_PER_CALL:
-                rows_scanned += len(rows) - ROW_CAP_PER_CALL
-        n_shards = len(shards)
-        with self._lock:
-            for s in shards:
-                self._frag((index, field, view, int(s))).reads.add(
-                    1, now, hl)
-            self._totals["fragmentReads"] += n_shards
-            for r in row_ids:
-                self._row((index, field, int(r))).add(1, now, hl)
-            self._totals["rowTouches"] += len(row_ids)
-            if rows_scanned:
-                self._totals["rowsScanned"] += int(rows_scanned)
-                if shards:
-                    st = self._frag((index, field, view, int(shards[0])))
-                    st.rows_scanned += int(rows_scanned)
-        stats = self.stats
-        if stats is not None and n_shards:
-            stats.count("fragment.reads", n_shards)
+        with span("Workload.record", kind="read"):
+            now = self.clock()
+            hl = self.half_life_s
+            row_ids: List[int] = []
+            if rows is not None:
+                with span("Workload.rowIds", rows=len(rows)):
+                    row_ids = list(rows)[:ROW_CAP_PER_CALL]
+                if len(rows) > ROW_CAP_PER_CALL:
+                    rows_scanned += len(rows) - ROW_CAP_PER_CALL
+            n_shards = len(shards)
+            with self._lock:
+                for s in shards:
+                    self._frag((index, field, view, int(s))).reads.add(
+                        1, now, hl)
+                self._totals["fragmentReads"] += n_shards
+                for r in row_ids:
+                    self._row((index, field, int(r))).add(1, now, hl)
+                self._totals["rowTouches"] += len(row_ids)
+                if rows_scanned:
+                    self._totals["rowsScanned"] += int(rows_scanned)
+                    if shards:
+                        st = self._frag((index, field, view, int(shards[0])))
+                        st.rows_scanned += int(rows_scanned)
+            stats = self.stats
+            if stats is not None and n_shards:
+                stats.count("fragment.reads", n_shards)
 
     def record_write(self, index: str, field: str, view: str,
                      shard: int, generation: Optional[int] = None,
@@ -354,18 +357,19 @@ class WorkloadRecorder:
         a generation bump resets the run."""
         if not self.enabled:
             return
-        now = self.clock()
-        with self._lock:
-            st = self._sig(fingerprint, index, mode, n_shards,
-                           str(sig)[:80])
-            st.hits.add(1, now, self.half_life_s)
-            if st.gen != generation:
-                st.gen = generation
-                st.gen_hits = 1
-            else:
-                st.gen_hits += 1
-            self._totals["queries"] += 1
-            self.queries_window.add((fingerprint, generation), now)
+        with span("Workload.record", kind="query"):
+            now = self.clock()
+            with self._lock:
+                st = self._sig(fingerprint, index, mode, n_shards,
+                               str(sig)[:80])
+                st.hits.add(1, now, self.half_life_s)
+                if st.gen != generation:
+                    st.gen = generation
+                    st.gen_hits = 1
+                else:
+                    st.gen_hits += 1
+                self._totals["queries"] += 1
+                self.queries_window.add((fingerprint, generation), now)
 
     def note_eval_seconds(self, fingerprint: Any, seconds: float
                           ) -> None:
@@ -390,9 +394,10 @@ class WorkloadRecorder:
         cross-request duplicate the in-batch dedup could not see."""
         if not self.enabled:
             return False
-        now = self.clock()
-        with self._lock:
-            return self.requests_window.add(key, now)
+        with span("Workload.record", kind="request"):
+            now = self.clock()
+            with self._lock:
+                return self.requests_window.add(key, now)
 
     # -------------------------------------------------------------- reading
 

@@ -3,22 +3,37 @@
 A span-tree recorder with W3C ``traceparent`` header propagation (the
 legacy ``X-Trace-Id`` spelling is still emitted and accepted), pluggable
 like the reference's opentracing adapter: ``NopTracer``,
-``RecordingTracer`` (the last N finished root spans, in process) and
-``ExportingTracer`` (OTLP/HTTP JSON, which Jaeger's ``:4318/v1/traces``
-and the OpenTelemetry collector ingest, from a background thread with
-head sampling). The port's server reads ``traceparent`` from each
-request and sends it back on the response.
+``RecordingTracer`` (the newest finished root spans, in process, within
+a byte budget) and ``ExportingTracer`` (OTLP/HTTP JSON, which Jaeger's
+``:4318/v1/traces`` and the OpenTelemetry collector ingest, from a
+background thread with head sampling). The port's server reads
+``traceparent`` from each request and sends it back on the response.
+
+Each node has one tracer: the holder is given it or makes one
+(``Holder.tracer``), hands it to its indexes and fields, and the API
+adopts it. Code below the API opens its spans with the module's
+``span()``, which nests them under the span open on the calling thread
+(in whichever tracer opened it) and records nothing where none is open;
+``span_in(tracer, ...)`` opens a root in the node's tracer instead. While
+a ``torch.profiler`` records, every span is also a ``record_function``
+range of its name, so a profiler trace carries the program's spans on
+its own clock; a span's ``start`` is on that clock too (Unix time). The
+module does not import torch: where torch is not loaded, no profiler
+records, so the CLI's file tools stay free of it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import random
+import sys
 import threading
-from pilosa_tpu_torch.utils.locks import make_lock
 import time
-import uuid
-from typing import Any, Dict, Iterator, List, Optional
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional
+
+from pilosa_tpu_torch.utils.locks import make_lock
 
 # W3C Trace Context (https://www.w3.org/TR/trace-context/): the
 # header every OTel-aware proxy/collector understands, so traces stay
@@ -29,6 +44,29 @@ TRACEPARENT_HEADER = "traceparent"
 # so a mixed-version cluster keeps correlating in both directions
 # during a rolling upgrade; both sides drop with the window.
 TRACE_HEADER = "X-Trace-Id"
+
+# Host bytes of finished root spans a RecordingTracer keeps (by
+# ``Span.nbytes``): a few thousand request trees, the newest.
+RING_BYTES = 4 << 20
+
+# The tracer whose span is open on this thread, if any: ``span()`` nests
+# under it.
+_ACTIVE = threading.local()
+_NO_SPAN = contextlib.nullcontext()
+# Loaded with torch; its ``_is_profiler_enabled`` is set while any
+# profiler records.
+_PROFILER_MODULE = "torch.autograd.profiler"
+
+
+def new_span_id() -> str:
+    """16 hex digits of a random 64-bit id, never all zero."""
+    return f"{random.getrandbits(64) or 1:016x}"
+
+
+def new_trace_id() -> str:
+    """32 hex digits of a random 128-bit id, never all zero (a W3C trace
+    id; ``uuid4().hex`` costs several times more)."""
+    return f"{random.getrandbits(128) or 1:032x}"
 
 
 def format_traceparent(trace_id: str, span_id: str) -> str:
@@ -72,21 +110,39 @@ class Span:
     pure ``time.perf_counter()`` deltas (``pc_start``/``pc_end``), so an
     NTP step mid-span cannot corrupt them. ``end`` is derived at close
     as ``start + duration()`` — one wall-clock read per span, never a
-    second one the clock could have stepped between."""
+    second one the clock could have stepped between. ``span_id`` is
+    drawn when first read (a propagated parent, an export)."""
 
-    __slots__ = ("name", "trace_id", "span_id", "start", "end",
-                 "pc_start", "pc_end", "attrs", "children")
+    __slots__ = ("name", "trace_id", "_span_id", "start", "end",
+                 "pc_start", "pc_end", "attrs", "children", "tree")
 
-    def __init__(self, name: str, trace_id: str, attrs: dict) -> None:
+    def __init__(self, name: str, trace_id: str, attrs: dict,
+                 tree: Optional[List[int]] = None) -> None:
         self.name = name
         self.trace_id = trace_id
-        self.span_id = uuid.uuid4().hex[:16]
+        self._span_id: Optional[str] = None
         self.start = time.time()
         self.end: Optional[float] = None
         self.pc_start = time.perf_counter()
         self.pc_end: Optional[float] = None
         self.attrs = attrs
         self.children: List["Span"] = []
+        # The whole tree's ``nbytes``, one cell shared by its spans and
+        # kept as they are made and annotated: the ring sizes a
+        # finished root without walking it.
+        size = 160 + len(name)
+        for k, v in attrs.items():
+            size += _attr_bytes(k, v)
+        if tree is None:
+            tree = [0]
+        tree[0] += size
+        self.tree = tree
+
+    @property
+    def span_id(self) -> str:
+        if self._span_id is None:
+            self._span_id = new_span_id()
+        return self._span_id
 
     def duration(self) -> float:
         return (self.pc_end if self.pc_end is not None
@@ -101,26 +157,47 @@ class Span:
 
     def nbytes(self) -> int:
         """Rough retained-memory estimate for the whole subtree (the
-        tracer ring's memory-ledger registration)."""
+        tracer ring's memory-ledger registration); of a root, what
+        ``tree`` holds."""
         n = 160 + len(self.name)
         for k, v in self.attrs.items():
-            n += len(str(k)) + len(str(v)) + 32
+            n += _attr_bytes(k, v)
         for c in self.children:
             n += c.nbytes()
         return n
+
+    def add_closed(self, name: str, pc_start: float, pc_end: float,
+                   **attrs: Any) -> "Span":
+        """Append a finished child whose interval was stamped elsewhere,
+        by ``time.perf_counter()`` readings of this or another thread:
+        its wall-clock start follows from this span's anchor."""
+        child = Span(name, self.trace_id, attrs, self.tree)
+        child.pc_start, child.pc_end = pc_start, pc_end
+        child.start = self.start + (pc_start - self.pc_start)
+        child.end = child.start + (pc_end - pc_start)
+        self.children.append(child)
+        return child
 
     def set(self, key: str, value: Any) -> None:
         """Annotate an open span with a value only known mid-span (e.g.
         the coalescer flush's post-dedup unique-query count) — the
         opentracing Span.SetTag analog the reference uses on its query
         spans."""
+        if key in self.attrs:
+            self.tree[0] -= _attr_bytes(key, self.attrs[key])
+        self.tree[0] += _attr_bytes(key, value)
         self.attrs[key] = value
 
 
+def _attr_bytes(key: str, value: Any) -> int:
+    """An attribute's bytes as the ring counts them: a string by its
+    length, any other value as 24."""
+    return len(key) + (len(value) if type(value) is str else 24) + 32
+
+
 class NopTracer:
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs: Any) -> Iterator[Optional[Span]]:
-        yield None
+    def span(self, name: str, **attrs: Any):
+        return _NO_SPAN
 
     def inject(self, headers: Dict[str, str]) -> None:
         pass
@@ -129,13 +206,98 @@ class NopTracer:
         pass
 
 
-class RecordingTracer:
-    """Keeps the last `keep` finished root spans for inspection (the
-    in-process analog of the reference's Jaeger wiring)."""
+def span(name: str, **attrs: Any):
+    """A span under the one open on this thread, in that span's tracer;
+    nothing (it yields None) where no span is open."""
+    tracer = getattr(_ACTIVE, "tracer", None)
+    return _NO_SPAN if tracer is None else _SpanCtx(tracer, name, attrs)
 
-    def __init__(self, keep: int = 128) -> None:
-        self.keep = keep
-        self.finished: List[Span] = []
+
+def span_in(tracer: Any, name: str, **attrs: Any):
+    """``span()``, or a root in ``tracer`` (the node's; None records
+    nothing) where no span is open on this thread."""
+    active = getattr(_ACTIVE, "tracer", None)
+    if active is not None:
+        return _SpanCtx(active, name, attrs)
+    return _NO_SPAN if tracer is None else tracer.span(name, **attrs)
+
+
+def current() -> Optional[Span]:
+    """The innermost span open on this thread, or None."""
+    tracer = getattr(_ACTIVE, "tracer", None)
+    stack = tracer._stack() if tracer is not None else None
+    return stack[-1] if stack else None
+
+
+class _SpanCtx:
+    """One span of a RecordingTracer while it is open: a child of the
+    thread's innermost open span, or a root that makes its tracer the
+    thread's active one. While a torch profiler records (in any thread:
+    ``_is_profiler_enabled`` is process-wide, where
+    ``torch.autograd._profiler_enabled()`` is per thread), the span is
+    also a ``record_function`` range of its name; where torch is not
+    loaded, none records."""
+
+    __slots__ = ("tracer", "name", "attrs", "span", "stack", "prev", "rf")
+
+    def __init__(self, tracer: "RecordingTracer", name: str,
+                 attrs: dict) -> None:
+        self.tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self.rf = None
+
+    def __enter__(self) -> Span:
+        tracer = self.tracer
+        stack = self.stack = tracer._stack()
+        if stack:
+            trace_id = stack[0].trace_id
+        else:
+            trace_id = getattr(tracer._local, "trace_id", None) \
+                or new_trace_id()
+            self.prev = getattr(_ACTIVE, "tracer", None)
+            _ACTIVE.tracer = tracer
+        if stack:
+            parent = stack[-1]
+            span = Span(self.name, trace_id, self.attrs, parent.tree)
+            parent.children.append(span)
+        else:
+            span = Span(self.name, trace_id, self.attrs)
+        self.span = span
+        stack.append(span)
+        prof = sys.modules.get(_PROFILER_MODULE)
+        if prof is not None and prof._is_profiler_enabled:
+            from torch.profiler import record_function
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+        return span
+
+    def __exit__(self, *exc: Any) -> None:
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        span = self.span
+        span.close()
+        stack = self.stack
+        stack.pop()
+        if not stack:
+            _ACTIVE.tracer = self.prev
+            self.tracer._finish_root(span)
+
+
+class RecordingTracer:
+    """Keeps the newest finished root spans, within ``ring_bytes`` bytes
+    of their trees by ``Span.nbytes`` (at least the newest one), for
+    inspection (the in-process analog of the reference's Jaeger
+    wiring). ``roots_closed`` counts every root that finished and
+    ``roots_evicted`` those the ring let go, so a reader can tell
+    whether the ring still holds every root since a point it marked."""
+
+    def __init__(self, ring_bytes: int = RING_BYTES) -> None:
+        self.ring_bytes = ring_bytes
+        self.finished: Deque[Span] = deque()
+        self._sizes: Deque[int] = deque()
+        self.roots_closed = 0
+        self.roots_evicted = 0
         self._local = threading.local()
         self._lock = make_lock("RecordingTracer._lock")
         # Bytes retained by `finished` (span trees), maintained
@@ -144,32 +306,34 @@ class RecordingTracer:
         self._ring_bytes = 0
 
     def _stack(self) -> List[Span]:
-        if not hasattr(self._local, "stack"):
-            self._local.stack = []
-        return self._local.stack
-
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs: Any) -> Iterator[Span]:
-        stack = self._stack()
-        trace_id = stack[0].trace_id if stack \
-            else getattr(self._local, "trace_id", None) or uuid.uuid4().hex
-        span = Span(name, trace_id, attrs)
-        if stack:
-            stack[-1].children.append(span)
-        stack.append(span)
         try:
-            yield span
-        finally:
-            span.close()
-            stack.pop()
-            if not stack:
-                with self._lock:
-                    self.finished.append(span)
-                    self._ring_bytes += span.nbytes()
-                    if len(self.finished) > self.keep:
-                        for old in self.finished[: -self.keep]:
-                            self._ring_bytes -= old.nbytes()
-                        del self.finished[: -self.keep]
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def span(self, name: str, **attrs: Any) -> _SpanCtx:
+        return _SpanCtx(self, name, attrs)
+
+    def _finish_root(self, span: Span) -> None:
+        nbytes = span.tree[0]
+        with self._lock:
+            self.finished.append(span)
+            self._sizes.append(nbytes)
+            self._ring_bytes += nbytes
+            self.roots_closed += 1
+            while self._ring_bytes > self.ring_bytes \
+                    and len(self.finished) > 1:
+                self.finished.popleft()
+                self._ring_bytes -= self._sizes.popleft()
+                self.roots_evicted += 1
+
+    def mark(self) -> tuple:
+        """(Unix time, roots closed, roots evicted, the ring's roots
+        oldest first) at this moment."""
+        with self._lock:
+            return (time.time(), self.roots_closed, self.roots_evicted,
+                    list(self.finished))
 
     def inject(self, headers: Dict[str, str]) -> None:
         """Stamp outgoing node-to-node requests with W3C traceparent:
@@ -196,7 +360,7 @@ class RecordingTracer:
             # (the W3C field is mandatory; non-recording propagation-
             # only contexts do the same in mainstream tracers).
             headers[TRACEPARENT_HEADER] = format_traceparent(
-                tid, uuid.uuid4().hex[:16])
+                tid, new_span_id())
             headers[TRACE_HEADER] = tid
 
     def adopt(self, trace_id: Optional[str]) -> None:
@@ -241,7 +405,7 @@ class RecordingTracer:
         traceparent header."""
         tid = self.current_trace_id()
         if tid is None:
-            tid = uuid.uuid4().hex
+            tid = new_trace_id()
             self._local.trace_id = tid
         return tid
 
@@ -265,7 +429,7 @@ class RecordingTracer:
         (the SIGTERM drain path — buffered spans that never exported
         still leave evidence). Returns spans written."""
         with self._lock:
-            spans = list(self.finished[-max(0, int(last)):])
+            spans = list(self.finished)[-int(last):] if last > 0 else []
         if logger is not None and spans:
             logger.printf("tracer: dumping %d finished span(s) on "
                           "shutdown", len(spans))
@@ -277,7 +441,7 @@ class RecordingTracer:
 
 def _sanitize_trace_id(tid: str) -> str:
     """Trace ids must be 32 hex chars on the OTLP wire. Our own nodes
-    propagate uuid hex, but the header is client-settable; a non-hex
+    propagate 32 hex digits, but the header is client-settable; a non-hex
     value is re-hashed deterministically (same junk id on every node
     still correlates) instead of poisoning a whole export batch."""
     t = tid.strip().lower()
@@ -338,12 +502,12 @@ class ExportingTracer(RecordingTracer):
     line — tracing must never stall queries."""
 
     def __init__(self, endpoint: str, service_name: str = "pilosa-tpu",
-                 keep: int = 128, batch_size: int = 64,
+                 ring_bytes: int = RING_BYTES, batch_size: int = 64,
                  flush_interval: float = 5.0,
                  logger: Optional[Any] = None,
                  sampler_type: str = "const",
                  sampler_param: float = 1.0) -> None:
-        super().__init__(keep=keep)
+        super().__init__(ring_bytes=ring_bytes)
         self.endpoint = endpoint
         self.service_name = service_name
         self.batch_size = batch_size
@@ -396,23 +560,16 @@ class ExportingTracer(RecordingTracer):
                 return True
             return False
 
-    @contextlib.contextmanager
-    def span(self, name: str, **attrs: Any) -> Iterator[Optional[Span]]:
-        stack = self._stack()
-        s = None  # super().span may raise before yielding (ADVICE r3)
-        try:
-            with super().span(name, **attrs) as s:
-                yield s
-        finally:
-            # Queue on the error path too: traces of FAILED requests are
-            # the ones operators need most.
-            if not stack and s is not None and self._sampled(s):
-                # a root span just finished and was head-sampled in
-                with self._pending_lock:
-                    self._pending.append(s)
-                    full = len(self._pending) >= self.batch_size
-                if full:
-                    self._wake.set()
+    def _finish_root(self, span: Span) -> None:
+        super()._finish_root(span)
+        # Queued on the error path too: traces of FAILED requests are
+        # the ones operators need most.
+        if self._sampled(span):
+            with self._pending_lock:
+                self._pending.append(span)
+                full = len(self._pending) >= self.batch_size
+            if full:
+                self._wake.set()
 
     def _drain(self) -> List[Span]:
         with self._pending_lock:

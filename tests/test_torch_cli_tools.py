@@ -240,6 +240,31 @@ def test_check_and_inspect_match_jax(capsys, dirs, tmp_path):
     assert run(tcli, argv, capsys) == run(jcli, argv, capsys)
 
 
+def test_file_tools_start_without_torch(tmp_path):
+    """``check`` and ``fold`` read and write fragment files in a process
+    that never imports torch (its import costs the tools seconds)."""
+    import subprocess
+    import sys
+
+    from pilosa_tpu_torch.storage.roaring import serialize_positions
+    path = tmp_path / "0"
+    path.write_bytes(serialize_positions(np.array(
+        [1, 70000, SHARD_WIDTH + 5], np.uint64)))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (
+        "import sys\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "from pilosa_tpu_torch.cli import main\n"
+        "p = sys.argv[1]\n"
+        "rcs = [main.main(a + [p]) for a in (['check'], ['fold'])]\n"
+        "print('RESULT', rcs, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", script, str(path)],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "RESULT [0, 0] False" in out.stdout, out.stdout
+    assert ": ok (3 bits" in out.stdout
+
+
 def test_fold_matches_jax(capsys, dirs, tmp_path):
     """Folding copies of the imported directories gives byte-equal
     files; a torn tail is refused (exit 1) until ``--force``, which

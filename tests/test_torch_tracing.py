@@ -184,11 +184,15 @@ def test_inject_adopt_and_stale_ids():
 
 
 def test_ring_bound_ledger_and_dump():
-    tr = RecordingTracer(keep=3)
+    """The ring keeps the newest roots within its byte budget, evicting
+    the oldest first, and counts what it let go."""
+    one = port_tracing.Span("s0", "ab" * 16, {}).nbytes()
+    tr = RecordingTracer(ring_bytes=3 * one)
     for k in range(5):
         with tr.span(f"s{k}"):
             pass
     assert [s.name for s in tr.finished] == ["s2", "s3", "s4"]
+    assert (tr.roots_closed, tr.roots_evicted) == (5, 2)
     assert tr.ring_nbytes() == sum(s.nbytes() for s in tr.finished)
     ledger = MemoryLedger()
     tr.register_memory(ledger)
@@ -201,6 +205,10 @@ def test_ring_bound_ledger_and_dump():
             self.lines.append(fmt % a)
 
     assert tr.dump(Log(), last=2) == 2 and len(Log.lines) == 3
+    with tr.span("big", pad="x" * (4 * one)):
+        pass
+    assert [s.name for s in tr.finished] == ["big"]  # the newest stays
+    assert tr.ring_nbytes() == tr.finished[0].nbytes()
     nop = NopTracer()
     with nop.span("x") as s:
         assert s is None
