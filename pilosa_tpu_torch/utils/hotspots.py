@@ -29,6 +29,7 @@ The clock is injectable, so the decay is testable.
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from collections import deque
@@ -281,7 +282,8 @@ class WorkloadRecorder:
                     rows_scanned: int = 0) -> None:
         """One staged read over (index, field, view) × shards. `rows`
         are the row identities the read named (Row leaves, BSI planes,
-        small TopN candidate sets) — capped at ROW_CAP_PER_CALL;
+        small TopN candidate sets) — capped at ROW_CAP_PER_CALL, read
+        without walking the rest (a TopN passes a view's every row id);
         `rows_scanned` counts aggregate sweep rows beyond that."""
         if not self.enabled:
             return
@@ -291,7 +293,7 @@ class WorkloadRecorder:
             row_ids: List[int] = []
             if rows is not None:
                 with span("Workload.rowIds", rows=len(rows)):
-                    row_ids = list(rows)[:ROW_CAP_PER_CALL]
+                    row_ids = list(itertools.islice(rows, ROW_CAP_PER_CALL))
                 if len(rows) > ROW_CAP_PER_CALL:
                     rows_scanned += len(rows) - ROW_CAP_PER_CALL
             n_shards = len(shards)

@@ -1,10 +1,12 @@
 """The port's workload recorder (``utils/hotspots.py``) and
 ``/debug/hotspots`` against the JAX package's, on the CPU. The recorder's
 own cases run one script through both recorders under one injected clock
-and compare the ``snapshot()`` documents exactly; the executor and server
-cases run the same queries through both packages and compare the
-documents' counts (reads, writes, touches, signature hits and
-generation runs, the repeat windows). The cases are those of the JAX
+and compare the ``snapshot()`` documents exactly (save a range of 10**12
+row ids, which the port's alone records: the JAX package copies every
+id before it keeps 64); the executor and server cases run the same
+queries through both packages and compare the documents' counts
+(reads, writes, touches, signature hits and generation runs, the
+repeat windows). The cases are those of the JAX
 package's ``tests/test_hotspots.py``.
 
 By design two fields differ between the packages' executor documents: a
@@ -15,7 +17,9 @@ a fragment's ``generation`` (each package numbers its own writes)."""
 
 import json
 import threading
+import time
 import urllib.request
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -26,7 +30,8 @@ from pilosa_tpu.server.coalescer import QueryCoalescer as JaxCoalescer
 from pilosa_tpu.utils import hotspots as jhot
 from pilosa_tpu.utils.stats import MemStatsClient as JaxStats
 
-from pilosa_tpu_torch import Holder
+from pilosa_tpu_torch import Executor, FieldOptions, Holder
+from pilosa_tpu_torch.executor import executor as ex_mod
 from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH
 from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.coalescer import QueryCoalescer
@@ -176,6 +181,47 @@ def test_row_cap_per_call_records_scan_aggregate():
     snap = _same_snapshots(recs, top_k=1000)
     assert len(snap["rows"]) == phot.ROW_CAP_PER_CALL
     assert snap["totals"]["rowsScanned"] == 100
+
+
+def test_row_cap_reads_only_the_capped_ids():
+    """The cap reads ROW_CAP_PER_CALL ids and no more: a range of 10**12
+    ids, which no walk could finish, records within a second."""
+    cap = phot.ROW_CAP_PER_CALL
+    rec = phot.WorkloadRecorder(clock=FakeClock())
+    t0 = time.perf_counter()
+    rec.record_read("i", "f", "standard", [0], rows=range(10 ** 12))
+    assert time.perf_counter() - t0 < 1.0
+    snap = rec.snapshot(top_k=1000)
+    assert sorted(r["row"] for r in snap["rows"]) == list(range(cap))
+    assert snap["totals"]["rowTouches"] == cap
+    assert snap["totals"]["rowsScanned"] == 10 ** 12 - cap
+    assert snap["fragments"][0]["rowsScanned"] == 10 ** 12 - cap
+
+
+_UNSORTED_IDS = [(i * 7919) % 100_003 for i in range(1000)]
+
+
+@pytest.mark.parametrize("rows", [
+    tuple(sorted(_UNSORTED_IDS)), _UNSORTED_IDS, range(5, 5005, 5),
+    [9, 4, 4, 1]], ids=["tuple", "list", "range", "short_list"])
+def test_row_cap_snapshot_matches_reference(rows):
+    """Whatever sequence the executor passes, the port records the same
+    first ids, touches, scans and fragment stats as the JAX package."""
+    cap = phot.ROW_CAP_PER_CALL
+    _, recs = _recorders()
+    for r in recs:
+        r.record_read("i", "f", "standard", [0, 1], rows=rows)
+        r.record_read("i", "f", "standard", [1], rows=rows, rows_scanned=3)
+    snap = _same_snapshots(recs, top_k=1000)
+    head = list(rows)[:cap]
+    over = max(0, len(rows) - cap)
+    assert sorted((r["row"], r["touches"]) for r in snap["rows"]) == \
+        sorted((row, 2 * n) for row, n in Counter(head).items())
+    assert snap["totals"]["rowTouches"] == 2 * len(head)
+    assert snap["totals"]["rowsScanned"] == 2 * over + 3
+    assert {f["shard"]: (f["reads"], f["rowsScanned"])
+            for f in snap["fragments"]} == {0: (1, over),
+                                            1: (2, over + 3)}
 
 
 def test_kill_switch_skips_all_recording():
@@ -499,3 +545,45 @@ def test_health_stanza_and_publish(apis):
     out = prometheus_text(apis.apis[1].stats)
     assert "pilosa_query_repeat_ratio" in out
     assert "pilosa_workload_tracked_fragments" in out
+
+
+def test_tanimoto_topn_over_positions_bank_caps_row_touches(tmp_path,
+                                                           monkeypatch):
+    """A Tanimoto TopN served over the positions bank, as at 10M
+    molecules on the card, names every row of the view: each request
+    touches ROW_CAP_PER_CALL of them (and its filter's one row) and
+    counts the rest as scanned, as the JAX package records."""
+    from pilosa_tpu.core.field import FieldOptions as JaxFieldOptions
+    from pilosa_tpu.core.holder import Holder as JaxHolder
+    from pilosa_tpu.executor import Executor as JaxExecutor
+    molecules, cap = 600, phot.ROW_CAP_PER_CALL
+    rng = np.random.default_rng(11)
+    rows = np.repeat(np.arange(molecules, dtype=np.uint64), 48)
+    cols = rng.integers(0, 4096, len(rows)).astype(np.uint64)
+    jh = JaxHolder(str(tmp_path / "j"))
+    jh.open()
+    th = Holder(device="cpu")
+    for h, opts in ((jh, JaxFieldOptions), (th, FieldOptions)):
+        h.create_index("mole", track_existence=False).create_field(
+            "fp", opts(max_columns=4096)).import_bits(rows, cols)
+    monkeypatch.setattr(ex_mod, "TOPN_MAX_BANK_BYTES", 0)
+    served = []
+    real = ex_mod.Executor._topn_positions
+    monkeypatch.setattr(ex_mod.Executor, "_topn_positions",
+                        lambda self, *a: served.append(1) or real(self, *a))
+    executors = (JaxExecutor(jh), Executor(th, device="cpu"))
+    try:
+        for i, q in enumerate((3, 250, 599)):
+            pql = f"TopN(fp, Row(fp={q}), n=50, tanimotoThreshold=30)"
+            before = phot.WORKLOAD.snapshot()["totals"]
+            answers = [ex.execute("mole", pql)[0].pairs for ex in executors]
+            assert answers[1] == answers[0]
+            assert len(served) == i + 1
+            after = phot.WORKLOAD.snapshot()["totals"]
+            assert after["rowTouches"] - before["rowTouches"] == cap + 1
+            assert after["rowsScanned"] - before["rowsScanned"] == \
+                molecules - cap
+        docs = [m.WORKLOAD.snapshot(top_k=1000) for m in MODS]
+        assert _counts(docs[1]) == _counts(docs[0])
+    finally:
+        jh.close()
