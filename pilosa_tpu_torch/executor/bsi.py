@@ -5,7 +5,8 @@ the not-null plane. Comparison values are base values (offset-encoded by
 the field's BSIGroup) held as Python ints on the host, so each plane's
 predicate bit is a host decision and any depth up to 63 is exact.
 Per-plane counts go through the ``bsi_plane_counts`` kernel, whole-row
-counts through ``bank_row_counts``.
+counts through ``bank_row_counts``; Sum's two launches each open an
+``Executor.launch`` span (``kernel=``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.utils.tracing import span
 
 
 def not_null(planes: torch.Tensor) -> torch.Tensor:
@@ -97,8 +99,10 @@ def sum_count(planes: torch.Tensor,
     filter) columns. The caller weights plane i by 2^i in Python ints
     and adds min*count."""
     m = _masked_not_null(planes, filter_mask).contiguous()
-    counts = kernels.bsi_plane_counts(planes[:-1], m)
-    cnt = kernels.bank_row_counts(m.unsqueeze(0))
+    with span("Executor.launch", kernel="bsi_plane_counts"):
+        counts = kernels.bsi_plane_counts(planes[:-1], m)
+    with span("Executor.launch", kernel="bank_row_counts"):
+        cnt = kernels.bank_row_counts(m.unsqueeze(0))
     return counts, cnt
 
 

@@ -582,6 +582,9 @@ class Executor:
         # GroupBy frontiers that outgrew GROUPBY_CHUNK_BYTES and went to
         # host memory.
         self.groupby_spill_events = 0
+        # GroupBy calls run, and the counting kernels they launched.
+        self.groupby_calls = 0
+        self.groupby_launches = 0
         # Plan signatures whose first launch passed verify_plan (the
         # "auto" gate), bounded; the gate's passes and rejects.
         self._verified_sigs: Dict[str, None] = {}
@@ -2227,11 +2230,16 @@ class Executor:
         if rows_needed is not None:
             # The sum of the fragments' row counts bounds the full bank's
             # rows without a union: if even the bound fits, the bank does.
-            bound = view.row_count_bound(shards)
-            full_bytes = bank_capacity(bound) * len(shards) \
-                * view.trimmed_words() * 4
-            if full_bytes > self.BANK_MAX_BYTES and \
-                    len(rows_needed) < bound:
+            # Over many shards it counts a row once a fragment, so where
+            # it does not fit, the union's size (memoized by the
+            # fragments' versions) decides.
+            def over(n_rows: int) -> bool:
+                return bank_capacity(n_rows) * len(shards) \
+                    * view.trimmed_words() * 4 > self.BANK_MAX_BYTES \
+                    and len(rows_needed) < n_rows
+            if over(view.row_count_bound(shards)) and (
+                    len(shards) == 1
+                    or over(len(view.merged_row_ids(shards)))):
                 return view.device_bank(shards, rows=sorted(rows_needed),
                                         trim=True, cache_rows=True,
                                         mesh=self.mesh)
@@ -2728,6 +2736,32 @@ class Executor:
 
     def _execute_group_by(self, idx: Index, call: Call, shards
                           ) -> List[GroupCount]:
+        """``_group_by`` inside an ``Executor.groupBy`` span, whose
+        attributes say what the call did: ``children``, ``prefixes`` (a
+        depth's prefixes expanded against its child's rows, 1 at depth 0:
+        the filter or the whole column space), ``launches`` (counting
+        kernels, each in an ``Executor.launch`` span with ``kernel=``),
+        ``frontier_bytes`` (the largest surviving frontier) and
+        ``spilled``. Counted in ``groupby_calls`` and
+        ``groupby_launches``."""
+        with self._stats_lock:
+            self.groupby_calls += 1
+        self._count("executor.groupby_calls")
+        note = {"prefixes": [], "launches": 0, "frontier_bytes": 0,
+                "spilled": False}
+        with span("Executor.groupBy", children=len(call.children)) as sp:
+            try:
+                return self._group_by(idx, call, shards, note)
+            finally:
+                with self._stats_lock:
+                    self.groupby_launches += note["launches"]
+                self._count("executor.groupby_launches", note["launches"])
+                if sp is not None:
+                    for k, v in note.items():
+                        sp.set(k, v)
+
+    def _group_by(self, idx: Index, call: Call, shards, note: dict
+                  ) -> List[GroupCount]:
         """Counts of every combination of the Rows() children's rows,
         in ascending order of the row-id tuple, level by level as the
         JAX package runs it: all prefixes of a depth expand against all
@@ -2815,6 +2849,17 @@ class Executor:
                            ) -> torch.Tensor:
             return frontier[c0:c1].to(self.device)
 
+        def launch(kernel: str, *args: torch.Tensor):
+            note["launches"] += 1
+            with span("Executor.launch", kernel=kernel):
+                return getattr(kernels, kernel)(*args)
+
+        def frontier(words: Optional[torch.Tensor], n: int) -> None:
+            note["prefixes"].append(n)
+            if words is not None:
+                note["frontier_bytes"] = max(note["frontier_bytes"],
+                                             words.numel() * 4)
+
         n_shards, depth_n = len(shards), len(child_rows)
         # The surviving frontier [P, S, wmin]: on the device while it
         # fits GROUPBY_CHUNK_BYTES, else in host memory. None is the
@@ -2822,11 +2867,12 @@ class Executor:
         prefixes = filter_words[None] if filter_words is not None else None
         prefix_rows: List[tuple] = [()]
         for depth in range(depth_n - 1):
+            frontier(prefixes, len(prefix_rows))
             stacks = stacks_at(depth)
             R = stacks.shape[0]
             ids = child_rows[depth][1]
             if prefixes is None:
-                nz = kernels.bank_row_counts(stacks).cpu().numpy() > 0
+                nz = launch("bank_row_counts", stacks).cpu().numpy() > 0
                 keep_idx = np.flatnonzero(nz)
                 prefixes = keep(stacks, keep_idx)
                 prefix_rows = [(int(ids[i]),) for i in keep_idx]
@@ -2841,7 +2887,7 @@ class Executor:
                 sub = frontier_chunk(prefixes, c0, c0 + chunk_p)
                 new = torch.bitwise_and(sub[:, None], stacks[None]).reshape(
                     -1, n_shards, wmin)
-                nz = kernels.bank_row_counts(new).cpu().numpy() > 0
+                nz = launch("bank_row_counts", new).cpu().numpy() > 0
                 keep_idx = np.flatnonzero(nz)
                 if not len(keep_idx):
                     continue
@@ -2851,11 +2897,16 @@ class Executor:
                 if not spilled and kept_bytes > self.GROUPBY_CHUNK_BYTES:
                     # The survivors pass the device budget: the rest of
                     # this depth's frontier collects in host memory.
-                    spilled = True
+                    spilled = note["spilled"] = True
                     with self._stats_lock:
                         self.groupby_spill_events += 1
+                    self._count("executor.groupby_spill_events")
                     kept_words = [w.cpu() for w in kept_words]
                 kept_words.append(kept.cpu() if spilled else kept)
+                # Spilled, these survivors now live on the host: their
+                # device copy must not stay alive through the next
+                # chunk's expansion (a chunk more of device peak).
+                del kept
                 kept_rows.extend(prefix_rows[c0 + int(k) // R]
                                  + (int(ids[k % R]),) for k in keep_idx)
             if not kept_words:
@@ -2865,6 +2916,7 @@ class Executor:
             prefix_rows = kept_rows
 
         # Last depth: every (prefix, row) pair's count.
+        frontier(prefixes, len(prefix_rows))
         stacks = stacks_at(depth_n - 1)
         R = stacks.shape[0]
         ids = child_rows[depth_n - 1][1]
@@ -2872,7 +2924,7 @@ class Executor:
         results: List[GroupCount] = []
         counts = None
         if prefixes is None:
-            counts = kernels.bank_row_counts(stacks).cpu().numpy()[None, :]
+            counts = launch("bank_row_counts", stacks).cpu().numpy()[None, :]
         chunk_p = max(1, self.GROUPBY_CHUNK_BYTES
                       // max(1, n_shards * wmin * 4 * R))
         for c0 in range(0, len(prefix_rows), chunk_p):
@@ -2881,7 +2933,7 @@ class Executor:
             if counts is None:
                 sub = frontier_chunk(prefixes, c0, c0 + chunk_p)
                 chunk_counts = torch.stack([
-                    kernels.bank_row_counts_masked(stacks, sub[i])[0]
+                    launch("bank_row_counts_masked", stacks, sub[i])[0]
                     for i in range(sub.shape[0])]).cpu().numpy()
             else:
                 chunk_counts = counts[c0:c0 + chunk_p]
