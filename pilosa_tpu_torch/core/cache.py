@@ -79,6 +79,19 @@ class RankedCache:
                 self._recalculate()
                 self.saturated = True
 
+    def add_many(self, row_ids: List[int], counts: List[int]) -> None:
+        """``add`` of each pair in turn. Positive counts that keep the
+        cache within its bound however they fall neither saturate it nor
+        meet the threshold: one dict update then."""
+        with self._lock:
+            fits = not self.saturated and len(self.counts) + len(row_ids) \
+                <= self.size * THRESHOLD_FACTOR and min(counts, default=1) > 0
+            if fits:
+                self.counts.update(zip(row_ids, counts))
+                return
+        for r, n in zip(row_ids, counts):
+            self.add(r, n)
+
     def top(self) -> List[Tuple[int, int]]:
         """(row, count) by count descending, then row, at most ``size``."""
         pairs = sorted(self.counts.items(), key=lambda kv: (-kv[1], kv[0]))

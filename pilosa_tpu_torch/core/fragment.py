@@ -10,7 +10,9 @@ compare versions to decide whether they are stale.
 
 Each fragment keeps a TopN count cache (``core/cache.py``) of the type
 its field names; every bit write refreshes the written rows' counts
-(``_cache_update``), unless a ranked cache has saturated.
+(``_cache_update``), unless a ranked cache has saturated. A fragment's
+first bulk load takes them from the import builder's per-container
+counts instead of recounting its rows (``_import_set``).
 
 A fragment with a ``path`` keeps its bits in the roaring file format
 there (``storage/roaring.py``), as the JAX package's fragment does: a
@@ -51,6 +53,7 @@ import itertools
 import os
 import struct
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -60,7 +63,8 @@ from pilosa_tpu_torch.ops.bitset import SHARD_WIDTH, SHARD_WIDTH_EXP
 from pilosa_tpu_torch.storage.roaring import ARRAY_MAX_SIZE, \
     CONTAINER_BITS, CONTAINER_WORDS, OP_REMOVE_BATCH, Bitmap, \
     _dense_to_array, _popcount_rows, _popcount_words, dense_scatter, \
-    fnv1a32, scatter_rows, serialize_import, serialize_positions
+    fnv1a32, scatter_rows, serialize_import, serialize_positions, \
+    sort_unique
 from pilosa_tpu_torch.utils.hotspots import WORKLOAD
 from pilosa_tpu_torch.utils.logger import default_logger
 from pilosa_tpu_torch.utils.tracing import span
@@ -138,6 +142,13 @@ class Fragment:
         # every block) and the blocks written since they were taken.
         self._block_digests: Optional[Dict[int, bytes]] = None
         self._dirty_blocks: set = set()
+        # Set imports the dense builder declined (sorted and grouped),
+        # those of them that recounted no row (their counts came from
+        # the builder, or the cache wanted none), and seconds in
+        # import_bits.
+        self.import_sorted_calls = 0
+        self.import_batch_calls = 0
+        self.import_seconds = 0.0
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -320,8 +331,7 @@ class Fragment:
         is no cache or a ranked cache has saturated: the warm read can
         never fire again, so neither the recount nor the upkeep buys
         anything."""
-        if self.cache_type == cache_mod.CACHE_TYPE_NONE \
-                or getattr(self.cache, "saturated", False):
+        if not self._cache_needs_counts():
             return
         for r in row_ids:
             self.cache.add(int(r), self.row_count(int(r)))
@@ -384,8 +394,10 @@ class Fragment:
         offs = np.asarray(offsets, dtype=np.uint64)
         if len(rows) == 0:
             return
+        t0 = time.perf_counter()
         with span("Fragment.import", shard=self.shard, pairs=len(rows)), \
                 self._lock:
+            sorted_, counted = False, None
             if clear:
                 positions = np.unique(
                     rows * np.uint64(SHARD_WIDTH)
@@ -395,19 +407,78 @@ class Fragment:
                         positions[i:i + IMPORT_CHUNK_PAIRS])
                 touched = np.unique(positions >> np.uint64(SHARD_WIDTH_EXP))
             else:
-                keys = np.concatenate([
-                    self.storage.import_batch(
-                        rows[i:i + IMPORT_CHUNK_PAIRS],
-                        offs[i:i + IMPORT_CHUNK_PAIRS], SHARD_WIDTH_EXP)
-                    for i in range(0, len(rows), IMPORT_CHUNK_PAIRS)])
-                touched = np.unique(keys // np.uint64(CONTAINERS_PER_ROW))
+                touched, sorted_, counted = self._import_set(rows, offs)
             self._prelatch_cache_saturation(touched)
             touched_rows = touched.tolist()
             with span("Fragment.touchRows", rows=len(touched_rows)):
                 self._touch_rows(touched_rows)
+            needs = self._cache_needs_counts()
             with span("Fragment.cacheUpdate", rows=len(touched_rows)):
-                self._cache_update(touched_rows)
+                if needs and counted is not None:
+                    counts = self._batch_row_counts(*counted).tolist()
+                    if isinstance(self.cache, cache_mod.RankedCache):
+                        self.cache.add_many(touched_rows, counts)
+                    else:
+                        for r, n in zip(touched_rows, counts):
+                            self.cache.add(r, n)
+                else:
+                    self._cache_update(touched_rows)
+            if sorted_:
+                self.import_sorted_calls += 1
+                self.import_batch_calls += int(counted is not None
+                                               or not needs)
             self._maybe_snapshot()
+            self.import_seconds += time.perf_counter() - t0
+
+    def _import_set(self, rows: np.ndarray, offs: np.ndarray):
+        """The set half of ``import_bits``: the pairs in chunks of
+        IMPORT_CHUNK_PAIRS, one ``Bitmap.import_pairs`` each. Returns
+        the touched rows, ascending; whether the dense builder declined
+        any chunk (it was sorted and grouped); and, where it declined
+        every chunk and the store held no container before the call (a
+        fragment's first load, in which each touched row's count is the
+        sum of its containers'), the chunks' keys and per-key counts,
+        else None."""
+        fresh = not self.storage.containers
+        parts = [self.storage.import_pairs(
+                     rows[i:i + IMPORT_CHUNK_PAIRS],
+                     offs[i:i + IMPORT_CHUNK_PAIRS], SHARD_WIDTH_EXP)
+                 for i in range(0, len(rows), IMPORT_CHUNK_PAIRS)]
+        keys = parts[0][0] if len(parts) == 1 \
+            else np.concatenate([k for k, _ in parts])
+        touched = sort_unique(keys // np.uint64(CONTAINERS_PER_ROW))
+        counts = [c for _, c in parts if c is not None]
+        if not fresh or len(counts) < len(parts):
+            return touched, bool(counts), None
+        return touched, True, (keys, counts[0] if len(counts) == 1
+                               else np.concatenate(counts))
+
+    def _batch_row_counts(self, keys: np.ndarray,
+                          counts: np.ndarray) -> np.ndarray:
+        """Each touched row's bits, ascending by row, after a first load
+        whose chunks gave container ``keys`` and their ``counts``: a
+        key's last chunk holds its count, or -1 where that chunk ORed
+        into the key's container (a row split across chunks), whose
+        count is then read; then one segmented sum over the keys."""
+        if not _strictly_increasing(keys):
+            _, last = np.unique(keys[::-1], return_index=True)
+            at = len(keys) - 1 - last
+            keys, counts = keys[at], counts[at]
+        ored = np.flatnonzero(counts < 0)
+        if len(ored):
+            counts = counts.copy()
+            counts[ored] = list(map(self.storage.container_count,
+                                    keys[ored].tolist()))
+        k_rows = keys // np.uint64(CONTAINERS_PER_ROW)
+        starts = np.flatnonzero(np.concatenate(
+            ([True], k_rows[1:] != k_rows[:-1])))
+        return np.add.reduceat(counts, starts)
+
+    def _cache_needs_counts(self) -> bool:
+        """Whether a write must feed the count cache its rows' counts:
+        not for no cache, nor a ranked cache that has saturated."""
+        return self.cache_type != cache_mod.CACHE_TYPE_NONE \
+            and not getattr(self.cache, "saturated", False)
 
     def bulk_import_mutex(self, row_ids: np.ndarray,
                           column_ids: np.ndarray) -> None:

@@ -108,6 +108,18 @@ class Holder:
         for frag in self.iter_fragments():
             frag.flush_cache()
 
+    def import_stats(self) -> Dict[str, float]:
+        """The fragments' bulk-import counters, summed: set imports the
+        dense builder declined (``sorted_calls``), those of them that
+        recounted no row (``batch_calls``), and seconds in
+        ``import_bits``."""
+        out = {"sorted_calls": 0, "batch_calls": 0, "seconds": 0.0}
+        for frag in self.iter_fragments():
+            out["sorted_calls"] += frag.import_sorted_calls
+            out["batch_calls"] += frag.import_batch_calls
+            out["seconds"] += frag.import_seconds
+        return out
+
     def tail_dropped_bytes(self) -> int:
         """Torn op-log bytes the open moved to ``.torn`` sidecars."""
         return sum(frag.tail_dropped_bytes

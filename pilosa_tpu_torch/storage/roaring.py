@@ -514,6 +514,22 @@ def serialize_import_plain(keys: np.ndarray, words: np.ndarray) -> bytes:
                                            counts)), len(keys))
 
 
+def sort_unique(a: np.ndarray) -> np.ndarray:
+    """The distinct values of the integer array ``a``, ascending: ``a``
+    sorted in place (unless it arrives sorted), then its repeats
+    dropped. ``np.unique`` hashes integers from numpy 2.3 on: over a
+    million positions it took 744 ms on an H100 machine's 8-core host
+    (numpy 2.3.5), where the sort takes 11 ms."""
+    if len(a) < 2:
+        return a
+    if not bool(np.all(a[1:] >= a[:-1])):
+        a.sort()
+    keep = np.empty(len(a), dtype=bool)
+    keep[0] = True
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a if keep.all() else a[keep]
+
+
 def build_masks(positions: np.ndarray, m: int) -> Tuple[np.ndarray,
                                                          np.ndarray]:
     """(keys uint64[m], words uint64[m, 1024]): the dense mask of each
@@ -575,9 +591,12 @@ def scatter_rows_plain(pos: np.ndarray, lens: np.ndarray,
 # The import builder's two implementations: the C++ codec on the main
 # path, numpy (the plain version) in the tests.
 CODEC = types.SimpleNamespace(import_build=import_build,
-                              serialize_groups=serialize_groups)
+                              serialize_groups=serialize_groups,
+                              build_masks=build_masks)
 PLAIN = types.SimpleNamespace(import_build=import_build_plain,
-                              serialize_groups=serialize_groups_plain)
+                              serialize_groups=serialize_groups_plain,
+                              build_masks=build_masks_plain)
+
 
 # -- op records ---------------------------------------------------------------
 
@@ -891,6 +910,14 @@ class Bitmap:
         containers (dense above ARRAY_MAX_SIZE), its record written by
         ``serialize_groups``. Positions that arrive sorted (a bulk load
         in row order) skip the sort."""
+        return self.import_pairs(row_ids, col_ids, swidth_exp)[0]
+
+    def import_pairs(self, row_ids: np.ndarray, col_ids: np.ndarray,
+                     swidth_exp: int
+                     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``import_batch``, with each key's bits in the batch where it
+        was sorted and grouped (``_adopt``), else (the dense builder)
+        None."""
         with span("Bitmap.importBatch", pairs=len(row_ids)):
             return self._import(row_ids, col_ids, swidth_exp, CODEC)
 
@@ -898,60 +925,68 @@ class Bitmap:
                            swidth_exp: int) -> np.ndarray:
         """The plain version of ``import_batch`` (numpy builder and
         writer): the same containers, counts and record bytes."""
-        return self._import(row_ids, col_ids, swidth_exp, PLAIN)
+        return self._import(row_ids, col_ids, swidth_exp, PLAIN)[0]
 
     def _import(self, row_ids: np.ndarray, col_ids: np.ndarray,
-                swidth_exp: int, impl) -> np.ndarray:
+                swidth_exp: int, impl
+                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         row_ids = np.ascontiguousarray(row_ids, dtype=np.uint64)
         col_ids = np.ascontiguousarray(col_ids, dtype=np.uint64)
         if len(row_ids) == 0:
-            return np.empty(0, dtype=np.uint64)
+            return np.empty(0, dtype=np.uint64), None
         built = impl.import_build(row_ids, col_ids, swidth_exp,
                                   self.op_writer is not None)
         if built is not None:
             keys, masks, counts, payload, n_bits = built
             self._log_roaring(n_bits, lambda: payload)
             self._merge_built(keys, masks, counts)
-            return keys
-        positions = (row_ids << np.uint64(swidth_exp)) \
-            + (col_ids & np.uint64((1 << swidth_exp) - 1))
-        if len(positions) > 1 and bool(np.all(positions[1:]
-                                              >= positions[:-1])):
-            keep = np.empty(len(positions), dtype=bool)
-            keep[0] = True
-            np.not_equal(positions[1:], positions[:-1], out=keep[1:])
-            positions = positions[keep]
-        else:
-            positions = np.unique(positions)
+            return keys, None
+        positions = sort_unique((row_ids << np.uint64(swidth_exp))
+                                + (col_ids & np.uint64((1 << swidth_exp)
+                                                       - 1)))
         gkeys = positions >> np.uint64(16)
         starts = np.concatenate(
             ([0], np.flatnonzero(gkeys[1:] != gkeys[:-1]) + 1))
         bounds = np.append(starts, len(positions))
         keys = gkeys[starts]
-        key_list = keys.tolist()
         lows = (positions & np.uint64(0xFFFF)).astype(np.uint16)
-        counts = np.diff(bounds)
         self._log_roaring(len(positions), lambda: impl.serialize_groups(
             keys, lows, bounds))
-        groups = [lows[a:b] for a, b in zip(bounds[:-1].tolist(),
-                                            bounds[1:].tolist())]
-        if self.containers.keys().isdisjoint(key_list) and \
-                int(counts.max(initial=0)) <= ARRAY_MAX_SIZE:
-            # All-new array containers (the fingerprint import shape: a
-            # million one-container rows): one dict update. An array's
-            # count is its length, so no count is cached for it (at 100M
-            # rows that cache alone would cost gigabytes).
-            self.containers.update(zip(key_list, groups))
-            return keys
-        for k, g in zip(key_list, groups):
-            if k not in self.containers:
-                self.containers[k] = (g if len(g) <= ARRAY_MAX_SIZE
-                                      else _low_mask(g.astype(np.uint32)))
-            else:
-                c = self._container(k)
-                c |= _low_mask(g.astype(np.uint32))
+        return keys, self._adopt(keys, positions, lows, bounds, impl)
+
+    def _adopt(self, keys: np.ndarray, positions: np.ndarray,
+               lows: np.ndarray, bounds: np.ndarray, impl) -> np.ndarray:
+        """Merge the groups of sorted unique ``positions`` (under
+        ``keys``, ``bounds`` into ``lows``). A group whose key is new to
+        the store is taken as it is: of at most ARRAY_MAX_SIZE bits, a
+        slice of ``lows``; of more, a dense mask from one ``build_masks``
+        over just those groups, its count cached. An array's count is
+        its length, so none is cached (at 100M rows that cache alone
+        would cost gigabytes). A group whose key the store holds (a
+        re-import, or a row split across two chunks) is ORed in. Returns
+        each key's bits in the batch, -1 where the group was ORed."""
+        counts = np.diff(bounds)
+        key_list = keys.tolist()
+        containers = self.containers
+        present = np.fromiter(map(containers.__contains__, key_list),
+                              dtype=bool, count=len(key_list))
+        big = (counts > ARRAY_MAX_SIZE) & ~present
+        small = (counts <= ARRAY_MAX_SIZE) & ~present
+        if big.any():
+            bkeys, masks = impl.build_masks(
+                positions[np.repeat(big, counts)], int(np.count_nonzero(big)))
+            bk = bkeys.tolist()
+            containers.update(zip(bk, masks))
+            self._counts.update(zip(bk, counts[big].tolist()))
+        containers.update(zip(keys[small].tolist(), [
+            lows[a:b] for a, b in zip(bounds[:-1][small].tolist(),
+                                      bounds[1:][small].tolist())]))
+        for i in np.flatnonzero(present).tolist():
+            k = key_list[i]
+            c = self._container(k)
+            c |= _low_mask(lows[bounds[i]:bounds[i + 1]].astype(np.uint32))
             self._invalidate(k)
-        return keys
+        return np.where(present, -1, counts)
 
     def _merge_built(self, keys: np.ndarray, masks: np.ndarray,
                      counts: np.ndarray) -> None:
